@@ -1,0 +1,64 @@
+"""Flag registry — the subset of paddle_tpu/core/flags.py the serving
+slice reads.
+
+Flags are declared once with a type and default, seeded from a
+same-named ``FLAGS_*`` environment variable at import, and get/set-able
+at run time with ``set_flags``.
+"""
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Dict
+
+__all__ = ["define_flag", "set_flags", "flag"]
+
+_LOCK = threading.Lock()
+_REGISTRY: Dict[str, Any] = {}
+_DEFS: Dict[str, tuple] = {}  # name -> (type, default, help)
+
+
+def define_flag(name: str, default, help_str: str = ""):
+    ftype = type(default)
+    with _LOCK:
+        _DEFS[name] = (ftype, default, help_str)
+        env = os.environ.get(name)
+        _REGISTRY[name] = default if env is None else _parse(ftype, env)
+
+
+def _parse(ftype, text: str):
+    if ftype is bool:
+        return text.strip().lower() in ("1", "true", "yes", "on")
+    return ftype(text)
+
+
+def set_flags(flags: Dict[str, Any]):
+    with _LOCK:
+        for name, value in flags.items():
+            if name not in _DEFS:
+                raise KeyError(f"unknown flag {name!r}")
+            ftype = _DEFS[name][0]
+            _REGISTRY[name] = _parse(ftype, value) \
+                if isinstance(value, str) and ftype is not str \
+                else ftype(value)
+
+
+def flag(name: str):
+    """Fast internal accessor."""
+    return _REGISTRY[name]
+
+
+define_flag("FLAGS_serve_block_size", 0,
+            "tokens per physical KV-pool block (nn/kv_pool.KVBlockPool); "
+            "0 = auto: the 128-column heuristic clamped to the sequence "
+            "budget. Must be a multiple of 8")
+define_flag("FLAGS_serve_kv_blocks", 512,
+            "physical blocks in the serving KV pool (per layer, k+v "
+            "arenas); waiting requests stay queued until retiring streams "
+            "free enough blocks")
+define_flag("FLAGS_serve_max_active", 64,
+            "decode slots in the serving batch: the fused decode step "
+            "advances this many concurrent streams")
+define_flag("FLAGS_executor_max_inflight", 2,
+            "pipeline depth: how many dispatched-but-not-materialized "
+            "steps the serve loop keeps queued on the device stream")

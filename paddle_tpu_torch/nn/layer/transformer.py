@@ -1,0 +1,115 @@
+"""MultiHeadAttention with the fused qkv projection and its two decode
+caches (paddle_tpu/nn/layer/transformer.py).
+
+- ``StaticKVCache``: a preallocated [b, h, max_len, d] k/v pair per
+  layer, written IN PLACE at ``index`` (the JAX package builds a new
+  cache with dynamic_update_slice); attention is the contiguous decode
+  kernel.
+- ``PagedKVCache`` (nn/kv_pool.py): the serving arena through block
+  tables; attention is the block-table kernel.
+Both caches are eval-only, as the kernels have no dropout and no
+backward.
+"""
+from __future__ import annotations
+
+import typing
+
+import torch
+
+from ...ops.cuda.decode_attention import decode_attention
+from .. import functional as F
+from ..kv_pool import PagedKVCache, paged_attention, write_kv
+from .common import Linear
+
+__all__ = ["MultiHeadAttention", "StaticKVCache"]
+
+
+class StaticKVCache(typing.NamedTuple):
+    """Preallocated decode cache: k/v [b, heads, max_len, head_dim] and
+    ``index``, the host int count of filled positions."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: int
+
+
+def _static_cache_attention(q, kc, vc, index, scale):
+    """Attention of q [b,h,s,d] over a partially filled cache [b,h,L,d]:
+    position index + row attends to cache cols <= index + row."""
+    return decode_attention(q, kc, vc, index, scale)
+
+
+class MultiHeadAttention(torch.nn.Module):
+    """Self-attention with one fused [3E, E] qkv projection."""
+
+    def __init__(self, embed_dim, num_heads, dropout=0.0, device=None,
+                 dtype=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        if self.head_dim * num_heads != embed_dim:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.dropout = dropout
+        self.qkv_proj = Linear(embed_dim, 3 * embed_dim, device=device,
+                               dtype=dtype)
+        self.out_proj = Linear(embed_dim, embed_dim, device=device,
+                               dtype=dtype)
+
+    def _heads(self, x):
+        """[b, s, E] -> [b, s, h, d] (a view)."""
+        b, s = x.shape[0], x.shape[1]
+        return x.reshape(b, s, self.num_heads, self.head_dim)
+
+    def _merge(self, out):
+        """[b, h, s, d] -> out_proj([b, s, E])."""
+        b, s = out.shape[0], out.shape[2]
+        return self.out_proj(out.transpose(1, 2).reshape(b, s,
+                                                         self.embed_dim))
+
+    def forward(self, query, attn_mask=None, cache=None, is_causal=False):
+        q, k, v = self.qkv_proj(query).chunk(3, dim=-1)
+        q, k, v = self._heads(q), self._heads(k), self._heads(v)
+        scale = self.head_dim ** -0.5
+        if cache is None:
+            out = F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=attn_mask, dropout_p=self.dropout,
+                is_causal=is_causal, training=self.training)
+            return self._merge(out)
+        if attn_mask is not None:
+            raise ValueError("attn_mask is not supported with a decode "
+                             "cache: causality comes from the cache fill")
+        if self.training and self.dropout > 0:
+            raise RuntimeError("cache attention is eval-only; call .eval()")
+        qh = q.transpose(1, 2).contiguous()                  # [b, h, s, d]
+        s = qh.shape[2]
+        if isinstance(cache, PagedKVCache):
+            # paged (block-table) path: the serving arena shared across
+            # requests, indirected per slot
+            write_kv(cache.k, cache.block_tables, cache.lengths, k,
+                     cache.slots)
+            write_kv(cache.v, cache.block_tables, cache.lengths, v,
+                     cache.slots)
+            out = paged_attention(qh, cache.k, cache.v, cache.block_tables,
+                                  cache.lengths, scale)
+            return self._merge(out), cache._replace(
+                lengths=cache.lengths + s, slots=None)
+        if isinstance(cache, StaticKVCache):
+            idx = int(cache.index)
+            cache.k[:, :, idx:idx + s] = k.transpose(1, 2)
+            cache.v[:, :, idx:idx + s] = v.transpose(1, 2)
+            out = _static_cache_attention(qh, cache.k, cache.v, idx, scale)
+            return self._merge(out), StaticKVCache(cache.k, cache.v,
+                                                   idx + s)
+        raise TypeError(f"unsupported cache {type(cache).__name__}")
+
+    def gen_static_cache(self, batch_size, max_len, dtype=torch.float32,
+                         device=None):
+        """Zeroed preallocated decode cache (see StaticKVCache)."""
+        device = self.qkv_proj.weight.device if device is None else device
+        shape = (batch_size, self.num_heads, max_len, self.head_dim)
+        return StaticKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                             torch.zeros(shape, dtype=dtype, device=device),
+                             0)

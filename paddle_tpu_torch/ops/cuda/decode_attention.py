@@ -1,0 +1,229 @@
+"""Decode attention over a KV cache: the two CUDA kernels of the serving
+path, their wrappers and their plain PyTorch versions.
+
+- ``decode_attention`` replaces paddle_tpu/ops/pallas/decode_attention.py
+  ``_decode_attn_kernel``: a query chunk over a contiguous cache
+  [b, h, L, d] (``GPT.generate``'s StaticKVCache).
+- ``paged_decode_attention`` replaces ``_paged_decode_attn_kernel``: the
+  same attention over a shared arena [n_blocks + 1, h, bs, d] through
+  block tables [b, nb] (the ServeLoop's paged pool).
+
+Row r of batch row i attends to cache columns ``<= fill_i + r``, where
+``fill`` counts the tokens in the cache before the chunk (the chunk's own
+k/v are already written). For a CUDA tensor a wrapper launches its kernel
+(csrc/decode_attention.cu) or raises; only for CPU tensors does it run
+the plain version. Each wrapper counts its launches in ``.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["decode_attention", "paged_decode_attention",
+           "decode_attention_ref", "paged_attention_ref"]
+
+NEG_INF = -1e9   # finite mask fill, as the reference
+_MAX_D = 256
+_SUPPORTED = (torch.float32, torch.bfloat16)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGS = {
+    "decode_attention_contiguous":
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "decode_attention_paged":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+}
+
+
+def _fn(name):
+    from ._build import load
+    f = getattr(load("decode_attention"), name)
+    if f.argtypes is None:
+        f.argtypes = _SIGS[name]
+        f.restype = ctypes.c_int
+    return f
+
+
+# --------------------------------------------------------------------------
+# plain versions: the CPU path and the oracle on the card
+# --------------------------------------------------------------------------
+
+def _fill_vector(fill, b, device):
+    """A fill given as an int, a 0-d or a [b] tensor -> int64 [b]."""
+    return torch.as_tensor(fill, device=device).to(torch.int64) \
+        .reshape(-1).expand(b)
+
+
+def decode_attention_ref(q, kc, vc, index, scale=None):
+    """Attention of q [b, h, s, d] over a cache kc/vc [b, h, L, d]; row r
+    attends to cols <= index + r (``index`` an int or a [b] vector).
+    Semantics of paddle_tpu's ``_static_cache_attention``: scores in f32
+    with q cast to the cache dtype, masked to -1e9, softmax in f32.
+    Returns [b, h, s, d] in q's dtype."""
+    b, h, s, d = q.shape
+    L = kc.shape[2]
+    scale = d ** -0.5 if scale is None else float(scale)
+    fill = _fill_vector(index, b, q.device)
+    row = fill[:, None] + torch.arange(s, device=q.device)[None]    # [b, s]
+    col = torch.arange(L, device=q.device)
+    live = col[None, None, :] <= row[:, :, None]                    # [b, s, L]
+    qc = q.to(kc.dtype).float()
+    scores = torch.einsum("bhsd,bhld->bhsl", qc, kc.float()) * scale
+    scores = scores.masked_fill(~live[:, None], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhsl,bhld->bhsd", p, vc.float())
+    return out.to(q.dtype)
+
+
+def gather_pages(arena, block_tables):
+    """[n_blocks + 1, h, bs, d] arena through [b, nb] tables -> the
+    contiguous logical view [b, h, nb * bs, d]."""
+    b, nb = block_tables.shape
+    _, h, bs, d = arena.shape
+    g = arena[block_tables.long()]                    # [b, nb, h, bs, d]
+    return g.permute(0, 2, 1, 3, 4).reshape(b, h, nb * bs, d)
+
+
+def paged_attention_ref(q, k_arena, v_arena, block_tables, lengths,
+                        scale=None):
+    """Paged attention by gathering each row's blocks into a contiguous
+    view and running ``decode_attention_ref`` with per-row fills
+    (paddle_tpu/nn/kv_pool.py ``paged_attention_ref``)."""
+    return decode_attention_ref(q, gather_pages(k_arena, block_tables),
+                                gather_pages(v_arena, block_tables),
+                                lengths, scale)
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+def _check_common(name, q, k, v):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: q and the cache must be 4-D, got "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)}")
+    if k.shape != v.shape:
+        raise ValueError(f"{name}: k{tuple(k.shape)} and v{tuple(v.shape)} "
+                         "differ")
+    for t in (q, k, v):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
+        if t.dtype not in _SUPPORTED:
+            raise TypeError(f"{name}: dtype {t.dtype} not in {_SUPPORTED}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if k.dtype != v.dtype:
+        raise TypeError(f"{name}: k {k.dtype} and v {v.dtype} differ")
+    b, h, s, d = q.shape
+    if d > _MAX_D or s < 1 or b < 1 or h < 1:
+        raise ValueError(f"{name}: q{tuple(q.shape)} needs 1 <= s, "
+                         f"d <= {_MAX_D}")
+    if k.shape[1] != h or k.shape[3] != d:
+        raise ValueError(f"{name}: cache {tuple(k.shape)} does not match "
+                         f"q{tuple(q.shape)}")
+
+
+def _int_vector(name, t, b, device):
+    """A [b] int32 fill tensor on the card (a 0-d one is broadcast)."""
+    if not isinstance(t, torch.Tensor) or t.dtype not in (torch.int32,
+                                                         torch.int64):
+        raise TypeError(f"{name}: fill must be an int or an integer tensor")
+    if t.device != device:
+        raise ValueError(f"{name}: fill on {t.device}, q on {device}")
+    if t.dim() == 0:
+        t = t.reshape(1).expand(b)
+    if t.shape != (b,):
+        raise ValueError(f"{name}: fill shape {tuple(t.shape)} != ({b},)")
+    return t.to(torch.int32).contiguous()
+
+
+def _check_status(name, status):
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{status}")
+
+
+def decode_attention(q, kc, vc, index, scale=None):
+    """Attention of q [b, h, s, d] over a contiguous cache kc/vc
+    [b, h, L, d]. ``index`` is the cache fill before this chunk: an int or
+    an integer tensor, scalar or [b]. Row r attends to cols <= index + r.
+    Returns [b, h, s, d] in q's dtype. CUDA tensors launch the kernel;
+    CPU tensors run ``decode_attention_ref``."""
+    name = "decode_attention"
+    _check_common(name, q, kc, vc)
+    b, h, s, d = q.shape
+    if kc.shape[0] != b:
+        raise ValueError(f"{name}: cache batch {kc.shape[0]} != {b}")
+    L = kc.shape[2]
+    if not isinstance(index, torch.Tensor):
+        index = int(index)
+    if isinstance(index, int) and not 0 <= index <= L - s:
+        raise ValueError(f"{name}: fill {index} + chunk {s} exceeds cache "
+                         f"length {L}")
+    scale = d ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, kc, vc, index, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if isinstance(index, int):
+        fills, fill_scalar = None, index
+    else:
+        fills, fill_scalar = _int_vector(name, index, b, q.device), 0
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        status = _fn("decode_attention_contiguous")(
+            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+            None if fills is None else fills.data_ptr(), fill_scalar,
+            b, h, s, d, L, scale, int(q.dtype == torch.bfloat16),
+            int(kc.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _check_status(name, status)
+    decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention(q, k_arena, v_arena, block_tables, lengths,
+                           scale=None):
+    """Attention of q [b, h, s, d] over a paged cache: arenas
+    [n_blocks + 1, h, bs, d] (row 0 the trash block), block tables
+    [b, nb] int32 of physical rows (entries past a row's allocation are
+    0), ``lengths`` [b] int32 fills before the chunk. Row r of batch row
+    i attends to logical cols <= lengths[i] + r. CUDA tensors launch the
+    kernel; CPU tensors run ``paged_attention_ref``."""
+    name = "paged_decode_attention"
+    _check_common(name, q, k_arena, v_arena)
+    b, h, s, d = q.shape
+    bs = k_arena.shape[2]
+    if bs < 8 or bs % 8 != 0:
+        raise ValueError(f"{name}: block size {bs} must be a multiple of 8")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"{name}: block tables {tuple(block_tables.shape)}"
+                         f" do not match batch {b}")
+    scale = d ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_arena, v_arena, block_tables,
+                                   lengths, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if block_tables.dtype != torch.int32 or not block_tables.is_contiguous() \
+            or block_tables.device != q.device:
+        raise ValueError(f"{name}: block tables must be contiguous int32 on "
+                         f"{q.device}")
+    fills = _int_vector(name, lengths, b, q.device)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        status = _fn("decode_attention_paged")(
+            q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+            out.data_ptr(), fills.data_ptr(), block_tables.data_ptr(),
+            b, h, s, d, bs, block_tables.shape[1], scale,
+            int(q.dtype == torch.bfloat16),
+            int(k_arena.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _check_status(name, status)
+    paged_decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+paged_decode_attention.launches = 0

@@ -32,6 +32,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "chaos: seeded deterministic fault-injection suite "
         "(paddle_tpu.testing.faults); fast enough to stay in tier-1")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none")
 
 
 @pytest.fixture(autouse=True)
