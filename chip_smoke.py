@@ -20,12 +20,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    launch count is zeroed before this phase and must be > 0 after it;
 5. kernel timings (CUDA events, median of 30 runs, L2 flushed before
    each) beside the plain version, the ``scaled_dot_product_attention``
-   yardstick and the bound, at the serve run's decode and prefill shapes.
+   yardstick and the bound, at the serve run's decode and prefill shapes;
+6. the three fused-CE kernels (forward, dh, dW/db) against their plain
+   versions: f32 and bf16, bias and none, V in {517, 30522, 50304}, n in
+   {8, 1000, 4096}, H in {64, 768, 1024}, ~30% ignored rows and two
+   out-of-range labels per case, and per type one batch with every row
+   ignored; limits per quantity (``CE_TOL``);
+7. BERT-base at full width in f32 (batch 8, s 128, dropout 0): one
+   AdamW step through the CE kernels against the same step with
+   ``FLAGS_use_fused_ce`` off (the plain forward under autograd, cuBLAS
+   f32 logits): loss, every parameter's gradient, parameters after;
+8. the flagship training step, as ``bench.py:bench_bert`` shapes it:
+   BERT-base bf16 (O2: bf16 params, f32 master weights and moments in
+   AdamW), batch 32, s 128, dropout 0.1, LMDataset batches cycled; 5
+   warm-up and 30 timed steps, step ms / samples/s / tokens/s / MFU. Every
+   kernel's launch count is zeroed before this phase and the three CE
+   kernels' must be > 0 after it;
+9. CE kernel timings at the flagship head (n 4096, H 768, V 30522, bf16,
+   bias, 85% ignored) and at GPT-2's (V 50304, no bias, none ignored):
+   kernel, bound, plain version and the ``F.linear`` + ``F.cross_entropy``
+   yardstick (its autograd backward for dh alone and for dW/db alone),
+   with the kernels held to phase 6's limits at both shapes.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
 (``{"kernels": [...]}``) comes before both.
 """
+import itertools
 import json
 import os
 import statistics
@@ -39,13 +60,43 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-SOURCE = "paddle_tpu_torch/ops/cuda/csrc/decode_attention.cu"
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}      # decode attention
+# Fused-CE limits per quantity, set from the worst readings of phases 6 and
+# 9 with headroom (PERF.md section 6 gives the readings): "fused_ce_fwd" is
+# loss and lse, absolute; "<grad>_max" the largest |error| over the largest
+# |entry|; "<grad>_norm" the error's norm over the entry's (Frobenius),
+# which sees a term missing from every row even where that term is small
+# beside the largest entry (the softmax part of dh, the softmax-only rows
+# of dW).
+CE_TOL = {
+    torch.float32: {"fused_ce_fwd": 2e-5, "dh_max": 1e-4, "dh_norm": 1e-5,
+                    "dw_max": 2e-5, "dw_norm": 1e-5, "db_max": 2e-5,
+                    "db_norm": 1e-5},
+    torch.bfloat16: {"fused_ce_fwd": 1e-4, "dh_max": 1e-2, "dh_norm": 2e-3,
+                     "dw_max": 1e-2, "dw_norm": 2e-3, "db_max": 1e-2,
+                     "db_norm": 2e-3},
+}
+# f32 BERT-base step, kernels against the plain head: every parameter's
+# gradient (largest |error| over largest |entry|, per tensor) and loss
+STEP_TOL = {"loss": 1e-4, "grad": 1e-5, "param": 1e-5}
+SOURCES = {
+    "decode_attention": "paddle_tpu_torch/ops/cuda/csrc/decode_attention.cu",
+    "paged_decode_attention":
+        "paddle_tpu_torch/ops/cuda/csrc/decode_attention.cu",
+    "fused_ce_fwd": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
+    "fused_ce_bwd_dh": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
+    "fused_ce_bwd_dw": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
+}
 REPLACES = {
     "decode_attention": "paddle_tpu/ops/pallas/decode_attention.py:46",
     "paged_decode_attention":
         "paddle_tpu/ops/pallas/decode_attention.py:189",
+    "fused_ce_fwd": "paddle_tpu/ops/pallas/fused_ce.py:41",
+    "fused_ce_bwd_dh": "paddle_tpu/ops/pallas/fused_ce.py:145",
+    "fused_ce_bwd_dw": "paddle_tpu/ops/pallas/fused_ce.py:173",
 }
+CE_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
+PEAK_NAME = "H100 SXM dense bf16 peak, 989 TFLOP/s (NVIDIA data sheet)"
 
 
 def log(msg):
@@ -300,8 +351,8 @@ def phase_main_path():
     counts = kernels.launch_counts()
     log(f"[main path] {time.perf_counter() - t0:.1f} s; kernel launches "
         f"{counts}")
-    for name, n in counts.items():
-        check(n > 0, f"{name} never launched on the main path")
+    for name in ("decode_attention", "paged_decode_attention"):
+        check(counts[name] > 0, f"{name} never launched on the main path")
     return counts, serve
 
 
@@ -407,6 +458,405 @@ def phase_timings(block_size):
     return decode, prefill
 
 
+# --------------------------------------------------------------------------
+# phase 6: the fused-CE kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def _ce_inputs(n, hd, vocab, dt, bias, gen, ignored=0.3, oob=True):
+    """h ~ N(0, 1), W ~ N(0, 0.05^2) (logits O(1)), labels with
+    ``ignored`` of the rows at -100 and, with ``oob``, two labels outside
+    [0, V) (-5 and V + 3); upstream g ~ U(0, 1)."""
+    h = torch.randn(n, hd, generator=gen).to("cuda", dt)
+    w = (0.05 * torch.randn(vocab, hd, generator=gen)).to("cuda", dt)
+    b = (0.05 * torch.randn(vocab, generator=gen)).to("cuda", dt) \
+        if bias else None
+    y = torch.randint(0, vocab, (n,), generator=gen)
+    y[torch.rand(n, generator=gen) < ignored] = -100
+    if oob and n >= 3:
+        y[1], y[2] = -5, vocab + 3
+    g = torch.rand(n, generator=gen).to("cuda")
+    return h, w, b, y.to("cuda"), g
+
+
+def _rel_errs(got, ref):
+    """(largest |error| / largest |entry|, ||error|| / ||entry||)."""
+    check(bool(torch.isfinite(got.float()).all()), "non-finite output")
+    d, r = got.float() - ref.float(), ref.float()
+    return (float(d.abs().max() / r.abs().max().clamp_min(1e-30)),
+            float(d.norm() / r.norm().clamp_min(1e-30)))
+
+
+def ce_errors(h, w, b, y, g, where):
+    """Errors of the three kernels against the f32 plain versions on the
+    same inputs, checked against CE_TOL: absolute for loss/lse, dh and dW
+    (under the kernels' names) and the relative ones of ``_rel_errs`` for
+    dh, dW and db."""
+    from paddle_tpu_torch.ops.cuda import (fused_ce_bwd_dh, fused_ce_bwd_dw,
+                                           fused_ce_bwd_ref, fused_ce_fwd,
+                                           fused_ce_fwd_ref)
+    f32 = [None if t is None else t.float() for t in (h, w, b)]
+    ref_loss, ref_lse = fused_ce_fwd_ref(*f32, y)
+    loss, lse = fused_ce_fwd(h, w, b, y)
+    dh = fused_ce_bwd_dh(h, w, b, y, ref_lse, g)
+    dw, db = fused_ce_bwd_dw(h, w, b, y, ref_lse, g)
+    torch.cuda.synchronize()
+    dh_r, dw_r, db_r = fused_ce_bwd_ref(h, w, b, y, ref_lse, g)
+    check(dh.dtype == h.dtype and dw.dtype == w.dtype, "grad dtypes")
+    check((db is None) == (b is None), "db without a bias")
+    out = {"fused_ce_fwd": max(_err(loss, ref_loss), _err(lse, ref_lse)),
+           "fused_ce_bwd_dh": _err(dh, dh_r),
+           "fused_ce_bwd_dw": _err(dw, dw_r)}
+    out["dh_max"], out["dh_norm"] = _rel_errs(dh, dh_r)
+    out["dw_max"], out["dw_norm"] = _rel_errs(dw, dw_r)
+    if b is not None:
+        out["db_max"], out["db_norm"] = _rel_errs(db, db_r)
+    ignored = y == -100
+    check(bool((loss[ignored] == 0).all()), "ignored rows have a loss")
+    for k, tol in CE_TOL[h.dtype].items():
+        if k in out:
+            check(out[k] <= tol, f"{k} {out[k]:.3e} > {tol:g} at {where}")
+    return out
+
+
+def _ce_line(errs):
+    return (f"loss/lse {errs['fused_ce_fwd']:.2e}; dh abs "
+            f"{errs['fused_ce_bwd_dh']:.2e} max {errs['dh_max']:.2e} norm "
+            f"{errs['dh_norm']:.2e}; dW abs {errs['fused_ce_bwd_dw']:.2e} max "
+            f"{errs['dw_max']:.2e} norm {errs['dw_norm']:.2e}"
+            + (f"; db max {errs['db_max']:.2e} norm {errs['db_norm']:.2e}"
+               if "db_max" in errs else ""))
+
+
+def phase_ce():
+    gen = torch.Generator().manual_seed(6)
+    shapes = [(8, 517, 64), (1000, 517, 1024), (4096, 517, 64),
+              (1000, 30522, 768), (4096, 30522, 768), (4096, 50304, 1024)]
+    cases = [(dt, bias, n, v, hd, 0.3) for dt in (torch.float32,
+                                                   torch.bfloat16)
+             for bias in (True, False) for n, v, hd in shapes]
+    cases += [(dt, True, 1000, 517, 768, 1.0)
+              for dt in (torch.float32, torch.bfloat16)]   # all ignored
+    worst = {}
+    t0 = time.perf_counter()
+    for dt, bias, n, v, hd, ign in cases:
+        where = (f"{str(dt)[6:]} bias={bias} n={n} V={v} H={hd} "
+                 f"ignored={ign:.0%}")
+        errs = ce_errors(*_ce_inputs(n, hd, v, dt, bias, gen, ignored=ign,
+                                     oob=ign < 1), where)
+        log(f"[ce] {where}: {_ce_line(errs)}")
+        for k, e in errs.items():
+            worst.setdefault(k, {})
+            worst[k][dt] = max(worst[k].get(dt, 0.0), e)
+    log(f"[ce] {len(cases)} cases in {time.perf_counter() - t0:.1f} s; "
+        f"limits {json.dumps({str(k)[6:]: v for k, v in CE_TOL.items()})}")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phases 7-8: BERT-base training at full width
+# --------------------------------------------------------------------------
+
+def _bert_batches(cfg, batch, seq, n_batches, seed=0):
+    from paddle_tpu_torch.text.datasets import LMDataset
+    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=seq,
+                   n=n_batches * batch, mode="mlm", seed=seed)
+    ids = torch.from_numpy(ds.inputs.reshape(n_batches, batch, seq))
+    lab = torch.from_numpy(ds.labels.reshape(n_batches, batch, seq))
+    return ids.to("cuda"), lab.to("cuda")
+
+
+def _train_step(net, opt, ids, lab):
+    loss = net(ids, masked_lm_labels=lab)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def _grad_rel(gk, gp):
+    """Largest |difference| over largest |entry| of two gradients (0 when
+    neither exists)."""
+    check((gk is None) == (gp is None), "a gradient exists on one path only")
+    if gk is None:
+        return 0.0
+    return float((gk - gp).abs().max() / gp.abs().max().clamp_min(1e-30))
+
+
+def phase_bert_equivalence():
+    """One f32 AdamW step of BERT-base through the CE kernels and one with
+    FLAGS_use_fused_ce off, from the same weights on the same batch: the
+    losses, every parameter's gradient before the step (Adam's first step
+    is +-lr whatever the gradient's scale, so the parameters alone would
+    see only its signs) and the parameters after it."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    cfg = BertConfig.bert_base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    ids, lab = _bert_batches(cfg, 8, 128, 1)
+    out = {}
+    for fused in (True, False):
+        flags.set_flags({"FLAGS_use_fused_ce": fused})
+        try:
+            net = Bert(cfg, device="cuda", dtype=torch.float32, seed=0)
+            net.train()
+            opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                        parameters=net.named_parameters())
+            before = kernels.launch_counts()
+            loss = net(ids[0], masked_lm_labels=lab[0])
+            loss.backward()
+            grads = {k: None if p.grad is None else p.grad.detach().clone()
+                     for k, p in net.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            used = {k: kernels.launch_counts()[k] - before[k]
+                    for k in CE_KERNELS}
+            check(set(used.values()) == {1 if fused else 0},
+                  f"flag did not route the head: {used}")
+            out[fused] = (float(loss.detach()), grads,
+                          {k: p.detach().clone()
+                           for k, p in net.named_parameters()})
+        finally:
+            flags.set_flags({"FLAGS_use_fused_ce": True})
+        del net, opt
+    (lk, gk, pk), (lp, gp, pp) = out[True], out[False]
+    rel = abs(lk - lp) / abs(lp)
+    dgrad = {k: _grad_rel(gk[k], gp[k]) for k in gk}
+    worst = max(dgrad, key=dgrad.get)
+    dparam = max(float((pk[k] - pp[k]).abs().max()) for k in pk)
+    log(f"[bert f32 equivalence] b8 s128: loss kernels {lk:.7f} plain "
+        f"{lp:.7f} (rel {rel:.2e}, tol {STEP_TOL['loss']:g}); gradients "
+        f"largest rel diff {dgrad[worst]:.2e} ({worst}; tol "
+        f"{STEP_TOL['grad']:g}), tied word embeddings "
+        f"{dgrad['embeddings.word_embeddings.weight']:.2e}, mlm_bias "
+        f"{dgrad['mlm_bias']:.2e}; params after one AdamW step max abs "
+        f"diff {dparam:.2e} (tol {STEP_TOL['param']:g}) over {len(pk)} "
+        f"tensors, {sum(g is None for g in gk.values())} without a gradient")
+    check(np.isfinite(lk) and rel <= STEP_TOL["loss"], "BERT loss differs")
+    check(dgrad[worst] <= STEP_TOL["grad"],
+          f"BERT gradient {worst} differs: {dgrad[worst]}")
+    check(dparam <= STEP_TOL["param"], "BERT parameters differ after a step")
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": rel,
+            "grad_max_rel_diff": dgrad[worst], "grad_worst": worst,
+            "param_max_abs_diff": dparam}
+
+
+def _profile_steps(step, n=3):
+    """Device time by kernel over ``n`` steps (torch.profiler, CUDA kernel
+    rows only); None where the profiler records no device time here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    rows = [(ev.self_device_time_total / 1e3 / n, ev.key, ev.count // n)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    if not rows:
+        return None
+    rows.sort(reverse=True)
+    return {"device_busy_ms_per_step": sum(r[0] for r in rows),
+            "top": [{"ms_per_step": r[0], "kernel": r[1][:80],
+                     "calls_per_step": r[2]} for r in rows[:12]]}
+
+
+def _step_breakdown(net, opt, ids, lab, step_ms, n=10):
+    """Where the flagship step's time goes: forward + backward alone (the
+    step without the optimizer), the optimizer's host time, and the
+    device's busy time per step with the idle share it leaves."""
+    def fwd_bwd():
+        net(ids[0], masked_lm_labels=lab[0]).backward()
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fwd_bwd()
+    torch.cuda.synchronize()
+    fb_ms = (time.perf_counter() - t0) * 1e3 / n
+    t0 = time.perf_counter()
+    opt.step()
+    opt_host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    opt.clear_grad()
+    out = {"fwd_bwd_ms": fb_ms, "optimizer_host_ms": opt_host_ms}
+    try:
+        prof = _profile_steps(lambda: _train_step(net, opt, ids[1], lab[1]))
+    except Exception as e:   # the measurement is optional, the step is not
+        prof = None
+        log(f"[flagship profile] not measured: {type(e).__name__}: {e}")
+    if prof is not None:
+        out.update(prof)
+        out["device_idle_share"] = 1 - prof["device_busy_ms_per_step"] \
+            / step_ms
+    return out
+
+
+def phase_flagship():
+    """bench.py's flagship shape: BERT-base, bf16 O2, b32 s128."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    batch, seq, warmup, steps, n_batches = 32, 128, 5, 30, 16
+    cfg = BertConfig.bert_base()
+    ids, lab = _bert_batches(cfg, batch, seq, n_batches)
+    kernels.reset_launch_counts()
+    t_path = time.perf_counter()
+    net = Bert(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    net.train()
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=net.named_parameters(), multi_precision=True)
+    n_params = net.num_params()
+    it = itertools.count()
+
+    def step():
+        i = next(it) % n_batches
+        return _train_step(net, opt, ids[i], lab[i])
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = step()
+        if i in (0, steps - 1):
+            losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    loss_start, loss_end = (float(x) for x in losses)
+    tokens = batch * seq
+    L, H = cfg.num_hidden_layers, cfg.hidden_size
+    flops = 6 * n_params * tokens + 12 * L * H * seq * tokens
+    res = {"config": "bert_base", "dtype": "bfloat16", "batch": batch,
+           "seq": seq, "params": n_params, "warmup": warmup, "steps": steps,
+           "step_ms": dt * 1e3 / steps,
+           "samples_per_s": steps * batch / dt,
+           "tokens_per_s": steps * tokens / dt,
+           "mfu": flops * steps / dt / PEAK_FLOPS[torch.bfloat16],
+           "mfu_peak": PEAK_NAME,
+           "loss_start": loss_start, "loss_end": loss_end,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: counts[k] for k in CE_KERNELS}}
+    log(f"[flagship] {json.dumps(res)}")
+    for k in CE_KERNELS:
+        check(counts[k] > 0, f"{k} never launched on the training path")
+    check(np.isfinite(loss_start) and np.isfinite(loss_end),
+          "non-finite loss")
+    check(loss_end < loss_start, "loss did not fall")
+    log(f"[training path] {time.perf_counter() - t_path:.1f} s; kernel "
+        f"launches {counts}")
+    res["breakdown"] = _step_breakdown(net, opt, ids, lab, res["step_ms"])
+    log(f"[flagship breakdown] {json.dumps(res['breakdown'])}")
+    del net, opt
+    return counts, res
+
+
+# --------------------------------------------------------------------------
+# phase 9: CE timings
+# --------------------------------------------------------------------------
+
+def ce_bound(kernel, n, n_valid, hd, vocab, dt, bias):
+    """Least time: inputs read once and outputs written once over the HBM
+    rate, or the products' flops over the peak of the input type. The
+    forward needs every row (lse is an output for all); dh and dW need only
+    the valid rows (an ignored row's ds is zero)."""
+    el = torch.finfo(dt).bits // 8
+    nbytes = (n * hd + vocab * hd + (vocab if bias else 0)) * el + n * 4
+    if kernel == "fused_ce_fwd":
+        nbytes += 2 * n * 4                          # loss, lse
+        flops = 2 * n * hd * vocab
+    else:
+        nbytes += 2 * n * 4                          # lse, g
+        if kernel == "fused_ce_bwd_dh":
+            nbytes += n * hd * el
+        else:
+            nbytes += (vocab * hd + (vocab if bias else 0)) * el
+        flops = 4 * n_valid * hd * vocab             # recompute + product
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _ce_time_shape(n, hd, vocab, bias, ignored, dt=torch.bfloat16):
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops.cuda import (fused_ce_bwd_dh, fused_ce_bwd_dw,
+                                           fused_ce_bwd_ref, fused_ce_fwd,
+                                           fused_ce_fwd_ref)
+    gen = torch.Generator().manual_seed(9)
+    h, w, b, y, g = _ce_inputs(n, hd, vocab, dt, bias, gen, ignored=ignored,
+                               oob=False)
+    n_valid = int((y != -100).sum())
+    errs = ce_errors(h, w, b, y, g, f"n={n} ({n_valid} valid) H={hd} "
+                     f"V={vocab} bias={bias} bf16")
+    log(f"[ce timing] errors: {_ce_line(errs)}")
+    _, lse = fused_ce_fwd(h, w, b, y)
+    hl = h.detach().requires_grad_()
+    wl = w.detach().requires_grad_()
+    bl = None if b is None else b.detach().requires_grad_()
+    lib_loss = tF.cross_entropy(tF.linear(hl, wl, bl).float(), y.long(),
+                                ignore_index=-100, reduction="none")
+    # the library's backward for one kernel's outputs: dh alone, or dW
+    # (and db) alone; each still forms the [n, V] dlogits
+    lib_wrt = {"fused_ce_bwd_dh": (hl,),
+               "fused_ce_bwd_dw": (wl,) if bl is None else (wl, bl)}
+    timed = {
+        "fused_ce_fwd": (lambda: fused_ce_fwd(h, w, b, y),
+                         lambda: fused_ce_fwd_ref(h, w, b, y),
+                         lambda: tF.cross_entropy(
+                             tF.linear(h, w, b).float(), y.long(),
+                             ignore_index=-100, reduction="none")),
+        "fused_ce_bwd_dh": (lambda: fused_ce_bwd_dh(h, w, b, y, lse, g),
+                            lambda: fused_ce_bwd_ref(h, w, b, y, lse, g,
+                                                     need_dw=False),
+                            lambda: torch.autograd.grad(
+                                lib_loss, lib_wrt["fused_ce_bwd_dh"],
+                                grad_outputs=g, retain_graph=True)),
+        "fused_ce_bwd_dw": (lambda: fused_ce_bwd_dw(h, w, b, y, lse, g),
+                            lambda: fused_ce_bwd_ref(h, w, b, y, lse, g,
+                                                     need_dh=False),
+                            lambda: torch.autograd.grad(
+                                lib_loss, lib_wrt["fused_ce_bwd_dw"],
+                                grad_outputs=g, retain_graph=True)),
+    }
+    out = {}
+    for name, (kern, plain, lib) in timed.items():
+        bnd, by = ce_bound(name, n, n_valid, hd, vocab, dt, bias)
+        full, _ = ce_bound(name, n, n, hd, vocab, dt, bias)
+        out[name] = {
+            "ms": time_ms(kern, runs=20), "plain_ms": time_ms(plain, runs=20),
+            "library_ms": time_ms(lib, runs=20),
+            "bound_ms": bnd, "bound_by": by, "bound_all_rows_ms": full,
+            "max_abs_err": errs[name],
+            "n": n, "n_valid": n_valid, "H": hd, "V": vocab, "bias": bias}
+        if name == "fused_ce_bwd_dw":
+            out[name]["max_rel_err"] = max(errs["dw_max"],
+                                           errs.get("db_max", 0.0))
+        r = out[name]
+        log(f"[ce timing] {name} n={n} ({n_valid} valid) H={hd} V={vocab} "
+            f"bias={bias} bf16: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; all rows "
+            f"{r['bound_all_rows_ms']:.4f} ms)")
+    return out
+
+
+def phase_ce_timings():
+    # BERT's MLM labels: 15% of the rows masked (valid), the rest -100;
+    # GPT's LM labels: every row valid
+    bert = _ce_time_shape(4096, 768, 30522, bias=True, ignored=0.85)
+    gpt = _ce_time_shape(4096, 768, 50304, bias=False, ignored=0.0)
+    return bert, gpt
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -420,10 +870,14 @@ def main():
     worst_p = phase_paged()
     counts, serve = phase_main_path()
     decode, prefill = phase_timings(serve["block_size"])
+    worst_ce = phase_ce()
+    equiv = phase_bert_equivalence()
+    ce_counts, flagship = phase_flagship()
+    ce_bert, ce_gpt = phase_ce_timings()
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
-        rec = {"name": name, "route": "cuda", "source": SOURCE,
+        rec = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "launches": counts[name]}
         rec.update(decode[name])
         rec["prefill_s32"] = prefill[name]
@@ -432,8 +886,26 @@ def main():
                                  prefill[name]["max_abs_err"])
         rec["max_abs_err_f32"] = worst[torch.float32]
         kernels.append(rec)
+    for name in CE_KERNELS:
+        rec = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": ce_counts[name]}
+        rec.update(ce_bert[name])
+        rec["gpt_head"] = ce_gpt[name]
+        # over every comparison of phase 6 and both timed shapes
+        rec["max_abs_err"] = max(*worst_ce[name].values(),
+                                 ce_bert[name]["max_abs_err"],
+                                 ce_gpt[name]["max_abs_err"])
+        rec["max_abs_err_f32"] = worst_ce[name][torch.float32]
+        if name == "fused_ce_bwd_dw":
+            rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
+                                     *worst_ce["db_max"].values(),
+                                     ce_bert[name]["max_rel_err"],
+                                     ce_gpt[name]["max_rel_err"])
+        kernels.append(rec)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": kernels, "serve_bf16": serve}))
+    print(json.dumps({"kernels": kernels, "serve_bf16": serve,
+                      "bert_f32_equivalence": equiv,
+                      "flagship_bf16": flagship}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

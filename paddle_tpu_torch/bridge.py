@@ -2,10 +2,13 @@
 
 ``params`` is a JAX layer's ``functional_state()[0]`` converted to numpy:
 ``{name: array}`` under the same dotted names the port's modules use
-(``blocks.{i}.attn.qkv_proj.weight``, ``wte.weight`` ...). The JAX
+(GPT's ``blocks.{i}.attn.qkv_proj.weight``, ``wte.weight`` ...; BERT's
+``encoder.layers.{i}.self_attn.qkv_proj.weight``, ``pooler.dense.weight``,
+``mlm_bias`` ...). The name sets must match one to one. The JAX
 ``Linear`` stores its weight [in, out] and computes ``x @ W``; the port's
 ``Linear`` stores [out, in]. So every Linear weight, and only those, is
-transposed. Embedding tables and LayerNorm vectors copy as they are.
+transposed. Embedding tables, LayerNorm vectors and bare parameters
+(``mlm_bias``) copy as they are.
 """
 from __future__ import annotations
 

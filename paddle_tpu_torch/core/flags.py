@@ -1,5 +1,5 @@
 """Flag registry — the subset of paddle_tpu/core/flags.py the serving
-slice reads.
+and training slices read.
 
 Flags are declared once with a type and default, seeded from a
 same-named ``FLAGS_*`` environment variable at import, and get/set-able
@@ -62,3 +62,7 @@ define_flag("FLAGS_serve_max_active", 64,
 define_flag("FLAGS_executor_max_inflight", 2,
             "pipeline depth: how many dispatched-but-not-materialized "
             "steps the serve loop keeps queued on the device stream")
+define_flag("FLAGS_use_fused_ce", True,
+            "route linear+cross-entropy loss heads through the fused CE "
+            "kernels (ops/cuda/fused_ce.py); off = the plain composite "
+            "that materializes the logits")

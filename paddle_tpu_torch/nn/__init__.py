@@ -1,4 +1,5 @@
 """Layers of the port (paddle_tpu/nn): torch ``nn.Module``s under the JAX
 package's names."""
-from .layer import (Dropout, Embedding, LayerNorm, Linear,  # noqa: F401
-                    MultiHeadAttention, StaticKVCache)
+from .layer import (CrossEntropyLoss, Dropout, Embedding,  # noqa: F401
+                    LayerNorm, Linear, MultiHeadAttention, StaticKVCache,
+                    TransformerEncoder, TransformerEncoderLayer)

@@ -1,4 +1,5 @@
-"""Functional ops of the serving slice (paddle_tpu/nn/functional).
+"""Functional ops of the serving and training slices
+(paddle_tpu/nn/functional, paddle_tpu/ops/loss.py).
 
 ``scaled_dot_product_attention`` here is the composite ``_sdpa`` of the
 JAX package (nn/functional/__init__.py:72-87): causal positions filled
@@ -8,13 +9,26 @@ flash kernel; the flash kernel is not ported yet, so the port runs the
 composite on the CPU and on the card alike (``GPT.forward`` without a
 cache). The decode paths do not come here: they use the decode-attention
 kernels (ops/cuda/decode_attention.py).
+
+``fused_linear_cross_entropy`` is the loss-head dispatch site
+(nn/functional/__init__.py:191): with ``FLAGS_use_fused_ce`` on it runs
+the fused CE kernels (ops/cuda/fused_ce.py: the kernels on the card,
+their plain versions on the CPU); off, the kernels' plain forward
+differentiated by torch autograd, which materializes f32 logits (the JAX
+composite ``_ce_head_fallback`` rounds them to the input dtype first).
+On the card there is no shape gate and no fallback: a shape the kernels
+do not take raises.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as tF
 
-__all__ = ["linear", "gelu", "scaled_dot_product_attention"]
+from ..core import flags as _flags
+from ..ops.cuda.fused_ce import fused_ce, fused_ce_fwd_ref
+
+__all__ = ["linear", "gelu", "relu", "dropout", "scaled_dot_product_attention",
+           "cross_entropy", "fused_linear_cross_entropy"]
 
 
 def linear(x, weight, bias=None):
@@ -25,6 +39,17 @@ def linear(x, weight, bias=None):
 def gelu(x):
     """Exact (erf) GELU, as jax.nn.gelu(approximate=False)."""
     return tF.gelu(x, approximate="none")
+
+
+def relu(x):
+    return tF.relu(x)
+
+
+def dropout(x, p=0.5, training=True):
+    """Upscale-in-train dropout; identity when not training or p == 0."""
+    if not training or p == 0.0:
+        return x
+    return tF.dropout(x, p=p, training=True)
 
 
 def _sdpa(q, k, v, mask, scale, is_causal):
@@ -41,7 +66,8 @@ def _sdpa(q, k, v, mask, scale, is_causal):
         if mask.dtype == torch.bool:
             logits = logits.masked_fill(~mask, fill)
         else:
-            logits = logits + mask
+            # an f32 additive mask stays in the logits' dtype (bf16 runs)
+            logits = logits + mask.to(logits.dtype)
     probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     probs = probs / probs.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
@@ -54,6 +80,46 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     the probabilities, as in the JAX package."""
     scale = query.shape[-1] ** -0.5 if scale is None else scale
     out = _sdpa(query, key, value, attn_mask, scale, is_causal)
-    if dropout_p > 0.0 and training:
-        out = tF.dropout(out, p=dropout_p, training=True)
-    return out
+    return dropout(out, dropout_p, training)
+
+
+def cross_entropy(input, label, ignore_index=-100,  # noqa: A002
+                  reduction="mean"):
+    """Softmax cross-entropy over the last axis of ``input`` against int
+    ``label`` (paddle_tpu/ops/loss.py:cross_entropy without weights or
+    soft labels). A label outside [0, C) selects no class (loss 0); "mean"
+    divides by the number of rows whose label is not ``ignore_index``."""
+    logp = torch.log_softmax(input, dim=-1)
+    label = label.long()
+    valid = label != ignore_index
+    in_range = (label >= 0) & (label < input.shape[-1])
+    safe = torch.where(in_range, label, torch.zeros_like(label))
+    picked = logp.gather(-1, safe[..., None])[..., 0]
+    loss = torch.where(valid & in_range, -picked, torch.zeros_like(picked))
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    return loss.sum() / valid.to(loss.dtype).sum().clamp_min(1e-12)
+
+
+def fused_linear_cross_entropy(hidden, weight, bias=None, labels=None,
+                               ignore_index=-100, reduction="mean"):
+    """Cross-entropy of ``hidden @ weight.T + bias`` against ``labels``
+    without materializing the [n_tokens, vocab] logits. hidden [..., H]
+    (flattened here), weight [vocab, H], bias [vocab] or None, labels
+    [...] int. Per-token losses are f32 and 0 where ignored; "mean"
+    divides their sum by max(#valid, 1)."""
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    y = labels.reshape(-1)
+    if _flags.flag("FLAGS_use_fused_ce"):
+        losses = fused_ce(h2, weight, bias, y, int(ignore_index))
+    else:
+        losses = fused_ce_fwd_ref(h2, weight, bias, y, int(ignore_index))[0]
+    if reduction == "none":
+        return losses
+    total = losses.sum()
+    if reduction == "sum":
+        return total
+    valid = (y != ignore_index).to(torch.float32).sum()
+    return total / torch.clamp_min(valid, 1.0)

@@ -1,5 +1,5 @@
 """MultiHeadAttention with the fused qkv projection and its two decode
-caches (paddle_tpu/nn/layer/transformer.py).
+caches, and the BERT encoder stack (paddle_tpu/nn/layer/transformer.py).
 
 - ``StaticKVCache``: a preallocated [b, h, max_len, d] k/v pair per
   layer, written IN PLACE at ``index`` (the JAX package builds a new
@@ -8,10 +8,12 @@ caches (paddle_tpu/nn/layer/transformer.py).
 - ``PagedKVCache`` (nn/kv_pool.py): the serving arena through block
   tables; attention is the block-table kernel.
 Both caches are eval-only, as the kernels have no dropout and no
-backward.
+backward. ``TransformerEncoderLayer`` / ``TransformerEncoder`` run the
+attention composite with an additive ``src_mask`` [b, 1, 1, s].
 """
 from __future__ import annotations
 
+import copy
 import typing
 
 import torch
@@ -19,9 +21,11 @@ import torch
 from ...ops.cuda.decode_attention import decode_attention
 from .. import functional as F
 from ..kv_pool import PagedKVCache, paged_attention, write_kv
-from .common import Linear
+from .common import Dropout, Linear
+from .norm import LayerNorm
 
-__all__ = ["MultiHeadAttention", "StaticKVCache"]
+__all__ = ["MultiHeadAttention", "StaticKVCache", "TransformerEncoderLayer",
+           "TransformerEncoder"]
 
 
 class StaticKVCache(typing.NamedTuple):
@@ -113,3 +117,68 @@ class MultiHeadAttention(torch.nn.Module):
         return StaticKVCache(torch.zeros(shape, dtype=dtype, device=device),
                              torch.zeros(shape, dtype=dtype, device=device),
                              0)
+
+
+class TransformerEncoderLayer(torch.nn.Module):
+    """Self-attention + feed-forward block, post-norm unless
+    ``normalize_before``. ``activation`` is a name looked up in the port's
+    functional module ("gelu" is the exact erf GELU). Both norms use
+    LayerNorm's default epsilon 1e-5, as the JAX layer does, whatever
+    epsilon the model uses elsewhere."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead,
+                                            dropout=attn_dropout)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.act_dropout = Dropout(act_dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, src, src_mask=None):
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
+        src = self.self_attn(src, attn_mask=src_mask)
+        src = residual + self.dropout1(src)
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        src = self.linear2(self.act_dropout(self.activation(
+            self.linear1(src))))
+        src = residual + self.dropout2(src)
+        if not self.normalize_before:
+            src = self.norm2(src)
+        return src
+
+
+class TransformerEncoder(torch.nn.Module):
+    """``num_layers`` copies of ``encoder_layer`` (the first is the layer
+    itself), then an optional final norm."""
+
+    def __init__(self, encoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(
+            [encoder_layer] + [copy.deepcopy(encoder_layer)
+                               for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, src, src_mask=None):
+        out = src
+        for layer in self.layers:
+            out = layer(out, src_mask=src_mask)
+        if self.norm is not None:
+            out = self.norm(out)
+        return out

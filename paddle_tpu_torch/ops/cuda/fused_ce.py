@@ -1,0 +1,327 @@
+"""Fused linear + cross-entropy: the three CUDA kernels of the training
+loss head, their wrappers, their plain PyTorch versions and the
+``torch.autograd.Function`` that joins them.
+
+- ``fused_ce_fwd`` replaces paddle_tpu/ops/pallas/fused_ce.py
+  ``_ce_fwd_kernel``: per-token ``lse(h W^T + b) - logit[y]`` and lse,
+  without the [n, V] logits.
+- ``fused_ce_bwd_dh`` replaces ``_ce_bwd_dh_kernel``: dh from the saved
+  lse, recomputing each logits tile.
+- ``fused_ce_bwd_dw`` replaces ``_ce_bwd_dw_kernel``: dW and db.
+
+Contract (the TPU kernel's): rows with ``y == ignore_index`` give loss 0
+and no gradient; lse is ``m + log(max(l, 1e-30))``; a label outside
+[0, V) that is not ``ignore_index`` matches no column (loss = lse). The
+JAX wrapper pads W to a multiple of 128 rows; the CUDA kernels mask the
+ragged vocab tile instead, so nothing is padded or sliced here. The
+backward kernels work on the list of valid rows only (an ignored row's
+gradient terms are zero); ``valid_rows`` builds it on the card, once per
+backward when the caller passes it to both.
+
+For a CUDA tensor a wrapper launches its kernel (csrc/fused_ce.cu) or
+raises; only for CPU tensors does it run the plain version. Each wrapper
+counts its launches in ``.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["fused_ce", "fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw",
+           "fused_ce_fwd_ref", "fused_ce_bwd_ref", "valid_rows"]
+
+_MAX_H = 1024
+_SUPPORTED = (torch.float32, torch.bfloat16)
+_FWD_TOKENS = 64          # token rows per forward block (csrc kFwdTM)
+_DH_TOKENS = 32           # listed rows per dh block (csrc kDhTM)
+_VOCAB_TILE = 64          # vocab columns per fwd / dh tile (csrc kFwdTV)
+_MAX_DH_SPLITS = 16
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGS = {
+    "fused_ce_fwd": [_P] * 7 + [_I] * 6 + [_P],
+    "fused_ce_bwd_dh": [_P] * 10 + [_I] * 6 + [_P],
+    "fused_ce_bwd_dw": [_P] * 10 + [_I] * 5 + [_P],
+    "fused_ce_valid_rows": [_P] * 3 + [_I] * 2 + [_P],
+}
+
+
+def _fn(name):
+    from ._build import load
+    f = getattr(load("fused_ce"), name)
+    if f.argtypes is None:
+        f.argtypes = _SIGS[name]
+        f.restype = ctypes.c_int
+    return f
+
+
+# --------------------------------------------------------------------------
+# plain versions: the CPU path and the oracle on the card
+# --------------------------------------------------------------------------
+
+def _logits_ref(h, w, b):
+    """f32 logits [n, V] from the inputs upcast to f32 (the kernels
+    accumulate in f32 and never round the logits)."""
+    s = h.float() @ w.float().T
+    return s if b is None else s + b.float()
+
+
+def _label_hits(y, vocab):
+    """(labels inside [0, vocab), the labels made safe to gather)."""
+    y = y.long()
+    in_range = (y >= 0) & (y < vocab)
+    return in_range, torch.where(in_range, y, torch.zeros_like(y))
+
+
+def fused_ce_fwd_ref(h, w, b, y, ignore_index=-100):
+    """Per-token loss and lse (both f32 [n]) of ``h @ w.T + b`` against
+    ``y``: the semantics of paddle_tpu's ``_ce_head_fallback``, plus the
+    lse. Loss is 0 where ``y == ignore_index``; an out-of-range label
+    matches no column, so its loss is lse."""
+    s = _logits_ref(h, w, b)
+    lse = torch.logsumexp(s, dim=-1)
+    in_range, safe = _label_hits(y, w.shape[0])
+    tgt = torch.where(in_range, s.gather(1, safe[:, None])[:, 0],
+                      torch.zeros_like(lse))
+    loss = torch.where(y.long() != ignore_index, lse - tgt,
+                       torch.zeros_like(lse))
+    return loss, lse
+
+
+def _ds_ref(h, w, b, y, lse, g, ignore_index):
+    """dlogits [n, V] f32: (softmax - onehot(y)) * g, 0 on ignored rows
+    (paddle_tpu ``_ds_tile``)."""
+    s = _logits_ref(h, w, b)
+    p = torch.exp(s - lse.float()[:, None])
+    in_range, safe = _label_hits(y, w.shape[0])
+    onehot = torch.zeros_like(p)
+    onehot.scatter_(1, safe[:, None], in_range.float()[:, None])
+    gv = torch.where(y.long() != ignore_index, g.float(),
+                     torch.zeros_like(lse, dtype=torch.float32))
+    return (p - onehot) * gv[:, None]
+
+
+def fused_ce_bwd_ref(h, w, b, y, lse, g, ignore_index=-100, need_dh=True,
+                     need_dw=True):
+    """(dh, dW, db) of the per-token losses against upstream ``g`` [n],
+    recomputed from the saved lse. ds is rounded to W's dtype for dh and
+    to h's dtype for dW, as the kernels do; products accumulate in f32.
+    Entries not asked for (or db without a bias) are None."""
+    ds = _ds_ref(h, w, b, y, lse, g, ignore_index)
+    dh = dw = db = None
+    if need_dh:
+        dh = (ds.to(w.dtype).float() @ w.float()).to(h.dtype)
+    if need_dw:
+        dw = (ds.to(h.dtype).float().T @ h.float()).to(w.dtype)
+        if b is not None:
+            db = ds.sum(0).to(b.dtype)
+    return dh, dw, db
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+def _check(name, h, w, b, y, *f32_rows):
+    """Shapes and types every kernel takes; returns (n, H, V)."""
+    if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
+        raise ValueError(f"{name}: need h [n, H] and w [V, H], got "
+                         f"h{tuple(h.shape)} w{tuple(w.shape)}")
+    n, hd = h.shape
+    vocab = w.shape[0]
+    if n < 1 or vocab < 1:
+        raise ValueError(f"{name}: empty input h{tuple(h.shape)} "
+                         f"w{tuple(w.shape)}")
+    if y.shape != (n,):
+        raise ValueError(f"{name}: labels {tuple(y.shape)} != ({n},)")
+    if y.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: labels must be int32 or int64")
+    if b is not None and b.shape != (vocab,):
+        raise ValueError(f"{name}: bias {tuple(b.shape)} != ({vocab},)")
+    tensors = [h, w, y] + ([b] if b is not None else []) + list(f32_rows)
+    for t in tensors:
+        if t.device != h.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {h.device}")
+    for t in f32_rows:
+        if t.shape != (n,):
+            raise ValueError(f"{name}: per-token input {tuple(t.shape)} "
+                             f"!= ({n},)")
+    if h.device.type == "cpu":
+        return n, hd, vocab
+    if h.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {h.device}")
+    if h.dtype not in _SUPPORTED:
+        raise TypeError(f"{name}: dtype {h.dtype} not in {_SUPPORTED}")
+    for t in (w,) + ((b,) if b is not None else ()):
+        if t.dtype != h.dtype:
+            raise TypeError(f"{name}: h is {h.dtype} but a weight is "
+                            f"{t.dtype}")
+    for t in (h, w) + ((b,) if b is not None else ()):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: h, w and b must be contiguous")
+    for t in f32_rows:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: lse and g must be contiguous f32")
+    if hd % 8 != 0 or hd > _MAX_H:
+        raise ValueError(f"{name}: hidden size {hd} must be a multiple of "
+                         f"8 and at most {_MAX_H}")
+    return n, hd, vocab
+
+
+def _check_status(name, status):
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{status}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _vocab_splits(device, tiles, vocab, per_sm, cap=None):
+    """Vocab ranges per token tile: enough (tile, range) blocks for
+    ``per_sm`` per SM when every tile is busy, at most ``cap`` and never
+    more ranges than vocab tiles."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    vtiles = -(-vocab // _VOCAB_TILE)
+    return max(1, min(vtiles, cap or vtiles, -(-per_sm * sms // tiles)))
+
+
+def valid_rows(y, ignore_index=-100):
+    """The backward kernels' list of the rows of CUDA labels ``y [n]``
+    that are not ``ignore_index``, built on the card: (rows int32 [n + 1],
+    in order with the count last; pos int32 [n], each row's place in the
+    list or -1)."""
+    name = "fused_ce_valid_rows"
+    if y.device.type != "cuda" or y.dim() != 1 or y.shape[0] < 1:
+        raise ValueError(f"{name}: need CUDA labels [n], got "
+                         f"{tuple(y.shape)} on {y.device}")
+    n = y.shape[0]
+    y32 = y.to(torch.int32).contiguous()
+    rows = torch.empty(n + 1, dtype=torch.int32, device=y.device)
+    pos = torch.empty(n, dtype=torch.int32, device=y.device)
+    with torch.cuda.device(y.device):
+        status = _fn(name)(y32.data_ptr(), rows.data_ptr(), pos.data_ptr(),
+                           n, int(ignore_index),
+                           torch.cuda.current_stream(y.device).cuda_stream)
+    _check_status(name, status)
+    return rows, pos
+
+
+def fused_ce_fwd(h, w, b, y, ignore_index=-100):
+    """Per-token loss and lse, both f32 [n], of ``h [n, H] @ w[V, H].T +
+    b [V]`` (b may be None) against labels ``y [n]``. CUDA tensors launch
+    the kernel; CPU tensors run ``fused_ce_fwd_ref``."""
+    name = "fused_ce_fwd"
+    n, hd, vocab = _check(name, h, w, b, y)
+    if h.device.type == "cpu":
+        return fused_ce_fwd_ref(h, w, b, y, ignore_index)
+    y32 = y.to(torch.int32).contiguous()
+    splits = _vocab_splits(h.device, -(-n // _FWD_TOKENS), vocab, 2)
+    loss = torch.empty(n, dtype=torch.float32, device=h.device)
+    lse = torch.empty(n, dtype=torch.float32, device=h.device)
+    part = torch.empty(3, splits, n, dtype=torch.float32, device=h.device)
+    with torch.cuda.device(h.device):
+        status = _fn(name)(
+            h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
+            loss.data_ptr(), lse.data_ptr(), part.data_ptr(), n, hd, vocab,
+            int(ignore_index), splits, int(h.dtype == torch.bfloat16),
+            torch.cuda.current_stream(h.device).cuda_stream)
+    _check_status(name, status)
+    fused_ce_fwd.launches += 1
+    return loss, lse
+
+
+def fused_ce_bwd_dh(h, w, b, y, lse, g, ignore_index=-100, rows=None):
+    """dh [n, H] in h's dtype from the saved lse [n] and the upstream
+    gradient ``g`` [n] of the per-token losses. CUDA tensors launch the
+    kernel, over ``rows`` (``valid_rows(y)``, built here when None); CPU
+    tensors run ``fused_ce_bwd_ref``."""
+    name = "fused_ce_bwd_dh"
+    n, hd, vocab = _check(name, h, w, b, y, lse, g)
+    if h.device.type == "cpu":
+        return fused_ce_bwd_ref(h, w, b, y, lse, g, ignore_index,
+                                need_dw=False)[0]
+    y32 = y.to(torch.int32).contiguous()
+    dh = torch.empty_like(h)
+    rows, pos = rows or valid_rows(y32, ignore_index)
+    # the vocab split keeps the card busy when few rows are valid: sized
+    # for 8 blocks per SM if every row were, so 1 in 8 valid still fills it
+    splits = _vocab_splits(h.device, -(-n // _DH_TOKENS), vocab, 8,
+                           _MAX_DH_SPLITS)
+    part = torch.empty(splits, n, hd, dtype=torch.float32, device=h.device)
+    with torch.cuda.device(h.device):
+        status = _fn(name)(
+            h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), dh.data_ptr(), rows.data_ptr(),
+            pos.data_ptr(), part.data_ptr(), n, hd, vocab, int(ignore_index),
+            splits, int(h.dtype == torch.bfloat16),
+            torch.cuda.current_stream(h.device).cuda_stream)
+    _check_status(name, status)
+    fused_ce_bwd_dh.launches += 1
+    return dh
+
+
+def fused_ce_bwd_dw(h, w, b, y, lse, g, ignore_index=-100, rows=None):
+    """(dW [V, H] in w's dtype, db [V] in b's dtype or None without a
+    bias). CUDA tensors launch the kernel, over ``rows`` (``valid_rows(y)``,
+    built here when None); CPU tensors run ``fused_ce_bwd_ref``."""
+    name = "fused_ce_bwd_dw"
+    n, hd, vocab = _check(name, h, w, b, y, lse, g)
+    if h.device.type == "cpu":
+        return fused_ce_bwd_ref(h, w, b, y, lse, g, ignore_index,
+                                need_dh=False)[1:]
+    y32 = y.to(torch.int32).contiguous()
+    dw = torch.empty_like(w)
+    db = None if b is None else torch.empty_like(b)
+    rows, pos = rows or valid_rows(y32, ignore_index)
+    with torch.cuda.device(h.device):
+        status = _fn(name)(
+            h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), dw.data_ptr(), _ptr(db),
+            rows.data_ptr(), pos.data_ptr(), n, hd, vocab, int(ignore_index),
+            int(h.dtype == torch.bfloat16),
+            torch.cuda.current_stream(h.device).cuda_stream)
+    _check_status(name, status)
+    fused_ce_bwd_dw.launches += 1
+    return dw, db
+
+
+fused_ce_fwd.launches = 0
+fused_ce_bwd_dh.launches = 0
+fused_ce_bwd_dw.launches = 0
+
+
+class _FusedCE(torch.autograd.Function):
+    """Per-token losses with the kernels' backward: saves (h, W, b, y,
+    lse) and recomputes the logits tiles in dh and dW."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, y, ignore_index):
+        loss, lse = fused_ce_fwd(h, w, b, y, ignore_index)
+        ctx.save_for_backward(h, w, b, y, lse)
+        ctx.ignore_index = ignore_index
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, b, y, lse = ctx.saved_tensors
+        g = g.float().contiguous()
+        need_h, need_w, need_b = ctx.needs_input_grad[:3]
+        # one valid-row list for both gradient kernels
+        rows = valid_rows(y, ctx.ignore_index) if h.is_cuda else None
+        dh = dw = db = None
+        if need_h:
+            dh = fused_ce_bwd_dh(h, w, b, y, lse, g, ctx.ignore_index, rows)
+        if need_w or need_b:
+            dw, db = fused_ce_bwd_dw(h, w, b, y, lse, g, ctx.ignore_index,
+                                     rows)
+        return dh, dw if need_w else None, db if need_b else None, None, None
+
+
+def fused_ce(h, w, b, y, ignore_index=-100):
+    """Differentiable per-token losses f32 [n] (0 where ignored) of
+    ``h [n, H] @ w.T + b`` against ``y [n]``; gradients flow to h, w and
+    b through the backward kernels."""
+    return _FusedCE.apply(h, w, b, y, int(ignore_index))

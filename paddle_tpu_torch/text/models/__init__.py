@@ -1,1 +1,3 @@
+from .bert import (Bert, BertConfig,  # noqa: F401
+                   BertPretrainingCriterion)
 from .gpt import GPT, GPTConfig  # noqa: F401

@@ -1,6 +1,8 @@
 """GPT, the decoder-only causal LM (paddle_tpu/text/models/gpt.py).
 
-``forward`` runs the whole sequence with causal attention. The two cached
+``forward`` runs the whole sequence with causal attention and returns the
+logits, or with ``labels`` the LM loss through the fused CE head (no
+bias). The two cached
 passes feed generation and serving: ``_forward_cached`` over per-layer
 StaticKVCaches (``generate``), ``_forward_paged`` over the serving pool's
 PagedKVCaches (``inference/serving.py``). Parameter names match the JAX
@@ -21,6 +23,7 @@ from ...nn import functional as F
 from ...nn.kv_pool import PagedKVCache, write_slots
 from ...nn.layer import Dropout, Embedding, LayerNorm, Linear
 from ...nn.layer import MultiHeadAttention
+from .bert import _bert_init
 
 __all__ = ["GPTConfig", "GPTBlock", "GPT"]
 
@@ -64,23 +67,6 @@ class GPTBlock(torch.nn.Module):
         return x if cache is None else (x, cache)
 
 
-def _init_weights(root, seed, std=0.02):
-    """BERT-style init (paddle_tpu/text/models/bert.py ``_bert_init``):
-    N(0, std) truncated at two std for matrices and tables, unit
-    LayerNorm scale, zero biases; drawn from a CPU generator seeded with
-    ``seed`` in parameter order."""
-    g = torch.Generator().manual_seed(int(seed))
-    with torch.no_grad():
-        for name, p in root.named_parameters():
-            if p.ndim >= 2:
-                torch.nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
-                                            generator=g)
-            elif name.endswith("weight"):     # LayerNorm scale
-                p.fill_(1.0)
-            else:
-                p.zero_()
-
-
 class GPT(torch.nn.Module):
     """GPT on ``device`` (default ``cuda``; pass ``"cpu"`` for the CPU),
     weights drawn from ``seed``, parameters in ``dtype``."""
@@ -97,7 +83,7 @@ class GPT(torch.nn.Module):
         self.blocks = torch.nn.ModuleList([GPTBlock(cfg)
                                            for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size)
-        _init_weights(self, seed)
+        _bert_init(self, seed)
         self.to(device=dev, dtype=dtype)
 
     @property
@@ -112,14 +98,20 @@ class GPT(torch.nn.Module):
         """Weight-tied LM head."""
         return h @ self.wte.weight.T
 
-    def forward(self, input_ids):
-        """Logits [b, s, V] of every position (causal attention)."""
+    def forward(self, input_ids, labels=None):
+        """Logits [b, s, V] of every position (causal attention); with
+        ``labels`` [b, s] the mean LM loss over labels != -100 through the
+        fused, weight-tied CE head instead (no [b * s, V] logits)."""
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
         for blk in self.blocks:
             x = blk(x)
-        return self._logits(self.ln_f(x))
+        x = self.ln_f(x)
+        if labels is not None:
+            return F.fused_linear_cross_entropy(x, self.wte.weight, None,
+                                                labels, ignore_index=-100)
+        return self._logits(x)
 
     def _forward_cached(self, input_ids, caches, index):
         """One cached decode/prefill pass. input_ids [b, s_new], caches one

@@ -1,5 +1,6 @@
 """paddle_tpu_torch on the card: the CUDA kernels against their plain
-versions, the no-fallback rule, and tiny-GPT serving through the kernels.
+versions, the no-fallback rule, tiny-GPT serving and tiny-BERT training
+through the kernels.
 
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither jax nor paddle_tpu, so it also runs on a machine with
@@ -11,8 +12,10 @@ import torch
 
 from paddle_tpu_torch.ops import cuda as kernels
 from paddle_tpu_torch.ops.cuda import (decode_attention, decode_attention_ref,
-                                       paged_attention_ref,
-                                       paged_decode_attention)
+                                       fused_ce_bwd_dh, fused_ce_bwd_dw,
+                                       fused_ce_bwd_ref, fused_ce_fwd,
+                                       fused_ce_fwd_ref, paged_attention_ref,
+                                       paged_decode_attention, valid_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,4 +101,139 @@ def test_tiny_gpt_serves_through_the_kernels(card):
         ref = net.generate(p[None], max_new_tokens=8, temperature=0)
         np.testing.assert_array_equal(g, ref[0, len(p):].cpu().numpy())
     counts = kernels.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    assert counts["decode_attention"] > 0, counts
+    assert counts["paged_decode_attention"] > 0, counts
+
+
+def _ce_case(card, dtype, n=300, hd=72, vocab=517, bias=True):
+    """~30% ignored rows and two out-of-range labels; logits O(1)."""
+    g = torch.Generator().manual_seed(1)
+    h = torch.randn(n, hd, generator=g).to(card, dtype)
+    w = (0.1 * torch.randn(vocab, hd, generator=g)).to(card, dtype)
+    b = (0.1 * torch.randn(vocab, generator=g)).to(card, dtype) \
+        if bias else None
+    y = torch.randint(0, vocab, (n,), generator=g)
+    y[torch.rand(n, generator=g) < 0.3] = -100
+    y[1], y[2] = -5, vocab + 3
+    up = torch.rand(n, generator=g).to(card)
+    return h, w, b, y.to(card), up
+
+
+# chip_smoke.py's CE_TOL: loss/lse absolute; each gradient's largest
+# |error| over its largest |entry| ("_max") and its error's norm over its
+# norm ("_norm"). bf16 compares with the f32 plain version on the same
+# bf16 inputs, which rounds ds as the kernels do, so what is left is a
+# rare one-ulp flip of a rounded value.
+CE_TOL = {
+    torch.float32: {"fused_ce_fwd": 2e-5, "dh_max": 1e-4, "dh_norm": 1e-5,
+                    "dw_max": 2e-5, "dw_norm": 1e-5, "db_max": 2e-5,
+                    "db_norm": 1e-5},
+    torch.bfloat16: {"fused_ce_fwd": 1e-4, "dh_max": 1e-2, "dh_norm": 2e-3,
+                     "dw_max": 1e-2, "dw_norm": 2e-3, "db_max": 1e-2,
+                     "db_norm": 2e-3},
+}
+
+
+def _rel(got, ref):
+    """(largest |error| / largest |entry|, ||error|| / ||entry||)."""
+    d, r = got.float() - ref.float(), ref.float()
+    return (float(d.abs().max() / r.abs().max().clamp_min(1e-30)),
+            float(d.norm() / r.norm().clamp_min(1e-30)))
+
+
+def _close(got, ref, dtype, name):
+    err_max, err_norm = _rel(got, ref)
+    assert err_max <= CE_TOL[dtype][name + "_max"], err_max
+    assert err_norm <= CE_TOL[dtype][name + "_norm"], err_norm
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd_dh", "bwd_dw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False])
+def test_fused_ce_kernels_match_plain_versions(card, kernel, dtype, bias):
+    """Each CE kernel against the f32 plain version on the same inputs;
+    a ragged vocab tile (517), H not a multiple of 64. Limits per quantity
+    (CE_TOL)."""
+    h, w, b, y, up = _ce_case(card, dtype, bias=bias)
+    f32 = [None if t is None else t.float() for t in (h, w, b)]
+    ref_loss, ref_lse = fused_ce_fwd_ref(*f32, y)
+    if kernel == "fwd":
+        loss, lse = fused_ce_fwd(h, w, b, y)
+        torch.cuda.synchronize()
+        tol = CE_TOL[dtype]["fused_ce_fwd"]
+        assert float((loss - ref_loss).abs().max()) <= tol
+        assert float((lse - ref_lse).abs().max()) <= tol
+        return
+    dh_r, dw_r, db_r = fused_ce_bwd_ref(h, w, b, y, ref_lse, up)
+    if kernel == "bwd_dh":
+        dh = fused_ce_bwd_dh(h, w, b, y, ref_lse, up)
+        torch.cuda.synchronize()
+        assert dh.dtype == dtype
+        _close(dh, dh_r, dtype, "dh")
+        return
+    dw, db = fused_ce_bwd_dw(h, w, b, y, ref_lse, up)
+    torch.cuda.synchronize()
+    assert dw.dtype == dtype
+    _close(dw, dw_r, dtype, "dw")
+    assert (db is None) == (b is None)
+    if b is not None:
+        _close(db, db_r, dtype, "db")
+
+
+def test_fused_ce_valid_rows(card):
+    """The backward kernels' row list: the rows not ignored, in order,
+    their count last, and each row's place in the list (-1 if ignored),
+    across more than one 1024-row chunk."""
+    g = torch.Generator().manual_seed(2)
+    y = torch.randint(0, 9, (2500,), generator=g)
+    y[torch.rand(2500, generator=g) < 0.85] = -100
+    rows, pos = valid_rows(y.to(card))
+    want = torch.nonzero(y != -100)[:, 0]
+    count = int(rows[-1])
+    assert count == want.numel()
+    assert torch.equal(rows[:count].cpu().long(), want)
+    expect = torch.full((2500,), -1, dtype=torch.long)
+    expect[want] = torch.arange(count)
+    assert torch.equal(pos.cpu().long(), expect)
+
+
+def test_fused_ce_never_falls_back(card):
+    """Shapes the CE kernels do not take raise on the card."""
+    h, w, b, y, up = _ce_case(card, torch.float32)
+    before = kernels.launch_counts()
+    wide = torch.zeros(4, 1032, device=card)
+    with pytest.raises(ValueError, match="hidden size"):
+        fused_ce_fwd(wide, torch.zeros(9, 1032, device=card), None,
+                     y[:4])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ce_fwd(h, w.T.contiguous().T, b, y)
+    with pytest.raises(TypeError, match="weight"):
+        fused_ce_fwd(h, w.to(torch.bfloat16), None, y)
+    assert kernels.launch_counts() == before
+
+
+def test_tiny_bert_trains_through_the_ce_kernels(card):
+    """Three AdamW steps of the tiny BERT on the card: finite falling
+    loss, and all three CE kernels launched."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.datasets import LMDataset
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    cfg = BertConfig.tiny()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    net = Bert(cfg, device=card, seed=0)
+    opt = AdamW(learning_rate=1e-3, parameters=net.named_parameters())
+    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=32, n=8, seed=0)
+    ids = torch.from_numpy(ds.inputs).to(card)
+    lab = torch.from_numpy(ds.labels).to(card)
+    kernels.reset_launch_counts()
+    losses = []
+    for _ in range(3):
+        loss = net(ids, masked_lm_labels=lab)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    counts = kernels.launch_counts()
+    for name in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"):
+        assert counts[name] == 3, counts

@@ -1,0 +1,201 @@
+"""Port parity: the fused linear + cross-entropy head
+(paddle_tpu_torch/ops/cuda/fused_ce.py, nn/functional.py) against the JAX
+package's Pallas kernels run in interpret mode, as tests/test_fused_ce.py
+runs them.
+
+On the CPU the port's wrappers run their plain versions through the same
+``torch.autograd.Function`` the card uses. f32 throughout. Tolerances:
+loss 1e-6 and grads 1e-5 absolute; both sides compute the same f32 sums
+in different orders (XLA's blocked interpret kernel, torch's CPU matmul).
+
+Out-of-range labels are -5 and 10**6: the JAX wrapper pads the vocab to a
+multiple of 128, and a label inside that padding (here [517, 640)) would
+match a masked padding column there, while on the card no padded column
+exists. Labels that miss every column, padded or not, have the same
+meaning in both: loss = lse.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+import paddle_tpu.nn.functional as JF
+from paddle_tpu.ops.pallas.fused_ce import fused_linear_cross_entropy as jk
+from paddle_tpu_torch.core import flags as tflags
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.ops import cuda as kernels
+from paddle_tpu_torch.ops.cuda import (fused_ce_bwd_ref, fused_ce_fwd,
+                                       fused_ce_fwd_ref)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The shapes are tiny: one intra-op thread is enough, and it leaves
+    the other cores to the timing-sensitive tests that run beside this
+    file in a parallel test run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+LOSS_TOL = 1e-6
+GRAD_TOL = 1e-5
+V = 517
+
+
+@pytest.fixture
+def interpret():
+    paddle.set_flags({"FLAGS_pallas_interpret": True})
+    yield
+    paddle.set_flags({"FLAGS_pallas_interpret": False})
+
+
+def _case(kind, seed=0, n=48, hd=32, vocab=V):
+    """h, w, b, y, upstream g as numpy. ~30% ignored rows; "oob" adds
+    out-of-range labels; "all_ignored" ignores every row."""
+    rng = np.random.RandomState(seed)
+    h = rng.randn(n, hd).astype(np.float32)
+    w = (0.2 * rng.randn(vocab, hd)).astype(np.float32)
+    b = (0.1 * rng.randn(vocab)).astype(np.float32)
+    y = np.where(rng.rand(n) < 0.3, -100, rng.randint(0, vocab, n))
+    if kind == "oob":
+        y[1], y[2] = -5, 10 ** 6
+    if kind == "all_ignored":
+        y[:] = -100
+    g = rng.rand(n).astype(np.float32)
+    return h, w, b, y.astype(np.int64), g
+
+
+def _jax(h, w, b, y, g):
+    """Per-token losses and (dh, dW, db) of sum(loss * g) from the JAX
+    kernel (interpret mode)."""
+    def f(h_, w_, b_):
+        return jk(h_, w_, b_, jnp.asarray(y, jnp.int32))
+
+    args = (jnp.asarray(h), jnp.asarray(w),
+            None if b is None else jnp.asarray(b))
+    loss = np.asarray(f(*args))
+    argnums = (0, 1) if b is None else (0, 1, 2)
+    grads = jax.grad(lambda *a: jnp.sum(f(*a) * jnp.asarray(g)),
+                     argnums=argnums)(*args)
+    return loss, [np.asarray(x) for x in grads]
+
+
+def _port(h, w, b, y, g, reduction="none"):
+    ts = [torch.tensor(x, requires_grad=True)
+          for x in ((h, w) if b is None else (h, w, b))]
+    tb = ts[2] if b is not None else None
+    loss = F.fused_linear_cross_entropy(ts[0], ts[1], tb,
+                                        torch.from_numpy(y),
+                                        reduction=reduction)
+    (loss * torch.from_numpy(g)).sum().backward()
+    return loss.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("kind", ["mixed", "oob", "all_ignored"])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_per_token_loss_and_grads_match_jax(interpret, kind, with_bias):
+    h, w, b, y, g = _case(kind)
+    b = b if with_bias else None
+    jl, jg = _jax(h, w, b, y, g)
+    tl, tg = _port(h, w, b, y, g)
+    np.testing.assert_allclose(tl, jl, atol=LOSS_TOL)
+    assert len(tg) == len(jg)
+    for t, j in zip(tg, jg):
+        np.testing.assert_allclose(t, j, atol=GRAD_TOL)
+    ignored = y == -100
+    assert (tl[ignored] == 0).all()
+    if kind == "oob":
+        _, lse = fused_ce_fwd_ref(torch.from_numpy(h), torch.from_numpy(w),
+                                  None if b is None else torch.from_numpy(b),
+                                  torch.from_numpy(y))
+        np.testing.assert_allclose(tl[1:3], lse.numpy()[1:3], atol=LOSS_TOL)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+def test_reductions_match_jax(interpret, reduction):
+    h, w, b, y, _ = _case("oob", seed=1, hd=24)
+    ten = [paddle.to_tensor(x) for x in (h, w, b)]
+    jl = np.asarray(JF.fused_linear_cross_entropy(
+        ten[0].reshape([4, 12, 24]), ten[1], ten[2],
+        paddle.to_tensor(y.reshape(4, 12)), reduction=reduction)._value)
+    tl = F.fused_linear_cross_entropy(
+        torch.from_numpy(h).reshape(4, 12, 24), torch.from_numpy(w),
+        torch.from_numpy(b), torch.from_numpy(y).reshape(4, 12),
+        reduction=reduction)
+    np.testing.assert_allclose(tl.numpy(), jl, atol=LOSS_TOL * 48)
+
+
+def test_all_ignored_mean_is_zero():
+    h, w, b, y, _ = _case("all_ignored", seed=2)
+    loss = F.fused_linear_cross_entropy(torch.from_numpy(h),
+                                        torch.from_numpy(w),
+                                        torch.from_numpy(b),
+                                        torch.from_numpy(y))
+    assert float(loss) == 0.0
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_flag_off_composite_matches_jax_fallback(with_bias):
+    """FLAGS_use_fused_ce off in both packages: the plain composite head
+    (logits materialized), differentiated by each framework's autograd."""
+    h, w, b, y, g = _case("mixed", seed=3)
+    b = b if with_bias else None
+    paddle.set_flags({"FLAGS_use_fused_ce": False})
+    tflags.set_flags({"FLAGS_use_fused_ce": False})
+    try:
+        jt = [paddle.to_tensor(x, stop_gradient=False)
+              for x in ((h, w) if b is None else (h, w, b))]
+        jl = JF.fused_linear_cross_entropy(
+            jt[0], jt[1], jt[2] if b is not None else None,
+            paddle.to_tensor(y), reduction="none")
+        (jl * paddle.to_tensor(g)).sum().backward()
+        before = kernels.launch_counts()
+        tl, tg = _port(h, w, b, y, g)
+        assert kernels.launch_counts() == before
+    finally:
+        paddle.set_flags({"FLAGS_use_fused_ce": True})
+        tflags.set_flags({"FLAGS_use_fused_ce": True})
+    np.testing.assert_allclose(tl, np.asarray(jl._value), atol=LOSS_TOL)
+    for t, j in zip(tg, jt):
+        np.testing.assert_allclose(t, np.asarray(j.grad._value),
+                                   atol=GRAD_TOL)
+
+
+def test_plain_backward_matches_autograd_of_plain_forward():
+    """The hand-written plain backward (the kernels' oracle) against
+    torch autograd through the plain forward."""
+    h, w, b, y, g = _case("oob", seed=4)
+    th, tw, tb = (torch.tensor(x, requires_grad=True) for x in (h, w, b))
+    loss, lse = fused_ce_fwd_ref(th, tw, tb, torch.from_numpy(y))
+    (loss * torch.from_numpy(g)).sum().backward()
+    dh, dw, db = fused_ce_bwd_ref(th.detach(), tw.detach(), tb.detach(),
+                                  torch.from_numpy(y), lse.detach(),
+                                  torch.from_numpy(g))
+    for ours, ref in ((dh, th.grad), (dw, tw.grad), (db, tb.grad)):
+        np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=GRAD_TOL)
+
+
+def test_cpu_wrappers_run_plain_versions_and_count_nothing():
+    h, w, b, y, _ = _case("mixed", seed=5)
+    args = [torch.from_numpy(x) for x in (h, w, b, y)]
+    before = kernels.launch_counts()
+    loss, lse = fused_ce_fwd(*args)
+    ref_loss, ref_lse = fused_ce_fwd_ref(*args)
+    assert torch.equal(loss, ref_loss) and torch.equal(lse, ref_lse)
+    assert kernels.launch_counts() == before
+    assert {"fused_ce_fwd", "fused_ce_bwd_dh",
+            "fused_ce_bwd_dw"} <= set(before)
+
+
+def test_wrapper_rejects_mismatched_shapes():
+    h, w, b, y, _ = _case("mixed", seed=6)
+    with pytest.raises(ValueError, match="labels"):
+        fused_ce_fwd(torch.from_numpy(h), torch.from_numpy(w), None,
+                     torch.from_numpy(y[:-1]))
+    with pytest.raises(ValueError, match="bias"):
+        fused_ce_fwd(torch.from_numpy(h), torch.from_numpy(w),
+                     torch.from_numpy(b[:-1]), torch.from_numpy(y))
