@@ -35,17 +35,48 @@ Phases, each printing its own lines; any failure exits non-zero:
    AdamW), batch 32, s 128, dropout 0.1, LMDataset batches cycled; 5
    warm-up and 30 timed steps, step ms / samples/s / tokens/s / MFU. Every
    kernel's launch count is zeroed before this phase and the three CE
-   kernels' must be > 0 after it;
+   kernels' must be > 0 after it; with the default FLAGS_flash_min_seq
+   at or below s, the attention takes the flash kernels too, and each
+   must count 12 x 35 launches;
 9. CE kernel timings at the flagship head (n 4096, H 768, V 30522, bf16,
-   bias, 85% ignored) and at GPT-2's (V 50304, no bias, none ignored):
-   kernel, bound, plain version and the ``F.linear`` + ``F.cross_entropy``
-   yardstick (its autograd backward for dh alone and for dW/db alone),
-   with the kernels held to phase 6's limits at both shapes.
+   bias, 85% ignored) and at GPT-2's (V 50304, no bias, none ignored: the
+   head of phase 12's path), kernel, bound, plain version and the
+   ``F.linear`` + ``F.cross_entropy`` yardstick (its autograd backward for
+   dh alone and for dW/db alone), with the kernels held to phase 6's
+   limits at both shapes;
+10. the three flash-attention kernels (forward, dq, dk/dv) against their
+    plain versions: f32 and bf16, causal and not, bias and none, (s_q,
+    s_k) in {(128, 128), (1024, 1024), (33, 33), (7, 65), (1, 40), (32,
+    64), (4096, 4096)}, d in {16, 64, 128, 256}; O, lse, dq, dk, dv each
+    held to its limits (``FLASH_TOL``);
+11. GPT-2 small at full width in f32 (b 1, s 1024, dropout 0,
+    ``FLAGS_flash_min_seq=0``): one AdamW step through the flash kernels
+    against the same step with ``FLAGS_use_flash_attention`` off (the
+    composite under autograd): loss, every parameter's gradient,
+    parameters after;
+12. the long-sequence training path, as ``bench.py:bench_longseq`` shapes
+    it: GPT-2 small bf16 (O2) at b 1, s 4096, dropout 0, 2 warm-up and 15
+    timed steps through the flash and CE kernels (tokens/s, step ms, MFU,
+    the time breakdown); every kernel's launch count is zeroed before it,
+    each flash kernel must count 12 x 17 launches and each CE kernel > 0
+    after it; then the same steps with flash off (``vs_baseline``);
+13. flash kernel timings at that path's shape (b 1, h 12, s 4096, d 64,
+    bf16, causal) beside their bounds, plain versions and the torch SDPA
+    yardstick, and the ``FLAGS_flash_min_seq`` sweep: forward + backward
+    through the kernels and through the composite at 16384 tokens, s from
+    128 to 4096, causal and not.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
 (``{"kernels": [...]}``) comes before both.
+
+One phase alone (after ``phase_build()``), from the repo root:
+``python3 -c "import chip_smoke as c; c.setup(); c.phase_build();
+c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phase 10 on
+copies of the checkout with one planted fault each (``FAULTS``) and
+exits 0 when every copy fails it.
 """
+import contextlib
 import itertools
 import json
 import os
@@ -86,6 +117,9 @@ SOURCES = {
     "fused_ce_fwd": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
     "fused_ce_bwd_dh": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
     "fused_ce_bwd_dw": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
+    "flash_fwd": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+    "flash_bwd_dq": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+    "flash_bwd_dkv": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
 }
 REPLACES = {
     "decode_attention": "paddle_tpu/ops/pallas/decode_attention.py:46",
@@ -94,8 +128,30 @@ REPLACES = {
     "fused_ce_fwd": "paddle_tpu/ops/pallas/fused_ce.py:41",
     "fused_ce_bwd_dh": "paddle_tpu/ops/pallas/fused_ce.py:145",
     "fused_ce_bwd_dw": "paddle_tpu/ops/pallas/fused_ce.py:173",
+    "flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:103",
+    "flash_bwd_dq": "paddle_tpu/ops/pallas/flash_attention.py:234",
+    "flash_bwd_dkv": "paddle_tpu/ops/pallas/flash_attention.py:272",
 }
 CE_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# Flash limits per quantity, as CE_TOL: "lse" absolute; "<x>_max" the
+# largest |error| of x over its largest |entry|, "<x>_norm" the error's
+# norm over x's. Set from the worst readings of phase 10 with headroom
+# (PERF.md section 6 gives them): f32 2-8x; bf16 "_max" 1e-2, since one
+# bf16 ulp of the largest entry is at most 2^-7 = 7.8e-3 of it and the
+# readings are such single rounding flips, "_norm" 4-8x.
+FLASH_TOL = {
+    torch.float32: {"lse": 1e-5, "o_max": 2e-5, "o_norm": 5e-6,
+                    "dq_max": 5e-6, "dq_norm": 5e-6, "dk_max": 5e-6,
+                    "dk_norm": 5e-6, "dv_max": 1e-5, "dv_norm": 5e-6},
+    torch.bfloat16: {"lse": 1e-5, "o_max": 1e-2, "o_norm": 1e-2,
+                     "dq_max": 1e-2, "dq_norm": 2e-3, "dk_max": 1e-2,
+                     "dk_norm": 2e-3, "dv_max": 1e-2, "dv_norm": 2e-3},
+}
+# f32 GPT-2 step, flash kernels against the composite, as STEP_TOL; set
+# from phase 11's readings (loss equal, gradients 2.8e-6, parameters
+# 1.7e-6) with 6-7x headroom
+GPT_STEP_TOL = {"loss": 1e-5, "grad": 2e-5, "param": 1e-5}
 PEAK_NAME = "H100 SXM dense bf16 peak, 989 TFLOP/s (NVIDIA data sheet)"
 
 
@@ -642,9 +698,11 @@ def phase_bert_equivalence():
             "param_max_abs_diff": dparam}
 
 
-def _profile_steps(step, n=3):
+def _profile_steps(step, n=3, named=()):
     """Device time by kernel over ``n`` steps (torch.profiler, CUDA kernel
-    rows only); None where the profiler records no device time here."""
+    rows only), and per step the summed time of the kernels whose names
+    hold each string of ``named``; None where the profiler records no
+    device time here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -659,9 +717,13 @@ def _profile_steps(step, n=3):
     if not rows:
         return None
     rows.sort(reverse=True)
-    return {"device_busy_ms_per_step": sum(r[0] for r in rows),
-            "top": [{"ms_per_step": r[0], "kernel": r[1][:80],
-                     "calls_per_step": r[2]} for r in rows[:12]]}
+    out = {"device_busy_ms_per_step": sum(r[0] for r in rows),
+           "top": [{"ms_per_step": r[0], "kernel": r[1][:80],
+                    "calls_per_step": r[2]} for r in rows[:12]]}
+    if named:
+        out["kernel_ms_per_step"] = {
+            name: sum(r[0] for r in rows if name in r[1]) for name in named}
+    return out
 
 
 def _step_breakdown(net, opt, ids, lab, step_ms, n=10):
@@ -743,10 +805,18 @@ def phase_flagship():
            "mfu_peak": PEAK_NAME,
            "loss_start": loss_start, "loss_end": loss_end,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": {k: counts[k] for k in CE_KERNELS}}
+           "launches": {k: counts[k] for k in CE_KERNELS + FLASH_KERNELS}}
     log(f"[flagship] {json.dumps(res)}")
     for k in CE_KERNELS:
         check(counts[k] > 0, f"{k} never launched on the training path")
+    # at s 128 the attention takes the flash kernels once the default
+    # FLAGS_flash_min_seq admits it
+    from paddle_tpu_torch.core import flags
+    want = L * (warmup + steps) \
+        if flags.flag("FLAGS_flash_min_seq") <= seq else 0
+    for k in FLASH_KERNELS:
+        check(counts[k] == want, f"{k} launched {counts[k]} times on the "
+                                 f"training path, not {want}")
     check(np.isfinite(loss_start) and np.isfinite(loss_end),
           "non-finite loss")
     check(loss_end < loss_start, "loss did not fall")
@@ -857,13 +927,479 @@ def phase_ce_timings():
     return bert, gpt
 
 
+# --------------------------------------------------------------------------
+# phase 10: the flash-attention kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def _flash_inputs(bh, b, sq, sk, d, dt, bias, gen):
+    """q, k, v, dO ~ N(0, 1) (logits O(1) at scale d^-0.5) and, with
+    ``bias``, an f32 key bias [b, s_k] ~ N(0, 0.5^2) with 30% of the keys
+    at -1e9 but key 0 kept, so every causal row sees a key."""
+    q, k, v = (torch.randn(bh, s, d, generator=gen).to("cuda", dt)
+               for s in (sq, sk, sk))
+    do = torch.randn(bh, sq, d, generator=gen).to("cuda", dt)
+    bb = None
+    if bias:
+        bb = 0.5 * torch.randn(b, sk, generator=gen)
+        bb[torch.rand(b, sk, generator=gen) < 0.3] = -1e9
+        bb[:, 0] = 0.0
+        bb = bb.to("cuda")
+    return q, k, v, bb, do
+
+
+def flash_errors(q, k, v, bias, causal, do, where):
+    """Errors of the three kernels against the plain versions on the same
+    inputs (the backward kernels and the plain backward both take the
+    plain forward's o and lse), checked against FLASH_TOL: absolute under
+    the kernels' names, ``_rel_errs`` per quantity."""
+    from paddle_tpu_torch.ops.cuda import (flash_bwd_dkv, flash_bwd_dq,
+                                           flash_bwd_ref, flash_fwd,
+                                           flash_fwd_ref)
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_delta
+    o_r, lse_r = flash_fwd_ref(q, k, v, bias, causal)
+    o, lse = flash_fwd(q, k, v, bias, causal)
+    delta = flash_delta(o_r, do)
+    dq = flash_bwd_dq(q, k, v, bias, do, lse_r, delta, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, bias, do, lse_r, delta, causal)
+    torch.cuda.synchronize()
+    dq_r, dk_r, dv_r = flash_bwd_ref(q, k, v, bias, o_r, lse_r, do, causal)
+    check(o.dtype == q.dtype and dq.dtype == dk.dtype == dv.dtype == q.dtype
+          and lse.dtype == torch.float32, "flash output dtypes")
+    out = {"lse": _err(lse, lse_r), "flash_fwd": _err(o, o_r),
+           "flash_bwd_dq": _err(dq, dq_r),
+           "flash_bwd_dkv": max(_err(dk, dk_r), _err(dv, dv_r))}
+    for name, got, ref in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r),
+                           ("dv", dv, dv_r)):
+        out[f"{name}_max"], out[f"{name}_norm"] = _rel_errs(got, ref)
+    for key, tol in FLASH_TOL[q.dtype].items():
+        check(out[key] <= tol, f"{key} {out[key]:.3e} > {tol:g} at {where}")
+    return out
+
+
+def _flash_line(e):
+    return (f"lse {e['lse']:.2e}; o max {e['o_max']:.2e} norm "
+            f"{e['o_norm']:.2e}; dq {e['dq_max']:.2e} / {e['dq_norm']:.2e}"
+            f"; dk {e['dk_max']:.2e} / {e['dk_norm']:.2e}; dv "
+            f"{e['dv_max']:.2e} / {e['dv_norm']:.2e}")
+
+
+def phase_flash():
+    gen = torch.Generator().manual_seed(11)
+    shapes = [(128, 128), (1024, 1024), (33, 33), (7, 65), (1, 40),
+              (32, 64), (4096, 4096)]
+    b, h = 2, 2
+    worst = {}
+    t0 = time.perf_counter()
+    n = 0
+    for dt, causal, bias, (sq, sk), d in itertools.product(
+            (torch.float32, torch.bfloat16), (False, True), (False, True),
+            shapes, (16, 64, 128, 256)):
+        where = (f"{str(dt)[6:]} causal={causal} bias={bias} sq={sq} "
+                 f"sk={sk} d={d}")
+        q, k, v, bb, do = _flash_inputs(b * h, b, sq, sk, d, dt, bias, gen)
+        errs = flash_errors(q, k, v, bb, causal, do, where)
+        n += 1
+        if sq >= 1024 or (d == 64 and not bias):
+            log(f"[flash] {where}: {_flash_line(errs)}")
+        for key, e in errs.items():
+            worst.setdefault(key, {})
+            worst[key][dt] = max(worst[key].get(dt, 0.0), e)
+    log(f"[flash] {n} cases in {time.perf_counter() - t0:.1f} s; worst "
+        + json.dumps({key: {str(t)[6:]: e for t, e in w.items()}
+                      for key, w in worst.items()}))
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phases 11-12: GPT-2 small training through the flash kernels
+# --------------------------------------------------------------------------
+
+def _lm_batch(vocab, batch, seq, seed=0):
+    """bench.py:bench_longseq's batch: ids from RandomState(seed) in
+    [4, vocab), labels the ids rolled by -1 (every row valid)."""
+    ids = np.random.RandomState(seed).randint(4, vocab, (batch, seq))
+    return (torch.from_numpy(ids).to("cuda"),
+            torch.from_numpy(np.roll(ids, -1, axis=1)).to("cuda"))
+
+
+def _flash_flags(use):
+    """Attention on the flash kernels (use) or the composite, at any s."""
+    from paddle_tpu_torch.core import flags
+    flags.set_flags({"FLAGS_use_flash_attention": use,
+                     "FLAGS_flash_min_seq": 0})
+
+
+@contextlib.contextmanager
+def _flash_flags_kept():
+    """Restore the two flash flags on leaving."""
+    from paddle_tpu_torch.core import flags
+    names = ("FLAGS_use_flash_attention", "FLAGS_flash_min_seq")
+    saved = {n: flags.flag(n) for n in names}
+    try:
+        yield
+    finally:
+        flags.set_flags(saved)
+
+
+def phase_gpt_equivalence():
+    """One f32 AdamW step of GPT-2 small (b 1, s 1024) through the flash
+    kernels and one with FLAGS_use_flash_attention off, from the same
+    weights on the same batch: the losses, every parameter's gradient and
+    the parameters after the step."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig(dropout=0.0)
+    ids, labels = _lm_batch(cfg.vocab_size, 1, 1024, seed=1)
+    out = {}
+    with _flash_flags_kept():
+        for use in (True, False):
+            _flash_flags(use)
+            net = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
+            net.train()
+            opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                        parameters=net.named_parameters())
+            before = kernels.launch_counts()
+            loss = net(ids, labels=labels)
+            loss.backward()
+            grads = {k: None if p.grad is None else p.grad.detach().clone()
+                     for k, p in net.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            used = {k: kernels.launch_counts()[k] - before[k]
+                    for k in FLASH_KERNELS}
+            check(set(used.values()) == {cfg.num_layers if use else 0},
+                  f"flag did not route attention: {used}")
+            out[use] = (float(loss.detach()), grads,
+                        {k: p.detach().clone()
+                         for k, p in net.named_parameters()})
+            del net, opt
+    (lk, gk, pk), (lp, gp, pp) = out[True], out[False]
+    rel = abs(lk - lp) / abs(lp)
+    dgrad = {k: _grad_rel(gk[k], gp[k]) for k in gk}
+    worst = max(dgrad, key=dgrad.get)
+    dparam = max(float((pk[k] - pp[k]).abs().max()) for k in pk)
+    log(f"[gpt f32 equivalence] b1 s1024: loss flash {lk:.7f} composite "
+        f"{lp:.7f} (rel {rel:.2e}, tol {GPT_STEP_TOL['loss']:g}); gradients "
+        f"largest rel diff {dgrad[worst]:.2e} ({worst}; tol "
+        f"{GPT_STEP_TOL['grad']:g}), qkv of block 0 "
+        f"{dgrad['blocks.0.attn.qkv_proj.weight']:.2e}; params after one "
+        f"AdamW step max abs diff {dparam:.2e} (tol "
+        f"{GPT_STEP_TOL['param']:g}) over {len(pk)} tensors")
+    check(np.isfinite(lk), "GPT loss not finite")
+    check(rel <= GPT_STEP_TOL["loss"], f"GPT loss differs: {rel}")
+    check(dgrad[worst] <= GPT_STEP_TOL["grad"],
+          f"GPT gradient {worst} differs: {dgrad[worst]}")
+    check(dparam <= GPT_STEP_TOL["param"],
+          "GPT parameters differ after a step")
+    return {"loss_flash": lk, "loss_composite": lp, "loss_rel_diff": rel,
+            "grad_max_rel_diff": dgrad[worst], "grad_worst": worst,
+            "param_max_abs_diff": dparam}
+
+
+def _longseq_run(cfg, ids, labels, use_flash, warmup, steps):
+    """bench_longseq's step (bf16 params, f32 master weights and moments)
+    with flash on or off: (result, the step closure)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPT
+    _flash_flags(use_flash)
+    net = GPT(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    net.train()
+    opt = AdamW(learning_rate=1e-4, parameters=net.named_parameters(),
+                multi_precision=True)
+
+    def step():
+        return _train_step_lm(net, opt, ids, labels)
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = step()
+        if i in (0, steps - 1):
+            losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"step_ms": dt * 1e3 / steps,
+            "loss_start": float(losses[0]), "loss_end": float(losses[1]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params": sum(p.numel() for p in net.parameters())}, step
+
+
+def _train_step_lm(net, opt, ids, labels):
+    loss = net(ids, labels=labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def phase_longseq():
+    """The long-sequence training path: bench.py:bench_longseq at GPT-2
+    small, b 1, s 4096, bf16, flash on (the kernels) and then off."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+    batch, seq, warmup, steps = 1, 4096, 2, 15
+    cfg = GPTConfig(max_seq_len=seq, dropout=0.0)
+    ids, labels = _lm_batch(cfg.vocab_size, batch, seq)
+    named = FLASH_KERNELS + ("ce_fwd_kernel", "ce_bwd_dh_kernel",
+                             "ce_dh_reduce_kernel", "ce_bwd_dw_kernel")
+
+    with _flash_flags_kept():
+        kernels.reset_launch_counts()
+        t_path = time.perf_counter()
+        res, step = _longseq_run(cfg, ids, labels, True, warmup, steps)
+        counts = kernels.launch_counts()
+        log(f"[longseq path] {time.perf_counter() - t_path:.1f} s; kernel "
+            f"launches {counts}")
+        for k in FLASH_KERNELS:
+            check(counts[k] == cfg.num_layers * (warmup + steps),
+                  f"{k} launched {counts[k]} times on the long-sequence "
+                  f"path, not {cfg.num_layers * (warmup + steps)}")
+        for k in CE_KERNELS:
+            check(counts[k] > 0, f"{k} never launched on the path")
+        try:   # the time breakdown, after the counts are read
+            prof = _profile_steps(step, named=named)
+        except Exception as e:   # the measurement is optional, the path not
+            prof = None
+            log(f"[longseq profile] not measured: {type(e).__name__}: {e}")
+        del step
+        comp, step = _longseq_run(cfg, ids, labels, False, warmup, steps)
+        del step
+    tokens = batch * seq
+    L, H = cfg.num_layers, cfg.hidden_size
+    flops = 6 * res["params"] * tokens + 6 * L * H * seq * tokens
+    res.update({"config": "gpt2_small_longseq", "dtype": "bfloat16",
+                "batch": batch, "seq": seq, "warmup": warmup, "steps": steps,
+                "tokens_per_s": tokens / res["step_ms"] * 1e3,
+                "mfu": flops / (res["step_ms"] / 1e3)
+                / PEAK_FLOPS[torch.bfloat16],
+                "mfu_peak": PEAK_NAME,
+                "step_ms_composite": comp["step_ms"],
+                "vs_baseline": comp["step_ms"] / res["step_ms"],
+                "composite_loss_start": comp["loss_start"],
+                "composite_loss_end": comp["loss_end"],
+                "composite_peak_mem_gb": comp["peak_mem_gb"],
+                "launches": {k: counts[k] for k in FLASH_KERNELS + CE_KERNELS}})
+    if prof is not None:
+        res["breakdown"] = prof
+        res["breakdown"]["device_idle_share"] = \
+            1 - prof["device_busy_ms_per_step"] / res["step_ms"]
+    log(f"[longseq] {json.dumps(res)}")
+    check(np.isfinite(res["loss_start"]) and np.isfinite(res["loss_end"]),
+          "non-finite loss")
+    check(res["loss_end"] < res["loss_start"], "loss did not fall")
+    return counts, res
+
+
+# --------------------------------------------------------------------------
+# phase 13: flash timings and the FLAGS_flash_min_seq sweep
+# --------------------------------------------------------------------------
+
+def _live_pairs(sq, sk, causal):
+    """(row, key) pairs the causal mask leaves (all without it)."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(max(0, min(sk, r + off + 1)) for r in range(sq))
+
+
+def flash_bound(kernel, bh, sq, sk, d, dt, causal):
+    """Least time: inputs read once and outputs written once over the HBM
+    rate, or the products' flops over the peak of the input type (the
+    forward 2 products, dq 3 with the recompute, dk/dv 4; causal counts
+    the live pairs only)."""
+    el = torch.finfo(dt).bits // 8
+    qkv = (bh * sq * d + 2 * bh * sk * d) * el
+    if kernel == "flash_fwd":
+        nbytes = qkv + bh * sq * d * el + bh * sq * 4         # + o, lse
+        products = 2
+    elif kernel == "flash_bwd_dq":
+        nbytes = qkv + 2 * bh * sq * d * el + 2 * bh * sq * 4  # dO, dq
+        products = 3
+    else:
+        nbytes = qkv + bh * sq * d * el + 2 * bh * sq * 4 \
+            + 2 * bh * sk * d * el                             # dk, dv
+        products = 4
+    flops = 2 * products * bh * d * _live_pairs(sq, sk, causal)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _flash_time_shape(b=1, h=12, s=4096, d=64, dt=torch.bfloat16,
+                      causal=True):
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops.cuda import (flash_bwd_dkv, flash_bwd_dq,
+                                           flash_fwd, flash_fwd_ref)
+    from paddle_tpu_torch.ops.cuda.flash_attention import _bwd_ref, flash_delta
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, _, do = _flash_inputs(b * h, b, s, s, d, dt, False, gen)
+    errs = flash_errors(q, k, v, None, causal, do,
+                        f"b{b} h{h} s{s} d{d} {str(dt)[6:]} causal={causal}")
+    log(f"[flash timing] errors: {_flash_line(errs)}")
+    o, lse = flash_fwd(q, k, v, None, causal)
+    delta = flash_delta(o, do)
+    scale = d ** -0.5
+    q4, k4, v4, do4 = (t.reshape(b, h, s, d) for t in (q, k, v, do))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    lib_out = tF.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+    timed = {
+        "flash_fwd": (lambda: flash_fwd(q, k, v, None, causal),
+                      lambda: flash_fwd_ref(q, k, v, None, causal),
+                      lambda: tF.scaled_dot_product_attention(
+                          q4, k4, v4, is_causal=causal)),
+        "flash_bwd_dq": (lambda: flash_bwd_dq(q, k, v, None, do, lse, delta,
+                                              causal),
+                         lambda: _bwd_ref(q, k, v, None, do, lse, delta,
+                                          causal, scale, need_dkv=False),
+                         lambda: torch.autograd.grad(
+                             lib_out, (ql,), grad_outputs=do4,
+                             retain_graph=True)),
+        "flash_bwd_dkv": (lambda: flash_bwd_dkv(q, k, v, None, do, lse,
+                                                delta, causal),
+                          lambda: _bwd_ref(q, k, v, None, do, lse, delta,
+                                           causal, scale, need_dq=False),
+                          lambda: torch.autograd.grad(
+                              lib_out, (kl, vl), grad_outputs=do4,
+                              retain_graph=True)),
+    }
+    out = {}
+    for name, (kern, plain, lib) in timed.items():
+        bnd, by = flash_bound(name, b * h, s, s, d, dt, causal)
+        out[name] = {"ms": time_ms(kern, runs=20),
+                     "plain_ms": time_ms(plain, runs=5, warmup=1),
+                     "library_ms": time_ms(lib, runs=20),
+                     "bound_ms": bnd, "bound_by": by,
+                     "max_abs_err": errs[name],
+                     "b": b, "h": h, "s": s, "d": d, "causal": causal}
+        r = out[name]
+        log(f"[flash timing] {name} b{b} h{h} s{s} d{d} {str(dt)[6:]} "
+            f"causal={causal}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out
+
+
+def _sweep_ms(route, b, h, s, d, causal, gen):
+    """Forward + backward of attention at [b, h, s, d] bf16 through the
+    flash kernels or the composite, under autograd."""
+    from paddle_tpu_torch.nn.functional import _sdpa
+    from paddle_tpu_torch.ops.cuda import flash_attention
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen)
+                   .to("cuda", torch.bfloat16) for _ in range(4))
+    ql, kl, vl = (t.requires_grad_() for t in (q, k, v))
+    scale = d ** -0.5
+
+    def run():
+        if route == "flash":
+            out = flash_attention(ql, kl, vl, causal=causal, scale=scale)
+        else:
+            out = _sdpa(ql, kl, vl, None, scale, causal)
+        torch.autograd.grad(out, (ql, kl, vl), grad_outputs=do)
+
+    return time_ms(run, runs=10, warmup=2)
+
+
+def phase_flash_timings():
+    timing = _flash_time_shape()
+    gen = torch.Generator().manual_seed(13)
+    tokens, h, d = 16384, 12, 64
+    rows = []
+    for causal in (False, True):
+        for s in (128, 256, 512, 1024, 2048, 4096):
+            b = tokens // s
+            # turns: composite, flash, flash, composite
+            c1 = _sweep_ms("composite", b, h, s, d, causal, gen)
+            f1 = _sweep_ms("flash", b, h, s, d, causal, gen)
+            f2 = _sweep_ms("flash", b, h, s, d, causal, gen)
+            c2 = _sweep_ms("composite", b, h, s, d, causal, gen)
+            row = {"s": s, "b": b, "causal": causal,
+                   "flash_ms": min(f1, f2), "composite_ms": min(c1, c2)}
+            rows.append(row)
+            log(f"[min_seq sweep] {json.dumps(row)}")
+    # the smallest s from which the kernels are no slower, causal and not,
+    # at that s and every larger one
+    wins = {s: all(r["flash_ms"] <= r["composite_ms"] for r in rows
+                   if r["s"] >= s) for s in sorted({r["s"] for r in rows})}
+    measured = min((s for s, w in wins.items() if w), default=4096)
+    from paddle_tpu_torch.core import flags
+    default = flags.flag("FLAGS_flash_min_seq")
+    log(f"[min_seq sweep] measured FLAGS_flash_min_seq {measured}; the "
+        f"port's default {default}")
+    return timing, {"rows": rows, "min_seq_measured": measured,
+                    "min_seq_default": default}
+
+
+# Planted faults (``python3 chip_smoke.py --faults``): each changes one
+# line of flash_attention.cu in a copy of the checkout, and phase 10 must
+# fail on that copy.
+FAULTS = {
+    "last_live_causal_key_tile_skipped":
+        ("min(nk, last / bt + 1)", "min(nk, last / bt)"),
+    "dkv_without_delta":
+        ("ds_s[r * ldp + c] = from_f32<T>(ds);   // rounded to q's dtype",
+         "ds_s[r * ldp + c] = from_f32<T>(ds + p * delta_s[r] * a.scale);"),
+    "dq_without_scale":
+        ("ds_s[r * ldp + c] = from_f32<T>(ds);   // rounded to k's dtype",
+         "ds_s[r * ldp + c] = from_f32<T>(ds / a.scale);"),
+}
+
+
+def plant_faults():
+    """Phase 10 on a copy of the checkout per planted fault; 0 when the
+    phase fails on every copy, each failure printed."""
+    import shutil
+    import tempfile
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu"
+    caught = 0
+    for name, (old, new) in FAULTS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            copy = os.path.join(tmp, "tree")
+            shutil.copytree(root, copy, ignore=shutil.ignore_patterns(
+                ".git", ".build", ".scratch", "__pycache__"))
+            path = os.path.join(copy, src)
+            with open(path) as f:
+                text = f.read()
+            check(text.count(old) == 1, f"fault {name}: its line is not "
+                                        f"in {src} exactly once")
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+            proc = subprocess.run(
+                [sys.executable, "-c", "import chip_smoke as c; c.setup(); "
+                 "c.phase_build(); c.phase_flash()"],
+                cwd=copy, capture_output=True, text=True, timeout=900)
+        said = [ln for ln in (proc.stdout + proc.stderr).splitlines()
+                if "chip_smoke:" in ln]
+        failed = proc.returncode != 0 and bool(said)
+        caught += failed
+        log(f"[faults] {name}: phase 10 exit {proc.returncode}; "
+            f"{said[-1] if said else 'no check failed'}")
+    log(f"[faults] {caught} of {len(FAULTS)} planted faults fail phase 10")
+    return 0 if caught == len(FAULTS) else 1
+
+
+def setup():
+    """The checkout on sys.path, and f32 products in f32 (no TF32)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 is f32 here
-    torch.backends.cudnn.allow_tf32 = False
+    setup()
     t_all = time.perf_counter()
     card = phase_build()
     worst_c = phase_contiguous()
@@ -874,6 +1410,10 @@ def main():
     equiv = phase_bert_equivalence()
     ce_counts, flagship = phase_flagship()
     ce_bert, ce_gpt = phase_ce_timings()
+    worst_fl = phase_flash()
+    gpt_equiv = phase_gpt_equivalence()
+    ls_counts, longseq = phase_longseq()
+    fl_timing, sweep = phase_flash_timings()
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -888,7 +1428,8 @@ def main():
         kernels.append(rec)
     for name in CE_KERNELS:
         rec = {"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": REPLACES[name], "launches": ce_counts[name]}
+               "replaces": REPLACES[name], "launches": ce_counts[name],
+               "launches_longseq": ls_counts[name]}
         rec.update(ce_bert[name])
         rec["gpt_head"] = ce_gpt[name]
         # over every comparison of phase 6 and both timed shapes
@@ -902,10 +1443,21 @@ def main():
                                      ce_bert[name]["max_rel_err"],
                                      ce_gpt[name]["max_rel_err"])
         kernels.append(rec)
+    for name in FLASH_KERNELS:
+        rec = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": ls_counts[name]}
+        rec.update(fl_timing[name])
+        # over every comparison of phase 10 and the timed shape
+        rec["max_abs_err"] = max(*worst_fl[name].values(),
+                                 fl_timing[name]["max_abs_err"])
+        rec["max_abs_err_f32"] = worst_fl[name][torch.float32]
+        kernels.append(rec)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels, "serve_bf16": serve,
                       "bert_f32_equivalence": equiv,
-                      "flagship_bf16": flagship}))
+                      "flagship_bf16": flagship,
+                      "gpt_f32_equivalence": gpt_equiv,
+                      "longseq_bf16": longseq, "min_seq_sweep": sweep}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -914,4 +1466,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(plant_faults() if sys.argv[1:] == ["--faults"] else main())

@@ -4,6 +4,14 @@ and training slices read.
 Flags are declared once with a type and default, seeded from a
 same-named ``FLAGS_*`` environment variable at import, and get/set-able
 at run time with ``set_flags``.
+
+Of the JAX package's flash-attention flags, ``FLAGS_use_flash_attention``
+and ``FLAGS_flash_min_seq`` are here; the min-seq default is the H100's
+own (``chip_smoke.py``'s sweep), not the TPU's 1024. Left out:
+``FLAGS_flash_block_q/k`` (TPU tile overrides; the CUDA kernels choose
+their tile from shared memory, csrc/flash_attention.cu) and
+``FLAGS_flash_attention_interpret`` (there is no interpreter: CPU tensors
+take the plain version, CUDA tensors the kernel).
 """
 from __future__ import annotations
 
@@ -62,6 +70,16 @@ define_flag("FLAGS_serve_max_active", 64,
 define_flag("FLAGS_executor_max_inflight", 2,
             "pipeline depth: how many dispatched-but-not-materialized "
             "steps the serve loop keeps queued on the device stream")
+define_flag("FLAGS_use_flash_attention", True,
+            "route scaled_dot_product_attention through the flash "
+            "kernels (ops/cuda/flash_attention.py) where the gate admits "
+            "the call; off = the attention composite")
+define_flag("FLAGS_flash_min_seq", 128,
+            "dispatch threshold: the flash kernels engage when s_k >= "
+            "this. chip_smoke.py's sweep on the H100 found the kernels "
+            "faster than the composite at every s it tried (128 to 4096, "
+            "causal and not), so this is its smallest; below it the "
+            "composite runs. 0 forces the kernels on whenever shapes allow")
 define_flag("FLAGS_use_fused_ce", True,
             "route linear+cross-entropy loss heads through the fused CE "
             "kernels (ops/cuda/fused_ce.py); off = the plain composite "

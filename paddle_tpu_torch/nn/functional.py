@@ -1,14 +1,17 @@
 """Functional ops of the serving and training slices
 (paddle_tpu/nn/functional, paddle_tpu/ops/loss.py).
 
-``scaled_dot_product_attention`` here is the composite ``_sdpa`` of the
-JAX package (nn/functional/__init__.py:72-87): causal positions filled
-with ``finfo.min``, softmax by max-subtraction. The JAX package runs that
-composite below ``FLAGS_flash_min_seq`` and sends longer sequences to its
-flash kernel; the flash kernel is not ported yet, so the port runs the
-composite on the CPU and on the card alike (``GPT.forward`` without a
-cache). The decode paths do not come here: they use the decode-attention
-kernels (ops/cuda/decode_attention.py).
+``scaled_dot_product_attention`` is the JAX package's dispatch site
+(nn/functional/__init__.py:146-166): the gate ``_flash_eligible`` sends a
+call to the flash kernels (``_flash_sdpa`` -> ops/cuda/flash_attention.py:
+the kernels for CUDA tensors, their plain versions for CPU tensors) when
+``FLAGS_use_flash_attention`` is on, ``s_k >= FLAGS_flash_min_seq``, the
+mask has no gradient and the shapes are ``supported``; else it runs the
+composite ``_sdpa`` (:72-87): causal positions filled with ``finfo.min``,
+softmax by max-subtraction. Each decision bumps ``cuda.hit.flash_attention``
+or ``cuda.gate_reject.flash_attention.{reason}``. The decode paths do not
+come here: they use the decode-attention kernels
+(ops/cuda/decode_attention.py).
 
 ``fused_linear_cross_entropy`` is the loss-head dispatch site
 (nn/functional/__init__.py:191): with ``FLAGS_use_fused_ce`` on it runs
@@ -25,6 +28,8 @@ import torch
 import torch.nn.functional as tF
 
 from ..core import flags as _flags
+from ..ops.cuda import gate_hit, gate_reject
+from ..ops.cuda.flash_attention import flash_attention, supported
 from ..ops.cuda.fused_ce import fused_ce, fused_ce_fwd_ref
 
 __all__ = ["linear", "gelu", "relu", "dropout", "scaled_dot_product_attention",
@@ -66,20 +71,59 @@ def _sdpa(q, k, v, mask, scale, is_causal):
         if mask.dtype == torch.bool:
             logits = logits.masked_fill(~mask, fill)
         else:
-            # an f32 additive mask stays in the logits' dtype (bf16 runs)
+            # an f32 additive mask stays in the logits' dtype (bf16 runs),
+            # as the flash route returns q's dtype; the JAX composite
+            # promotes to f32 here (ROADMAP Queue 3)
             logits = logits + mask.to(logits.dtype)
     probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     probs = probs / probs.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
+def _flash_sdpa(q, k, v, mask, scale, is_causal):
+    """The flash kernels on [b, h, s, d]: a [b, 1, 1, s_k] mask becomes
+    the f32 key bias [b, s_k] (a bool mask: 0 where kept, -1e9 where not)."""
+    bias = None
+    if mask is not None:
+        m = mask.reshape(mask.shape[0], mask.shape[-1])
+        if m.dtype == torch.bool:
+            bias = torch.where(m, 0.0, -1e9).to(torch.float32)
+        else:
+            bias = m.to(torch.float32)
+    return flash_attention(q, k, v, bias=bias, causal=is_causal, scale=scale)
+
+
+def _flash_eligible(query, key, value, attn_mask):
+    """The gate, in the JAX package's order (its ``backend`` reason has no
+    counterpart: CPU tensors take the kernels' plain versions)."""
+    if not _flags.flag("FLAGS_use_flash_attention"):
+        return gate_reject("flash_attention", "flag_off")
+    min_seq = int(_flags.flag("FLAGS_flash_min_seq"))
+    if min_seq and key.shape[-2] < min_seq:
+        return gate_reject("flash_attention", "min_seq")
+    if attn_mask is not None and attn_mask.requires_grad:
+        # the kernels treat the bias as data (no mask gradient); a learned
+        # additive mask takes the composite, which differentiates it
+        return gate_reject("flash_attention", "mask_grad")
+    mask_shape = None if attn_mask is None else tuple(attn_mask.shape)
+    if not supported(tuple(query.shape), tuple(key.shape),
+                     tuple(value.shape), mask_shape):
+        return gate_reject("flash_attention", "shape")
+    return gate_hit("flash_attention")
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False, scale=None,
                                  training=True):
-    """Attention core; dropout applies to the attention output, not to
-    the probabilities, as in the JAX package."""
+    """Attention core over [batch, heads, seq, head_dim]: the flash
+    kernels where the gate admits the call, else the composite. Dropout
+    applies to the attention output, not to the probabilities, as in the
+    JAX package."""
     scale = query.shape[-1] ** -0.5 if scale is None else scale
-    out = _sdpa(query, key, value, attn_mask, scale, is_causal)
+    if _flash_eligible(query, key, value, attn_mask):
+        out = _flash_sdpa(query, key, value, attn_mask, scale, is_causal)
+    else:
+        out = _sdpa(query, key, value, attn_mask, scale, is_causal)
     return dropout(out, dropout_p, training)
 
 

@@ -8,8 +8,11 @@ caches, and the BERT encoder stack (paddle_tpu/nn/layer/transformer.py).
 - ``PagedKVCache`` (nn/kv_pool.py): the serving arena through block
   tables; attention is the block-table kernel.
 Both caches are eval-only, as the kernels have no dropout and no
-backward. ``TransformerEncoderLayer`` / ``TransformerEncoder`` run the
-attention composite with an additive ``src_mask`` [b, 1, 1, s].
+backward. Without a cache, attention is ``F.scaled_dot_product_attention``:
+the flash kernels (forward and backward) once ``s >= FLAGS_flash_min_seq``,
+else the composite. ``TransformerEncoderLayer`` / ``TransformerEncoder``
+pass an additive ``src_mask`` [b, 1, 1, s], which the flash route takes
+as its key bias.
 """
 from __future__ import annotations
 
@@ -77,6 +80,9 @@ class MultiHeadAttention(torch.nn.Module):
         q, k, v = self._heads(q), self._heads(k), self._heads(v)
         scale = self.head_dim ** -0.5
         if cache is None:
+            # head-split views of the one qkv projection; the flash route
+            # copies them to contiguous [b * h, s, d] (flash_attention),
+            # the kernels take no strides
             out = F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=attn_mask, dropout_p=self.dropout,

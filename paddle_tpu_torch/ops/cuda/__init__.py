@@ -1,15 +1,27 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one source each under
 ``csrc/``, built with nvcc at first use (``_build.py``) and bound with
-ctypes. Importing this package builds nothing."""
+ctypes. Importing this package builds nothing.
+
+Dispatch sites that choose between a kernel and a composite record why
+(``gate_reject``, counter ``cuda.gate_reject.{kernel}.{reason}``) or that
+the kernel engaged (``gate_hit``, counter ``cuda.hit.{kernel}``), as the
+JAX package's ``pallas.gate_reject`` / ``pallas.hit`` counters do. There
+is no ``run_guarded``: a kernel that fails on the card raises, it is
+never demoted to the composite."""
+from ...core import monitor, trace
 from .decode_attention import (  # noqa: F401
     decode_attention, decode_attention_ref, paged_attention_ref,
     paged_decode_attention)
+from .flash_attention import (  # noqa: F401
+    flash_attention, flash_bwd_dkv, flash_bwd_dq, flash_bwd_ref, flash_fwd,
+    flash_fwd_ref)
 from .fused_ce import (  # noqa: F401
     fused_ce, fused_ce_bwd_dh, fused_ce_bwd_dw, fused_ce_bwd_ref,
     fused_ce_fwd, fused_ce_fwd_ref, valid_rows)
 
 KERNELS = (decode_attention, paged_decode_attention, fused_ce_fwd,
-           fused_ce_bwd_dh, fused_ce_bwd_dw)
+           fused_ce_bwd_dh, fused_ce_bwd_dw, flash_fwd, flash_bwd_dq,
+           flash_bwd_dkv)
 
 
 def reset_launch_counts():
@@ -20,3 +32,17 @@ def reset_launch_counts():
 
 def launch_counts():
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def gate_reject(kernel: str, reason: str):
+    """Record one eligibility-gate rejection; returns False so a gate can
+    ``return gate_reject(k, r)``."""
+    monitor.stat_add(f"cuda.gate_reject.{kernel}.{reason}")
+    trace.instant("cuda/gate_reject", kernel=kernel, reason=reason)
+    return False
+
+
+def gate_hit(kernel: str):
+    """Record that a dispatch site engaged its kernel; returns True."""
+    monitor.stat_add(f"cuda.hit.{kernel}")
+    return True

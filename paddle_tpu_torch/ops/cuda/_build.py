@@ -22,7 +22,7 @@ __all__ = ["load", "build_all", "nvcc_path", "SOURCES"]
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / ".build"
-SOURCES = ("decode_attention", "fused_ce")
+SOURCES = ("decode_attention", "fused_ce", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

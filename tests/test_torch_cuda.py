@@ -1,6 +1,6 @@
 """paddle_tpu_torch on the card: the CUDA kernels against their plain
-versions, the no-fallback rule, tiny-GPT serving and tiny-BERT training
-through the kernels.
+versions, the no-fallback rule, tiny-GPT serving, and tiny-BERT and
+tiny-GPT training through the kernels.
 
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither jax nor paddle_tpu, so it also runs on a machine with
@@ -12,10 +12,14 @@ import torch
 
 from paddle_tpu_torch.ops import cuda as kernels
 from paddle_tpu_torch.ops.cuda import (decode_attention, decode_attention_ref,
-                                       fused_ce_bwd_dh, fused_ce_bwd_dw,
-                                       fused_ce_bwd_ref, fused_ce_fwd,
-                                       fused_ce_fwd_ref, paged_attention_ref,
+                                       flash_bwd_dkv, flash_bwd_dq,
+                                       flash_bwd_ref, flash_fwd,
+                                       flash_fwd_ref, fused_ce_bwd_dh,
+                                       fused_ce_bwd_dw, fused_ce_bwd_ref,
+                                       fused_ce_fwd, fused_ce_fwd_ref,
+                                       paged_attention_ref,
                                        paged_decode_attention, valid_rows)
+from paddle_tpu_torch.ops.cuda.flash_attention import flash_delta
 
 pytestmark = pytest.mark.cuda
 
@@ -237,3 +241,108 @@ def test_tiny_bert_trains_through_the_ce_kernels(card):
     counts = kernels.launch_counts()
     for name in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"):
         assert counts[name] == 3, counts
+
+
+# chip_smoke.py's FLASH_TOL: lse absolute; each of O, dq, dk, dv by its
+# largest |error| over its largest |entry| ("_max") and by norm ("_norm")
+FLASH_TOL = {
+    torch.float32: {"lse": 1e-5, "o_max": 2e-5, "o_norm": 5e-6,
+                    "dq_max": 5e-6, "dq_norm": 5e-6, "dk_max": 5e-6,
+                    "dk_norm": 5e-6, "dv_max": 1e-5, "dv_norm": 5e-6},
+    torch.bfloat16: {"lse": 1e-5, "o_max": 1e-2, "o_norm": 1e-2,
+                     "dq_max": 1e-2, "dq_norm": 2e-3, "dk_max": 1e-2,
+                     "dk_norm": 2e-3, "dv_max": 1e-2, "dv_norm": 2e-3},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+def test_flash_kernels_match_plain_versions(card, dtype, causal, bias):
+    """The three flash kernels against the plain versions on the same
+    inputs: ragged lengths (s_q 70 < s_k 97, two 64-row tiles each), a
+    head dim that is not a multiple of 16 (40), two heads per bias row.
+    Limits per quantity (FLASH_TOL)."""
+    g = torch.Generator().manual_seed(3)
+    b, h, sq, sk, d = 2, 2, 70, 97, 40
+    q = torch.randn(b * h, sq, d, generator=g).to(card, dtype)
+    k = torch.randn(b * h, sk, d, generator=g).to(card, dtype)
+    v = torch.randn(b * h, sk, d, generator=g).to(card, dtype)
+    do = torch.randn(b * h, sq, d, generator=g).to(card, dtype)
+    bb = None
+    if bias:
+        bb = 0.5 * torch.randn(b, sk, generator=g)
+        bb[torch.rand(b, sk, generator=g) < 0.3] = -1e9
+        bb[:, 0] = 0.0
+        bb = bb.to(card)
+    o_r, lse_r = flash_fwd_ref(q, k, v, bb, causal)
+    o, lse = flash_fwd(q, k, v, bb, causal)
+    delta = flash_delta(o_r, do)
+    dq = flash_bwd_dq(q, k, v, bb, do, lse_r, delta, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, bb, do, lse_r, delta, causal)
+    torch.cuda.synchronize()
+    dq_r, dk_r, dv_r = flash_bwd_ref(q, k, v, bb, o_r, lse_r, do, causal)
+    tol = FLASH_TOL[dtype]
+    assert float((lse - lse_r).abs().max()) <= tol["lse"]
+    for name, got, ref in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r),
+                           ("dv", dv, dv_r)):
+        assert got.dtype == dtype, name
+        err_max, err_norm = _rel(got, ref)
+        assert err_max <= tol[name + "_max"], (name, err_max)
+        assert err_norm <= tol[name + "_norm"], (name, err_norm)
+
+
+def test_flash_never_falls_back(card):
+    """Calls the flash kernels do not take raise on the card."""
+    q = torch.zeros(2, 8, 16, device=card)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.zeros(2, 8, 264, device=card)
+        flash_fwd(wide, wide, wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="input"):
+        flash_fwd(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="f32"):
+        flash_fwd(q, q, q, torch.zeros(2, 8, device=card,
+                                       dtype=torch.bfloat16))
+    assert kernels.launch_counts() == before
+    flash_fwd(q, q, q)
+    assert flash_fwd.launches == before["flash_fwd"] + 1
+
+
+def test_tiny_gpt_trains_through_the_flash_kernels(card):
+    """Three AdamW steps of the tiny GPT on the card with every attention
+    call on the flash kernels: finite falling loss, each flash kernel
+    launched once per layer and step."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig.tiny()
+    cfg.dropout = 0.0
+    net = GPT(cfg, device=card, seed=0)
+    net.train()
+    opt = AdamW(learning_rate=1e-3, parameters=net.named_parameters())
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(4, cfg.vocab_size, (2, 96))).to(card)
+    labels = torch.roll(ids, -1, dims=1)
+    min_seq = flags.flag("FLAGS_flash_min_seq")
+    flags.set_flags({"FLAGS_flash_min_seq": 0})
+    try:
+        kernels.reset_launch_counts()
+        losses = []
+        for _ in range(3):
+            loss = net(ids, labels=labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+    finally:
+        flags.set_flags({"FLAGS_flash_min_seq": min_seq})
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    counts = kernels.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[name] == 3 * cfg.num_layers, counts
+    assert counts["fused_ce_fwd"] == 3, counts
