@@ -47,8 +47,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 10. the three flash-attention kernels (forward, dq, dk/dv) against their
     plain versions: f32 and bf16, causal and not, bias and none, (s_q,
     s_k) in {(128, 128), (1024, 1024), (33, 33), (7, 65), (1, 40), (32,
-    64), (4096, 4096)}, d in {16, 64, 128, 256}; O, lse, dq, dk, dv each
-    held to its limits (``FLASH_TOL``);
+    64), (4096, 4096), (190, 317), (1000, 1000), (4000, 4096)}, d in {16,
+    64, 128, 256}; O, lse, dq, dk, dv each held to its limits
+    (``FLASH_TOL``). bf16 at d 64 and 128 must run the Hopper forward and
+    dk/dv (``flash_attention_sm90.cu``), everything else the kernels of
+    ``flash_attention.cu`` (per case, from the launch counters), and two
+    launches of each Hopper kernel on the same inputs must be bitwise
+    equal;
 11. GPT-2 small at full width in f32 (b 1, s 1024, dropout 0,
     ``FLAGS_flash_min_seq=0``): one AdamW step through the flash kernels
     against the same step with ``FLAGS_use_flash_attention`` off (the
@@ -58,11 +63,15 @@ Phases, each printing its own lines; any failure exits non-zero:
     it: GPT-2 small bf16 (O2) at b 1, s 4096, dropout 0, 2 warm-up and 15
     timed steps through the flash and CE kernels (tokens/s, step ms, MFU,
     the time breakdown); every kernel's launch count is zeroed before it,
-    each flash kernel must count 12 x 17 launches and each CE kernel > 0
-    after it; then the same steps with flash off (``vs_baseline``);
+    each flash kernel must count 12 x 17 launches (the forward's and dk/dv's
+    all on the Hopper kernels) and each CE kernel > 0 after it; then the
+    same steps with flash off (``vs_baseline``);
 13. flash kernel timings at that path's shape (b 1, h 12, s 4096, d 64,
-    bf16, causal) beside their bounds, plain versions and the torch SDPA
-    yardstick, and the ``FLAGS_flash_min_seq`` sweep: forward + backward
+    bf16, causal) and at the flagship's attention (b 32, h 12, s 128, d 64,
+    bf16, key bias) beside their bounds, plain versions, the torch SDPA
+    yardstick and, for the forward and dk/dv, the flash_attention.cu
+    kernel on the same bf16 inputs; SDPA's whole backward against dq + dk/dv (median and spread of 60
+    runs); and the ``FLAGS_flash_min_seq`` sweep: forward + backward
     through the kernels and through the composite at 16384 tokens, s from
     128 to 4096, causal and not.
 
@@ -117,8 +126,15 @@ SOURCES = {
     "fused_ce_fwd": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
     "fused_ce_bwd_dh": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
     "fused_ce_bwd_dw": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
-    "flash_fwd": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+    "flash_fwd": "paddle_tpu_torch/ops/cuda/csrc/flash_attention_sm90.cu",
     "flash_bwd_dq": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+    "flash_bwd_dkv":
+        "paddle_tpu_torch/ops/cuda/csrc/flash_attention_sm90.cu",
+}
+# the kernels of flash_attention.cu that f32, other head dims and unaligned
+# inputs take in place of the Hopper forward and dk/dv
+OTHER_SOURCE = {
+    "flash_fwd": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
     "flash_bwd_dkv": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
 }
 REPLACES = {
@@ -134,6 +150,7 @@ REPLACES = {
 }
 CE_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SM90_COUNTS = ("flash_fwd.sm90", "flash_bwd_dkv.sm90")   # launch_counts keys
 # Flash limits per quantity, as CE_TOL: "lse" absolute; "<x>_max" the
 # largest |error| of x over its largest |entry|, "<x>_norm" the error's
 # norm over x's. Set from the worst readings of phase 10 with headroom
@@ -179,7 +196,32 @@ def phase_build():
         text=True).stdout.strip().splitlines()[0]
     log(f"[build] nvcc {dt:.2f} s; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; card: {card}")
+    for name in _build.SOURCES:
+        for kernel, regs, spill_st, spill_ld in _ptxas_rows(
+                _build.report(name)):
+            log(f"[build] {name}.cu {kernel}: {regs} registers, spill "
+                f"stores {spill_st} B, loads {spill_ld} B")
     return card
+
+
+def _ptxas_rows(text):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    entry function in nvcc's -Xptxas -v report."""
+    import re
+    rows, name, spill = [], None, (0, 0)
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spill))
+            name = None
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -422,6 +464,11 @@ _FLUSH = None
 def time_ms(fn, runs=30, warmup=3):
     """Median device time of fn() over ``runs``, each after an L2 flush
     (the flush also keeps the device busy while the host enqueues fn)."""
+    return statistics.median(time_samples(fn, runs, warmup))
+
+
+def time_samples(fn, runs=30, warmup=3):
+    """Device times (ms) of fn() over ``runs``, as ``time_ms``."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 * 2 ** 20, dtype=torch.float32,
@@ -439,7 +486,7 @@ def time_ms(fn, runs=30, warmup=3):
         e.record()
         e.synchronize()
         ts.append(a.elapsed_time(e))
-    return statistics.median(ts)
+    return ts
 
 
 def bound(b, h, s, d, fill, dt):
@@ -805,7 +852,8 @@ def phase_flagship():
            "mfu_peak": PEAK_NAME,
            "loss_start": loss_start, "loss_end": loss_end,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": {k: counts[k] for k in CE_KERNELS + FLASH_KERNELS}}
+           "launches": {k: counts[k]
+                        for k in CE_KERNELS + FLASH_KERNELS + SM90_COUNTS}}
     log(f"[flagship] {json.dumps(res)}")
     for k in CE_KERNELS:
         check(counts[k] > 0, f"{k} never launched on the training path")
@@ -814,7 +862,7 @@ def phase_flagship():
     from paddle_tpu_torch.core import flags
     want = L * (warmup + steps) \
         if flags.flag("FLAGS_flash_min_seq") <= seq else 0
-    for k in FLASH_KERNELS:
+    for k in FLASH_KERNELS + SM90_COUNTS:
         check(counts[k] == want, f"{k} launched {counts[k]} times on the "
                                  f"training path, not {want}")
     check(np.isfinite(loss_start) and np.isfinite(loss_end),
@@ -947,11 +995,12 @@ def _flash_inputs(bh, b, sq, sk, d, dt, bias, gen):
     return q, k, v, bb, do
 
 
-def flash_errors(q, k, v, bias, causal, do, where):
+def flash_errors(q, k, v, bias, causal, do, where, repeat=False):
     """Errors of the three kernels against the plain versions on the same
     inputs (the backward kernels and the plain backward both take the
     plain forward's o and lse), checked against FLASH_TOL: absolute under
-    the kernels' names, ``_rel_errs`` per quantity."""
+    the kernels' names, ``_rel_errs`` per quantity. With ``repeat`` the
+    forward and dk/dv launch a second time and must give the same bits."""
     from paddle_tpu_torch.ops.cuda import (flash_bwd_dkv, flash_bwd_dq,
                                            flash_bwd_ref, flash_fwd,
                                            flash_fwd_ref)
@@ -961,6 +1010,13 @@ def flash_errors(q, k, v, bias, causal, do, where):
     delta = flash_delta(o_r, do)
     dq = flash_bwd_dq(q, k, v, bias, do, lse_r, delta, causal)
     dk, dv = flash_bwd_dkv(q, k, v, bias, do, lse_r, delta, causal)
+    if repeat:
+        o2, lse2 = flash_fwd(q, k, v, bias, causal)
+        dk2, dv2 = flash_bwd_dkv(q, k, v, bias, do, lse_r, delta, causal)
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"two forward launches differ at {where}")
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"two dk/dv launches differ at {where}")
     torch.cuda.synchronize()
     dq_r, dk_r, dv_r = flash_bwd_ref(q, k, v, bias, o_r, lse_r, do, causal)
     check(o.dtype == q.dtype and dq.dtype == dk.dtype == dv.dtype == q.dtype
@@ -984,27 +1040,42 @@ def _flash_line(e):
 
 
 def phase_flash():
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops.cuda.flash_attention import _sm90_path
     gen = torch.Generator().manual_seed(11)
+    # the last three: ragged, several tiles of both kernels, s_q <= s_k
     shapes = [(128, 128), (1024, 1024), (33, 33), (7, 65), (1, 40),
-              (32, 64), (4096, 4096)]
+              (32, 64), (4096, 4096), (190, 317), (1000, 1000), (4000, 4096)]
     b, h = 2, 2
     worst = {}
     t0 = time.perf_counter()
-    n = 0
+    n = n_sm90 = 0
     for dt, causal, bias, (sq, sk), d in itertools.product(
             (torch.float32, torch.bfloat16), (False, True), (False, True),
             shapes, (16, 64, 128, 256)):
         where = (f"{str(dt)[6:]} causal={causal} bias={bias} sq={sq} "
                  f"sk={sk} d={d}")
         q, k, v, bb, do = _flash_inputs(b * h, b, sq, sk, d, dt, bias, gen)
-        errs = flash_errors(q, k, v, bb, causal, do, where)
+        sm90 = _sm90_path(dt, d, True)      # fresh tensors: 16-byte aligned
+        before = kernels.launch_counts()
+        errs = flash_errors(q, k, v, bb, causal, do, where, repeat=sm90)
+        used = {key: kernels.launch_counts()[key] - before[key]
+                for key in FLASH_KERNELS + SM90_COUNTS}
+        want = {"flash_fwd": 1 + sm90, "flash_bwd_dq": 1,
+                "flash_bwd_dkv": 1 + sm90, "flash_fwd.sm90": 2 * sm90,
+                "flash_bwd_dkv.sm90": 2 * sm90}
+        check(used == want, f"kernel variants at {where}: launched {used}, "
+                            f"want {want}")
         n += 1
+        n_sm90 += sm90
         if sq >= 1024 or (d == 64 and not bias):
             log(f"[flash] {where}: {_flash_line(errs)}")
         for key, e in errs.items():
             worst.setdefault(key, {})
             worst[key][dt] = max(worst[key].get(dt, 0.0), e)
-    log(f"[flash] {n} cases in {time.perf_counter() - t0:.1f} s; worst "
+    log(f"[flash] {n} cases ({n_sm90} on the Hopper forward and dk/dv, "
+        f"each launched twice and bitwise equal) in "
+        f"{time.perf_counter() - t0:.1f} s; worst "
         + json.dumps({key: {str(t)[6:]: e for t, e in w.items()}
                       for key, w in worst.items()}))
     return worst
@@ -1155,7 +1226,7 @@ def phase_longseq():
         counts = kernels.launch_counts()
         log(f"[longseq path] {time.perf_counter() - t_path:.1f} s; kernel "
             f"launches {counts}")
-        for k in FLASH_KERNELS:
+        for k in FLASH_KERNELS + SM90_COUNTS:
             check(counts[k] == cfg.num_layers * (warmup + steps),
                   f"{k} launched {counts[k]} times on the long-sequence "
                   f"path, not {cfg.num_layers * (warmup + steps)}")
@@ -1183,7 +1254,8 @@ def phase_longseq():
                 "composite_loss_start": comp["loss_start"],
                 "composite_loss_end": comp["loss_end"],
                 "composite_peak_mem_gb": comp["peak_mem_gb"],
-                "launches": {k: counts[k] for k in FLASH_KERNELS + CE_KERNELS}})
+                "launches": {k: counts[k] for k in
+                             FLASH_KERNELS + SM90_COUNTS + CE_KERNELS}})
     if prof is not None:
         res["breakdown"] = prof
         res["breakdown"]["device_idle_share"] = \
@@ -1207,13 +1279,13 @@ def _live_pairs(sq, sk, causal):
     return sum(max(0, min(sk, r + off + 1)) for r in range(sq))
 
 
-def flash_bound(kernel, bh, sq, sk, d, dt, causal):
+def flash_bound(kernel, bh, sq, sk, d, dt, causal, bias_rows=0):
     """Least time: inputs read once and outputs written once over the HBM
     rate, or the products' flops over the peak of the input type (the
     forward 2 products, dq 3 with the recompute, dk/dv 4; causal counts
-    the live pairs only)."""
+    the live pairs only). ``bias_rows``: rows of an f32 key bias."""
     el = torch.finfo(dt).bits // 8
-    qkv = (bh * sq * d + 2 * bh * sk * d) * el
+    qkv = (bh * sq * d + 2 * bh * sk * d) * el + bias_rows * sk * 4
     if kernel == "flash_fwd":
         nbytes = qkv + bh * sq * d * el + bh * sq * 4         # + o, lse
         products = 2
@@ -1231,58 +1303,103 @@ def flash_bound(kernel, bh, sq, sk, d, dt, causal):
                                  else "operations")
 
 
-def _flash_time_shape(b=1, h=12, s=4096, d=64, dt=torch.bfloat16,
-                      causal=True):
+def _flash_module():
+    """The module ops/cuda/flash_attention (the package's attribute of that
+    name is the function)."""
+    import importlib
+    return importlib.import_module("paddle_tpu_torch.ops.cuda.flash_attention")
+
+
+@contextlib.contextmanager
+def _other_source():
+    """Inside: the wrappers send every call to flash_attention.cu, so its
+    forward and dk/dv are timed on the inputs that the Hopper kernels take
+    outside (a yardstick; phase 10 checks that route on f32 and other d)."""
+    fa = _flash_module()
+    saved = fa._sm90_path
+    fa._sm90_path = lambda dtype, d, aligned: False
+    try:
+        yield
+    finally:
+        fa._sm90_path = saved
+
+
+def _flash_time_shape(b, h, s, d, causal, bias, dt=torch.bfloat16):
+    """The three kernels at one shape: time, bound, plain version, SDPA
+    (forward; its autograd backward w.r.t. q alone, k and v alone, and all
+    three), and flash_attention.cu's forward and dk/dv on the same inputs."""
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.ops.cuda import (flash_bwd_dkv, flash_bwd_dq,
                                            flash_fwd, flash_fwd_ref)
     from paddle_tpu_torch.ops.cuda.flash_attention import _bwd_ref, flash_delta
     gen = torch.Generator().manual_seed(12)
-    q, k, v, _, do = _flash_inputs(b * h, b, s, s, d, dt, False, gen)
-    errs = flash_errors(q, k, v, None, causal, do,
-                        f"b{b} h{h} s{s} d{d} {str(dt)[6:]} causal={causal}")
-    log(f"[flash timing] errors: {_flash_line(errs)}")
-    o, lse = flash_fwd(q, k, v, None, causal)
+    q, k, v, bb, do = _flash_inputs(b * h, b, s, s, d, dt, bias, gen)
+    where = f"b{b} h{h} s{s} d{d} {str(dt)[6:]} causal={causal} bias={bias}"
+    errs = flash_errors(q, k, v, bb, causal, do, where, repeat=True)
+    log(f"[flash timing] errors at {where}: {_flash_line(errs)}")
+    o, lse = flash_fwd(q, k, v, bb, causal)
     delta = flash_delta(o, do)
     scale = d ** -0.5
     q4, k4, v4, do4 = (t.reshape(b, h, s, d) for t in (q, k, v, do))
+    mask = None if bb is None else bb.to(dt)[:, None, None, :]
     ql, kl, vl = (t.detach().requires_grad_() for t in (q4, k4, v4))
-    lib_out = tF.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+    lib_out = tF.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                              is_causal=causal)
+
+    def lib_grad(wrt):
+        return lambda: torch.autograd.grad(lib_out, wrt, grad_outputs=do4,
+                                           retain_graph=True)
+
     timed = {
-        "flash_fwd": (lambda: flash_fwd(q, k, v, None, causal),
-                      lambda: flash_fwd_ref(q, k, v, None, causal),
+        "flash_fwd": (lambda: flash_fwd(q, k, v, bb, causal),
+                      lambda: flash_fwd_ref(q, k, v, bb, causal),
                       lambda: tF.scaled_dot_product_attention(
-                          q4, k4, v4, is_causal=causal)),
-        "flash_bwd_dq": (lambda: flash_bwd_dq(q, k, v, None, do, lse, delta,
+                          q4, k4, v4, attn_mask=mask, is_causal=causal)),
+        "flash_bwd_dq": (lambda: flash_bwd_dq(q, k, v, bb, do, lse, delta,
                                               causal),
-                         lambda: _bwd_ref(q, k, v, None, do, lse, delta,
+                         lambda: _bwd_ref(q, k, v, bb, do, lse, delta,
                                           causal, scale, need_dkv=False),
-                         lambda: torch.autograd.grad(
-                             lib_out, (ql,), grad_outputs=do4,
-                             retain_graph=True)),
-        "flash_bwd_dkv": (lambda: flash_bwd_dkv(q, k, v, None, do, lse,
+                         lib_grad((ql,))),
+        "flash_bwd_dkv": (lambda: flash_bwd_dkv(q, k, v, bb, do, lse,
                                                 delta, causal),
-                          lambda: _bwd_ref(q, k, v, None, do, lse, delta,
+                          lambda: _bwd_ref(q, k, v, bb, do, lse, delta,
                                            causal, scale, need_dq=False),
-                          lambda: torch.autograd.grad(
-                              lib_out, (kl, vl), grad_outputs=do4,
-                              retain_graph=True)),
+                          lib_grad((kl, vl))),
     }
     out = {}
     for name, (kern, plain, lib) in timed.items():
-        bnd, by = flash_bound(name, b * h, s, s, d, dt, causal)
+        bnd, by = flash_bound(name, b * h, s, s, d, dt, causal,
+                              bias_rows=b if bias else 0)
         out[name] = {"ms": time_ms(kern, runs=20),
                      "plain_ms": time_ms(plain, runs=5, warmup=1),
                      "library_ms": time_ms(lib, runs=20),
                      "bound_ms": bnd, "bound_by": by,
                      "max_abs_err": errs[name],
-                     "b": b, "h": h, "s": s, "d": d, "causal": causal}
+                     "b": b, "h": h, "s": s, "d": d, "causal": causal,
+                     "bias": bias}
+        if name in OTHER_SOURCE:
+            with _other_source():
+                out[name]["other_kernel_ms"] = time_ms(kern, runs=20)
         r = out[name]
-        log(f"[flash timing] {name} b{b} h{h} s{s} d{d} {str(dt)[6:]} "
-            f"causal={causal}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"[flash timing] {name} {where}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + (f", flash_attention.cu {r['other_kernel_ms']:.4f} ms"
+               if "other_kernel_ms" in r else ""))
+    # SDPA's whole backward (dq, dk, dv in one call) against dq + dk/dv
+    runs = 60
+    lib_all = time_samples(lib_grad((ql, kl, vl)), runs=runs)
+    ours = time_samples(lambda: (
+        flash_bwd_dq(q, k, v, bb, do, lse, delta, causal),
+        flash_bwd_dkv(q, k, v, bb, do, lse, delta, causal)), runs=runs)
+    out["whole_backward"] = {
+        "runs": runs, "sdpa_ms": statistics.median(lib_all),
+        "sdpa_min_ms": min(lib_all), "sdpa_max_ms": max(lib_all),
+        "kernels_ms": statistics.median(ours), "kernels_min_ms": min(ours),
+        "kernels_max_ms": max(ours)}
+    log(f"[flash timing] whole backward {where}: "
+        f"{json.dumps(out['whole_backward'])}")
     return out
 
 
@@ -1307,7 +1424,11 @@ def _sweep_ms(route, b, h, s, d, causal, gen):
 
 
 def phase_flash_timings():
-    timing = _flash_time_shape()
+    timing = {
+        "longseq": _flash_time_shape(1, 12, 4096, 64, causal=True,
+                                     bias=False),
+        "flagship": _flash_time_shape(32, 12, 128, 64, causal=False,
+                                      bias=True)}
     gen = torch.Generator().manual_seed(13)
     tokens, h, d = 16384, 12, 64
     rows = []
@@ -1337,18 +1458,23 @@ def phase_flash_timings():
 
 
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
-# line of flash_attention.cu in a copy of the checkout, and phase 10 must
-# fail on that copy.
+# line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
+# copy of the checkout, and phase 10 must fail on that copy. The forward
+# and dk/dv faults are in the Hopper kernels that bf16 d 64 / 128 runs.
 FAULTS = {
     "last_live_causal_key_tile_skipped":
-        ("min(nk, last / bt + 1)", "min(nk, last / bt)"),
+        ("flash_attention_sm90.cu", "min(n, last / bn + 1)",
+         "min(n, last / bn)"),
     "dkv_without_delta":
-        ("ds_s[r * ldp + c] = from_f32<T>(ds);   // rounded to q's dtype",
-         "ds_s[r * ldp + c] = from_f32<T>(ds + p * delta_s[r] * a.scale);"),
+        ("flash_attention_sm90.cu",
+         "const float ds = p * (dpv - dl) * a.scale;",
+         "const float ds = p * dpv * a.scale;"),
     "dq_without_scale":
-        ("ds_s[r * ldp + c] = from_f32<T>(ds);   // rounded to k's dtype",
+        ("flash_attention.cu",
+         "ds_s[r * ldp + c] = from_f32<T>(ds);   // rounded to k's dtype",
          "ds_s[r * ldp + c] = from_f32<T>(ds / a.scale);"),
 }
+CSRC = "paddle_tpu_torch/ops/cuda/csrc"
 
 
 def plant_faults():
@@ -1360,9 +1486,9 @@ def plant_faults():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
-    src = "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu"
     caught = 0
-    for name, (old, new) in FAULTS.items():
+    for name, (source, old, new) in FAULTS.items():
+        src = f"{CSRC}/{source}"
         with tempfile.TemporaryDirectory() as tmp:
             copy = os.path.join(tmp, "tree")
             shutil.copytree(root, copy, ignore=shutil.ignore_patterns(
@@ -1445,11 +1571,18 @@ def main():
         kernels.append(rec)
     for name in FLASH_KERNELS:
         rec = {"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": REPLACES[name], "launches": ls_counts[name]}
-        rec.update(fl_timing[name])
-        # over every comparison of phase 10 and the timed shape
+               "replaces": REPLACES[name], "launches": ls_counts[name],
+               "launches_flagship": ce_counts[name]}
+        if name in OTHER_SOURCE:
+            rec["launches_sm90"] = ls_counts[f"{name}.sm90"]
+            rec["launches_flagship_sm90"] = ce_counts[f"{name}.sm90"]
+            rec["source_f32_other_d"] = OTHER_SOURCE[name]
+        rec.update(fl_timing["longseq"][name])
+        rec["flagship_shape"] = fl_timing["flagship"][name]
+        # over every comparison of phase 10 and the timed shapes
         rec["max_abs_err"] = max(*worst_fl[name].values(),
-                                 fl_timing[name]["max_abs_err"])
+                                 fl_timing["longseq"][name]["max_abs_err"],
+                                 fl_timing["flagship"][name]["max_abs_err"])
         rec["max_abs_err_f32"] = worst_fl[name][torch.float32]
         kernels.append(rec)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
@@ -1457,7 +1590,10 @@ def main():
                       "bert_f32_equivalence": equiv,
                       "flagship_bf16": flagship,
                       "gpt_f32_equivalence": gpt_equiv,
-                      "longseq_bf16": longseq, "min_seq_sweep": sweep}))
+                      "longseq_bf16": longseq, "min_seq_sweep": sweep,
+                      "flash_whole_backward": {
+                          shape: t["whole_backward"]
+                          for shape, t in fl_timing.items()}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ Of the JAX package's flash-attention flags, ``FLAGS_use_flash_attention``
 and ``FLAGS_flash_min_seq`` are here; the min-seq default is the H100's
 own (``chip_smoke.py``'s sweep), not the TPU's 1024. Left out:
 ``FLAGS_flash_block_q/k`` (TPU tile overrides; the CUDA kernels choose
-their tile from shared memory, csrc/flash_attention.cu) and
+their tiles themselves: csrc/flash_attention.cu from shared memory, the
+Hopper kernels from ops/cuda/flash_attention.py's SM90_* constants) and
 ``FLAGS_flash_attention_interpret`` (there is no interpreter: CPU tensors
 take the plain version, CUDA tensors the kernel).
 """

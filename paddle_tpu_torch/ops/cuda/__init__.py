@@ -22,16 +22,24 @@ from .fused_ce import (  # noqa: F401
 KERNELS = (decode_attention, paged_decode_attention, fused_ce_fwd,
            fused_ce_bwd_dh, fused_ce_bwd_dw, flash_fwd, flash_bwd_dq,
            flash_bwd_dkv)
+# wrappers with a second kernel: their launches of it, beside the total
+VARIANTS = {"flash_fwd.sm90": flash_fwd, "flash_bwd_dkv.sm90": flash_bwd_dkv}
 
 
 def reset_launch_counts():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     for k in KERNELS:
         k.launches = 0
+    for k in VARIANTS.values():
+        k.launches_sm90 = 0
 
 
 def launch_counts():
-    return {k.__name__: k.launches for k in KERNELS}
+    """Launches per wrapper (its kernels together) and, under
+    ``<wrapper>.sm90``, those of the Hopper variant."""
+    counts = {k.__name__: k.launches for k in KERNELS}
+    counts.update({n: k.launches_sm90 for n, k in VARIANTS.items()})
+    return counts
 
 
 def gate_reject(kernel: str, reason: str):

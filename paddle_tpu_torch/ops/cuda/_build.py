@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` compiles with nvcc into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), for
 ``sm_90a``. The library lands in ``ops/cuda/.build/`` under a name that
 carries the hash of its source and flags, so an edited source is rebuilt
-and a stale library is never loaded. Nothing here runs at import:
-``load(name)`` builds (if needed) and opens the library on first call.
+and a stale library is never loaded; ptxas's report of each kernel's
+registers and spills is kept beside it (``report``). Nothing here runs at
+import: ``load(name)`` builds (if needed) and opens the library on first
+call.
 """
 from __future__ import annotations
 
@@ -17,14 +19,15 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "build_all", "nvcc_path", "SOURCES"]
+__all__ = ["load", "build_all", "report", "nvcc_path", "SOURCES"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / ".build"
-SOURCES = ("decode_attention", "fused_ce", "flash_attention")
+SOURCES = ("decode_attention", "fused_ce", "flash_attention",
+           "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -74,6 +77,7 @@ def _finish(name, started):
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
+    target.with_suffix(".ptxas.txt").write_text(out)
     os.replace(tmp, target)   # atomic: a concurrent builder sees all or none
 
 
@@ -93,3 +97,10 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, _start(name))
             lib = _libs[name] = ctypes.CDLL(str(_target(name)))
         return lib
+
+
+def report(name: str) -> str:
+    """nvcc's output (ptxas -v: registers, spills, shared memory per
+    kernel) from the build of csrc/<name>.cu's current library."""
+    path = _target(name).with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""

@@ -20,9 +20,17 @@ the contract.
 
 Layout: the wrappers and plain versions take q [b*h, s_q, d] and k, v
 [b*h, s_k, d]; ``flash_attention`` takes [b, h, s, d] as the JAX function
-does. For a CUDA tensor a wrapper launches its kernel
-(csrc/flash_attention.cu) or raises; only for CPU tensors does it run the
-plain version. Each wrapper counts its launches in ``.launches``.
+does. For a CUDA tensor a wrapper launches its kernel or raises; only for
+CPU tensors does it run the plain version. Each wrapper counts its launches
+in ``.launches``.
+
+Two kernels per wrapper for the forward and dk/dv: bf16 at head dim 64 or
+128 with 16-byte aligned inputs goes to the Hopper kernels of
+csrc/flash_attention_sm90.cu (register-resident mma.sync tiles, a cp.async
+ring), counted also in ``.launches_sm90``; everything else to
+csrc/flash_attention.cu. ``_sm90_path`` makes that choice before launch,
+from dtype, head dim and alignment alone; a launch that fails raises and
+never gives way to the other kernel. dq always runs csrc/flash_attention.cu.
 """
 from __future__ import annotations
 
@@ -40,20 +48,37 @@ _SUPPORTED = (torch.float32, torch.bfloat16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I] * 5 + [_F] + [_I] * 3 + [_P]   # BH, H, Sq, Sk, D, scale, flags
+_TAIL_SM90 = [_I] * 5 + [_F] + [_I] + [_P]    # ..., scale, causal, stream
 _SIGS = {
     "flash_attention_fwd": [_P] * 6 + _TAIL,
     "flash_attention_bwd_dq": [_P] * 8 + _TAIL,
     "flash_attention_bwd_dkv": [_P] * 9 + _TAIL,
+    "flash_sm90_fwd": [_P] * 6 + _TAIL_SM90,
+    "flash_sm90_bwd_dkv": [_P] * 9 + _TAIL_SM90,
 }
+_SM90_D = (64, 128)
 
 
 def _fn(name):
     from ._build import load
-    f = getattr(load("flash_attention"), name)
+    lib = "flash_attention_sm90" if name.startswith("flash_sm90") \
+        else "flash_attention"
+    f = getattr(load(lib), name)
     if f.argtypes is None:
         f.argtypes = _SIGS[name]
         f.restype = ctypes.c_int
     return f
+
+
+def _sm90_path(dtype, d, aligned) -> bool:
+    """Does a call take the Hopper kernels (forward, dk/dv)? bf16 at head
+    dim 64 or 128 with 16-byte aligned q, k, v (and dO) does; f32, other
+    head dims and unaligned inputs take csrc/flash_attention.cu."""
+    return dtype == torch.bfloat16 and d in _SM90_D and bool(aligned)
+
+
+def _aligned(tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def supported(q_shape, k_shape, v_shape, mask_shape=None) -> bool:
@@ -208,13 +233,16 @@ def _ptr(t):
 def _launch(name, entry, ptrs, q, dims, scale, causal, dense):
     """Call csrc entry point ``entry`` on q's device and current stream
     with ``ptrs``, then ``dims`` (BH, H, Sq, Sk, D), the scale and the
-    flags; raise on a launch error. The vector loads need d % 8 == 0 and
-    16-byte aligned ``dense`` inputs."""
-    vec = dims[-1] % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in dense)
+    flags; raise on a launch error. flash_attention.cu's vector loads need
+    d % 8 == 0 and 16-byte aligned ``dense`` inputs; a Hopper entry point
+    takes no flags past causal."""
+    flags = ()
+    if not entry.startswith("flash_sm90"):
+        vec = dims[-1] % 8 == 0 and _aligned(dense)
+        flags = (int(vec), int(q.dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
         status = _fn(entry)(
-            *ptrs, *dims, float(scale), int(bool(causal)), int(vec),
-            int(q.dtype == torch.bfloat16),
+            *ptrs, *dims, float(scale), int(bool(causal)), *flags,
             torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
@@ -231,10 +259,16 @@ def flash_fwd(q, k, v, bias=None, causal=False, scale=None):
         return flash_fwd_ref(q, k, v, bias, causal, scale)
     out = torch.empty_like(q)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
-    _launch(name, "flash_attention_fwd",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-             out.data_ptr(), lse.data_ptr()),
-            q, (bh, heads, sq, sk, d), scale, causal, (q, k, v))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            out.data_ptr(), lse.data_ptr())
+    dims = (bh, heads, sq, sk, d)
+    if _sm90_path(q.dtype, d, _aligned((q, k, v))):
+        _launch(name, "flash_sm90_fwd", ptrs, q, dims, scale, causal,
+                (q, k, v))
+        flash_fwd.launches_sm90 += 1
+    else:
+        _launch(name, "flash_attention_fwd", ptrs, q, dims, scale, causal,
+                (q, k, v))
     flash_fwd.launches += 1
     return out, lse
 
@@ -270,18 +304,24 @@ def flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal=False, scale=None):
                         need_dq=False)[1:]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(name, "flash_attention_bwd_dkv",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-             dv.data_ptr()),
-            q, (bh, heads, sq, sk, d), scale, causal, (q, k, v, do))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr())
+    dims = (bh, heads, sq, sk, d)
+    if _sm90_path(q.dtype, d, _aligned((q, k, v, do))):
+        _launch(name, "flash_sm90_bwd_dkv", ptrs, q, dims, scale, causal,
+                (q, k, v, do))
+        flash_bwd_dkv.launches_sm90 += 1
+    else:
+        _launch(name, "flash_attention_bwd_dkv", ptrs, q, dims, scale,
+                causal, (q, k, v, do))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.launches_sm90 = 0
 flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.launches_sm90 = 0
 
 
 class _FlashAttention(torch.autograd.Function):

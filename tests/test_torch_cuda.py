@@ -258,13 +258,18 @@ FLASH_TOL = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bias", [False, True])
-def test_flash_kernels_match_plain_versions(card, dtype, causal, bias):
+@pytest.mark.parametrize("sq,sk,d", [(70, 97, 40), (130, 197, 64)])
+def test_flash_kernels_match_plain_versions(card, dtype, causal, bias, sq,
+                                            sk, d):
     """The three flash kernels against the plain versions on the same
-    inputs: ragged lengths (s_q 70 < s_k 97, two 64-row tiles each), a
-    head dim that is not a multiple of 16 (40), two heads per bias row.
-    Limits per quantity (FLASH_TOL)."""
+    inputs: ragged lengths (s_q < s_k, several 64-row tiles each), a head
+    dim that is not a multiple of 16 (40) or 64 (bf16: the Hopper forward
+    and dk/dv, their counters move; else flash_attention.cu's), two heads
+    per bias row. Limits per quantity (FLASH_TOL)."""
+    from paddle_tpu_torch.ops.cuda.flash_attention import _sm90_path
     g = torch.Generator().manual_seed(3)
-    b, h, sq, sk, d = 2, 2, 70, 97, 40
+    b, h = 2, 2
+    before = kernels.launch_counts()
     q = torch.randn(b * h, sq, d, generator=g).to(card, dtype)
     k = torch.randn(b * h, sk, d, generator=g).to(card, dtype)
     v = torch.randn(b * h, sk, d, generator=g).to(card, dtype)
@@ -282,6 +287,12 @@ def test_flash_kernels_match_plain_versions(card, dtype, causal, bias):
     dk, dv = flash_bwd_dkv(q, k, v, bb, do, lse_r, delta, causal)
     torch.cuda.synchronize()
     dq_r, dk_r, dv_r = flash_bwd_ref(q, k, v, bb, o_r, lse_r, do, causal)
+    used = {n: kernels.launch_counts()[n] - before[n]
+            for n in ("flash_fwd.sm90", "flash_bwd_dkv.sm90", "flash_fwd")}
+    sm90 = int(_sm90_path(dtype, d, True))
+    assert used == {"flash_fwd.sm90": sm90, "flash_bwd_dkv.sm90": sm90,
+                    "flash_fwd": 1}, used
+    assert sm90 == (dtype == torch.bfloat16 and d == 64)
     tol = FLASH_TOL[dtype]
     assert float((lse - lse_r).abs().max()) <= tol["lse"]
     for name, got, ref in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r),

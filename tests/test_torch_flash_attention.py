@@ -28,7 +28,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import cuda as kernels
 from paddle_tpu_torch.ops.cuda import (flash_attention, flash_bwd_ref,
                                        flash_fwd, flash_fwd_ref)
-from paddle_tpu_torch.ops.cuda.flash_attention import supported
+from paddle_tpu_torch.ops.cuda.flash_attention import flash_delta, supported
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -157,6 +157,59 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     assert kernels.launch_counts() == before
     assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= set(before)
     assert len(kernels.KERNELS) == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 40, 64, 128, 256])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_sm90_dispatch(dtype, d, aligned):
+    """bf16 at head dim 64 or 128 with aligned inputs takes the Hopper
+    forward and dk/dv; everything else flash_attention.cu's kernels."""
+    from paddle_tpu_torch.ops.cuda.flash_attention import _sm90_path
+    want = dtype == torch.bfloat16 and d in (64, 128) and aligned
+    assert _sm90_path(dtype, d, aligned) is want
+
+
+def test_planted_fault_lines_occur_once():
+    """Each of chip_smoke.py's planted faults names a line that occurs
+    exactly once in its kernel source, so ``--faults`` changes that line
+    and nothing else."""
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sources = set()
+    for name, (source, old, new) in smoke.FAULTS.items():
+        text = (root / smoke.CSRC / source).read_text()
+        assert text.count(old) == 1, name
+        assert old != new and text.replace(old, new).count(new) >= 1, name
+        sources.add(source)
+    assert sources == {"flash_attention.cu", "flash_attention_sm90.cu"}
+
+
+def test_cpu_wrappers_count_no_launch_of_either_variant():
+    """bf16 d 64 CPU tensors (the Hopper kernels' inputs on the card) run
+    the plain versions: no total and no Hopper launch is counted, and the
+    outputs are the plain versions' bit for bit."""
+    rng = np.random.RandomState(8)
+    q, k, v, do = (torch.from_numpy(rng.randn(4, s, 64).astype(np.float32))
+                   .to(torch.bfloat16) for s in (24, 40, 40, 24))
+    bias = torch.from_numpy(rng.randn(2, 40).astype(np.float32))
+    kernels.reset_launch_counts()
+    o, lse = flash_fwd(q, k, v, bias, True)
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, bias, do, lse,
+                                   flash_delta(o, do), True)
+    ro, rl = flash_fwd_ref(q, k, v, bias, True)
+    _, rk, rv = flash_bwd_ref(q, k, v, bias, o, lse, do, True)
+    assert torch.equal(o, ro) and torch.equal(lse, rl)
+    assert torch.equal(dk, rk) and torch.equal(dv, rv)
+    counts = kernels.launch_counts()
+    assert set(kernels.VARIANTS) == {"flash_fwd.sm90", "flash_bwd_dkv.sm90"}
+    assert all(n == 0 for n in counts.values()), counts
 
 
 def test_wrapper_rejects_mismatched_shapes():
