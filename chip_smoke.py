@@ -23,9 +23,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    yardstick and the bound, at the serve run's decode and prefill shapes;
 6. the three fused-CE kernels (forward, dh, dW/db) against their plain
    versions: f32 and bf16, bias and none, V in {517, 30522, 50304}, n in
-   {8, 1000, 4096}, H in {64, 768, 1024}, ~30% ignored rows and two
-   out-of-range labels per case, and per type one batch with every row
-   ignored; limits per quantity (``CE_TOL``);
+   {8, 300, 1000, 4096}, H in {64, 72, 768, 1024}, ~30% ignored rows and
+   two out-of-range labels per case, and per type one batch with every row
+   ignored; limits per quantity (``CE_TOL``). bf16 at H % 64 == 0 must run
+   the Hopper backward (``fused_ce_sm90.cu``), f32 and H 72 the dh and dW
+   kernels of ``fused_ce.cu`` (per case, from the launch counters); on the
+   Hopper backward ``fused_ce_bwd`` and a second launch of each wrapper
+   must give the same bits as the first;
 7. BERT-base at full width in f32 (batch 8, s 128, dropout 0): one
    AdamW step through the CE kernels against the same step with
    ``FLAGS_use_fused_ce`` off (the plain forward under autograd, cuBLAS
@@ -40,10 +44,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    must count 12 x 35 launches;
 9. CE kernel timings at the flagship head (n 4096, H 768, V 30522, bf16,
    bias, 85% ignored) and at GPT-2's (V 50304, no bias, none ignored: the
-   head of phase 12's path), kernel, bound, plain version and the
-   ``F.linear`` + ``F.cross_entropy`` yardstick (its autograd backward for
-   dh alone and for dW/db alone), with the kernels held to phase 6's
-   limits at both shapes;
+   head of phase 12's path): the forward, dh alone, dW/db alone and
+   ``fused_ce_bwd`` (dh, dW and db from one recompute), each with its
+   bound, plain version, the ``F.linear`` + ``F.cross_entropy`` yardstick
+   (its autograd backward for the same gradients) and, for the backward,
+   ``fused_ce.cu``'s dh and dW kernels on the same inputs; the library's
+   whole backward against ``fused_ce_bwd`` (median and spread of 60 runs);
+   the kernels held to phase 6's limits and repeats at both shapes;
 10. the three flash-attention kernels (forward, dq, dk/dv) against their
     plain versions: f32 and bf16, causal and not, bias and none, (s_q,
     s_k) in {(128, 128), (1024, 1024), (33, 33), (7, 65), (1, 40), (32,
@@ -62,10 +69,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 12. the long-sequence training path, as ``bench.py:bench_longseq`` shapes
     it: GPT-2 small bf16 (O2) at b 1, s 4096, dropout 0, 2 warm-up and 15
     timed steps through the flash and CE kernels (tokens/s, step ms, MFU,
-    the time breakdown); every kernel's launch count is zeroed before it,
-    each flash kernel must count 12 x 17 launches (the forward's and dk/dv's
-    all on the Hopper kernels) and each CE kernel > 0 after it; then the
-    same steps with flash off (``vs_baseline``);
+    the time breakdown with the CE backward's device ms per step); every
+    kernel's launch count is zeroed before it, each flash kernel must count
+    12 x 17 launches (the forward's and dk/dv's all on the Hopper kernels)
+    and each CE kernel > 0 after it (dh and dW all on the Hopper backward);
+    then the same steps with flash off (``vs_baseline``);
 13. flash kernel timings at that path's shape (b 1, h 12, s 4096, d 64,
     bf16, causal) and at the flagship's attention (b 32, h 12, s 128, d 64,
     bf16, key bias) beside their bounds, plain versions, the torch SDPA
@@ -81,9 +89,9 @@ line is ``{"ok": true, "device": {...}}``. The kernel summary line
 
 One phase alone (after ``phase_build()``), from the repo root:
 ``python3 -c "import chip_smoke as c; c.setup(); c.phase_build();
-c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phase 10 on
-copies of the checkout with one planted fault each (``FAULTS``) and
-exits 0 when every copy fails it.
+c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phase 10
+(flash faults) or phase 6 (CE faults) on copies of the checkout with one
+planted fault each (``FAULTS``) and exits 0 when every copy fails it.
 """
 import contextlib
 import itertools
@@ -124,18 +132,21 @@ SOURCES = {
     "paged_decode_attention":
         "paddle_tpu_torch/ops/cuda/csrc/decode_attention.cu",
     "fused_ce_fwd": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
-    "fused_ce_bwd_dh": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
-    "fused_ce_bwd_dw": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
+    "fused_ce_bwd_dh": "paddle_tpu_torch/ops/cuda/csrc/fused_ce_sm90.cu",
+    "fused_ce_bwd_dw": "paddle_tpu_torch/ops/cuda/csrc/fused_ce_sm90.cu",
     "flash_fwd": "paddle_tpu_torch/ops/cuda/csrc/flash_attention_sm90.cu",
     "flash_bwd_dq": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
     "flash_bwd_dkv":
         "paddle_tpu_torch/ops/cuda/csrc/flash_attention_sm90.cu",
 }
-# the kernels of flash_attention.cu that f32, other head dims and unaligned
-# inputs take in place of the Hopper forward and dk/dv
+# the kernels that the rest takes in place of the Hopper ones: those of
+# flash_attention.cu for f32, other head dims and unaligned inputs; those of
+# fused_ce.cu for f32 and H not a multiple of 64
 OTHER_SOURCE = {
     "flash_fwd": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
     "flash_bwd_dkv": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+    "fused_ce_bwd_dh": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
+    "fused_ce_bwd_dw": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
 }
 REPLACES = {
     "decode_attention": "paddle_tpu/ops/pallas/decode_attention.py:46",
@@ -151,6 +162,7 @@ REPLACES = {
 CE_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SM90_COUNTS = ("flash_fwd.sm90", "flash_bwd_dkv.sm90")   # launch_counts keys
+CE_SM90_COUNTS = ("fused_ce_bwd_dh.sm90", "fused_ce_bwd_dw.sm90")
 # Flash limits per quantity, as CE_TOL: "lse" absolute; "<x>_max" the
 # largest |error| of x over its largest |entry|, "<x>_norm" the error's
 # norm over x's. Set from the worst readings of phase 10 with headroom
@@ -589,19 +601,30 @@ def _rel_errs(got, ref):
             float(d.norm() / r.norm().clamp_min(1e-30)))
 
 
-def ce_errors(h, w, b, y, g, where):
+def ce_errors(h, w, b, y, g, where, repeat=False):
     """Errors of the three kernels against the f32 plain versions on the
     same inputs, checked against CE_TOL: absolute for loss/lse, dh and dW
     (under the kernels' names) and the relative ones of ``_rel_errs`` for
-    dh, dW and db."""
-    from paddle_tpu_torch.ops.cuda import (fused_ce_bwd_dh, fused_ce_bwd_dw,
-                                           fused_ce_bwd_ref, fused_ce_fwd,
-                                           fused_ce_fwd_ref)
+    dh, dW and db. With ``repeat``, ``fused_ce_bwd`` (both gradients from
+    one call) and a second launch of each wrapper must give the same bits
+    as the first."""
+    from paddle_tpu_torch.ops.cuda import (fused_ce_bwd, fused_ce_bwd_dh,
+                                           fused_ce_bwd_dw, fused_ce_bwd_ref,
+                                           fused_ce_fwd, fused_ce_fwd_ref)
     f32 = [None if t is None else t.float() for t in (h, w, b)]
     ref_loss, ref_lse = fused_ce_fwd_ref(*f32, y)
     loss, lse = fused_ce_fwd(h, w, b, y)
     dh = fused_ce_bwd_dh(h, w, b, y, ref_lse, g)
     dw, db = fused_ce_bwd_dw(h, w, b, y, ref_lse, g)
+    if repeat:
+        both = fused_ce_bwd(h, w, b, y, ref_lse, g)
+        again = (fused_ce_bwd_dh(h, w, b, y, ref_lse, g),
+                 *fused_ce_bwd_dw(h, w, b, y, ref_lse, g))
+        for label, got in (("fused_ce_bwd", both), ("a second launch", again)):
+            check(all(x is y_ if x is None else torch.equal(x, y_)
+                      for x, y_ in zip((dh, dw, db), got)),
+                  f"{label} differs from the first dh and dW launches at "
+                  f"{where}")
     torch.cuda.synchronize()
     dh_r, dw_r, db_r = fused_ce_bwd_ref(h, w, b, y, ref_lse, g)
     check(dh.dtype == h.dtype and dw.dtype == w.dtype, "grad dtypes")
@@ -631,9 +654,13 @@ def _ce_line(errs):
 
 
 def phase_ce():
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops.cuda.fused_ce import _sm90_bwd_path
     gen = torch.Generator().manual_seed(6)
+    # the last: H not a multiple of 64 (bf16 on fused_ce.cu's backward)
     shapes = [(8, 517, 64), (1000, 517, 1024), (4096, 517, 64),
-              (1000, 30522, 768), (4096, 30522, 768), (4096, 50304, 1024)]
+              (1000, 30522, 768), (4096, 30522, 768), (4096, 50304, 1024),
+              (300, 517, 72)]
     cases = [(dt, bias, n, v, hd, 0.3) for dt in (torch.float32,
                                                    torch.bfloat16)
              for bias in (True, False) for n, v, hd in shapes]
@@ -641,17 +668,30 @@ def phase_ce():
               for dt in (torch.float32, torch.bfloat16)]   # all ignored
     worst = {}
     t0 = time.perf_counter()
+    n_sm90 = 0
     for dt, bias, n, v, hd, ign in cases:
         where = (f"{str(dt)[6:]} bias={bias} n={n} V={v} H={hd} "
                  f"ignored={ign:.0%}")
+        sm90 = int(_sm90_bwd_path(dt, hd))
+        before = kernels.launch_counts()
         errs = ce_errors(*_ce_inputs(n, hd, v, dt, bias, gen, ignored=ign,
-                                     oob=ign < 1), where)
+                                     oob=ign < 1), where, repeat=bool(sm90))
+        used = {k: kernels.launch_counts()[k] - before[k]
+                for k in CE_KERNELS + CE_SM90_COUNTS}
+        want = {"fused_ce_fwd": 1, "fused_ce_bwd_dh": 1 + 2 * sm90,
+                "fused_ce_bwd_dw": 1 + 2 * sm90,
+                "fused_ce_bwd_dh.sm90": 3 * sm90,
+                "fused_ce_bwd_dw.sm90": 3 * sm90}
+        check(used == want, f"CE kernel variants at {where}: launched "
+                            f"{used}, want {want}")
+        n_sm90 += sm90
         log(f"[ce] {where}: {_ce_line(errs)}")
         for k, e in errs.items():
             worst.setdefault(k, {})
             worst[k][dt] = max(worst[k].get(dt, 0.0), e)
-    log(f"[ce] {len(cases)} cases in {time.perf_counter() - t0:.1f} s; "
-        f"limits {json.dumps({str(k)[6:]: v for k, v in CE_TOL.items()})}")
+    log(f"[ce] {len(cases)} cases ({n_sm90} on the Hopper backward, each "
+        f"repeated bitwise) in {time.perf_counter() - t0:.1f} s; limits "
+        f"{json.dumps({str(k)[6:]: v for k, v in CE_TOL.items()})}")
     return worst
 
 
@@ -853,10 +893,14 @@ def phase_flagship():
            "loss_start": loss_start, "loss_end": loss_end,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": {k: counts[k]
-                        for k in CE_KERNELS + FLASH_KERNELS + SM90_COUNTS}}
+                        for k in CE_KERNELS + FLASH_KERNELS + SM90_COUNTS
+                        + CE_SM90_COUNTS}}
     log(f"[flagship] {json.dumps(res)}")
     for k in CE_KERNELS:
         check(counts[k] > 0, f"{k} never launched on the training path")
+    for k in CE_SM90_COUNTS:   # bf16 at H 768: every backward on Hopper's
+        check(counts[k] == counts[k[:-5]], f"{k} launched {counts[k]} of "
+                                           f"{counts[k[:-5]]} times")
     # at s 128 the attention takes the flash kernels once the default
     # FLAGS_flash_min_seq admits it
     from paddle_tpu_torch.core import flags
@@ -884,7 +928,9 @@ def ce_bound(kernel, n, n_valid, hd, vocab, dt, bias):
     """Least time: inputs read once and outputs written once over the HBM
     rate, or the products' flops over the peak of the input type. The
     forward needs every row (lse is an output for all); dh and dW need only
-    the valid rows (an ignored row's ds is zero)."""
+    the valid rows (an ignored row's ds is zero), each the recompute and
+    its own product; ``fused_ce_bwd`` (dh, dW and db) one recompute and
+    both products."""
     el = torch.finfo(dt).bits // 8
     nbytes = (n * hd + vocab * hd + (vocab if bias else 0)) * el + n * 4
     if kernel == "fused_ce_fwd":
@@ -892,11 +938,12 @@ def ce_bound(kernel, n, n_valid, hd, vocab, dt, bias):
         flops = 2 * n * hd * vocab
     else:
         nbytes += 2 * n * 4                          # lse, g
-        if kernel == "fused_ce_bwd_dh":
-            nbytes += n * hd * el
-        else:
-            nbytes += (vocab * hd + (vocab if bias else 0)) * el
-        flops = 4 * n_valid * hd * vocab             # recompute + product
+        if kernel != "fused_ce_bwd_dw":
+            nbytes += n * hd * el                    # dh
+        if kernel != "fused_ce_bwd_dh":
+            nbytes += (vocab * hd + (vocab if bias else 0)) * el   # dW, db
+        products = 3 if kernel == "fused_ce_bwd" else 2
+        flops = 2 * products * n_valid * hd * vocab
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -906,15 +953,15 @@ def ce_bound(kernel, n, n_valid, hd, vocab, dt, bias):
 def _ce_time_shape(n, hd, vocab, bias, ignored, dt=torch.bfloat16):
     import torch.nn.functional as tF
 
-    from paddle_tpu_torch.ops.cuda import (fused_ce_bwd_dh, fused_ce_bwd_dw,
-                                           fused_ce_bwd_ref, fused_ce_fwd,
-                                           fused_ce_fwd_ref)
+    from paddle_tpu_torch.ops.cuda import (fused_ce_bwd, fused_ce_bwd_dh,
+                                           fused_ce_bwd_dw, fused_ce_bwd_ref,
+                                           fused_ce_fwd, fused_ce_fwd_ref)
     gen = torch.Generator().manual_seed(9)
     h, w, b, y, g = _ce_inputs(n, hd, vocab, dt, bias, gen, ignored=ignored,
                                oob=False)
     n_valid = int((y != -100).sum())
     errs = ce_errors(h, w, b, y, g, f"n={n} ({n_valid} valid) H={hd} "
-                     f"V={vocab} bias={bias} bf16")
+                     f"V={vocab} bias={bias} bf16", repeat=True)
     log(f"[ce timing] errors: {_ce_line(errs)}")
     _, lse = fused_ce_fwd(h, w, b, y)
     hl = h.detach().requires_grad_()
@@ -922,10 +969,17 @@ def _ce_time_shape(n, hd, vocab, bias, ignored, dt=torch.bfloat16):
     bl = None if b is None else b.detach().requires_grad_()
     lib_loss = tF.cross_entropy(tF.linear(hl, wl, bl).float(), y.long(),
                                 ignore_index=-100, reduction="none")
-    # the library's backward for one kernel's outputs: dh alone, or dW
-    # (and db) alone; each still forms the [n, V] dlogits
+    # the library's backward for one kernel's outputs: dh alone, dW (and
+    # db) alone, or all of them; each forms the [n, V] dlogits
     lib_wrt = {"fused_ce_bwd_dh": (hl,),
                "fused_ce_bwd_dw": (wl,) if bl is None else (wl, bl)}
+    lib_wrt["fused_ce_bwd"] = lib_wrt["fused_ce_bwd_dh"] \
+        + lib_wrt["fused_ce_bwd_dw"]
+
+    def lib_grad(name):
+        return lambda: torch.autograd.grad(lib_loss, lib_wrt[name],
+                                           grad_outputs=g, retain_graph=True)
+
     timed = {
         "fused_ce_fwd": (lambda: fused_ce_fwd(h, w, b, y),
                          lambda: fused_ce_fwd_ref(h, w, b, y),
@@ -935,15 +989,14 @@ def _ce_time_shape(n, hd, vocab, bias, ignored, dt=torch.bfloat16):
         "fused_ce_bwd_dh": (lambda: fused_ce_bwd_dh(h, w, b, y, lse, g),
                             lambda: fused_ce_bwd_ref(h, w, b, y, lse, g,
                                                      need_dw=False),
-                            lambda: torch.autograd.grad(
-                                lib_loss, lib_wrt["fused_ce_bwd_dh"],
-                                grad_outputs=g, retain_graph=True)),
+                            lib_grad("fused_ce_bwd_dh")),
         "fused_ce_bwd_dw": (lambda: fused_ce_bwd_dw(h, w, b, y, lse, g),
                             lambda: fused_ce_bwd_ref(h, w, b, y, lse, g,
                                                      need_dh=False),
-                            lambda: torch.autograd.grad(
-                                lib_loss, lib_wrt["fused_ce_bwd_dw"],
-                                grad_outputs=g, retain_graph=True)),
+                            lib_grad("fused_ce_bwd_dw")),
+        "fused_ce_bwd": (lambda: fused_ce_bwd(h, w, b, y, lse, g),
+                         lambda: fused_ce_bwd_ref(h, w, b, y, lse, g),
+                         lib_grad("fused_ce_bwd")),
     }
     out = {}
     for name, (kern, plain, lib) in timed.items():
@@ -953,8 +1006,13 @@ def _ce_time_shape(n, hd, vocab, bias, ignored, dt=torch.bfloat16):
             "ms": time_ms(kern, runs=20), "plain_ms": time_ms(plain, runs=20),
             "library_ms": time_ms(lib, runs=20),
             "bound_ms": bnd, "bound_by": by, "bound_all_rows_ms": full,
-            "max_abs_err": errs[name],
             "n": n, "n_valid": n_valid, "H": hd, "V": vocab, "bias": bias}
+        if name != "fused_ce_fwd":
+            # fused_ce.cu's dh and dW kernels on the same inputs
+            with _other_source("fused_ce", "_sm90_bwd_path"):
+                out[name]["other_kernel_ms"] = time_ms(kern, runs=20)
+        if name in errs:
+            out[name]["max_abs_err"] = errs[name]
         if name == "fused_ce_bwd_dw":
             out[name]["max_rel_err"] = max(errs["dw_max"],
                                            errs.get("db_max", 0.0))
@@ -963,7 +1021,21 @@ def _ce_time_shape(n, hd, vocab, bias, ignored, dt=torch.bfloat16):
             f"bias={bias} bf16: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; all rows "
-            f"{r['bound_all_rows_ms']:.4f} ms)")
+            f"{r['bound_all_rows_ms']:.4f} ms)"
+            + (f", fused_ce.cu {r['other_kernel_ms']:.4f} ms"
+               if "other_kernel_ms" in r else ""))
+    # the library's whole backward (dh, dW, db in one call) against
+    # fused_ce_bwd, in turns, 60 runs each
+    runs = 60
+    lib_all = time_samples(lib_grad("fused_ce_bwd"), runs=runs)
+    ours = time_samples(lambda: fused_ce_bwd(h, w, b, y, lse, g), runs=runs)
+    out["whole_backward"] = {
+        "runs": runs, "library_ms": statistics.median(lib_all),
+        "library_min_ms": min(lib_all), "library_max_ms": max(lib_all),
+        "kernels_ms": statistics.median(ours), "kernels_min_ms": min(ours),
+        "kernels_max_ms": max(ours)}
+    log(f"[ce timing] whole backward n={n} ({n_valid} valid) V={vocab} "
+        f"bias={bias}: {json.dumps(out['whole_backward'])}")
     return out
 
 
@@ -973,6 +1045,39 @@ def phase_ce_timings():
     bert = _ce_time_shape(4096, 768, 30522, bias=True, ignored=0.85)
     gpt = _ce_time_shape(4096, 768, 50304, bias=False, ignored=0.0)
     return bert, gpt
+
+
+def phase_ce_chunk_sweep(elems=(1 << 23, 1 << 24, 1 << 25, 1 << 26)):
+    """Not run by ``main``: ``fused_ce_bwd`` at GPT-2's head (n 4096, H
+    768, V 50304, bf16, every label valid) with the ds chunk holding each
+    of ``elems`` elements (Vc = elems / n columns), in turns (the widths
+    in order, then in reverse), and the better time of each. The chunk in
+    the source (``fused_ce._CHUNK_ELEMS``) is the fastest of this sweep."""
+    import importlib
+    fc = importlib.import_module("paddle_tpu_torch.ops.cuda.fused_ce")
+    gen = torch.Generator().manual_seed(9)
+    n, hd, vocab = 4096, 768, 50304
+    h, w, b, y, g = _ce_inputs(n, hd, vocab, torch.bfloat16, False, gen,
+                               ignored=0.0, oob=False)
+    lse = fc.fused_ce_fwd(h, w, b, y)[1]
+    saved = fc._CHUNK_ELEMS
+    times, vcs = {}, {}
+    try:
+        for e in list(elems) + list(reversed(elems)):
+            fc._CHUNK_ELEMS = e
+            vcs[e] = fc.vocab_chunk(n, vocab)
+            times.setdefault(e, []).append(time_ms(
+                lambda: fc.fused_ce_bwd(h, w, b, y, lse, g), runs=20))
+    finally:
+        fc._CHUNK_ELEMS = saved
+    rows = [{"chunk_elems": e, "vc": vcs[e], "ms": min(ts), "turns": ts}
+            for e, ts in times.items()]
+    for r in rows:
+        log(f"[ce chunk sweep] {json.dumps(r)}")
+    best = min(rows, key=lambda r: r["ms"])
+    log(f"[ce chunk sweep] fastest chunk {best['chunk_elems']} elements "
+        f"(Vc {best['vc']}); the source's {saved}")
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -1216,8 +1321,9 @@ def phase_longseq():
     batch, seq, warmup, steps = 1, 4096, 2, 15
     cfg = GPTConfig(max_seq_len=seq, dropout=0.0)
     ids, labels = _lm_batch(cfg.vocab_size, batch, seq)
-    named = FLASH_KERNELS + ("ce_fwd_kernel", "ce_bwd_dh_kernel",
-                             "ce_dh_reduce_kernel", "ce_bwd_dw_kernel")
+    ce_bwd = ("compact_rows_kernel", "ce_sm90_", "ce_bwd_dh_kernel",
+              "ce_dh_reduce_kernel", "ce_bwd_dw_kernel")
+    named = FLASH_KERNELS + ("ce_fwd_kernel",) + ce_bwd
 
     with _flash_flags_kept():
         kernels.reset_launch_counts()
@@ -1232,6 +1338,9 @@ def phase_longseq():
                   f"path, not {cfg.num_layers * (warmup + steps)}")
         for k in CE_KERNELS:
             check(counts[k] > 0, f"{k} never launched on the path")
+        for k in CE_SM90_COUNTS:
+            check(counts[k] == counts[k[:-5]], f"{k} launched {counts[k]} "
+                                               f"of {counts[k[:-5]]} times")
         try:   # the time breakdown, after the counts are read
             prof = _profile_steps(step, named=named)
         except Exception as e:   # the measurement is optional, the path not
@@ -1255,11 +1364,15 @@ def phase_longseq():
                 "composite_loss_end": comp["loss_end"],
                 "composite_peak_mem_gb": comp["peak_mem_gb"],
                 "launches": {k: counts[k] for k in
-                             FLASH_KERNELS + SM90_COUNTS + CE_KERNELS}})
+                             FLASH_KERNELS + SM90_COUNTS + CE_KERNELS
+                             + CE_SM90_COUNTS}})
     if prof is not None:
         res["breakdown"] = prof
         res["breakdown"]["device_idle_share"] = \
             1 - prof["device_busy_ms_per_step"] / res["step_ms"]
+        # the CE backward: the valid-row list and every backward kernel
+        res["breakdown"]["ce_backward_ms_per_step"] = sum(
+            prof["kernel_ms_per_step"][k] for k in ce_bwd)
     log(f"[longseq] {json.dumps(res)}")
     check(np.isfinite(res["loss_start"]) and np.isfinite(res["loss_end"]),
           "non-finite loss")
@@ -1303,25 +1416,20 @@ def flash_bound(kernel, bh, sq, sk, d, dt, causal, bias_rows=0):
                                  else "operations")
 
 
-def _flash_module():
-    """The module ops/cuda/flash_attention (the package's attribute of that
-    name is the function)."""
-    import importlib
-    return importlib.import_module("paddle_tpu_torch.ops.cuda.flash_attention")
-
-
 @contextlib.contextmanager
-def _other_source():
-    """Inside: the wrappers send every call to flash_attention.cu, so its
-    forward and dk/dv are timed on the inputs that the Hopper kernels take
-    outside (a yardstick; phase 10 checks that route on f32 and other d)."""
-    fa = _flash_module()
-    saved = fa._sm90_path
-    fa._sm90_path = lambda dtype, d, aligned: False
+def _other_source(module="flash_attention", gate="_sm90_path"):
+    """Inside: the wrappers of ops/cuda/<module> send every call to the
+    kernels of the older source (their Hopper ``gate`` says no), so those
+    are timed on the inputs that the Hopper kernels take outside (a
+    yardstick; phases 6 and 10 check that route on f32 and other shapes)."""
+    import importlib
+    mod = importlib.import_module(f"paddle_tpu_torch.ops.cuda.{module}")
+    saved = getattr(mod, gate)
+    setattr(mod, gate, lambda *args: False)
     try:
         yield
     finally:
-        fa._sm90_path = saved
+        setattr(mod, gate, saved)
 
 
 def _flash_time_shape(b, h, s, d, causal, bias, dt=torch.bfloat16):
@@ -1459,8 +1567,10 @@ def phase_flash_timings():
 
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
-# copy of the checkout, and phase 10 must fail on that copy. The forward
-# and dk/dv faults are in the Hopper kernels that bf16 d 64 / 128 runs.
+# copy of the checkout, and the phase that checks that source (6 for the
+# CE sources, 10 for the flash ones) must fail on that copy. The forward
+# and dk/dv faults are in the Hopper kernels that bf16 d 64 / 128 runs, the
+# CE faults in the Hopper backward that bf16 at H % 64 == 0 runs.
 FAULTS = {
     "last_live_causal_key_tile_skipped":
         ("flash_attention_sm90.cu", "min(n, last / bn + 1)",
@@ -1473,13 +1583,33 @@ FAULTS = {
         ("flash_attention.cu",
          "ds_s[r * ldp + c] = from_f32<T>(ds);   // rounded to k's dtype",
          "ds_s[r * ldp + c] = from_f32<T>(ds / a.scale);"),
+    "ce_ds_without_label_term":
+        ("fused_ce_sm90.cu",
+         "v = (p - (col == label[hf] ? 1.f : 0.f)) * g[hf];",
+         "v = p * g[hf];"),
+    "ce_last_chunk_dh_skipped":
+        ("fused_ce_sm90.cu",
+         "a.n_dh = dh != nullptr && c > 0 ? row_tiles * h_tiles : 0;",
+         "a.n_dh = dh != nullptr && c > 0 && c < n_chunks ? row_tiles * "
+         "h_tiles : 0;"),
+    "ce_dw_k_loop_one_tile_short":
+        ("fused_ce_sm90.cu",
+         "kt1 = (count + kBK - 1) / kBK;   // dW: K = the listed rows",
+         "kt1 = (count + kBK - 1) / kBK - 1;"),
 }
 CSRC = "paddle_tpu_torch/ops/cuda/csrc"
 
 
+def _fault_phase(source):
+    """(phase function name, number) that checks a kernel source."""
+    return ("phase_ce", 6) if source.startswith("fused_ce") \
+        else ("phase_flash", 10)
+
+
 def plant_faults():
-    """Phase 10 on a copy of the checkout per planted fault; 0 when the
-    phase fails on every copy, each failure printed."""
+    """On a copy of the checkout per planted fault, the phase that checks
+    its source; 0 when the phase fails on every copy, each failure
+    printed."""
     import shutil
     import tempfile
     if not torch.cuda.is_available():
@@ -1500,17 +1630,19 @@ def plant_faults():
                                         f"in {src} exactly once")
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
+            phase, number = _fault_phase(source)
             proc = subprocess.run(
                 [sys.executable, "-c", "import chip_smoke as c; c.setup(); "
-                 "c.phase_build(); c.phase_flash()"],
+                 f"c.phase_build(); c.{phase}()"],
                 cwd=copy, capture_output=True, text=True, timeout=900)
         said = [ln for ln in (proc.stdout + proc.stderr).splitlines()
                 if "chip_smoke:" in ln]
         failed = proc.returncode != 0 and bool(said)
         caught += failed
-        log(f"[faults] {name}: phase 10 exit {proc.returncode}; "
+        log(f"[faults] {name}: phase {number} exit {proc.returncode}; "
             f"{said[-1] if said else 'no check failed'}")
-    log(f"[faults] {caught} of {len(FAULTS)} planted faults fail phase 10")
+    log(f"[faults] {caught} of {len(FAULTS)} planted faults fail their "
+        f"phase")
     return 0 if caught == len(FAULTS) else 1
 
 
@@ -1556,6 +1688,10 @@ def main():
         rec = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "launches": ce_counts[name],
                "launches_longseq": ls_counts[name]}
+        if name in OTHER_SOURCE:
+            rec["launches_sm90"] = ce_counts[f"{name}.sm90"]
+            rec["launches_longseq_sm90"] = ls_counts[f"{name}.sm90"]
+            rec["source_f32_other_h"] = OTHER_SOURCE[name]
         rec.update(ce_bert[name])
         rec["gpt_head"] = ce_gpt[name]
         # over every comparison of phase 6 and both timed shapes
@@ -1593,7 +1729,12 @@ def main():
                       "longseq_bf16": longseq, "min_seq_sweep": sweep,
                       "flash_whole_backward": {
                           shape: t["whole_backward"]
-                          for shape, t in fl_timing.items()}}))
+                          for shape, t in fl_timing.items()},
+                      "ce_bwd": {"bert_head": ce_bert["fused_ce_bwd"],
+                                 "gpt_head": ce_gpt["fused_ce_bwd"]},
+                      "ce_whole_backward": {
+                          "bert_head": ce_bert["whole_backward"],
+                          "gpt_head": ce_gpt["whole_backward"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,14 +16,16 @@ from .flash_attention import (  # noqa: F401
     flash_attention, flash_bwd_dkv, flash_bwd_dq, flash_bwd_ref, flash_fwd,
     flash_fwd_ref)
 from .fused_ce import (  # noqa: F401
-    fused_ce, fused_ce_bwd_dh, fused_ce_bwd_dw, fused_ce_bwd_ref,
-    fused_ce_fwd, fused_ce_fwd_ref, valid_rows)
+    fused_ce, fused_ce_bwd, fused_ce_bwd_dh, fused_ce_bwd_dw,
+    fused_ce_bwd_ref, fused_ce_fwd, fused_ce_fwd_ref, valid_rows)
 
 KERNELS = (decode_attention, paged_decode_attention, fused_ce_fwd,
            fused_ce_bwd_dh, fused_ce_bwd_dw, flash_fwd, flash_bwd_dq,
            flash_bwd_dkv)
 # wrappers with a second kernel: their launches of it, beside the total
-VARIANTS = {"flash_fwd.sm90": flash_fwd, "flash_bwd_dkv.sm90": flash_bwd_dkv}
+VARIANTS = {"flash_fwd.sm90": flash_fwd, "flash_bwd_dkv.sm90": flash_bwd_dkv,
+            "fused_ce_bwd_dh.sm90": fused_ce_bwd_dh,
+            "fused_ce_bwd_dw.sm90": fused_ce_bwd_dw}
 
 
 def reset_launch_counts():

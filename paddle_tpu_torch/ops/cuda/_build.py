@@ -24,7 +24,7 @@ __all__ = ["load", "build_all", "report", "nvcc_path", "SOURCES"]
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / ".build"
-SOURCES = ("decode_attention", "fused_ce", "flash_attention",
+SOURCES = ("decode_attention", "fused_ce", "fused_ce_sm90", "flash_attention",
            "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -18,9 +18,20 @@ backward kernels work on the list of valid rows only (an ignored row's
 gradient terms are zero); ``valid_rows`` builds it on the card, once per
 backward when the caller passes it to both.
 
-For a CUDA tensor a wrapper launches its kernel (csrc/fused_ce.cu) or
-raises; only for CPU tensors does it run the plain version. Each wrapper
-counts its launches in ``.launches``.
+For a CUDA tensor a wrapper launches its kernel or raises; only for CPU
+tensors does it run the plain version. Each wrapper counts its launches in
+``.launches``.
+
+The backward has two kernels. ``fused_ce_bwd`` computes dh, dW and db
+together; bf16 with H a multiple of 64 (at most 1024) runs the Hopper
+backward of csrc/fused_ce_sm90.cu, which shares one recompute of the
+logits between dh and dW (wgmma GEMM tiles with register accumulators, over
+vocab chunks: ``vocab_chunks``), counted also in ``.launches_sm90`` of
+``fused_ce_bwd_dh`` / ``fused_ce_bwd_dw``; f32 and other H run the dh and
+dW kernels of csrc/fused_ce.cu. ``_sm90_bwd_path`` makes that choice before
+launch; a launch that fails raises and never gives way to the other
+kernel. ``fused_ce_bwd_dh`` and ``fused_ce_bwd_dw`` are ``fused_ce_bwd``
+asked for one gradient each.
 """
 from __future__ import annotations
 
@@ -28,8 +39,9 @@ import ctypes
 
 import torch
 
-__all__ = ["fused_ce", "fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw",
-           "fused_ce_fwd_ref", "fused_ce_bwd_ref", "valid_rows"]
+__all__ = ["fused_ce", "fused_ce_fwd", "fused_ce_bwd", "fused_ce_bwd_dh",
+           "fused_ce_bwd_dw", "fused_ce_fwd_ref", "fused_ce_bwd_ref",
+           "valid_rows", "vocab_chunk", "vocab_chunks"]
 
 _MAX_H = 1024
 _SUPPORTED = (torch.float32, torch.bfloat16)
@@ -37,6 +49,12 @@ _FWD_TOKENS = 64          # token rows per forward block (csrc kFwdTM)
 _DH_TOKENS = 32           # listed rows per dh block (csrc kDhTM)
 _VOCAB_TILE = 64          # vocab columns per fwd / dh tile (csrc kFwdTV)
 _MAX_DH_SPLITS = 16
+_GEMM_TILE = 128          # Hopper backward's block tile (csrc kBM, kBN)
+# ds chunk of the Hopper backward: at most n x Vc = 2**25 bf16 elements
+# (64 MB, two such buffers), the fastest of 2**23 .. 2**26 at GPT-2's head
+# on the H100 (chip_smoke.phase_ce_chunk_sweep, PERF.md): wider chunks mean
+# fewer dh partial-sum passes, and ds staying in L2 mattered less
+_CHUNK_ELEMS = 1 << 25
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
@@ -44,12 +62,14 @@ _SIGS = {
     "fused_ce_bwd_dh": [_P] * 10 + [_I] * 6 + [_P],
     "fused_ce_bwd_dw": [_P] * 10 + [_I] * 5 + [_P],
     "fused_ce_valid_rows": [_P] * 3 + [_I] * 2 + [_P],
+    "fused_ce_sm90_bwd": [_P] * 20 + [_I] * 5 + [_P],
 }
 
 
 def _fn(name):
     from ._build import load
-    f = getattr(load("fused_ce"), name)
+    lib = "fused_ce_sm90" if name.startswith("fused_ce_sm90") else "fused_ce"
+    f = getattr(load(lib), name)
     if f.argtypes is None:
         f.argtypes = _SIGS[name]
         f.restype = ctypes.c_int
@@ -233,69 +253,170 @@ def fused_ce_fwd(h, w, b, y, ignore_index=-100):
     return loss, lse
 
 
-def fused_ce_bwd_dh(h, w, b, y, lse, g, ignore_index=-100, rows=None):
-    """dh [n, H] in h's dtype from the saved lse [n] and the upstream
-    gradient ``g`` [n] of the per-token losses. CUDA tensors launch the
-    kernel, over ``rows`` (``valid_rows(y)``, built here when None); CPU
-    tensors run ``fused_ce_bwd_ref``."""
+def _sm90_bwd_path(dtype, hd) -> bool:
+    """Does a backward take the Hopper kernels of csrc/fused_ce_sm90.cu?
+    bf16 with H a multiple of 64 up to 1024 does; f32 and other H take the
+    dh and dW kernels of csrc/fused_ce.cu."""
+    return dtype == torch.bfloat16 and hd % 64 == 0 and 64 <= hd <= _MAX_H
+
+
+def vocab_chunk(n, vocab):
+    """Vocab columns per ds chunk of the Hopper backward for n rows: as few
+    chunks as keep n x Vc <= ``_CHUNK_ELEMS`` (Vc at least 128), then the
+    narrowest multiple of 128 that covers the vocab in that many, so the
+    chunks are near equal."""
+    fit = max(_GEMM_TILE, _CHUNK_ELEMS // n // _GEMM_TILE * _GEMM_TILE)
+    chunks = -(-vocab // fit)
+    return -(-vocab // (chunks * _GEMM_TILE)) * _GEMM_TILE
+
+
+def vocab_chunks(vocab, chunk):
+    """The chunk schedule: (first column, width) of each chunk in order,
+    covering [0, vocab) once; every chunk but the last is ``chunk`` wide."""
+    return [(v0, min(chunk, vocab - v0)) for v0 in range(0, vocab, chunk)]
+
+
+def _aligned16(t):
+    """t, or a copy of it where its data is not 16-byte aligned (the
+    Hopper kernels read rows in 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _bwd_sm90(h, w, b, y32, lse, g, rows, pos, need_dh, need_dw):
+    name = "fused_ce_sm90_bwd"
+    n, hd = h.shape
+    vocab = w.shape[0]
+    h, w = _aligned16(h), _aligned16(w)
+    chunk = vocab_chunk(n, vocab)
+    sched = vocab_chunks(vocab, chunk)
+    starts = (ctypes.c_int * len(sched))(*(s for s, _ in sched))
+    widths = (ctypes.c_int * len(sched))(*(c for _, c in sched))
+    row_tiles = -(-n // _GEMM_TILE)
+    dev, f32 = h.device, torch.float32
+    want_db = need_dw and b is not None
+    hc = torch.empty(n, hd, dtype=h.dtype, device=dev)
+    lse_c = torch.empty(n, dtype=f32, device=dev)
+    g_c = torch.empty(n, dtype=f32, device=dev)
+    y_c = torch.empty(n, dtype=torch.int32, device=dev)
+    # two ds buffers: the launch that forms chunk c's ds runs chunk c - 1's
+    # dh and dW passes
+    bufs = min(2, len(sched))
+    ds = torch.empty(bufs, n, chunk, dtype=h.dtype, device=dev)
+    dbp = torch.empty(bufs, row_tiles, chunk, dtype=f32, device=dev) \
+        if want_db else None
+    part = torch.empty(row_tiles * _GEMM_TILE, hd, dtype=f32, device=dev) \
+        if need_dh else None
+    dh = torch.empty_like(h) if need_dh else None
+    dw = torch.empty_like(w) if need_dw else None
+    db = torch.empty_like(b) if want_db else None
+    with torch.cuda.device(dev):
+        status = _fn(name)(
+            h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), rows.data_ptr(), pos.data_ptr(),
+            hc.data_ptr(), lse_c.data_ptr(), g_c.data_ptr(), y_c.data_ptr(),
+            ds.data_ptr(), _ptr(dbp), _ptr(part), _ptr(dh), _ptr(dw),
+            _ptr(db), starts, widths, len(sched), n, hd, vocab, chunk,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check_status(name, status)
+    return dh, dw, db
+
+
+def _bwd_dh(h, w, b, y32, lse, g, rows, pos, ignore_index):
+    """dh through csrc/fused_ce.cu's dh kernel."""
     name = "fused_ce_bwd_dh"
-    n, hd, vocab = _check(name, h, w, b, y, lse, g)
-    if h.device.type == "cpu":
-        return fused_ce_bwd_ref(h, w, b, y, lse, g, ignore_index,
-                                need_dw=False)[0]
-    y32 = y.to(torch.int32).contiguous()
+    n, hd = h.shape
     dh = torch.empty_like(h)
-    rows, pos = rows or valid_rows(y32, ignore_index)
     # the vocab split keeps the card busy when few rows are valid: sized
     # for 8 blocks per SM if every row were, so 1 in 8 valid still fills it
-    splits = _vocab_splits(h.device, -(-n // _DH_TOKENS), vocab, 8,
+    splits = _vocab_splits(h.device, -(-n // _DH_TOKENS), w.shape[0], 8,
                            _MAX_DH_SPLITS)
     part = torch.empty(splits, n, hd, dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         status = _fn(name)(
             h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
             lse.data_ptr(), g.data_ptr(), dh.data_ptr(), rows.data_ptr(),
-            pos.data_ptr(), part.data_ptr(), n, hd, vocab, int(ignore_index),
-            splits, int(h.dtype == torch.bfloat16),
+            pos.data_ptr(), part.data_ptr(), n, hd, w.shape[0],
+            int(ignore_index), splits, int(h.dtype == torch.bfloat16),
             torch.cuda.current_stream(h.device).cuda_stream)
     _check_status(name, status)
-    fused_ce_bwd_dh.launches += 1
     return dh
 
 
-def fused_ce_bwd_dw(h, w, b, y, lse, g, ignore_index=-100, rows=None):
-    """(dW [V, H] in w's dtype, db [V] in b's dtype or None without a
-    bias). CUDA tensors launch the kernel, over ``rows`` (``valid_rows(y)``,
-    built here when None); CPU tensors run ``fused_ce_bwd_ref``."""
+def _bwd_dw(h, w, b, y32, lse, g, rows, pos, ignore_index):
+    """(dW, db) through csrc/fused_ce.cu's dW kernel."""
     name = "fused_ce_bwd_dw"
-    n, hd, vocab = _check(name, h, w, b, y, lse, g)
-    if h.device.type == "cpu":
-        return fused_ce_bwd_ref(h, w, b, y, lse, g, ignore_index,
-                                need_dh=False)[1:]
-    y32 = y.to(torch.int32).contiguous()
+    n, hd = h.shape
     dw = torch.empty_like(w)
     db = None if b is None else torch.empty_like(b)
-    rows, pos = rows or valid_rows(y32, ignore_index)
     with torch.cuda.device(h.device):
         status = _fn(name)(
             h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
             lse.data_ptr(), g.data_ptr(), dw.data_ptr(), _ptr(db),
-            rows.data_ptr(), pos.data_ptr(), n, hd, vocab, int(ignore_index),
-            int(h.dtype == torch.bfloat16),
+            rows.data_ptr(), pos.data_ptr(), n, hd, w.shape[0],
+            int(ignore_index), int(h.dtype == torch.bfloat16),
             torch.cuda.current_stream(h.device).cuda_stream)
     _check_status(name, status)
-    fused_ce_bwd_dw.launches += 1
     return dw, db
 
 
+def fused_ce_bwd(h, w, b, y, lse, g, ignore_index=-100, need_dh=True,
+                 need_dw=True, rows=None):
+    """(dh [n, H] in h's dtype, dW [V, H] in w's dtype, db [V] in b's
+    dtype) from the saved lse [n] and the upstream gradient ``g`` [n] of
+    the per-token losses; None for what is not asked (db also without a
+    bias). CUDA tensors launch the kernels over ``rows``
+    (``valid_rows(y)``, built here when None): bf16 with H a multiple of
+    64 the Hopper backward, one recompute of the logits for both
+    gradients; the rest csrc/fused_ce.cu's dh and dW kernels. CPU tensors
+    run ``fused_ce_bwd_ref``."""
+    name = "fused_ce_bwd"
+    n, hd, vocab = _check(name, h, w, b, y, lse, g)
+    if h.device.type == "cpu":
+        return fused_ce_bwd_ref(h, w, b, y, lse, g, ignore_index, need_dh,
+                                need_dw)
+    if not (need_dh or need_dw):
+        return None, None, None
+    y32 = y.to(torch.int32).contiguous()
+    rows, pos = rows or valid_rows(y32, ignore_index)
+    sm90 = _sm90_bwd_path(h.dtype, hd)
+    if sm90:
+        dh, dw, db = _bwd_sm90(h, w, b, y32, lse, g, rows, pos, need_dh,
+                               need_dw)
+    else:
+        dh = _bwd_dh(h, w, b, y32, lse, g, rows, pos, ignore_index) \
+            if need_dh else None
+        dw, db = _bwd_dw(h, w, b, y32, lse, g, rows, pos, ignore_index) \
+            if need_dw else (None, None)
+    for wanted, counted in ((need_dh, fused_ce_bwd_dh),
+                            (need_dw, fused_ce_bwd_dw)):
+        if wanted:
+            counted.launches += 1
+            counted.launches_sm90 += sm90
+    return dh, dw, db
+
+
+def fused_ce_bwd_dh(h, w, b, y, lse, g, ignore_index=-100, rows=None):
+    """dh [n, H] in h's dtype: ``fused_ce_bwd`` asked for dh alone."""
+    return fused_ce_bwd(h, w, b, y, lse, g, ignore_index, need_dw=False,
+                        rows=rows)[0]
+
+
+def fused_ce_bwd_dw(h, w, b, y, lse, g, ignore_index=-100, rows=None):
+    """(dW [V, H] in w's dtype, db [V] in b's dtype or None without a
+    bias): ``fused_ce_bwd`` asked for dW alone."""
+    return fused_ce_bwd(h, w, b, y, lse, g, ignore_index, need_dh=False,
+                        rows=rows)[1:]
+
+
 fused_ce_fwd.launches = 0
-fused_ce_bwd_dh.launches = 0
-fused_ce_bwd_dw.launches = 0
+fused_ce_bwd_dh.launches = fused_ce_bwd_dh.launches_sm90 = 0
+fused_ce_bwd_dw.launches = fused_ce_bwd_dw.launches_sm90 = 0
 
 
 class _FusedCE(torch.autograd.Function):
     """Per-token losses with the kernels' backward: saves (h, W, b, y,
-    lse) and recomputes the logits tiles in dh and dW."""
+    lse) and recomputes the logits in ``fused_ce_bwd``, once for every
+    gradient asked for."""
 
     @staticmethod
     def forward(ctx, h, w, b, y, ignore_index):
@@ -309,14 +430,8 @@ class _FusedCE(torch.autograd.Function):
         h, w, b, y, lse = ctx.saved_tensors
         g = g.float().contiguous()
         need_h, need_w, need_b = ctx.needs_input_grad[:3]
-        # one valid-row list for both gradient kernels
-        rows = valid_rows(y, ctx.ignore_index) if h.is_cuda else None
-        dh = dw = db = None
-        if need_h:
-            dh = fused_ce_bwd_dh(h, w, b, y, lse, g, ctx.ignore_index, rows)
-        if need_w or need_b:
-            dw, db = fused_ce_bwd_dw(h, w, b, y, lse, g, ctx.ignore_index,
-                                     rows)
+        dh, dw, db = fused_ce_bwd(h, w, b, y, lse, g, ctx.ignore_index,
+                                  need_h, need_w or need_b)
         return dh, dw if need_w else None, db if need_b else None, None, None
 
 

@@ -14,8 +14,9 @@ from paddle_tpu_torch.ops import cuda as kernels
 from paddle_tpu_torch.ops.cuda import (decode_attention, decode_attention_ref,
                                        flash_bwd_dkv, flash_bwd_dq,
                                        flash_bwd_ref, flash_fwd,
-                                       flash_fwd_ref, fused_ce_bwd_dh,
-                                       fused_ce_bwd_dw, fused_ce_bwd_ref,
+                                       flash_fwd_ref, fused_ce_bwd,
+                                       fused_ce_bwd_dh, fused_ce_bwd_dw,
+                                       fused_ce_bwd_ref,
                                        fused_ce_fwd, fused_ce_fwd_ref,
                                        paged_attention_ref,
                                        paged_decode_attention, valid_rows)
@@ -154,11 +155,17 @@ def _close(got, ref, dtype, name):
 @pytest.mark.parametrize("kernel", ["fwd", "bwd_dh", "bwd_dw"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [True, False])
-def test_fused_ce_kernels_match_plain_versions(card, kernel, dtype, bias):
+@pytest.mark.parametrize("n,hd,vocab", [(300, 72, 517), (1000, 64, 517),
+                                        (1000, 768, 30522)])
+def test_fused_ce_kernels_match_plain_versions(card, kernel, dtype, bias, n,
+                                               hd, vocab):
     """Each CE kernel against the f32 plain version on the same inputs;
-    a ragged vocab tile (517), H not a multiple of 64. Limits per quantity
-    (CE_TOL)."""
-    h, w, b, y, up = _ce_case(card, dtype, bias=bias)
+    ragged n (1000) and vocab tiles (517, 30522), H not a multiple of 64
+    (72: fused_ce.cu's backward) or one (bf16: the Hopper backward, its
+    counters move). Limits per quantity (CE_TOL)."""
+    from paddle_tpu_torch.ops.cuda.fused_ce import _sm90_bwd_path
+    h, w, b, y, up = _ce_case(card, dtype, n=n, hd=hd, vocab=vocab,
+                              bias=bias)
     f32 = [None if t is None else t.float() for t in (h, w, b)]
     ref_loss, ref_lse = fused_ce_fwd_ref(*f32, y)
     if kernel == "fwd":
@@ -169,19 +176,56 @@ def test_fused_ce_kernels_match_plain_versions(card, kernel, dtype, bias):
         assert float((lse - ref_lse).abs().max()) <= tol
         return
     dh_r, dw_r, db_r = fused_ce_bwd_ref(h, w, b, y, ref_lse, up)
+    sm90 = int(_sm90_bwd_path(dtype, hd))
+    assert sm90 == (dtype == torch.bfloat16 and hd != 72)
+    before = kernels.launch_counts()
     if kernel == "bwd_dh":
         dh = fused_ce_bwd_dh(h, w, b, y, ref_lse, up)
         torch.cuda.synchronize()
+        used = kernels.launch_counts()["fused_ce_bwd_dh.sm90"] \
+            - before["fused_ce_bwd_dh.sm90"]
+        assert used == sm90
         assert dh.dtype == dtype
         _close(dh, dh_r, dtype, "dh")
         return
     dw, db = fused_ce_bwd_dw(h, w, b, y, ref_lse, up)
     torch.cuda.synchronize()
+    used = kernels.launch_counts()["fused_ce_bwd_dw.sm90"] \
+        - before["fused_ce_bwd_dw.sm90"]
+    assert used == sm90
     assert dw.dtype == dtype
     _close(dw, dw_r, dtype, "dw")
     assert (db is None) == (b is None)
     if b is not None:
         _close(db, db_r, dtype, "db")
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("n,hd,vocab", [(1000, 64, 517), (1000, 768, 30522),
+                                        (7, 128, 1)])
+def test_fused_ce_bwd_hopper_repeats_and_joins(card, bias, n, hd, vocab):
+    """The bf16 Hopper backward: ``fused_ce_bwd`` (one recompute for dh,
+    dW and db) gives the bits of ``fused_ce_bwd_dh`` and
+    ``fused_ce_bwd_dw``, a second launch the bits of the first, and every
+    call counts on the Hopper variants."""
+    h, w, b, y, up = _ce_case(card, torch.bfloat16, n=n, hd=hd, vocab=vocab,
+                              bias=bias)
+    lse = fused_ce_fwd(h, w, b, y)[1]
+    kernels.reset_launch_counts()
+    dh = fused_ce_bwd_dh(h, w, b, y, lse, up)
+    dw, db = fused_ce_bwd_dw(h, w, b, y, lse, up)
+    for got in (fused_ce_bwd(h, w, b, y, lse, up),
+                fused_ce_bwd(h, w, b, y, lse, up)):
+        assert torch.equal(got[0], dh) and torch.equal(got[1], dw)
+        assert (got[2] is None and db is None) or torch.equal(got[2], db)
+    counts = kernels.launch_counts()
+    for name in ("fused_ce_bwd_dh", "fused_ce_bwd_dw"):
+        assert counts[name] == counts[name + ".sm90"] == 3, counts
+    dh_r, dw_r, db_r = fused_ce_bwd_ref(h, w, b, y, lse, up)
+    _close(dh, dh_r, torch.bfloat16, "dh")
+    _close(dw, dw_r, torch.bfloat16, "dw")
+    if b is not None:
+        _close(db, db_r, torch.bfloat16, "db")
 
 
 def test_fused_ce_valid_rows(card):

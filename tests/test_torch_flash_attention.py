@@ -188,7 +188,8 @@ def test_planted_fault_lines_occur_once():
         assert text.count(old) == 1, name
         assert old != new and text.replace(old, new).count(new) >= 1, name
         sources.add(source)
-    assert sources == {"flash_attention.cu", "flash_attention_sm90.cu"}
+    assert sources == {"flash_attention.cu", "flash_attention_sm90.cu",
+                       "fused_ce_sm90.cu"}
 
 
 def test_cpu_wrappers_count_no_launch_of_either_variant():
@@ -208,7 +209,9 @@ def test_cpu_wrappers_count_no_launch_of_either_variant():
     assert torch.equal(o, ro) and torch.equal(lse, rl)
     assert torch.equal(dk, rk) and torch.equal(dv, rv)
     counts = kernels.launch_counts()
-    assert set(kernels.VARIANTS) == {"flash_fwd.sm90", "flash_bwd_dkv.sm90"}
+    assert set(kernels.VARIANTS) == {"flash_fwd.sm90", "flash_bwd_dkv.sm90",
+                                     "fused_ce_bwd_dh.sm90",
+                                     "fused_ce_bwd_dw.sm90"}
     assert all(n == 0 for n in counts.values()), counts
 
 

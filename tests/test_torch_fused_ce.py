@@ -14,6 +14,8 @@ match a masked padding column there, while on the card no padded column
 exists. Labels that miss every column, padded or not, have the same
 meaning in both: loss = lse.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,8 +28,12 @@ from paddle_tpu.ops.pallas.fused_ce import fused_linear_cross_entropy as jk
 from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import cuda as kernels
-from paddle_tpu_torch.ops.cuda import (fused_ce_bwd_ref, fused_ce_fwd,
-                                       fused_ce_fwd_ref)
+from paddle_tpu_torch.ops.cuda import (fused_ce_bwd, fused_ce_bwd_dh,
+                                       fused_ce_bwd_dw, fused_ce_bwd_ref,
+                                       fused_ce_fwd, fused_ce_fwd_ref)
+
+# the module (the package's attribute ``fused_ce`` is the function)
+fused_ce_mod = importlib.import_module("paddle_tpu_torch.ops.cuda.fused_ce")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -199,3 +205,119 @@ def test_wrapper_rejects_mismatched_shapes():
     with pytest.raises(ValueError, match="bias"):
         fused_ce_fwd(torch.from_numpy(h), torch.from_numpy(w),
                      torch.from_numpy(b[:-1]), torch.from_numpy(y))
+
+
+@pytest.mark.parametrize("need_dh", [True, False])
+@pytest.mark.parametrize("need_dw", [True, False])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_fused_ce_bwd_matches_wrappers_and_plain(need_dh, need_dw,
+                                                 with_bias):
+    """``fused_ce_bwd`` on CPU tensors: for every mix of gradients asked
+    for, the plain versions' gradients, the same as ``fused_ce_bwd_dh`` and
+    ``fused_ce_bwd_dw`` give, None where not asked (db also without a
+    bias), and no launch counted."""
+    h, w, b, y, g = _case("oob", seed=7)
+    args = [torch.from_numpy(h), torch.from_numpy(w),
+            torch.from_numpy(b) if with_bias else None, torch.from_numpy(y)]
+    _, lse = fused_ce_fwd_ref(*args)
+    up = torch.from_numpy(g)
+    before = kernels.launch_counts()
+    dh, dw, db = fused_ce_bwd(*args, lse, up, need_dh=need_dh,
+                              need_dw=need_dw)
+    assert kernels.launch_counts() == before
+    ref_dh, ref_dw, ref_db = fused_ce_bwd_ref(*args, lse, up)
+    sep_dh = fused_ce_bwd_dh(*args, lse, up)
+    sep_dw, sep_db = fused_ce_bwd_dw(*args, lse, up)
+    if need_dh:
+        assert torch.equal(dh, ref_dh) and torch.equal(dh, sep_dh)
+    else:
+        assert dh is None
+    if need_dw:
+        assert torch.equal(dw, ref_dw) and torch.equal(dw, sep_dw)
+    else:
+        assert dw is None
+    if need_dw and with_bias:
+        assert torch.equal(db, ref_db) and torch.equal(db, sep_db)
+    else:
+        assert db is None
+
+
+def test_autograd_backward_is_one_fused_ce_bwd_call(monkeypatch):
+    """The loss head's backward asks ``fused_ce_bwd`` once for dh, dW and
+    db together (one recompute of the logits on the card)."""
+    calls = []
+    real = fused_ce_mod.fused_ce_bwd
+
+    def spy(*a, **kw):
+        calls.append(a[7:9])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(fused_ce_mod, "fused_ce_bwd", spy)
+    h, w, b, y, g = _case("mixed", seed=8)
+    _port(h, w, b, y, g)
+    assert calls == [(True, True)]
+
+
+@pytest.mark.parametrize("vocab", [1, 63, 517, 30522, 50304])
+@pytest.mark.parametrize("chunk", [128, 4096])
+def test_vocab_chunks_cover_the_vocab_once(vocab, chunk):
+    """The Hopper backward's chunk schedule: in order, adjacent, [0, V)
+    once, every chunk ``chunk`` wide but a ragged last one."""
+    sched = fused_ce_mod.vocab_chunks(vocab, chunk)
+    assert sched[0][0] == 0
+    assert sum(c for _, c in sched) == vocab
+    for (v0, c), (v1, _) in zip(sched, sched[1:]):
+        assert c == chunk and v1 == v0 + c
+    last_v0, last = sched[-1]
+    assert last_v0 + last == vocab and 1 <= last <= chunk
+    assert len(sched) == -(-vocab // chunk)
+
+
+@pytest.mark.parametrize("n,vocab", [(1, 517), (4096, 50304), (4096, 30522),
+                                     (32768, 517), (100000, 50304)])
+def test_vocab_chunk_width(n, vocab):
+    """Vc: a multiple of the 128-column tile whose [n, Vc] ds chunk holds
+    at most ``_CHUNK_ELEMS`` elements (or one tile), in as few chunks as
+    that allows, and the narrowest such width: the chunks are near equal
+    (the last at most one tile per chunk shorter than the rest)."""
+    tile, cap = fused_ce_mod._GEMM_TILE, fused_ce_mod._CHUNK_ELEMS
+    vc = fused_ce_mod.vocab_chunk(n, vocab)
+    fit = max(tile, cap // n // tile * tile)
+    chunks = -(-vocab // vc)
+    assert vc % tile == 0 and tile <= vc <= fit
+    assert n * vc <= cap or vc == tile
+    assert chunks == -(-vocab // fit)            # as few chunks as fit
+    assert (vc - tile) * chunks < vocab          # no narrower width covers
+    last = vocab - (chunks - 1) * vc
+    assert vc - last < chunks * tile
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+@pytest.mark.parametrize("hd", [32, 64, 72, 128, 768, 1024, 1088])
+def test_sm90_bwd_dispatch(dtype, hd):
+    """bf16 with H a multiple of 64 up to 1024 takes the Hopper backward;
+    f32 and other H fused_ce.cu's dh and dW kernels."""
+    want = dtype == torch.bfloat16 and hd % 64 == 0 and hd <= 1024
+    assert fused_ce_mod._sm90_bwd_path(dtype, hd) is want
+
+
+def test_cpu_backward_counts_no_launch_of_either_variant():
+    """bf16 CPU tensors at H 64 (the Hopper backward's inputs on the card)
+    run the plain versions and count no launch of either backward."""
+    rng = np.random.RandomState(9)
+    h = torch.from_numpy(rng.randn(20, 64).astype(np.float32)) \
+        .to(torch.bfloat16)
+    w = torch.from_numpy(0.2 * rng.randn(70, 64).astype(np.float32)) \
+        .to(torch.bfloat16)
+    y = torch.from_numpy(rng.randint(0, 70, 20))
+    lse = fused_ce_fwd_ref(h, w, None, y)[1]
+    up = torch.ones(20)
+    kernels.reset_launch_counts()
+    dh, dw, db = fused_ce_bwd(h, w, None, y, lse, up)
+    ref = fused_ce_bwd_ref(h, w, None, y, lse, up)
+    assert torch.equal(dh, ref[0]) and torch.equal(dw, ref[1]) and db is None
+    assert dh.dtype == dw.dtype == torch.bfloat16
+    counts = kernels.launch_counts()
+    assert {"fused_ce_bwd_dh.sm90", "fused_ce_bwd_dw.sm90"} <= set(counts)
+    assert all(c == 0 for c in counts.values()), counts
