@@ -9,18 +9,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    nvcc and print the card (``nvidia-smi`` name and power limit);
 2. the contiguous decode-attention kernel against its plain version on
    the card (f32 and bf16, several chunk lengths, scalar and ragged
-   fills);
-3. the paged (block-table) decode-attention kernel against its plain
-   version, same cases, block sizes 16 and 128;
+   fills, d 40 to 256, caches of 512 and 4096 columns), each case held to
+   the absolute ``TOL`` and the norm-relative ``DECODE_NORM_TOL``; per
+   case the kernel it ran on, from the launch counters (s = 1 on the
+   split-K decode kernel, bf16 chunks at d 64 / 128 on the mma kernel,
+   the rest on the scalar one), and a second launch of a Hopper kernel
+   must give the same bits;
+3. the paged (block-table) decode-attention kernel, the same checks over
+   block sizes 16, 24 and 128; on each case's values gathered into a
+   contiguous cache of nb * bs columns the contiguous kernel must give the
+   paged kernel's bits;
 4. the main path at full width: GPT-2 small (``GPTConfig()``) with random
    weights from a seed. f32: ``ServeLoop`` tokens must equal sequential
    ``GPT.generate`` tokens (a divergence passes only at a top-2 logit
    near-tie, gap < 1e-4). bf16: a continuous-batching throughput run
-   with 32 client threads, then a batched ``generate``. Every kernel's
-   launch count is zeroed before this phase and must be > 0 after it;
+   with 32 client threads, ~20 serve decode steps at 64 active slots under
+   torch.profiler (device busy and paged-kernel ms per step, idle share),
+   then a batched ``generate``. Every kernel's launch count is zeroed
+   before this phase and must be > 0 after it; the decode steps must have
+   run the split-K kernel and the prefills the mma kernel;
 5. kernel timings (CUDA events, median of 30 runs, L2 flushed before
    each) beside the plain version, the ``scaled_dot_product_attention``
-   yardstick and the bound, at the serve run's decode and prefill shapes;
+   yardstick and the bound, at the serve run's decode and prefill shapes
+   and at GPT-2's full context (b64 and b1 at fill 1023, a 1024-token
+   prefill);
 6. the three fused-CE kernels (forward, dh, dW/db) against their plain
    versions: f32 and bf16, bias and none, V in {517, 30522, 50304}, n in
    {8, 300, 1000, 4096}, H in {64, 72, 768, 1024}, ~30% ignored rows and
@@ -89,9 +101,10 @@ line is ``{"ok": true, "device": {...}}``. The kernel summary line
 
 One phase alone (after ``phase_build()``), from the repo root:
 ``python3 -c "import chip_smoke as c; c.setup(); c.phase_build();
-c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phase 10
-(flash faults) or phase 6 (CE faults) on copies of the checkout with one
-planted fault each (``FAULTS``) and exits 0 when every copy fails it.
+c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phases 2-3
+(decode faults), 6 (CE faults) or 10 (flash faults) on copies of the
+checkout with one planted fault each (``FAULTS``) and exits 0 when every
+copy fails them.
 """
 import contextlib
 import itertools
@@ -109,6 +122,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}      # decode attention
+# decode attention, ||error|| / ||plain||, set from phases 2-3's worst
+# readings (f32 5.7e-7, bf16 2.2e-3: the output's rounding to bf16 and, on
+# the mma kernel, P's; PERF.md section 6) with 7x and 2.3x headroom
+DECODE_NORM_TOL = {torch.float32: 4e-6, torch.bfloat16: 5e-3}
 # Fused-CE limits per quantity, set from the worst readings of phases 6 and
 # 9 with headroom (PERF.md section 6 gives the readings): "fused_ce_fwd" is
 # loss and lse, absolute; "<grad>_max" the largest |error| over the largest
@@ -256,33 +273,89 @@ def _err(out, ref):
     return float((out.float() - ref.float()).abs().max())
 
 
+def _expect_path(dt, s, d):
+    """The decode kernel a call takes (ops/cuda/decode_attention._path on
+    16-byte aligned tensors, q and cache of one dtype)."""
+    if s == 1:
+        return "split" if d * torch.finfo(dt).bits // 8 % 16 == 0 \
+            else "scalar"
+    return "mma" if dt == torch.bfloat16 and d in (64, 128) else "scalar"
+
+
+def decode_check(fn, args, ref, dt, what, cols):
+    """One decode-kernel case: the output against the f32 plain version
+    (absolute TOL and norm-relative DECODE_NORM_TOL), the kernel it ran on
+    from the launch counters, and, on the Hopper kernels, a second launch
+    that must give the same bits. Returns (abs error, norm error)."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops.cuda.decode_attention import _kv_splits, _n_sm
+    q = args[0]
+    b, h, s, d = q.shape
+    name = fn.__name__
+    before = kernels.launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    ran = "mma" if after[name + ".mma"] > before[name + ".mma"] else \
+        "split" if after[name + ".sm90"] > before[name + ".sm90"] \
+        else "scalar"
+    want = _expect_path(dt, s, d)
+    check(after[name] == before[name] + 1, f"{name}: {what} launched "
+                                           f"{after[name] - before[name]}")
+    check(ran == want, f"{name}: {what} ran the {ran} kernel, not {want}")
+    check(out.shape == q.shape and out.dtype == q.dtype, "out shape")
+    err = _err(out, ref)
+    rel = float((out.float() - ref.float()).norm()
+                / ref.float().norm().clamp_min(1e-30))
+    splits = 1 if ran == "scalar" else _kv_splits(
+        b, h, -(-s // 64), cols, _n_sm(q.device.index))[0]
+    log(f"[{'paged' if 'paged' in name else 'contiguous'}] {what} "
+        f"{ran} x{splits}: max_abs_err {err:.3e} (tol {TOL[dt]:g}), "
+        f"norm_rel_err {rel:.3e} (tol {DECODE_NORM_TOL[dt]:g})")
+    check(err <= TOL[dt], f"{name} disagrees: {what}: {err}")
+    check(rel <= DECODE_NORM_TOL[dt], f"{name} disagrees in norm: {what}: "
+                                      f"{rel}")
+    if ran != "scalar":
+        check(torch.equal(fn(*args), out), f"{name}: {what}: a second "
+                                           "launch gave other bits")
+    return err, rel
+
+
 def phase_contiguous():
     from paddle_tpu_torch.ops.cuda import (decode_attention,
                                            decode_attention_ref)
     gen = torch.Generator().manual_seed(1)
     worst = {}
-    cases = [(dt, s, 64, kind) for dt in (torch.float32, torch.bfloat16)
+    # (dtype, b, s, d, L, fill kind)
+    cases = [(dt, 3, s, 64, 512, kind)
+             for dt in (torch.float32, torch.bfloat16)
              for s in (1, 7, 64, 300)
              for kind in ("scalar0", "scalar_top", "ragged")]
-    cases += [(torch.float32, s, 256, "ragged") for s in (1, 7)]
-    cases += [(torch.bfloat16, 64, 40, "ragged")]
-    b, h, L = 3, 4, 512
-    for dt, s, d, kind in cases:
+    cases += [(torch.float32, 3, s, 256, 512, "ragged") for s in (1, 7)]
+    cases += [(torch.bfloat16, 3, s, 40, 512, "ragged") for s in (1, 64)]
+    # many splits: one or two rows over a 4096-column cache
+    cases += [(dt, b, 1, d, 4096, kind)
+              for dt in (torch.float32, torch.bfloat16) for b in (1, 2)
+              for d in (64, 128) for kind in ("scalar_top", "ragged")]
+    # chunks on the mma kernel at d 128, and a long one over 4096 columns
+    cases += [(torch.bfloat16, 3, s, 128, 512, kind) for s in (33, 300)
+              for kind in ("scalar0", "ragged")]
+    cases += [(torch.bfloat16, 1, 200, 64, 4096, "scalar_top")]
+    h = 4
+    for dt, b, s, d, L, kind in cases:
         q = torch.randn(b, h, s, d, generator=gen).to("cuda", dt)
         kc = torch.randn(b, h, L, d, generator=gen).to("cuda", dt)
         vc = torch.randn(b, h, L, d, generator=gen).to("cuda", dt)
         fill = _fills(kind, b, L - s, gen)
-        out = decode_attention(q, kc, vc, fill)
-        torch.cuda.synchronize()
-        check(out.shape == q.shape and out.dtype == q.dtype, "out shape")
         ref = decode_attention_ref(q.float(), kc.float(), vc.float(), fill)
-        err = _err(out, ref)
-        log(f"[contiguous] {str(dt)[6:]} s={s} d={d} fill={kind}: "
-            f"max_abs_err {err:.3e} (tol {TOL[dt]:g})")
-        check(err <= TOL[dt], f"contiguous kernel disagrees: {err}")
+        err, _ = decode_check(decode_attention, (q, kc, vc, fill), ref, dt,
+                              f"{str(dt)[6:]} b={b} s={s} d={d} L={L} "
+                              f"fill={kind}", L)
         worst[dt] = max(worst.get(dt, 0.0), err)
     check(decode_attention.launches > 0, "contiguous kernel never launched")
-    log(f"[contiguous] launches {decode_attention.launches}")
+    log(f"[contiguous] launches {decode_attention.launches}, on the Hopper "
+        f"kernels {decode_attention.launches_sm90} (mma "
+        f"{decode_attention.launches_mma})")
     return worst
 
 
@@ -305,33 +378,47 @@ def _paged_case(b, h, s, d, bs, nb, dt, fill, gen):
 
 
 def phase_paged():
-    from paddle_tpu_torch.ops.cuda import (paged_attention_ref,
+    """The paged kernel against its plain version; then, on each case's
+    values gathered into a contiguous cache of L = nb * bs columns, the
+    contiguous kernel must give the paged kernel's bits."""
+    from paddle_tpu_torch.ops.cuda import (decode_attention,
+                                           paged_attention_ref,
                                            paged_decode_attention)
+    from paddle_tpu_torch.ops.cuda.decode_attention import gather_pages
     gen = torch.Generator().manual_seed(2)
     worst = {}
-    b, h, d, L = 3, 4, 64, 512
-    for dt in (torch.float32, torch.bfloat16):
-        for bs in (16, 128):
-            nb = L // bs
-            for s in (1, 7, 64, 300):
-                for kind in ("scalar0", "scalar_top", "ragged"):
-                    fill = _fills(kind, b, L - s, gen)
-                    q, ka, va, bt, lens = _paged_case(b, h, s, d, bs, nb,
-                                                      dt, fill, gen)
-                    out = paged_decode_attention(q, ka, va, bt, lens)
-                    torch.cuda.synchronize()
-                    check(out.shape == q.shape and out.dtype == q.dtype,
-                          "out shape")
-                    ref = paged_attention_ref(q.float(), ka.float(),
-                                              va.float(), bt, lens)
-                    err = _err(out, ref)
-                    log(f"[paged] {str(dt)[6:]} bs={bs} s={s} "
-                        f"fill={kind}: max_abs_err {err:.3e} "
-                        f"(tol {TOL[dt]:g})")
-                    check(err <= TOL[dt], f"paged kernel disagrees: {err}")
-                    worst[dt] = max(worst.get(dt, 0.0), err)
+    h = 4
+    # (dtype, b, s, d, bs, nb, fill kind)
+    cases = [(dt, 3, s, 64, bs, 512 // bs, kind)
+             for dt in (torch.float32, torch.bfloat16) for bs in (16, 128)
+             for s in (1, 7, 64, 300)
+             for kind in ("scalar0", "scalar_top", "ragged")]
+    cases += [(dt, b, 1, 64, bs, 4096 // bs, kind)
+              for dt in (torch.float32, torch.bfloat16) for b in (1, 2)
+              for bs in (24, 128) for kind in ("scalar_top", "ragged")]
+    cases += [(torch.bfloat16, 3, s, 128, bs, 512 // bs, "ragged")
+              for s in (33, 300) for bs in (24, 128)]
+    equal = 0
+    for dt, b, s, d, bs, nb, kind in cases:
+        fill = _fills(kind, b, nb * bs - s, gen)
+        q, ka, va, bt, lens = _paged_case(b, h, s, d, bs, nb, dt, fill, gen)
+        ref = paged_attention_ref(q.float(), ka.float(), va.float(), bt,
+                                  lens)
+        what = f"{str(dt)[6:]} b={b} s={s} d={d} bs={bs} nb={nb} fill={kind}"
+        err, _ = decode_check(paged_decode_attention, (q, ka, va, bt, lens),
+                              ref, dt, what, nb * bs)
+        worst[dt] = max(worst.get(dt, 0.0), err)
+        out = paged_decode_attention(q, ka, va, bt, lens)
+        contig = decode_attention(q, gather_pages(ka, bt),
+                                  gather_pages(va, bt), lens)
+        check(torch.equal(contig, out), f"contiguous != paged bitwise: "
+                                        f"{what}")
+        equal += 1
     check(paged_decode_attention.launches > 0, "paged kernel never launched")
-    log(f"[paged] launches {paged_decode_attention.launches}")
+    log(f"[paged] launches {paged_decode_attention.launches}, on the Hopper "
+        f"kernels {paged_decode_attention.launches_sm90} (mma "
+        f"{paged_decode_attention.launches_mma}); contiguous = paged "
+        f"bitwise in {equal} of {len(cases)} cases")
     return worst
 
 
@@ -419,6 +506,7 @@ def phase_serve_bf16():
     outs = [r.result(timeout=600) for r in reqs]
     dt = time.perf_counter() - t0
     loop.stop()
+    profile = _profile_serve_decode(loop, prompts, new)
     for o in outs:
         check(o.shape == (new,) and o.min() >= 0 and o.max() < cfg.vocab_size,
               "bad served tokens")
@@ -432,7 +520,8 @@ def phase_serve_bf16():
            "token_ms_p50": float(np.percentile(tok, 50)),
            "token_ms_p99": float(np.percentile(tok, 99)),
            "block_size": loop.stats()["block_size"],
-           "decode_steps": loop.stats()["steps"]}
+           "decode_steps": loop.stats()["steps"],
+           "decode_profile": profile}
     log(f"[serve bf16] {json.dumps(res)}")
     # the same model through generate: one static batch of all prompts
     ids = torch.tensor(np.stack(prompts), device="cuda")
@@ -452,6 +541,66 @@ def phase_serve_bf16():
     return res
 
 
+DECODE_KERNEL_NAMES = ("decode_split_kernel", "decode_mma_kernel",
+                       "decode_combine_kernel", "decode_attn_kernel")
+
+
+def _profile_serve_decode(loop, prompts, new, n=20):
+    """The (stopped) serve loop driven on this thread with every slot
+    active, each beat one fused decode step: the wall ms per step over
+    ``n`` beats, then torch.profiler over ``n`` more for the device's busy
+    ms and the paged decode kernels' ms per step; the idle share is 1 -
+    busy / wall. None where the profiler records no device time here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    reqs = [loop.submit(p, max_new_tokens=new) for p in prompts]
+    while loop.stats()["queue_depth"] or \
+            loop.stats()["active_slots"] < len(prompts):
+        loop._tick()
+    for _ in range(3):
+        loop._tick()
+    # the wall time per step from n beats without the profiler (its host
+    # overhead would inflate it), then the device time from n beats under it
+    torch.cuda.synchronize()
+    s0 = loop.stats()["steps"]
+    active = loop.stats()["active_slots"]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        loop._tick()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / (loop.stats()["steps"] - s0)
+    s0 = loop.stats()["steps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            loop._tick()
+        torch.cuda.synchronize()
+    steps = loop.stats()["steps"] - s0
+    loop.run_until_idle()
+    for r in reqs:
+        check(r.result(timeout=60).shape == (new,), "profiled request")
+    rows = [(ev.self_device_time_total / 1e3, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    if not rows:
+        log("[serve decode profile] not measured: no device time recorded")
+        return None
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    attn = sum(r[0] for r in rows
+               if any(k in r[1] for k in DECODE_KERNEL_NAMES))
+    out = {"decode_steps": steps, "active_slots": active,
+           "wall_ms_per_step": wall,
+           "device_busy_ms_per_step": busy / steps,
+           "paged_kernel_ms_per_step": attn / steps,
+           "device_idle_share": 1 - busy / steps / wall,
+           "top": [{"ms_per_step": r[0] / steps, "kernel": r[1][:80]}
+                   for r in rows[:8]]}
+    log(f"[serve decode profile] {json.dumps(out)}")
+    return out
+
+
 def phase_main_path():
     from paddle_tpu_torch.ops import cuda as kernels
     kernels.reset_launch_counts()
@@ -463,6 +612,12 @@ def phase_main_path():
         f"{counts}")
     for name in ("decode_attention", "paged_decode_attention"):
         check(counts[name] > 0, f"{name} never launched on the main path")
+        # decode steps on the split-K kernel, prefills (generate's s 32,
+        # the serve loop's 32-token bucket) on the mma kernel
+        check(counts[name + ".sm90"] > counts[name + ".mma"] > 0,
+              f"{name}: decode steps or prefills missed the Hopper kernels: "
+              f"{counts[name + '.sm90']} Hopper launches, "
+              f"{counts[name + '.mma']} of them chunks")
     return counts, serve
 
 
@@ -474,13 +629,15 @@ _FLUSH = None
 
 
 def time_ms(fn, runs=30, warmup=3):
-    """Median device time of fn() over ``runs``, each after an L2 flush
-    (the flush also keeps the device busy while the host enqueues fn)."""
+    """Median device time of fn() over ``runs``, each after an L2 flush."""
     return statistics.median(time_samples(fn, runs, warmup))
 
 
 def time_samples(fn, runs=30, warmup=3):
-    """Device times (ms) of fn() over ``runs``, as ``time_ms``."""
+    """Device times (ms) of fn() over ``runs``, each after an L2 flush.
+    A ~1 ms device sleep before the flush keeps the device busy while the
+    host enqueues the events and fn, so a kernel shorter than its
+    wrapper's host time is timed without the host's gaps."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 * 2 ** 20, dtype=torch.float32,
@@ -490,6 +647,7 @@ def time_samples(fn, runs=30, warmup=3):
     torch.cuda.synchronize()
     ts = []
     for _ in range(runs):
+        torch.cuda._sleep(2_000_000)
         _FLUSH.zero_()
         a = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -566,11 +724,20 @@ def _time_shape(b, s, fill, L, bs, dt=torch.bfloat16, h=12, d=64):
 
 
 def phase_timings(block_size):
-    # decode: the bf16 serve run's full batch at its longest live length
-    # (prompt 32 + 64 new = 96 tokens); prefill: one 32-token prompt
-    decode = _time_shape(b=64, s=1, fill=95, L=96, bs=block_size)
-    prefill = _time_shape(b=1, s=32, fill=0, L=96, bs=block_size)
-    return decode, prefill
+    """Both kernels at the serve run's shapes and at GPT-2's full context
+    (L 1024, the pool's block size 128 there): {shape: _time_shape}."""
+    shapes = {
+        # the bf16 serve run's full batch at its longest live length
+        # (prompt 32 + 64 new = 96 tokens), and one 32-token prompt
+        "serve_decode": dict(b=64, s=1, fill=95, L=96, bs=block_size),
+        "prefill_s32": dict(b=1, s=32, fill=0, L=96, bs=block_size),
+        # the full batch at the full context; one stream there (split-K);
+        # the longest prefill bucket of a 1024-token serve loop
+        "decode_b64_fill1023": dict(b=64, s=1, fill=1023, L=1024, bs=128),
+        "decode_b1_fill1023": dict(b=1, s=1, fill=1023, L=1024, bs=128),
+        "prefill_b1_s1024": dict(b=1, s=1024, fill=0, L=1024, bs=128),
+    }
+    return {k: _time_shape(**v) for k, v in shapes.items()}
 
 
 # --------------------------------------------------------------------------
@@ -708,9 +875,20 @@ def _bert_batches(cfg, batch, seq, n_batches, seed=0):
     return ids.to("cuda"), lab.to("cuda")
 
 
+def _zero_missing_grads(net):
+    """A zero grad on every trainable parameter that autograd left at None
+    (BERT's pooler and token-type table), as ``jax.grad`` gives in
+    ``bench.py:_build``'s step: ``step()`` skips a None grad, and the
+    zeros keep those parameters' moments and AdamW decay moving."""
+    for p in net.parameters():
+        if p.requires_grad and p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def _train_step(net, opt, ids, lab):
     loss = net(ids, masked_lm_labels=lab)
     loss.backward()
+    _zero_missing_grads(net)
     opt.step()
     opt.clear_grad()
     return loss.detach()
@@ -751,6 +929,7 @@ def phase_bert_equivalence():
             loss.backward()
             grads = {k: None if p.grad is None else p.grad.detach().clone()
                      for k, p in net.named_parameters()}
+            _zero_missing_grads(net)
             opt.step()
             opt.clear_grad()
             used = {k: kernels.launch_counts()[k] - before[k]
@@ -827,6 +1006,7 @@ def _step_breakdown(net, opt, ids, lab, step_ms, n=10):
         fwd_bwd()
     torch.cuda.synchronize()
     fb_ms = (time.perf_counter() - t0) * 1e3 / n
+    _zero_missing_grads(net)
     t0 = time.perf_counter()
     opt.step()
     opt_host_ms = (time.perf_counter() - t0) * 1e3
@@ -1240,6 +1420,7 @@ def phase_gpt_equivalence():
             loss.backward()
             grads = {k: None if p.grad is None else p.grad.detach().clone()
                      for k, p in net.named_parameters()}
+            _zero_missing_grads(net)
             opt.step()
             opt.clear_grad()
             used = {k: kernels.launch_counts()[k] - before[k]
@@ -1308,6 +1489,7 @@ def _longseq_run(cfg, ids, labels, use_flash, warmup, steps):
 def _train_step_lm(net, opt, ids, labels):
     loss = net(ids, labels=labels)
     loss.backward()
+    _zero_missing_grads(net)
     opt.step()
     opt.clear_grad()
     return loss.detach()
@@ -1567,10 +1749,12 @@ def phase_flash_timings():
 
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
-# copy of the checkout, and the phase that checks that source (6 for the
-# CE sources, 10 for the flash ones) must fail on that copy. The forward
-# and dk/dv faults are in the Hopper kernels that bf16 d 64 / 128 runs, the
-# CE faults in the Hopper backward that bf16 at H % 64 == 0 runs.
+# copy of the checkout, and the phases that check that source (2-3 for the
+# decode source, 6 for the CE sources, 10 for the flash ones) must fail on
+# that copy. The forward and dk/dv faults are in the Hopper kernels that
+# bf16 d 64 / 128 runs, the CE faults in the Hopper backward that bf16 at
+# H % 64 == 0 runs, the decode faults in the split-K combine, the s = 1
+# kernel's loop bound and the mma chunk kernel's mask.
 FAULTS = {
     "last_live_causal_key_tile_skipped":
         ("flash_attention_sm90.cu", "min(n, last / bn + 1)",
@@ -1596,14 +1780,30 @@ FAULTS = {
         ("fused_ce_sm90.cu",
          "kt1 = (count + kBK - 1) / kBK;   // dW: K = the listed rows",
          "kt1 = (count + kBK - 1) / kBK - 1;"),
+    "decode_combine_last_split_unscaled":
+        ("decode_attention.cu",
+         "return split_weight(ml[((int64_t)i * rows + row) * 2], m_tot);",
+         "return i == a.splits - 1 ? 1.f : split_weight(ml[((int64_t)i * "
+         "rows + row) * 2], m_tot);"),
+    "decode_s1_last_live_tile_skipped":
+        ("decode_attention.cu",
+         "const int n_tiles = lim < c_begin ? 0 : (lim - c_begin) / kTile + 1;",
+         "const int n_tiles = lim < c_begin ? 0 : (lim - c_begin) / kTile;"),
+    "decode_mma_mask_one_column_late":
+        ("decode_attention.cu",
+         "if (c > fill + r) s[j][e] = kNegInf2;",
+         "if (c > fill + r + 1) s[j][e] = kNegInf2;"),
 }
 CSRC = "paddle_tpu_torch/ops/cuda/csrc"
 
 
 def _fault_phase(source):
-    """(phase function name, number) that checks a kernel source."""
-    return ("phase_ce", 6) if source.startswith("fused_ce") \
-        else ("phase_flash", 10)
+    """(phase function names, numbers) that check a kernel source."""
+    if source.startswith("fused_ce"):
+        return ("phase_ce",), "6"
+    if source.startswith("decode_attention"):
+        return ("phase_contiguous", "phase_paged"), "2-3"
+    return ("phase_flash",), "10"
 
 
 def plant_faults():
@@ -1630,10 +1830,10 @@ def plant_faults():
                                         f"in {src} exactly once")
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-            phase, number = _fault_phase(source)
+            phases, number = _fault_phase(source)
             proc = subprocess.run(
                 [sys.executable, "-c", "import chip_smoke as c; c.setup(); "
-                 f"c.phase_build(); c.{phase}()"],
+                 "c.phase_build(); " + "; ".join(f"c.{p}()" for p in phases)],
                 cwd=copy, capture_output=True, text=True, timeout=900)
         said = [ln for ln in (proc.stdout + proc.stderr).splitlines()
                 if "chip_smoke:" in ln]
@@ -1663,7 +1863,7 @@ def main():
     worst_c = phase_contiguous()
     worst_p = phase_paged()
     counts, serve = phase_main_path()
-    decode, prefill = phase_timings(serve["block_size"])
+    timings = phase_timings(serve["block_size"])
     worst_ce = phase_ce()
     equiv = phase_bert_equivalence()
     ce_counts, flagship = phase_flagship()
@@ -1676,12 +1876,17 @@ def main():
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
         rec = {"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": REPLACES[name], "launches": counts[name]}
-        rec.update(decode[name])
-        rec["prefill_s32"] = prefill[name]
-        # over every comparison of phases 2-3 and both timed shapes
-        rec["max_abs_err"] = max(*worst.values(), decode[name]["max_abs_err"],
-                                 prefill[name]["max_abs_err"])
+               "replaces": REPLACES[name], "launches": counts[name],
+               "launches_sm90": counts[f"{name}.sm90"],
+               "launches_mma": counts[f"{name}.mma"]}
+        rec.update(timings["serve_decode"][name])
+        for shape, t in timings.items():
+            if shape != "serve_decode":
+                rec[shape] = t[name]
+        # over every comparison of phases 2-3 and the timed shapes
+        rec["max_abs_err"] = max(*worst.values(),
+                                 *(t[name]["max_abs_err"]
+                                   for t in timings.values()))
         rec["max_abs_err_f32"] = worst[torch.float32]
         kernels.append(rec)
     for name in CE_KERNELS:

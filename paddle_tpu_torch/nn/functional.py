@@ -16,11 +16,11 @@ come here: they use the decode-attention kernels
 ``fused_linear_cross_entropy`` is the loss-head dispatch site
 (nn/functional/__init__.py:191): with ``FLAGS_use_fused_ce`` on it runs
 the fused CE kernels (ops/cuda/fused_ce.py: the kernels on the card,
-their plain versions on the CPU); off, the kernels' plain forward
-differentiated by torch autograd, which materializes f32 logits (the JAX
-composite ``_ce_head_fallback`` rounds them to the input dtype first).
-On the card there is no shape gate and no fallback: a shape the kernels
-do not take raises.
+their plain versions on the CPU); off, ``_ce_head_composite`` under torch
+autograd, the JAX composite ``_ce_head_fallback``: logits formed in the
+input dtype (so rounded to bf16 for bf16 inputs), then f32. On the card
+there is no shape gate and no fallback: a shape the kernels do not take
+raises.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import torch.nn.functional as tF
 from ..core import flags as _flags
 from ..ops.cuda import gate_hit, gate_reject
 from ..ops.cuda.flash_attention import flash_attention, supported
-from ..ops.cuda.fused_ce import fused_ce, fused_ce_fwd_ref
+from ..ops.cuda.fused_ce import _label_hits, fused_ce
 
 __all__ = ["linear", "gelu", "relu", "dropout", "scaled_dot_product_attention",
            "cross_entropy", "fused_linear_cross_entropy"]
@@ -147,6 +147,25 @@ def cross_entropy(input, label, ignore_index=-100,  # noqa: A002
     return loss.sum() / valid.to(loss.dtype).sum().clamp_min(1e-12)
 
 
+def _ce_head_composite(h, w, b, y, ignore_index):
+    """Per-token f32 losses of the flag-off head, differentiable by
+    autograd (paddle_tpu's ``_ce_head_fallback``): ``h @ w.T`` in the
+    input dtype, then f32, then ``+ b``, then the lse. The kernels' plain
+    version (``fused_ce_fwd_ref``) never rounds the logits: it is their
+    oracle, this is the composite. A label outside [0, V) matches no
+    column (loss = lse), as in the kernels."""
+    dt = torch.promote_types(h.dtype, w.dtype)
+    s = (h.to(dt) @ w.to(dt).T).float()
+    if b is not None:
+        s = s + b.float()
+    lse = torch.logsumexp(s, dim=-1)
+    in_range, safe = _label_hits(y, w.shape[0])
+    tgt = torch.where(in_range, s.gather(1, safe[:, None])[:, 0],
+                      torch.zeros_like(lse))
+    return torch.where(y.long() != ignore_index, lse - tgt,
+                       torch.zeros_like(lse))
+
+
 def fused_linear_cross_entropy(hidden, weight, bias=None, labels=None,
                                ignore_index=-100, reduction="mean"):
     """Cross-entropy of ``hidden @ weight.T + bias`` against ``labels``
@@ -159,7 +178,7 @@ def fused_linear_cross_entropy(hidden, weight, bias=None, labels=None,
     if _flags.flag("FLAGS_use_fused_ce"):
         losses = fused_ce(h2, weight, bias, y, int(ignore_index))
     else:
-        losses = fused_ce_fwd_ref(h2, weight, bias, y, int(ignore_index))[0]
+        losses = _ce_head_composite(h2, weight, bias, y, int(ignore_index))
     if reduction == "none":
         return losses
     total = losses.sum()

@@ -25,7 +25,12 @@ KERNELS = (decode_attention, paged_decode_attention, fused_ce_fwd,
 # wrappers with a second kernel: their launches of it, beside the total
 VARIANTS = {"flash_fwd.sm90": flash_fwd, "flash_bwd_dkv.sm90": flash_bwd_dkv,
             "fused_ce_bwd_dh.sm90": fused_ce_bwd_dh,
-            "fused_ce_bwd_dw.sm90": fused_ce_bwd_dw}
+            "fused_ce_bwd_dw.sm90": fused_ce_bwd_dw,
+            "decode_attention.sm90": decode_attention,
+            "paged_decode_attention.sm90": paged_decode_attention}
+# of the decode wrappers' Hopper launches, those of the chunk (mma) kernel
+MMA_VARIANTS = {"decode_attention.mma": decode_attention,
+                "paged_decode_attention.mma": paged_decode_attention}
 
 
 def reset_launch_counts():
@@ -34,13 +39,17 @@ def reset_launch_counts():
         k.launches = 0
     for k in VARIANTS.values():
         k.launches_sm90 = 0
+    for k in MMA_VARIANTS.values():
+        k.launches_mma = 0
 
 
 def launch_counts():
-    """Launches per wrapper (its kernels together) and, under
-    ``<wrapper>.sm90``, those of the Hopper variant."""
+    """Launches per wrapper (its kernels together); under
+    ``<wrapper>.sm90`` those of the Hopper variant and, for the decode
+    wrappers, under ``<wrapper>.mma`` those of its chunk kernel."""
     counts = {k.__name__: k.launches for k in KERNELS}
     counts.update({n: k.launches_sm90 for n, k in VARIANTS.items()})
+    counts.update({n: k.launches_mma for n, k in MMA_VARIANTS.items()})
     return counts
 
 

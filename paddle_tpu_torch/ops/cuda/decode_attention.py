@@ -13,10 +13,27 @@ Row r of batch row i attends to cache columns ``<= fill_i + r``, where
 k/v are already written). For a CUDA tensor a wrapper launches its kernel
 (csrc/decode_attention.cu) or raises; only for CPU tensors does it run
 the plain version. Each wrapper counts its launches in ``.launches``.
+
+Three kernels per wrapper, one per call, chosen by ``_path`` before the
+launch from dtype, shape and alignment (a launch that fails raises; it
+never gives way to another kernel):
+
+- s = 1 with ``d * sizeof(cache)`` a multiple of 16 bytes and a 16-byte
+  aligned cache: the split-K decode kernel (16-byte vector loads);
+- s > 1 in bf16 (q and cache) at head dim 64 or 128, 16-byte aligned: the
+  mma.sync chunk kernel;
+- everything else: the scalar kernel.
+
+The first two are the Hopper kernels, counted also in ``.launches_sm90``
+(the chunk kernel's share in ``.launches_mma``). Both split the cache's
+capacity columns (L, or nb * bs) into ``_kv_splits`` spans, planned from
+the shapes alone (never from the fills, which live on the card), and a
+combine kernel merges the splits' f32 partials in order.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,13 +43,15 @@ __all__ = ["decode_attention", "paged_decode_attention",
 NEG_INF = -1e9   # finite mask fill, as the reference
 _MAX_D = 256
 _SUPPORTED = (torch.float32, torch.bfloat16)
+_TILE = 64       # columns of a split-K tile: a split is whole tiles
+_SCALAR, _SPLIT, _MMA = 0, 1, 2   # kernel paths (csrc: Path)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# scale, q_bf16, cache_bf16, path, splits, span, part, stream
+_TAIL = [_F, _I, _I, _I, _I, _I, _P, _P]
 _SIGS = {
-    "decode_attention_contiguous":
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    "decode_attention_paged":
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "decode_attention_contiguous": [_P] * 5 + [_I] * 6 + _TAIL,
+    "decode_attention_paged": [_P] * 6 + [_I] * 6 + _TAIL,
 }
 
 
@@ -43,6 +62,52 @@ def _fn(name):
         f.argtypes = _SIGS[name]
         f.restype = ctypes.c_int
     return f
+
+
+def _kv_splits(b, h, q_tiles, cols, n_sm):
+    """(number of splits, columns per split) of a cache with ``cols``
+    capacity columns for b * h * q_tiles blocks on ``n_sm`` SMs. One split
+    when the blocks fill the card; else about two blocks per SM, each split
+    whole ``_TILE``-column tiles, the splits covering [0, cols) once. From
+    the shapes alone: the live lengths are never read. (Splitting a
+    1024-token prefill's 192 blocks further was slower on the H100:
+    PERF.md.)"""
+    tiles = -(-cols // _TILE)
+    blocks = b * h * q_tiles
+    n = 1 if blocks >= n_sm else max(1, min(tiles, -(-2 * n_sm // blocks)))
+    per = -(-tiles // n)
+    return -(-tiles // per), per * _TILE
+
+
+def _path(q, k, v):
+    """Which kernel takes a call: the split-K decode kernel for s = 1 with
+    16-byte rows and a 16-byte aligned cache, the mma chunk kernel for bf16
+    chunks at d 64 / 128 with 16-byte aligned q and cache, else the scalar
+    kernel."""
+    s, d = q.shape[2], q.shape[3]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (k, v))
+    if s == 1:
+        return _SPLIT if aligned and d * k.element_size() % 16 == 0 \
+            else _SCALAR
+    if q.dtype == k.dtype == torch.bfloat16 and d in (64, 128) and aligned \
+            and q.data_ptr() % 16 == 0:
+        return _MMA
+    return _SCALAR
+
+
+def _plan(q, k, v, cols, n_sm):
+    """(path, splits, columns per split) of a call over a cache of ``cols``
+    capacity columns: the scalar kernel takes one split over them all."""
+    b, h, s, _ = q.shape
+    path = _path(q, k, v)
+    if path == _SCALAR:
+        return path, 1, -(-cols // _TILE) * _TILE
+    return (path, *_kv_splits(b, h, -(-s // 64), cols, n_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # --------------------------------------------------------------------------
@@ -144,6 +209,28 @@ def _check_status(name, status):
                            f"{status}")
 
 
+def _launch(wrapper, entry, q, k, v, cols, head_args, tail_args):
+    """Plan the path and the splits, launch, count. ``head_args`` are the
+    C arguments between ``out`` and ``scale``, ``tail_args`` ``scale`` and
+    the two dtype flags; ``cols`` the cache's capacity in columns."""
+    b, h, s, d = q.shape
+    path, splits, span = _plan(q, k, v, cols, _n_sm(q.device.index))
+    out = torch.empty_like(q)
+    part = None if splits == 1 else torch.empty(
+        splits * b * h * s * (d + 2), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        status = _fn(entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *head_args, *tail_args, path, splits, span,
+            None if part is None else part.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _check_status(wrapper.__name__, status)
+    wrapper.launches += 1
+    wrapper.launches_sm90 += path != _SCALAR
+    wrapper.launches_mma += path == _MMA
+    return out
+
+
 def decode_attention(q, kc, vc, index, scale=None):
     """Attention of q [b, h, s, d] over a contiguous cache kc/vc
     [b, h, L, d]. ``index`` is the cache fill before this chunk: an int or
@@ -170,17 +257,12 @@ def decode_attention(q, kc, vc, index, scale=None):
         fills, fill_scalar = None, index
     else:
         fills, fill_scalar = _int_vector(name, index, b, q.device), 0
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        status = _fn("decode_attention_contiguous")(
-            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-            None if fills is None else fills.data_ptr(), fill_scalar,
-            b, h, s, d, L, scale, int(q.dtype == torch.bfloat16),
-            int(kc.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _check_status(name, status)
-    decode_attention.launches += 1
-    return out
+    return _launch(
+        decode_attention, "decode_attention_contiguous", q, kc, vc, L,
+        (None if fills is None else fills.data_ptr(), fill_scalar,
+         b, h, s, d, L),
+        (scale, int(q.dtype == torch.bfloat16),
+         int(kc.dtype == torch.bfloat16)))
 
 
 def paged_decode_attention(q, k_arena, v_arena, block_tables, lengths,
@@ -211,19 +293,14 @@ def paged_decode_attention(q, k_arena, v_arena, block_tables, lengths,
         raise ValueError(f"{name}: block tables must be contiguous int32 on "
                          f"{q.device}")
     fills = _int_vector(name, lengths, b, q.device)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        status = _fn("decode_attention_paged")(
-            q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-            out.data_ptr(), fills.data_ptr(), block_tables.data_ptr(),
-            b, h, s, d, bs, block_tables.shape[1], scale,
-            int(q.dtype == torch.bfloat16),
-            int(k_arena.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _check_status(name, status)
-    paged_decode_attention.launches += 1
-    return out
+    nb = block_tables.shape[1]
+    return _launch(
+        paged_decode_attention, "decode_attention_paged", q, k_arena,
+        v_arena, nb * bs,
+        (fills.data_ptr(), block_tables.data_ptr(), b, h, s, d, bs, nb),
+        (scale, int(q.dtype == torch.bfloat16),
+         int(k_arena.dtype == torch.bfloat16)))
 
 
-decode_attention.launches = 0
-paged_decode_attention.launches = 0
+for _w in (decode_attention, paged_decode_attention):
+    _w.launches = _w.launches_sm90 = _w.launches_mma = 0

@@ -16,13 +16,15 @@ place. ``torch.optim.AdamW`` is a different rule and is not used:
   ``multi_precision`` a bf16/f16 parameter keeps an f32 master slot from
   which the parameter is re-derived every step.
 
-Missing gradients: the JAX package's pure update takes a gradient for
-every parameter (``jax.grad`` returns zeros for unused ones), while its
-eager ``step()`` skips a parameter whose grad is None. Both entry points
-here follow the pure form: a missing gradient counts as ZERO, so an
+Missing gradients, as in the JAX package: the eager ``step()`` skips a
+parameter whose grad is None (``_collect``): its value and its slots stay
+as they are, and it gets no slots until it has a gradient. The pure
+update takes a gradient for every parameter (``jax.grad`` returns zeros
+for unused ones); a name absent from its ``grads`` counts as ZERO, so an
 unused parameter's moments still decay and AdamW still decays its
-weights (BERT's pooler and token-type table in the flagship step, as in
-``bench.py:_build``).
+weights. A caller that wants ``bench.py:_build``'s step from ``step()``
+(BERT's pooler and token-type table decayed) sets zero grads on the
+parameters that autograd left at None first.
 
 The arithmetic runs as ``torch._foreach_*`` ops over all parameters at
 once (a few multi-tensor kernels per step instead of a Python loop of
@@ -170,14 +172,15 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
-        """One update of every trainable parameter from its ``.grad`` (a
-        None grad counts as zero). Parameters are overwritten in place, so
-        modules keep their Parameter objects."""
-        named = self._params()
+        """One update of every trainable parameter that has a ``.grad``; a
+        parameter whose grad is None is skipped (JAX's ``_collect``).
+        Parameters are overwritten in place, so modules keep their
+        Parameter objects."""
+        named = [(k, p) for k, p in self._params() if p.grad is not None]
         if not named:
             return
         params = {k: p.detach() for k, p in named}
-        grads = {k: p.grad for k, p in named if p.grad is not None}
+        grads = {k: p.grad for k, p in named}
         self._ensure_slots(params)
         self._step_count += 1
         new_params, new_slots = self.apply_gradients_pure(

@@ -70,10 +70,11 @@ def test_kernels_match_plain_versions(card, dtype, tol):
 
 def test_cuda_tensors_never_fall_back(card):
     """A CUDA call the kernel cannot take raises; it never runs the plain
-    version instead."""
+    version instead, and no kernel variant counts a launch. A call that
+    runs counts one launch, on exactly the variant its shape names."""
     q = torch.zeros(1, 2, 1, 8, device=card)
     kc = torch.zeros(1, 2, 16, 8, device=card)
-    before = decode_attention.launches
+    before = kernels.launch_counts()
     strided = torch.zeros(1, 2, 1, 16, device=card)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         decode_attention(strided, kc, kc, 0)
@@ -84,9 +85,77 @@ def test_cuda_tensors_never_fall_back(card):
                                            device=card),
                                torch.zeros(1, dtype=torch.int32,
                                            device=card))
-    assert decode_attention.launches == before
-    decode_attention(q, kc, kc, 0)
-    assert decode_attention.launches == before + 1
+    with pytest.raises(ValueError, match="exceeds"):
+        decode_attention(q.to(torch.bfloat16), kc.to(torch.bfloat16),
+                         kc.to(torch.bfloat16), 16)
+    assert kernels.launch_counts() == before
+    decode_attention(q, kc, kc, 0)                  # s = 1: split-K decode
+    qc = torch.zeros(1, 2, 5, 64, device=card, dtype=torch.bfloat16)
+    kb = torch.zeros(1, 2, 16, 64, device=card, dtype=torch.bfloat16)
+    decode_attention(qc, kb, kb, 3)                 # a bf16 chunk: mma
+    decode_attention(qc.float(), kb.float(), kb.float(), 3)   # scalar
+    after = kernels.launch_counts()
+    assert after["decode_attention"] == before["decode_attention"] + 3
+    assert after["decode_attention.sm90"] == \
+        before["decode_attention.sm90"] + 2
+    assert after["decode_attention.mma"] == before["decode_attention.mma"] + 1
+
+
+def _decode_pair(card, dtype, b, h, s, d, bs, nb, g):
+    """q, a contiguous cache of L = nb * bs columns, the same values as a
+    shuffled arena (row 0 the trash block) with its block tables, and
+    ragged fills from 0 to the top."""
+    L = nb * bs
+    q = torch.randn(b, h, s, d, generator=g).to(card, dtype)
+    kc = torch.randn(b, h, L, d, generator=g).to(card, dtype)
+    vc = torch.randn(b, h, L, d, generator=g).to(card, dtype)
+    perm = torch.randperm(b * nb, generator=g)
+
+    def arena(c):
+        blocks = c.reshape(b, h, nb, bs, d).permute(0, 2, 1, 3, 4) \
+            .reshape(b * nb, h, bs, d)
+        a = torch.zeros(b * nb + 1, h, bs, d, dtype=dtype, device=card)
+        a[perm + 1] = blocks
+        return a
+
+    bt = (perm + 1).to(torch.int32).reshape(b, nb).to(card)
+    fills = torch.randint(0, L - s + 1, (b,), generator=g)
+    fills[0], fills[-1] = L - s, 0
+    return q, kc, vc, arena(kc), arena(vc), bt, fills.to(card, torch.int32)
+
+
+@pytest.mark.parametrize("dtype,b,s,d,bs,nb", [
+    (torch.bfloat16, 2, 1, 64, 16, 10),     # split-K decode, 3 splits
+    (torch.float32, 2, 1, 64, 16, 10),
+    (torch.bfloat16, 1, 1, 128, 128, 32),   # 4096 columns: many splits
+    (torch.float32, 1, 1, 256, 24, 170),    # 16 lanes x 2 chunks per key
+    (torch.bfloat16, 3, 1, 40, 8, 40),      # 5 chunks of 8 lanes
+    (torch.bfloat16, 2, 37, 64, 16, 10),    # an mma chunk
+    (torch.bfloat16, 1, 300, 128, 24, 25),  # mma over several splits
+    (torch.bfloat16, 2, 64, 64, 128, 2)])
+def test_decode_hopper_kernels_match_repeat_and_agree(card, dtype, b, s, d,
+                                                      bs, nb):
+    """The split-K decode and mma chunk kernels against the f32 plain
+    version (the limits of test_kernels_match_plain_versions), a second
+    launch bitwise equal to the first, and the paged kernel over the
+    arena bitwise equal to the contiguous kernel over the same values."""
+    g = torch.Generator().manual_seed(3)
+    q, kc, vc, ka, va, bt, fills = _decode_pair(card, dtype, b, 3, s, d, bs,
+                                                nb, g)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    ref = decode_attention_ref(q.float(), kc.float(), vc.float(), fills)
+    before = kernels.launch_counts()
+    out = decode_attention(q, kc, vc, fills)
+    out_p = paged_decode_attention(q, ka, va, bt, fills)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("decode_attention", "paged_decode_attention"):
+        assert after[name + ".sm90"] == before[name + ".sm90"] + 1, name
+        assert after[name + ".mma"] == before[name + ".mma"] + (s > 1), name
+    assert float((out.float() - ref).abs().max()) <= tol
+    assert torch.equal(decode_attention(q, kc, vc, fills), out)
+    assert torch.equal(paged_decode_attention(q, ka, va, bt, fills), out_p)
+    assert torch.equal(out_p, out)
 
 
 def test_tiny_gpt_serves_through_the_kernels(card):

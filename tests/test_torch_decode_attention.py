@@ -24,7 +24,10 @@ from paddle_tpu_torch.nn import kv_pool as tpool
 from paddle_tpu_torch.ops.cuda import (decode_attention, decode_attention_ref,
                                        paged_attention_ref,
                                        paged_decode_attention)
-from paddle_tpu_torch.ops.cuda.decode_attention import gather_pages
+from paddle_tpu_torch.ops.cuda.decode_attention import (_MMA, _SCALAR,
+                                                       _SPLIT, _TILE,
+                                                       _kv_splits, _plan,
+                                                       gather_pages)
 
 ATOL = 1e-5
 
@@ -204,3 +207,90 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="d <= 256"):
         decode_attention(torch.zeros(1, 1, 1, 264), torch.zeros(1, 1, 8, 264),
                          torch.zeros(1, 1, 8, 264), 0)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("b,h,q_tiles,cols", [
+    (64, 12, 1, 96), (64, 12, 1, 1024), (1, 12, 1, 1024), (1, 12, 16, 1024),
+    (1, 12, 1, 96), (2, 4, 1, 4096), (1, 4, 1, 4080), (3, 4, 5, 512),
+    (1, 1, 1, 8), (1, 1, 1, 65), (7, 3, 2, 100000)])
+def test_kv_splits_cover_the_capacity_once(b, h, q_tiles, cols):
+    """At least one split, each whole tiles (at least one), and the splits
+    cover [0, cols) exactly once, in order, none starting past the end."""
+    n, span = _kv_splits(b, h, q_tiles, cols, H100_SMS)
+    assert n >= 1 and span >= _TILE and span % _TILE == 0
+    covered = [c for i in range(n) for c in range(i * span,
+                                                  min((i + 1) * span, cols))]
+    assert covered == list(range(cols))
+    assert (n - 1) * span < cols
+
+
+def test_kv_splits_from_shapes_only():
+    """One split where the blocks already fill the card (the serve decode
+    step: b64 h12, 768 blocks); several for one stream over GPT-2's full
+    context; none of it from the live lengths, which the planner never
+    sees (they live on the card in the serve loop)."""
+    import inspect
+    assert list(inspect.signature(_kv_splits).parameters) == \
+        ["b", "h", "q_tiles", "cols", "n_sm"]
+    assert _kv_splits(64, 12, 1, 96, H100_SMS) == (1, 128)
+    assert _kv_splits(64, 12, 1, 1024, H100_SMS) == (1, 1024)
+    n, span = _kv_splits(1, 12, 1, 1024, H100_SMS)
+    assert n > 1 and n * span == 1024
+    assert _kv_splits(1, 12, 16, 1024, H100_SMS)[0] == 1   # 192 blocks
+    # the plan of a call reads shapes, dtypes and alignment, never fills
+    q = torch.zeros(1, 12, 1, 64, dtype=torch.bfloat16)
+    kc = torch.zeros(1, 12, 1024, 64, dtype=torch.bfloat16)
+    assert _plan(q, kc, kc, 1024, H100_SMS) == (_SPLIT, n, span)
+
+
+def _offset(shape, dtype, elems):
+    """A contiguous tensor whose data starts ``elems`` elements into its
+    storage (not 16-byte aligned for a small odd offset)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + elems, dtype=dtype)[elems:].view(shape)
+
+
+@pytest.mark.parametrize("dtype,s,d,want", [
+    (torch.bfloat16, 1, 64, _SPLIT), (torch.float32, 1, 64, _SPLIT),
+    (torch.bfloat16, 1, 40, _SPLIT), (torch.float32, 1, 256, _SPLIT),
+    (torch.bfloat16, 1, 36, _SCALAR), (torch.float32, 1, 6, _SCALAR),
+    (torch.bfloat16, 7, 64, _MMA), (torch.bfloat16, 1024, 128, _MMA),
+    (torch.float32, 7, 64, _SCALAR), (torch.bfloat16, 64, 40, _SCALAR),
+    (torch.bfloat16, 64, 256, _SCALAR)])
+def test_plan_chooses_the_kernel_from_dtype_and_shape(dtype, s, d, want):
+    b, h, L = 2, 3, 96
+    q = torch.zeros(b, h, s, d, dtype=dtype)
+    kc = torch.zeros(b, h, L, d, dtype=dtype)
+    path, n, span = _plan(q, kc, kc, L, H100_SMS)
+    assert path == want
+    assert n * span >= L and (n - 1) * span < L
+    if want != _SCALAR:
+        # a cache that is not 16-byte aligned takes the scalar kernel
+        odd = _offset((b, h, L, d), dtype, 1)
+        assert _plan(q, odd, odd, L, H100_SMS)[0] == _SCALAR
+    if want == _MMA:
+        assert _plan(_offset(q.shape, dtype, 1), kc, kc, L,
+                     H100_SMS)[0] == _SCALAR
+        assert _plan(q.float(), kc, kc, L, H100_SMS)[0] == _SCALAR
+
+
+def test_cpu_calls_count_no_launch_of_any_variant():
+    """bf16 CPU tensors at the Hopper kernels' shapes run the plain
+    versions: no launch of any decode kernel is counted."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    rng = np.random.RandomState(9)
+    q, kc, vc = (torch.from_numpy(rng.randn(*sh).astype(np.float32))
+                 .to(torch.bfloat16) for sh in ((2, 3, 5, 64),
+                                                (2, 3, 32, 64),
+                                                (2, 3, 32, 64)))
+    kernels.reset_launch_counts()
+    for s in (1, 5):
+        out = decode_attention(q[:, :, :s].contiguous(), kc, vc, 3)
+        assert torch.equal(out, decode_attention_ref(q[:, :, :s], kc, vc, 3))
+    counts = kernels.launch_counts()
+    for name in ("decode_attention", "paged_decode_attention"):
+        assert counts[name] == counts[name + ".sm90"] == \
+            counts[name + ".mma"] == 0

@@ -189,7 +189,7 @@ def test_planted_fault_lines_occur_once():
         assert old != new and text.replace(old, new).count(new) >= 1, name
         sources.add(source)
     assert sources == {"flash_attention.cu", "flash_attention_sm90.cu",
-                       "fused_ce_sm90.cu"}
+                       "fused_ce_sm90.cu", "decode_attention.cu"}
 
 
 def test_cpu_wrappers_count_no_launch_of_either_variant():
@@ -211,7 +211,9 @@ def test_cpu_wrappers_count_no_launch_of_either_variant():
     counts = kernels.launch_counts()
     assert set(kernels.VARIANTS) == {"flash_fwd.sm90", "flash_bwd_dkv.sm90",
                                      "fused_ce_bwd_dh.sm90",
-                                     "fused_ce_bwd_dw.sm90"}
+                                     "fused_ce_bwd_dw.sm90",
+                                     "decode_attention.sm90",
+                                     "paged_decode_attention.sm90"}
     assert all(n == 0 for n in counts.values()), counts
 
 

@@ -90,15 +90,15 @@ def _jax(h, w, b, y, g):
     return loss, [np.asarray(x) for x in grads]
 
 
-def _port(h, w, b, y, g, reduction="none"):
-    ts = [torch.tensor(x, requires_grad=True)
+def _port(h, w, b, y, g, reduction="none", dtype=torch.float32):
+    ts = [torch.tensor(x).to(dtype).requires_grad_()
           for x in ((h, w) if b is None else (h, w, b))]
     tb = ts[2] if b is not None else None
     loss = F.fused_linear_cross_entropy(ts[0], ts[1], tb,
                                         torch.from_numpy(y),
                                         reduction=reduction)
     (loss * torch.from_numpy(g)).sum().backward()
-    return loss.detach().numpy(), [t.grad.numpy() for t in ts]
+    return loss.detach().numpy(), [t.grad.float().numpy() for t in ts]
 
 
 @pytest.mark.parametrize("kind", ["mixed", "oob", "all_ignored"])
@@ -144,31 +144,48 @@ def test_all_ignored_mean_is_zero():
     assert float(loss) == 0.0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("with_bias", [True, False])
-def test_flag_off_composite_matches_jax_fallback(with_bias):
+def test_flag_off_composite_matches_jax_fallback(with_bias, dtype):
     """FLAGS_use_fused_ce off in both packages: the plain composite head
-    (logits materialized), differentiated by each framework's autograd."""
-    h, w, b, y, g = _case("mixed", seed=3)
+    (logits materialized), differentiated by each framework's autograd.
+
+    bf16 (n 64, H 128, V 1000, W ~ N(0, 0.05^2)): both form the logits in
+    bf16, so both round them there, then take an f32 lse. Limits: loss
+    1e-5 absolute (the f32 lse of the same rounded logits, measured
+    4.8e-7; unrounded f32 logits differ by 1.4e-3); each gradient one bf16
+    ulp of its largest entry, 2^-8 of it (measured: dh equal, dW 1e-6 of
+    it)."""
+    bf16 = dtype == "bfloat16"
+    if bf16:
+        h, w, b, y, g = _case("mixed", seed=3, n=64, hd=128, vocab=1000)
+        w = w / 4                                # 0.2 * N(0, 1) / 4
+    else:
+        h, w, b, y, g = _case("mixed", seed=3)
     b = b if with_bias else None
+    xs = (h, w) if b is None else (h, w, b)
     paddle.set_flags({"FLAGS_use_fused_ce": False})
     tflags.set_flags({"FLAGS_use_fused_ce": False})
     try:
-        jt = [paddle.to_tensor(x, stop_gradient=False)
-              for x in ((h, w) if b is None else (h, w, b))]
+        jt = [paddle.to_tensor(jnp.asarray(x, dtype), stop_gradient=False)
+              for x in xs]
         jl = JF.fused_linear_cross_entropy(
             jt[0], jt[1], jt[2] if b is not None else None,
             paddle.to_tensor(y), reduction="none")
         (jl * paddle.to_tensor(g)).sum().backward()
         before = kernels.launch_counts()
-        tl, tg = _port(h, w, b, y, g)
+        tl, tg = _port(*xs[:2], b, y, g,
+                       dtype=torch.bfloat16 if bf16 else torch.float32)
         assert kernels.launch_counts() == before
     finally:
         paddle.set_flags({"FLAGS_use_fused_ce": True})
         tflags.set_flags({"FLAGS_use_fused_ce": True})
-    np.testing.assert_allclose(tl, np.asarray(jl._value), atol=LOSS_TOL)
+    np.testing.assert_allclose(tl, np.asarray(jl._value),
+                               atol=1e-5 if bf16 else LOSS_TOL)
     for t, j in zip(tg, jt):
-        np.testing.assert_allclose(t, np.asarray(j.grad._value),
-                                   atol=GRAD_TOL)
+        jg = np.asarray(j.grad._value.astype(jnp.float32))
+        np.testing.assert_allclose(
+            t, jg, atol=2 ** -8 * np.abs(jg).max() if bf16 else GRAD_TOL)
 
 
 def test_plain_backward_matches_autograd_of_plain_forward():

@@ -111,8 +111,9 @@ def test_three_pure_steps_match_jax(kind, dtype, wd, filtered, missing):
 
 
 def test_eager_step_equals_pure_and_keeps_parameters():
-    """step() over .grad equals the pure update; a None grad is a zero
-    grad; parameters are updated in place."""
+    """step() over .grad equals the pure update over the parameters that
+    have a grad; a parameter whose grad is None keeps its value and its
+    slots; parameters are updated in place."""
     params, grads = _data(1)
     mods = {k: torch.nn.Parameter(torch.from_numpy(v).clone())
             for k, v in params.items()}
@@ -131,11 +132,57 @@ def test_eager_step_equals_pure_and_keeps_parameters():
         opt.clear_grad()
         rg = {k: torch.from_numpy(v) for k, v in g.items()
               if k != "unused.weight"}
-        rp, rs = ref.apply_gradients_pure(rp, rg, rs, 1e-2, t)
+        new_p, new_s = ref.apply_gradients_pure(
+            {k: rp[k] for k in rg}, rg, {k: rs[k] for k in rg}, 1e-2, t)
+        rp.update(new_p)
+        rs.update(new_s)
     assert opt._step_count == 3
+    assert "unused.weight" not in opt._slots
     for k, p in mods.items():
         assert id(p) == ids[k] and p.grad is None
         torch.testing.assert_close(p.detach(), rp[k], rtol=0, atol=0)
+    assert torch.equal(mods["unused.weight"].detach(),
+                       torch.from_numpy(params["unused.weight"]))
+
+
+def test_eager_step_skips_a_missing_grad_as_jax():
+    """Two AdamW steps through each package's eager step(), with a [4, 3]
+    parameter that has a gradient and a [3] one whose grad is None. JAX's
+    step() skips the second (``_collect``): its value stays exactly as it
+    was and it gets no slots; so must the port's. The first parameter and
+    its moments agree to TOL (the same f32 expressions)."""
+    import paddle_tpu as paddle
+    from paddle_tpu import nn as jnn
+    rng = np.random.RandomState(5)
+    w0 = rng.randn(4, 3).astype(np.float32)
+    u0 = rng.randn(3).astype(np.float32)
+    gs = [rng.randn(4, 3).astype(np.float32) for _ in range(2)]
+    jw, ju = jnn.Parameter(w0.copy()), jnn.Parameter(u0.copy())
+    jo = jopt.AdamW(learning_rate=0.1, weight_decay=0.01,
+                    parameters=[jw, ju])
+    tw = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    tu = torch.nn.Parameter(torch.from_numpy(u0.copy()))
+    to = topt.AdamW(learning_rate=0.1, weight_decay=0.01,
+                    parameters=[("w", tw), ("u", tu)])
+    for g in gs:
+        (jw * paddle.to_tensor(g)).sum().backward()
+        assert ju.grad is None
+        jo.step()
+        jo.clear_grad()
+        tw.grad = torch.from_numpy(g)
+        to.step()
+        to.clear_grad()
+    np.testing.assert_array_equal(np.asarray(ju.numpy()), u0)
+    np.testing.assert_array_equal(tu.detach().numpy(), u0)
+    np.testing.assert_allclose(tw.detach().numpy(), np.asarray(jw.numpy()),
+                               atol=TOL)
+    assert to._step_count == jo._step_count == 2
+    assert list(to._slots) == ["w"] and len(jo._slots) == 1
+    (js,) = jo._slots.values()
+    assert set(js) == set(to._slots["w"])
+    for slot, v in js.items():
+        np.testing.assert_allclose(to._slots["w"][slot].numpy(),
+                                   np.asarray(v), atol=TOL, err_msg=slot)
 
 
 def test_master_weights_for_bf16_params():
