@@ -38,9 +38,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    {8, 300, 1000, 4096}, H in {64, 72, 768, 1024}, ~30% ignored rows and
    two out-of-range labels per case, and per type one batch with every row
    ignored; limits per quantity (``CE_TOL``). bf16 at H % 64 == 0 must run
-   the Hopper backward (``fused_ce_sm90.cu``), f32 and H 72 the dh and dW
-   kernels of ``fused_ce.cu`` (per case, from the launch counters); on the
-   Hopper backward ``fused_ce_bwd`` and a second launch of each wrapper
+   the Hopper forward and backward (``fused_ce_sm90.cu``), f32 and H 72
+   the kernels of ``fused_ce.cu`` (per case, from the launch counters); on
+   the Hopper kernels ``fused_ce_bwd`` and a second launch of each wrapper
    must give the same bits as the first;
 7. BERT-base at full width in f32 (batch 8, s 128, dropout 0): one
    AdamW step through the CE kernels against the same step with
@@ -59,8 +59,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    head of phase 12's path): the forward, dh alone, dW/db alone and
    ``fused_ce_bwd`` (dh, dW and db from one recompute), each with its
    bound, plain version, the ``F.linear`` + ``F.cross_entropy`` yardstick
-   (its autograd backward for the same gradients) and, for the backward,
-   ``fused_ce.cu``'s dh and dW kernels on the same inputs; the library's
+   (its autograd backward for the same gradients) and ``fused_ce.cu``'s
+   kernels on the same inputs; the library's
    whole backward against ``fused_ce_bwd`` (median and spread of 60 runs);
    the kernels held to phase 6's limits and repeats at both shapes;
 10. the three flash-attention kernels (forward, dq, dk/dv) against their
@@ -68,8 +68,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     s_k) in {(128, 128), (1024, 1024), (33, 33), (7, 65), (1, 40), (32,
     64), (4096, 4096), (190, 317), (1000, 1000), (4000, 4096)}, d in {16,
     64, 128, 256}; O, lse, dq, dk, dv each held to its limits
-    (``FLASH_TOL``). bf16 at d 64 and 128 must run the Hopper forward and
-    dk/dv (``flash_attention_sm90.cu``), everything else the kernels of
+    (``FLASH_TOL``). bf16 at d 64 and 128 must run the Hopper forward, dq
+    and dk/dv (``flash_attention_sm90.cu``), everything else the kernels of
     ``flash_attention.cu`` (per case, from the launch counters), and two
     launches of each Hopper kernel on the same inputs must be bitwise
     equal;
@@ -81,16 +81,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 12. the long-sequence training path, as ``bench.py:bench_longseq`` shapes
     it: GPT-2 small bf16 (O2) at b 1, s 4096, dropout 0, 2 warm-up and 15
     timed steps through the flash and CE kernels (tokens/s, step ms, MFU,
-    the time breakdown with the CE backward's device ms per step); every
-    kernel's launch count is zeroed before it, each flash kernel must count
-    12 x 17 launches (the forward's and dk/dv's all on the Hopper kernels)
-    and each CE kernel > 0 after it (dh and dW all on the Hopper backward);
+    the time breakdown with the CE forward's and backward's device ms per
+    step); every kernel's launch count is zeroed before it, each flash
+    kernel must count 12 x 17 launches (all on the Hopper kernels) and each
+    CE kernel > 0 after it (all on the Hopper forward and backward);
     then the same steps with flash off (``vs_baseline``);
 13. flash kernel timings at that path's shape (b 1, h 12, s 4096, d 64,
     bf16, causal) and at the flagship's attention (b 32, h 12, s 128, d 64,
     bf16, key bias) beside their bounds, plain versions, the torch SDPA
-    yardstick and, for the forward and dk/dv, the flash_attention.cu
-    kernel on the same bf16 inputs; SDPA's whole backward against dq + dk/dv (median and spread of 60
+    yardstick and the flash_attention.cu kernel on the same bf16 inputs;
+    SDPA's whole backward against dq + dk/dv (median and spread of 60
     runs); and the ``FLAGS_flash_min_seq`` sweep: forward + backward
     through the kernels and through the composite at 16384 tokens, s from
     128 to 4096, causal and not.
@@ -148,11 +148,11 @@ SOURCES = {
     "decode_attention": "paddle_tpu_torch/ops/cuda/csrc/decode_attention.cu",
     "paged_decode_attention":
         "paddle_tpu_torch/ops/cuda/csrc/decode_attention.cu",
-    "fused_ce_fwd": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
+    "fused_ce_fwd": "paddle_tpu_torch/ops/cuda/csrc/fused_ce_sm90.cu",
     "fused_ce_bwd_dh": "paddle_tpu_torch/ops/cuda/csrc/fused_ce_sm90.cu",
     "fused_ce_bwd_dw": "paddle_tpu_torch/ops/cuda/csrc/fused_ce_sm90.cu",
     "flash_fwd": "paddle_tpu_torch/ops/cuda/csrc/flash_attention_sm90.cu",
-    "flash_bwd_dq": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+    "flash_bwd_dq": "paddle_tpu_torch/ops/cuda/csrc/flash_attention_sm90.cu",
     "flash_bwd_dkv":
         "paddle_tpu_torch/ops/cuda/csrc/flash_attention_sm90.cu",
 }
@@ -161,7 +161,9 @@ SOURCES = {
 # fused_ce.cu for f32 and H not a multiple of 64
 OTHER_SOURCE = {
     "flash_fwd": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+    "flash_bwd_dq": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
     "flash_bwd_dkv": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+    "fused_ce_fwd": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
     "fused_ce_bwd_dh": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
     "fused_ce_bwd_dw": "paddle_tpu_torch/ops/cuda/csrc/fused_ce.cu",
 }
@@ -178,8 +180,10 @@ REPLACES = {
 }
 CE_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-SM90_COUNTS = ("flash_fwd.sm90", "flash_bwd_dkv.sm90")   # launch_counts keys
-CE_SM90_COUNTS = ("fused_ce_bwd_dh.sm90", "fused_ce_bwd_dw.sm90")
+# launch_counts keys of the Hopper kernels
+SM90_COUNTS = ("flash_fwd.sm90", "flash_bwd_dq.sm90", "flash_bwd_dkv.sm90")
+CE_SM90_COUNTS = ("fused_ce_fwd.sm90", "fused_ce_bwd_dh.sm90",
+                  "fused_ce_bwd_dw.sm90")
 # Flash limits per quantity, as CE_TOL: "lse" absolute; "<x>_max" the
 # largest |error| of x over its largest |entry|, "<x>_norm" the error's
 # norm over x's. Set from the worst readings of phase 10 with headroom
@@ -773,8 +777,8 @@ def ce_errors(h, w, b, y, g, where, repeat=False):
     same inputs, checked against CE_TOL: absolute for loss/lse, dh and dW
     (under the kernels' names) and the relative ones of ``_rel_errs`` for
     dh, dW and db. With ``repeat``, ``fused_ce_bwd`` (both gradients from
-    one call) and a second launch of each wrapper must give the same bits
-    as the first."""
+    one call) and a second launch of each wrapper (the forward too) must
+    give the same bits as the first."""
     from paddle_tpu_torch.ops.cuda import (fused_ce_bwd, fused_ce_bwd_dh,
                                            fused_ce_bwd_dw, fused_ce_bwd_ref,
                                            fused_ce_fwd, fused_ce_fwd_ref)
@@ -784,6 +788,9 @@ def ce_errors(h, w, b, y, g, where, repeat=False):
     dh = fused_ce_bwd_dh(h, w, b, y, ref_lse, g)
     dw, db = fused_ce_bwd_dw(h, w, b, y, ref_lse, g)
     if repeat:
+        loss2, lse2 = fused_ce_fwd(h, w, b, y)
+        check(torch.equal(loss, loss2) and torch.equal(lse, lse2),
+              f"two forward launches differ at {where}")
         both = fused_ce_bwd(h, w, b, y, ref_lse, g)
         again = (fused_ce_bwd_dh(h, w, b, y, ref_lse, g),
                  *fused_ce_bwd_dw(h, w, b, y, ref_lse, g))
@@ -822,12 +829,14 @@ def _ce_line(errs):
 
 def phase_ce():
     from paddle_tpu_torch.ops import cuda as kernels
-    from paddle_tpu_torch.ops.cuda.fused_ce import _sm90_bwd_path
+    from paddle_tpu_torch.ops.cuda.fused_ce import (_sm90_bwd_path,
+                                                    _sm90_fwd_path)
     gen = torch.Generator().manual_seed(6)
-    # the last: H not a multiple of 64 (bf16 on fused_ce.cu's backward)
+    # BERT's head (4096, 30522, 768) and GPT-2's (4096, 50304, 768); the
+    # last: H not a multiple of 64 (bf16 on fused_ce.cu's kernels)
     shapes = [(8, 517, 64), (1000, 517, 1024), (4096, 517, 64),
-              (1000, 30522, 768), (4096, 30522, 768), (4096, 50304, 1024),
-              (300, 517, 72)]
+              (1000, 30522, 768), (4096, 30522, 768), (4096, 50304, 768),
+              (4096, 50304, 1024), (300, 517, 72)]
     cases = [(dt, bias, n, v, hd, 0.3) for dt in (torch.float32,
                                                    torch.bfloat16)
              for bias in (True, False) for n, v, hd in shapes]
@@ -840,13 +849,16 @@ def phase_ce():
         where = (f"{str(dt)[6:]} bias={bias} n={n} V={v} H={hd} "
                  f"ignored={ign:.0%}")
         sm90 = int(_sm90_bwd_path(dt, hd))
+        fwd90 = int(_sm90_fwd_path(dt, hd))
         before = kernels.launch_counts()
         errs = ce_errors(*_ce_inputs(n, hd, v, dt, bias, gen, ignored=ign,
                                      oob=ign < 1), where, repeat=bool(sm90))
         used = {k: kernels.launch_counts()[k] - before[k]
                 for k in CE_KERNELS + CE_SM90_COUNTS}
-        want = {"fused_ce_fwd": 1, "fused_ce_bwd_dh": 1 + 2 * sm90,
+        # a Hopper case repeats every launch (the forward once more)
+        want = {"fused_ce_fwd": 1 + sm90, "fused_ce_bwd_dh": 1 + 2 * sm90,
                 "fused_ce_bwd_dw": 1 + 2 * sm90,
+                "fused_ce_fwd.sm90": (1 + sm90) * fwd90,
                 "fused_ce_bwd_dh.sm90": 3 * sm90,
                 "fused_ce_bwd_dw.sm90": 3 * sm90}
         check(used == want, f"CE kernel variants at {where}: launched "
@@ -856,8 +868,9 @@ def phase_ce():
         for k, e in errs.items():
             worst.setdefault(k, {})
             worst[k][dt] = max(worst[k].get(dt, 0.0), e)
-    log(f"[ce] {len(cases)} cases ({n_sm90} on the Hopper backward, each "
-        f"repeated bitwise) in {time.perf_counter() - t0:.1f} s; limits "
+    log(f"[ce] {len(cases)} cases ({n_sm90} on the Hopper forward and "
+        f"backward, each repeated bitwise) in {time.perf_counter() - t0:.1f}"
+        f" s; limits "
         f"{json.dumps({str(k)[6:]: v for k, v in CE_TOL.items()})}")
     return worst
 
@@ -1187,10 +1200,11 @@ def _ce_time_shape(n, hd, vocab, bias, ignored, dt=torch.bfloat16):
             "library_ms": time_ms(lib, runs=20),
             "bound_ms": bnd, "bound_by": by, "bound_all_rows_ms": full,
             "n": n, "n_valid": n_valid, "H": hd, "V": vocab, "bias": bias}
-        if name != "fused_ce_fwd":
-            # fused_ce.cu's dh and dW kernels on the same inputs
-            with _other_source("fused_ce", "_sm90_bwd_path"):
-                out[name]["other_kernel_ms"] = time_ms(kern, runs=20)
+        # fused_ce.cu's kernels on the same inputs
+        gate = "_sm90_fwd_path" if name == "fused_ce_fwd" \
+            else "_sm90_bwd_path"
+        with _other_source("fused_ce", gate):
+            out[name]["other_kernel_ms"] = time_ms(kern, runs=20)
         if name in errs:
             out[name]["max_abs_err"] = errs[name]
         if name == "fused_ce_bwd_dw":
@@ -1284,8 +1298,8 @@ def flash_errors(q, k, v, bias, causal, do, where, repeat=False):
     """Errors of the three kernels against the plain versions on the same
     inputs (the backward kernels and the plain backward both take the
     plain forward's o and lse), checked against FLASH_TOL: absolute under
-    the kernels' names, ``_rel_errs`` per quantity. With ``repeat`` the
-    forward and dk/dv launch a second time and must give the same bits."""
+    the kernels' names, ``_rel_errs`` per quantity. With ``repeat`` each
+    kernel launches a second time and must give the same bits."""
     from paddle_tpu_torch.ops.cuda import (flash_bwd_dkv, flash_bwd_dq,
                                            flash_bwd_ref, flash_fwd,
                                            flash_fwd_ref)
@@ -1297,9 +1311,11 @@ def flash_errors(q, k, v, bias, causal, do, where, repeat=False):
     dk, dv = flash_bwd_dkv(q, k, v, bias, do, lse_r, delta, causal)
     if repeat:
         o2, lse2 = flash_fwd(q, k, v, bias, causal)
+        dq2 = flash_bwd_dq(q, k, v, bias, do, lse_r, delta, causal)
         dk2, dv2 = flash_bwd_dkv(q, k, v, bias, do, lse_r, delta, causal)
         check(torch.equal(o, o2) and torch.equal(lse, lse2),
               f"two forward launches differ at {where}")
+        check(torch.equal(dq, dq2), f"two dq launches differ at {where}")
         check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
               f"two dk/dv launches differ at {where}")
     torch.cuda.synchronize()
@@ -1346,8 +1362,9 @@ def phase_flash():
         errs = flash_errors(q, k, v, bb, causal, do, where, repeat=sm90)
         used = {key: kernels.launch_counts()[key] - before[key]
                 for key in FLASH_KERNELS + SM90_COUNTS}
-        want = {"flash_fwd": 1 + sm90, "flash_bwd_dq": 1,
+        want = {"flash_fwd": 1 + sm90, "flash_bwd_dq": 1 + sm90,
                 "flash_bwd_dkv": 1 + sm90, "flash_fwd.sm90": 2 * sm90,
+                "flash_bwd_dq.sm90": 2 * sm90,
                 "flash_bwd_dkv.sm90": 2 * sm90}
         check(used == want, f"kernel variants at {where}: launched {used}, "
                             f"want {want}")
@@ -1358,8 +1375,8 @@ def phase_flash():
         for key, e in errs.items():
             worst.setdefault(key, {})
             worst[key][dt] = max(worst[key].get(dt, 0.0), e)
-    log(f"[flash] {n} cases ({n_sm90} on the Hopper forward and dk/dv, "
-        f"each launched twice and bitwise equal) in "
+    log(f"[flash] {n} cases ({n_sm90} on the Hopper forward, dq and dk/dv,"
+        f" each launched twice and bitwise equal) in "
         f"{time.perf_counter() - t0:.1f} s; worst "
         + json.dumps({key: {str(t)[6:]: e for t, e in w.items()}
                       for key, w in worst.items()}))
@@ -1503,9 +1520,11 @@ def phase_longseq():
     batch, seq, warmup, steps = 1, 4096, 2, 15
     cfg = GPTConfig(max_seq_len=seq, dropout=0.0)
     ids, labels = _lm_batch(cfg.vocab_size, batch, seq)
-    ce_bwd = ("compact_rows_kernel", "ce_sm90_", "ce_bwd_dh_kernel",
+    ce_fwd = ("ce_sm90_fwd", "ce_fwd_")
+    ce_bwd = ("compact_rows_kernel", "ce_sm90_gather", "ce_sm90_chunk",
+              "ce_sm90_dh_reduce", "ce_bwd_dh_kernel",
               "ce_dh_reduce_kernel", "ce_bwd_dw_kernel")
-    named = FLASH_KERNELS + ("ce_fwd_kernel",) + ce_bwd
+    named = FLASH_KERNELS + ce_fwd + ce_bwd
 
     with _flash_flags_kept():
         kernels.reset_launch_counts()
@@ -1552,7 +1571,10 @@ def phase_longseq():
         res["breakdown"] = prof
         res["breakdown"]["device_idle_share"] = \
             1 - prof["device_busy_ms_per_step"] / res["step_ms"]
-        # the CE backward: the valid-row list and every backward kernel
+        # the CE forward (either source, its combine too); the CE
+        # backward: the valid-row list and every backward kernel
+        res["breakdown"]["ce_forward_ms_per_step"] = sum(
+            prof["kernel_ms_per_step"][k] for k in ce_fwd)
         res["breakdown"]["ce_backward_ms_per_step"] = sum(
             prof["kernel_ms_per_step"][k] for k in ce_bwd)
     log(f"[longseq] {json.dumps(res)}")
@@ -1751,10 +1773,12 @@ def phase_flash_timings():
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
 # decode source, 6 for the CE sources, 10 for the flash ones) must fail on
-# that copy. The forward and dk/dv faults are in the Hopper kernels that
-# bf16 d 64 / 128 runs, the CE faults in the Hopper backward that bf16 at
-# H % 64 == 0 runs, the decode faults in the split-K combine, the s = 1
-# kernel's loop bound and the mma chunk kernel's mask.
+# that copy. The flash faults are in the Hopper kernels that bf16 d 64 /
+# 128 runs (the forward's tile count, dq's and dk/dv's ds) and in
+# flash_attention.cu's dq (f32 and the other d), the CE faults in the
+# Hopper forward and backward that bf16 at H % 64 == 0 runs, the decode
+# faults in the split-K combine, the s = 1 kernel's loop bound and the mma
+# chunk kernel's mask.
 FAULTS = {
     "last_live_causal_key_tile_skipped":
         ("flash_attention_sm90.cu", "min(n, last / bn + 1)",
@@ -1763,10 +1787,18 @@ FAULTS = {
         ("flash_attention_sm90.cu",
          "const float ds = p * (dpv - dl) * a.scale;",
          "const float ds = p * dpv * a.scale;"),
+    "dq_sm90_without_delta":
+        ("flash_attention_sm90.cu",
+         "dp[j][e] = p * (dp[j][e] - dl[e >> 1]) * a.scale;",
+         "dp[j][e] = p * dp[j][e] * a.scale;"),
     "dq_without_scale":
         ("flash_attention.cu",
          "ds_s[r * ldp + c] = from_f32<T>(ds);   // rounded to k's dtype",
          "ds_s[r * ldp + c] = from_f32<T>(ds / a.scale);"),
+    "ce_fwd_label_logit_dropped":
+        ("fused_ce_sm90.cu",
+         "if (lc == 8 * j + e) t[hf] += acc[4 * j + 2 * hf + e];",
+         "if (lc == 8 * j + e) t[hf] += 0.f;"),
     "ce_ds_without_label_term":
         ("fused_ce_sm90.cu",
          "v = (p - (col == label[hf] ? 1.f : 0.f)) * g[hf];",

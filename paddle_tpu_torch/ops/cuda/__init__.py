@@ -23,7 +23,9 @@ KERNELS = (decode_attention, paged_decode_attention, fused_ce_fwd,
            fused_ce_bwd_dh, fused_ce_bwd_dw, flash_fwd, flash_bwd_dq,
            flash_bwd_dkv)
 # wrappers with a second kernel: their launches of it, beside the total
-VARIANTS = {"flash_fwd.sm90": flash_fwd, "flash_bwd_dkv.sm90": flash_bwd_dkv,
+VARIANTS = {"flash_fwd.sm90": flash_fwd, "flash_bwd_dq.sm90": flash_bwd_dq,
+            "flash_bwd_dkv.sm90": flash_bwd_dkv,
+            "fused_ce_fwd.sm90": fused_ce_fwd,
             "fused_ce_bwd_dh.sm90": fused_ce_bwd_dh,
             "fused_ce_bwd_dw.sm90": fused_ce_bwd_dw,
             "decode_attention.sm90": decode_attention,

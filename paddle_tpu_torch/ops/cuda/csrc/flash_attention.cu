@@ -50,10 +50,9 @@
 //   * bf16 inputs: WMMA (mma.sync) 16x16x16 products, bf16 in, f32
 //     accumulate; f32 inputs: f32 FMA from shared memory, never TF32, so
 //     f32 holds an f32 tolerance.
-// bf16 at head dim 64 or 128 with aligned inputs runs the forward and
-// dk/dv of flash_attention_sm90.cu instead (register-resident mma.sync
-// tiles); these kernels keep f32, the other head dims, unaligned inputs
-// and every dq.
+// bf16 at head dim 64 or 128 with aligned inputs runs the three kernels of
+// flash_attention_sm90.cu instead (register-resident mma.sync tiles); these
+// kernels keep f32, the other head dims and unaligned inputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

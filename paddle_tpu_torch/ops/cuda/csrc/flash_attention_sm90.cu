@@ -1,12 +1,13 @@
 // Flash attention for Hopper (sm_90a), bf16 at head dim 64 or 128: the
-// forward and the dk/dv backward with register-resident tiles.
+// forward and both backward kernels with register-resident tiles.
 //
-// Replaces, on their bf16 d 64 / d 128 path, two TPU Pallas kernels of
-// paddle_tpu/ops/pallas/flash_attention.py:
+// Replaces, on their bf16 d 64 / d 128 path, the three TPU Pallas kernels
+// of paddle_tpu/ops/pallas/flash_attention.py:
 //   _flash_fwd_kernel      (:103) -> flash_fwd_sm90_kernel
+//   _flash_bwd_dq_kernel   (:234) -> flash_bwd_dq_sm90_kernel
 //   _flash_bwd_dkv_kernel  (:272) -> flash_bwd_dkv_sm90_kernel
 // f32, other head dims and unaligned inputs keep the kernels of
-// flash_attention.cu, which also holds dq (_flash_bwd_dq_kernel, :234).
+// flash_attention.cu.
 //
 // Contract (as flash_attention.cu): for q [BH, Sq, D], k and v [BH, Sk, D]
 // in bf16, an optional f32 key bias [B, Sk] (head bh reads row bh / H):
@@ -15,9 +16,9 @@
 //   fwd  running max m from NEG_INF, P = exp(s - m) rounded to bf16 for
 //        P . V, o = acc / max(l, 1e-30) in bf16, lse = m + log(max(l,
 //        1e-30)) in f32 (natural log)
-//   dkv  p = exp(s - lse), dp = dO . V^T, ds = p * (dp - delta) * scale;
-//        dv = p^T . dO (p rounded to bf16), dk = ds^T . Q (ds rounded to
-//        bf16)
+//   bwd  p = exp(s - lse), dp = dO . V^T, ds = p * (dp - delta) * scale;
+//        dq = ds . K and dk = ds^T . Q (ds rounded to bf16), dv = p^T . dO
+//        (p rounded to bf16)
 // Every product accumulates in f32. Keys at and past Sk take no part, rows
 // at and past Sq write nothing and add nothing: ragged lengths are masked
 // here, with no padded copy. Each output element has one writer and a fixed
@@ -25,21 +26,24 @@
 //
 // What bounds it: operations. At GPT-2 small's long-sequence shape (BH 12,
 // S 4096, D 64, causal) the live (row, key) pairs take 25.8 GFLOP in the
-// forward (two products) and 51.6 GFLOP in dk/dv (four): 26 and 52 us at
-// the H100 SXM's 989 TFLOP/s dense bf16; the bytes (q, k, v, o, dO, dk, dv
-// once) take under 20 us at 3.35 TB/s. So the design keeps every
-// intermediate on chip and the tensor cores fed:
-//   * scores, P, dP, dS and the O / dk / dv accumulators stay in registers
-//     as mma.sync m16n8k16 fragments (bf16 in, f32 accumulate). A score
-//     fragment is scaled, biased and masked where it lies (each thread
+// forward (two products), 38.7 GFLOP in dq (three) and 51.6 GFLOP in dk/dv
+// (four): 26, 39 and 52 us at the H100 SXM's 989 TFLOP/s dense bf16; the
+// bytes (q, k, v, o, dO, dq, dk, dv once) take under 20 us at 3.35 TB/s. So
+// the design keeps every intermediate on chip and the tensor cores fed:
+//   * scores, P, dP, dS and the O / dq / dk / dv accumulators stay in
+//     registers as mma.sync m16n8k16 fragments (bf16 in, f32 accumulate). A
+//     score fragment is scaled, biased and masked where it lies (each thread
 //     knows its (row, col) from the fragment layout), rounded to bf16 and
 //     reused as the A operand of the next product: no trip through shared
 //     memory. The online softmax's row max and sum are quad shuffles, with
 //     log2(e) folded into the scale (exp2f);
-//   * one warp owns 16 rows (forward: queries; dk/dv: keys). The forward
-//     block has BM / 16 warps over a BM-row query tile and walks 64-key
-//     tiles; dk/dv's block has BN / 16 warps over BN keys (K and V resident
-//     in shared memory) and walks query tiles from the first live one;
+//   * one warp owns 16 rows (forward and dq: queries; dk/dv: keys). The
+//     forward and dq blocks have BM / 16 warps over a BM-row query tile and
+//     walk 64-key tiles (dq reads its Q and dO fragments from shared memory
+//     per tile: 166 registers at d 64, three blocks an SM); dk/dv's block
+//     has BN / 16 warps over BN keys (K and V resident in shared memory)
+//     and walks query tiles from the first live one. dq and dk/dv stay two
+//     kernels, so neither needs atomics;
 //   * the walked tiles (K and V; Q, dO, lse and delta) come through a
 //     two-stage cp.async ring (16-byte copies, zero-fill past the end): the
 //     copy of tile j + 1 is in flight while tile j computes, with one
@@ -47,14 +51,15 @@
 //     ldmatrix / ldmatrix.trans reads that make the fragments are free of
 //     bank conflicts;
 //   * the causal mask is applied only on tiles that cross the diagonal and
-//     dead tiles are skipped; the forward launches its longest query tiles
-//     first (dk/dv: the key tiles that see the most queries), so the last
-//     wave is short tiles;
+//     dead tiles are skipped; the forward and dq launch their longest query
+//     tiles first (dk/dv: the key tiles that see the most queries), so the
+//     last wave is short tiles;
 //   * shared memory: the forward 40 KB (d 64, BM 64: three blocks of 4
-//     warps per SM, by registers); dk/dv 66.5 KB at d 64 and 128 keys
-//     (8 warps, which load each Q / dO tile once for 128 keys; 64 keys,
-//     49 KB and two blocks of 4 warps per SM, was slower). The tile sizes
-//     are fixed below (kFwdRows, kDkvKeys).
+//     warps per SM, by registers); dq 48 KB at d 64 (Q and dO tiles, a
+//     two-stage K / V ring; three blocks per SM); dk/dv 66.5 KB at d 64 and
+//     128 keys (8 warps, which load each Q / dO tile once for 128 keys; 64
+//     keys, 49 KB and two blocks of 4 warps per SM, was slower). The tile
+//     sizes are fixed below (kFwdRows, kDqRows, kDkvKeys).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -206,6 +211,33 @@ __device__ __forceinline__ uint32_t bt_addr(const bf16* t, int k0, int nc,
                                             int lane) {
   const int m = lane >> 3;
   return smem_addr(t + swz<D>(k0 + ((m & 1) << 3) + (lane & 7), nc + (m >> 1)));
+}
+
+// A warp's 16 x D f32 accumulator fragments, rows divided by d0 (the
+// lane's first row) and d1 (its row + 8), rounded to bf16 and stored to
+// rows g0 + 16 warp .. of out [S, D] (none at and past S) through the
+// warp's own 16 rows of the swizzled tile t, in 16-byte stores
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
+                                           float d0, float d1, bf16* t,
+                                           bf16* out, int g0, int S,
+                                           int warp, int lane) {
+  constexpr int DB = D / 8;
+  const int r_lo = warp * 16 + (lane >> 2), e = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < DB; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(t + swz<D>(r_lo, j) + e) =
+        __floats2bfloat162_rn(acc[j][0] / d0, acc[j][1] / d0);
+    *reinterpret_cast<__nv_bfloat162*>(t + swz<D>(r_lo + 8, j) + e) =
+        __floats2bfloat162_rn(acc[j][2] / d1, acc[j][3] / d1);
+  }
+  __syncwarp();
+  for (int u = lane; u < 16 * DB; u += 32) {
+    const int r = warp * 16 + u / DB, c = u % DB;
+    if (g0 + r < S)
+      *reinterpret_cast<uint4*>(out + (int64_t)(g0 + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(t + swz<D>(r, c));
+  }
 }
 
 // key tiles [0, end) a query tile q0 .. q0+bm must visit (causal: up to the
@@ -374,28 +406,148 @@ __global__ void __launch_bounds__(BM * 2)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  const int r_lo = warp * 16 + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < DB; ++j) {
-    const int e = (lane & 3) * 2;
-    *reinterpret_cast<__nv_bfloat162*>(q_s + swz<D>(r_lo, j) + e) =
-        __floats2bfloat162_rn(o[j][0] / d0, o[j][1] / d0);
-    *reinterpret_cast<__nv_bfloat162*>(q_s + swz<D>(r_lo + 8, j) + e) =
-        __floats2bfloat162_rn(o[j][2] / d1, o[j][3] / d1);
-  }
-  __syncwarp();
-  bf16* out = a.out + (int64_t)bh * a.Sq * D;
-  for (int u = lane; u < 16 * DB; u += 32) {
-    const int r = warp * 16 + u / DB, c = u % DB;
-    if (q0 + r < a.Sq)
-      *reinterpret_cast<uint4*>(out + (int64_t)(q0 + r) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(q_s + swz<D>(r, c));
-  }
+  store_rows<D>(o, d0, d1, q_s, a.out + (int64_t)bh * a.Sq * D, q0, a.Sq,
+                warp, lane);
   if ((lane & 3) == 0) {
     float* lse = a.lse + (int64_t)bh * a.Sq;
     if (row0 < a.Sq) lse[row0] = m0 * kLn2 + logf(d0);
     if (row0 + 8 < a.Sq) lse[row0 + 8] = m1 * kLn2 + logf(d1);
   }
+}
+
+// ---------------------------------------------------------------------------
+// dq: the forward's shape. One warp per 16 query rows, BM / 16 warps, BN-key
+// tiles; dq = ds . K with ds rounded to bf16 in the A fragment
+// ---------------------------------------------------------------------------
+
+template <int D, int BM, int BN>
+__global__ void __launch_bounds__(BM * 2)
+    flash_bwd_dq_sm90_kernel(const Args a) {
+  constexpr int NT = BM * 2;
+  constexpr int KD = D / 16, NB = BN / 8, DB = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);   // [BM][D]
+  bf16* do_s = q_s + BM * D;                   // [BM][D]
+  bf16* k_s = do_s + BM * D;                   // 2 x [BN][D]
+  bf16* v_s = k_s + 2 * BN * D;                // 2 x [BN][D]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_qt = (a.Sq + BM - 1) / BM;
+  const int bh = blockIdx.x % a.BH;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / a.BH) * BM;  // longest first
+  const int64_t qoff = (int64_t)bh * a.Sq;
+  const bf16* k = a.k + (int64_t)bh * a.Sk * D;
+  const bf16* v = a.v + (int64_t)bh * a.Sk * D;
+  const float* bias =
+      a.bias != nullptr ? a.bias + (int64_t)(bh / a.H) * a.Sk : nullptr;
+  const int off = a.Sk - a.Sq;
+  const int kt_end = fwd_key_tiles(a, q0, BM, BN);
+
+  tile_async<BM, D, NT>(q_s, a.q + qoff * D, q0, a.Sq);
+  tile_async<BM, D, NT>(do_s, a.dout + qoff * D, q0, a.Sq);
+  if (kt_end > 0) {
+    tile_async<BN, D, NT>(k_s, k, 0, a.Sk);
+    tile_async<BN, D, NT>(v_s, v, 0, a.Sk);
+  }
+  cp_async_commit();
+
+  const int wrow = q0 + warp * 16;             // the warp's first row
+  const int row0 = wrow + (lane >> 2);         // this lane's rows: row0, +8
+  const float sl = a.scale * kLog2e;
+  float lse2[2], dl[2];                        // lse in log2 units, delta
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row0 + 8 * hf;
+    lse2[hf] = r < a.Sq ? a.lse[qoff + r] * kLog2e : 0.f;
+    dl[hf] = r < a.Sq ? a.delta[qoff + r] : 0.f;
+  }
+  float dq[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();   // tile kt landed; every warp is done with kt - 1
+    if (kt + 1 < kt_end) {
+      const int st = (kt + 1) & 1;
+      tile_async<BN, D, NT>(k_s + st * BN * D, k, (kt + 1) * BN, a.Sk);
+      tile_async<BN, D, NT>(v_s + st * BN * D, v, (kt + 1) * BN, a.Sk);
+    }
+    cp_async_commit();
+    const bf16* ks = k_s + (kt & 1) * BN * D;
+    const bf16* vs = v_s + (kt & 1) * BN * D;
+
+    // S = Q . K^T and dP = dO . V^T; the Q and dO fragments are read from
+    // shared memory per tile (held in registers for the whole walk they
+    // took the d 64 kernel from 166 to 217 registers, 3 blocks an SM to 2,
+    // and were slower on the H100)
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], da[4];
+      ldsm_x4(qa, a_addr<D>(q_s, warp * 16, 2 * kk, lane));
+      ldsm_x4(da, a_addr<D>(do_s, warp * 16, 2 * kk, lane));
+#pragma unroll
+      for (int p = 0; p < NB / 2; ++p) {
+        uint32_t b[4];
+        ldsm_x4(b, bn_addr<D>(ks, p * 16, 2 * kk, lane));
+        mma(s[2 * p], qa, b[0], b[1]);
+        mma(s[2 * p + 1], qa, b[2], b[3]);
+        ldsm_x4(b, bn_addr<D>(vs, p * 16, 2 * kk, lane));
+        mma(dp[2 * p], da, b[0], b[1]);
+        mma(dp[2 * p + 1], da, b[2], b[3]);
+      }
+    }
+
+    // P = exp(s - lse), dS = P (dP - delta) scale, on the fragments (dp
+    // holds dS after this); masked and missing keys give P = 0
+    const int k0 = kt * BN;
+    const bool edge =
+        k0 + BN > a.Sk || (a.causal && k0 + BN - 1 > wrow + off);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int col = k0 + j * 8 + (lane & 3) * 2;
+      float b0 = 0.f, b1 = 0.f;
+      if (bias != nullptr) {
+        if (col < a.Sk) b0 = __ldg(bias + col) * kLog2e;
+        if (col + 1 < a.Sk) b1 = __ldg(bias + col + 1) * kLog2e;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[j][e], sl, (e & 1) ? b1 : b0) - lse2[e >> 1]);
+        if (edge) {
+          const int c = col + (e & 1), r = row0 + (e >> 1) * 8;
+          if (c >= a.Sk || (a.causal && c > r + off)) p = 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - dl[e >> 1]) * a.scale;
+      }
+    }
+
+    // dq += dS . K, dS rounded to bf16 in the A fragment, K through
+    // ldmatrix.trans as the forward reads V
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t da[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
+                              pack(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int p = 0; p < D / 16; ++p) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bt_addr<D>(ks, kk * 16, 2 * p, lane));
+        mma(dq[2 * p], da, b[0], b[1]);
+        mma(dq[2 * p + 1], da, b[2], b[3]);
+      }
+    }
+  }
+
+  // epilogue: dq through the warp's own rows of q_s
+  cp_async_wait_all();
+  __syncthreads();
+  store_rows<D>(dq, 1.f, 1.f, q_s, a.out + qoff * D, q0, a.Sq, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -539,32 +691,8 @@ __global__ void __launch_bounds__(BN * 2)
   // epilogue: dk and dv through the warp's own rows of k_s / v_s
   cp_async_wait_all();
   __syncthreads();
-  const int r_lo = warp * 16 + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < DB; ++j) {
-    const int e = (lane & 3) * 2;
-    *reinterpret_cast<__nv_bfloat162*>(k_s + swz<D>(r_lo, j) + e) =
-        __floats2bfloat162_rn(dk[j][0], dk[j][1]);
-    *reinterpret_cast<__nv_bfloat162*>(k_s + swz<D>(r_lo + 8, j) + e) =
-        __floats2bfloat162_rn(dk[j][2], dk[j][3]);
-    *reinterpret_cast<__nv_bfloat162*>(v_s + swz<D>(r_lo, j) + e) =
-        __floats2bfloat162_rn(dv[j][0], dv[j][1]);
-    *reinterpret_cast<__nv_bfloat162*>(v_s + swz<D>(r_lo + 8, j) + e) =
-        __floats2bfloat162_rn(dv[j][2], dv[j][3]);
-  }
-  __syncwarp();
-  bf16* dk_g = a.out + koff;
-  bf16* dv_g = a.out2 + koff;
-  for (int u = lane; u < 16 * DB; u += 32) {
-    const int r = warp * 16 + u / DB, c = u % DB;
-    if (k0 + r < a.Sk) {
-      const int64_t g = (int64_t)(k0 + r) * D + c * 8;
-      *reinterpret_cast<uint4*>(dk_g + g) =
-          *reinterpret_cast<const uint4*>(k_s + swz<D>(r, c));
-      *reinterpret_cast<uint4*>(dv_g + g) =
-          *reinterpret_cast<const uint4*>(v_s + swz<D>(r, c));
-    }
-  }
+  store_rows<D>(dk, 1.f, 1.f, k_s, a.out + koff, k0, a.Sk, warp, lane);
+  store_rows<D>(dv, 1.f, 1.f, v_s, a.out2 + koff, k0, a.Sk, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -587,6 +715,11 @@ int launch(Kernel kernel, int blocks, int threads, size_t smem,
 constexpr int kFwdRows = 64;
 constexpr int kFwdKeys = 64;
 constexpr int kDkvKeys = 128;
+// dq's query rows and keys per tile: the forward's (on the H100, 128 rows,
+// 32 keys and a three-stage ring were each slower at b1 h12 s4096 d64
+// causal)
+constexpr int kDqRows = 64;
+constexpr int kDqKeys = 64;
 
 template <int D>
 int launch_fwd(const Args& a, cudaStream_t st) {
@@ -594,6 +727,15 @@ int launch_fwd(const Args& a, cudaStream_t st) {
   const size_t smem = (size_t)(BM + 4 * kFwdKeys) * D * sizeof(bf16);
   const int n_qt = (a.Sq + BM - 1) / BM;
   return launch(flash_fwd_sm90_kernel<D, BM, kFwdKeys>, n_qt * a.BH, BM * 2,
+                smem, st, a);
+}
+
+template <int D>
+int launch_dq(const Args& a, cudaStream_t st) {
+  constexpr int BM = kDqRows;
+  const size_t smem = (size_t)(2 * BM + 4 * kDqKeys) * D * sizeof(bf16);
+  const int n_qt = (a.Sq + BM - 1) / BM;
+  return launch(flash_bwd_dq_sm90_kernel<D, BM, kDqKeys>, n_qt * a.BH, BM * 2,
                 smem, st, a);
 }
 
@@ -629,6 +771,23 @@ int flash_sm90_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_fwd<64>(a, st);
   if (D == 128) return launch_fwd<128>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dq [BH, Sq, D] bf16 from the saved lse and delta; D in {64, 128}.
+int flash_sm90_bwd_dq(const void* q, const void* k, const void* v,
+                      const float* bias, const void* dout, const float* lse,
+                      const float* delta, void* dq, int BH, int H, int Sq,
+                      int Sk, int D, float scale, int causal, void* stream) {
+  Args a{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
+         static_cast<const bf16*>(v),    bias,
+         static_cast<const bf16*>(dout), const_cast<float*>(lse),
+         delta,                          static_cast<bf16*>(dq),
+         nullptr,                        BH, H, Sq, Sk, scale, causal};
+  if (!valid_shape(a)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_dq<64>(a, st);
+  if (D == 128) return launch_dq<128>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 

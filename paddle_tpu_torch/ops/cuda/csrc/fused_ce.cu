@@ -66,8 +66,10 @@
 //   * any n (bounds masks; no multiple-of-8 rule), any H that is a
 //     multiple of 8 up to 1024, any V >= 1.
 // Occupancy: the backward kernels use ~160-180 KB of shared memory, so one
-// block (8 warps) per SM; dW has ceil(V / 32) blocks. wgmma, TMA and a
-// persistent schedule are later work.
+// block (8 warps) per SM; dW has ceil(V / 32) blocks.
+// bf16 with H a multiple of 64 runs the forward and the backward of
+// fused_ce_sm90.cu instead (wgmma tiles, register accumulators); these
+// kernels keep f32 and the other H, and list the valid rows for both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,34 +1,53 @@
-// The bf16 fused cross-entropy backward for Hopper (sm_90a): dh, dW and db
-// from ONE recompute of the logits, every product on register-resident
-// tensor-core tiles.
+// The bf16 fused cross-entropy for Hopper (sm_90a): the forward, and dh, dW
+// and db from ONE recompute of the logits, every product on
+// register-resident tensor-core tiles.
 //
-// Replaces, on its bf16 path (H a multiple of 64, at most 1024), two TPU
-// Pallas kernels of paddle_tpu/ops/pallas/fused_ce.py:
+// Replaces, on its bf16 path (H a multiple of 64, at most 1024), the three
+// TPU Pallas kernels of paddle_tpu/ops/pallas/fused_ce.py:
+//   _ce_fwd_kernel    (:41) -> ce_sm90_fwd_kernel (+ ce_sm90_fwd_combine_
+//                              kernel, the merge of the vocab ranges)
 //   _ce_bwd_dh_kernel (:145) and _ce_bwd_dw_kernel (:173)
 //       -> ce_sm90_chunk_kernel (its ds pass: the shared recompute, ds and
 //          db's partial sums; its dh pass + ce_sm90_dh_reduce_kernel: dh;
 //          its dW pass: dW and db), after ce_sm90_gather_kernel
 // f32 and other H keep the kernels of fused_ce.cu, which also holds the
-// forward and the valid-row list (fused_ce_valid_rows) this file reads.
+// valid-row list (fused_ce_valid_rows) the backward reads.
 //
 // Contract (as fused_ce.cu): for hidden h [n, H], weight W [V, H], optional
 // bias b [V], labels y [n], the saved lse [n] and the upstream g [n]:
-//   ds_iv = (exp(s_iv + b_v - lse_i) - [v == y_i]) * g_i,  s = h . W^T (f32)
+//   s_iv = h_i . W_v + b_v (f32 products, bf16 bias); columns >= V masked
+//   forward  lse_i = m + log(max(l, 1e-30)) over s_i (every row, ignored
+//            ones too), loss_i = lse_i - s_{i, y_i}, 0 where y_i == ignore
+//   ds_iv = (exp(s_iv - lse_i) - [v == y_i]) * g_i
 //   dh = ds . W, dW = ds^T . h (ds rounded to bf16 for both, as the TPU
 //   kernel and the plain version round it), db = sum_i ds_i (f32, unrounded)
 // Ignored rows (not in the valid-row list) have ds = 0; a label outside
-// [0, V) matches no column. Products accumulate in f32; outputs are
-// rounded once to bf16. No atomics: every output element has one writer and
-// every sum a fixed order, so two launches give the same bits.
+// [0, V) matches no column (its loss is lse). Products accumulate in f32;
+// outputs are rounded once to bf16. No atomics: every output element has
+// one writer and every sum a fixed order, so two launches give the same
+// bits.
 //
 // What bounds it: operations. At GPT-2's head (n 4096 valid rows, H 768,
 // V 50304) each product is 2 n H V = 316.5 GFLOP, 0.320 ms at the H100
-// SXM's 989 TFLOP/s dense bf16; dh + dW need three (the recompute, ds . W,
-// ds^T . h): 0.960 ms. The bytes (h, W, b, y, lse, g once, dh, dW, db once)
-// are ~170 MB, 0.05 ms at 3.35 TB/s. fused_ce.cu recomputed the logits in
-// each of its two kernels (four products), kept its accumulators in shared
-// memory and reread W and h per 32-row block. Here:
-//   * the wrapper gathers the valid rows of h, lse, g and y into compact
+// SXM's 989 TFLOP/s dense bf16: the forward needs one, dh + dW three (the
+// recompute, ds . W, ds^T . h): 0.960 ms. The bytes (h, W, b, y, lse, g
+// once, dh, dW, db once) are ~170 MB, 0.05 ms at 3.35 TB/s. fused_ce.cu
+// ran 64 x 64 WMMA logits tiles through shared memory, recomputed the
+// logits in each of its two backward kernels (four products), kept its
+// accumulators in shared memory and reread W and h per 32-row block. Here:
+//   * the forward runs the GEMM main loop below over K = H for each
+//     128 x 128 tile of logits and folds the tile into a running max, sum
+//     and label logit per row in registers (ce_sm90_fwd_kernel): a block
+//     owns a row tile and a range of vocab tiles, the ranges sized so that
+//     the row tiles fill the SMs in one wave, and the partials of the
+//     ranges are merged in order. The epilogue is kept lean, since the SM
+//     does it between products: the label is looked for only in the tile
+//     and thread that hold it, the ragged mask only on the last tile, one
+//     FFMA and one ex2 per element. On the H100 (PERF.md) a first epilogue
+//     that tested every element for the label and the mask was slower, and
+//     the GEMM with a bare epilogue (a sum of the tile) takes most of the
+//     forward's time: the main loop, not the epilogue, bounds it now;
+//   * the backward gathers the valid rows of h, lse, g and y into compact
 //     arrays once (ce_sm90_gather_kernel): every operand below is dense;
 //   * the vocab is walked in chunks of Vc columns (the wrapper's schedule),
 //     with three passes of ONE GEMM main loop and three epilogues:
@@ -67,6 +86,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -84,6 +104,7 @@ constexpr int kMaxH = 1024;
 // the ring, and 1 KB to align it to the 1024-byte swizzle atom
 constexpr size_t kSmem = (size_t)kStages * 2 * kTile * sizeof(bf16) + 1024;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kBM == kBN, "one tile shape serves all three passes");
 
 enum Pass { kDs = 0, kDh = 1, kDw = 2 };
@@ -117,6 +138,11 @@ struct Args {
   Chunk fresh;         // the chunk whose ds pass this launch runs
   Chunk done;          // the chunk whose dh and dW passes this launch runs
   int n_dh, n_dw;      // this launch's dh and dW blocks (then the ds ones)
+  // the forward
+  float* loss;         // [n]
+  float* lse_out;      // [n]
+  float* fpart;        // [3, splits, n] partial m (log2 units), l, t
+  int ignore, splits;
 };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
@@ -155,6 +181,13 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x by the SFU (flushes subnormal results to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
@@ -529,6 +562,183 @@ __global__ void __launch_bounds__(kThreads, 2)
   ds_pass(a, a.fresh, b - a.n_dw, count, smem);
 }
 
+// ---------------------------------------------------------------------------
+// the forward: per-token lse and loss with an online-softmax epilogue on the
+// ds pass's GEMM (S = h . W^T over K = H); the logits are never written
+// ---------------------------------------------------------------------------
+
+// Block b: row tile b % R (R row tiles of 128) and vocab range b / R of
+// `splits` near-equal ranges of 128-column tiles. The row tiles of one range
+// are neighbours in the grid, so they run together and read each W tile
+// from L2 at about the same time: W is read from device memory about once.
+// The block walks its vocab tiles as one stream of K steps through the
+// ring, so the next tile's first loads are in flight during a tile's
+// epilogue. Per tile, each thread folds its 2 rows x 32 columns of the
+// accumulator into a running (m, l, t) in registers: m the row max in log2
+// units (shared by the row's quad after shuffles), l this thread's part of
+// the sum of exp2(s - m), t the label logit (added by the thread whose
+// column is the label). The quad sums l and t at the end; the partials go
+// to fpart, merged in split order by ce_sm90_fwd_combine_kernel.
+__global__ void __launch_bounds__(kThreads, 2)
+    ce_sm90_fwd_kernel(const Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  const int R = cdiv(a.n, kBM);
+  const int rt = blockIdx.x % R, split = blockIdx.x / R;
+  const int nvt = cdiv(a.V, kBN);
+  const int vt0 = (int)((int64_t)split * nvt / a.splits);
+  const int vt1 = (int)((int64_t)(split + 1) * nvt / a.splits);
+  const int m0 = rt * kBM;
+  Chunk all{};         // the whole vocab: W rows at and past V read as zeros
+  all.vc = a.V;
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = m0 + 16 * warp + (lane >> 2);
+  int label[2];          // -1: no column (ignored, outside [0, V), no row)
+  float m[2], l[2], t[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row0 + 8 * hf;
+    const int y = r < a.n ? a.y[r] : -1;
+    label[hf] = y >= 0 && y < a.V ? y : -1;
+    m[hf] = -CUDART_INF_F;
+    l[hf] = t[hf] = 0.f;
+  }
+  const int nk = a.H / kBK;
+  const int total = (vt1 - vt0) * nk;   // K steps over all the block's tiles
+  // the step that the next load fills: tile lv, K step lk
+  int lv = vt0, lk = 0;
+  auto load_next = [&](int stage) {
+    load_stage<kDs>(a, all, smem + 2 * stage * kTile,
+                    smem + (2 * stage + 1) * kTile, m0, lv * kBN, lk * kBK);
+    if (++lk == nk) {
+      lk = 0;
+      ++lv;
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) load_next(s);
+    cp_async_commit();
+  }
+  float acc[64];
+  int vt = vt0, kt = 0;
+  for (int u = 0; u < total; ++u) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();   // this thread's copies, visible to the products
+    __syncthreads();       // step u landed; every product of u - 1 is done
+    if (u + kStages - 1 < total) load_next((u + kStages - 1) % kStages);
+    cp_async_commit();
+    if (kt == 0) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    }
+    const int st = u % kStages;
+    wgmma_fence();
+    mma_step<kDs>(acc, smem + 2 * st * kTile, smem + (2 * st + 1) * kTile,
+                  wg);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(acc);
+    if (++kt < nk) continue;
+    // epilogue of vocab tile vt: + bias, the label logit, columns at and
+    // past V out, then the running max (log2 units) and sum
+    kt = 0;
+    const int n0 = vt++ * kBN;
+    const int col0 = n0 + 2 * (lane & 3);   // this thread's columns: col0 +
+                                            // 8 j + e, j < 16, e < 2
+    if (a.bias != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + 8 * j + e;
+          const float bv =
+              col < a.V ? __bfloat162float(a.bias[col]) : 0.f;
+          acc[4 * j + e] += bv;
+          acc[4 * j + 2 + e] += bv;
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      // the label logit, from the one thread whose columns hold it
+      const int lc = label[hf] - col0;
+      if (lc >= 0 && lc < 8 * 16 && (lc & 7) < 2) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (lc == 8 * j + e) t[hf] += acc[4 * j + 2 * hf + e];
+      }
+    }
+    if (n0 + kBN > a.V) {   // the ragged last tile
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (col0 + 8 * j + e >= a.V)
+            acc[4 * j + e] = acc[4 * j + 2 + e] = -CUDART_INF_F;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m2 = fmaxf(m[hf], mx * kLog2e);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        ps += ex2(fmaf(acc[4 * j + 2 * hf], kLog2e, -m2)) +
+              ex2(fmaf(acc[4 * j + 2 * hf + 1], kLog2e, -m2));
+      l[hf] = l[hf] * ex2(m[hf] - m2) + ps;
+      m[hf] = m2;
+    }
+  }
+  cp_async_wait<0>();
+  const int64_t sn = (int64_t)a.splits * a.n;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float ls = l[hf], ts = t[hf];
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    ts += __shfl_xor_sync(0xffffffffu, ts, 1);
+    ts += __shfl_xor_sync(0xffffffffu, ts, 2);
+    const int r = row0 + 8 * hf;
+    if ((lane & 3) == 0 && r < a.n) {
+      const int64_t at = (int64_t)split * a.n + r;
+      a.fpart[at] = m[hf];
+      a.fpart[sn + at] = ls;
+      a.fpart[2 * sn + at] = ts;
+    }
+  }
+}
+
+// lse and loss of each row from the vocab ranges' partial (m, l, t), merged
+// in range order: lse = M + log(max(l, 1e-30)), loss 0 where y == ignore
+__global__ void __launch_bounds__(256)
+    ce_sm90_fwd_combine_kernel(const Args a) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= a.n) return;
+  const int64_t sn = (int64_t)a.splits * a.n;
+  float M = -CUDART_INF_F;
+  for (int s = 0; s < a.splits; ++s)
+    M = fmaxf(M, a.fpart[(int64_t)s * a.n + r]);
+  float l = 0.f, t = 0.f;
+  for (int s = 0; s < a.splits; ++s) {
+    const int64_t at = (int64_t)s * a.n + r;
+    l += a.fpart[sn + at] * exp2f(a.fpart[at] - M);
+    t += a.fpart[2 * sn + at];
+  }
+  const float lse = M * kLn2 + logf(fmaxf(l, 1e-30f));
+  a.lse_out[r] = lse;
+  a.loss[r] = a.y[r] != a.ignore ? lse - t : 0.f;
+}
+
 // h_c, lse_c, g_c, y_c: the listed rows in list order, then zeros (-1 for
 // labels) up to n. One thread per 8 columns of a row.
 __global__ void __launch_bounds__(256) ce_sm90_gather_kernel(const Args a) {
@@ -571,6 +781,41 @@ __global__ void __launch_bounds__(256) ce_sm90_dh_reduce_kernel(const Args a) {
 }  // namespace
 
 extern "C" {
+
+// Per-token loss and lse [n] f32 of h [n, H] . W[V, H]^T + b (b may be
+// null) against labels y [n] (loss 0 where y == ignore), the vocab split in
+// `splits` ranges (at most ceil(V / 128)). Scratch: part f32 [3, splits,
+// n]. Returns the cudaError_t of the launches.
+int fused_ce_sm90_fwd(const void* h, const void* w, const void* b,
+                      const int* y, float* loss, float* lse, float* part,
+                      int n, int H, int V, int ignore, int splits,
+                      void* stream) {
+  if (n < 1 || V < 1 || H < kBK || H % kBK != 0 || splits < 1 ||
+      splits > cdiv(V, kBN))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args a{};
+  a.hc = static_cast<bf16*>(const_cast<void*>(h));   // read only
+  a.w = static_cast<const bf16*>(w);
+  a.bias = static_cast<const bf16*>(b);
+  a.y = y;
+  a.loss = loss;
+  a.lse_out = lse;
+  a.fpart = part;
+  a.n = n;
+  a.H = H;
+  a.V = V;
+  a.ignore = ignore;
+  a.splits = splits;
+  int err = (int)cudaFuncSetAttribute(
+      ce_sm90_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  if (err != 0) return err;
+  ce_sm90_fwd_kernel<<<cdiv(n, kBM) * splits, kThreads, kSmem, st>>>(a);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  ce_sm90_fwd_combine_kernel<<<cdiv(n, 256), 256, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
 
 // dh [n, H], dW [V, H] and db [V] (each null when not asked for; db needs
 // dW) in bf16 from the saved lse and the upstream g [n], over the list of

@@ -24,13 +24,13 @@ does. For a CUDA tensor a wrapper launches its kernel or raises; only for
 CPU tensors does it run the plain version. Each wrapper counts its launches
 in ``.launches``.
 
-Two kernels per wrapper for the forward and dk/dv: bf16 at head dim 64 or
-128 with 16-byte aligned inputs goes to the Hopper kernels of
-csrc/flash_attention_sm90.cu (register-resident mma.sync tiles, a cp.async
-ring), counted also in ``.launches_sm90``; everything else to
-csrc/flash_attention.cu. ``_sm90_path`` makes that choice before launch,
-from dtype, head dim and alignment alone; a launch that fails raises and
-never gives way to the other kernel. dq always runs csrc/flash_attention.cu.
+Two kernels per wrapper: bf16 at head dim 64 or 128 with 16-byte aligned
+inputs goes to the Hopper kernels of csrc/flash_attention_sm90.cu
+(register-resident mma.sync tiles, a cp.async ring), counted also in
+``.launches_sm90``; everything else to csrc/flash_attention.cu.
+``_sm90_path`` makes that choice before launch (``_entry``), from dtype,
+head dim and alignment alone, for the forward, dq and dk/dv alike; a
+launch that fails raises and never gives way to the other kernel.
 """
 from __future__ import annotations
 
@@ -54,6 +54,7 @@ _SIGS = {
     "flash_attention_bwd_dq": [_P] * 8 + _TAIL,
     "flash_attention_bwd_dkv": [_P] * 9 + _TAIL,
     "flash_sm90_fwd": [_P] * 6 + _TAIL_SM90,
+    "flash_sm90_bwd_dq": [_P] * 8 + _TAIL_SM90,
     "flash_sm90_bwd_dkv": [_P] * 9 + _TAIL_SM90,
 }
 _SM90_D = (64, 128)
@@ -71,7 +72,7 @@ def _fn(name):
 
 
 def _sm90_path(dtype, d, aligned) -> bool:
-    """Does a call take the Hopper kernels (forward, dk/dv)? bf16 at head
+    """Does a call take the Hopper kernels (forward, dq, dk/dv)? bf16 at head
     dim 64 or 128 with 16-byte aligned q, k, v (and dO) does; f32, other
     head dims and unaligned inputs take csrc/flash_attention.cu."""
     return dtype == torch.bfloat16 and d in _SM90_D and bool(aligned)
@@ -230,46 +231,51 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name, entry, ptrs, q, dims, scale, causal, dense):
-    """Call csrc entry point ``entry`` on q's device and current stream
+def _entry(kernel, dtype, d, aligned):
+    """The csrc entry point that a CUDA call of ``kernel`` ("fwd",
+    "bwd_dq" or "bwd_dkv") launches: the Hopper kernel where
+    ``_sm90_path`` says so, else flash_attention.cu's."""
+    if _sm90_path(dtype, d, aligned):
+        return f"flash_sm90_{kernel}"
+    return f"flash_attention_{kernel}"
+
+
+def _launch(wrapper, kernel, ptrs, q, dims, scale, causal, dense):
+    """Launch ``kernel`` for ``wrapper`` on q's device and current stream
     with ``ptrs``, then ``dims`` (BH, H, Sq, Sk, D), the scale and the
-    flags; raise on a launch error. flash_attention.cu's vector loads need
-    d % 8 == 0 and 16-byte aligned ``dense`` inputs; a Hopper entry point
-    takes no flags past causal."""
-    flags = ()
-    if not entry.startswith("flash_sm90"):
-        vec = dims[-1] % 8 == 0 and _aligned(dense)
-        flags = (int(vec), int(q.dtype == torch.bfloat16))
+    flags; raise on a launch error, else count the launch (and the Hopper
+    one). ``dense`` are the [s, d] inputs: the Hopper kernels and
+    flash_attention.cu's vector loads need them 16-byte aligned (and the
+    latter d % 8 == 0); a Hopper entry point takes no flags past causal."""
+    aligned = _aligned(dense)
+    entry = _entry(kernel, q.dtype, dims[-1], aligned)
+    sm90 = entry.startswith("flash_sm90")
+    flags = () if sm90 else (int(dims[-1] % 8 == 0 and aligned),
+                             int(q.dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
         status = _fn(entry)(
             *ptrs, *dims, float(scale), int(bool(causal)), *flags,
             torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
-                           f"{status}")
+        raise RuntimeError(f"{wrapper.__name__}: CUDA launch failed with "
+                           f"cudaError_t {status}")
+    wrapper.launches += 1
+    wrapper.launches_sm90 += sm90
 
 
 def flash_fwd(q, k, v, bias=None, causal=False, scale=None):
     """(o [bh, s_q, d] in q's dtype, lse [bh, s_q] f32). CUDA tensors
     launch the kernel; CPU tensors run ``flash_fwd_ref``."""
-    name = "flash_fwd"
-    bh, sq, sk, d, heads = _check(name, q, k, v, bias)
+    bh, sq, sk, d, heads = _check("flash_fwd", q, k, v, bias)
     scale = d ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, bias, causal, scale)
     out = torch.empty_like(q)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-            out.data_ptr(), lse.data_ptr())
-    dims = (bh, heads, sq, sk, d)
-    if _sm90_path(q.dtype, d, _aligned((q, k, v))):
-        _launch(name, "flash_sm90_fwd", ptrs, q, dims, scale, causal,
-                (q, k, v))
-        flash_fwd.launches_sm90 += 1
-    else:
-        _launch(name, "flash_attention_fwd", ptrs, q, dims, scale, causal,
-                (q, k, v))
-    flash_fwd.launches += 1
+    _launch(flash_fwd, "fwd",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+             out.data_ptr(), lse.data_ptr()),
+            q, (bh, heads, sq, sk, d), scale, causal, (q, k, v))
     return out, lse
 
 
@@ -277,18 +283,17 @@ def flash_bwd_dq(q, k, v, bias, do, lse, delta, causal=False, scale=None):
     """dq [bh, s_q, d] in q's dtype from the saved lse and ``delta``
     (``flash_delta(o, do)``). CUDA tensors launch the kernel; CPU tensors
     run the plain backward."""
-    name = "flash_bwd_dq"
-    bh, sq, sk, d, heads = _check(name, q, k, v, bias, (do,), (lse, delta))
+    bh, sq, sk, d, heads = _check("flash_bwd_dq", q, k, v, bias, (do,),
+                                  (lse, delta))
     scale = d ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return _bwd_ref(q, k, v, bias, do, lse, delta, causal, scale,
                         need_dkv=False)[0]
     dq = torch.empty_like(q)
-    _launch(name, "flash_attention_bwd_dq",
+    _launch(flash_bwd_dq, "bwd_dq",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
             q, (bh, heads, sq, sk, d), scale, causal, (q, k, v, do))
-    flash_bwd_dq.launches += 1
     return dq
 
 
@@ -296,31 +301,24 @@ def flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal=False, scale=None):
     """(dk, dv) [bh, s_k, d] in k's and v's dtype from the saved lse and
     ``delta``. CUDA tensors launch the kernel; CPU tensors run the plain
     backward."""
-    name = "flash_bwd_dkv"
-    bh, sq, sk, d, heads = _check(name, q, k, v, bias, (do,), (lse, delta))
+    bh, sq, sk, d, heads = _check("flash_bwd_dkv", q, k, v, bias, (do,),
+                                  (lse, delta))
     scale = d ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return _bwd_ref(q, k, v, bias, do, lse, delta, causal, scale,
                         need_dq=False)[1:]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr())
-    dims = (bh, heads, sq, sk, d)
-    if _sm90_path(q.dtype, d, _aligned((q, k, v, do))):
-        _launch(name, "flash_sm90_bwd_dkv", ptrs, q, dims, scale, causal,
-                (q, k, v, do))
-        flash_bwd_dkv.launches_sm90 += 1
-    else:
-        _launch(name, "flash_attention_bwd_dkv", ptrs, q, dims, scale,
-                causal, (q, k, v, do))
-    flash_bwd_dkv.launches += 1
+    _launch(flash_bwd_dkv, "bwd_dkv",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+             dv.data_ptr()),
+            q, (bh, heads, sq, sk, d), scale, causal, (q, k, v, do))
     return dk, dv
 
 
 flash_fwd.launches = flash_fwd.launches_sm90 = 0
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.launches_sm90 = 0
 flash_bwd_dkv.launches = flash_bwd_dkv.launches_sm90 = 0
 
 

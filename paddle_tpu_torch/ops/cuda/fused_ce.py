@@ -22,6 +22,12 @@ For a CUDA tensor a wrapper launches its kernel or raises; only for CPU
 tensors does it run the plain version. Each wrapper counts its launches in
 ``.launches``.
 
+The forward has two kernels: bf16 with H a multiple of 64 runs the Hopper
+forward of csrc/fused_ce_sm90.cu (the backward's wgmma GEMM main loop with
+an online-softmax epilogue, the vocab split in ranges merged in order),
+counted also in ``fused_ce_fwd.launches_sm90``; f32 and other H run
+csrc/fused_ce.cu's. ``_sm90_fwd_path`` makes that choice before launch.
+
 The backward has two kernels. ``fused_ce_bwd`` computes dh, dW and db
 together; bf16 with H a multiple of 64 (at most 1024) runs the Hopper
 backward of csrc/fused_ce_sm90.cu, which shares one recompute of the
@@ -63,6 +69,7 @@ _SIGS = {
     "fused_ce_bwd_dw": [_P] * 10 + [_I] * 5 + [_P],
     "fused_ce_valid_rows": [_P] * 3 + [_I] * 2 + [_P],
     "fused_ce_sm90_bwd": [_P] * 20 + [_I] * 5 + [_P],
+    "fused_ce_sm90_fwd": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 
@@ -229,27 +236,55 @@ def valid_rows(y, ignore_index=-100):
     return rows, pos
 
 
+def _sm90_fwd_path(dtype, hd) -> bool:
+    """Does a forward take the Hopper kernel of csrc/fused_ce_sm90.cu? bf16
+    with H a multiple of 64 (its K step) does; f32 and other H take
+    csrc/fused_ce.cu's forward. The cap of 1024 is every CE wrapper's
+    (``_check``), not the Hopper kernel's."""
+    return dtype == torch.bfloat16 and hd % 64 == 0 and 64 <= hd <= _MAX_H
+
+
+def _fwd_sm90_splits(device, n, vocab):
+    """Vocab ranges of the Hopper forward: as many as let its 128-row tiles
+    fill the card's 2 blocks per SM in one wave (8 for n 4096 on 132 SMs),
+    never more than the vocab tiles and at least one."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    row_tiles = -(-n // _GEMM_TILE)
+    return max(1, min(-(-vocab // _GEMM_TILE), 2 * sms // row_tiles))
+
+
 def fused_ce_fwd(h, w, b, y, ignore_index=-100):
     """Per-token loss and lse, both f32 [n], of ``h [n, H] @ w[V, H].T +
     b [V]`` (b may be None) against labels ``y [n]``. CUDA tensors launch
-    the kernel; CPU tensors run ``fused_ce_fwd_ref``."""
+    the kernel (bf16 with H a multiple of 64 the Hopper forward, the rest
+    csrc/fused_ce.cu's); CPU tensors run ``fused_ce_fwd_ref``."""
     name = "fused_ce_fwd"
     n, hd, vocab = _check(name, h, w, b, y)
     if h.device.type == "cpu":
         return fused_ce_fwd_ref(h, w, b, y, ignore_index)
     y32 = y.to(torch.int32).contiguous()
-    splits = _vocab_splits(h.device, -(-n // _FWD_TOKENS), vocab, 2)
+    sm90 = _sm90_fwd_path(h.dtype, hd)
+    if sm90:
+        h, w = _aligned16(h), _aligned16(w)
+        entry = "fused_ce_sm90_fwd"
+        splits = _fwd_sm90_splits(h.device, n, vocab)
+    else:
+        entry = name
+        splits = _vocab_splits(h.device, -(-n // _FWD_TOKENS), vocab, 2)
     loss = torch.empty(n, dtype=torch.float32, device=h.device)
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
     part = torch.empty(3, splits, n, dtype=torch.float32, device=h.device)
-    with torch.cuda.device(h.device):
-        status = _fn(name)(
-            h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
+    args = [h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
             loss.data_ptr(), lse.data_ptr(), part.data_ptr(), n, hd, vocab,
-            int(ignore_index), splits, int(h.dtype == torch.bfloat16),
-            torch.cuda.current_stream(h.device).cuda_stream)
+            int(ignore_index), splits]
+    if not sm90:
+        args.append(int(h.dtype == torch.bfloat16))
+    with torch.cuda.device(h.device):
+        status = _fn(entry)(*args,
+                            torch.cuda.current_stream(h.device).cuda_stream)
     _check_status(name, status)
     fused_ce_fwd.launches += 1
+    fused_ce_fwd.launches_sm90 += sm90
     return loss, lse
 
 
@@ -408,7 +443,7 @@ def fused_ce_bwd_dw(h, w, b, y, lse, g, ignore_index=-100, rows=None):
                         rows=rows)[1:]
 
 
-fused_ce_fwd.launches = 0
+fused_ce_fwd.launches = fused_ce_fwd.launches_sm90 = 0
 fused_ce_bwd_dh.launches = fused_ce_bwd_dh.launches_sm90 = 0
 fused_ce_bwd_dw.launches = fused_ce_bwd_dw.launches_sm90 = 0
 

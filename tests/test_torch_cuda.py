@@ -230,16 +230,23 @@ def test_fused_ce_kernels_match_plain_versions(card, kernel, dtype, bias, n,
                                                hd, vocab):
     """Each CE kernel against the f32 plain version on the same inputs;
     ragged n (1000) and vocab tiles (517, 30522), H not a multiple of 64
-    (72: fused_ce.cu's backward) or one (bf16: the Hopper backward, its
-    counters move). Limits per quantity (CE_TOL)."""
-    from paddle_tpu_torch.ops.cuda.fused_ce import _sm90_bwd_path
+    (72: fused_ce.cu's kernels) or one (bf16: the Hopper forward and
+    backward, their counters move). Limits per quantity (CE_TOL)."""
+    from paddle_tpu_torch.ops.cuda.fused_ce import (_sm90_bwd_path,
+                                                    _sm90_fwd_path)
     h, w, b, y, up = _ce_case(card, dtype, n=n, hd=hd, vocab=vocab,
                               bias=bias)
     f32 = [None if t is None else t.float() for t in (h, w, b)]
     ref_loss, ref_lse = fused_ce_fwd_ref(*f32, y)
     if kernel == "fwd":
+        fwd90 = int(_sm90_fwd_path(dtype, hd))
+        assert fwd90 == (dtype == torch.bfloat16 and hd != 72)
+        before = kernels.launch_counts()
         loss, lse = fused_ce_fwd(h, w, b, y)
         torch.cuda.synchronize()
+        used = kernels.launch_counts()["fused_ce_fwd.sm90"] \
+            - before["fused_ce_fwd.sm90"]
+        assert used == fwd90
         tol = CE_TOL[dtype]["fused_ce_fwd"]
         assert float((loss - ref_loss).abs().max()) <= tol
         assert float((lse - ref_lse).abs().max()) <= tol
@@ -295,6 +302,31 @@ def test_fused_ce_bwd_hopper_repeats_and_joins(card, bias, n, hd, vocab):
     _close(dw, dw_r, torch.bfloat16, "dw")
     if b is not None:
         _close(db, db_r, torch.bfloat16, "db")
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("n,hd,vocab", [(1000, 64, 517), (1000, 768, 30522),
+                                        (7, 128, 1), (300, 1024, 50304)])
+def test_fused_ce_fwd_hopper_repeats(card, bias, n, hd, vocab):
+    """The bf16 Hopper forward: a second launch gives the bits of the
+    first (the vocab ranges merge in a fixed order), both count on the
+    Hopper variant, and the result holds CE_TOL; ignored rows have loss 0
+    and every row its lse."""
+    h, w, b, y, _ = _ce_case(card, torch.bfloat16, n=n, hd=hd, vocab=vocab,
+                             bias=bias)
+    kernels.reset_launch_counts()
+    loss, lse = fused_ce_fwd(h, w, b, y)
+    loss2, lse2 = fused_ce_fwd(h, w, b, y)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)
+    counts = kernels.launch_counts()
+    assert counts["fused_ce_fwd"] == counts["fused_ce_fwd.sm90"] == 2
+    ref_loss, ref_lse = fused_ce_fwd_ref(h.float(), w.float(),
+                                         None if b is None else b.float(), y)
+    tol = CE_TOL[torch.bfloat16]["fused_ce_fwd"]
+    assert float((loss - ref_loss).abs().max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= tol
+    assert bool((loss[y == -100] == 0).all())
 
 
 def test_fused_ce_valid_rows(card):
@@ -377,7 +409,7 @@ def test_flash_kernels_match_plain_versions(card, dtype, causal, bias, sq,
     """The three flash kernels against the plain versions on the same
     inputs: ragged lengths (s_q < s_k, several 64-row tiles each), a head
     dim that is not a multiple of 16 (40) or 64 (bf16: the Hopper forward
-    and dk/dv, their counters move; else flash_attention.cu's), two heads
+    and backward, their counters move; else flash_attention.cu's), two heads
     per bias row. Limits per quantity (FLASH_TOL)."""
     from paddle_tpu_torch.ops.cuda.flash_attention import _sm90_path
     g = torch.Generator().manual_seed(3)
@@ -401,10 +433,11 @@ def test_flash_kernels_match_plain_versions(card, dtype, causal, bias, sq,
     torch.cuda.synchronize()
     dq_r, dk_r, dv_r = flash_bwd_ref(q, k, v, bb, o_r, lse_r, do, causal)
     used = {n: kernels.launch_counts()[n] - before[n]
-            for n in ("flash_fwd.sm90", "flash_bwd_dkv.sm90", "flash_fwd")}
+            for n in ("flash_fwd.sm90", "flash_bwd_dq.sm90",
+                      "flash_bwd_dkv.sm90", "flash_fwd")}
     sm90 = int(_sm90_path(dtype, d, True))
-    assert used == {"flash_fwd.sm90": sm90, "flash_bwd_dkv.sm90": sm90,
-                    "flash_fwd": 1}, used
+    assert used == {"flash_fwd.sm90": sm90, "flash_bwd_dq.sm90": sm90,
+                    "flash_bwd_dkv.sm90": sm90, "flash_fwd": 1}, used
     assert sm90 == (dtype == torch.bfloat16 and d == 64)
     tol = FLASH_TOL[dtype]
     assert float((lse - lse_r).abs().max()) <= tol["lse"]
@@ -414,6 +447,41 @@ def test_flash_kernels_match_plain_versions(card, dtype, causal, bias, sq,
         err_max, err_norm = _rel(got, ref)
         assert err_max <= tol[name + "_max"], (name, err_max)
         assert err_norm <= tol[name + "_norm"], (name, err_norm)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("sq,sk,d", [(130, 197, 64), (1000, 1000, 128),
+                                     (33, 33, 64)])
+def test_flash_dq_hopper_repeats(card, causal, bias, sq, sk, d):
+    """The bf16 Hopper dq: a second launch gives the bits of the first, both
+    count on the Hopper variant, and dq holds FLASH_TOL against the plain
+    backward; ragged lengths, d 64 and 128, the key bias."""
+    g = torch.Generator().manual_seed(4)
+    b, h = 2, 2
+    q = torch.randn(b * h, sq, d, generator=g).to(card, torch.bfloat16)
+    k = torch.randn(b * h, sk, d, generator=g).to(card, torch.bfloat16)
+    v = torch.randn(b * h, sk, d, generator=g).to(card, torch.bfloat16)
+    do = torch.randn(b * h, sq, d, generator=g).to(card, torch.bfloat16)
+    bb = None
+    if bias:
+        bb = 0.5 * torch.randn(b, sk, generator=g)
+        bb[torch.rand(b, sk, generator=g) < 0.3] = -1e9
+        bb[:, 0] = 0.0
+        bb = bb.to(card)
+    o_r, lse_r = flash_fwd_ref(q, k, v, bb, causal)
+    delta = flash_delta(o_r, do)
+    kernels.reset_launch_counts()
+    dq = flash_bwd_dq(q, k, v, bb, do, lse_r, delta, causal)
+    dq2 = flash_bwd_dq(q, k, v, bb, do, lse_r, delta, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2)
+    counts = kernels.launch_counts()
+    assert counts["flash_bwd_dq"] == counts["flash_bwd_dq.sm90"] == 2
+    dq_r = flash_bwd_ref(q, k, v, bb, o_r, lse_r, do, causal)[0]
+    err_max, err_norm = _rel(dq, dq_r)
+    assert err_max <= FLASH_TOL[torch.bfloat16]["dq_max"], err_max
+    assert err_norm <= FLASH_TOL[torch.bfloat16]["dq_norm"], err_norm
 
 
 def test_flash_never_falls_back(card):

@@ -165,10 +165,16 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
 @pytest.mark.parametrize("aligned", [True, False])
 def test_sm90_dispatch(dtype, d, aligned):
     """bf16 at head dim 64 or 128 with aligned inputs takes the Hopper
-    forward and dk/dv; everything else flash_attention.cu's kernels."""
-    from paddle_tpu_torch.ops.cuda.flash_attention import _sm90_path
+    forward, dq and dk/dv; everything else flash_attention.cu's kernels.
+    The three wrappers' entry points follow this one gate."""
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.cuda.flash_attention")
     want = dtype == torch.bfloat16 and d in (64, 128) and aligned
-    assert _sm90_path(dtype, d, aligned) is want
+    assert fa._sm90_path(dtype, d, aligned) is want
+    source = "flash_sm90" if want else "flash_attention"
+    for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
+        entry = fa._entry(kernel, dtype, d, aligned)
+        assert entry == f"{source}_{kernel}" and entry in fa._SIGS
 
 
 def test_planted_fault_lines_occur_once():
@@ -195,21 +201,26 @@ def test_planted_fault_lines_occur_once():
 def test_cpu_wrappers_count_no_launch_of_either_variant():
     """bf16 d 64 CPU tensors (the Hopper kernels' inputs on the card) run
     the plain versions: no total and no Hopper launch is counted, and the
-    outputs are the plain versions' bit for bit."""
+    outputs (O, lse, dq, dk, dv) are the plain versions' bit for bit."""
     rng = np.random.RandomState(8)
     q, k, v, do = (torch.from_numpy(rng.randn(4, s, 64).astype(np.float32))
                    .to(torch.bfloat16) for s in (24, 40, 40, 24))
     bias = torch.from_numpy(rng.randn(2, 40).astype(np.float32))
     kernels.reset_launch_counts()
     o, lse = flash_fwd(q, k, v, bias, True)
+    dq = kernels.flash_bwd_dq(q, k, v, bias, do, lse, flash_delta(o, do),
+                              True)
     dk, dv = kernels.flash_bwd_dkv(q, k, v, bias, do, lse,
                                    flash_delta(o, do), True)
     ro, rl = flash_fwd_ref(q, k, v, bias, True)
-    _, rk, rv = flash_bwd_ref(q, k, v, bias, o, lse, do, True)
+    rq, rk, rv = flash_bwd_ref(q, k, v, bias, o, lse, do, True)
     assert torch.equal(o, ro) and torch.equal(lse, rl)
+    assert torch.equal(dq, rq)
     assert torch.equal(dk, rk) and torch.equal(dv, rv)
     counts = kernels.launch_counts()
-    assert set(kernels.VARIANTS) == {"flash_fwd.sm90", "flash_bwd_dkv.sm90",
+    assert set(kernels.VARIANTS) == {"flash_fwd.sm90", "flash_bwd_dq.sm90",
+                                     "flash_bwd_dkv.sm90",
+                                     "fused_ce_fwd.sm90",
                                      "fused_ce_bwd_dh.sm90",
                                      "fused_ce_bwd_dw.sm90",
                                      "decode_attention.sm90",

@@ -319,22 +319,37 @@ def test_sm90_bwd_dispatch(dtype, hd):
     assert fused_ce_mod._sm90_bwd_path(dtype, hd) is want
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+@pytest.mark.parametrize("hd", [32, 64, 72, 768, 1024, 1088])
+def test_sm90_fwd_dispatch(dtype, hd):
+    """bf16 with H a multiple of 64 up to 1024 takes the Hopper forward;
+    f32 and other H fused_ce.cu's forward. (Above 1024 every CE wrapper
+    raises.)"""
+    want = dtype == torch.bfloat16 and hd % 64 == 0 and hd <= 1024
+    assert fused_ce_mod._sm90_fwd_path(dtype, hd) is want
+
+
 def test_cpu_backward_counts_no_launch_of_either_variant():
-    """bf16 CPU tensors at H 64 (the Hopper backward's inputs on the card)
-    run the plain versions and count no launch of either backward."""
+    """bf16 CPU tensors at H 64 (the Hopper forward's and backward's inputs
+    on the card) run the plain versions bit for bit and count no launch of
+    either forward or either backward."""
     rng = np.random.RandomState(9)
     h = torch.from_numpy(rng.randn(20, 64).astype(np.float32)) \
         .to(torch.bfloat16)
     w = torch.from_numpy(0.2 * rng.randn(70, 64).astype(np.float32)) \
         .to(torch.bfloat16)
     y = torch.from_numpy(rng.randint(0, 70, 20))
-    lse = fused_ce_fwd_ref(h, w, None, y)[1]
+    ref_loss, lse = fused_ce_fwd_ref(h, w, None, y)
     up = torch.ones(20)
     kernels.reset_launch_counts()
+    loss, lse_k = fused_ce_fwd(h, w, None, y)
+    assert torch.equal(loss, ref_loss) and torch.equal(lse_k, lse)
     dh, dw, db = fused_ce_bwd(h, w, None, y, lse, up)
     ref = fused_ce_bwd_ref(h, w, None, y, lse, up)
     assert torch.equal(dh, ref[0]) and torch.equal(dw, ref[1]) and db is None
     assert dh.dtype == dw.dtype == torch.bfloat16
     counts = kernels.launch_counts()
-    assert {"fused_ce_bwd_dh.sm90", "fused_ce_bwd_dw.sm90"} <= set(counts)
+    assert {"fused_ce_fwd.sm90", "fused_ce_bwd_dh.sm90",
+            "fused_ce_bwd_dw.sm90"} <= set(counts)
     assert all(c == 0 for c in counts.values()), counts
