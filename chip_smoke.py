@@ -93,7 +93,33 @@ Phases, each printing its own lines; any failure exits non-zero:
     SDPA's whole backward against dq + dk/dv (median and spread of 60
     runs); and the ``FLAGS_flash_min_seq`` sweep: forward + backward
     through the kernels and through the composite at 16384 tokens, s from
-    128 to 4096, causal and not.
+    128 to 4096, causal and not;
+14. f16 through the five kernels of the training path (flash forward, dq,
+    dk/dv, the CE forward and the joint CE backward): phase 6's CE cases
+    and phase 10's flash cases in f16, the flash ones also with BERT's
+    f16 O2 mask (-inf on right-padded keys), each case on the kernel its
+    shape takes (f16 at d 64 / 128 and H % 64 == 0 on the Hopper kernels,
+    counted in ``<kernel>.f16``), the Hopper launches repeated bitwise,
+    limits ``CE_TOL`` / ``FLASH_TOL`` for f16; then the five f16 kernels
+    timed at phase 9's heads and phase 13's shapes (kernel, bound, plain
+    version, the library call in f16);
+15. the f16 O2 training path at the flagship's shape (BERT-base, b32,
+    s128, dropout 0.1, 16 LMDataset batches): ``decorate`` and
+    ``auto_cast`` O2 f16, a dynamic ``GradScaler`` from 2^15, AdamW with
+    master weights and decay 0.01, LinearWarmup over PolynomialDecay,
+    ClipGradByGlobalNorm(1.0); 5 warm-up and 30 timed steps (step ms,
+    samples/s, MFU, loss start and end, the loss-scale trajectory and the
+    skipped steps, device busy ms and idle share). Every count is zeroed
+    before it; each of the five kernels must launch only in f16 on its
+    Hopper kernel, the loss must be finite and fall, and a skipped step
+    must leave every parameter and slot bitwise as it was. Then 10 steps
+    of the f32 model under O1 bf16 with Lamb: step ms and the dtype and
+    kernel each attention and CE call took;
+16. one f16 O2 step of BERT-base (b8, s128, dropout 0) through the
+    kernels against the same step with ``FLAGS_use_fused_ce`` and
+    ``FLAGS_use_flash_attention`` off (the composites), from the same
+    weights on the same batch: loss, unscaled gradients, masters after
+    (``O2_STEP_TOL``).
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -102,9 +128,9 @@ line is ``{"ok": true, "device": {...}}``. The kernel summary line
 One phase alone (after ``phase_build()``), from the repo root:
 ``python3 -c "import chip_smoke as c; c.setup(); c.phase_build();
 c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phases 2-3
-(decode faults), 6 (CE faults) or 10 (flash faults) on copies of the
-checkout with one planted fault each (``FAULTS``) and exits 0 when every
-copy fails them.
+(decode faults), 6 (CE faults), 10 (flash faults) or 14 (f16 faults) on
+copies of the checkout with one planted fault each (``FAULTS``) and exits
+0 when every copy fails them.
 """
 import contextlib
 import itertools
@@ -120,7 +146,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}      # decode attention
 # decode attention, ||error|| / ||plain||, set from phases 2-3's worst
 # readings (f32 5.7e-7, bf16 2.2e-3: the output's rounding to bf16 and, on
@@ -140,6 +167,13 @@ CE_TOL = {
     torch.bfloat16: {"fused_ce_fwd": 1e-4, "dh_max": 1e-2, "dh_norm": 2e-3,
                      "dw_max": 1e-2, "dw_norm": 2e-3, "db_max": 1e-2,
                      "db_norm": 2e-3},
+    # f16 (phase 14): from its worst readings (loss/lse 1.3e-5; dh 6.5e-4
+    # / 1.5e-4, dW 8.8e-4 / 5.3e-5, db 1.3e-4 / 2.1e-5, max / norm) with
+    # 2.3-5x headroom: "_max" 2e-3 is four f16 ulps (2^-11) of the
+    # largest entry; each limit at or under bf16's
+    torch.float16: {"fused_ce_fwd": 5e-5, "dh_max": 2e-3, "dh_norm": 5e-4,
+                    "dw_max": 2e-3, "dw_norm": 2e-4, "db_max": 5e-4,
+                    "db_norm": 1e-4},
 }
 # f32 BERT-base step, kernels against the plain head: every parameter's
 # gradient (largest |error| over largest |entry|, per tensor) and loss
@@ -184,6 +218,10 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SM90_COUNTS = ("flash_fwd.sm90", "flash_bwd_dq.sm90", "flash_bwd_dkv.sm90")
 CE_SM90_COUNTS = ("fused_ce_fwd.sm90", "fused_ce_bwd_dh.sm90",
                   "fused_ce_bwd_dw.sm90")
+# launch_counts keys of the f16 launches (either kernel of a wrapper)
+F16_COUNTS = ("flash_fwd.f16", "flash_bwd_dq.f16", "flash_bwd_dkv.f16")
+CE_F16_COUNTS = ("fused_ce_fwd.f16", "fused_ce_bwd_dh.f16",
+                 "fused_ce_bwd_dw.f16")
 # Flash limits per quantity, as CE_TOL: "lse" absolute; "<x>_max" the
 # largest |error| of x over its largest |entry|, "<x>_norm" the error's
 # norm over x's. Set from the worst readings of phase 10 with headroom
@@ -197,12 +235,29 @@ FLASH_TOL = {
     torch.bfloat16: {"lse": 1e-5, "o_max": 1e-2, "o_norm": 1e-2,
                      "dq_max": 1e-2, "dq_norm": 2e-3, "dk_max": 1e-2,
                      "dk_norm": 2e-3, "dv_max": 1e-2, "dv_norm": 2e-3},
+    # f16 (phase 14, -inf key biases included): from its worst readings
+    # (lse 1.9e-6; o 8.4e-4 / 3.0e-4, dq 7.8e-4 / 2.3e-4, dk 7.7e-4 /
+    # 1.5e-4, dv 7.1e-4 / 8.9e-5, max / norm) with 2.4-5x headroom; each
+    # limit at or under bf16's
+    torch.float16: {"lse": 1e-5, "o_max": 2e-3, "o_norm": 1e-3,
+                    "dq_max": 2e-3, "dq_norm": 1e-3, "dk_max": 2e-3,
+                    "dk_norm": 5e-4, "dv_max": 2e-3, "dv_norm": 5e-4},
 }
 # f32 GPT-2 step, flash kernels against the composite, as STEP_TOL; set
 # from phase 11's readings (loss equal, gradients 2.8e-6, parameters
 # 1.7e-6) with 6-7x headroom
 GPT_STEP_TOL = {"loss": 1e-5, "grad": 2e-5, "param": 1e-5}
+# f16 O2 BERT-base step, kernels against the composites (phase 16): loss
+# absolute; each unscaled gradient's largest |difference| over its largest
+# |entry|; the f32 masters after one AdamW step (lr 1e-4) absolute. Set
+# from phase 16's readings (loss equal; gradients 2.1e-3; masters 1.8e-4):
+# the loss to one f16 ulp at its size (7.8e-3 at 10.4), the gradients with
+# 4.7x headroom, the masters at twice the learning rate, the most two
+# first Adam steps can differ by (each moves an entry by lr * sign(g), and
+# an entry whose gradient is near zero can move either way)
+O2_STEP_TOL = {"loss": 7.8e-3, "grad": 1e-2, "master": 2e-4}
 PEAK_NAME = "H100 SXM dense bf16 peak, 989 TFLOP/s (NVIDIA data sheet)"
+PEAK_NAME_F16 = "H100 SXM dense f16 peak, 989 TFLOP/s (NVIDIA data sheet)"
 
 
 def log(msg):
@@ -827,7 +882,7 @@ def _ce_line(errs):
                if "db_max" in errs else ""))
 
 
-def phase_ce():
+def phase_ce(dtypes=(torch.float32, torch.bfloat16)):
     from paddle_tpu_torch.ops import cuda as kernels
     from paddle_tpu_torch.ops.cuda.fused_ce import (_sm90_bwd_path,
                                                     _sm90_fwd_path)
@@ -837,11 +892,9 @@ def phase_ce():
     shapes = [(8, 517, 64), (1000, 517, 1024), (4096, 517, 64),
               (1000, 30522, 768), (4096, 30522, 768), (4096, 50304, 768),
               (4096, 50304, 1024), (300, 517, 72)]
-    cases = [(dt, bias, n, v, hd, 0.3) for dt in (torch.float32,
-                                                   torch.bfloat16)
+    cases = [(dt, bias, n, v, hd, 0.3) for dt in dtypes
              for bias in (True, False) for n, v, hd in shapes]
-    cases += [(dt, True, 1000, 517, 768, 1.0)
-              for dt in (torch.float32, torch.bfloat16)]   # all ignored
+    cases += [(dt, True, 1000, 517, 768, 1.0) for dt in dtypes]  # all ignored
     worst = {}
     t0 = time.perf_counter()
     n_sm90 = 0
@@ -854,13 +907,15 @@ def phase_ce():
         errs = ce_errors(*_ce_inputs(n, hd, v, dt, bias, gen, ignored=ign,
                                      oob=ign < 1), where, repeat=bool(sm90))
         used = {k: kernels.launch_counts()[k] - before[k]
-                for k in CE_KERNELS + CE_SM90_COUNTS}
+                for k in CE_KERNELS + CE_SM90_COUNTS + CE_F16_COUNTS}
         # a Hopper case repeats every launch (the forward once more)
         want = {"fused_ce_fwd": 1 + sm90, "fused_ce_bwd_dh": 1 + 2 * sm90,
                 "fused_ce_bwd_dw": 1 + 2 * sm90,
                 "fused_ce_fwd.sm90": (1 + sm90) * fwd90,
                 "fused_ce_bwd_dh.sm90": 3 * sm90,
                 "fused_ce_bwd_dw.sm90": 3 * sm90}
+        f16 = dt == torch.float16
+        want.update({f"{k}.f16": want[k] * f16 for k in CE_KERNELS})
         check(used == want, f"CE kernel variants at {where}: launched "
                             f"{used}, want {want}")
         n_sm90 += sm90
@@ -871,7 +926,9 @@ def phase_ce():
     log(f"[ce] {len(cases)} cases ({n_sm90} on the Hopper forward and "
         f"backward, each repeated bitwise) in {time.perf_counter() - t0:.1f}"
         f" s; limits "
-        f"{json.dumps({str(k)[6:]: v for k, v in CE_TOL.items()})}")
+        f"{json.dumps({str(k)[6:]: CE_TOL[k] for k in dtypes})}; worst "
+        + json.dumps({key: {str(t)[6:]: e for t, e in w.items()}
+                      for key, w in worst.items()}))
     return worst
 
 
@@ -1154,7 +1211,7 @@ def _ce_time_shape(n, hd, vocab, bias, ignored, dt=torch.bfloat16):
                                oob=False)
     n_valid = int((y != -100).sum())
     errs = ce_errors(h, w, b, y, g, f"n={n} ({n_valid} valid) H={hd} "
-                     f"V={vocab} bias={bias} bf16", repeat=True)
+                     f"V={vocab} bias={bias} {str(dt)[6:]}", repeat=True)
     log(f"[ce timing] errors: {_ce_line(errs)}")
     _, lse = fused_ce_fwd(h, w, b, y)
     hl = h.detach().requires_grad_()
@@ -1212,7 +1269,7 @@ def _ce_time_shape(n, hd, vocab, bias, ignored, dt=torch.bfloat16):
                                            errs.get("db_max", 0.0))
         r = out[name]
         log(f"[ce timing] {name} n={n} ({n_valid} valid) H={hd} V={vocab} "
-            f"bias={bias} bf16: kernel {r['ms']:.4f} ms, plain "
+            f"bias={bias} {str(dt)[6:]}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; all rows "
             f"{r['bound_all_rows_ms']:.4f} ms)"
@@ -1229,7 +1286,7 @@ def _ce_time_shape(n, hd, vocab, bias, ignored, dt=torch.bfloat16):
         "kernels_ms": statistics.median(ours), "kernels_min_ms": min(ours),
         "kernels_max_ms": max(ours)}
     log(f"[ce timing] whole backward n={n} ({n_valid} valid) V={vocab} "
-        f"bias={bias}: {json.dumps(out['whole_backward'])}")
+        f"bias={bias} {str(dt)[6:]}: {json.dumps(out['whole_backward'])}")
     return out
 
 
@@ -1281,12 +1338,19 @@ def phase_ce_chunk_sweep(elems=(1 << 23, 1 << 24, 1 << 25, 1 << 26)):
 def _flash_inputs(bh, b, sq, sk, d, dt, bias, gen):
     """q, k, v, dO ~ N(0, 1) (logits O(1) at scale d^-0.5) and, with
     ``bias``, an f32 key bias [b, s_k] ~ N(0, 0.5^2) with 30% of the keys
-    at -1e9 but key 0 kept, so every causal row sees a key."""
+    at -1e9 but key 0 kept, so every causal row sees a key. ``bias ==
+    "-inf"``: BERT's f16 O2 mask instead, -inf on the keys past each batch
+    row's length (right padding, at least the first key and at least half
+    of them kept), 0 before."""
     q, k, v = (torch.randn(bh, s, d, generator=gen).to("cuda", dt)
                for s in (sq, sk, sk))
     do = torch.randn(bh, sq, d, generator=gen).to("cuda", dt)
     bb = None
-    if bias:
+    if bias == "-inf":
+        keep = torch.randint(max(1, sk // 2), sk + 1, (b,), generator=gen)
+        bb = torch.where(torch.arange(sk)[None] < keep[:, None], 0.0,
+                         float("-inf")).to("cuda")
+    elif bias:
         bb = 0.5 * torch.randn(b, sk, generator=gen)
         bb[torch.rand(b, sk, generator=gen) < 0.3] = -1e9
         bb[:, 0] = 0.0
@@ -1340,7 +1404,8 @@ def _flash_line(e):
             f"{e['dv_max']:.2e} / {e['dv_norm']:.2e}")
 
 
-def phase_flash():
+def phase_flash(dtypes=(torch.float32, torch.bfloat16),
+                biases=(False, True)):
     from paddle_tpu_torch.ops import cuda as kernels
     from paddle_tpu_torch.ops.cuda.flash_attention import _sm90_path
     gen = torch.Generator().manual_seed(11)
@@ -1352,8 +1417,7 @@ def phase_flash():
     t0 = time.perf_counter()
     n = n_sm90 = 0
     for dt, causal, bias, (sq, sk), d in itertools.product(
-            (torch.float32, torch.bfloat16), (False, True), (False, True),
-            shapes, (16, 64, 128, 256)):
+            dtypes, (False, True), biases, shapes, (16, 64, 128, 256)):
         where = (f"{str(dt)[6:]} causal={causal} bias={bias} sq={sq} "
                  f"sk={sk} d={d}")
         q, k, v, bb, do = _flash_inputs(b * h, b, sq, sk, d, dt, bias, gen)
@@ -1361,11 +1425,13 @@ def phase_flash():
         before = kernels.launch_counts()
         errs = flash_errors(q, k, v, bb, causal, do, where, repeat=sm90)
         used = {key: kernels.launch_counts()[key] - before[key]
-                for key in FLASH_KERNELS + SM90_COUNTS}
+                for key in FLASH_KERNELS + SM90_COUNTS + F16_COUNTS}
         want = {"flash_fwd": 1 + sm90, "flash_bwd_dq": 1 + sm90,
                 "flash_bwd_dkv": 1 + sm90, "flash_fwd.sm90": 2 * sm90,
                 "flash_bwd_dq.sm90": 2 * sm90,
                 "flash_bwd_dkv.sm90": 2 * sm90}
+        f16 = dt == torch.float16
+        want.update({f"{k}.f16": want[k] * f16 for k in FLASH_KERNELS})
         check(used == want, f"kernel variants at {where}: launched {used}, "
                             f"want {want}")
         n += 1
@@ -1377,10 +1443,312 @@ def phase_flash():
             worst[key][dt] = max(worst[key].get(dt, 0.0), e)
     log(f"[flash] {n} cases ({n_sm90} on the Hopper forward, dq and dk/dv,"
         f" each launched twice and bitwise equal) in "
-        f"{time.perf_counter() - t0:.1f} s; worst "
+        f"{time.perf_counter() - t0:.1f} s; limits "
+        f"{json.dumps({str(t)[6:]: FLASH_TOL[t] for t in dtypes})}; worst "
         + json.dumps({key: {str(t)[6:]: e for t, e in w.items()}
                       for key, w in worst.items()}))
     return worst
+
+
+# --------------------------------------------------------------------------
+# phase 14: f16 through the five kernels of the training path
+# --------------------------------------------------------------------------
+
+def phase_fp16_kernels():
+    """Phase 6's CE cases and phase 10's flash cases in f16 (the flash ones
+    also with BERT's f16 O2 mask: -inf on right-padded keys), each case on
+    the kernel its shape takes, the Hopper launches repeated bitwise."""
+    return (phase_ce(dtypes=(torch.float16,)),
+            phase_flash(dtypes=(torch.float16,),
+                        biases=(False, True, "-inf")))
+
+
+def phase_fp16_timings():
+    """The five kernels in f16 at phase 9's heads and phase 13's shapes."""
+    ce = {"bert_head": _ce_time_shape(4096, 768, 30522, bias=True,
+                                      ignored=0.85, dt=torch.float16),
+          "gpt_head": _ce_time_shape(4096, 768, 50304, bias=False,
+                                     ignored=0.0, dt=torch.float16)}
+    fl = {"longseq": _flash_time_shape(1, 12, 4096, 64, causal=True,
+                                       bias=False, dt=torch.float16),
+          "flagship": _flash_time_shape(32, 12, 128, 64, causal=False,
+                                        bias=True, dt=torch.float16)}
+    return ce, fl
+
+
+# --------------------------------------------------------------------------
+# phases 15-16: the rest of the training stack, f16 O2 at full width
+# --------------------------------------------------------------------------
+
+# the five kernels of the f16 O2 training path, by launch_counts key
+PATH_KERNELS = CE_KERNELS + FLASH_KERNELS
+
+
+def _o2_f16_trainer(cfg, lr=None, clip=True, seed=0):
+    """BERT ``cfg`` on the card, decorated O2 f16, with its AdamW (f32
+    master weights, decay 0.01; ``lr`` a float or, by default, LinearWarmup
+    over PolynomialDecay), ClipGradByGlobalNorm(1.0) and a dynamic
+    GradScaler from 2^15: (net, optimizer, scheduler or None, scaler)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    from paddle_tpu_torch.text.models import Bert
+    net = Bert(cfg, device="cuda", dtype=torch.float32, seed=seed)
+    net.train()
+    sched = None
+    if lr is None:
+        sched = lr = lr_mod.LinearWarmup(
+            lr_mod.PolynomialDecay(1e-4, decay_steps=1000, end_lr=0.0),
+            warmup_steps=10, start_lr=0.0, end_lr=1e-4)
+    opt = AdamW(learning_rate=lr, weight_decay=0.01,
+                parameters=net.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0) if clip else None,
+                multi_precision=True)
+    amp.decorate(net, opt, level="O2", dtype="float16")
+    return net, opt, sched, amp.GradScaler(init_loss_scaling=2.0 ** 15)
+
+
+def _snapshot(net, opt):
+    return ({k: p.detach().clone() for k, p in net.named_parameters()},
+            {k: {s: v.clone() for s, v in sl.items()}
+             for k, sl in opt._slots.items()})
+
+
+def _o2_step(net, opt, sched, scaler, ids, lab):
+    """One f16 O2 step through GradScaler: (loss, skipped). A skipped step
+    must leave every parameter and optimizer slot bitwise as it was."""
+    from paddle_tpu_torch import amp
+    with amp.auto_cast(level="O2", dtype="float16"):
+        loss = net(ids, masked_lm_labels=lab)
+    scaler.scale(loss).backward()
+    _zero_missing_grads(net)
+    scaler.unscale_(opt)
+    skipped = bool(scaler._found_inf)
+    before = _snapshot(net, opt) if skipped else None
+    scaler.step(opt)
+    scaler.update()
+    opt.clear_grad()
+    if sched is not None:
+        sched.step()
+    if before is not None:
+        params, slots = _snapshot(net, opt)
+        check(all(torch.equal(params[k], v) for k, v in before[0].items())
+              and all(torch.equal(slots[k][s], v)
+                      for k, sl in before[1].items() for s, v in sl.items()),
+              "a skipped step changed a parameter or a slot")
+    return loss.detach(), skipped
+
+
+def phase_o2_f16():
+    """Phase 15: the flagship's shape (BERT-base, b32 s128, dropout 0.1,
+    16 LMDataset batches) trained in f16 O2 through decorate, auto_cast,
+    GradScaler, AdamW, LinearWarmup and ClipGradByGlobalNorm; then 10
+    steps of the f32 model under O1 bf16 with Lamb."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models import BertConfig
+    batch, seq, warmup, steps, n_batches = 32, 128, 5, 30, 16
+    cfg = BertConfig.bert_base()
+    ids, lab = _bert_batches(cfg, batch, seq, n_batches)
+    net, opt, sched, scaler = _o2_f16_trainer(cfg)
+    n_params = net.num_params()
+    it = itertools.count()
+    scales, skipped = [], []
+
+    def step():
+        i = next(it)
+        scales.append(scaler.get_loss_scaling())
+        loss, skip = _o2_step(net, opt, sched, scaler, ids[i % n_batches],
+                              lab[i % n_batches])
+        if skip:
+            skipped.append(i)
+        return loss
+
+    kernels.reset_launch_counts()
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = step()
+        if i in (0, steps - 1):
+            losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    loss_start, loss_end = (float(x) for x in losses)
+    tokens = batch * seq
+    L, H = cfg.num_hidden_layers, cfg.hidden_size
+    flops = 6 * n_params * tokens + 12 * L * H * seq * tokens
+    res = {"config": "bert_base", "amp": "O2 float16", "batch": batch,
+           "seq": seq, "params": n_params, "warmup": warmup, "steps": steps,
+           "step_ms": dt * 1e3 / steps, "samples_per_s": steps * batch / dt,
+           "tokens_per_s": steps * tokens / dt,
+           "mfu": flops * steps / dt / PEAK_FLOPS[torch.float16],
+           "mfu_peak": PEAK_NAME_F16, "loss_start": loss_start,
+           "loss_end": loss_end, "loss_scale": scales + [
+               scaler.get_loss_scaling()],
+           "skipped_steps": skipped, "lr_end": opt.get_lr(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: counts[k] for k in PATH_KERNELS
+                        + CE_SM90_COUNTS + SM90_COUNTS + CE_F16_COUNTS
+                        + F16_COUNTS}}
+    log(f"[o2 f16] {json.dumps(res)}")
+    check(np.isfinite(loss_start) and np.isfinite(loss_end),
+          "non-finite f16 O2 loss")
+    check(loss_end < loss_start, "the f16 O2 loss did not fall")
+    # every launch of the five kernels in f16 on its Hopper kernel (at s
+    # 128 the flash kernels once the default FLAGS_flash_min_seq admits it)
+    flash_on = flags.flag("FLAGS_flash_min_seq") <= seq
+    for k in PATH_KERNELS:
+        want_any = k in CE_KERNELS or flash_on
+        check((counts[k] > 0) == want_any, f"{k} launched {counts[k]} "
+                                           f"times on the f16 O2 path")
+        check(counts[f"{k}.sm90"] == counts[k] == counts[f"{k}.f16"],
+              f"{k}: {counts[k]} launches, {counts[k + '.sm90']} on the "
+              f"Hopper kernel, {counts[k + '.f16']} in f16")
+    breakdown = {}
+    try:
+        prof = _profile_steps(step)
+    except Exception as e:    # the measurement is optional, the step is not
+        prof = None
+        log(f"[o2 f16 profile] not measured: {type(e).__name__}: {e}")
+    if prof is not None:
+        breakdown = dict(prof)
+        breakdown["device_idle_share"] = \
+            1 - prof["device_busy_ms_per_step"] / res["step_ms"]
+    res["breakdown"] = breakdown
+    log(f"[o2 f16 breakdown] {json.dumps(breakdown)}")
+    del net, opt, scaler
+    res["o1_bf16_lamb"] = _o1_bf16_lamb(cfg, ids, lab)
+    return counts, res
+
+
+def _o1_bf16_lamb(cfg, ids, lab, steps=10):
+    """10 steps of the f32 flagship model under auto_cast O1 bf16 with Lamb
+    and ClipGradByGlobalNorm(1.0): step ms, and the dtype and kernel each
+    attention and CE call took (from the AMP cast points' inputs and the
+    launch counters)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm, Lamb
+    from paddle_tpu_torch.text.models import Bert
+    net = Bert(cfg, device="cuda", dtype=torch.float32, seed=0)
+    net.train()
+    opt = Lamb(learning_rate=1e-4, parameters=net.named_parameters(),
+               grad_clip=ClipGradByGlobalNorm(1.0))
+    seen = {}
+    inner = amp.cast_inputs
+
+    def record(name, vals):
+        out = inner(name, vals)
+        if name in ("flash_sdpa", "sdpa", "fused_ce_op", "ce_head_fallback"):
+            seen.setdefault(name, str(out[0].dtype)[6:])
+        return out
+
+    def step(i):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = net(ids[i % len(ids)], masked_lm_labels=lab[i % len(lab)])
+        loss.backward()
+        _zero_missing_grads(net)
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    amp.cast_inputs = record
+    try:
+        step(0)
+    finally:
+        amp.cast_inputs = inner
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(i) for i in range(1, steps + 1)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    res = {"steps": steps, "step_ms": dt * 1e3 / steps,
+           "loss_start": float(losses[0]), "loss_end": float(losses[-1]),
+           "kernel_input_dtypes": seen,
+           "launches": {k: counts[k] for k in PATH_KERNELS
+                        + CE_SM90_COUNTS + SM90_COUNTS}}
+    log(f"[o1 bf16 lamb] {json.dumps(res)}")
+    check(all(np.isfinite(float(x)) for x in losses),
+          "non-finite O1 bf16 loss")
+    for k in CE_KERNELS:
+        check(counts[k] > 0, f"{k} never launched under O1")
+    del net, opt
+    return res
+
+
+def phase_o2_f16_equivalence():
+    """Phase 16: one f16 O2 step of BERT-base (b8, s128, dropout 0) through
+    the kernels and the same step with FLAGS_use_fused_ce and
+    FLAGS_use_flash_attention off (the composites), from the same weights
+    on the same batch: the loss, every unscaled gradient before the step
+    and every parameter and f32 master after it."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models import BertConfig
+    cfg = BertConfig.bert_base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    ids, lab = _bert_batches(cfg, 8, 128, 1)
+    lr = 1e-4
+    out = {}
+    for use in (True, False):
+        flags.set_flags({"FLAGS_use_fused_ce": use,
+                         "FLAGS_use_flash_attention": use})
+        try:
+            net, opt, _, scaler = _o2_f16_trainer(cfg, lr=lr)
+            before = kernels.launch_counts()
+            with amp.auto_cast(level="O2", dtype="float16"):
+                loss = net(ids[0], masked_lm_labels=lab[0])
+            scaler.scale(loss).backward()
+            _zero_missing_grads(net)
+            scaler.unscale_(opt)
+            check(not bool(scaler._found_inf), "the f16 step overflowed")
+            grads = {k: p.grad.detach().float().clone()
+                     for k, p in net.named_parameters()}
+            scaler.step(opt)
+            scaler.update()
+            used = {k: kernels.launch_counts()[k] - before[k]
+                    for k in PATH_KERNELS}
+            want = set(used.values()) == ({12, 1} if use else {0})
+            check(want, f"the flags did not route the f16 step: {used}")
+            out[use] = (float(loss.detach()), grads,
+                        {k: p.detach().float().clone()
+                         for k, p in net.named_parameters()},
+                        {k: sl["master"].clone()
+                         for k, sl in opt._slots.items()})
+        finally:
+            flags.set_flags({"FLAGS_use_fused_ce": True,
+                             "FLAGS_use_flash_attention": True})
+        del net, opt, scaler
+    (lk, gk, pk, mk), (lp, gp, pp, mp) = out[True], out[False]
+    dloss = abs(lk - lp)
+    dgrad = {k: _grad_rel(gk[k], gp[k]) for k in gk}
+    worst = max(dgrad, key=dgrad.get)
+    dmaster = max(float((mk[k] - mp[k]).abs().max()) for k in mk)
+    moved = {k: float((mk[k] - mp[k]).abs().gt(1e-6).float().mean())
+             for k in mk}
+    dparam = max(float((pk[k] - pp[k]).abs().max()) for k in pk)
+    res = {"loss_kernels": lk, "loss_composite": lp, "loss_abs_diff": dloss,
+           "grad_max_rel_diff": dgrad[worst], "grad_worst": worst,
+           "master_max_abs_diff": dmaster,
+           "master_share_over_1e-6": max(moved.values()),
+           "param_max_abs_diff": dparam, "lr": lr,
+           "limits": O2_STEP_TOL}
+    log(f"[o2 f16 equivalence] b8 s128: {json.dumps(res)}")
+    check(np.isfinite(lk) and dloss <= O2_STEP_TOL["loss"],
+          "f16 O2 loss differs")
+    check(dgrad[worst] <= O2_STEP_TOL["grad"],
+          f"f16 O2 gradient {worst} differs: {dgrad[worst]}")
+    check(dmaster <= O2_STEP_TOL["master"], "f16 O2 masters differ")
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1825,12 +2193,25 @@ FAULTS = {
         ("decode_attention.cu",
          "if (c > fill + r) s[j][e] = kNegInf2;",
          "if (c > fill + r + 1) s[j][e] = kNegInf2;"),
+    # f16 (phase 14): the f16 products read as bf16; the f16 pack's halves
+    # swapped (ds, dW and dh of the CE backward)
+    "f16_flash_mma_type_bf16":
+        ("flash_attention_sm90.cu",
+         '"mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "',
+         '"mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "'),
+    "f16_ce_pack_halves_swapped":
+        ("fused_ce_sm90.cu",
+         "__half2 h = __floats2half2_rn(lo, hi);",
+         "__half2 h = __floats2half2_rn(hi, lo);"),
 }
 CSRC = "paddle_tpu_torch/ops/cuda/csrc"
 
 
-def _fault_phase(source):
-    """(phase function names, numbers) that check a kernel source."""
+def _fault_phase(name, source):
+    """(phase function names, numbers) that check a fault in a kernel
+    source."""
+    if name.startswith("f16_"):
+        return ("phase_fp16_kernels",), "14"
     if source.startswith("fused_ce"):
         return ("phase_ce",), "6"
     if source.startswith("decode_attention"):
@@ -1862,7 +2243,7 @@ def plant_faults():
                                         f"in {src} exactly once")
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-            phases, number = _fault_phase(source)
+            phases, number = _fault_phase(name, source)
             proc = subprocess.run(
                 [sys.executable, "-c", "import chip_smoke as c; c.setup(); "
                  "c.phase_build(); " + "; ".join(f"c.{p}()" for p in phases)],
@@ -1885,6 +2266,21 @@ def setup():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _f16_fields(rec, name, counts, worst, timings):
+    """Phase 14's and 15's numbers of one of the five f16 kernels: its
+    launches on the f16 O2 path (all, on the Hopper kernel, in f16), its
+    worst error in phase 14 and its f16 times at the timed shapes; the
+    overall max_abs_err takes the f16 readings in."""
+    rec["launches_f16_o2"] = counts[name]
+    rec["launches_f16_o2_sm90"] = counts[f"{name}.sm90"]
+    rec["launches_f16_o2_f16"] = counts[f"{name}.f16"]
+    rec["max_abs_err_f16"] = max(worst[torch.float16],
+                                 *(t["max_abs_err"] for t in timings.values()
+                                   if "max_abs_err" in t))
+    rec["max_abs_err"] = max(rec["max_abs_err"], rec["max_abs_err_f16"])
+    rec["f16"] = timings
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1904,6 +2300,10 @@ def main():
     gpt_equiv = phase_gpt_equivalence()
     ls_counts, longseq = phase_longseq()
     fl_timing, sweep = phase_flash_timings()
+    worst_ce16, worst_fl16 = phase_fp16_kernels()
+    ce16, fl16 = phase_fp16_timings()
+    o2_counts, o2 = phase_o2_f16()
+    o2_equiv = phase_o2_f16_equivalence()
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -1936,6 +2336,8 @@ def main():
                                  ce_bert[name]["max_abs_err"],
                                  ce_gpt[name]["max_abs_err"])
         rec["max_abs_err_f32"] = worst_ce[name][torch.float32]
+        _f16_fields(rec, name, o2_counts, worst_ce16[name],
+                    {shape: t[name] for shape, t in ce16.items()})
         if name == "fused_ce_bwd_dw":
             rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
                                      *worst_ce["db_max"].values(),
@@ -1957,6 +2359,8 @@ def main():
                                  fl_timing["longseq"][name]["max_abs_err"],
                                  fl_timing["flagship"][name]["max_abs_err"])
         rec["max_abs_err_f32"] = worst_fl[name][torch.float32]
+        _f16_fields(rec, name, o2_counts, worst_fl16[name],
+                    {shape: t[name] for shape, t in fl16.items()})
         kernels.append(rec)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels, "serve_bf16": serve,
@@ -1971,7 +2375,8 @@ def main():
                                  "gpt_head": ce_gpt["fused_ce_bwd"]},
                       "ce_whole_backward": {
                           "bert_head": ce_bert["whole_backward"],
-                          "gpt_head": ce_gpt["whole_backward"]}}))
+                          "gpt_head": ce_gpt["whole_backward"]},
+                      "o2_f16": o2, "o2_f16_equivalence": o2_equiv}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Copy paddle_tpu (JAX) parameters into a port module.
+"""Copy paddle_tpu (JAX) parameters and training state into the port.
 
 ``params`` is a JAX layer's ``functional_state()[0]`` converted to numpy:
 ``{name: array}`` under the same dotted names the port's modules use
@@ -9,13 +9,19 @@
 ``Linear`` stores [out, in]. So every Linear weight, and only those, is
 transposed. Embedding tables, LayerNorm vectors and bare parameters
 (``mlm_bias``) copy as they are.
+
+``load_jax_optimizer_state`` carries a JAX ``Optimizer.state_dict()``
+(every ``"{param}/{slot}"``, ``_step_count``, ``LR_Scheduler``) and a JAX
+``GradScaler.state_dict()`` into a port optimizer and scaler, so a run
+started in the JAX package resumes in the port. Slots of Linear weights
+are transposed as the weights are.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "load_jax_optimizer_state"]
 
 
 def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
@@ -28,13 +34,10 @@ def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
     if missing or unexpected:
         raise KeyError(f"load_jax_params: missing {missing}, "
                        f"unexpected {unexpected}")
-    linear_weights = {f"{n}.weight" for n, m in module.named_modules()
-                      if isinstance(m, torch.nn.Linear)}
+    linear_weights = _linear_weights(module)
     with torch.no_grad():
         for name, p in own.items():
-            arr = np.asarray(params[name])
-            if arr.dtype not in (np.float16, np.float32, np.float64):
-                arr = arr.astype(np.float32)    # e.g. ml_dtypes bfloat16
+            arr = _f32_array(params[name])
             if name in linear_weights:
                 arr = arr.T
             if tuple(arr.shape) != tuple(p.shape):
@@ -43,3 +46,47 @@ def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(arr)))   # a writable copy
     return module
+
+
+def _linear_weights(module):
+    return {f"{n}.weight" for n, m in module.named_modules()
+            if isinstance(m, torch.nn.Linear)}
+
+
+def _f32_array(value):
+    """numpy array of a JAX / numpy value, ml_dtypes bfloat16 as f32."""
+    arr = np.asarray(value)
+    if arr.dtype not in (np.float16, np.float32, np.float64) and \
+            arr.dtype.kind not in "biu":
+        arr = arr.astype(np.float32)
+    return arr
+
+
+def load_jax_optimizer_state(opt, state, module=None, name_map=None,
+                             scaler=None, scaler_state=None):
+    """Load the JAX ``Optimizer.state_dict()`` ``state`` into the port
+    optimizer ``opt`` (and, given both, the JAX ``GradScaler.state_dict()``
+    ``scaler_state`` into the port ``scaler``). ``name_map`` maps the JAX
+    optimizer's parameter names to the port's (the same names when
+    None); with ``module``, the slots of its Linear weights are
+    transposed. A slot keeps its dtype (bf16 ones as bf16)."""
+    linear = _linear_weights(module) if module is not None else set()
+    out = {}
+    for key, value in state.items():
+        if key in ("_step_count", "LR_Scheduler") or "/" not in key:
+            out[key] = value
+            continue
+        pname, slot = key.rsplit("/", 1)
+        name = (name_map or {}).get(pname, pname)
+        raw = np.asarray(value)
+        arr = _f32_array(raw)
+        if name in linear and arr.ndim == 2:
+            arr = arr.T
+        tensor = torch.from_numpy(np.array(arr))
+        if raw.dtype.name == "bfloat16":
+            tensor = tensor.to(torch.bfloat16)
+        out[f"{name}/{slot}"] = tensor
+    opt.set_state_dict(out)
+    if scaler is not None and scaler_state is not None:
+        scaler.set_state_dict(scaler_state)
+    return opt

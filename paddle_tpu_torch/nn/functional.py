@@ -21,28 +21,61 @@ autograd, the JAX composite ``_ce_head_fallback``: logits formed in the
 input dtype (so rounded to bf16 for bf16 inputs), then f32. On the card
 there is no shape gate and no fallback: a shape the kernels do not take
 raises.
+
+AMP (``paddle_tpu_torch.amp``): the JAX package casts each recorded op's
+inputs in ``record_op`` under the op's name. Here ``amp_op(name, ...)``
+is that cast point, called at the entry of each function that stands for
+a recorded JAX op on the BERT and GPT training paths, under the JAX op's
+name (``matmul``, ``add``, ``layer_norm``, ``sdpa`` / ``flash_sdpa``,
+``fused_ce_op`` / ``ce_head_fallback`` ...); without AMP it returns its
+inputs as they are. ``linear`` is JAX's two recorded ops, ``matmul`` then
+``add``, whenever AMP is on: under O1 the gray bias add promotes the
+low-precision product back to f32, as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as tF
 
+from .. import amp as _amp
 from ..core import flags as _flags
 from ..ops.cuda import gate_hit, gate_reject
 from ..ops.cuda.flash_attention import flash_attention, supported
 from ..ops.cuda.fused_ce import _label_hits, fused_ce
 
-__all__ = ["linear", "gelu", "relu", "dropout", "scaled_dot_product_attention",
-           "cross_entropy", "fused_linear_cross_entropy"]
+__all__ = ["amp_op", "add", "linear", "gelu", "relu", "dropout",
+           "scaled_dot_product_attention", "cross_entropy",
+           "fused_linear_cross_entropy"]
+
+
+def amp_op(name, *vals):
+    """The AMP cast point of the JAX package's recorded op ``name``:
+    ``vals`` with their floating tensors cast per the active policy, as
+    they are without AMP."""
+    if not _amp.amp_active():
+        return vals
+    return _amp.cast_inputs(name, list(vals))
+
+
+def add(x, y):
+    """x + y (JAX's recorded ``add``)."""
+    x, y = amp_op("add", x, y)
+    return x + y
 
 
 def linear(x, weight, bias=None):
-    """y = x @ W.T (+ b) with torch's [out, in] weight."""
-    return tF.linear(x, weight, bias)
+    """y = x @ W.T (+ b) with torch's [out, in] weight: one fused call, or
+    under AMP the JAX package's ``matmul`` then ``add``."""
+    if not _amp.amp_active():
+        return tF.linear(x, weight, bias)
+    x, weight = amp_op("matmul", x, weight)
+    y = torch.matmul(x, weight.T)
+    return y if bias is None else add(y, bias)
 
 
 def gelu(x):
     """Exact (erf) GELU, as jax.nn.gelu(approximate=False)."""
+    (x,) = amp_op("gelu", x)
     return tF.gelu(x, approximate="none")
 
 
@@ -54,6 +87,7 @@ def dropout(x, p=0.5, training=True):
     """Upscale-in-train dropout; identity when not training or p == 0."""
     if not training or p == 0.0:
         return x
+    (x,) = amp_op("dropout_op", x)
     return tF.dropout(x, p=p, training=True)
 
 
@@ -121,8 +155,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     JAX package."""
     scale = query.shape[-1] ** -0.5 if scale is None else scale
     if _flash_eligible(query, key, value, attn_mask):
+        query, key, value, attn_mask = amp_op("flash_sdpa", query, key,
+                                              value, attn_mask)
         out = _flash_sdpa(query, key, value, attn_mask, scale, is_causal)
     else:
+        query, key, value, attn_mask = amp_op("sdpa", query, key, value,
+                                              attn_mask)
         out = _sdpa(query, key, value, attn_mask, scale, is_causal)
     return dropout(out, dropout_p, training)
 
@@ -173,16 +211,28 @@ def fused_linear_cross_entropy(hidden, weight, bias=None, labels=None,
     (flattened here), weight [vocab, H], bias [vocab] or None, labels
     [...] int. Per-token losses are f32 and 0 where ignored; "mean"
     divides their sum by max(#valid, 1)."""
+    (hidden,) = amp_op("reshape", hidden)
     h2 = hidden.reshape(-1, hidden.shape[-1])
+    (labels,) = amp_op("reshape", labels)
     y = labels.reshape(-1)
     if _flags.flag("FLAGS_use_fused_ce"):
+        h2, weight, bias, y = amp_op("fused_ce_op", h2, weight, bias, y)
         losses = fused_ce(h2, weight, bias, y, int(ignore_index))
     else:
+        h2, weight, bias, y = amp_op("ce_head_fallback", h2, weight, bias,
+                                     y)
         losses = _ce_head_composite(h2, weight, bias, y, int(ignore_index))
     if reduction == "none":
         return losses
+    (losses,) = amp_op("sum", losses)
     total = losses.sum()
     if reduction == "sum":
         return total
-    valid = (y != ignore_index).to(torch.float32).sum()
-    return total / torch.clamp_min(valid, 1.0)
+    (y,) = amp_op("not_equal", y)
+    (kept,) = amp_op("cast", y != ignore_index)
+    (kept,) = amp_op("sum", kept.to(torch.float32))
+    valid, one = amp_op("maximum", kept.sum(),
+                        torch.ones((), dtype=torch.float32,
+                                   device=kept.device))
+    total, denom = amp_op("divide", total, torch.maximum(valid, one))
+    return total / denom

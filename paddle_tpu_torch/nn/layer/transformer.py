@@ -67,27 +67,37 @@ class MultiHeadAttention(torch.nn.Module):
     def _heads(self, x):
         """[b, s, E] -> [b, s, h, d] (a view)."""
         b, s = x.shape[0], x.shape[1]
+        (x,) = F.amp_op("reshape", x)
         return x.reshape(b, s, self.num_heads, self.head_dim)
 
     def _merge(self, out):
         """[b, h, s, d] -> out_proj([b, s, E])."""
         b, s = out.shape[0], out.shape[2]
-        return self.out_proj(out.transpose(1, 2).reshape(b, s,
-                                                         self.embed_dim))
+        (out,) = F.amp_op("transpose", out)
+        out = out.transpose(1, 2)
+        (out,) = F.amp_op("reshape", out)
+        return self.out_proj(out.reshape(b, s, self.embed_dim))
+
+    @staticmethod
+    def _to_bhsd(x):
+        """[b, s, h, d] -> [b, h, s, d] (a view)."""
+        (x,) = F.amp_op("transpose", x)
+        return x.transpose(1, 2)
 
     def forward(self, query, attn_mask=None, cache=None, is_causal=False):
-        q, k, v = self.qkv_proj(query).chunk(3, dim=-1)
-        q, k, v = self._heads(q), self._heads(k), self._heads(v)
+        (qkv,) = F.amp_op("split_op", self.qkv_proj(query))
+        q, k, v = qkv.chunk(3, dim=-1)
         scale = self.head_dim ** -0.5
         if cache is None:
             # head-split views of the one qkv projection; the flash route
             # copies them to contiguous [b * h, s, d] (flash_attention),
             # the kernels take no strides
+            q, k, v = (self._to_bhsd(self._heads(t)) for t in (q, k, v))
             out = F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=attn_mask, dropout_p=self.dropout,
+                q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
                 is_causal=is_causal, training=self.training)
             return self._merge(out)
+        q, k, v = self._heads(q), self._heads(k), self._heads(v)
         if attn_mask is not None:
             raise ValueError("attn_mask is not supported with a decode "
                              "cache: causality comes from the cache fill")
@@ -155,7 +165,7 @@ class TransformerEncoderLayer(torch.nn.Module):
         if self.normalize_before:
             src = self.norm1(src)
         src = self.self_attn(src, attn_mask=src_mask)
-        src = residual + self.dropout1(src)
+        src = F.add(residual, self.dropout1(src))
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
@@ -163,7 +173,7 @@ class TransformerEncoderLayer(torch.nn.Module):
             src = self.norm2(src)
         src = self.linear2(self.act_dropout(self.activation(
             self.linear1(src))))
-        src = residual + self.dropout2(src)
+        src = F.add(residual, self.dropout2(src))
         if not self.normalize_before:
             src = self.norm2(src)
         return src

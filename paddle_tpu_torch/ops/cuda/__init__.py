@@ -33,6 +33,10 @@ VARIANTS = {"flash_fwd.sm90": flash_fwd, "flash_bwd_dq.sm90": flash_bwd_dq,
 # of the decode wrappers' Hopper launches, those of the chunk (mma) kernel
 MMA_VARIANTS = {"decode_attention.mma": decode_attention,
                 "paged_decode_attention.mma": paged_decode_attention}
+# wrappers that take f16: their f16 launches (either kernel)
+F16_VARIANTS = {f"{k.__name__}.f16": k
+                for k in (flash_fwd, flash_bwd_dq, flash_bwd_dkv,
+                          fused_ce_fwd, fused_ce_bwd_dh, fused_ce_bwd_dw)}
 
 
 def reset_launch_counts():
@@ -43,15 +47,19 @@ def reset_launch_counts():
         k.launches_sm90 = 0
     for k in MMA_VARIANTS.values():
         k.launches_mma = 0
+    for k in F16_VARIANTS.values():
+        k.launches_f16 = 0
 
 
 def launch_counts():
     """Launches per wrapper (its kernels together); under
-    ``<wrapper>.sm90`` those of the Hopper variant and, for the decode
-    wrappers, under ``<wrapper>.mma`` those of its chunk kernel."""
+    ``<wrapper>.sm90`` those of the Hopper variant, for the decode
+    wrappers under ``<wrapper>.mma`` those of its chunk kernel and, for
+    the flash and CE wrappers, under ``<wrapper>.f16`` their f16 ones."""
     counts = {k.__name__: k.launches for k in KERNELS}
     counts.update({n: k.launches_sm90 for n, k in VARIANTS.items()})
     counts.update({n: k.launches_mma for n, k in MMA_VARIANTS.items()})
+    counts.update({n: k.launches_f16 for n, k in F16_VARIANTS.items()})
     return counts
 
 

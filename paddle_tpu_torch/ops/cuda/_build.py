@@ -19,7 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "build_all", "report", "nvcc_path", "SOURCES"]
+__all__ = ["load", "build_all", "report", "nvcc_path", "SOURCES",
+           "DTYPE_CODE"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -28,6 +29,9 @@ SOURCES = ("decode_attention", "fused_ce", "fused_ce_sm90", "flash_attention",
            "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the element-type codes the entries of the flash and CE sources take
+DTYPE_CODE = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}
 
 _lock = threading.Lock()
 _libs: dict = {}

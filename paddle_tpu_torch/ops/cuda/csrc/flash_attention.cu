@@ -7,7 +7,7 @@
 //   _flash_bwd_dkv_kernel  (:272) -> flash_bwd_dkv_kernel
 //
 // What it computes, for q [BH, Sq, D], k and v [BH, Sk, D] (one dtype,
-// f32 or bf16), an optional f32 key bias [B, Sk] (head bh reads row
+// f32, bf16 or f16), an optional f32 key bias [B, Sk] (head bh reads row
 // bh / H) and a causal flag:
 //   s   = (q . k^T) * scale  (f32)  + bias[col]  ; causal: NEG_INF where
 //         col > row + (Sk - Sq), the mask aligned bottom-right
@@ -47,14 +47,15 @@
 //     per SM; where 64 rows do not fit the 227 KB of shared memory (bf16
 //     dk/dv from D 161, dq from D 225; f32 dk/dv from D 97, dq from D 129,
 //     the forward from D 177), the tile is 32 rows;
-//   * bf16 inputs: WMMA (mma.sync) 16x16x16 products, bf16 in, f32
-//     accumulate; f32 inputs: f32 FMA from shared memory, never TF32, so
+//   * bf16 and f16 inputs: WMMA (mma.sync) 16x16x16 products, 16-bit in,
+//     f32 accumulate; f32 inputs: f32 FMA from shared memory, never TF32, so
 //     f32 holds an f32 tolerance.
-// bf16 at head dim 64 or 128 with aligned inputs runs the three kernels of
-// flash_attention_sm90.cu instead (register-resident mma.sync tiles); these
-// kernels keep f32, the other head dims and unaligned inputs.
+// bf16 and f16 at head dim 64 or 128 with aligned inputs run the three
+// kernels of flash_attention_sm90.cu instead (register-resident mma.sync
+// tiles); these kernels keep f32, the other head dims and unaligned inputs.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -64,6 +65,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 namespace wmma = nvcuda::wmma;
 
 constexpr int kThreads = 256;          // 8 warps per block
@@ -81,33 +83,39 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half(x);
+}
 
 // Row padding (elements) of a shared-memory tile of T: keeps WMMA's ldm a
-// multiple of 8 (bf16) / 4 (f32), 16-byte vector stores aligned, and
+// multiple of 8 (bf16, f16) / 4 (f32), 16-byte vector stores aligned, and
 // staggers consecutive rows over the banks.
 template <typename T> __host__ __device__ constexpr int pad_of();
 template <> __host__ __device__ constexpr int pad_of<bf16>() { return 8; }
+template <> __host__ __device__ constexpr int pad_of<f16>() { return 8; }
 template <> __host__ __device__ constexpr int pad_of<float>() { return 4; }
 
-// 8 consecutive elements: 16 bytes of bf16 or 32 bytes of f32
-template <typename T> struct Vec8;
-template <> struct Vec8<bf16> { uint4 v; };
+// 8 consecutive elements: 16 bytes of bf16 or f16, or 32 bytes of f32
+template <typename T> struct Vec8 { uint4 v; };
 template <> struct Vec8<float> { float4 a, b; };
 
-__device__ __forceinline__ void load8(Vec8<bf16>& d, const bf16* s) {
+template <typename T>
+__device__ __forceinline__ void load8(Vec8<T>& d, const T* s) {
   d.v = *reinterpret_cast<const uint4*>(s);
 }
 __device__ __forceinline__ void load8(Vec8<float>& d, const float* s) {
   d.a = reinterpret_cast<const float4*>(s)[0];
   d.b = reinterpret_cast<const float4*>(s)[1];
 }
-__device__ __forceinline__ void zero8(Vec8<bf16>& d) {
+template <typename T>
+__device__ __forceinline__ void zero8(Vec8<T>& d) {
   d.v = make_uint4(0u, 0u, 0u, 0u);
 }
 __device__ __forceinline__ void zero8(Vec8<float>& d) {
   d.a = d.b = make_float4(0.f, 0.f, 0.f, 0.f);
 }
-__device__ __forceinline__ void store8(bf16* d, const Vec8<bf16>& s) {
+template <typename T>
+__device__ __forceinline__ void store8(T* d, const Vec8<T>& s) {
   *reinterpret_cast<uint4*>(d) = s.v;
 }
 __device__ __forceinline__ void store8(float* d, const Vec8<float>& s) {
@@ -202,9 +210,9 @@ __device__ void load_tile(T* dst, int ld, const T* src, int r0, int S,
 
 // C [M][N] (f32, ldc) = A [M][K] . B [N][K]^T, A and B row-major in shared
 // memory, K a multiple of 16. No barrier.
-template <int M, int N>
-__device__ void mm_nt(float* C, int ldc, const bf16* A, int lda,
-                      const bf16* B, int ldb, int K) {
+template <int M, int N, typename E>
+__device__ void mm_nt(float* C, int ldc, const E* A, int lda,
+                      const E* B, int ldb, int K) {
   constexpr int kTiles = (M / 16) * (N / 16);
   const int warp = threadIdx.x / 32;
   for (int t = warp; t < kTiles; t += kWarps) {
@@ -212,8 +220,8 @@ __device__ void mm_nt(float* C, int ldc, const bf16* A, int lda,
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
     wmma::fill_fragment(c, 0.f);
     for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, E, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, E, wmma::col_major> fb;
       wmma::load_matrix_sync(fa, A + ti * 16 * lda + kk, lda);
       wmma::load_matrix_sync(fb, B + tj * 16 * ldb + kk, ldb);
       wmma::mma_sync(c, fa, fb, c);
@@ -259,9 +267,9 @@ __device__ void mm_nt(float* C, int ldc, const float* A, int lda,
 // and K multiples of 16. With row_scale, C's row r is first multiplied by
 // row_scale[r] (the online softmax's rescale). Every warp (f32: thread)
 // owns the same cells of C at every call, so calls need no barrier on C.
-template <int M, bool A_T>
-__device__ void mm_acc(float* C, int ldc, const bf16* A, int lda,
-                       const bf16* B, int ldb, int N, int K,
+template <int M, bool A_T, typename E>
+__device__ void mm_acc(float* C, int ldc, const E* A, int lda,
+                       const E* B, int ldb, int N, int K,
                        const float* row_scale) {
   using ALayout =
       typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
@@ -281,9 +289,9 @@ __device__ void mm_acc(float* C, int ldc, const bf16* A, int lda,
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
     wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
     for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      const bf16* ap = A_T ? A + kk * lda + ti * 16 : A + ti * 16 * lda + kk;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, E, ALayout> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, E, wmma::row_major> fb;
+      const E* ap = A_T ? A + kk * lda + ti * 16 : A + ti * 16 * lda + kk;
       wmma::load_matrix_sync(fa, ap, lda);
       wmma::load_matrix_sync(fb, B + kk * ldb + tj * 16, ldb);
       wmma::mma_sync(c, fa, fb, c);
@@ -643,10 +651,15 @@ int launch(int kind, Args a, cudaStream_t st) {
   return launch_tile<T, 32>(kind, a, st);
 }
 
-int run(int kind, const Args& a, int is_bf16, void* stream) {
+// dtype codes of the entries (and of flash_attention_sm90.cu): 0 f32,
+// 1 bf16, 2 f16
+int run(int kind, const Args& a, int dtype, void* stream) {
   if (!valid_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<bf16>(kind, a, st) : launch<float>(kind, a, st);
+  if (dtype == 0) return launch<float>(kind, a, st);
+  if (dtype == 1) return launch<bf16>(kind, a, st);
+  if (dtype == 2) return launch<f16>(kind, a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -658,10 +671,10 @@ extern "C" {
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const float* bias, void* out, float* lse, int BH,
                         int H, int Sq, int Sk, int D, float scale, int causal,
-                        int vec, int is_bf16, void* stream) {
+                        int vec, int dtype, void* stream) {
   Args a{q, k, v, bias, nullptr, lse, nullptr, out, nullptr,
          BH, H, Sq, Sk, D, 0, scale, causal, vec};
-  return run(kFwd, a, is_bf16, stream);
+  return run(kFwd, a, dtype, stream);
 }
 
 // dq [BH, Sq, D] from the saved lse and delta = rowsum(dO * O).
@@ -669,10 +682,10 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const float* bias, const void* dout,
                            const float* lse, const float* delta, void* dq,
                            int BH, int H, int Sq, int Sk, int D, float scale,
-                           int causal, int vec, int is_bf16, void* stream) {
+                           int causal, int vec, int dtype, void* stream) {
   Args a{q, k, v, bias, dout, const_cast<float*>(lse), delta, dq, nullptr,
          BH, H, Sq, Sk, D, 0, scale, causal, vec};
-  return run(kDq, a, is_bf16, stream);
+  return run(kDq, a, dtype, stream);
 }
 
 // dk and dv [BH, Sk, D] from the saved lse and delta.
@@ -680,11 +693,11 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const float* bias, const void* dout,
                             const float* lse, const float* delta, void* dk,
                             void* dv, int BH, int H, int Sq, int Sk, int D,
-                            float scale, int causal, int vec, int is_bf16,
+                            float scale, int causal, int vec, int dtype,
                             void* stream) {
   Args a{q, k, v, bias, dout, const_cast<float*>(lse), delta, dk, dv,
          BH, H, Sq, Sk, D, 0, scale, causal, vec};
-  return run(kDkv, a, is_bf16, stream);
+  return run(kDkv, a, dtype, stream);
 }
 
 }  // extern "C"

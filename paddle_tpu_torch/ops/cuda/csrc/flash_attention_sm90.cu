@@ -1,8 +1,8 @@
-// Flash attention for Hopper (sm_90a), bf16 at head dim 64 or 128: the
-// forward and both backward kernels with register-resident tiles.
+// Flash attention for Hopper (sm_90a), bf16 or f16 at head dim 64 or 128:
+// the forward and both backward kernels with register-resident tiles.
 //
-// Replaces, on their bf16 d 64 / d 128 path, the three TPU Pallas kernels
-// of paddle_tpu/ops/pallas/flash_attention.py:
+// Replaces, on their bf16 / f16 d 64 / d 128 path, the three TPU Pallas
+// kernels of paddle_tpu/ops/pallas/flash_attention.py:
 //   _flash_fwd_kernel      (:103) -> flash_fwd_sm90_kernel
 //   _flash_bwd_dq_kernel   (:234) -> flash_bwd_dq_sm90_kernel
 //   _flash_bwd_dkv_kernel  (:272) -> flash_bwd_dkv_sm90_kernel
@@ -10,15 +10,17 @@
 // flash_attention.cu.
 //
 // Contract (as flash_attention.cu): for q [BH, Sq, D], k and v [BH, Sk, D]
-// in bf16, an optional f32 key bias [B, Sk] (head bh reads row bh / H):
+// in T (bf16 or f16; every kernel is a template on it, and only the mma's
+// type string and the rounding of f32 values to T differ), an optional f32
+// key bias [B, Sk] (head bh reads row bh / H):
 //   s = (q . k^T) * scale (f32) + bias[col]; causal: NEG_INF (-1e9, finite)
 //       where col > row + (Sk - Sq)
-//   fwd  running max m from NEG_INF, P = exp(s - m) rounded to bf16 for
-//        P . V, o = acc / max(l, 1e-30) in bf16, lse = m + log(max(l,
+//   fwd  running max m from NEG_INF, P = exp(s - m) rounded to T for
+//        P . V, o = acc / max(l, 1e-30) in T, lse = m + log(max(l,
 //        1e-30)) in f32 (natural log)
 //   bwd  p = exp(s - lse), dp = dO . V^T, ds = p * (dp - delta) * scale;
-//        dq = ds . K and dk = ds^T . Q (ds rounded to bf16), dv = p^T . dO
-//        (p rounded to bf16)
+//        dq = ds . K and dk = ds^T . Q (ds rounded to T), dv = p^T . dO
+//        (p rounded to T)
 // Every product accumulates in f32. Keys at and past Sk take no part, rows
 // at and past Sq write nothing and add nothing: ragged lengths are masked
 // here, with no padded copy. Each output element has one writer and a fixed
@@ -31,9 +33,9 @@
 // bytes (q, k, v, o, dO, dq, dk, dv once) take under 20 us at 3.35 TB/s. So
 // the design keeps every intermediate on chip and the tensor cores fed:
 //   * scores, P, dP, dS and the O / dq / dk / dv accumulators stay in
-//     registers as mma.sync m16n8k16 fragments (bf16 in, f32 accumulate). A
+//     registers as mma.sync m16n8k16 fragments (T in, f32 accumulate). A
 //     score fragment is scaled, biased and masked where it lies (each thread
-//     knows its (row, col) from the fragment layout), rounded to bf16 and
+//     knows its (row, col) from the fragment layout), rounded to T and
 //     reused as the A operand of the next product: no trip through shared
 //     memory. The online softmax's row max and sum are quad shuffles, with
 //     log2(e) folded into the scale (exp2f);
@@ -62,29 +64,35 @@
 //     sizes are fixed below (kFwdRows, kDqRows, kDkvKeys).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float kNegInf = -1e9f;          // finite mask fill, as the reference
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf2 = kNegInf * kLog2e;   // the fill in log2 units
 
+// T: the 16-bit element type of q, k, v, dO and the outputs (bf16 or f16)
+template <typename T>
 struct Args {
-  const bf16* q;        // [BH, Sq, D]
-  const bf16* k;        // [BH, Sk, D]
-  const bf16* v;        // [BH, Sk, D]
+  const T* q;           // [BH, Sq, D]
+  const T* k;           // [BH, Sk, D]
+  const T* v;           // [BH, Sk, D]
   const float* bias;    // [B, Sk] or null
-  const bf16* dout;     // [BH, Sq, D] (backward)
+  const T* dout;        // [BH, Sq, D] (backward)
   float* lse;           // [BH, Sq]: written forward, read backward
   const float* delta;   // [BH, Sq] rowsum(dO * O) (backward)
-  bf16* out;            // forward: o; dk/dv: dk
-  bf16* out2;           // dk/dv: dv
+  T* out;               // forward: o; dk/dv: dk
+  T* out2;              // dk/dv: dv
   int BH, H, Sq, Sk;
   float scale;
   int causal;
@@ -134,24 +142,38 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
-// d += a . b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
+// d += a . b: a 16x16 T (row), b 16x8 T (col), d 16x8 f32
+template <typename T>
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same_v<T, f16>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two f32 rounded to bf16, lo in the low half (the fragments' k order)
+// two f32 rounded to T, lo in the low half (the fragments' k order)
+template <typename T>
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+  if constexpr (std::is_same_v<T, f16>) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// swizzled tiles: [rows][D] bf16, the 16-byte chunk c of row r stored at
+// swizzled tiles: [rows][D] T, the 16-byte chunk c of row r stored at
 // chunk c ^ (r & 7), so the 8 rows one ldmatrix matrix reads hit 8
 // different chunks (all 32 banks)
 // ---------------------------------------------------------------------------
@@ -162,8 +184,8 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // rows r0 .. r0+R of a [S, D] matrix into a swizzled tile (zeros past S)
-template <int R, int D, int NT>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int r0,
+template <int R, int D, int NT, typename T>
+__device__ __forceinline__ void tile_async(T* dst, const T* src, int r0,
                                            int S) {
   constexpr int CPR = D / 8;
   static_assert(R * CPR % NT == 0, "tile split");
@@ -189,16 +211,16 @@ __device__ __forceinline__ void rows_async(float* dst, const float* src,
 
 // ldmatrix.x4 addresses of one lane. A operand: the 16 x 16 block at rows
 // r0, k-chunks kc, kc + 1 of a [rows][k] tile (regs a0..a3).
-template <int D>
-__device__ __forceinline__ uint32_t a_addr(const bf16* t, int r0, int kc,
+template <int D, typename T>
+__device__ __forceinline__ uint32_t a_addr(const T* t, int r0, int kc,
                                            int lane) {
   return smem_addr(t + swz<D>(r0 + (lane & 15), kc + (lane >> 4)));
 }
 
 // B operands of two n8 blocks (n0, n0 + 8) over k-chunks kc, kc + 1 from a
 // [n][k] tile (regs: b0, b1 of n0, then b0, b1 of n0 + 8)
-template <int D>
-__device__ __forceinline__ uint32_t bn_addr(const bf16* t, int n0, int kc,
+template <int D, typename T>
+__device__ __forceinline__ uint32_t bn_addr(const T* t, int n0, int kc,
                                             int lane) {
   const int m = lane >> 3;
   return smem_addr(t + swz<D>(n0 + ((m >> 1) << 3) + (lane & 7), kc + (m & 1)));
@@ -206,30 +228,30 @@ __device__ __forceinline__ uint32_t bn_addr(const bf16* t, int n0, int kc,
 
 // the same from a [k][n] tile through ldmatrix.trans: k rows k0 .. k0+16,
 // n-chunks nc, nc + 1
-template <int D>
-__device__ __forceinline__ uint32_t bt_addr(const bf16* t, int k0, int nc,
+template <int D, typename T>
+__device__ __forceinline__ uint32_t bt_addr(const T* t, int k0, int nc,
                                             int lane) {
   const int m = lane >> 3;
   return smem_addr(t + swz<D>(k0 + ((m & 1) << 3) + (lane & 7), nc + (m >> 1)));
 }
 
 // A warp's 16 x D f32 accumulator fragments, rows divided by d0 (the
-// lane's first row) and d1 (its row + 8), rounded to bf16 and stored to
+// lane's first row) and d1 (its row + 8), rounded to T and stored to
 // rows g0 + 16 warp .. of out [S, D] (none at and past S) through the
 // warp's own 16 rows of the swizzled tile t, in 16-byte stores
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
-                                           float d0, float d1, bf16* t,
-                                           bf16* out, int g0, int S,
+                                           float d0, float d1, T* t,
+                                           T* out, int g0, int S,
                                            int warp, int lane) {
   constexpr int DB = D / 8;
   const int r_lo = warp * 16 + (lane >> 2), e = (lane & 3) * 2;
 #pragma unroll
   for (int j = 0; j < DB; ++j) {
-    *reinterpret_cast<__nv_bfloat162*>(t + swz<D>(r_lo, j) + e) =
-        __floats2bfloat162_rn(acc[j][0] / d0, acc[j][1] / d0);
-    *reinterpret_cast<__nv_bfloat162*>(t + swz<D>(r_lo + 8, j) + e) =
-        __floats2bfloat162_rn(acc[j][2] / d1, acc[j][3] / d1);
+    *reinterpret_cast<uint32_t*>(t + swz<D>(r_lo, j) + e) =
+        pack<T>(acc[j][0] / d0, acc[j][1] / d0);
+    *reinterpret_cast<uint32_t*>(t + swz<D>(r_lo + 8, j) + e) =
+        pack<T>(acc[j][2] / d1, acc[j][3] / d1);
   }
   __syncwarp();
   for (int u = lane; u < 16 * DB; u += 32) {
@@ -242,7 +264,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
 
 // key tiles [0, end) a query tile q0 .. q0+bm must visit (causal: up to the
 // last one holding a column <= its last real row + Sk - Sq)
-__device__ __forceinline__ int fwd_key_tiles(const Args& a, int q0, int bm,
+template <typename A>
+__device__ __forceinline__ int fwd_key_tiles(const A& a, int q0, int bm,
                                              int bn) {
   const int n = (a.Sk + bn - 1) / bn;
   if (!a.causal) return n;
@@ -254,22 +277,22 @@ __device__ __forceinline__ int fwd_key_tiles(const Args& a, int q0, int bm,
 // forward: one warp per 16 query rows, BM / 16 warps, 64-key tiles
 // ---------------------------------------------------------------------------
 
-template <int D, int BM, int BN>
+template <typename T, int D, int BM, int BN>
 __global__ void __launch_bounds__(BM * 2)
-    flash_fwd_sm90_kernel(const Args a) {
+    flash_fwd_sm90_kernel(const Args<T> a) {
   constexpr int NT = BM * 2;
   constexpr int KD = D / 16, NB = BN / 8, DB = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);   // [BM][D]
-  bf16* k_s = q_s + BM * D;                    // 2 x [BN][D]
-  bf16* v_s = k_s + 2 * BN * D;                // 2 x [BN][D]
+  T* q_s = reinterpret_cast<T*>(smem);   // [BM][D]
+  T* k_s = q_s + BM * D;                    // 2 x [BN][D]
+  T* v_s = k_s + 2 * BN * D;                // 2 x [BN][D]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_qt = (a.Sq + BM - 1) / BM;
   const int bh = blockIdx.x % a.BH;
   const int q0 = (n_qt - 1 - (int)blockIdx.x / a.BH) * BM;  // longest first
-  const bf16* q = a.q + (int64_t)bh * a.Sq * D;
-  const bf16* k = a.k + (int64_t)bh * a.Sk * D;
-  const bf16* v = a.v + (int64_t)bh * a.Sk * D;
+  const T* q = a.q + (int64_t)bh * a.Sq * D;
+  const T* k = a.k + (int64_t)bh * a.Sk * D;
+  const T* v = a.v + (int64_t)bh * a.Sk * D;
   const float* bias =
       a.bias != nullptr ? a.bias + (int64_t)(bh / a.H) * a.Sk : nullptr;
   const int off = a.Sk - a.Sq;
@@ -306,8 +329,8 @@ __global__ void __launch_bounds__(BM * 2)
       tile_async<BN, D, NT>(v_s + st * BN * D, v, (kt + 1) * BN, a.Sk);
     }
     cp_async_commit();
-    const bf16* ks = k_s + (kt & 1) * BN * D;
-    const bf16* vs = v_s + (kt & 1) * BN * D;
+    const T* ks = k_s + (kt & 1) * BN * D;
+    const T* vs = v_s + (kt & 1) * BN * D;
 
     // S = Q . K^T
     float s[NB][4];
@@ -319,8 +342,8 @@ __global__ void __launch_bounds__(BM * 2)
       for (int p = 0; p < NB / 2; ++p) {
         uint32_t b[4];
         ldsm_x4(b, bn_addr<D>(ks, p * 16, 2 * kk, lane));
-        mma(s[2 * p], qf[kk], b[0], b[1]);
-        mma(s[2 * p + 1], qf[kk], b[2], b[3]);
+        mma<T>(s[2 * p], qf[kk], b[0], b[1]);
+        mma<T>(s[2 * p + 1], qf[kk], b[2], b[3]);
       }
     }
 
@@ -381,19 +404,19 @@ __global__ void __launch_bounds__(BM * 2)
       o[j][3] *= al1;
     }
 
-    // O += P . V, P rounded to bf16 in the A fragment
+    // O += P . V, P rounded to T in the A fragment
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                              pack(s[2 * kk][2], s[2 * kk][3]),
-                              pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pa[4] = {pack<T>(s[2 * kk][0], s[2 * kk][1]),
+                              pack<T>(s[2 * kk][2], s[2 * kk][3]),
+                              pack<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int p = 0; p < D / 16; ++p) {
         uint32_t b[4];
         ldsm_x4_t(b, bt_addr<D>(vs, kk * 16, 2 * p, lane));
-        mma(o[2 * p], pa, b[0], b[1]);
-        mma(o[2 * p + 1], pa, b[2], b[3]);
+        mma<T>(o[2 * p], pa, b[0], b[1]);
+        mma<T>(o[2 * p + 1], pa, b[2], b[3]);
       }
     }
   }
@@ -417,26 +440,26 @@ __global__ void __launch_bounds__(BM * 2)
 
 // ---------------------------------------------------------------------------
 // dq: the forward's shape. One warp per 16 query rows, BM / 16 warps, BN-key
-// tiles; dq = ds . K with ds rounded to bf16 in the A fragment
+// tiles; dq = ds . K with ds rounded to T in the A fragment
 // ---------------------------------------------------------------------------
 
-template <int D, int BM, int BN>
+template <typename T, int D, int BM, int BN>
 __global__ void __launch_bounds__(BM * 2)
-    flash_bwd_dq_sm90_kernel(const Args a) {
+    flash_bwd_dq_sm90_kernel(const Args<T> a) {
   constexpr int NT = BM * 2;
   constexpr int KD = D / 16, NB = BN / 8, DB = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);   // [BM][D]
-  bf16* do_s = q_s + BM * D;                   // [BM][D]
-  bf16* k_s = do_s + BM * D;                   // 2 x [BN][D]
-  bf16* v_s = k_s + 2 * BN * D;                // 2 x [BN][D]
+  T* q_s = reinterpret_cast<T*>(smem);   // [BM][D]
+  T* do_s = q_s + BM * D;                   // [BM][D]
+  T* k_s = do_s + BM * D;                   // 2 x [BN][D]
+  T* v_s = k_s + 2 * BN * D;                // 2 x [BN][D]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_qt = (a.Sq + BM - 1) / BM;
   const int bh = blockIdx.x % a.BH;
   const int q0 = (n_qt - 1 - (int)blockIdx.x / a.BH) * BM;  // longest first
   const int64_t qoff = (int64_t)bh * a.Sq;
-  const bf16* k = a.k + (int64_t)bh * a.Sk * D;
-  const bf16* v = a.v + (int64_t)bh * a.Sk * D;
+  const T* k = a.k + (int64_t)bh * a.Sk * D;
+  const T* v = a.v + (int64_t)bh * a.Sk * D;
   const float* bias =
       a.bias != nullptr ? a.bias + (int64_t)(bh / a.H) * a.Sk : nullptr;
   const int off = a.Sk - a.Sq;
@@ -473,8 +496,8 @@ __global__ void __launch_bounds__(BM * 2)
       tile_async<BN, D, NT>(v_s + st * BN * D, v, (kt + 1) * BN, a.Sk);
     }
     cp_async_commit();
-    const bf16* ks = k_s + (kt & 1) * BN * D;
-    const bf16* vs = v_s + (kt & 1) * BN * D;
+    const T* ks = k_s + (kt & 1) * BN * D;
+    const T* vs = v_s + (kt & 1) * BN * D;
 
     // S = Q . K^T and dP = dO . V^T; the Q and dO fragments are read from
     // shared memory per tile (held in registers for the whole walk they
@@ -494,11 +517,11 @@ __global__ void __launch_bounds__(BM * 2)
       for (int p = 0; p < NB / 2; ++p) {
         uint32_t b[4];
         ldsm_x4(b, bn_addr<D>(ks, p * 16, 2 * kk, lane));
-        mma(s[2 * p], qa, b[0], b[1]);
-        mma(s[2 * p + 1], qa, b[2], b[3]);
+        mma<T>(s[2 * p], qa, b[0], b[1]);
+        mma<T>(s[2 * p + 1], qa, b[2], b[3]);
         ldsm_x4(b, bn_addr<D>(vs, p * 16, 2 * kk, lane));
-        mma(dp[2 * p], da, b[0], b[1]);
-        mma(dp[2 * p + 1], da, b[2], b[3]);
+        mma<T>(dp[2 * p], da, b[0], b[1]);
+        mma<T>(dp[2 * p + 1], da, b[2], b[3]);
       }
     }
 
@@ -526,20 +549,20 @@ __global__ void __launch_bounds__(BM * 2)
       }
     }
 
-    // dq += dS . K, dS rounded to bf16 in the A fragment, K through
+    // dq += dS . K, dS rounded to T in the A fragment, K through
     // ldmatrix.trans as the forward reads V
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t da[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+      const uint32_t da[4] = {pack<T>(dp[2 * kk][0], dp[2 * kk][1]),
+                              pack<T>(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
 #pragma unroll
       for (int p = 0; p < D / 16; ++p) {
         uint32_t b[4];
         ldsm_x4_t(b, bt_addr<D>(ks, kk * 16, 2 * p, lane));
-        mma(dq[2 * p], da, b[0], b[1]);
-        mma(dq[2 * p + 1], da, b[2], b[3]);
+        mma<T>(dq[2 * p], da, b[0], b[1]);
+        mma<T>(dq[2 * p + 1], da, b[2], b[3]);
       }
     }
   }
@@ -554,16 +577,16 @@ __global__ void __launch_bounds__(BM * 2)
 // dk/dv: one warp per 16 keys, BN / 16 warps, BQ-query tiles
 // ---------------------------------------------------------------------------
 
-template <int D, int BN, int BQ>
+template <typename T, int D, int BN, int BQ>
 __global__ void __launch_bounds__(BN * 2)
-    flash_bwd_dkv_sm90_kernel(const Args a) {
+    flash_bwd_dkv_sm90_kernel(const Args<T> a) {
   constexpr int NT = BN * 2;
   constexpr int KD = D / 16, NQ = BQ / 8, DB = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);   // [BN][D]
-  bf16* v_s = k_s + BN * D;                    // [BN][D]
-  bf16* q_s = v_s + BN * D;                    // 2 x [BQ][D]
-  bf16* do_s = q_s + 2 * BQ * D;               // 2 x [BQ][D]
+  T* k_s = reinterpret_cast<T*>(smem);   // [BN][D]
+  T* v_s = k_s + BN * D;                    // [BN][D]
+  T* q_s = v_s + BN * D;                    // 2 x [BQ][D]
+  T* do_s = q_s + 2 * BQ * D;               // 2 x [BQ][D]
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * BQ * D);   // 2 x [BQ]
   float* dl_s = lse_s + 2 * BQ;                                 // 2 x [BQ]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -573,8 +596,8 @@ __global__ void __launch_bounds__(BN * 2)
   const int nq = (a.Sq + BQ - 1) / BQ;
   const int qt0 = a.causal ? max(0, k0 - off) / BQ : 0;   // first live tile
   const int64_t qoff = (int64_t)bh * a.Sq;
-  const bf16* q = a.q + qoff * D;
-  const bf16* dout = a.dout + qoff * D;
+  const T* q = a.q + qoff * D;
+  const T* dout = a.dout + qoff * D;
   const float* lse = a.lse + qoff;
   const float* delta = a.delta + qoff;
   const int64_t koff = (int64_t)bh * a.Sk * D;
@@ -611,8 +634,8 @@ __global__ void __launch_bounds__(BN * 2)
     __syncthreads();   // tile qt landed; every warp is done with qt - 1
     if (qt + 1 < nq) load_queries(st ^ 1, qt + 1);
     cp_async_commit();
-    const bf16* qs = q_s + st * BQ * D;
-    const bf16* dos = do_s + st * BQ * D;
+    const T* qs = q_s + st * BQ * D;
+    const T* dos = do_s + st * BQ * D;
     const float* ls = lse_s + st * BQ;
     const float* dls = dl_s + st * BQ;
 
@@ -631,11 +654,11 @@ __global__ void __launch_bounds__(BN * 2)
       for (int p = 0; p < NQ / 2; ++p) {
         uint32_t b[4];
         ldsm_x4(b, bn_addr<D>(qs, p * 16, 2 * kk, lane));
-        mma(s[2 * p], ka, b[0], b[1]);
-        mma(s[2 * p + 1], ka, b[2], b[3]);
+        mma<T>(s[2 * p], ka, b[0], b[1]);
+        mma<T>(s[2 * p + 1], ka, b[2], b[3]);
         ldsm_x4(b, bn_addr<D>(dos, p * 16, 2 * kk, lane));
-        mma(dp[2 * p], va, b[0], b[1]);
-        mma(dp[2 * p + 1], va, b[2], b[3]);
+        mma<T>(dp[2 * p], va, b[0], b[1]);
+        mma<T>(dp[2 * p + 1], va, b[2], b[3]);
       }
     }
 
@@ -664,26 +687,26 @@ __global__ void __launch_bounds__(BN * 2)
       }
     }
 
-    // dv += P^T . dO, dk += dS^T . Q (A fragments rounded to bf16)
+    // dv += P^T . dO, dk += dS^T . Q (A fragments rounded to T)
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t pa[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                              pack(s[2 * kk][2], s[2 * kk][3]),
-                              pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint32_t da[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+      const uint32_t pa[4] = {pack<T>(s[2 * kk][0], s[2 * kk][1]),
+                              pack<T>(s[2 * kk][2], s[2 * kk][3]),
+                              pack<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t da[4] = {pack<T>(dp[2 * kk][0], dp[2 * kk][1]),
+                              pack<T>(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
 #pragma unroll
       for (int p = 0; p < D / 16; ++p) {
         uint32_t b[4];
         ldsm_x4_t(b, bt_addr<D>(dos, kk * 16, 2 * p, lane));
-        mma(dv[2 * p], pa, b[0], b[1]);
-        mma(dv[2 * p + 1], pa, b[2], b[3]);
+        mma<T>(dv[2 * p], pa, b[0], b[1]);
+        mma<T>(dv[2 * p + 1], pa, b[2], b[3]);
         ldsm_x4_t(b, bt_addr<D>(qs, kk * 16, 2 * p, lane));
-        mma(dk[2 * p], da, b[0], b[1]);
-        mma(dk[2 * p + 1], da, b[2], b[3]);
+        mma<T>(dk[2 * p], da, b[0], b[1]);
+        mma<T>(dk[2 * p + 1], da, b[2], b[3]);
       }
     }
   }
@@ -699,9 +722,9 @@ __global__ void __launch_bounds__(BN * 2)
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
+template <typename Kernel, typename A>
 int launch(Kernel kernel, int blocks, int threads, size_t smem,
-           cudaStream_t st, const Args& a) {
+           cudaStream_t st, const A& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -721,92 +744,118 @@ constexpr int kDkvKeys = 128;
 constexpr int kDqRows = 64;
 constexpr int kDqKeys = 64;
 
-template <int D>
-int launch_fwd(const Args& a, cudaStream_t st) {
+template <typename T, int D>
+int launch_fwd(const Args<T>& a, cudaStream_t st) {
   constexpr int BM = kFwdRows;
-  const size_t smem = (size_t)(BM + 4 * kFwdKeys) * D * sizeof(bf16);
+  const size_t smem = (size_t)(BM + 4 * kFwdKeys) * D * sizeof(T);
   const int n_qt = (a.Sq + BM - 1) / BM;
-  return launch(flash_fwd_sm90_kernel<D, BM, kFwdKeys>, n_qt * a.BH, BM * 2,
+  return launch(flash_fwd_sm90_kernel<T, D, BM, kFwdKeys>, n_qt * a.BH, BM * 2,
                 smem, st, a);
 }
 
-template <int D>
-int launch_dq(const Args& a, cudaStream_t st) {
+template <typename T, int D>
+int launch_dq(const Args<T>& a, cudaStream_t st) {
   constexpr int BM = kDqRows;
-  const size_t smem = (size_t)(2 * BM + 4 * kDqKeys) * D * sizeof(bf16);
+  const size_t smem = (size_t)(2 * BM + 4 * kDqKeys) * D * sizeof(T);
   const int n_qt = (a.Sq + BM - 1) / BM;
-  return launch(flash_bwd_dq_sm90_kernel<D, BM, kDqKeys>, n_qt * a.BH, BM * 2,
-                smem, st, a);
+  return launch(flash_bwd_dq_sm90_kernel<T, D, BM, kDqKeys>, n_qt * a.BH,
+                BM * 2, smem, st, a);
 }
 
-template <int D>
-int launch_dkv(const Args& a, cudaStream_t st) {
+template <typename T, int D>
+int launch_dkv(const Args<T>& a, cudaStream_t st) {
   constexpr int BN = kDkvKeys;
   constexpr int BQ = D == 64 ? 64 : 32;        // queries per tile
-  const size_t smem = (size_t)(2 * BN + 4 * BQ) * D * sizeof(bf16) +
+  const size_t smem = (size_t)(2 * BN + 4 * BQ) * D * sizeof(T) +
                       4 * BQ * sizeof(float);
   const int n_kt = (a.Sk + BN - 1) / BN;
-  return launch(flash_bwd_dkv_sm90_kernel<D, BN, BQ>, n_kt * a.BH, BN * 2,
+  return launch(flash_bwd_dkv_sm90_kernel<T, D, BN, BQ>, n_kt * a.BH, BN * 2,
                 smem, st, a);
 }
 
-bool valid_shape(const Args& a) {
+template <typename A>
+bool valid_shape(const A& a) {
   return a.BH >= 1 && a.H >= 1 && a.Sq >= 1 && a.Sk >= 1;
+}
+
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+
+template <typename T>
+int run(int kind, const Args<T>& a, int D, cudaStream_t st) {
+  if (!valid_shape(a)) return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return kind == kFwd  ? launch_fwd<T, 64>(a, st)
+           : kind == kDq ? launch_dq<T, 64>(a, st)
+                         : launch_dkv<T, 64>(a, st);
+  if (D == 128)
+    return kind == kFwd  ? launch_fwd<T, 128>(a, st)
+           : kind == kDq ? launch_dq<T, 128>(a, st)
+                         : launch_dkv<T, 128>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// one entry's launch for the element type of dtype code `dtype` (1 bf16,
+// 2 f16; the codes of flash_attention.cu, where 0 is f32)
+int dispatch(int kind, int dtype, const void* q, const void* k,
+             const void* v, const float* bias, const void* dout, float* lse,
+             const float* delta, void* out, void* out2, int BH, int H, int Sq,
+             int Sk, int D, float scale, int causal, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    Args<bf16> a{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
+                 static_cast<const bf16*>(v),    bias,
+                 static_cast<const bf16*>(dout), lse,
+                 delta,                          static_cast<bf16*>(out),
+                 static_cast<bf16*>(out2),       BH, H, Sq, Sk, scale, causal};
+    return run(kind, a, D, st);
+  }
+  if (dtype == 2) {
+    Args<f16> a{static_cast<const f16*>(q),    static_cast<const f16*>(k),
+                static_cast<const f16*>(v),    bias,
+                static_cast<const f16*>(dout), lse,
+                delta,                         static_cast<f16*>(out),
+                static_cast<f16*>(out2),       BH, H, Sq, Sk, scale, causal};
+    return run(kind, a, D, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// o [BH, Sq, D] bf16 and lse [BH, Sq] f32; D in {64, 128}. Returns the
-// cudaError_t of the launch.
+// The entries take a dtype code: 1 bf16, 2 f16 (q, k, v, dO and the
+// outputs alike); bias, lse and delta are f32. Each returns the
+// cudaError_t of its launch.
+
+// o [BH, Sq, D] and lse [BH, Sq] f32; D in {64, 128}.
 int flash_sm90_fwd(const void* q, const void* k, const void* v,
                    const float* bias, void* out, float* lse, int BH, int H,
-                   int Sq, int Sk, int D, float scale, int causal,
+                   int Sq, int Sk, int D, float scale, int causal, int dtype,
                    void* stream) {
-  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v), bias, nullptr, lse, nullptr,
-         static_cast<bf16*>(out), nullptr, BH, H, Sq, Sk, scale, causal};
-  if (!valid_shape(a)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_fwd<64>(a, st);
-  if (D == 128) return launch_fwd<128>(a, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(kFwd, dtype, q, k, v, bias, nullptr, lse, nullptr, out,
+                  nullptr, BH, H, Sq, Sk, D, scale, causal, stream);
 }
 
-// dq [BH, Sq, D] bf16 from the saved lse and delta; D in {64, 128}.
+// dq [BH, Sq, D] from the saved lse and delta; D in {64, 128}.
 int flash_sm90_bwd_dq(const void* q, const void* k, const void* v,
                       const float* bias, const void* dout, const float* lse,
                       const float* delta, void* dq, int BH, int H, int Sq,
-                      int Sk, int D, float scale, int causal, void* stream) {
-  Args a{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v),    bias,
-         static_cast<const bf16*>(dout), const_cast<float*>(lse),
-         delta,                          static_cast<bf16*>(dq),
-         nullptr,                        BH, H, Sq, Sk, scale, causal};
-  if (!valid_shape(a)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_dq<64>(a, st);
-  if (D == 128) return launch_dq<128>(a, st);
-  return (int)cudaErrorInvalidValue;
+                      int Sk, int D, float scale, int causal, int dtype,
+                      void* stream) {
+  return dispatch(kDq, dtype, q, k, v, bias, dout, const_cast<float*>(lse),
+                  delta, dq, nullptr, BH, H, Sq, Sk, D, scale, causal,
+                  stream);
 }
 
-// dk and dv [BH, Sk, D] bf16 from the saved lse and delta; D in {64, 128}.
+// dk and dv [BH, Sk, D] from the saved lse and delta; D in {64, 128}.
 int flash_sm90_bwd_dkv(const void* q, const void* k, const void* v,
                        const float* bias, const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int BH, int H,
                        int Sq, int Sk, int D, float scale, int causal,
-                       void* stream) {
-  Args a{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v),    bias,
-         static_cast<const bf16*>(dout), const_cast<float*>(lse),
-         delta,                          static_cast<bf16*>(dk),
-         static_cast<bf16*>(dv),         BH, H, Sq, Sk, scale, causal};
-  if (!valid_shape(a)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_dkv<64>(a, st);
-  if (D == 128) return launch_dkv<128>(a, st);
-  return (int)cudaErrorInvalidValue;
+                       int dtype, void* stream) {
+  return dispatch(kDkv, dtype, q, k, v, bias, dout, const_cast<float*>(lse),
+                  delta, dk, dv, BH, H, Sq, Sk, D, scale, causal, stream);
 }
 
 }  // extern "C"

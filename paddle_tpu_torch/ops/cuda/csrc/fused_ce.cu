@@ -29,7 +29,7 @@
 // ~53 MB, 0.016 ms at 3.35 TB/s. So the design keeps the products on the
 // tensor cores and the logits out of device memory, and does no product
 // whose result is known to be zero:
-//   * bf16 inputs: WMMA (mma.sync) 16x16x16 products, bf16 in, f32
+//   * bf16 and f16 inputs: WMMA (mma.sync) 16x16x16 products, 16-bit in, f32
 //     accumulate; f32 inputs: f32 FMA (no TF32), so f32 holds an f32
 //     tolerance;
 //   * operand chunks (64 columns of H) go global -> registers -> shared
@@ -67,11 +67,12 @@
 //     multiple of 8 up to 1024, any V >= 1.
 // Occupancy: the backward kernels use ~160-180 KB of shared memory, so one
 // block (8 warps) per SM; dW has ceil(V / 32) blocks.
-// bf16 with H a multiple of 64 runs the forward and the backward of
+// bf16 and f16 with H a multiple of 64 run the forward and the backward of
 // fused_ce_sm90.cu instead (wgmma tiles, register accumulators); these
 // kernels keep f32 and the other H, and list the valid rows for both.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -81,6 +82,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 namespace wmma = nvcuda::wmma;
 
 constexpr int kThreads = 256;          // 8 warps per block
@@ -99,6 +101,7 @@ constexpr int kCompactThreads = 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
@@ -107,26 +110,31 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half(x);
+}
 
-// 8 consecutive elements: 16 bytes of bf16 or 32 bytes of f32
-template <typename T> struct Vec8;
-template <> struct Vec8<bf16> { uint4 v; };
+// 8 consecutive elements: 16 bytes of bf16 or f16, or 32 bytes of f32
+template <typename T> struct Vec8 { uint4 v; };
 template <> struct Vec8<float> { float4 a, b; };
 
-__device__ __forceinline__ void load8(Vec8<bf16>& d, const bf16* s) {
+template <typename T>
+__device__ __forceinline__ void load8(Vec8<T>& d, const T* s) {
   d.v = *reinterpret_cast<const uint4*>(s);
 }
 __device__ __forceinline__ void load8(Vec8<float>& d, const float* s) {
   d.a = reinterpret_cast<const float4*>(s)[0];
   d.b = reinterpret_cast<const float4*>(s)[1];
 }
-__device__ __forceinline__ void zero8(Vec8<bf16>& d) {
+template <typename T>
+__device__ __forceinline__ void zero8(Vec8<T>& d) {
   d.v = make_uint4(0u, 0u, 0u, 0u);
 }
 __device__ __forceinline__ void zero8(Vec8<float>& d) {
   d.a = d.b = make_float4(0.f, 0.f, 0.f, 0.f);
 }
-__device__ __forceinline__ void store8(bf16* d, const Vec8<bf16>& s) {
+template <typename T>
+__device__ __forceinline__ void store8(T* d, const Vec8<T>& s) {
   *reinterpret_cast<uint4*>(d) = s.v;
 }
 __device__ __forceinline__ void store8(float* d, const Vec8<float>& s) {
@@ -182,15 +190,15 @@ struct Chunk {
 // W rows >= V are zero. Ends with a barrier: S is complete.
 // ---------------------------------------------------------------------------
 
-template <int TM, int TV>
-__device__ void logits_tile(float* S, bf16* a_s, bf16* b_s, const bf16* h,
-                            const int* hmap, int r0, int n, const bf16* w,
+template <int TM, int TV, typename E>
+__device__ void logits_tile(float* S, E* a_s, E* b_s, const E* h,
+                            const int* hmap, int r0, int n, const E* w,
                             int v0, int V, int H) {
   constexpr int kPer = (TM / 16) * (TV / 16) / kWarps;   // tiles per warp
   static_assert(kPer * kWarps == (TM / 16) * (TV / 16), "tile split");
   const int warp = threadIdx.x / 32;
-  Chunk<TM, kBK, bf16> ca;
-  Chunk<TV, kBK, bf16> cb;
+  Chunk<TM, kBK, E> ca;
+  Chunk<TV, kBK, E> cb;
   ca.fetch(h, H, hmap, r0, n, 0, H);
   cb.fetch(w, H, nullptr, v0, V, 0, H);
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kPer];
@@ -211,8 +219,8 @@ __device__ void logits_tile(float* S, bf16* a_s, bf16* b_s, const bf16* h,
       const int ti = tile / (TV / 16), tj = tile % (TV / 16);
 #pragma unroll
       for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, E, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, E, wmma::col_major> fb;
         wmma::load_matrix_sync(fa, a_s + ti * 16 * kLdK + kk, kLdK);
         wmma::load_matrix_sync(fb, b_s + tj * 16 * kLdK + kk, kLdK);
         wmma::mma_sync(acc[i], fa, fb, acc[i]);
@@ -288,16 +296,16 @@ __device__ void logits_tile(float* S, float* a_s, float* b_s, const float* h,
 // needed on acc between calls.
 // ---------------------------------------------------------------------------
 
-template <bool A_COL>
-__device__ void accumulate_rows(float* acc, int ld_acc, const bf16* a_op,
-                                int lda, bf16* b_s, const bf16* src,
+template <bool A_COL, typename E>
+__device__ void accumulate_rows(float* acc, int ld_acc, const E* a_op,
+                                int lda, E* b_s, const E* src,
                                 const int* bmap, int brow0, int brow_end,
                                 int H) {
   using ALayout =
       typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
   const int warp = threadIdx.x / 32;
   const int ti = warp / 4, tj = warp % 4;   // 2 x 4 tiles of a 32 x 64 chunk
-  Chunk<64, kBK, bf16> cb;
+  Chunk<64, kBK, E> cb;
   cb.fetch(src, H, bmap, brow0, brow_end, 0, H);
   for (int c0 = 0; c0 < H; c0 += kBK) {
     __syncthreads();
@@ -309,9 +317,9 @@ __device__ void accumulate_rows(float* acc, int ld_acc, const bf16* a_op,
     wmma::load_matrix_sync(c, cp, ld_acc, wmma::mem_row_major);
 #pragma unroll
     for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      const bf16* ap = A_COL ? a_op + kk * lda + ti * 16
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, E, ALayout> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, E, wmma::row_major> fb;
+      const E* ap = A_COL ? a_op + kk * lda + ti * 16
                              : a_op + ti * 16 * lda + kk;
       wmma::load_matrix_sync(fa, ap, lda);
       wmma::load_matrix_sync(fb, b_s + kk * kLdK + tj * 16, kLdK);
@@ -748,6 +756,26 @@ int launch_dw(const Args& a, cudaStream_t st) {
   return launch_kernel(ce_bwd_dw_kernel<T>, grid, L.total, a, st);
 }
 
+enum Kind { kFwd = 0, kDh = 1, kDw = 2 };
+
+template <typename T>
+int launch(int kind, const Args& a, cudaStream_t st) {
+  return kind == kFwd  ? launch_fwd<T>(a, st)
+         : kind == kDh ? launch_dh<T>(a, st)
+                       : launch_dw<T>(a, st);
+}
+
+// dtype codes of the entries: 0 f32, 1 bf16, 2 f16 (h, W, b and the
+// gradients alike)
+int run(int kind, const Args& a, int dtype, void* stream) {
+  if (!valid_shape(a)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(kind, a, st);
+  if (dtype == 1) return launch<bf16>(kind, a, st);
+  if (dtype == 2) return launch<f16>(kind, a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -756,12 +784,10 @@ extern "C" {
 // Returns the cudaError_t of the launches.
 int fused_ce_fwd(const void* h, const void* w, const void* b, const int* y,
                  float* loss, float* lse, float* part, int n, int H, int V,
-                 int ignore, int splits, int is_bf16, void* stream) {
+                 int ignore, int splits, int dtype, void* stream) {
   Args a{h, w, b, y, nullptr, nullptr, loss, lse, part, nullptr, nullptr,
          nullptr, nullptr, nullptr, n, H, V, ignore, splits};
-  if (!valid_shape(a)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_fwd<bf16>(a, st) : launch_fwd<float>(a, st);
+  return run(kFwd, a, dtype, stream);
 }
 
 // The valid rows (y != ignore) of the backward kernels: rows int32
@@ -781,12 +807,10 @@ int fused_ce_valid_rows(const int* y, int* rows, int* pos, int n, int ignore,
 int fused_ce_bwd_dh(const void* h, const void* w, const void* b, const int* y,
                     const float* lse, const float* g, void* dh, int* rows,
                     int* pos, float* part, int n, int H, int V, int ignore,
-                    int splits, int is_bf16, void* stream) {
+                    int splits, int dtype, void* stream) {
   Args a{h, w, b, y, lse, g, nullptr, nullptr, part, dh, nullptr, nullptr,
          rows, pos, n, H, V, ignore, splits};
-  if (!valid_shape(a)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dh<bf16>(a, st) : launch_dh<float>(a, st);
+  return run(kDh, a, dtype, stream);
 }
 
 // dW [V, H] and (when db is not null) db [V], in the input dtype, over the
@@ -794,12 +818,10 @@ int fused_ce_bwd_dh(const void* h, const void* w, const void* b, const int* y,
 int fused_ce_bwd_dw(const void* h, const void* w, const void* b, const int* y,
                     const float* lse, const float* g, void* dw, void* db,
                     int* rows, int* pos, int n, int H, int V, int ignore,
-                    int is_bf16, void* stream) {
+                    int dtype, void* stream) {
   Args a{h, w, b, y, lse, g, nullptr, nullptr, nullptr, nullptr, dw, db,
          rows, pos, n, H, V, ignore, 1};
-  if (!valid_shape(a)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dw<bf16>(a, st) : launch_dw<float>(a, st);
+  return run(kDw, a, dtype, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,9 @@
-// The bf16 fused cross-entropy for Hopper (sm_90a): the forward, and dh, dW
-// and db from ONE recompute of the logits, every product on
-// register-resident tensor-core tiles.
+// The 16-bit (bf16 or f16) fused cross-entropy for Hopper (sm_90a): the
+// forward, and dh, dW and db from ONE recompute of the logits, every
+// product on register-resident tensor-core tiles.
 //
-// Replaces, on its bf16 path (H a multiple of 64, at most 1024), the three
-// TPU Pallas kernels of paddle_tpu/ops/pallas/fused_ce.py:
+// Replaces, on its bf16 / f16 path (H a multiple of 64, at most 1024), the
+// three TPU Pallas kernels of paddle_tpu/ops/pallas/fused_ce.py:
 //   _ce_fwd_kernel    (:41) -> ce_sm90_fwd_kernel (+ ce_sm90_fwd_combine_
 //                              kernel, the merge of the vocab ranges)
 //   _ce_bwd_dh_kernel (:145) and _ce_bwd_dw_kernel (:173)
@@ -15,15 +15,17 @@
 //
 // Contract (as fused_ce.cu): for hidden h [n, H], weight W [V, H], optional
 // bias b [V], labels y [n], the saved lse [n] and the upstream g [n]:
-//   s_iv = h_i . W_v + b_v (f32 products, bf16 bias); columns >= V masked
+// in T (bf16 or f16: every kernel is a template on it, and only wgmma's
+// type string and the rounding of f32 values to T differ):
+//   s_iv = h_i . W_v + b_v (f32 products, T bias); columns >= V masked
 //   forward  lse_i = m + log(max(l, 1e-30)) over s_i (every row, ignored
 //            ones too), loss_i = lse_i - s_{i, y_i}, 0 where y_i == ignore
 //   ds_iv = (exp(s_iv - lse_i) - [v == y_i]) * g_i
-//   dh = ds . W, dW = ds^T . h (ds rounded to bf16 for both, as the TPU
+//   dh = ds . W, dW = ds^T . h (ds rounded to T for both, as the TPU
 //   kernel and the plain version round it), db = sum_i ds_i (f32, unrounded)
 // Ignored rows (not in the valid-row list) have ds = 0; a label outside
 // [0, V) matches no column (its loss is lse). Products accumulate in f32;
-// outputs are rounded once to bf16. No atomics: every output element has
+// outputs are rounded once to T. No atomics: every output element has
 // one writer and every sum a fixed order, so two launches give the same
 // bits.
 //
@@ -85,58 +87,65 @@
 // TMA and a warp-specialized, persistent schedule are later work (PERF.md).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kBM = 128;                 // block tile rows
 constexpr int kBN = 128;                 // block tile columns
 constexpr int kBK = 64;                  // K per pipeline step
 constexpr int kStages = 3;               // cp.async ring depth
 constexpr int kThreads = 256;            // 2 warpgroups x 64 rows
-constexpr int kTile = kBM * kBK;         // bf16 elements of one operand tile
+constexpr int kTile = kBM * kBK;         // elements of one operand tile
 constexpr int kMaxSplit = 8;             // dh pass: most K slots per chunk
 constexpr int kMaxH = 1024;
 // the ring, and 1 KB to align it to the 1024-byte swizzle atom
-constexpr size_t kSmem = (size_t)kStages * 2 * kTile * sizeof(bf16) + 1024;
+constexpr size_t kSmem = (size_t)kStages * 2 * kTile * 2 + 1024;   // 16-bit
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kBM == kBN, "one tile shape serves all three passes");
 
 enum Pass { kDs = 0, kDh = 1, kDw = 2 };
 
-// one vocab chunk as a pass sees it
+// one vocab chunk as a pass sees it; T: the 16-bit element type of h, W,
+// b, ds and the gradients (bf16 or f16)
+template <typename T>
 struct Chunk {
-  bf16* ds;            // [n, Vc] its ds
+  T* ds;               // [n, Vc] its ds
   float* dbp;          // [row tiles of n, Vc] column sums of its ds, or null
   int v0, vc;          // first vocab column and width (vc 0: no chunk)
   int accumulate;      // dh pass: add to the partial sums (chunks after 0)
 };
 
+template <typename T>
 struct Args {
-  const bf16* h;       // [n, H] as given (gather)
-  const bf16* w;       // [V, H]
-  const bf16* bias;    // [V] or null
+  const T* h;          // [n, H] as given (gather)
+  const T* w;          // [V, H]
+  const T* bias;       // [V] or null
   const int* y;        // [n] labels (gather)
   const float* lse;    // [n] saved lse (gather)
   const float* g;      // [n] upstream gradient (gather)
   const int* rows;     // [n + 1] valid rows in order, their count last
   const int* pos;      // [n] row -> list position or -1
-  bf16* hc;            // [n, H] listed rows of h; zero at and past count
+  T* hc;               // [n, H] listed rows of h; zero at and past count
   float* lse_c;        // [n] listed rows' lse (0 past count)
   float* g_c;          // [n] listed rows' g (0 past count)
   int* y_c;            // [n] listed rows' labels (-1 past count)
   float* part;         // dh partial sums [slots][R * kBM][H], or null
-  bf16* dh;            // [n, H] or null
-  bf16* dw;            // [V, H] or null
-  bf16* db;            // [V] or null
+  T* dh;               // [n, H] or null
+  T* dw;               // [V, H] or null
+  T* db;               // [V] or null
   int n, H, V, Vc;     // Vc: a ds buffer's row stride, a multiple of kBN
-  Chunk fresh;         // the chunk whose ds pass this launch runs
-  Chunk done;          // the chunk whose dh and dW passes this launch runs
+  Chunk<T> fresh;      // the chunk whose ds pass this launch runs
+  Chunk<T> done;       // the chunk whose dh and dW passes this launch runs
   int n_dh, n_dw;      // this launch's dh and dW blocks (then the ds ones)
   // the forward
   float* loss;         // [n]
@@ -213,13 +222,14 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A . B for one warpgroup: m64 n128 k16, bf16 in, f32 accumulate,
+// d (+)= A . B for one warpgroup: m64 n128 k16, TY (".bf16.bf16" or
+// ".f16.f16") in, f32 accumulate,
 // A and B from shared memory by descriptor; TA / TB: the operand is
 // MN-major (1) or K-major (0)
-#define CE_WGMMA(TA, TB)                                                      \
+#define CE_WGMMA(TY, TA, TB)                                                  \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"               \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" TY " {"                   \
       "%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
       "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
       "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
@@ -247,16 +257,47 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
       : "l"(da), "l"(db), "r"(scale_d))                                       
 
-template <int P>
+template <typename T, int P>
 __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
                                       uint64_t db) {
   const int scale_d = 1;
-  if constexpr (P == kDs)
-    CE_WGMMA(0, 0);
-  else if constexpr (P == kDh)
-    CE_WGMMA(0, 1);
-  else
-    CE_WGMMA(1, 1);
+  if constexpr (std::is_same_v<T, f16>) {
+    if constexpr (P == kDs)
+      CE_WGMMA(".f16.f16", 0, 0);
+    else if constexpr (P == kDh)
+      CE_WGMMA(".f16.f16", 0, 1);
+    else
+      CE_WGMMA(".f16.f16", 1, 1);
+  } else {
+    if constexpr (P == kDs)
+      CE_WGMMA(".bf16.bf16", 0, 0);
+    else if constexpr (P == kDh)
+      CE_WGMMA(".bf16.bf16", 0, 1);
+    else
+      CE_WGMMA(".bf16.bf16", 1, 1);
+  }
+}
+
+// two f32 rounded to T, lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  if constexpr (std::is_same_v<T, f16>) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+}
+
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half(x);
 }
 
 // ---------------------------------------------------------------------------
@@ -275,8 +316,8 @@ __device__ __forceinline__ int lay(int r, int c) {   // c: 16-byte chunk
 // rows r0 .. r0+R, columns c0 .. c0+C of a row-major matrix (row stride
 // ld) into a tile laid out by lay<R>; rows at and past r_end and 8-column
 // chunks at and past c_end are zeros
-template <int R, int C>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src,
+template <int R, int C, typename T>
+__device__ __forceinline__ void tile_async(T* dst, const T* src,
                                            int64_t ld, int r0, int r_end,
                                            int c0, int c_end) {
   constexpr int CPR = C / 8;
@@ -294,7 +335,8 @@ __device__ __forceinline__ void tile_async(bf16* dst, const bf16* src,
 // wgmma's shared-memory matrix descriptor, 128-byte swizzle: start address,
 // the leading-dimension byte offset (MN-major: between 64-column halves;
 // unused K-major) and the stride byte offset (between 8-row groups)
-__device__ __forceinline__ uint64_t desc(const bf16* p, uint32_t lbo) {
+template <typename T>
+__device__ __forceinline__ uint64_t desc(const T* p, uint32_t lbo) {
   const uint32_t a = smem_addr(p);
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
@@ -309,11 +351,11 @@ __device__ __forceinline__ uint64_t desc(const bf16* p, uint32_t lbo) {
 // (ds pass: h_c; dh pass: ds) or [kBK][kBM] M-major (dW pass: ds read as
 // A^T). B: [kBN][kBK] K-major (ds pass: W rows) or [kBK][kBN] N-major (dh
 // pass: W rows; dW pass: h_c).
-template <int P>
-__device__ __forceinline__ void load_stage(const Args& a, const Chunk& ch,
-                                           bf16* a_s, bf16* b_s, int m0,
+template <typename T, int P>
+__device__ __forceinline__ void load_stage(const Args<T>& a, const Chunk<T>& ch,
+                                           T* a_s, T* b_s, int m0,
                                            int n0, int k0) {
-  const bf16* wc = a.w + (int64_t)ch.v0 * a.H;
+  const T* wc = a.w + (int64_t)ch.v0 * a.H;
   if constexpr (P == kDs) {
     tile_async<kBM, kBK>(a_s, a.hc, a.H, m0, a.n, k0, a.H);
     tile_async<kBN, kBK>(b_s, wc, a.H, n0, ch.vc, k0, a.H);
@@ -329,10 +371,10 @@ __device__ __forceinline__ void load_stage(const Args& a, const Chunk& ch,
 // the four k16 products of one K step for warpgroup wg (tile rows 64 wg ..
 // 64 wg + 64): the descriptors step 32 bytes along a K-major row, or 16
 // rows (2048 bytes) down an MN-major half
-template <int P>
-__device__ __forceinline__ void mma_step(float (&acc)[64], const bf16* a_s,
-                                         const bf16* b_s, int wg) {
-  constexpr uint32_t kHalf = kBK * 64 * sizeof(bf16);   // MN-major halves
+template <typename T, int P>
+__device__ __forceinline__ void mma_step(float (&acc)[64], const T* a_s,
+                                         const T* b_s, int wg) {
+  constexpr uint32_t kHalf = kBK * 64 * sizeof(T);   // MN-major halves
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
     const uint64_t da =
@@ -340,13 +382,13 @@ __device__ __forceinline__ void mma_step(float (&acc)[64], const bf16* a_s,
                  : desc(a_s + wg * 64 * kBK + kk * 16, 16);
     const uint64_t db = P == kDs ? desc(b_s + kk * 16, 16)
                                  : desc(b_s + kk * 16 * 64, kHalf);
-    wgmma<P>(acc, da, db);
+    wgmma<T, P>(acc, da, db);
   }
 }
 
-template <int P>
-__device__ __forceinline__ void main_loop(const Args& a, const Chunk& ch,
-                                          float (&acc)[64], bf16* smem,
+template <typename T, int P>
+__device__ __forceinline__ void main_loop(const Args<T>& a, const Chunk<T>& ch,
+                                          float (&acc)[64], T* smem,
                                           int m0, int n0, int kt0, int kt1) {
   const int wg = threadIdx.x >> 7;
 #pragma unroll
@@ -355,7 +397,7 @@ __device__ __forceinline__ void main_loop(const Args& a, const Chunk& ch,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk)
-      load_stage<P>(a, ch, smem + 2 * s * kTile, smem + (2 * s + 1) * kTile,
+      load_stage<T, P>(a, ch, smem + 2 * s * kTile, smem + (2 * s + 1) * kTile,
                     m0, n0, (kt0 + s) * kBK);
     cp_async_commit();
   }
@@ -366,13 +408,13 @@ __device__ __forceinline__ void main_loop(const Args& a, const Chunk& ch,
     const int nx = t + kStages - 1;
     if (nx < nk) {         // into the stage step t - 1 used
       const int st = nx % kStages;
-      load_stage<P>(a, ch, smem + 2 * st * kTile,
+      load_stage<T, P>(a, ch, smem + 2 * st * kTile,
                     smem + (2 * st + 1) * kTile, m0, n0, (kt0 + nx) * kBK);
     }
     cp_async_commit();
     const int st = t % kStages;
     wgmma_fence();
-    mma_step<P>(acc, smem + 2 * st * kTile, smem + (2 * st + 1) * kTile, wg);
+    mma_step<T, P>(acc, smem + 2 * st * kTile, smem + (2 * st + 1) * kTile, wg);
     wgmma_commit();
     wgmma_wait_all();
     fence_acc(acc);
@@ -389,14 +431,16 @@ __device__ __forceinline__ void main_loop(const Args& a, const Chunk& ch,
 // ---------------------------------------------------------------------------
 
 // block b of the ds pass of chunk ch: listed rows x chunk columns, K = H
-__device__ __forceinline__ void ds_pass(const Args& a, const Chunk& ch, int b,
-                                        int count, bf16* smem) {
+template <typename T>
+__device__ __forceinline__ void ds_pass(const Args<T>& a,
+                                        const Chunk<T>& ch, int b,
+                                        int count, T* smem) {
   const int col_tiles = cdiv(ch.vc, kBN);
   const int rt = b / col_tiles;
   const int m0 = rt * kBM, n0 = b % col_tiles * kBN;
   if (m0 >= count) return;   // past the listed rows
   float acc[64];
-  main_loop<kDs>(a, ch, acc, smem, m0, n0, 0, a.H / kBK);
+  main_loop<T, kDs>(a, ch, acc, smem, m0, n0, 0, a.H / kBK);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = m0 + 16 * warp + (lane >> 2);
   const int col0 = n0 + 2 * (lane & 3);
@@ -419,7 +463,7 @@ __device__ __forceinline__ void ds_pass(const Args& a, const Chunk& ch, int b,
 #pragma unroll
     for (int e = 0; e < 2; ++e)
       bv[e] = a.bias != nullptr && c + e < ch.vc
-                  ? __bfloat162float(a.bias[ch.v0 + c + e]) : 0.f;
+                  ? to_f32(a.bias[ch.v0 + c + e]) : 0.f;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = row0 + 8 * hf;
@@ -436,9 +480,9 @@ __device__ __forceinline__ void ds_pass(const Args& a, const Chunk& ch, int b,
         d2[e] = v;
         csum[e] += v;
       }
-      if (r < a.n)   // rounded to bf16, as the TPU kernel rounds ds
-        *reinterpret_cast<__nv_bfloat162*>(ch.ds + (int64_t)r * a.Vc + c) =
-            __floats2bfloat162_rn(d2[0], d2[1]);
+      if (r < a.n)   // rounded to T, as the TPU kernel rounds ds
+        *reinterpret_cast<uint32_t*>(ch.ds + (int64_t)r * a.Vc + c) =
+            pack<T>(d2[0], d2[1]);
     }
     if (ch.dbp != nullptr) {
       // the warp's column sums over its 16 rows (the 8 row groups by
@@ -465,8 +509,10 @@ __device__ __forceinline__ void ds_pass(const Args& a, const Chunk& ch, int b,
 
 // unit b of the dh pass of chunk ch: listed rows x H, K = the chunk, split
 // in slots
-__device__ __forceinline__ void dh_pass(const Args& a, const Chunk& ch, int b,
-                                        int count, bf16* smem) {
+template <typename T>
+__device__ __forceinline__ void dh_pass(const Args<T>& a,
+                                        const Chunk<T>& ch, int b,
+                                        int count, T* smem) {
   const int R = cdiv(count, kBM);
   const int slots = dh_slots(count, a.n);
   const int ht = cdiv(a.H, kBN);
@@ -474,7 +520,7 @@ __device__ __forceinline__ void dh_pass(const Args& a, const Chunk& ch, int b,
   const int n0 = b % ht * kBN, m0 = b / ht % R * kBM, slot = b / (ht * R);
   const int nk = cdiv(ch.vc, kBK);
   float acc[64];
-  main_loop<kDh>(a, ch, acc, smem, m0, n0, slot * nk / slots,
+  main_loop<T, kDh>(a, ch, acc, smem, m0, n0, slot * nk / slots,
                  (slot + 1) * nk / slots);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = m0 + 16 * warp + (lane >> 2);
@@ -501,14 +547,16 @@ __device__ __forceinline__ void dh_pass(const Args& a, const Chunk& ch, int b,
 }
 
 // block b of the dW pass of chunk ch: chunk rows x H, K = the listed rows
-__device__ __forceinline__ void dw_pass(const Args& a, const Chunk& ch, int b,
-                                        int count, bf16* smem) {
+template <typename T>
+__device__ __forceinline__ void dw_pass(const Args<T>& a,
+                                        const Chunk<T>& ch, int b,
+                                        int count, T* smem) {
   const int ht = cdiv(a.H, kBN);
   const int n0 = b % ht * kBN, m0 = b / ht * kBM;
   int kt1;
   kt1 = (count + kBK - 1) / kBK;   // dW: K = the listed rows
   float acc[64];
-  main_loop<kDw>(a, ch, acc, smem, m0, n0, 0, kt1);
+  main_loop<T, kDw>(a, ch, acc, smem, m0, n0, 0, kt1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = m0 + 16 * warp + (lane >> 2);
   const int col0 = n0 + 2 * (lane & 3);
@@ -516,14 +564,13 @@ __device__ __forceinline__ void dw_pass(const Args& a, const Chunk& ch, int b,
   for (int hf = 0; hf < 2; ++hf) {
     const int r = row0 + 8 * hf;     // chunk row
     if (r < ch.vc) {
-      bf16* out = a.dw + (int64_t)(ch.v0 + r) * a.H;
+      T* out = a.dw + (int64_t)(ch.v0 + r) * a.H;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int c = col0 + 8 * j;
         if (c < a.H)
-          *reinterpret_cast<__nv_bfloat162*>(out + c) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * hf],
-                                    acc[4 * j + 2 * hf + 1]);
+          *reinterpret_cast<uint32_t*>(out + c) =
+              pack<T>(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
       }
     }
   }
@@ -535,7 +582,7 @@ __device__ __forceinline__ void dw_pass(const Args& a, const Chunk& ch, int b,
       const int tiles = cdiv(count, kBM);
       float s = 0.f;
       for (int t = 0; t < tiles; ++t) s += ch.dbp[(int64_t)t * a.Vc + r];
-      a.db[ch.v0 + r] = __float2bfloat16(s);
+      a.db[ch.v0 + r] = from_f32<T>(s);
     }
   }
 }
@@ -543,23 +590,24 @@ __device__ __forceinline__ void dw_pass(const Args& a, const Chunk& ch, int b,
 // one launch of the chunk pipeline: blocks [0, n_dh) the dh pass and
 // [n_dh, n_dh + n_dw) the dW pass of chunk `done`, the rest the ds pass of
 // chunk `fresh`
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    ce_sm90_chunk_kernel(const Args a) {
+    ce_sm90_chunk_kernel(const Args<T> a) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(
+  T* smem = reinterpret_cast<T*>(
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
   const int count = a.rows[a.n];
   int b = blockIdx.x;
   if (b < a.n_dh) {
-    dh_pass(a, a.done, b, count, smem);
+    dh_pass<T>(a, a.done, b, count, smem);
     return;
   }
   b -= a.n_dh;
   if (b < a.n_dw) {
-    dw_pass(a, a.done, b, count, smem);
+    dw_pass<T>(a, a.done, b, count, smem);
     return;
   }
-  ds_pass(a, a.fresh, b - a.n_dw, count, smem);
+  ds_pass<T>(a, a.fresh, b - a.n_dw, count, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -579,10 +627,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 // the sum of exp2(s - m), t the label logit (added by the thread whose
 // column is the label). The quad sums l and t at the end; the partials go
 // to fpart, merged in split order by ce_sm90_fwd_combine_kernel.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    ce_sm90_fwd_kernel(const Args a) {
+    ce_sm90_fwd_kernel(const Args<T> a) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(
+  T* smem = reinterpret_cast<T*>(
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
   const int R = cdiv(a.n, kBM);
   const int rt = blockIdx.x % R, split = blockIdx.x / R;
@@ -590,7 +639,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int vt0 = (int)((int64_t)split * nvt / a.splits);
   const int vt1 = (int)((int64_t)(split + 1) * nvt / a.splits);
   const int m0 = rt * kBM;
-  Chunk all{};         // the whole vocab: W rows at and past V read as zeros
+  Chunk<T> all{};         // the whole vocab: W rows at and past V read as zeros
   all.vc = a.V;
   const int wg = threadIdx.x >> 7;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -610,7 +659,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // the step that the next load fills: tile lv, K step lk
   int lv = vt0, lk = 0;
   auto load_next = [&](int stage) {
-    load_stage<kDs>(a, all, smem + 2 * stage * kTile,
+    load_stage<T, kDs>(a, all, smem + 2 * stage * kTile,
                     smem + (2 * stage + 1) * kTile, m0, lv * kBN, lk * kBK);
     if (++lk == nk) {
       lk = 0;
@@ -636,7 +685,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     const int st = u % kStages;
     wgmma_fence();
-    mma_step<kDs>(acc, smem + 2 * st * kTile, smem + (2 * st + 1) * kTile,
+    mma_step<T, kDs>(acc, smem + 2 * st * kTile, smem + (2 * st + 1) * kTile,
                   wg);
     wgmma_commit();
     wgmma_wait_all();
@@ -655,7 +704,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int e = 0; e < 2; ++e) {
           const int col = col0 + 8 * j + e;
           const float bv =
-              col < a.V ? __bfloat162float(a.bias[col]) : 0.f;
+              col < a.V ? to_f32(a.bias[col]) : 0.f;
           acc[4 * j + e] += bv;
           acc[4 * j + 2 + e] += bv;
         }
@@ -720,8 +769,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // lse and loss of each row from the vocab ranges' partial (m, l, t), merged
 // in range order: lse = M + log(max(l, 1e-30)), loss 0 where y == ignore
+template <typename T>
 __global__ void __launch_bounds__(256)
-    ce_sm90_fwd_combine_kernel(const Args a) {
+    ce_sm90_fwd_combine_kernel(const Args<T> a) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= a.n) return;
   const int64_t sn = (int64_t)a.splits * a.n;
@@ -741,7 +791,9 @@ __global__ void __launch_bounds__(256)
 
 // h_c, lse_c, g_c, y_c: the listed rows in list order, then zeros (-1 for
 // labels) up to n. One thread per 8 columns of a row.
-__global__ void __launch_bounds__(256) ce_sm90_gather_kernel(const Args a) {
+template <typename T>
+__global__ void __launch_bounds__(256)
+    ce_sm90_gather_kernel(const Args<T> a) {
   const int cpr = a.H / 8;
   const int64_t u = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (u >= (int64_t)a.n * cpr) return;
@@ -761,8 +813,10 @@ __global__ void __launch_bounds__(256) ce_sm90_gather_kernel(const Args a) {
 }
 
 // dh[i] = the sum over the slots, in order, of row i's partial sums (zero
-// for an ignored row), rounded once to bf16
-__global__ void __launch_bounds__(256) ce_sm90_dh_reduce_kernel(const Args a) {
+// for an ignored row), rounded once to T
+template <typename T>
+__global__ void __launch_bounds__(256)
+    ce_sm90_dh_reduce_kernel(const Args<T> a) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (int64_t)a.n * a.H) return;
   const int i = (int)(e / a.H);
@@ -775,29 +829,18 @@ __global__ void __launch_bounds__(256) ce_sm90_dh_reduce_kernel(const Args a) {
   if (p >= 0)
     for (int s = 0; s < slots; ++s)
       v += a.part[s * stride + (int64_t)p * a.H + c];
-  a.dh[e] = __float2bfloat16(v);
+  a.dh[e] = from_f32<T>(v);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Per-token loss and lse [n] f32 of h [n, H] . W[V, H]^T + b (b may be
-// null) against labels y [n] (loss 0 where y == ignore), the vocab split in
-// `splits` ranges (at most ceil(V / 128)). Scratch: part f32 [3, splits,
-// n]. Returns the cudaError_t of the launches.
-int fused_ce_sm90_fwd(const void* h, const void* w, const void* b,
-                      const int* y, float* loss, float* lse, float* part,
-                      int n, int H, int V, int ignore, int splits,
-                      void* stream) {
-  if (n < 1 || V < 1 || H < kBK || H % kBK != 0 || splits < 1 ||
-      splits > cdiv(V, kBN))
-    return (int)cudaErrorInvalidValue;
+template <typename T>
+int run_fwd(const void* h, const void* w, const void* b, const int* y,
+            float* loss, float* lse, float* part, int n, int H, int V,
+            int ignore, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a{};
-  a.hc = static_cast<bf16*>(const_cast<void*>(h));   // read only
-  a.w = static_cast<const bf16*>(w);
-  a.bias = static_cast<const bf16*>(b);
+  Args<T> a{};
+  a.hc = static_cast<T*>(const_cast<void*>(h));   // read only
+  a.w = static_cast<const T*>(w);
+  a.bias = static_cast<const T*>(b);
   a.y = y;
   a.loss = loss;
   a.lse_out = lse;
@@ -808,75 +851,58 @@ int fused_ce_sm90_fwd(const void* h, const void* w, const void* b,
   a.ignore = ignore;
   a.splits = splits;
   int err = (int)cudaFuncSetAttribute(
-      ce_sm90_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ce_sm90_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (err != 0) return err;
-  ce_sm90_fwd_kernel<<<cdiv(n, kBM) * splits, kThreads, kSmem, st>>>(a);
+  ce_sm90_fwd_kernel<T><<<cdiv(n, kBM) * splits, kThreads, kSmem, st>>>(a);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  ce_sm90_fwd_combine_kernel<<<cdiv(n, 256), 256, 0, st>>>(a);
+  ce_sm90_fwd_combine_kernel<T><<<cdiv(n, 256), 256, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// dh [n, H], dW [V, H] and db [V] (each null when not asked for; db needs
-// dW) in bf16 from the saved lse and the upstream g [n], over the list of
-// fused_ce_valid_rows (rows [n + 1], pos [n]). The vocab is walked in the
-// n_chunks chunks chunk_v0[c] .. chunk_v0[c] + chunk_len[c] (host arrays,
-// in order, each at most Vc wide). Scratch, all from the caller: hc bf16
-// [n, H]; lse_c, g_c f32 [n]; y_c int32 [n]; ds bf16 [2, n, Vc] (one
-// buffer for one chunk); dbp f32 [2, ceil(n / 128), Vc] (with db); part f32
-// [ceil(n / 128) * 128, H] (with dh). Returns the cudaError_t of the
-// launches.
-int fused_ce_sm90_bwd(const void* h, const void* w, const void* b,
-                      const int* y, const float* lse, const float* g,
-                      const int* rows, const int* pos, void* hc, float* lse_c,
-                      float* g_c, int* y_c, void* ds, float* dbp, float* part,
-                      void* dh, void* dw, void* db, const int* chunk_v0,
-                      const int* chunk_len, int n_chunks, int n, int H, int V,
-                      int Vc, void* stream) {
-  if (n < 1 || V < 1 || H < 64 || H > kMaxH || H % 64 != 0 || Vc < kBN ||
-      Vc % kBN != 0 || n_chunks < 1 || (dh == nullptr && dw == nullptr) ||
-      (db != nullptr && (dw == nullptr || dbp == nullptr)) ||
-      (dh != nullptr && part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  for (int c = 0; c < n_chunks; ++c)
-    if (chunk_len[c] < 1 || chunk_len[c] > Vc || chunk_v0[c] < 0 ||
-        chunk_v0[c] + chunk_len[c] > V)
-      return (int)cudaErrorInvalidValue;
+template <typename T>
+int run_bwd(const void* h, const void* w, const void* b, const int* y,
+            const float* lse, const float* g, const int* rows, const int* pos,
+            void* hc, float* lse_c, float* g_c, int* y_c, void* ds,
+            float* dbp, float* part, void* dh, void* dw, void* db,
+            const int* chunk_v0, const int* chunk_len, int n_chunks, int n,
+            int H, int V, int Vc, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a{};
-  a.h = static_cast<const bf16*>(h);
-  a.w = static_cast<const bf16*>(w);
-  a.bias = static_cast<const bf16*>(b);
+  Args<T> a{};
+  a.h = static_cast<const T*>(h);
+  a.w = static_cast<const T*>(w);
+  a.bias = static_cast<const T*>(b);
   a.y = y;
   a.lse = lse;
   a.g = g;
   a.rows = rows;
   a.pos = pos;
-  a.hc = static_cast<bf16*>(hc);
+  a.hc = static_cast<T*>(hc);
   a.lse_c = lse_c;
   a.g_c = g_c;
   a.y_c = y_c;
   a.part = part;
-  a.dh = static_cast<bf16*>(dh);
-  a.dw = static_cast<bf16*>(dw);
-  a.db = static_cast<bf16*>(db);
+  a.dh = static_cast<T*>(dh);
+  a.dw = static_cast<T*>(dw);
+  a.db = static_cast<T*>(db);
   a.n = n;
   a.H = H;
   a.V = V;
   a.Vc = Vc;
   int err = (int)cudaFuncSetAttribute(
-      ce_sm90_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ce_sm90_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (err != 0) return err;
   const int64_t units = (int64_t)n * (H / 8);
-  ce_sm90_gather_kernel<<<(unsigned)((units + 255) / 256), 256, 0, st>>>(a);
+  ce_sm90_gather_kernel<T>
+      <<<(unsigned)((units + 255) / 256), 256, 0, st>>>(a);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   const int row_tiles = cdiv(n, kBM), h_tiles = cdiv(H, kBN);
   // chunk c's ds buffers: c % 2
   auto chunk = [&](int c) {
-    Chunk ch{};
+    Chunk<T> ch{};
     if (c < 0 || c >= n_chunks) return ch;   // vc 0: none
-    ch.ds = static_cast<bf16*>(ds) + (int64_t)(c % 2) * n * Vc;
+    ch.ds = static_cast<T*>(ds) + (int64_t)(c % 2) * n * Vc;
     ch.dbp = db != nullptr ? dbp + (int64_t)(c % 2) * row_tiles * Vc : nullptr;
     ch.v0 = chunk_v0[c];
     ch.vc = chunk_len[c];
@@ -891,16 +917,79 @@ int fused_ce_sm90_bwd(const void* h, const void* w, const void* b,
     a.n_dw = dw != nullptr && c > 0 ? h_tiles * cdiv(a.done.vc, kBM) : 0;
     const int blocks = a.n_dh + a.n_dw + row_tiles * cdiv(a.fresh.vc, kBN);
     if (blocks == 0) continue;   // nothing asked of this launch
-    ce_sm90_chunk_kernel<<<blocks, kThreads, kSmem, st>>>(a);
+    ce_sm90_chunk_kernel<T><<<blocks, kThreads, kSmem, st>>>(a);
     if ((err = (int)cudaGetLastError()) != 0) return err;
   }
   if (dh != nullptr) {
     const int64_t total = (int64_t)n * H;
-    ce_sm90_dh_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        a);
+    ce_sm90_dh_reduce_kernel<T>
+        <<<(unsigned)((total + 255) / 256), 256, 0, st>>>(a);
     err = (int)cudaGetLastError();
   }
   return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The entries take a dtype code: 1 bf16, 2 f16 (h, W, b, the gradients and
+// the ds and hc scratch alike; the codes of fused_ce.cu, where 0 is f32).
+
+// Per-token loss and lse [n] f32 of h [n, H] . W[V, H]^T + b (b may be
+// null) against labels y [n] (loss 0 where y == ignore), the vocab split in
+// `splits` ranges (at most ceil(V / 128)). Scratch: part f32 [3, splits,
+// n]. Returns the cudaError_t of the launches.
+int fused_ce_sm90_fwd(const void* h, const void* w, const void* b,
+                      const int* y, float* loss, float* lse, float* part,
+                      int n, int H, int V, int ignore, int splits, int dtype,
+                      void* stream) {
+  if (n < 1 || V < 1 || H < kBK || H % kBK != 0 || splits < 1 ||
+      splits > cdiv(V, kBN))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return run_fwd<bf16>(h, w, b, y, loss, lse, part, n, H, V, ignore,
+                         splits, stream);
+  if (dtype == 2)
+    return run_fwd<f16>(h, w, b, y, loss, lse, part, n, H, V, ignore,
+                        splits, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dh [n, H], dW [V, H] and db [V] (each null when not asked for; db needs
+// dW) in the input dtype from the saved lse and the upstream g [n], over
+// the list of fused_ce_valid_rows (rows [n + 1], pos [n]). The vocab is
+// walked in the n_chunks chunks chunk_v0[c] .. chunk_v0[c] + chunk_len[c]
+// (host arrays, in order, each at most Vc wide). Scratch, all from the
+// caller: hc [n, H] in the input dtype; lse_c, g_c f32 [n]; y_c int32 [n];
+// ds [2, n, Vc] in the input dtype (one buffer for one chunk); dbp f32 [2,
+// ceil(n / 128), Vc] (with db); part f32 [ceil(n / 128) * 128, H] (with
+// dh). Returns the cudaError_t of the launches.
+int fused_ce_sm90_bwd(const void* h, const void* w, const void* b,
+                      const int* y, const float* lse, const float* g,
+                      const int* rows, const int* pos, void* hc, float* lse_c,
+                      float* g_c, int* y_c, void* ds, float* dbp, float* part,
+                      void* dh, void* dw, void* db, const int* chunk_v0,
+                      const int* chunk_len, int n_chunks, int n, int H, int V,
+                      int Vc, int dtype, void* stream) {
+  if (n < 1 || V < 1 || H < 64 || H > kMaxH || H % 64 != 0 || Vc < kBN ||
+      Vc % kBN != 0 || n_chunks < 1 || (dh == nullptr && dw == nullptr) ||
+      (db != nullptr && (dw == nullptr || dbp == nullptr)) ||
+      (dh != nullptr && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  for (int c = 0; c < n_chunks; ++c)
+    if (chunk_len[c] < 1 || chunk_len[c] > Vc || chunk_v0[c] < 0 ||
+        chunk_v0[c] + chunk_len[c] > V)
+      return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return run_bwd<bf16>(h, w, b, y, lse, g, rows, pos, hc, lse_c, g_c, y_c,
+                         ds, dbp, part, dh, dw, db, chunk_v0, chunk_len,
+                         n_chunks, n, H, V, Vc, stream);
+  if (dtype == 2)
+    return run_bwd<f16>(h, w, b, y, lse, g, rows, pos, hc, lse_c, g_c, y_c,
+                        ds, dbp, part, dh, dw, db, chunk_v0, chunk_len,
+                        n_chunks, n, H, V, Vc, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

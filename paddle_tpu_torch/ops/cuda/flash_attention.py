@@ -24,10 +24,12 @@ does. For a CUDA tensor a wrapper launches its kernel or raises; only for
 CPU tensors does it run the plain version. Each wrapper counts its launches
 in ``.launches``.
 
-Two kernels per wrapper: bf16 at head dim 64 or 128 with 16-byte aligned
-inputs goes to the Hopper kernels of csrc/flash_attention_sm90.cu
+Two kernels per wrapper: bf16 or f16 at head dim 64 or 128 with 16-byte
+aligned inputs goes to the Hopper kernels of csrc/flash_attention_sm90.cu
 (register-resident mma.sync tiles, a cp.async ring), counted also in
-``.launches_sm90``; everything else to csrc/flash_attention.cu.
+``.launches_sm90``; everything else to csrc/flash_attention.cu. Both
+sources take f16 as they take bf16 (templates on the 16-bit type); a
+wrapper's f16 launches are counted also in ``.launches_f16``.
 ``_sm90_path`` makes that choice before launch (``_entry``), from dtype,
 head dim and alignment alone, for the forward, dq and dk/dv alike; a
 launch that fails raises and never gives way to the other kernel.
@@ -44,11 +46,11 @@ __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
 
 NEG_INF = -1e9   # finite mask fill, as the reference
 _MAX_D = 256
-_SUPPORTED = (torch.float32, torch.bfloat16)
+_SUPPORTED = (torch.float32, torch.bfloat16, torch.float16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I] * 5 + [_F] + [_I] * 3 + [_P]   # BH, H, Sq, Sk, D, scale, flags
-_TAIL_SM90 = [_I] * 5 + [_F] + [_I] + [_P]    # ..., scale, causal, stream
+_TAIL_SM90 = [_I] * 5 + [_F] + [_I] * 2 + [_P]   # ..., causal, dtype
 _SIGS = {
     "flash_attention_fwd": [_P] * 6 + _TAIL,
     "flash_attention_bwd_dq": [_P] * 8 + _TAIL,
@@ -58,6 +60,12 @@ _SIGS = {
     "flash_sm90_bwd_dkv": [_P] * 9 + _TAIL_SM90,
 }
 _SM90_D = (64, 128)
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def _dtype_code(dtype):
+    from ._build import DTYPE_CODE
+    return DTYPE_CODE[str(dtype)]
 
 
 def _fn(name):
@@ -72,10 +80,11 @@ def _fn(name):
 
 
 def _sm90_path(dtype, d, aligned) -> bool:
-    """Does a call take the Hopper kernels (forward, dq, dk/dv)? bf16 at head
-    dim 64 or 128 with 16-byte aligned q, k, v (and dO) does; f32, other
-    head dims and unaligned inputs take csrc/flash_attention.cu."""
-    return dtype == torch.bfloat16 and d in _SM90_D and bool(aligned)
+    """Does a call take the Hopper kernels (forward, dq, dk/dv)? bf16 or
+    f16 at head dim 64 or 128 with 16-byte aligned q, k, v (and dO) does;
+    f32, other head dims and unaligned inputs take
+    csrc/flash_attention.cu."""
+    return dtype in _SM90_DTYPES and d in _SM90_D and bool(aligned)
 
 
 def _aligned(tensors):
@@ -244,14 +253,15 @@ def _launch(wrapper, kernel, ptrs, q, dims, scale, causal, dense):
     """Launch ``kernel`` for ``wrapper`` on q's device and current stream
     with ``ptrs``, then ``dims`` (BH, H, Sq, Sk, D), the scale and the
     flags; raise on a launch error, else count the launch (and the Hopper
-    one). ``dense`` are the [s, d] inputs: the Hopper kernels and
-    flash_attention.cu's vector loads need them 16-byte aligned (and the
-    latter d % 8 == 0); a Hopper entry point takes no flags past causal."""
+    one, and the f16 one). ``dense`` are the [s, d] inputs: the Hopper
+    kernels and flash_attention.cu's vector loads need them 16-byte
+    aligned (and the latter d % 8 == 0); a Hopper entry point takes no
+    vector flag, only the dtype code."""
     aligned = _aligned(dense)
     entry = _entry(kernel, q.dtype, dims[-1], aligned)
     sm90 = entry.startswith("flash_sm90")
-    flags = () if sm90 else (int(dims[-1] % 8 == 0 and aligned),
-                             int(q.dtype == torch.bfloat16))
+    code = _dtype_code(q.dtype)
+    flags = (code,) if sm90 else (int(dims[-1] % 8 == 0 and aligned), code)
     with torch.cuda.device(q.device):
         status = _fn(entry)(
             *ptrs, *dims, float(scale), int(bool(causal)), *flags,
@@ -261,6 +271,7 @@ def _launch(wrapper, kernel, ptrs, q, dims, scale, causal, dense):
                            f"cudaError_t {status}")
     wrapper.launches += 1
     wrapper.launches_sm90 += sm90
+    wrapper.launches_f16 += q.dtype == torch.float16
 
 
 def flash_fwd(q, k, v, bias=None, causal=False, scale=None):
@@ -317,9 +328,8 @@ def flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal=False, scale=None):
     return dk, dv
 
 
-flash_fwd.launches = flash_fwd.launches_sm90 = 0
-flash_bwd_dq.launches = flash_bwd_dq.launches_sm90 = 0
-flash_bwd_dkv.launches = flash_bwd_dkv.launches_sm90 = 0
+for _w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+    _w.launches = _w.launches_sm90 = _w.launches_f16 = 0
 
 
 class _FlashAttention(torch.autograd.Function):

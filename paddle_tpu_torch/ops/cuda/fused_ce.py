@@ -22,15 +22,15 @@ For a CUDA tensor a wrapper launches its kernel or raises; only for CPU
 tensors does it run the plain version. Each wrapper counts its launches in
 ``.launches``.
 
-The forward has two kernels: bf16 with H a multiple of 64 runs the Hopper
-forward of csrc/fused_ce_sm90.cu (the backward's wgmma GEMM main loop with
+The forward has two kernels: bf16 or f16 with H a multiple of 64 runs the
+Hopper forward of csrc/fused_ce_sm90.cu (the backward's wgmma GEMM main loop with
 an online-softmax epilogue, the vocab split in ranges merged in order),
 counted also in ``fused_ce_fwd.launches_sm90``; f32 and other H run
 csrc/fused_ce.cu's. ``_sm90_fwd_path`` makes that choice before launch.
 
 The backward has two kernels. ``fused_ce_bwd`` computes dh, dW and db
-together; bf16 with H a multiple of 64 (at most 1024) runs the Hopper
-backward of csrc/fused_ce_sm90.cu, which shares one recompute of the
+together; bf16 or f16 with H a multiple of 64 (at most 1024) runs the
+Hopper backward of csrc/fused_ce_sm90.cu, which shares one recompute of the
 logits between dh and dW (wgmma GEMM tiles with register accumulators, over
 vocab chunks: ``vocab_chunks``), counted also in ``.launches_sm90`` of
 ``fused_ce_bwd_dh`` / ``fused_ce_bwd_dw``; f32 and other H run the dh and
@@ -38,6 +38,9 @@ dW kernels of csrc/fused_ce.cu. ``_sm90_bwd_path`` makes that choice before
 launch; a launch that fails raises and never gives way to the other
 kernel. ``fused_ce_bwd_dh`` and ``fused_ce_bwd_dw`` are ``fused_ce_bwd``
 asked for one gradient each.
+
+Both sources take f16 as they take bf16 (templates on the 16-bit type);
+each wrapper's f16 launches are counted also in ``.launches_f16``.
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ __all__ = ["fused_ce", "fused_ce_fwd", "fused_ce_bwd", "fused_ce_bwd_dh",
            "valid_rows", "vocab_chunk", "vocab_chunks"]
 
 _MAX_H = 1024
-_SUPPORTED = (torch.float32, torch.bfloat16)
+_SUPPORTED = (torch.float32, torch.bfloat16, torch.float16)
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
 _FWD_TOKENS = 64          # token rows per forward block (csrc kFwdTM)
 _DH_TOKENS = 32           # listed rows per dh block (csrc kDhTM)
 _VOCAB_TILE = 64          # vocab columns per fwd / dh tile (csrc kFwdTV)
@@ -68,9 +72,14 @@ _SIGS = {
     "fused_ce_bwd_dh": [_P] * 10 + [_I] * 6 + [_P],
     "fused_ce_bwd_dw": [_P] * 10 + [_I] * 5 + [_P],
     "fused_ce_valid_rows": [_P] * 3 + [_I] * 2 + [_P],
-    "fused_ce_sm90_bwd": [_P] * 20 + [_I] * 5 + [_P],
-    "fused_ce_sm90_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "fused_ce_sm90_bwd": [_P] * 20 + [_I] * 6 + [_P],
+    "fused_ce_sm90_fwd": [_P] * 7 + [_I] * 6 + [_P],
 }
+
+
+def _dtype_code(dtype):
+    from ._build import DTYPE_CODE
+    return DTYPE_CODE[str(dtype)]
 
 
 def _fn(name):
@@ -238,10 +247,10 @@ def valid_rows(y, ignore_index=-100):
 
 def _sm90_fwd_path(dtype, hd) -> bool:
     """Does a forward take the Hopper kernel of csrc/fused_ce_sm90.cu? bf16
-    with H a multiple of 64 (its K step) does; f32 and other H take
+    or f16 with H a multiple of 64 (its K step) does; f32 and other H take
     csrc/fused_ce.cu's forward. The cap of 1024 is every CE wrapper's
     (``_check``), not the Hopper kernel's."""
-    return dtype == torch.bfloat16 and hd % 64 == 0 and 64 <= hd <= _MAX_H
+    return dtype in _SM90_DTYPES and hd % 64 == 0 and 64 <= hd <= _MAX_H
 
 
 def _fwd_sm90_splits(device, n, vocab):
@@ -256,7 +265,7 @@ def _fwd_sm90_splits(device, n, vocab):
 def fused_ce_fwd(h, w, b, y, ignore_index=-100):
     """Per-token loss and lse, both f32 [n], of ``h [n, H] @ w[V, H].T +
     b [V]`` (b may be None) against labels ``y [n]``. CUDA tensors launch
-    the kernel (bf16 with H a multiple of 64 the Hopper forward, the rest
+    the kernel (bf16 or f16 with H a multiple of 64 the Hopper forward, the
     csrc/fused_ce.cu's); CPU tensors run ``fused_ce_fwd_ref``."""
     name = "fused_ce_fwd"
     n, hd, vocab = _check(name, h, w, b, y)
@@ -276,23 +285,22 @@ def fused_ce_fwd(h, w, b, y, ignore_index=-100):
     part = torch.empty(3, splits, n, dtype=torch.float32, device=h.device)
     args = [h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
             loss.data_ptr(), lse.data_ptr(), part.data_ptr(), n, hd, vocab,
-            int(ignore_index), splits]
-    if not sm90:
-        args.append(int(h.dtype == torch.bfloat16))
+            int(ignore_index), splits, _dtype_code(h.dtype)]
     with torch.cuda.device(h.device):
         status = _fn(entry)(*args,
                             torch.cuda.current_stream(h.device).cuda_stream)
     _check_status(name, status)
     fused_ce_fwd.launches += 1
     fused_ce_fwd.launches_sm90 += sm90
+    fused_ce_fwd.launches_f16 += h.dtype == torch.float16
     return loss, lse
 
 
 def _sm90_bwd_path(dtype, hd) -> bool:
     """Does a backward take the Hopper kernels of csrc/fused_ce_sm90.cu?
-    bf16 with H a multiple of 64 up to 1024 does; f32 and other H take the
-    dh and dW kernels of csrc/fused_ce.cu."""
-    return dtype == torch.bfloat16 and hd % 64 == 0 and 64 <= hd <= _MAX_H
+    bf16 or f16 with H a multiple of 64 up to 1024 does; f32 and other H
+    take the dh and dW kernels of csrc/fused_ce.cu."""
+    return dtype in _SM90_DTYPES and hd % 64 == 0 and 64 <= hd <= _MAX_H
 
 
 def vocab_chunk(n, vocab):
@@ -351,7 +359,7 @@ def _bwd_sm90(h, w, b, y32, lse, g, rows, pos, need_dh, need_dw):
             hc.data_ptr(), lse_c.data_ptr(), g_c.data_ptr(), y_c.data_ptr(),
             ds.data_ptr(), _ptr(dbp), _ptr(part), _ptr(dh), _ptr(dw),
             _ptr(db), starts, widths, len(sched), n, hd, vocab, chunk,
-            torch.cuda.current_stream(dev).cuda_stream)
+            _dtype_code(h.dtype), torch.cuda.current_stream(dev).cuda_stream)
     _check_status(name, status)
     return dh, dw, db
 
@@ -371,7 +379,7 @@ def _bwd_dh(h, w, b, y32, lse, g, rows, pos, ignore_index):
             h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
             lse.data_ptr(), g.data_ptr(), dh.data_ptr(), rows.data_ptr(),
             pos.data_ptr(), part.data_ptr(), n, hd, w.shape[0],
-            int(ignore_index), splits, int(h.dtype == torch.bfloat16),
+            int(ignore_index), splits, _dtype_code(h.dtype),
             torch.cuda.current_stream(h.device).cuda_stream)
     _check_status(name, status)
     return dh
@@ -388,7 +396,7 @@ def _bwd_dw(h, w, b, y32, lse, g, rows, pos, ignore_index):
             h.data_ptr(), w.data_ptr(), _ptr(b), y32.data_ptr(),
             lse.data_ptr(), g.data_ptr(), dw.data_ptr(), _ptr(db),
             rows.data_ptr(), pos.data_ptr(), n, hd, w.shape[0],
-            int(ignore_index), int(h.dtype == torch.bfloat16),
+            int(ignore_index), _dtype_code(h.dtype),
             torch.cuda.current_stream(h.device).cuda_stream)
     _check_status(name, status)
     return dw, db
@@ -400,8 +408,8 @@ def fused_ce_bwd(h, w, b, y, lse, g, ignore_index=-100, need_dh=True,
     dtype) from the saved lse [n] and the upstream gradient ``g`` [n] of
     the per-token losses; None for what is not asked (db also without a
     bias). CUDA tensors launch the kernels over ``rows``
-    (``valid_rows(y)``, built here when None): bf16 with H a multiple of
-    64 the Hopper backward, one recompute of the logits for both
+    (``valid_rows(y)``, built here when None): bf16 or f16 with H a
+    multiple of 64 the Hopper backward, one recompute of the logits for both
     gradients; the rest csrc/fused_ce.cu's dh and dW kernels. CPU tensors
     run ``fused_ce_bwd_ref``."""
     name = "fused_ce_bwd"
@@ -427,6 +435,7 @@ def fused_ce_bwd(h, w, b, y, lse, g, ignore_index=-100, need_dh=True,
         if wanted:
             counted.launches += 1
             counted.launches_sm90 += sm90
+            counted.launches_f16 += h.dtype == torch.float16
     return dh, dw, db
 
 
@@ -443,9 +452,8 @@ def fused_ce_bwd_dw(h, w, b, y, lse, g, ignore_index=-100, rows=None):
                         rows=rows)[1:]
 
 
-fused_ce_fwd.launches = fused_ce_fwd.launches_sm90 = 0
-fused_ce_bwd_dh.launches = fused_ce_bwd_dh.launches_sm90 = 0
-fused_ce_bwd_dw.launches = fused_ce_bwd_dw.launches_sm90 = 0
+for _w in (fused_ce_fwd, fused_ce_bwd_dh, fused_ce_bwd_dw):
+    _w.launches = _w.launches_sm90 = _w.launches_f16 = 0
 
 
 class _FusedCE(torch.autograd.Function):

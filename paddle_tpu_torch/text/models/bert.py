@@ -84,9 +84,10 @@ class BertEmbeddings(torch.nn.Module):
 
     def forward(self, input_ids, token_type_ids=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        emb = self.word_embeddings(input_ids) + self.position_embeddings(pos)
+        emb = F.add(self.word_embeddings(input_ids),
+                    self.position_embeddings(pos))
         if token_type_ids is not None:
-            emb = emb + self.token_type_embeddings(token_type_ids)
+            emb = F.add(emb, self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(emb))
 
 
@@ -135,9 +136,13 @@ class Bert(torch.nn.Module):
         x = self.embeddings(input_ids, token_type_ids)
         mask = None
         if attention_mask is not None:
-            # [b, s] 1/0 -> additive [b, 1, 1, s]
-            m = attention_mask.to(torch.float32)[:, None, None, :]
-            mask = (1.0 - m) * -1e9
+            # [b, s] 1/0 -> additive [b, 1, 1, s], the JAX model's ops (under
+            # f16 O2 they run in f16, where -1e9 is -inf)
+            (m,) = F.amp_op("cast", attention_mask)
+            (m,) = F.amp_op("unsqueeze", m.to(torch.float32))
+            (m,) = F.amp_op("subtract", m[:, None, None, :])
+            (m,) = F.amp_op("multiply", 1.0 - m)
+            mask = m * -1e9
         h = self.encoder(x, src_mask=mask)
         outputs = []
         if self.with_mlm:
@@ -153,7 +158,8 @@ class Bert(torch.nn.Module):
                 return F.fused_linear_cross_entropy(
                     t, word, self.mlm_bias, masked_lm_labels,
                     ignore_index=-100)
-            outputs.append(t @ word.T + self.mlm_bias)
+            t, word = F.amp_op("matmul", t, word)
+            outputs.append(F.add(t @ word.T, self.mlm_bias))
         if self.with_nsp:
             outputs.append(self.nsp_head(self.pooler(h)))
         if not outputs:

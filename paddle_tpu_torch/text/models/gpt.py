@@ -61,9 +61,9 @@ class GPTBlock(torch.nn.Module):
             a, cache = self.attn(h, cache=cache)
             x = x + a
         else:
-            x = x + self.attn(h, is_causal=True)
+            x = F.add(x, self.attn(h, is_causal=True))
         h = self.ln2(x)
-        x = x + self.drop(self.fc2(F.gelu(self.fc1(h))))
+        x = F.add(x, self.drop(self.fc2(F.gelu(self.fc1(h)))))
         return x if cache is None else (x, cache)
 
 
@@ -96,7 +96,8 @@ class GPT(torch.nn.Module):
 
     def _logits(self, h):
         """Weight-tied LM head."""
-        return h @ self.wte.weight.T
+        h, w = F.amp_op("matmul", h, self.wte.weight)
+        return h @ w.T
 
     def forward(self, input_ids, labels=None):
         """Logits [b, s, V] of every position (causal attention); with
@@ -104,7 +105,7 @@ class GPT(torch.nn.Module):
         fused, weight-tied CE head instead (no [b * s, V] logits)."""
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)
-        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        x = self.drop(F.add(self.wte(input_ids), self.wpe(pos)))
         for blk in self.blocks:
             x = blk(x)
         x = self.ln_f(x)

@@ -1,6 +1,7 @@
 """paddle_tpu_torch on the card: the CUDA kernels against their plain
-versions, the no-fallback rule, tiny-GPT serving, and tiny-BERT and
-tiny-GPT training through the kernels.
+versions (f16 too for the flash and CE kernels), the no-fallback rule,
+tiny-GPT serving, and tiny-BERT and tiny-GPT training through the kernels
+(an f16 O2 BERT step with GradScaler among them).
 
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither jax nor paddle_tpu, so it also runs on a machine with
@@ -205,6 +206,9 @@ CE_TOL = {
     torch.bfloat16: {"fused_ce_fwd": 1e-4, "dh_max": 1e-2, "dh_norm": 2e-3,
                      "dw_max": 1e-2, "dw_norm": 2e-3, "db_max": 1e-2,
                      "db_norm": 2e-3},
+    torch.float16: {"fused_ce_fwd": 5e-5, "dh_max": 2e-3, "dh_norm": 5e-4,
+                    "dw_max": 2e-3, "dw_norm": 2e-4, "db_max": 5e-4,
+                    "db_norm": 1e-4},
 }
 
 
@@ -222,7 +226,8 @@ def _close(got, ref, dtype, name):
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "bwd_dh", "bwd_dw"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("n,hd,vocab", [(300, 72, 517), (1000, 64, 517),
                                         (1000, 768, 30522)])
@@ -230,8 +235,9 @@ def test_fused_ce_kernels_match_plain_versions(card, kernel, dtype, bias, n,
                                                hd, vocab):
     """Each CE kernel against the f32 plain version on the same inputs;
     ragged n (1000) and vocab tiles (517, 30522), H not a multiple of 64
-    (72: fused_ce.cu's kernels) or one (bf16: the Hopper forward and
-    backward, their counters move). Limits per quantity (CE_TOL)."""
+    (72: fused_ce.cu's kernels) or one (bf16 and f16: the Hopper forward
+    and backward, their counters move; f16 also the ``.f16`` ones). Limits
+    per quantity (CE_TOL)."""
     from paddle_tpu_torch.ops.cuda.fused_ce import (_sm90_bwd_path,
                                                     _sm90_fwd_path)
     h, w, b, y, up = _ce_case(card, dtype, n=n, hd=hd, vocab=vocab,
@@ -240,20 +246,22 @@ def test_fused_ce_kernels_match_plain_versions(card, kernel, dtype, bias, n,
     ref_loss, ref_lse = fused_ce_fwd_ref(*f32, y)
     if kernel == "fwd":
         fwd90 = int(_sm90_fwd_path(dtype, hd))
-        assert fwd90 == (dtype == torch.bfloat16 and hd != 72)
+        assert fwd90 == (dtype != torch.float32 and hd != 72)
         before = kernels.launch_counts()
         loss, lse = fused_ce_fwd(h, w, b, y)
         torch.cuda.synchronize()
         used = kernels.launch_counts()["fused_ce_fwd.sm90"] \
             - before["fused_ce_fwd.sm90"]
         assert used == fwd90
+        assert kernels.launch_counts()["fused_ce_fwd.f16"] \
+            - before["fused_ce_fwd.f16"] == (dtype == torch.float16)
         tol = CE_TOL[dtype]["fused_ce_fwd"]
         assert float((loss - ref_loss).abs().max()) <= tol
         assert float((lse - ref_lse).abs().max()) <= tol
         return
     dh_r, dw_r, db_r = fused_ce_bwd_ref(h, w, b, y, ref_lse, up)
     sm90 = int(_sm90_bwd_path(dtype, hd))
-    assert sm90 == (dtype == torch.bfloat16 and hd != 72)
+    assert sm90 == (dtype != torch.float32 and hd != 72)
     before = kernels.launch_counts()
     if kernel == "bwd_dh":
         dh = fused_ce_bwd_dh(h, w, b, y, ref_lse, up)
@@ -397,20 +405,25 @@ FLASH_TOL = {
     torch.bfloat16: {"lse": 1e-5, "o_max": 1e-2, "o_norm": 1e-2,
                      "dq_max": 1e-2, "dq_norm": 2e-3, "dk_max": 1e-2,
                      "dk_norm": 2e-3, "dv_max": 1e-2, "dv_norm": 2e-3},
+    torch.float16: {"lse": 1e-5, "o_max": 2e-3, "o_norm": 1e-3,
+                    "dq_max": 2e-3, "dq_norm": 1e-3, "dk_max": 2e-3,
+                    "dk_norm": 5e-4, "dv_max": 2e-3, "dv_norm": 5e-4},
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("bias", [False, True, "-inf"])
 @pytest.mark.parametrize("sq,sk,d", [(70, 97, 40), (130, 197, 64)])
 def test_flash_kernels_match_plain_versions(card, dtype, causal, bias, sq,
                                             sk, d):
     """The three flash kernels against the plain versions on the same
     inputs: ragged lengths (s_q < s_k, several 64-row tiles each), a head
-    dim that is not a multiple of 16 (40) or 64 (bf16: the Hopper forward
-    and backward, their counters move; else flash_attention.cu's), two heads
-    per bias row. Limits per quantity (FLASH_TOL)."""
+    dim that is not a multiple of 16 (40) or 64 (bf16 and f16: the Hopper
+    forward and backward, their counters move; else flash_attention.cu's),
+    two heads per bias row; bias "-inf": BERT's f16 O2 mask, -inf on each
+    batch row's right-padded keys. Limits per quantity (FLASH_TOL)."""
     from paddle_tpu_torch.ops.cuda.flash_attention import _sm90_path
     g = torch.Generator().manual_seed(3)
     b, h = 2, 2
@@ -420,7 +433,11 @@ def test_flash_kernels_match_plain_versions(card, dtype, causal, bias, sq,
     v = torch.randn(b * h, sk, d, generator=g).to(card, dtype)
     do = torch.randn(b * h, sq, d, generator=g).to(card, dtype)
     bb = None
-    if bias:
+    if bias == "-inf":
+        keep = torch.tensor([sk, sk - 23])
+        bb = torch.where(torch.arange(sk)[None] < keep[:, None], 0.0,
+                         float("-inf")).to(card)
+    elif bias:
         bb = 0.5 * torch.randn(b, sk, generator=g)
         bb[torch.rand(b, sk, generator=g) < 0.3] = -1e9
         bb[:, 0] = 0.0
@@ -438,7 +455,7 @@ def test_flash_kernels_match_plain_versions(card, dtype, causal, bias, sq,
     sm90 = int(_sm90_path(dtype, d, True))
     assert used == {"flash_fwd.sm90": sm90, "flash_bwd_dq.sm90": sm90,
                     "flash_bwd_dkv.sm90": sm90, "flash_fwd": 1}, used
-    assert sm90 == (dtype == torch.bfloat16 and d == 64)
+    assert sm90 == (dtype != torch.float32 and d == 64)
     tol = FLASH_TOL[dtype]
     assert float((lse - lse_r).abs().max()) <= tol["lse"]
     for name, got, ref in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r),
@@ -494,7 +511,7 @@ def test_flash_never_falls_back(card):
     with pytest.raises(ValueError, match="contiguous"):
         flash_fwd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q)
     with pytest.raises(TypeError, match="dtype"):
-        flash_fwd(q.half(), q.half(), q.half())
+        flash_fwd(q.double(), q.double(), q.double())
     with pytest.raises(TypeError, match="input"):
         flash_fwd(q, q.to(torch.bfloat16), q)
     with pytest.raises(ValueError, match="f32"):
@@ -538,3 +555,58 @@ def test_tiny_gpt_trains_through_the_flash_kernels(card):
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         assert counts[name] == 3 * cfg.num_layers, counts
     assert counts["fused_ce_fwd"] == 3, counts
+
+
+def test_f16_o2_bert_step_launches_the_five_kernels(card):
+    """Three f16 O2 steps of a 2-layer BERT with head dim 64 (hidden 128,
+    2 heads) through decorate, auto_cast, GradScaler, AdamW with master
+    weights, LinearWarmup and ClipGradByGlobalNorm, every attention on the
+    flash kernels: finite losses, and each of the flash forward, dq, dk/dv,
+    the CE forward and the CE backward launched only in f16 and only on
+    its Hopper kernel."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    from paddle_tpu_torch.text.datasets import LMDataset
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    cfg = BertConfig(vocab_size=1024, hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, intermediate_size=256,
+                     max_position_embeddings=128)
+    net = Bert(cfg, device=card, seed=0)
+    net.train()
+    sched = lr_mod.LinearWarmup(lr_mod.PolynomialDecay(1e-3, decay_steps=20,
+                                                       end_lr=0.0),
+                                warmup_steps=2, start_lr=1e-4, end_lr=1e-3)
+    opt = AdamW(learning_rate=sched, parameters=net.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    amp.decorate(net, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=64, n=8, seed=0)
+    ids = torch.from_numpy(ds.inputs).to(card)
+    lab = torch.from_numpy(ds.labels).to(card)
+    min_seq = flags.flag("FLAGS_flash_min_seq")
+    flags.set_flags({"FLAGS_flash_min_seq": 0})
+    try:
+        kernels.reset_launch_counts()
+        losses = []
+        for _ in range(3):
+            with amp.auto_cast(level="O2", dtype="float16"):
+                loss = net(ids, masked_lm_labels=lab)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            sched.step()
+            losses.append(float(loss.detach()))
+    finally:
+        flags.set_flags({"FLAGS_flash_min_seq": min_seq})
+    assert all(np.isfinite(losses)), losses
+    assert all(p.dtype == torch.float16 for p in net.parameters())
+    counts = kernels.launch_counts()
+    for name, per_step in (("flash_fwd", 2), ("flash_bwd_dq", 2),
+                           ("flash_bwd_dkv", 2), ("fused_ce_fwd", 1),
+                           ("fused_ce_bwd_dh", 1), ("fused_ce_bwd_dw", 1)):
+        assert counts[name] == 3 * per_step, counts
+        assert counts[f"{name}.sm90"] == counts[f"{name}.f16"] \
+            == counts[name], counts

@@ -164,12 +164,12 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
 @pytest.mark.parametrize("d", [16, 40, 64, 128, 256])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_sm90_dispatch(dtype, d, aligned):
-    """bf16 at head dim 64 or 128 with aligned inputs takes the Hopper
-    forward, dq and dk/dv; everything else flash_attention.cu's kernels.
-    The three wrappers' entry points follow this one gate."""
+    """bf16 and f16 at head dim 64 or 128 with aligned inputs take the
+    Hopper forward, dq and dk/dv; everything else flash_attention.cu's
+    kernels. The three wrappers' entry points follow this one gate."""
     import importlib
     fa = importlib.import_module("paddle_tpu_torch.ops.cuda.flash_attention")
-    want = dtype == torch.bfloat16 and d in (64, 128) and aligned
+    want = dtype != torch.float32 and d in (64, 128) and aligned
     assert fa._sm90_path(dtype, d, aligned) is want
     source = "flash_sm90" if want else "flash_attention"
     for kernel in ("fwd", "bwd_dq", "bwd_dkv"):

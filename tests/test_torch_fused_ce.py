@@ -313,9 +313,9 @@ def test_vocab_chunk_width(n, vocab):
                                    torch.float16])
 @pytest.mark.parametrize("hd", [32, 64, 72, 128, 768, 1024, 1088])
 def test_sm90_bwd_dispatch(dtype, hd):
-    """bf16 with H a multiple of 64 up to 1024 takes the Hopper backward;
-    f32 and other H fused_ce.cu's dh and dW kernels."""
-    want = dtype == torch.bfloat16 and hd % 64 == 0 and hd <= 1024
+    """bf16 and f16 with H a multiple of 64 up to 1024 take the Hopper
+    backward; f32 and other H fused_ce.cu's dh and dW kernels."""
+    want = dtype != torch.float32 and hd % 64 == 0 and hd <= 1024
     assert fused_ce_mod._sm90_bwd_path(dtype, hd) is want
 
 
@@ -323,10 +323,10 @@ def test_sm90_bwd_dispatch(dtype, hd):
                                    torch.float16])
 @pytest.mark.parametrize("hd", [32, 64, 72, 768, 1024, 1088])
 def test_sm90_fwd_dispatch(dtype, hd):
-    """bf16 with H a multiple of 64 up to 1024 takes the Hopper forward;
-    f32 and other H fused_ce.cu's forward. (Above 1024 every CE wrapper
-    raises.)"""
-    want = dtype == torch.bfloat16 and hd % 64 == 0 and hd <= 1024
+    """bf16 and f16 with H a multiple of 64 up to 1024 take the Hopper
+    forward; f32 and other H fused_ce.cu's forward. (Above 1024 every CE
+    wrapper raises.)"""
+    want = dtype != torch.float32 and hd % 64 == 0 and hd <= 1024
     assert fused_ce_mod._sm90_fwd_path(dtype, hd) is want
 
 
