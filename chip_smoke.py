@@ -119,7 +119,23 @@ Phases, each printing its own lines; any failure exits non-zero:
     kernels against the same step with ``FLAGS_use_fused_ce`` and
     ``FLAGS_use_flash_attention`` off (the composites), from the same
     weights on the same batch: loss, unscaled gradients, masters after
-    (``O2_STEP_TOL``).
+    (``O2_STEP_TOL``);
+17. the high-level API: BERT-base (b32, s128, dropout 0.1) trained by
+    ``Model(MLM(bert)).prepare(AdamW + LinearWarmup over PolynomialDecay
+    + ClipGradByGlobalNorm, amp O2).fit(LMDataset, epochs=1, shuffle,
+    History, ModelCheckpoint)`` for 40 steps, once in f16 O2 (the
+    GradScaler's pure form) and once in bf16 O2: the step ms over the
+    last 30 steps, device busy ms and idle share over 10 more profiled
+    steps, ``hapi/train_steps``, host loss reads per step, loss start
+    and end, beside phases 8 and 15 of the same run. Every count is
+    zeroed before each fit, and every step must launch each flash kernel
+    12 times and each CE kernel once, all on the Hopper kernels (in f16
+    for f16). Then, at dropout 0: three ``Model.train_batch`` steps
+    against three of phase 15's hand-written steps (loss, masters,
+    ``O2_STEP_TOL``); ``Model.save`` into a fresh Model's ``load``
+    (parameters, slots and the next step bitwise); two steps at a loss
+    scale of 2^40 (state bitwise kept, the step count advancing, the
+    scale halved); ``evaluate`` and ``predict`` over 4 batches.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -133,6 +149,7 @@ copies of the checkout with one planted fault each (``FAULTS``) and exits
 0 when every copy fails them.
 """
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -1034,11 +1051,12 @@ def phase_bert_equivalence():
             "param_max_abs_diff": dparam}
 
 
-def _profile_steps(step, n=3, named=()):
-    """Device time by kernel over ``n`` steps (torch.profiler, CUDA kernel
-    rows only), and per step the summed time of the kernels whose names
-    hold each string of ``named``; None where the profiler records no
-    device time here."""
+def _profile_steps(step, n=3, named=(), steps_per_call=1):
+    """Device time by kernel over ``n`` calls of ``step``, each of
+    ``steps_per_call`` training steps (torch.profiler, CUDA kernel rows
+    only), and per step the summed time of the kernels whose names hold
+    each string of ``named``; None where the profiler records no device
+    time here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1046,6 +1064,7 @@ def _profile_steps(step, n=3, named=()):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
+    n *= steps_per_call
     rows = [(ev.self_device_time_total / 1e3 / n, ev.key, ev.count // n)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA
@@ -1752,6 +1771,317 @@ def phase_o2_f16_equivalence():
 
 
 # --------------------------------------------------------------------------
+# phase 17: the high-level API, Model.fit over BERT-base
+# --------------------------------------------------------------------------
+
+# per training step of BERT-base through Model (12 layers): the launches
+# of each of the five training kernels
+HAPI_STEP_LAUNCHES = {"flash_fwd": 12, "flash_bwd_dq": 12,
+                      "flash_bwd_dkv": 12, "fused_ce_fwd": 1,
+                      "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1}
+
+
+def _identity_loss(loss):
+    return loss
+
+
+class MLM(torch.nn.Module):
+    """BERT's MLM loss through ``forward(ids, labels)`` (the logits
+    without labels): the network ``Model`` trains."""
+
+    def __init__(self, bert):
+        super().__init__()
+        self.bert = bert
+
+    def forward(self, ids, labels=None):
+        return self.bert(ids, masked_lm_labels=labels)
+
+
+def _hapi_model(cfg, dtype, seed=0):
+    """``Model(MLM(Bert(cfg)))`` on the card, prepared as phase 15's
+    trainer: AdamW (lr LinearWarmup over PolynomialDecay, decay 0.01,
+    ClipGradByGlobalNorm(1.0)), an identity loss, amp O2 in ``dtype`` (a
+    GradScaler from 2^15 in f16)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    from paddle_tpu_torch.text.models import Bert
+    net = MLM(Bert(cfg, device="cuda", dtype=torch.float32, seed=seed))
+    spec = [pt.InputSpec([None, None], "int64", "ids"),
+            pt.InputSpec([None, None], "int64", "labels")]
+    model = pt.Model(net, inputs=spec)
+    sched = lr_mod.LinearWarmup(
+        lr_mod.PolynomialDecay(1e-4, decay_steps=1000, end_lr=0.0),
+        warmup_steps=10, start_lr=0.0, end_lr=1e-4)
+    opt = AdamW(learning_rate=sched, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    model.prepare(opt, loss=_identity_loss,
+                  amp_configs={"level": "O2", "dtype": dtype})
+    return model
+
+
+def _hapi_clock(steps, window):
+    """A callback: the launch-count delta of every step, the step clock
+    over the last ``window`` steps (synced at both ends) and every step's
+    ``logs["loss"]`` kept unread."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.ops import cuda as kernels
+
+    class Clock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.deltas, self.losses = [], []
+            self._last = kernels.launch_counts()
+            self.t0 = self.t1 = None
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == steps - window:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            now = kernels.launch_counts()
+            self.deltas.append({k: now[k] - self._last[k] for k in now})
+            self._last = now
+            self.losses.append(logs["loss"])
+            if step == steps - 1:
+                torch.cuda.synchronize()
+                self.t1 = time.perf_counter()
+    return Clock()
+
+
+def _hapi_fit(cfg, ds, dtype, batch, steps, card, window=30,
+              profile_steps=10):
+    """``Model.fit`` over ``ds`` for one epoch (``steps`` batches) in O2
+    ``dtype`` with History and ModelCheckpoint, as a user calls it; then a
+    profiled fit of ``profile_steps`` more batches."""
+    import shutil
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.hapi.callbacks import History, ModelCheckpoint
+    from paddle_tpu_torch.io import Subset
+    from paddle_tpu_torch.ops import cuda as kernels
+    model = _hapi_model(cfg, dtype)
+    save_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            ".scratch", f"hapi_{dtype}")
+    history = History()
+    monitor.reset(prefix="hapi/")
+    kernels.reset_launch_counts()
+    clock = _hapi_clock(steps, window)
+    t_fit = time.perf_counter()
+    model.fit(ds, batch_size=batch, epochs=1, shuffle=True, log_freq=10,
+              verbose=0, callbacks=[history, clock,
+                                    ModelCheckpoint(save_dir=save_dir)])
+    fit_s = time.perf_counter() - t_fit
+    counts = kernels.launch_counts()
+    stats = monitor.stats("hapi/")
+    saved = sorted(os.listdir(save_dir))
+    shutil.rmtree(save_dir, ignore_errors=True)
+    losses = [float(v) for v in clock.losses]
+    step_ms = (clock.t1 - clock.t0) * 1e3 / window
+    res = {"card": card, "config": "bert_base", "amp": f"O2 {dtype}",
+           "batch": batch, "seq": ds.inputs.shape[1], "steps": steps,
+           "step_ms": step_ms, "step_ms_window": window,
+           "samples_per_s": batch * 1e3 / step_ms,
+           "fit_s_with_checkpoints": fit_s,
+           "loss_start": losses[0], "loss_end": losses[-1],
+           "history_loss": history.history["loss"],
+           "train_steps": stats.get("hapi/train_steps", 0),
+           "host_loss_reads_per_step":
+               stats.get("hapi/loss_reads", 0) / steps,
+           "step_count": model._optimizer._step_count,
+           "checkpoints": saved,
+           "launches": {k: counts[k] for k in PATH_KERNELS + SM90_COUNTS
+                        + CE_SM90_COUNTS + F16_COUNTS + CE_F16_COUNTS}}
+    if dtype == "float16":
+        res["loss_scale_end"] = model._amp_configs["scaler"] \
+            .get_loss_scaling()
+    check(all(np.isfinite(losses)), f"non-finite hapi {dtype} loss")
+    check(losses[-1] < losses[0], f"the hapi {dtype} loss did not fall")
+    check(res["train_steps"] == steps and res["step_count"] == steps,
+          f"hapi {dtype}: {res['train_steps']} train steps, step count "
+          f"{res['step_count']}, for {steps} batches")
+    check(saved == ["0.pdopt", "0.pdparams", "final.pdopt",
+                    "final.pdparams"], f"ModelCheckpoint wrote {saved}")
+    # every step launched each of the five kernels, on its Hopper kernel
+    # (in f16 for f16)
+    for i, d in enumerate(clock.deltas):
+        for k, n in HAPI_STEP_LAUNCHES.items():
+            want = {k: n, f"{k}.sm90": n,
+                    f"{k}.f16": n if dtype == "float16" else 0}
+            got = {key: d[key] for key in want}
+            check(got == want, f"hapi {dtype} step {i}: {got}, not {want}")
+    try:
+        def more():
+            model.fit(Subset(ds, range(profile_steps * batch)),
+                      batch_size=batch, epochs=1, shuffle=False,
+                      log_freq=10, verbose=0)
+        prof = _profile_steps(more, n=1, steps_per_call=profile_steps)
+    except Exception as e:    # the measurement is optional, the fit is not
+        prof = None
+        log(f"[hapi {dtype} profile] not measured: {type(e).__name__}: {e}")
+    if prof is not None:
+        res["device_busy_ms_per_step"] = prof["device_busy_ms_per_step"]
+        res["device_idle_share"] = 1 - prof["device_busy_ms_per_step"] \
+            / step_ms
+        res["top_kernels"] = prof["top"][:6]
+    log(f"[hapi fit {dtype}] {json.dumps(res)}")
+    del model
+    return counts, res
+
+
+def _hapi_equivalence_and_state(cfg, batch, seq, card):
+    """Dropout 0, the same weights and batches: three ``Model.train_batch``
+    steps in f16 O2 against three of phase 15's hand-written steps (loss
+    and masters within O2_STEP_TOL); then ``Model.save`` into a fresh
+    Model's ``load`` (parameters and slots bitwise, the next step's loss
+    and parameters bitwise); then two steps at a loss scale of 2^40
+    (parameters and slots bitwise kept, ``_step_count`` advancing, the
+    scale halved after the second); then ``evaluate`` and ``predict`` over
+    4 batches."""
+    import shutil
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.text.datasets import LMDataset
+    from paddle_tpu_torch.text.models.bert import BertPretrainingCriterion
+    cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    ids, lab = _bert_batches(cfg, batch, seq, 4)
+    net, opt, sched, scaler = _o2_f16_trainer(cfg)
+    hand = [float(_o2_step(net, opt, sched, scaler, ids[i], lab[i])[0])
+            for i in range(3)]
+    hand_masters = {k: sl["master"].clone() for k, sl in opt._slots.items()}
+    del net, opt, scaler
+    model = _hapi_model(cfg, "float16")
+    mopt = model._optimizer
+    got = []
+    for i in range(3):
+        got.append(model.train_batch([ids[i], lab[i]])[0])
+        mopt._learning_rate.step()          # fit steps LinearWarmup here
+    dloss = max(abs(a - b) for a, b in zip(got, hand))
+    # the hand-written step names parameters without the wrapper's prefix
+    dmaster = max(float((mopt._slots["bert." + k]["master"] - v).abs().max())
+                  for k, v in hand_masters.items())
+    res = {"card": card, "hand_losses": hand, "model_losses": got,
+           "loss_max_abs_diff": dloss, "master_max_abs_diff": dmaster,
+           "limits": O2_STEP_TOL}
+    check(dloss <= O2_STEP_TOL["loss"], f"Model loss differs: {dloss}")
+    check(dmaster <= O2_STEP_TOL["master"],
+          f"Model masters differ: {dmaster}")
+    # save -> load into a Model of other weights
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".scratch", "hapi_save", "m")
+    t0 = time.perf_counter()
+    model.save(path)
+    other = _hapi_model(cfg, "float16", seed=1)
+    other.load(path)
+    save_load_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+    def state(m):
+        return ([p.detach().clone() for p in m.parameters()],
+                {(k, s): v.clone() for k, sl in m._optimizer._slots.items()
+                 for s, v in sl.items()})
+
+    (pa, sa), (pb, sb) = state(model), state(other)
+    same = (all(torch.equal(a, b) for a, b in zip(pa, pb)) and set(sa) ==
+            set(sb) and all(torch.equal(v, sb[k]) for k, v in sa.items())
+            and other._optimizer._step_count == mopt._step_count)
+    check(same, "Model.load did not restore the parameters and slots")
+    la = model.train_batch([ids[3], lab[3]])[0]
+    lb = other.train_batch([ids[3], lab[3]])[0]
+    after = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                  other.parameters()))
+    res["save_load"] = {"bitwise_state": same, "next_loss": [la, lb],
+                        "params_after_next_step_bitwise": after,
+                        "save_and_load_s": save_load_s}
+    check(la == lb and after, f"the loaded Model's next step differs: "
+                              f"{la} vs {lb}, parameters equal: {after}")
+    del other
+    # forced overflow: the scale at 2^40 is inf in f16
+    scaler = model._amp_configs["scaler"]
+    scaler.set_init_loss_scaling(2.0 ** 40)
+    pa, sa = state(model)
+    steps = []
+    for _ in range(2):
+        count = mopt._step_count
+        loss = model.train_batch([ids[0], lab[0]])[0]
+        kept = (all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                      pa))
+                and all(torch.equal(mopt._slots[k][s], v)
+                        for (k, s), v in sa.items()))
+        steps.append({"loss": loss, "state_bitwise_kept": kept,
+                      "step_count_advance": mopt._step_count - count,
+                      "scale_after": scaler.get_loss_scaling()})
+        check(kept and mopt._step_count == count + 1 and np.isfinite(loss),
+              f"forced-overflow step: {steps[-1]}")
+    check(steps[0]["scale_after"] == 2.0 ** 40
+          and steps[1]["scale_after"] == 2.0 ** 39,
+          f"the scale did not halve after two bad steps: {steps}")
+    res["forced_overflow"] = steps
+    # evaluate through the logits head (labels split off), predict the MLM
+    # loss of each batch through the fused head
+    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=seq, n=4 * batch,
+                   seed=7)
+    evaluator = pt.Model(model.network, inputs=[pt.InputSpec([None, seq],
+                                                             "int64")],
+                         labels=[pt.InputSpec([None, seq], "int64")])
+    evaluator.prepare(loss=BertPretrainingCriterion(cfg.vocab_size),
+                      amp_configs={"level": "O2", "dtype": "float16"})
+    ev = evaluator.evaluate(ds, batch_size=batch, verbose=0)
+    pred = model.predict(ds, batch_size=batch)
+    per_batch = [float(x) for x in pred[0]]
+    res["evaluate"] = ev
+    res["predict_losses"] = per_batch
+    check(len(pred) == 1 and len(pred[0]) == 4
+          and all(np.isfinite(per_batch)), f"predict gave {per_batch}")
+    check(np.isfinite(ev["loss"]) and abs(ev["loss"] - np.mean(per_batch))
+          <= 2e-2 * abs(ev["loss"]),
+          f"evaluate's loss {ev['loss']} against predict's {per_batch}")
+    log(f"[hapi state] {json.dumps(res)}")
+    return res
+
+
+def phase_hapi(card=None, flagship=None, o2=None):
+    """Phase 17: BERT-base b32 s128 through ``Model.fit`` (40 steps of
+    ``LMDataset``, dropout 0.1) in f16 O2 and bf16 O2, then the
+    equivalence, save / load, forced-overflow and evaluate / predict
+    checks. ``card``: phase 1's nvidia-smi line; ``flagship`` / ``o2``:
+    phases 8 and 15's results from the same run, printed beside the
+    fit's."""
+    from paddle_tpu_torch.text.datasets import LMDataset
+    from paddle_tpu_torch.text.models import BertConfig
+    batch, seq, steps = 32, 128, 40
+    cfg = BertConfig.bert_base()
+    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=seq, n=batch * steps,
+                   seed=0)
+    np.random.seed(0)
+    out, counts = {}, {}
+    for dtype in ("float16", "bfloat16"):
+        counts[dtype], out[dtype] = _hapi_fit(cfg, ds, dtype, batch, steps,
+                                              card)
+    out["state"] = _hapi_equivalence_and_state(cfg, batch, seq, card)
+    beside = {"card": card}
+    for name, res in (("phase 8 bf16 hand-written", flagship),
+                      ("phase 15 f16 O2 hand-written", o2)):
+        if res is not None:
+            bd = res.get("breakdown", {})
+            beside[name] = {"step_ms": res["step_ms"],
+                            "device_busy_ms_per_step":
+                                bd.get("device_busy_ms_per_step"),
+                            "device_idle_share": bd.get("device_idle_share")}
+    for dtype in ("float16", "bfloat16"):
+        r = out[dtype]
+        beside[f"Model.fit {dtype} O2"] = {
+            "step_ms": r["step_ms"],
+            "device_busy_ms_per_step": r.get("device_busy_ms_per_step"),
+            "device_idle_share": r.get("device_idle_share"),
+            "host_loss_reads_per_step": r["host_loss_reads_per_step"]}
+    out["beside"] = beside
+    log(f"[hapi beside] {json.dumps(beside)}")
+    return counts, out
+
+
+# --------------------------------------------------------------------------
 # phases 11-12: GPT-2 small training through the flash kernels
 # --------------------------------------------------------------------------
 
@@ -2281,6 +2611,16 @@ def _f16_fields(rec, name, counts, worst, timings):
     rec["f16"] = timings
 
 
+def _hapi_fields(rec, name, counts):
+    """Phase 17's launches of one of the five training kernels: in each
+    ``Model.fit`` run (40 steps), on the Hopper kernel and in f16."""
+    for dtype, c in counts.items():
+        tag = {"float16": "f16", "bfloat16": "bf16"}[dtype]
+        rec[f"launches_hapi_{tag}"] = c[name]
+        rec[f"launches_hapi_{tag}_sm90"] = c[f"{name}.sm90"]
+        rec[f"launches_hapi_{tag}_f16"] = c[f"{name}.f16"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2304,6 +2644,7 @@ def main():
     ce16, fl16 = phase_fp16_timings()
     o2_counts, o2 = phase_o2_f16()
     o2_equiv = phase_o2_f16_equivalence()
+    hapi_counts, hapi = phase_hapi(card, flagship, o2)
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -2338,6 +2679,7 @@ def main():
         rec["max_abs_err_f32"] = worst_ce[name][torch.float32]
         _f16_fields(rec, name, o2_counts, worst_ce16[name],
                     {shape: t[name] for shape, t in ce16.items()})
+        _hapi_fields(rec, name, hapi_counts)
         if name == "fused_ce_bwd_dw":
             rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
                                      *worst_ce["db_max"].values(),
@@ -2361,6 +2703,7 @@ def main():
         rec["max_abs_err_f32"] = worst_fl[name][torch.float32]
         _f16_fields(rec, name, o2_counts, worst_fl16[name],
                     {shape: t[name] for shape, t in fl16.items()})
+        _hapi_fields(rec, name, hapi_counts)
         kernels.append(rec)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels, "serve_bf16": serve,
@@ -2376,7 +2719,8 @@ def main():
                       "ce_whole_backward": {
                           "bert_head": ce_bert["whole_backward"],
                           "gpt_head": ce_gpt["whole_backward"]},
-                      "o2_f16": o2, "o2_f16_equivalence": o2_equiv}))
+                      "o2_f16": o2, "o2_f16_equivalence": o2_equiv,
+                      "hapi": hapi}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,5 +13,7 @@ on the CPU the kernels' plain PyTorch versions run instead.
 from __future__ import annotations
 
 from .device import resolve_device
+from .framework.io import load, save
+from .hapi import InputSpec, Model
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "save", "load", "Model", "InputSpec"]

@@ -18,9 +18,10 @@
 - ``decorate``: O2 casts a model's f32 parameters to the AMP dtype and
   turns on the optimizers' f32 master weights.
 
-GradScaler's pure form (``scale_state`` / ``apply_pure``), which the JAX
-package's compiled hapi and static steps embed, waits for those tiers
-(ROADMAP Queue 1).
+GradScaler's pure form (``scale_state`` / ``load_scale_state`` /
+``apply_pure``) is what ``hapi.Model``'s step embeds, as the JAX
+package's compiled hapi step does: the state stays on the device, and
+nothing in it reads found_inf on the host.
 """
 from __future__ import annotations
 
@@ -192,7 +193,10 @@ class GradScaler:
         scaler.update()
 
     The scale and the good/bad counts are 0-d tensors on the loss's
-    device; ``step`` reads found_inf on the host once, to decide."""
+    device; ``step`` reads found_inf on the host once, to decide. The
+    pure form (``scale_state`` / ``apply_pure`` / ``load_scale_state``)
+    reads nothing on the host: its caller gates the update on the device
+    found_inf it returns."""
 
     def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
                  incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=1000,
@@ -273,6 +277,32 @@ class GradScaler:
             incr_every_n_steps=self._incr_every_n_steps,
             decr_every_n_nan_or_inf=self._decr_every_n_nan_or_inf)
         self._found_inf = None
+
+    # -- pure form (hapi.Model's step) ----------------------------------------
+    def scale_state(self):
+        """``{"scale", "good", "bad"}``: the state's 0-d tensors."""
+        return {"scale": self._scale, "good": self._good, "bad": self._bad}
+
+    def load_scale_state(self, st):
+        self._scale, self._good, self._bad = st["scale"], st["good"], st["bad"]
+
+    def apply_pure(self, grads, state):
+        """(scaled grads, state) -> (unscaled grads, found_inf, new state),
+        all on the device: the caller keeps the old parameters and slots
+        where found_inf holds. With dynamic scaling off the state comes
+        back as it went in."""
+        if not self._enable:
+            dev = state["scale"].device
+            return grads, torch.zeros((), dtype=torch.bool, device=dev), state
+        new_grads, found = check_finite_and_unscale(grads, state["scale"])
+        if self._dynamic:
+            s, g, b = update_loss_scaling(
+                state["scale"], state["good"], state["bad"], found,
+                incr_ratio=self._incr_ratio, decr_ratio=self._decr_ratio,
+                incr_every_n_steps=self._incr_every_n_steps,
+                decr_every_n_nan_or_inf=self._decr_every_n_nan_or_inf)
+            state = {"scale": s, "good": g, "bad": b}
+        return new_grads, found, state
 
     def state_dict(self):
         return {

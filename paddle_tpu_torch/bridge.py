@@ -15,13 +15,23 @@ transposed. Embedding tables, LayerNorm vectors and bare parameters
 ``GradScaler.state_dict()`` into a port optimizer and scaler, so a run
 started in the JAX package resumes in the port. Slots of Linear weights
 are transposed as the weights are.
+
+``load_jax_checkpoint(model, path)`` reads the ``{path}.pdparams`` /
+``{path}.pdopt`` pair that the JAX package's ``Model.save(path)`` wrote
+(``paddle.save`` files, read by the port's ``framework/io.load`` without
+importing the JAX package) into a port ``hapi.Model``: the parameters
+through ``load_jax_params``, the optimizer state through
+``load_jax_optimizer_state``.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "load_jax_optimizer_state"]
+__all__ = ["load_jax_params", "load_jax_optimizer_state",
+           "load_jax_checkpoint"]
 
 
 def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
@@ -90,3 +100,29 @@ def load_jax_optimizer_state(opt, state, module=None, name_map=None,
     if scaler is not None and scaler_state is not None:
         scaler.set_state_dict(scaler_state)
     return opt
+
+
+def load_jax_checkpoint(model, path):
+    """Load the JAX ``Model.save(path)`` files into the port ``Model``
+    ``model`` (prepared, where the ``.pdopt`` file is to be read): the
+    parameter names must match the network's one to one; buffers of the
+    same names are copied as they are; the optimizer state (slots,
+    ``_step_count``, the scheduler's state) lands with each slot on its
+    parameter's device. Returns ``model``."""
+    from .framework.io import load
+    net = model.network
+    state = load(path + ".pdparams", return_numpy=True)
+    buffers = dict(net.named_buffers())
+    load_jax_params(net, {k: v for k, v in state.items()
+                          if k not in buffers})
+    with torch.no_grad():
+        for name, b in buffers.items():
+            if name in state:
+                b.copy_(torch.from_numpy(_f32_array(state[name])))
+    opt_path = path + ".pdopt"
+    if model._optimizer is not None and os.path.exists(opt_path):
+        load_jax_optimizer_state(model._optimizer,
+                                 load(opt_path, return_numpy=True),
+                                 module=net)
+        model._place_slots()
+    return model

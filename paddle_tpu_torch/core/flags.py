@@ -85,3 +85,7 @@ define_flag("FLAGS_use_fused_ce", True,
             "route linear+cross-entropy loss heads through the fused CE "
             "kernels (ops/cuda/fused_ce.py); off = the plain composite "
             "that materializes the logits")
+define_flag("FLAGS_check_nan_inf", False,
+            "sweep every hapi training step's loss and parameters for "
+            "inf / nan (core/numeric_check in the JAX package); the port "
+            "has no numeric_check yet, so hapi.Model raises when it is on")

@@ -86,14 +86,17 @@ def begin(name: str, parent=None, **attrs) -> Span:
     return sp
 
 
-def end(sp: Span):
-    """Close a span and record it. A second end is a no-op."""
+def end(sp: Span, discard: bool = False):
+    """Close a span and record it (``discard``: close it unrecorded). A
+    second end is a no-op."""
     if sp is None or sp.t1 is not None:
         return
     sp.t1 = time.perf_counter()
     st = _stack()
     if sp in st:
         st.remove(sp)
+    if discard:
+        return
     with _lock:
         _ring.append(sp)
 

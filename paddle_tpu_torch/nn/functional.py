@@ -170,7 +170,11 @@ def cross_entropy(input, label, ignore_index=-100,  # noqa: A002
     """Softmax cross-entropy over the last axis of ``input`` against int
     ``label`` (paddle_tpu/ops/loss.py:cross_entropy without weights or
     soft labels). A label outside [0, C) selects no class (loss 0); "mean"
-    divides by the number of rows whose label is not ``ignore_index``."""
+    divides by the number of rows whose label is not ``ignore_index``. A
+    label with a trailing axis of 1 is squeezed, as JAX's is."""
+    (input,) = amp_op("cross_entropy", input)
+    if label.ndim == input.ndim and label.shape[-1] == 1:
+        label = label[..., 0]
     logp = torch.log_softmax(input, dim=-1)
     label = label.long()
     valid = label != ignore_index

@@ -1,14 +1,18 @@
 """Text datasets of the port (paddle_tpu/text/datasets): ``LMDataset``,
 copied from the JAX package as it is (numpy only, seeded), so both
-packages draw byte-identical batches from the same seed."""
+packages draw byte-identical batches from the same seed. It is an
+``io.Dataset``, as the JAX one is, so ``Model.fit`` builds a DataLoader
+over it."""
 from __future__ import annotations
 
 import numpy as np
 
+from ...io import Dataset
+
 __all__ = ["LMDataset"]
 
 
-class LMDataset:
+class LMDataset(Dataset):
     """Synthetic masked/causal LM pretraining data (deterministic)."""
 
     def __init__(self, vocab_size=30522, seq_len=128, n=4096, mode="mlm",

@@ -1,7 +1,8 @@
 """paddle_tpu_torch on the card: the CUDA kernels against their plain
 versions (f16 too for the flash and CE kernels), the no-fallback rule,
-tiny-GPT serving, and tiny-BERT and tiny-GPT training through the kernels
-(an f16 O2 BERT step with GradScaler among them).
+tiny-GPT serving, tiny-BERT and tiny-GPT training through the kernels
+(an f16 O2 BERT step with GradScaler among them), and ``hapi.Model``'s
+step through them with forked DataLoader workers beside a live card.
 
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither jax nor paddle_tpu, so it also runs on a machine with
@@ -610,3 +611,113 @@ def test_f16_o2_bert_step_launches_the_five_kernels(card):
         assert counts[name] == 3 * per_step, counts
         assert counts[f"{name}.sm90"] == counts[f"{name}.f16"] \
             == counts[name], counts
+
+
+class _MLM(torch.nn.Module):
+    """BERT's MLM loss through ``forward(ids, labels)``, for ``Model``."""
+
+    def __init__(self, bert):
+        super().__init__()
+        self.bert = bert
+
+    def forward(self, ids, labels):
+        return self.bert(ids, masked_lm_labels=labels)
+
+
+def _hapi_bert(card, amp_configs):
+    """A prepared ``Model`` over a 2-layer BERT with head dim 64 (hidden
+    128, 2 heads, H % 64 == 0: the Hopper flash and CE kernels) and 8
+    LMDataset rows of 64 tokens."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.datasets import LMDataset
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    cfg = BertConfig(vocab_size=1024, hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, intermediate_size=256,
+                     max_position_embeddings=128)
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    net = _MLM(Bert(cfg, device=card, seed=0))
+    model = pt.Model(net, inputs=[None, None])
+    model.prepare(AdamW(learning_rate=1e-3, weight_decay=0.01,
+                        parameters=model.parameters()),
+                  loss=lambda loss: loss, amp_configs=amp_configs)
+    return model, LMDataset(vocab_size=cfg.vocab_size, seq_len=64, n=8,
+                            seed=0)
+
+
+@pytest.fixture
+def flash_at_any_length():
+    from paddle_tpu_torch.core import flags
+    min_seq = flags.flag("FLAGS_flash_min_seq")
+    flags.set_flags({"FLAGS_flash_min_seq": 0})
+    yield
+    flags.set_flags({"FLAGS_flash_min_seq": min_seq})
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_model_train_batch_launches_the_hopper_kernels(card, dtype,
+                                                       flash_at_any_length):
+    """Three ``Model.train_batch`` steps in O2 (f16 with its GradScaler's
+    pure form): finite losses, parameters on the card in the AMP dtype,
+    and per step 2 launches of each flash kernel and one of each CE
+    kernel, all on the Hopper kernels (in f16 for f16)."""
+    model, ds = _hapi_bert(card, {"level": "O2", "dtype": dtype})
+    kernels.reset_launch_counts()
+    losses = [model.train_batch([ds.inputs, ds.labels])[0]
+              for _ in range(3)]
+    assert all(np.isfinite(losses)), losses
+    assert model._optimizer._step_count == 3
+    assert all(p.is_cuda and str(p.dtype) == f"torch.{dtype}"
+               for p in model.parameters())
+    counts = kernels.launch_counts()
+    for name, per_step in (("flash_fwd", 2), ("flash_bwd_dq", 2),
+                           ("flash_bwd_dkv", 2), ("fused_ce_fwd", 1),
+                           ("fused_ce_bwd_dh", 1), ("fused_ce_bwd_dw", 1)):
+        assert counts[name] == counts[f"{name}.sm90"] == 3 * per_step, \
+            counts
+        if dtype == "float16":
+            assert counts[f"{name}.f16"] == counts[name], counts
+
+
+def test_model_f16_overflow_step_leaves_the_state_bitwise(card,
+                                                         flash_at_any_length):
+    """f16 O2 through ``Model``: one good step creates the slots; then the
+    scale is set to 2^40 (inf in f16) and a step must leave every
+    parameter and slot bitwise as it was, advance ``_step_count`` and
+    (after two such steps, ``decr_every_n_nan_or_inf`` 2) halve the
+    scale; no host read of found_inf is needed for any of it."""
+    model, ds = _hapi_bert(card, {"level": "O2", "dtype": "float16"})
+    batch = [ds.inputs, ds.labels]
+    model.train_batch(batch)
+    scaler = model._amp_configs["scaler"]
+    scaler.set_init_loss_scaling(2.0 ** 40)
+    params = [p.detach().clone() for p in model.parameters()]
+    slots = {(k, s): v.clone() for k, sl in model._optimizer._slots.items()
+             for s, v in sl.items()}
+    for step in (2, 3):
+        loss = model.train_batch(batch)[0]
+        assert np.isfinite(loss)
+        assert model._optimizer._step_count == step
+        assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                     params))
+        assert all(torch.equal(model._optimizer._slots[k][s], v)
+                   for (k, s), v in slots.items())
+    assert scaler.get_loss_scaling() == 2.0 ** 39
+
+
+def test_dataloader_workers_after_cuda_is_initialised(card):
+    """Forked DataLoader workers in a process that has used the card:
+    they build numpy only, the batches come back in order as CPU
+    tensors, and a ``Model.fit`` over them trains on the card."""
+    from paddle_tpu_torch.io import DataLoader
+    torch.ones(1, device=card).sum().item()       # CUDA is up
+    model, ds = _hapi_bert(card, None)
+    loader = DataLoader(ds, batch_size=2, num_workers=2)
+    batches = list(loader)
+    assert len(batches) == 4
+    for i, (ids, labels) in enumerate(batches):
+        assert ids.device.type == "cpu"
+        assert torch.equal(ids, torch.from_numpy(ds.inputs[2 * i:2 * i + 2]))
+    model.fit(ds, batch_size=2, epochs=1, num_workers=2, verbose=0,
+              shuffle=False)
+    assert model._optimizer._step_count == 4
