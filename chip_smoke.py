@@ -8,13 +8,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. build the CUDA kernels from ``paddle_tpu_torch/ops/cuda/csrc`` with
    nvcc and print the card (``nvidia-smi`` name and power limit);
 2. the contiguous decode-attention kernel against its plain version on
-   the card (f32 and bf16, several chunk lengths, scalar and ragged
-   fills, d 40 to 256, caches of 512 and 4096 columns), each case held to
-   the absolute ``TOL`` and the norm-relative ``DECODE_NORM_TOL``; per
-   case the kernel it ran on, from the launch counters (s = 1 on the
-   split-K decode kernel, bf16 chunks at d 64 / 128 on the mma kernel,
-   the rest on the scalar one), and a second launch of a Hopper kernel
-   must give the same bits;
+   the card (f32, bf16 and f16, several chunk lengths, scalar and ragged
+   fills, d 40 to 256, caches of 512 and 4096 columns, and q in another
+   type than the cache), each case held to the absolute ``TOL`` and the
+   norm-relative ``DECODE_NORM_TOL``; per case the kernel it ran on, from
+   the launch counters (s = 1 on the split-K decode kernel, bf16 and f16
+   chunks at d 64 / 128 on the mma kernel, the rest on the scalar one),
+   and a second launch of a Hopper kernel must give the same bits;
 3. the paged (block-table) decode-attention kernel, the same checks over
    block sizes 16, 24 and 128; on each case's values gathered into a
    contiguous cache of nb * bs columns the contiguous kernel must give the
@@ -32,7 +32,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    each) beside the plain version, the ``scaled_dot_product_attention``
    yardstick and the bound, at the serve run's decode and prefill shapes
    and at GPT-2's full context (b64 and b1 at fill 1023, a 1024-token
-   prefill);
+   prefill), in bf16 and in f16;
 6. the three fused-CE kernels (forward, dh, dW/db) against their plain
    versions: f32 and bf16, bias and none, V in {517, 30522, 50304}, n in
    {8, 300, 1000, 4096}, H in {64, 72, 768, 1024}, ~30% ignored rows and
@@ -135,7 +135,23 @@ Phases, each printing its own lines; any failure exits non-zero:
     ``O2_STEP_TOL``); ``Model.save`` into a fresh Model's ``load``
     (parameters, slots and the next step bitwise); two steps at a loss
     scale of 2^40 (state bitwise kept, the step count advancing, the
-    scale halved); ``evaluate`` and ``predict`` over 4 batches.
+    scale halved); ``evaluate`` and ``predict`` over 4 batches;
+18. the dygraph API, written against ``import paddle_tpu_torch as
+    paddle`` alone: the op core's checks (the card by default for
+    layers, ``to_tensor`` and ``zeros``; O1 bf16 makes ``x @ w`` of f32
+    tensors bf16; ``no_grad``; a PyLayer doubling a gradient); BERT-base
+    (b32, s128, dropout 0.1, bf16 O2 with f32 masters, AdamW lr 1e-4 wd
+    0.01) through ``loss.backward(); opt.step(); opt.clear_grad()`` for 40
+    steps of LMDataset batches made by ``paddle.to_tensor`` (step ms over
+    the last 30, busy and idle over 10 profiled steps; every count zeroed
+    before, 12 / 12 / 12 / 1 / 1 / 1 Hopper launches a step, the loss
+    finite and falling); at dropout 0, state_dict -> save -> load ->
+    set_state_dict gives the next step bitwise, ``paddle.grad`` equals
+    backward's ``.grad`` bitwise, a ``no_grad`` eval builds no graph and
+    a forward-post hook fires once per encoder layer; GPT-2 small
+    decorated to f16 through ``generate`` and a ``ServeLoop`` (every
+    decode launch in f16 on the Hopper kernels); the op layer's host
+    microseconds per call against the bare torch call.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -144,11 +160,19 @@ line is ``{"ok": true, "device": {...}}``. The kernel summary line
 One phase alone (after ``phase_build()``), from the repo root:
 ``python3 -c "import chip_smoke as c; c.setup(); c.phase_build();
 c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phases 2-3
-(decode faults), 6 (CE faults), 10 (flash faults) or 14 (f16 faults) on
-copies of the checkout with one planted fault each (``FAULTS``) and exits
-0 when every copy fails them.
+(decode faults), 6 (CE faults), 10 (flash faults), 14 (f16 faults) or
+18's API checks (op-core faults) on copies of the checkout with one
+planted fault each (``FAULTS``) and exits 0 when every copy fails them.
+``python3 chip_smoke.py --compare DIR`` runs phases 8 and 15 of the
+checkout at DIR and of this one, each in a fresh process, in the order
+DIR, this, this, DIR twice over, and prints their step ms as one JSON
+line; ``--attribute DIR`` takes phase 8's step apart on the host (the
+forward, the backward, the zero grads, ``opt.step()``, ``clear_grad``,
+then a cProfile) for DIR's package and this one, in the order DIR, this,
+this, DIR.
 """
 import contextlib
+import copy
 import dataclasses
 import itertools
 import json
@@ -165,11 +189,17 @@ import torch
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}      # decode attention
+# decode attention, absolute; f16 at an eighth of bf16's (three more
+# mantissa bits)
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
 # decode attention, ||error|| / ||plain||, set from phases 2-3's worst
 # readings (f32 5.7e-7, bf16 2.2e-3: the output's rounding to bf16 and, on
-# the mma kernel, P's; PERF.md section 6) with 7x and 2.3x headroom
-DECODE_NORM_TOL = {torch.float32: 4e-6, torch.bfloat16: 5e-3}
+# the mma kernel, P's; PERF.md section 6) with 7x and 2.3x headroom; f16
+# at an eighth of bf16's, as its rounding unit (2^-11 against 2^-8)
+DECODE_NORM_TOL = {torch.float32: 4e-6, torch.bfloat16: 5e-3,
+                   torch.float16: 6.25e-4}
+# the 16-bit types of the decode kernels
+HALF = (torch.bfloat16, torch.float16)
 # Fused-CE limits per quantity, set from the worst readings of phases 6 and
 # 9 with headroom (PERF.md section 6 gives the readings): "fused_ce_fwd" is
 # loss and lse, absolute; "<grad>_max" the largest |error| over the largest
@@ -355,7 +385,7 @@ def _expect_path(dt, s, d):
     if s == 1:
         return "split" if d * torch.finfo(dt).bits // 8 % 16 == 0 \
             else "scalar"
-    return "mma" if dt == torch.bfloat16 and d in (64, 128) else "scalar"
+    return "mma" if dt in HALF and d in (64, 128) else "scalar"
 
 
 def decode_check(fn, args, ref, dt, what, cols):
@@ -404,19 +434,23 @@ def phase_contiguous():
     worst = {}
     # (dtype, b, s, d, L, fill kind)
     cases = [(dt, 3, s, 64, 512, kind)
-             for dt in (torch.float32, torch.bfloat16)
+             for dt in (torch.float32, *HALF)
              for s in (1, 7, 64, 300)
              for kind in ("scalar0", "scalar_top", "ragged")]
     cases += [(torch.float32, 3, s, 256, 512, "ragged") for s in (1, 7)]
-    cases += [(torch.bfloat16, 3, s, 40, 512, "ragged") for s in (1, 64)]
+    cases += [(dt, 3, s, 40, 512, "ragged") for dt in HALF for s in (1, 64)]
     # many splits: one or two rows over a 4096-column cache
     cases += [(dt, b, 1, d, 4096, kind)
-              for dt in (torch.float32, torch.bfloat16) for b in (1, 2)
+              for dt in (torch.float32, *HALF) for b in (1, 2)
               for d in (64, 128) for kind in ("scalar_top", "ragged")]
     # chunks on the mma kernel at d 128, and a long one over 4096 columns
-    cases += [(torch.bfloat16, 3, s, 128, 512, kind) for s in (33, 300)
+    cases += [(dt, 3, s, 128, 512, kind) for dt in HALF for s in (33, 300)
               for kind in ("scalar0", "ragged")]
-    cases += [(torch.bfloat16, 1, 200, 64, 4096, "scalar_top")]
+    cases += [(dt, 1, 200, 64, 4096, "scalar_top") for dt in HALF]
+    # q in another type than the cache: q is cast to the cache's type,
+    # the output comes back in q's
+    mixed = [(qd, cd) for qd in (torch.float32, *HALF)
+             for cd in (torch.float32, *HALF) if qd != cd]
     h = 4
     for dt, b, s, d, L, kind in cases:
         q = torch.randn(b, h, s, d, generator=gen).to("cuda", dt)
@@ -428,6 +462,25 @@ def phase_contiguous():
                               f"{str(dt)[6:]} b={b} s={s} d={d} L={L} "
                               f"fill={kind}", L)
         worst[dt] = max(worst.get(dt, 0.0), err)
+    for qd, cd in mixed:
+        for s in (1, 64):
+            q = torch.randn(3, h, s, 64, generator=gen).to("cuda", qd)
+            kc = torch.randn(3, h, 512, 64, generator=gen).to("cuda", cd)
+            vc = torch.randn(3, h, 512, 64, generator=gen).to("cuda", cd)
+            fill = _fills("ragged", 3, 512 - s, gen)
+            ref = decode_attention_ref(q.to(cd).float(), kc.float(),
+                                       vc.float(), fill)
+            out = decode_attention(q, kc, vc, fill)
+            torch.cuda.synchronize()
+            # the looser of the two types' limits: the output is rounded
+            # to q's type, the scores are formed from the cache's
+            tol = max(TOL[qd], TOL[cd])
+            err = _err(out, ref)
+            log(f"[contiguous] q {str(qd)[6:]} cache {str(cd)[6:]} s={s}: "
+                f"max_abs_err {err:.3e} (tol {tol:g})")
+            check(out.dtype == qd and err <= tol,
+                  f"decode_attention q {qd} cache {cd} s={s}: {out.dtype}, "
+                  f"{err}")
     check(decode_attention.launches > 0, "contiguous kernel never launched")
     log(f"[contiguous] launches {decode_attention.launches}, on the Hopper "
         f"kernels {decode_attention.launches_sm90} (mma "
@@ -466,13 +519,13 @@ def phase_paged():
     h = 4
     # (dtype, b, s, d, bs, nb, fill kind)
     cases = [(dt, 3, s, 64, bs, 512 // bs, kind)
-             for dt in (torch.float32, torch.bfloat16) for bs in (16, 128)
+             for dt in (torch.float32, *HALF) for bs in (16, 128)
              for s in (1, 7, 64, 300)
              for kind in ("scalar0", "scalar_top", "ragged")]
     cases += [(dt, b, 1, 64, bs, 4096 // bs, kind)
-              for dt in (torch.float32, torch.bfloat16) for b in (1, 2)
+              for dt in (torch.float32, *HALF) for b in (1, 2)
               for bs in (24, 128) for kind in ("scalar_top", "ragged")]
-    cases += [(torch.bfloat16, 3, s, 128, bs, 512 // bs, "ragged")
+    cases += [(dt, 3, s, 128, bs, 512 // bs, "ragged") for dt in HALF
               for s in (33, 300) for bs in (24, 128)]
     equal = 0
     for dt, b, s, d, bs, nb, kind in cases:
@@ -799,9 +852,10 @@ def _time_shape(b, s, fill, L, bs, dt=torch.bfloat16, h=12, d=64):
     return out
 
 
-def phase_timings(block_size):
+def phase_timings(block_size, dt=torch.bfloat16):
     """Both kernels at the serve run's shapes and at GPT-2's full context
-    (L 1024, the pool's block size 128 there): {shape: _time_shape}."""
+    (L 1024, the pool's block size 128 there), in ``dt``:
+    {shape: _time_shape}."""
     shapes = {
         # the bf16 serve run's full batch at its longest live length
         # (prompt 32 + 64 new = 96 tokens), and one 32-token prompt
@@ -813,7 +867,7 @@ def phase_timings(block_size):
         "decode_b1_fill1023": dict(b=1, s=1, fill=1023, L=1024, bs=128),
         "prefill_b1_s1024": dict(b=1, s=1024, fill=0, L=1024, bs=128),
     }
-    return {k: _time_shape(**v) for k, v in shapes.items()}
+    return {k: _time_shape(**v, dt=dt) for k, v in shapes.items()}
 
 
 # --------------------------------------------------------------------------
@@ -2082,6 +2136,432 @@ def phase_hapi(card=None, flagship=None, o2=None):
 
 
 # --------------------------------------------------------------------------
+# phase 18: the dygraph API, written against the port's Paddle surface
+# --------------------------------------------------------------------------
+
+def phase_api_checks():
+    """The op core and the Layer tier on the card without a model: the
+    default device is the card (layers, to_tensor, creation ops), O1 bf16
+    casts ``x @ w`` of f32 tensors to bf16 as the JAX package does, a
+    ``no_grad`` op builds no graph, a PyLayer doubles a gradient. Returns
+    the readings."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    lin = paddle.nn.Linear(4, 4)
+    t = paddle.to_tensor([1.0])
+    z = paddle.zeros([2])
+    where = {"Linear.weight": lin.weight.device.type,
+             "to_tensor": t.device.type, "zeros": z.device.type}
+    check(set(where.values()) == {"cuda"}, f"not on the card by default: "
+                                           f"{where}")
+    check(tuple(lin.weight.shape) == (4, 4) and
+          isinstance(lin.weight, paddle.Tensor), "Linear weight")
+    x = paddle.randn([8, 16])
+    w = paddle.randn([16, 4])
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        y = x @ w
+        y_add = x + x
+    check(y.dtype == torch.bfloat16, f"O1 bf16 x @ w gave {y.dtype}")
+    check(y_add.dtype == torch.float32, f"O1 bf16 x + x gave {y_add.dtype}")
+    xs = paddle.to_tensor(np.ones((4, 3), np.float32), stop_gradient=False)
+    with paddle.no_grad():
+        ng = paddle.matmul(xs, xs.T)
+    check(ng.grad_fn is None and ng.stop_gradient, "no_grad built a graph")
+
+    class Double(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, v):
+            return v * 1.0
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * 2.0
+
+    Double.apply(xs).sum().backward()
+    check(bool((xs.grad == 2.0).all()), f"PyLayer gave {xs.grad}")
+    out = {"default_device": where, "o1_bf16_matmul": str(y.dtype),
+           "o1_bf16_add": str(y_add.dtype), "pylayer_grad": float(
+               xs.grad[0, 0])}
+    log(f"[api] {json.dumps(out)}")
+    return out
+
+
+def _dygraph_bert(paddle, cfg, seed=0):
+    """BERT-base on the current device, decorated to bf16 O2 (f32
+    masters) with AdamW lr 1e-4, wd 0.01: bench.py:bench_bert's recipe
+    through the Paddle surface."""
+    from paddle_tpu_torch.text.models import Bert
+    net = Bert(cfg, seed=seed)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 parameters=net.parameters())
+    net, opt = paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    net.train()
+    return net, opt
+
+
+def _dygraph_state(paddle, cfg, ds, batch):
+    """(b), at dropout 0: state_dict -> paddle.save -> paddle.load ->
+    set_state_dict (model and optimizer) into a second model of another
+    seed gives the next step bitwise; paddle.grad equals backward's .grad
+    bitwise; a no_grad eval pass builds no graph; a forward-post hook
+    fires once per encoder layer."""
+    import shutil
+    cfg = copy.copy(cfg)
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+
+    def batch_of(i):
+        return (paddle.to_tensor(ds.inputs[i * batch:(i + 1) * batch]),
+                paddle.to_tensor(ds.labels[i * batch:(i + 1) * batch]))
+
+    def step(net, opt, i):
+        ids, lab = batch_of(i)
+        loss = net(ids, masked_lm_labels=lab)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    out = {}
+    net, opt = _dygraph_bert(paddle, cfg, seed=0)
+    step(net, opt, 0)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".scratch", "dygraph_ckpt")
+    os.makedirs(root, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        paddle.save(net.state_dict(), os.path.join(root, "m.pdparams"))
+        paddle.save(opt.state_dict(), os.path.join(root, "m.pdopt"))
+        net2, opt2 = _dygraph_bert(paddle, cfg, seed=1)
+        missing, unexpected = net2.set_state_dict(
+            paddle.load(os.path.join(root, "m.pdparams")))
+        opt2.set_state_dict(paddle.load(os.path.join(root, "m.pdopt")))
+        out["save_load_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not missing and not unexpected,
+          f"set_state_dict: missing {missing}, unexpected {unexpected}")
+    l1, l2 = step(net, opt, 1), step(net2, opt2, 1)
+    same = all(torch.equal(a, b) for a, b in zip(net.parameters(),
+                                                 net2.parameters()))
+    out["next_step_loss"] = [float(l1.detach()), float(l2.detach())]
+    check(torch.equal(l1, l2) and same, f"the step after save -> load "
+                                        f"differs: {float(l1)} {float(l2)}, "
+                                        f"parameters equal {same}")
+    # paddle.grad against backward's .grad, one graph
+    ids, lab = batch_of(2)
+    wemb = net.embeddings.word_embeddings.weight
+    loss = net(ids, masked_lm_labels=lab)
+    (g,) = paddle.grad(loss, [wemb], retain_graph=True)
+    loss.backward()
+    check(torch.equal(g, wemb.grad), "paddle.grad != backward's .grad")
+    check(isinstance(wemb.grad, paddle.Tensor), "a Parameter's .grad is "
+                                                 "not a Tensor")
+    opt.clear_grad()
+    # a no_grad eval pass, with a post hook on every encoder layer
+    fired = []
+    hooks = [layer.register_forward_post_hook(
+        lambda m, inp, o: fired.append(1)) for layer in net.encoder.layers]
+    net.eval()
+    with paddle.no_grad():
+        h = net(ids)
+    for hk in hooks:
+        hk.remove()
+    check(h.grad_fn is None and h.stop_gradient, "no_grad built a graph")
+    check(len(fired) == cfg.num_hidden_layers, f"post hooks fired "
+                                               f"{len(fired)} times")
+    out.update({"paddle_grad_equals_backward": True,
+                "eval_builds_graph": False, "post_hook_fires": len(fired)})
+    del net, opt, net2, opt2
+    return out
+
+
+def _dygraph_serve_f16(paddle):
+    """(c): GPT-2 small decorated to f16 through generate and a short
+    ServeLoop: the f16 decode kernels' launches."""
+    from paddle_tpu_torch.inference import ServeConfig, ServeLoop
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig()
+    net = paddle.amp.decorate(GPT(cfg, seed=0), level="O2", dtype="float16")
+    net.eval()
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int64)
+               for n in (5, 17, 9, 32, 12, 3, 24, 30)]
+    kernels.reset_launch_counts()
+    ids = paddle.to_tensor(np.stack([p[:3] for p in prompts]))
+    gen = net.generate(ids, max_new_tokens=16, temperature=0)
+    loop = ServeLoop(net, ServeConfig(max_active=8, kv_blocks=64,
+                                      max_seq_len=64))
+    outs = loop.serve(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(gen.shape == (8, 19) and bool((gen >= 0).all()) and
+          bool((gen < cfg.vocab_size).all()), "bad f16 generate tokens")
+    for o in outs:
+        check(o.shape == (16,) and o.min() >= 0 and o.max() < cfg.vocab_size,
+              "bad f16 served tokens")
+    with torch.no_grad():
+        lg = net(ids)
+    check(lg.dtype == torch.float16 and bool(torch.isfinite(lg).all()),
+          "non-finite f16 logits")
+    res = {k: counts[k] for k in ("decode_attention", "decode_attention.f16",
+                                  "decode_attention.sm90",
+                                  "decode_attention.mma",
+                                  "paged_decode_attention",
+                                  "paged_decode_attention.f16",
+                                  "paged_decode_attention.sm90",
+                                  "paged_decode_attention.mma")}
+    for name in ("decode_attention", "paged_decode_attention"):
+        check(counts[name] > 0 and counts[f"{name}.f16"] == counts[name],
+              f"{name}: {counts[name]} launches, {counts[name + '.f16']} "
+              f"in f16")
+        check(counts[f"{name}.sm90"] > counts[f"{name}.mma"] > 0,
+              f"{name}: f16 decode steps or chunks missed the Hopper "
+              f"kernels: {res}")
+    log(f"[serve f16] launches {json.dumps(res)}")
+    del net, loop
+    return counts, res
+
+
+def _dispatch_cost(paddle, n=10_000):
+    """(d): host microseconds per call of five ops through the port's op
+    layer against the bare torch call, on small CUDA tensors, without AMP
+    and under O1 bf16; the device work is queued, and the clock stops
+    after a synchronize."""
+    import torch.nn.functional as tF
+    x = paddle.randn([64, 64])
+    w = paddle.randn([64, 64])
+    xt, wt = x.as_subclass(torch.Tensor), w.as_subclass(torch.Tensor)
+    cases = {
+        "add": (lambda: paddle.add(x, w), lambda: torch.add(xt, wt)),
+        "matmul": (lambda: paddle.matmul(x, w),
+                   lambda: torch.matmul(xt, wt)),
+        "reshape": (lambda: paddle.reshape(x, [32, 128]),
+                    lambda: torch.reshape(xt, (32, 128))),
+        "transpose": (lambda: paddle.transpose(x, [1, 0]),
+                      lambda: torch.permute(xt, (1, 0))),
+        "softmax": (lambda: paddle.nn.functional.softmax(x),
+                    lambda: tF.softmax(xt, -1)),
+    }
+
+    def per_call(fn):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    out = {}
+    for amp_on in (False, True):
+        tag = "o1_bf16" if amp_on else "no_amp"
+        ctx = paddle.amp.auto_cast(level="O1", dtype="bfloat16") \
+            if amp_on else contextlib.nullcontext()
+        with ctx:
+            out[tag] = {name: {"port_us": per_call(port),
+                               "torch_us": per_call(bare)}
+                        for name, (port, bare) in cases.items()}
+    log(f"[dispatch] host us per call, {n} calls: {json.dumps(out)}")
+    return out
+
+
+def phase_dygraph(card=None):
+    """Phase 18, written against ``import paddle_tpu_torch as paddle``
+    only: (a) BERT-base b32 s128 (dropout 0.1, bf16 O2 with f32 masters,
+    AdamW) through the plain dygraph loop, loss.backward(); opt.step();
+    opt.clear_grad(), 40 steps of LMDataset batches through
+    paddle.to_tensor; (b) the Layer and autograd API at dropout 0; (c)
+    GPT-2 small in f16 through generate and a ServeLoop; (d) the op
+    layer's host cost per call."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.datasets import LMDataset
+    from paddle_tpu_torch.text.models import BertConfig
+    batch, seq, steps, timed = 32, 128, 40, 30
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    cfg = BertConfig.bert_base()
+    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=seq, n=16 * batch,
+                   mode="mlm", seed=0)
+    api = phase_api_checks()
+    net, opt = _dygraph_bert(paddle, cfg)
+    it = itertools.count()
+
+    def step():
+        i = next(it) % 16
+        ids = paddle.to_tensor(ds.inputs[i * batch:(i + 1) * batch])
+        lab = paddle.to_tensor(ds.labels[i * batch:(i + 1) * batch])
+        loss = net(ids, masked_lm_labels=lab)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    kernels.reset_launch_counts()
+    losses = []
+    torch.cuda.synchronize()
+    t_start = None
+    for i in range(steps):
+        if i == steps - timed:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(step().detach())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_start) * 1e3 / timed
+    counts = kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    for k, per in HAPI_STEP_LAUNCHES.items():      # as Model.fit's step
+        check(counts[k] == per * steps == counts[f"{k}.sm90"],
+              f"{k}: {counts[k]} launches in {steps} dygraph steps "
+              f"({counts[k + '.sm90']} Hopper), not {per * steps}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(bool(np.isfinite(losses).all()) and last < first,
+          f"the dygraph loss is not finite and falling: {first} -> {last}")
+    res = {"config": "bert_base", "batch": batch, "seq": seq,
+           "steps": steps, "timed_steps": timed, "step_ms": step_ms,
+           "loss_first5": first, "loss_last5": last, "losses": losses,
+           "launches": {k: counts[k] for k in PATH_KERNELS + SM90_COUNTS
+                        + CE_SM90_COUNTS}, "card": card}
+    try:
+        prof = _profile_steps(step, n=10)
+    except Exception as e:   # the measurement is optional, the step is not
+        prof = None
+        log(f"[dygraph profile] not measured: {type(e).__name__}: {e}")
+    if prof is not None:
+        res["device_busy_ms_per_step"] = prof["device_busy_ms_per_step"]
+        res["device_idle_share"] = 1 - prof["device_busy_ms_per_step"] \
+            / step_ms
+        res["top"] = prof["top"]
+    log(f"[dygraph] {json.dumps(res)}")
+    del net, opt
+    res["api"] = api
+    res["state"] = _dygraph_state(paddle, cfg, ds, 8)
+    log(f"[dygraph state] {json.dumps(res['state'])}")
+    serve_counts, res["serve_f16"] = _dygraph_serve_f16(paddle)
+    res["dispatch_us"] = _dispatch_cost(paddle)
+    return counts, serve_counts, res
+
+
+def compare(parent, runs=("parent", "change", "change", "parent") * 2):
+    """Phases 8 and 15 of the checkout at ``parent`` and of this one, each
+    run in a fresh process, in the order ``runs``: the step ms of each
+    (and phase 8's forward + backward and optimizer host ms), printed as
+    one JSON line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import chip_smoke as c; c.setup(); c.phase_build(); "
+            "c.phase_flagship(); c.phase_o2_f16()")
+    out = []
+    for tag in runs:
+        cwd = parent if tag == "parent" else here
+        proc = subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                              capture_output=True, text=True, timeout=900)
+        rec = {"tree": tag, "exit": proc.returncode}
+        for line in proc.stdout.splitlines():
+            for key, tagname in (("[flagship] ", "phase8_bf16"),
+                                 ("[o2 f16] ", "phase15_f16_o2")):
+                if line.startswith(key):
+                    rec[f"{tagname}_step_ms"] = json.loads(
+                        line[len(key):])["step_ms"]
+            for key, tagname in (("[flagship breakdown] ", "phase8_bf16"),
+                                 ("[o2 f16 breakdown] ", "phase15_f16_o2")):
+                if line.startswith(key):
+                    bd = json.loads(line[len(key):])
+                    rec[f"{tagname}_busy_ms"] = bd.get(
+                        "device_busy_ms_per_step")
+                    for k in ("fwd_bwd_ms", "optimizer_host_ms"):
+                        if k in bd:
+                            rec[f"{tagname}_{k}"] = bd[k]
+        log(f"[compare] {json.dumps(rec)}")
+        check(proc.returncode == 0, f"{tag} run failed: "
+                                    f"{proc.stderr[-2000:]}")
+        out.append(rec)
+    print(json.dumps({"compare": out}))
+    return 0
+
+
+def host_attribution(steps=20, profiled=10):
+    """Phase 8's step taken apart on the host, for whichever
+    ``paddle_tpu_torch`` is first on ``sys.path``: the host ms of the
+    forward, the backward, the zero grads, ``opt.step()`` and
+    ``opt.clear_grad()``, each between two synchronizes (medians over
+    ``steps`` steps); then cProfile over ``profiled`` plain steps: Python
+    calls a step and the functions with the most own time."""
+    import cProfile
+    import pstats
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    cfg = BertConfig.bert_base()
+    ids, lab = _bert_batches(cfg, 32, 128, 16)
+    net = Bert(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    net.train()
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=net.named_parameters(), multi_precision=True)
+    for i in range(5):
+        _train_step(net, opt, ids[i], lab[i])
+    parts = {k: [] for k in ("forward", "backward", "zero_missing_grads",
+                             "opt_step", "clear_grad")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        parts[name].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return out
+
+    for i in range(steps):
+        j = i % 16
+        loss = timed("forward", lambda: net(ids[j], masked_lm_labels=lab[j]))
+        timed("backward", loss.backward)
+        timed("zero_missing_grads", lambda: _zero_missing_grads(net))
+        timed("opt_step", opt.step)
+        timed("clear_grad", opt.clear_grad)
+    out = {f"{k}_host_ms": statistics.median(v) for k, v in parts.items()}
+    prof = cProfile.Profile()
+    prof.enable()
+    for i in range(profiled):
+        _train_step(net, opt, ids[i % 16], lab[i % 16])
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    out["python_calls_per_step"] = stats.total_calls / profiled
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:12]
+    out["top_own_ms_per_step"] = [
+        [f"{os.path.basename(k[0])}:{k[2]}", v[2] / profiled * 1e3]
+        for k, v in rows]
+    log(f"[attribution] {json.dumps(out)}")
+    return out
+
+
+def attribute(parent, runs=("parent", "change", "change", "parent")):
+    """``host_attribution`` of this script over the package of the
+    checkout at ``parent`` and over this one, each in a fresh process, in
+    the order ``runs``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, importlib.util, torch; sys.path.insert(0, {tree!r});"
+            " spec = importlib.util.spec_from_file_location('cs', {me!r});"
+            " c = importlib.util.module_from_spec(spec);"
+            " spec.loader.exec_module(c);"
+            " torch.backends.cuda.matmul.allow_tf32 = False;"
+            " c.phase_build(); c.host_attribution()")
+    for tag in runs:
+        tree = parent if tag == "parent" else here
+        proc = subprocess.run(
+            [sys.executable, "-c", code.format(
+                tree=tree, me=os.path.join(here, "chip_smoke.py"))],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+        said = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("[attribution] ")]
+        log(f"[attribute] {tag} exit {proc.returncode} "
+            f"{said[-1][len('[attribution] '):] if said else ''}")
+        check(proc.returncode == 0 and said, f"{tag} attribution failed: "
+                                              f"{proc.stderr[-2000:]}")
+    return 0
+
+
+# --------------------------------------------------------------------------
 # phases 11-12: GPT-2 small training through the flash kernels
 # --------------------------------------------------------------------------
 
@@ -2533,18 +3013,42 @@ FAULTS = {
         ("fused_ce_sm90.cu",
          "__half2 h = __floats2half2_rn(lo, hi);",
          "__half2 h = __floats2half2_rn(hi, lo);"),
+    # the f16 decode launches told the kernels their f16 data is bf16
+    "decode_f16_flag_bf16":
+        ("paddle_tpu_torch/ops/cuda/decode_attention.py",
+         "_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, "
+         "torch.float16: 2}",
+         "_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, "
+         "torch.float16: 1}"),
+    # the op core (phase 18's API checks): an op without its AMP cast
+    # point; to_tensor on the CPU unless asked for the card
+    "api_defop_skips_amp_cast":
+        ("paddle_tpu_torch/ops/_dispatch.py",
+         "                args, kwargs = _cast(opname, args, kwargs)",
+         "                pass"),
+    "api_to_tensor_on_cpu":
+        ("paddle_tpu_torch/core/tensor.py",
+         "    t = _coerce(data, dtype, resolve_device(place))",
+         "    t = _coerce(data, dtype, resolve_device(place or 'cpu'))"),
 }
 CSRC = "paddle_tpu_torch/ops/cuda/csrc"
 
 
+def fault_path(source):
+    """A fault's file from the repo root: a bare name is a kernel source
+    under ``CSRC``."""
+    return source if "/" in source else f"{CSRC}/{source}"
+
+
 def _fault_phase(name, source):
-    """(phase function names, numbers) that check a fault in a kernel
-    source."""
+    """(phase function names, numbers) that check a fault in a source."""
     if name.startswith("f16_"):
         return ("phase_fp16_kernels",), "14"
+    if name.startswith("api_"):
+        return ("phase_api_checks",), "18"
     if source.startswith("fused_ce"):
         return ("phase_ce",), "6"
-    if source.startswith("decode_attention"):
+    if "decode_attention" in source:
         return ("phase_contiguous", "phase_paged"), "2-3"
     return ("phase_flash",), "10"
 
@@ -2561,7 +3065,7 @@ def plant_faults():
     root = os.path.dirname(os.path.abspath(__file__))
     caught = 0
     for name, (source, old, new) in FAULTS.items():
-        src = f"{CSRC}/{source}"
+        src = fault_path(source)
         with tempfile.TemporaryDirectory() as tmp:
             copy = os.path.join(tmp, "tree")
             shutil.copytree(root, copy, ignore=shutil.ignore_patterns(
@@ -2632,6 +3136,7 @@ def main():
     worst_p = phase_paged()
     counts, serve = phase_main_path()
     timings = phase_timings(serve["block_size"])
+    timings16 = phase_timings(serve["block_size"], torch.float16)
     worst_ce = phase_ce()
     equiv = phase_bert_equivalence()
     ce_counts, flagship = phase_flagship()
@@ -2645,6 +3150,7 @@ def main():
     o2_counts, o2 = phase_o2_f16()
     o2_equiv = phase_o2_f16_equivalence()
     hapi_counts, hapi = phase_hapi(card, flagship, o2)
+    dy_counts, dy_serve_counts, dygraph = phase_dygraph(card)
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -2659,8 +3165,16 @@ def main():
         # over every comparison of phases 2-3 and the timed shapes
         rec["max_abs_err"] = max(*worst.values(),
                                  *(t[name]["max_abs_err"]
-                                   for t in timings.values()))
+                                   for t in (*timings.values(),
+                                             *timings16.values())))
         rec["max_abs_err_f32"] = worst[torch.float32]
+        rec["max_abs_err_f16"] = max(worst[torch.float16],
+                                     *(t[name]["max_abs_err"]
+                                       for t in timings16.values()))
+        rec["f16"] = {shape: t[name] for shape, t in timings16.items()}
+        for key in ("", ".f16", ".sm90", ".mma"):
+            rec[f"launches_dygraph_serve_f16{key.replace('.', '_')}"] = \
+                dy_serve_counts[name + key]
         kernels.append(rec)
     for name in CE_KERNELS:
         rec = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -2680,6 +3194,8 @@ def main():
         _f16_fields(rec, name, o2_counts, worst_ce16[name],
                     {shape: t[name] for shape, t in ce16.items()})
         _hapi_fields(rec, name, hapi_counts)
+        rec["launches_dygraph"] = dy_counts[name]
+        rec["launches_dygraph_sm90"] = dy_counts[f"{name}.sm90"]
         if name == "fused_ce_bwd_dw":
             rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
                                      *worst_ce["db_max"].values(),
@@ -2704,6 +3220,8 @@ def main():
         _f16_fields(rec, name, o2_counts, worst_fl16[name],
                     {shape: t[name] for shape, t in fl16.items()})
         _hapi_fields(rec, name, hapi_counts)
+        rec["launches_dygraph"] = dy_counts[name]
+        rec["launches_dygraph_sm90"] = dy_counts[f"{name}.sm90"]
         kernels.append(rec)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels, "serve_bf16": serve,
@@ -2720,7 +3238,7 @@ def main():
                           "bert_head": ce_bert["whole_backward"],
                           "gpt_head": ce_gpt["whole_backward"]},
                       "o2_f16": o2, "o2_f16_equivalence": o2_equiv,
-                      "hapi": hapi}))
+                      "hapi": hapi, "dygraph": dygraph}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2729,4 +3247,13 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(plant_faults() if sys.argv[1:] == ["--faults"] else main())
+    if sys.argv[1:] == ["--faults"]:
+        sys.exit(plant_faults())
+    if sys.argv[1:2] in (["--compare"], ["--attribute"]) and \
+            len(sys.argv) == 3:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        run = compare if sys.argv[1] == "--compare" else attribute
+        sys.exit(run(os.path.abspath(sys.argv[2])))
+    sys.exit(main())

@@ -1,19 +1,43 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
 The JAX package `paddle_tpu` is the reference; this package mirrors its
-module paths (``nn/kv_pool.py``, ``text/models/gpt.py``,
-``inference/serving.py`` ...) so a reader can find each counterpart. It
-imports torch and never jax or paddle_tpu.
+module paths (``core/tensor.py``, ``ops/math.py``, ``nn/layer/layers.py``,
+``text/models/gpt.py`` ...) so a reader can find each counterpart, and
+its Paddle surface::
+
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    x = paddle.to_tensor([[1.0, 2.0]])
+    y = paddle.matmul(x, paddle.ones([2, 3]))
+
+It imports torch and never jax or paddle_tpu.
 
 Entry points run on CUDA unless the caller asks for the CPU
-(``device="cpu"``). Every TPU Pallas kernel on a ported path is a CUDA
-kernel written by hand (``ops/cuda/csrc``), built with nvcc at first use;
-on the CPU the kernels' plain PyTorch versions run instead.
+(``set_device("cpu")`` or ``device="cpu"``). Every TPU Pallas kernel on a
+ported path is a CUDA kernel written by hand (``ops/cuda/csrc``), built
+with nvcc at first use; on the CPU the kernels' plain PyTorch versions run
+instead.
 """
 from __future__ import annotations
 
-from .device import resolve_device
-from .framework.io import load, save
-from .hapi import InputSpec, Model
+from .core.dtype import (bfloat16, bool_, complex64, complex128,  # noqa: F401
+                         float16, float32, float64, int8, int16, int32,
+                         int64, uint8)
+from .core.dtype import bool_ as bool  # noqa: F401,A001
+from .core.flags import get_flags, set_flags  # noqa: F401
+from .core.rng import seed  # noqa: F401
+from .core.tensor import Tensor, to_tensor  # noqa: F401
+from .core.tape import (enable_grad, grad, is_grad_enabled,  # noqa: F401
+                        no_grad, set_grad_enabled)
+from .device import (CPUPlace, CUDAPlace, device_count,  # noqa: F401
+                     get_device, is_compiled_with_cuda, resolve_device,
+                     set_device)
 
-__all__ = ["resolve_device", "save", "load", "Model", "InputSpec"]
+from .ops import *  # noqa: F401,F403,E402  paddle.* tensor functions
+from . import ops  # noqa: F401,E402
+from . import autograd  # noqa: F401,E402
+from . import amp, nn, optimizer  # noqa: F401,E402
+from .nn import ParamAttr  # noqa: F401,E402
+from .nn.layer.layers import Parameter  # noqa: F401,E402
+from .framework.io import load, save  # noqa: F401,E402
+from .hapi import InputSpec, Model  # noqa: F401,E402

@@ -6,12 +6,10 @@
   f16, custom lists;
 - ``cast_inputs(op_name, vals)``: the per-op cast. The JAX package casts
   at one place, ``core/tape.record_op``, under each recorded op's name.
-  The port has no dispatch layer, so the cast sits at the entry of each
-  port function that stands for a recorded JAX op, under the JAX op's
-  name (``nn/functional.py``'s ``amp_op`` and the layers). It runs inside
-  autograd (``Tensor.to`` is differentiable), so an f32 leaf gets an f32
-  gradient. Only ops on the training paths of BERT and GPT have such
-  points;
+  The port casts in its op layer, ``ops/_dispatch.defop``, under the
+  same names: every port op, and through them every ``Tensor``
+  operator, is a cast point. It runs inside autograd (``Tensor.to`` is
+  differentiable), so an f32 leaf gets an f32 gradient;
 - loss scaling: ``check_finite_and_unscale``, ``update_loss_scaling`` and
   ``GradScaler`` (scale, unscale, skip the step on inf/nan, grow or shrink
   the scale);
@@ -30,7 +28,7 @@ import threading
 
 import torch
 
-from ..optimizer.optimizer import _cast
+from ..optimizer.optimizer import _cast, _grad_of, _set_grad
 
 __all__ = ["auto_cast", "amp_guard", "GradScaler", "decorate",
            "white_list", "black_list", "policy_dtype", "cast_inputs",
@@ -242,12 +240,12 @@ class GradScaler:
         if not self._enable:
             return
         named = optimizer._collect()
-        grads = {k: p.grad for k, p in named.items()}
+        grads = {k: _grad_of(p) for k, p in named.items()}
         if grads:
             self._to(next(iter(grads.values())).device)
         new_grads, found = check_finite_and_unscale(grads, self._scale)
         for k, p in named.items():
-            p.grad = new_grads[k]
+            _set_grad(p, new_grads[k])
         self._found_inf = found
 
     def step(self, optimizer):

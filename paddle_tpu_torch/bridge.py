@@ -4,17 +4,14 @@
 ``{name: array}`` under the same dotted names the port's modules use
 (GPT's ``blocks.{i}.attn.qkv_proj.weight``, ``wte.weight`` ...; BERT's
 ``encoder.layers.{i}.self_attn.qkv_proj.weight``, ``pooler.dense.weight``,
-``mlm_bias`` ...). The name sets must match one to one. The JAX
-``Linear`` stores its weight [in, out] and computes ``x @ W``; the port's
-``Linear`` stores [out, in]. So every Linear weight, and only those, is
-transposed. Embedding tables, LayerNorm vectors and bare parameters
-(``mlm_bias``) copy as they are.
+``mlm_bias`` ...). The name sets must match one to one. Both packages'
+``Linear`` store the weight [in, out] and compute ``x @ W``, so every
+parameter copies as it is.
 
 ``load_jax_optimizer_state`` carries a JAX ``Optimizer.state_dict()``
 (every ``"{param}/{slot}"``, ``_step_count``, ``LR_Scheduler``) and a JAX
 ``GradScaler.state_dict()`` into a port optimizer and scaler, so a run
-started in the JAX package resumes in the port. Slots of Linear weights
-are transposed as the weights are.
+started in the JAX package resumes in the port.
 
 ``load_jax_checkpoint(model, path)`` reads the ``{path}.pdparams`` /
 ``{path}.pdopt`` pair that the JAX package's ``Model.save(path)`` wrote
@@ -44,23 +41,15 @@ def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
     if missing or unexpected:
         raise KeyError(f"load_jax_params: missing {missing}, "
                        f"unexpected {unexpected}")
-    linear_weights = _linear_weights(module)
     with torch.no_grad():
         for name, p in own.items():
             arr = _f32_array(params[name])
-            if name in linear_weights:
-                arr = arr.T
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"load_jax_params: {name} has shape "
                                  f"{arr.shape}, the port wants "
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(arr)))   # a writable copy
     return module
-
-
-def _linear_weights(module):
-    return {f"{n}.weight" for n, m in module.named_modules()
-            if isinstance(m, torch.nn.Linear)}
 
 
 def _f32_array(value):
@@ -72,15 +61,13 @@ def _f32_array(value):
     return arr
 
 
-def load_jax_optimizer_state(opt, state, module=None, name_map=None,
+def load_jax_optimizer_state(opt, state, name_map=None,
                              scaler=None, scaler_state=None):
     """Load the JAX ``Optimizer.state_dict()`` ``state`` into the port
     optimizer ``opt`` (and, given both, the JAX ``GradScaler.state_dict()``
     ``scaler_state`` into the port ``scaler``). ``name_map`` maps the JAX
     optimizer's parameter names to the port's (the same names when
-    None); with ``module``, the slots of its Linear weights are
-    transposed. A slot keeps its dtype (bf16 ones as bf16)."""
-    linear = _linear_weights(module) if module is not None else set()
+    None). A slot keeps its dtype (bf16 ones as bf16)."""
     out = {}
     for key, value in state.items():
         if key in ("_step_count", "LR_Scheduler") or "/" not in key:
@@ -90,8 +77,6 @@ def load_jax_optimizer_state(opt, state, module=None, name_map=None,
         name = (name_map or {}).get(pname, pname)
         raw = np.asarray(value)
         arr = _f32_array(raw)
-        if name in linear and arr.ndim == 2:
-            arr = arr.T
         tensor = torch.from_numpy(np.array(arr))
         if raw.dtype.name == "bfloat16":
             tensor = tensor.to(torch.bfloat16)
@@ -122,7 +107,6 @@ def load_jax_checkpoint(model, path):
     opt_path = path + ".pdopt"
     if model._optimizer is not None and os.path.exists(opt_path):
         load_jax_optimizer_state(model._optimizer,
-                                 load(opt_path, return_numpy=True),
-                                 module=net)
+                                 load(opt_path, return_numpy=True))
         model._place_slots()
     return model

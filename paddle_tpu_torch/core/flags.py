@@ -52,6 +52,14 @@ def set_flags(flags: Dict[str, Any]):
                 else ftype(value)
 
 
+def get_flags(flags):
+    """{name: value} of a flag name or a list of them."""
+    if isinstance(flags, str):
+        flags = [flags]
+    with _LOCK:
+        return {name: _REGISTRY[name] for name in flags}
+
+
 def flag(name: str):
     """Fast internal accessor."""
     return _REGISTRY[name]

@@ -1,4 +1,14 @@
-"""Token sampling keyed by (request seed, absolute token position).
+"""Random state (paddle_tpu/core/rng.py) and token sampling.
+
+``seed(n)`` (``paddle.seed``) seeds the port's ``Generator``: one
+``torch.Generator`` per device, made at first use from the seed, and
+reseeded by every later ``seed`` call. The creation ops' random draws and
+the initializers draw from it, never from torch's global generator.
+Dropout is the exception: torch's fused dropout kernel takes no generator,
+so it draws from the device's default generator, which ``seed`` seeds as
+well (``torch.manual_seed``).
+
+Token sampling is keyed by (request seed, absolute token position).
 
 The JAX package draws each token from ``fold_in(PRNGKey(seed),
 position)`` (paddle_tpu/inference/serving.py ``_sampler``). torch cannot
@@ -13,7 +23,53 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["position_seed", "sample_tokens"]
+__all__ = ["Generator", "default_generator", "seed", "generator",
+           "position_seed", "sample_tokens"]
+
+
+class Generator:
+    """The port's random state: a seed and, per device, the
+    ``torch.Generator`` drawn from, made from the seed at first use."""
+
+    def __init__(self, seed: int = 0):
+        self._seed = int(seed)
+        self._gens = {}
+
+    def manual_seed(self, seed: int):
+        self._seed = int(seed)
+        for g in self._gens.values():
+            g.manual_seed(self._seed)
+        return self
+
+    def get(self, device="cpu") -> torch.Generator:
+        """The generator of ``device`` (a torch.device or its name)."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        g = self._gens.get(dev)
+        if g is None:
+            g = self._gens[dev] = torch.Generator(device=dev)
+            g.manual_seed(self._seed)
+        return g
+
+
+_default = Generator(0)
+
+
+def default_generator() -> Generator:
+    return _default
+
+
+def seed(value: int) -> Generator:
+    """paddle.seed: the port's generators on every device, and torch's
+    default ones (which dropout draws from), restart from ``value``."""
+    torch.manual_seed(int(value))
+    return _default.manual_seed(value)
+
+
+def generator(device="cpu") -> torch.Generator:
+    """The default Generator's torch.Generator for ``device``."""
+    return _default.get(device)
 
 _MASK64 = (1 << 64) - 1
 

@@ -1,96 +1,79 @@
-"""Functional ops of the serving and training slices
-(paddle_tpu/nn/functional, paddle_tpu/ops/loss.py).
+"""Functional ops of the port (paddle_tpu/nn/functional): the op library's
+activations, norms, dropout and losses re-exported, plus the functions
+with layer-level semantics: ``linear``, ``embedding``, attention and the
+fused loss head.
+
+``linear`` is the JAX package's two recorded ops, ``matmul`` then
+``add``, whenever AMP is on (under O1 the gray bias add promotes the
+low-precision product back to f32, as in the JAX package); without AMP
+it is one call, ``addmm`` (one GEMM with the bias in its epilogue, the
+[in, out] weight read by cuBLAS without a copy).
 
 ``scaled_dot_product_attention`` is the JAX package's dispatch site
 (nn/functional/__init__.py:146-166): the gate ``_flash_eligible`` sends a
-call to the flash kernels (``_flash_sdpa`` -> ops/cuda/flash_attention.py:
-the kernels for CUDA tensors, their plain versions for CPU tensors) when
-``FLAGS_use_flash_attention`` is on, ``s_k >= FLAGS_flash_min_seq``, the
-mask has no gradient and the shapes are ``supported``; else it runs the
-composite ``_sdpa`` (:72-87): causal positions filled with ``finfo.min``,
-softmax by max-subtraction. Each decision bumps ``cuda.hit.flash_attention``
-or ``cuda.gate_reject.flash_attention.{reason}``. The decode paths do not
+call to the flash kernels (the op ``flash_sdpa`` ->
+ops/cuda/flash_attention.py: the kernels for CUDA tensors, their plain
+versions for CPU tensors) when ``FLAGS_use_flash_attention`` is on,
+``s_k >= FLAGS_flash_min_seq``, the mask has no gradient and the shapes
+are ``supported``; else it runs the composite op ``sdpa`` (:72-87):
+causal positions filled with ``finfo.min``, softmax by max-subtraction.
+Each decision bumps ``cuda.hit.flash_attention`` or
+``cuda.gate_reject.flash_attention.{reason}``. The decode paths do not
 come here: they use the decode-attention kernels
 (ops/cuda/decode_attention.py).
 
 ``fused_linear_cross_entropy`` is the loss-head dispatch site
 (nn/functional/__init__.py:191): with ``FLAGS_use_fused_ce`` on it runs
-the fused CE kernels (ops/cuda/fused_ce.py: the kernels on the card,
-their plain versions on the CPU); off, ``_ce_head_composite`` under torch
-autograd, the JAX composite ``_ce_head_fallback``: logits formed in the
-input dtype (so rounded to bf16 for bf16 inputs), then f32. On the card
-there is no shape gate and no fallback: a shape the kernels do not take
-raises.
+the op ``fused_ce_op`` (ops/cuda/fused_ce.py: the kernels on the card,
+their plain versions on the CPU); off, the op ``ce_head_fallback``, the
+JAX composite: logits formed in the input dtype (so rounded to bf16 for
+bf16 inputs), then f32. On the card there is no shape gate and no
+fallback: a shape the kernels do not take raises.
 
-AMP (``paddle_tpu_torch.amp``): the JAX package casts each recorded op's
-inputs in ``record_op`` under the op's name. Here ``amp_op(name, ...)``
-is that cast point, called at the entry of each function that stands for
-a recorded JAX op on the BERT and GPT training paths, under the JAX op's
-name (``matmul``, ``add``, ``layer_norm``, ``sdpa`` / ``flash_sdpa``,
-``fused_ce_op`` / ``ce_head_fallback`` ...); without AMP it returns its
-inputs as they are. ``linear`` is JAX's two recorded ops, ``matmul`` then
-``add``, whenever AMP is on: under O1 the gray bias add promotes the
-low-precision product back to f32, as in the JAX package.
+Each of these ops is a ``defop`` under the JAX op's name, so AMP casts
+its inputs as the JAX package's ``record_op`` does.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as tF
 
 from .. import amp as _amp
+from .. import ops
 from ..core import flags as _flags
+from ..ops import (  # noqa: F401 - re-exported op families
+    relu, relu6, leaky_relu, prelu, elu, selu, celu, gelu, sigmoid,
+    hardsigmoid, hardswish, hardtanh, hardshrink, softshrink, tanhshrink,
+    silu, swish, mish, softplus, softsign, softmax, log_softmax, log_sigmoid,
+    gumbel_softmax, maxout, thresholded_relu, glu, normalize, tanh, pad,
+    layer_norm, instance_norm, group_norm, rms_norm, local_response_norm,
+    dropout, one_hot, cross_entropy, softmax_with_cross_entropy, nll_loss,
+    mse_loss, l1_loss, smooth_l1_loss, binary_cross_entropy,
+    binary_cross_entropy_with_logits, sigmoid_cross_entropy_with_logits,
+    kl_div, margin_ranking_loss, hinge_embedding_loss, cosine_similarity,
+    label_smooth, square_error_cost, log_loss, triplet_margin_loss,
+    huber_loss)
+from ..ops import embedding as _embedding_op
+from ..ops._dispatch import defop
 from ..ops.cuda import gate_hit, gate_reject
 from ..ops.cuda.flash_attention import flash_attention, supported
 from ..ops.cuda.fused_ce import _label_hits, fused_ce
 
-__all__ = ["amp_op", "add", "linear", "gelu", "relu", "dropout",
-           "scaled_dot_product_attention", "cross_entropy",
-           "fused_linear_cross_entropy"]
+
+def linear(x, weight, bias=None, name=None):
+    """y = x @ W (+ b), W [in, out]."""
+    if _amp.amp_active() or bias is None:
+        out = ops.matmul(x, weight)
+        return out if bias is None else ops.add(out, bias)
+    return ops.addmm(bias, x, weight)
 
 
-def amp_op(name, *vals):
-    """The AMP cast point of the JAX package's recorded op ``name``:
-    ``vals`` with their floating tensors cast per the active policy, as
-    they are without AMP."""
-    if not _amp.amp_active():
-        return vals
-    return _amp.cast_inputs(name, list(vals))
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at the ids ``x`` (Paddle's argument order: ids
+    first). ``sparse`` is accepted; the gradient is dense."""
+    return _embedding_op(weight, x, padding_idx=padding_idx, sparse=sparse)
 
 
-def add(x, y):
-    """x + y (JAX's recorded ``add``)."""
-    x, y = amp_op("add", x, y)
-    return x + y
-
-
-def linear(x, weight, bias=None):
-    """y = x @ W.T (+ b) with torch's [out, in] weight: one fused call, or
-    under AMP the JAX package's ``matmul`` then ``add``."""
-    if not _amp.amp_active():
-        return tF.linear(x, weight, bias)
-    x, weight = amp_op("matmul", x, weight)
-    y = torch.matmul(x, weight.T)
-    return y if bias is None else add(y, bias)
-
-
-def gelu(x):
-    """Exact (erf) GELU, as jax.nn.gelu(approximate=False)."""
-    (x,) = amp_op("gelu", x)
-    return tF.gelu(x, approximate="none")
-
-
-def relu(x):
-    return tF.relu(x)
-
-
-def dropout(x, p=0.5, training=True):
-    """Upscale-in-train dropout; identity when not training or p == 0."""
-    if not training or p == 0.0:
-        return x
-    (x,) = amp_op("dropout_op", x)
-    return tF.dropout(x, p=p, training=True)
-
-
+@defop
 def _sdpa(q, k, v, mask, scale, is_causal):
     """q, k, v [batch, heads, seq, head_dim]. Causal masking is aligned
     bottom-right (col <= row + s_k - s_q)."""
@@ -114,6 +97,7 @@ def _sdpa(q, k, v, mask, scale, is_causal):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
+@defop
 def _flash_sdpa(q, k, v, mask, scale, is_causal):
     """The flash kernels on [b, h, s, d]: a [b, 1, 1, s_k] mask becomes
     the f32 key bias [b, s_k] (a bool mask: 0 where kept, -1e9 where not)."""
@@ -155,38 +139,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     JAX package."""
     scale = query.shape[-1] ** -0.5 if scale is None else scale
     if _flash_eligible(query, key, value, attn_mask):
-        query, key, value, attn_mask = amp_op("flash_sdpa", query, key,
-                                              value, attn_mask)
         out = _flash_sdpa(query, key, value, attn_mask, scale, is_causal)
     else:
-        query, key, value, attn_mask = amp_op("sdpa", query, key, value,
-                                              attn_mask)
         out = _sdpa(query, key, value, attn_mask, scale, is_causal)
-    return dropout(out, dropout_p, training)
-
-
-def cross_entropy(input, label, ignore_index=-100,  # noqa: A002
-                  reduction="mean"):
-    """Softmax cross-entropy over the last axis of ``input`` against int
-    ``label`` (paddle_tpu/ops/loss.py:cross_entropy without weights or
-    soft labels). A label outside [0, C) selects no class (loss 0); "mean"
-    divides by the number of rows whose label is not ``ignore_index``. A
-    label with a trailing axis of 1 is squeezed, as JAX's is."""
-    (input,) = amp_op("cross_entropy", input)
-    if label.ndim == input.ndim and label.shape[-1] == 1:
-        label = label[..., 0]
-    logp = torch.log_softmax(input, dim=-1)
-    label = label.long()
-    valid = label != ignore_index
-    in_range = (label >= 0) & (label < input.shape[-1])
-    safe = torch.where(in_range, label, torch.zeros_like(label))
-    picked = logp.gather(-1, safe[..., None])[..., 0]
-    loss = torch.where(valid & in_range, -picked, torch.zeros_like(picked))
-    if reduction == "none":
-        return loss
-    if reduction == "sum":
-        return loss.sum()
-    return loss.sum() / valid.to(loss.dtype).sum().clamp_min(1e-12)
+    if dropout_p > 0.0 and training:
+        out = dropout(out, p=dropout_p, training=True)
+    return out
 
 
 def _ce_head_composite(h, w, b, y, ignore_index):
@@ -208,6 +166,16 @@ def _ce_head_composite(h, w, b, y, ignore_index):
                        torch.zeros_like(lse))
 
 
+@defop
+def _fused_ce_op(hidden, weight, bias, labels, ignore_index):
+    return fused_ce(hidden, weight, bias, labels, ignore_index)
+
+
+@defop
+def _ce_head_fallback(hidden, weight, bias, labels, ignore_index):
+    return _ce_head_composite(hidden, weight, bias, labels, ignore_index)
+
+
 def fused_linear_cross_entropy(hidden, weight, bias=None, labels=None,
                                ignore_index=-100, reduction="mean"):
     """Cross-entropy of ``hidden @ weight.T + bias`` against ``labels``
@@ -215,28 +183,17 @@ def fused_linear_cross_entropy(hidden, weight, bias=None, labels=None,
     (flattened here), weight [vocab, H], bias [vocab] or None, labels
     [...] int. Per-token losses are f32 and 0 where ignored; "mean"
     divides their sum by max(#valid, 1)."""
-    (hidden,) = amp_op("reshape", hidden)
-    h2 = hidden.reshape(-1, hidden.shape[-1])
-    (labels,) = amp_op("reshape", labels)
-    y = labels.reshape(-1)
+    h2 = ops.reshape(hidden, [-1, hidden.shape[-1]])
+    y = ops.reshape(labels, [-1])
     if _flags.flag("FLAGS_use_fused_ce"):
-        h2, weight, bias, y = amp_op("fused_ce_op", h2, weight, bias, y)
-        losses = fused_ce(h2, weight, bias, y, int(ignore_index))
+        losses = _fused_ce_op(h2, weight, bias, y, int(ignore_index))
     else:
-        h2, weight, bias, y = amp_op("ce_head_fallback", h2, weight, bias,
-                                     y)
-        losses = _ce_head_composite(h2, weight, bias, y, int(ignore_index))
+        losses = _ce_head_fallback(h2, weight, bias, y, int(ignore_index))
     if reduction == "none":
         return losses
-    (losses,) = amp_op("sum", losses)
-    total = losses.sum()
+    total = ops.sum(losses)
     if reduction == "sum":
         return total
-    (y,) = amp_op("not_equal", y)
-    (kept,) = amp_op("cast", y != ignore_index)
-    (kept,) = amp_op("sum", kept.to(torch.float32))
-    valid, one = amp_op("maximum", kept.sum(),
-                        torch.ones((), dtype=torch.float32,
-                                   device=kept.device))
-    total, denom = amp_op("divide", total, torch.maximum(valid, one))
-    return total / denom
+    valid = ops.sum(ops.cast(ops.not_equal(y, ignore_index), "float32"))
+    one = torch.ones((), dtype=torch.float32, device=valid.device)
+    return ops.divide(total, ops.maximum(valid, one))

@@ -1,40 +1,69 @@
-"""Common layers: Linear, Embedding, Dropout
-(paddle_tpu/nn/layer/common.py).
+"""Common layers: Linear, Embedding, Dropout (paddle_tpu/nn/layer/common.py).
 
-Layout differs from the JAX package in one place: the JAX ``Linear``
-keeps its weight as [in, out] and computes ``x @ W``; these keep torch's
-[out, in] and compute ``x @ W.T``. ``paddle_tpu_torch.bridge`` transposes
-Linear weights, and only those, when it copies JAX parameters across.
-Each forward is the functional op with its AMP cast point
-(``functional.amp_op``).
+``Linear`` keeps the JAX package's layout: weight [in, out], y = x @ W + b
+(``functional.linear``). Each forward is the functional op, whose AMP
+cast point is the JAX op's.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as tF
 
 from .. import functional as F
+from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout"]
 
 
-class Linear(torch.nn.Linear):
-    """y = x @ W.T + b, W [out, in]."""
+class Linear(Layer):
+    """y = x @ W + b, W [in_features, out_features] (Xavier-uniform), b
+    [out_features] (zeros); ``bias_attr=False`` drops the bias."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [in_features, out_features], attr=weight_attr,
+            default_initializer=I.XavierUniform())
+        self.bias = self.create_parameter(
+            [out_features], attr=bias_attr, is_bias=True)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
 
+    def extra_repr(self):
+        return f"in={self.weight.shape[0]}, out={self.weight.shape[1]}"
 
-class Embedding(torch.nn.Embedding):
-    """Row lookup in a [num_embeddings, dim] table (not transposed)."""
+
+class Embedding(Layer):
+    """Row lookup in a [num_embeddings, dim] table (N(0, 1) at init; the
+    ``padding_idx`` row zero, and zero in every lookup)."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None):
+        super().__init__()
+        self._padding_idx = padding_idx
+        self._sparse = sparse
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=I.Normal(0.0, 1.0))
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
     def forward(self, x):
-        weight, x = F.amp_op("embedding", self.weight, x)
-        return tF.embedding(x, weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
 
-class Dropout(torch.nn.Dropout):
-    """Upscale-in-train dropout; identity in eval mode."""
+class Dropout(Layer):
+    """Upscale-in-train dropout (``mode`` as the JAX layer); identity in
+    eval mode."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training)
+        return F.dropout(x, p=self.p, training=self.training, mode=self.mode)

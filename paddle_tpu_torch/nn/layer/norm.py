@@ -1,22 +1,30 @@
-"""LayerNorm (paddle_tpu/nn/layer/norm.py): biased variance over the last
-axis, epsilon 1e-5, unit weight and zero bias at init."""
+"""LayerNorm (paddle_tpu/nn/layer/norm.py): biased variance over the
+trailing ``normalized_shape`` axes, epsilon 1e-5, unit weight and zero
+bias at init."""
 from __future__ import annotations
 
-import torch
-import torch.nn.functional as tF
-
 from .. import functional as F
+from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["LayerNorm"]
 
 
-class LayerNorm(torch.nn.LayerNorm):
-    def __init__(self, normalized_shape, epsilon=1e-5, device=None,
-                 dtype=None):
-        super().__init__(normalized_shape, eps=epsilon, device=device,
-                         dtype=dtype)
+class LayerNorm(Layer):
+    def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            self._normalized_shape, attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(self._normalized_shape,
+                                          attr=bias_attr, is_bias=True)
 
     def forward(self, x):
-        x, weight, bias = F.amp_op("layer_norm", x, self.weight, self.bias)
-        return tF.layer_norm(x, self.normalized_shape, weight, bias,
-                             self.eps)
+        begin = -len(self._normalized_shape)
+        return F.layer_norm(x, self.weight, self.bias, self._epsilon,
+                            begin_norm_axis=begin)

@@ -21,10 +21,14 @@ import typing
 
 import torch
 
+from ... import ops
+from ...ops._dispatch import raw_scope
 from ...ops.cuda.decode_attention import decode_attention
 from .. import functional as F
 from ..kv_pool import PagedKVCache, paged_attention, write_kv
 from .common import Dropout, Linear
+from .container import LayerList
+from .layers import Layer
 from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "StaticKVCache", "TransformerEncoderLayer",
@@ -40,17 +44,14 @@ class StaticKVCache(typing.NamedTuple):
     index: int
 
 
-def _static_cache_attention(q, kc, vc, index, scale):
-    """Attention of q [b,h,s,d] over a partially filled cache [b,h,L,d]:
-    position index + row attends to cache cols <= index + row."""
-    return decode_attention(q, kc, vc, index, scale)
+class MultiHeadAttention(Layer):
+    """Multi-head attention with the JAX layer's projections: one fused
+    [E, 3E] qkv projection for self-attention (``fuse_qkv``, the default
+    when the key and value widths are E), else separate q / k / v ones."""
 
-
-class MultiHeadAttention(torch.nn.Module):
-    """Self-attention with one fused [3E, E] qkv projection."""
-
-    def __init__(self, embed_dim, num_heads, dropout=0.0, device=None,
-                 dtype=None):
+    def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, fuse_qkv=True):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
@@ -59,83 +60,109 @@ class MultiHeadAttention(torch.nn.Module):
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
         self.dropout = dropout
-        self.qkv_proj = Linear(embed_dim, 3 * embed_dim, device=device,
-                               dtype=dtype)
-        self.out_proj = Linear(embed_dim, embed_dim, device=device,
-                               dtype=dtype)
+        self.need_weights = need_weights
+        self.kdim = kdim or embed_dim
+        self.vdim = vdim or embed_dim
+        self._fuse_qkv = fuse_qkv and self.kdim == embed_dim \
+            and self.vdim == embed_dim
+        if self._fuse_qkv:
+            self.qkv_proj = Linear(embed_dim, 3 * embed_dim,
+                                   weight_attr=weight_attr,
+                                   bias_attr=bias_attr)
+        else:
+            self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
+            self.k_proj = Linear(self.kdim, embed_dim, weight_attr, bias_attr)
+            self.v_proj = Linear(self.vdim, embed_dim, weight_attr, bias_attr)
+        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
 
-    def _heads(self, x):
-        """[b, s, E] -> [b, s, h, d] (a view)."""
+    def _split_heads(self, x):
+        """[b, s, E] -> [b, h, s, d] (views)."""
         b, s = x.shape[0], x.shape[1]
-        (x,) = F.amp_op("reshape", x)
-        return x.reshape(b, s, self.num_heads, self.head_dim)
+        x = ops.reshape(x, [b, s, self.num_heads, self.head_dim])
+        return ops.transpose(x, [0, 2, 1, 3])
 
     def _merge(self, out):
         """[b, h, s, d] -> out_proj([b, s, E])."""
-        b, s = out.shape[0], out.shape[2]
-        (out,) = F.amp_op("transpose", out)
-        out = out.transpose(1, 2)
-        (out,) = F.amp_op("reshape", out)
-        return self.out_proj(out.reshape(b, s, self.embed_dim))
+        out = ops.transpose(out, [0, 2, 1, 3])
+        b, s = out.shape[0], out.shape[1]
+        return self.out_proj(ops.reshape(out, [b, s, self.embed_dim]))
 
-    @staticmethod
-    def _to_bhsd(x):
-        """[b, s, h, d] -> [b, h, s, d] (a view)."""
-        (x,) = F.amp_op("transpose", x)
-        return x.transpose(1, 2)
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None, is_causal=False):
+        key = query if key is None else key
+        value = query if value is None else value
+        if self._fuse_qkv and key is query and value is query:
+            q, k, v = ops.split(self.qkv_proj(query), 3, axis=-1)
+        elif self._fuse_qkv:
+            wq, wk, wv = ops.split(self.qkv_proj.weight, 3, axis=-1)
+            bq, bk, bv = ops.split(self.qkv_proj.bias, 3, axis=-1)
+            q = F.linear(query, wq, bq)
+            k = F.linear(key, wk, bk)
+            v = F.linear(value, wv, bv)
+        else:
+            q, k, v = self.q_proj(query), self.k_proj(key), self.v_proj(value)
+        q, k, v = (self._split_heads(t) for t in (q, k, v))
+        if isinstance(cache, (PagedKVCache, StaticKVCache)):
+            if attn_mask is not None:
+                raise ValueError("attn_mask is not supported with a decode "
+                                 "cache: causality comes from the cache "
+                                 "fill")
+            if self.training and self.dropout > 0:
+                raise RuntimeError("cache attention is eval-only; call "
+                                   ".eval()")
+            with raw_scope():
+                out, new_cache = self._cache_attention(q, k, v, cache)
+            return self._merge(out), new_cache
+        if cache is not None:
+            k = ops.concat([cache[0], k], axis=2)
+            v = ops.concat([cache[1], v], axis=2)
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
+            is_causal=is_causal, training=self.training)
+        out = self._merge(out)
+        return (out, (k, v)) if cache is not None else out
 
-    def forward(self, query, attn_mask=None, cache=None, is_causal=False):
-        (qkv,) = F.amp_op("split_op", self.qkv_proj(query))
-        q, k, v = qkv.chunk(3, dim=-1)
+    def _cache_attention(self, q, k, v, cache):
+        """q, k, v [b, h, s, d] against a decode cache; (out [b, h, s, d],
+        the cache after the write). The k/v chunk is written in place."""
         scale = self.head_dim ** -0.5
-        if cache is None:
-            # head-split views of the one qkv projection; the flash route
-            # copies them to contiguous [b * h, s, d] (flash_attention),
-            # the kernels take no strides
-            q, k, v = (self._to_bhsd(self._heads(t)) for t in (q, k, v))
-            out = F.scaled_dot_product_attention(
-                q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
-                is_causal=is_causal, training=self.training)
-            return self._merge(out)
-        q, k, v = self._heads(q), self._heads(k), self._heads(v)
-        if attn_mask is not None:
-            raise ValueError("attn_mask is not supported with a decode "
-                             "cache: causality comes from the cache fill")
-        if self.training and self.dropout > 0:
-            raise RuntimeError("cache attention is eval-only; call .eval()")
-        qh = q.transpose(1, 2).contiguous()                  # [b, h, s, d]
+        qh = q.contiguous()
         s = qh.shape[2]
         if isinstance(cache, PagedKVCache):
-            # paged (block-table) path: the serving arena shared across
-            # requests, indirected per slot
-            write_kv(cache.k, cache.block_tables, cache.lengths, k,
-                     cache.slots)
-            write_kv(cache.v, cache.block_tables, cache.lengths, v,
-                     cache.slots)
+            # the serving arena shared across requests, indirected per slot
+            write_kv(cache.k, cache.block_tables, cache.lengths,
+                     k.transpose(1, 2), cache.slots)
+            write_kv(cache.v, cache.block_tables, cache.lengths,
+                     v.transpose(1, 2), cache.slots)
             out = paged_attention(qh, cache.k, cache.v, cache.block_tables,
                                   cache.lengths, scale)
-            return self._merge(out), cache._replace(
-                lengths=cache.lengths + s, slots=None)
-        if isinstance(cache, StaticKVCache):
-            idx = int(cache.index)
-            cache.k[:, :, idx:idx + s] = k.transpose(1, 2)
-            cache.v[:, :, idx:idx + s] = v.transpose(1, 2)
-            out = _static_cache_attention(qh, cache.k, cache.v, idx, scale)
-            return self._merge(out), StaticKVCache(cache.k, cache.v,
-                                                   idx + s)
-        raise TypeError(f"unsupported cache {type(cache).__name__}")
+            return out, cache._replace(lengths=cache.lengths + s, slots=None)
+        idx = int(cache.index)
+        cache.k[:, :, idx:idx + s] = k
+        cache.v[:, :, idx:idx + s] = v
+        out = decode_attention(qh, cache.k, cache.v, idx, scale)
+        return out, StaticKVCache(cache.k, cache.v, idx + s)
+
+    def gen_cache(self, key, value=None, type=None):  # noqa: A002
+        """An empty (k, v) list cache [b, heads, 0, head_dim] for the
+        concatenating path."""
+        w = self.qkv_proj.weight if self._fuse_qkv else self.q_proj.weight
+        z = torch.zeros(key.shape[0], self.num_heads, 0, self.head_dim,
+                        dtype=w.dtype, device=w.device)
+        return (z, z)
 
     def gen_static_cache(self, batch_size, max_len, dtype=torch.float32,
                          device=None):
         """Zeroed preallocated decode cache (see StaticKVCache)."""
-        device = self.qkv_proj.weight.device if device is None else device
+        w = self.qkv_proj.weight if self._fuse_qkv else self.q_proj.weight
+        device = w.device if device is None else device
         shape = (batch_size, self.num_heads, max_len, self.head_dim)
         return StaticKVCache(torch.zeros(shape, dtype=dtype, device=device),
                              torch.zeros(shape, dtype=dtype, device=device),
                              0)
 
 
-class TransformerEncoderLayer(torch.nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention + feed-forward block, post-norm unless
     ``normalize_before``. ``activation`` is a name looked up in the port's
     functional module ("gelu" is the exact erf GELU). Both norms use
@@ -144,15 +171,19 @@ class TransformerEncoderLayer(torch.nn.Module):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False):
+                 normalize_before=False, weight_attr=None, bias_attr=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead,
-                                            dropout=attn_dropout)
-        self.linear1 = Linear(d_model, dim_feedforward)
-        self.linear2 = Linear(dim_feedforward, d_model)
+                                            dropout=attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.dropout1 = Dropout(dropout)
@@ -160,12 +191,12 @@ class TransformerEncoderLayer(torch.nn.Module):
         self.act_dropout = Dropout(act_dropout)
         self.activation = getattr(F, activation)
 
-    def forward(self, src, src_mask=None):
+    def forward(self, src, src_mask=None, cache=None):
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
         src = self.self_attn(src, attn_mask=src_mask)
-        src = F.add(residual, self.dropout1(src))
+        src = residual + self.dropout1(src)
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
@@ -173,19 +204,19 @@ class TransformerEncoderLayer(torch.nn.Module):
             src = self.norm2(src)
         src = self.linear2(self.act_dropout(self.activation(
             self.linear1(src))))
-        src = F.add(residual, self.dropout2(src))
+        src = residual + self.dropout2(src)
         if not self.normalize_before:
             src = self.norm2(src)
         return src
 
 
-class TransformerEncoder(torch.nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer`` (the first is the layer
     itself), then an optional final norm."""
 
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = torch.nn.ModuleList(
+        self.layers = LayerList(
             [encoder_layer] + [copy.deepcopy(encoder_layer)
                                for _ in range(num_layers - 1)])
         self.num_layers = num_layers

@@ -1,0 +1,133 @@
+"""Op definition layer (paddle_tpu/ops/_dispatch.py).
+
+``defop`` lifts a plain torch function into a port op: the wrapper applies
+the AMP cast point under the op's name, as the JAX package's ``record_op``
+does (paddle_tpu/core/tape.py), calls the function, and returns its tensor
+outputs as the port's ``Tensor``. torch autograd records the gradient, so
+there is no tape here. ``OP_REGISTRY`` maps each op's name to its wrapper,
+and each wrapper carries ``op_name``, ``op_version`` and ``raw`` under the
+JAX package's names and versions, which ``static/`` and
+``framework/program_serde.py`` will look ops up by.
+``SHAPE_INFER_REGISTRY`` stays empty until the static port fills it.
+
+An op's body runs on torch's own meaning: while one runs, the ``Tensor``
+operators and the methods whose Paddle meaning differs from torch's fall
+through to torch, and a port op called from inside another is a plain call
+(no second cast point, no re-wrapping). ``raw_scope()`` gives code outside
+an op (a kernel wrapper called from a layer) the same treatment. The
+wrapper catches nothing.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+import threading
+
+import torch
+
+from .. import amp as _amp
+from ..core.tensor import Tensor
+
+_T = torch.Tensor
+
+__all__ = ["OP_REGISTRY", "SHAPE_INFER_REGISTRY", "defop", "wrap",
+           "raw_scope"]
+
+OP_REGISTRY = {}
+SHAPE_INFER_REGISTRY = {}
+
+
+class _State(threading.local):
+    depth = 0
+
+
+_state = _State()
+
+
+@contextlib.contextmanager
+def raw_scope():
+    """Run the block on torch's own meaning, as an op's body runs."""
+    _state.depth += 1
+    try:
+        yield
+    finally:
+        _state.depth -= 1
+
+
+def _retype(t, args):
+    """Make a fresh plain torch output a port ``Tensor`` in place (no copy,
+    no autograd node); an output that is one of ``args`` gets a new alias
+    instead, so an input's Python type never changes."""
+    if type(t) is not _T:
+        return t
+    for a in args:
+        if a is t:
+            return t.as_subclass(Tensor)
+    t.__class__ = Tensor
+    return t
+
+
+def wrap(out, args=()):
+    """The port's view of an op's outputs: tensors become ``Tensor``,
+    tuples and lists keep their structure."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_retype(o, args) for o in out) \
+            if type(out) in (tuple, list) else tuple(
+                _retype(o, args) for o in out)
+    return _retype(out, args)
+
+
+def retype_in_place(out, src):
+    """``out`` (a tensor or a tuple of them, torch's named tuples too)
+    with its fresh plain tensors made ``Tensor`` in place; one that is
+    ``src`` stays as it is."""
+    for t in (out if isinstance(out, tuple) else (out,)):
+        if type(t) is _T and t is not src:
+            t.__class__ = Tensor
+    return out
+
+
+def _cast(name, args, kwargs):
+    n = len(args)
+    keys = list(kwargs)
+    vals = _amp.cast_inputs(name, list(args) + [kwargs[k] for k in keys])
+    return tuple(vals[:n]), dict(zip(keys, vals[n:]))
+
+
+def defop(raw_fn=None, *, name=None, version=1):
+    """Register ``raw_fn`` (a torch function of its inputs) as the op
+    ``name`` (default: the function's name without leading underscores)
+    at schema ``version``, and return its wrapper."""
+    def deco(f):
+        opname = name or f.__name__.lstrip("_")
+        amp_state = _amp._state
+
+        @functools.wraps(f)
+        def wrapper(*args, **kwargs):
+            st = _state
+            if st.depth:
+                return f(*args, **kwargs)
+            if amp_state.enabled:
+                args, kwargs = _cast(opname, args, kwargs)
+            st.depth = 1
+            try:
+                out = f(*args, **kwargs)
+            finally:
+                st.depth = 0
+            if type(out) is not _T:
+                return wrap(out, args)
+            for a in args:                 # _retype, inlined: the hot path
+                if a is out:
+                    return out.as_subclass(Tensor)
+            out.__class__ = Tensor
+            return out
+
+        wrapper.raw = f
+        wrapper.op_name = opname
+        wrapper.op_version = int(version)
+        f.op_name = opname
+        f.op_version = int(version)
+        OP_REGISTRY[opname] = wrapper
+        return wrapper
+
+    return deco(raw_fn) if raw_fn is not None else deco

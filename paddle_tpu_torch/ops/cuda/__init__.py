@@ -33,10 +33,8 @@ VARIANTS = {"flash_fwd.sm90": flash_fwd, "flash_bwd_dq.sm90": flash_bwd_dq,
 # of the decode wrappers' Hopper launches, those of the chunk (mma) kernel
 MMA_VARIANTS = {"decode_attention.mma": decode_attention,
                 "paged_decode_attention.mma": paged_decode_attention}
-# wrappers that take f16: their f16 launches (either kernel)
-F16_VARIANTS = {f"{k.__name__}.f16": k
-                for k in (flash_fwd, flash_bwd_dq, flash_bwd_dkv,
-                          fused_ce_fwd, fused_ce_bwd_dh, fused_ce_bwd_dw)}
+# f16 launches of each wrapper (any of its kernels)
+F16_VARIANTS = {f"{k.__name__}.f16": k for k in KERNELS}
 
 
 def reset_launch_counts():
@@ -54,8 +52,8 @@ def reset_launch_counts():
 def launch_counts():
     """Launches per wrapper (its kernels together); under
     ``<wrapper>.sm90`` those of the Hopper variant, for the decode
-    wrappers under ``<wrapper>.mma`` those of its chunk kernel and, for
-    the flash and CE wrappers, under ``<wrapper>.f16`` their f16 ones."""
+    wrappers under ``<wrapper>.mma`` those of its chunk kernel, and under
+    ``<wrapper>.f16`` the f16 ones."""
     counts = {k.__name__: k.launches for k in KERNELS}
     counts.update({n: k.launches_sm90 for n, k in VARIANTS.items()})
     counts.update({n: k.launches_mma for n, k in MMA_VARIANTS.items()})

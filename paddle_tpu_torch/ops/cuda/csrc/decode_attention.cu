@@ -1,6 +1,7 @@
 // Decode attention over a KV cache, for Hopper (sm_90a): split-K
 // flash-decoding with 16-byte vector loads for single-token steps, and
-// mma.sync query tiles for bf16 chunks.
+// mma.sync query tiles for bf16 and f16 chunks. Every kernel is a template
+// on the types: f32, bf16 and f16 for q and for the cache, in any pair.
 //
 // Replaces the two TPU Pallas kernels of the serving path:
 //   paddle_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel
@@ -49,14 +50,15 @@
 //     write f32 partials (m, l, acc[d]) to the wrapper's scratch and
 //     decode_combine_kernel merges them in split order (no atomics); with
 //     one split the kernel writes the output itself;
-//   decode_mma_kernel (s > 1, bf16 q and cache, d 64 or 128, 16-byte
-//   aligned): the FA2 forward of flash_attention_sm90.cu over the cache:
+//   decode_mma_kernel (s > 1, q and cache both bf16 or both f16, d 64 or
+//   128, 16-byte aligned): the FA2 forward of flash_attention_sm90.cu over the cache:
 //     64-row query tiles of 4 warps, 64-column K/V tiles gathered through
 //     the cache's addressing into a three-stage cp.async ring (swizzled,
 //     ldmatrix / ldmatrix.trans), S and P in mma.sync m16n8k16 fragments,
 //     the mask col <= fill + row applied on the fragments, the loop bounded
-//     by the last live tile of the tile's last row, P rounded to bf16 as
-//     the A operand of P . V (the TPU kernel rounds it too, :81);
+//     by the last live tile of the tile's last row, P rounded to the
+//     16-bit type as the A operand of P . V (the TPU kernel rounds it too,
+//     :81);
 //   decode_attn_kernel (everything else: f32 or mixed-type chunks, other
 //   head dims, unaligned caches): the first, scalar kernel of this port,
 //   one split, K/V tiles as f32 in shared memory.
@@ -65,13 +67,17 @@
 // bitwise the same output; every path gives the same bits on every launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kTileK = 32;           // scalar kernel: KV columns per tile
 constexpr int kTile = 64;            // split-K tile: columns, and split unit
@@ -83,6 +89,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
@@ -90,6 +97,9 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half_rn(x);
 }
 
 // Round an f32 value through the cache dtype (q is cast to it on load).
@@ -340,6 +350,19 @@ template <> struct Chunk<bf16> {
     }
   }
 };
+template <> struct Chunk<f16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ void unpack(const uint4& u,
+                                                float (&f)[8]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
 template <> struct Chunk<float> {
   static constexpr int kN = 4;
   static __device__ __forceinline__ void unpack(const uint4& u,
@@ -556,8 +579,9 @@ __global__ void __launch_bounds__(128) decode_split_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// s > 1, bf16, d 64 / 128: mma.sync query tiles (flash_attention_sm90.cu's
-// forward, its PTX helpers copied so the two sources stay independent)
+// s > 1, bf16 or f16 (q and cache alike), d 64 / 128: mma.sync query
+// tiles (flash_attention_sm90.cu's forward, its PTX helpers copied so the
+// two sources stay independent)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -599,23 +623,42 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
-// d += a . b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The 16-bit type's tensor-core op: d += a . b, a 16x16 (row), b 16x8
+// (col), d 16x8 f32 (f16 has the same m16n8k16 shape as bf16), and two
+// f32 rounded to the type, lo in the low half (the fragments' k order).
+template <typename T> struct Mma;
+template <> struct Mma<bf16> {
+  static __device__ __forceinline__ void run(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+};
+template <> struct Mma<f16> {
+  static __device__ __forceinline__ void run(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+};
 
-// two f32 rounded to bf16, lo in the low half (the fragments' k order)
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// [rows][D] bf16 tiles, the 16-byte chunk c of row r stored at chunk
+// [rows][D] 16-bit tiles, the 16-byte chunk c of row r stored at chunk
 // c ^ (r & 7): the 8 rows one ldmatrix matrix reads hit all 32 banks
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
@@ -623,24 +666,24 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // A operand: the 16 x 16 block at rows r0, k-chunks kc, kc + 1
-template <int D>
-__device__ __forceinline__ uint32_t a_addr(const bf16* t, int r0, int kc,
+template <int D, typename T>
+__device__ __forceinline__ uint32_t a_addr(const T* t, int r0, int kc,
                                            int lane) {
   return smem_addr(t + swz<D>(r0 + (lane & 15), kc + (lane >> 4)));
 }
 
 // B operands of two n8 blocks (n0, n0 + 8) over k-chunks kc, kc + 1 from a
 // [n][k] tile
-template <int D>
-__device__ __forceinline__ uint32_t bn_addr(const bf16* t, int n0, int kc,
+template <int D, typename T>
+__device__ __forceinline__ uint32_t bn_addr(const T* t, int n0, int kc,
                                             int lane) {
   const int m = lane >> 3;
   return smem_addr(t + swz<D>(n0 + ((m >> 1) << 3) + (lane & 7), kc + (m & 1)));
 }
 
 // the same from a [k][n] tile through ldmatrix.trans
-template <int D>
-__device__ __forceinline__ uint32_t bt_addr(const bf16* t, int k0, int nc,
+template <int D, typename T>
+__device__ __forceinline__ uint32_t bt_addr(const T* t, int k0, int nc,
                                             int lane) {
   const int m = lane >> 3;
   return smem_addr(t + swz<D>(k0 + ((m & 1) << 3) + (lane & 7), nc + (m >> 1)));
@@ -648,14 +691,14 @@ __device__ __forceinline__ uint32_t bt_addr(const bf16* t, int k0, int nc,
 
 constexpr int kStages = 3;   // the mma kernel's K/V ring
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(128) decode_mma_kernel(const Args a) {
   constexpr int BM = 64, BN = kTile, NT = 128, ST = kStages;
   constexpr int KD = D / 16, NB = BN / 8, DB = D / 8, CPR = D / 8;
   extern __shared__ __align__(128) unsigned char tiles[];
-  bf16* q_s = reinterpret_cast<bf16*>(tiles);  // [BM][D]
-  bf16* k_s = q_s + BM * D;                    // ST x [BN][D]
-  bf16* v_s = k_s + ST * BN * D;               // ST x [BN][D]
+  T* q_s = reinterpret_cast<T*>(tiles);        // [BM][D]
+  T* k_s = q_s + BM * D;                       // ST x [BN][D]
+  T* v_s = k_s + ST * BN * D;                  // ST x [BN][D]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_qt = (a.s + BM - 1) / BM;
   const int per = a.b * a.h * a.splits;
@@ -672,9 +715,9 @@ __global__ void __launch_bounds__(128) decode_mma_kernel(const Args a) {
   const int c_end = min(c_begin + a.span, capacity(a));
   const int kt0 = c_begin / BN;
   const int kt_end = last_q < c_begin ? kt0 : min(last_q, c_end - 1) / BN + 1;
-  const bf16* q = static_cast<const bf16*>(a.q) + (int64_t)bh * a.s * D;
-  const bf16* kg = static_cast<const bf16*>(a.k);
-  const bf16* vg = static_cast<const bf16*>(a.v);
+  const T* q = static_cast<const T*>(a.q) + (int64_t)bh * a.s * D;
+  const T* kg = static_cast<const T*>(a.k);
+  const T* vg = static_cast<const T*>(a.v);
   const int* bt_row = paged ? a.block_tables + (int64_t)ib * a.nb : nullptr;
 
   // the query tile (zeros past s)
@@ -756,8 +799,8 @@ __global__ void __launch_bounds__(128) decode_mma_kernel(const Args a) {
       if (kt + 3 < kt_end) fetch(kt + 3);
     }
     cp_async_commit();
-    const bf16* ks = k_s + st * BN * D;
-    const bf16* vs = v_s + st * BN * D;
+    const T* ks = k_s + st * BN * D;
+    const T* vs = v_s + st * BN * D;
 
     // S = Q . K^T
     float s[NB][4];
@@ -769,8 +812,8 @@ __global__ void __launch_bounds__(128) decode_mma_kernel(const Args a) {
       for (int p = 0; p < NB / 2; ++p) {
         uint32_t b[4];
         ldsm_x4(b, bn_addr<D>(ks, p * 16, 2 * kk, lane));
-        mma(s[2 * p], qf[kk], b[0], b[1]);
-        mma(s[2 * p + 1], qf[kk], b[2], b[3]);
+        Mma<T>::run(s[2 * p], qf[kk], b[0], b[1]);
+        Mma<T>::run(s[2 * p + 1], qf[kk], b[2], b[3]);
       }
     }
 
@@ -819,19 +862,20 @@ __global__ void __launch_bounds__(128) decode_mma_kernel(const Args a) {
       o[j][3] *= al1;
     }
 
-    // O += P . V, P rounded to bf16 in the A fragment
+    // O += P . V, P rounded to the 16-bit type in the A fragment
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                              pack(s[2 * kk][2], s[2 * kk][3]),
-                              pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pa[4] = {
+          Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
+          Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
+          Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int p = 0; p < D / 16; ++p) {
         uint32_t b[4];
         ldsm_x4_t(b, bt_addr<D>(vs, kk * 16, 2 * p, lane));
-        mma(o[2 * p], pa, b[0], b[1]);
-        mma(o[2 * p + 1], pa, b[2], b[3]);
+        Mma<T>::run(o[2 * p], pa, b[0], b[1]);
+        Mma<T>::run(o[2 * p + 1], pa, b[2], b[3]);
       }
     }
   }
@@ -875,13 +919,13 @@ __global__ void __launch_bounds__(128) decode_mma_kernel(const Args a) {
 #pragma unroll
   for (int j = 0; j < DB; ++j) {
     const int e = (lane & 3) * 2;
-    *reinterpret_cast<__nv_bfloat162*>(q_s + swz<D>(r_lo, j) + e) =
-        __floats2bfloat162_rn(o[j][0] / d0, o[j][1] / d0);
-    *reinterpret_cast<__nv_bfloat162*>(q_s + swz<D>(r_lo + 8, j) + e) =
-        __floats2bfloat162_rn(o[j][2] / d1, o[j][3] / d1);
+    *reinterpret_cast<uint32_t*>(q_s + swz<D>(r_lo, j) + e) =
+        Mma<T>::pack(o[j][0] / d0, o[j][1] / d0);
+    *reinterpret_cast<uint32_t*>(q_s + swz<D>(r_lo + 8, j) + e) =
+        Mma<T>::pack(o[j][2] / d1, o[j][3] / d1);
   }
   __syncwarp();
-  bf16* out = static_cast<bf16*>(a.out) + (int64_t)bh * a.s * D;
+  T* out = static_cast<T*>(a.out) + (int64_t)bh * a.s * D;
   for (int u = lane; u < 16 * DB; u += 32) {
     const int r = warp * 16 + u / DB, c = u % DB;
     if (q0 + r < a.s)
@@ -943,10 +987,10 @@ int launch_split(const Args& a, cudaStream_t st) {
   return last_error();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_mma(const Args& a, cudaStream_t st) {
-  auto kernel = decode_mma_kernel<D>;
-  const size_t smem = (size_t)(64 + 2 * kStages * kTile) * D * sizeof(bf16);
+  auto kernel = decode_mma_kernel<T, D>;
+  const size_t smem = (size_t)(64 + 2 * kStages * kTile) * D * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -968,9 +1012,11 @@ int launch_typed(const Args& a, int path, cudaStream_t st) {
   if (path == kScalar) return launch_scalar<TQ, TC>(a, st);
   if (path == kSplit) {
     err = launch_split<TQ, TC>(a, st);
+  } else if constexpr (std::is_same<TQ, TC>::value && sizeof(TC) == 2) {
+    if (a.d == 64) err = launch_mma<TC, 64>(a, st);
+    else err = launch_mma<TC, 128>(a, st);
   } else {
-    if (a.d == 64) err = launch_mma<64>(a, st);
-    else err = launch_mma<128>(a, st);
+    return (int)cudaErrorInvalidValue;   // path_ok admits no such call
   }
   if (err != 0 || a.splits == 1) return err;
   return launch_combine<TQ>(a, st);
@@ -980,8 +1026,11 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// dtype codes of the C entries: 0 f32, 1 bf16, 2 f16
+enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
 // is the path legal for these arguments? (the wrapper chooses it)
-bool path_ok(const Args& a, int path, int q_bf16, int cache_bf16) {
+bool path_ok(const Args& a, int path, int q_dt, int cache_dt) {
   if (path == kScalar) return a.splits == 1;
   const int cols = capacity(a);
   if (a.splits < 1 || a.span < kTile || a.span % kTile != 0 ||
@@ -990,41 +1039,49 @@ bool path_ok(const Args& a, int path, int q_bf16, int cache_bf16) {
       (a.splits > 1 && a.part == nullptr) || !aligned16(a.k) ||
       !aligned16(a.v))
     return false;
-  const int el = cache_bf16 ? 2 : 4;
+  const int el = cache_dt == kF32 ? 4 : 2;
   if (path == kSplit) return a.s == 1 && (a.d * el) % 16 == 0;
-  return path == kMma && q_bf16 && cache_bf16 && (a.d == 64 || a.d == 128) &&
-         aligned16(a.q) && aligned16(a.out);
+  return path == kMma && q_dt == cache_dt && cache_dt != kF32 &&
+         (a.d == 64 || a.d == 128) && aligned16(a.q) && aligned16(a.out);
 }
 
-int launch(Args& a, int q_bf16, int cache_bf16, int path, void* stream) {
+template <typename TQ>
+int launch_cache(Args& a, int cache_dt, int path, cudaStream_t st) {
+  if (cache_dt == kBF16) return launch_typed<TQ, bf16>(a, path, st);
+  if (cache_dt == kF16) return launch_typed<TQ, f16>(a, path, st);
+  return launch_typed<TQ, float>(a, path, st);
+}
+
+int launch(Args& a, int q_dt, int cache_dt, int path, void* stream) {
   if (a.d < 1 || a.d > kMaxD || a.s < 1 || a.b < 1 || a.h < 1 ||
-      a.len < 1 || !path_ok(a, path, q_bf16, cache_bf16))
+      a.len < 1 || q_dt < kF32 || q_dt > kF16 || cache_dt < kF32 ||
+      cache_dt > kF16 || !path_ok(a, path, q_dt, cache_dt))
     return (int)cudaErrorInvalidValue;
   set_fast_div(a);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && cache_bf16) return launch_typed<bf16, bf16>(a, path, st);
-  if (q_bf16) return launch_typed<bf16, float>(a, path, st);
-  if (cache_bf16) return launch_typed<float, bf16>(a, path, st);
-  return launch_typed<float, float>(a, path, st);
+  if (q_dt == kBF16) return launch_cache<bf16>(a, cache_dt, path, st);
+  if (q_dt == kF16) return launch_cache<f16>(a, cache_dt, path, st);
+  return launch_cache<float>(a, cache_dt, path, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Contiguous cache [b, h, L, d]. path: 0 scalar, 1 split-K decode (s = 1),
-// 2 mma chunk; splits x span columns cover [0, L); part: f32 scratch of
+// Contiguous cache [b, h, L, d]. q_dtype / cache_dtype: 0 f32, 1 bf16,
+// 2 f16. path: 0 scalar, 1 split-K decode (s = 1), 2 mma chunk; splits x
+// span columns cover [0, L); part: f32 scratch of
 // splits * b * h * s * (d + 2) when splits > 1. Returns the cudaError_t of
 // the launches.
 int decode_attention_contiguous(const void* q, const void* k, const void* v,
                                 void* out, const int* fills,
                                 int fill_scalar, int b, int h, int s, int d,
-                                int L, float scale, int q_bf16,
-                                int cache_bf16, int path, int splits,
+                                int L, float scale, int q_dtype,
+                                int cache_dtype, int path, int splits,
                                 int span, float* part, void* stream) {
   Args a{q, k, v, out, fills, fill_scalar, nullptr, b, h, s, d, L, 0,
          scale, splits, span, part, 0, 0};
-  return launch(a, q_bf16, cache_bf16, path, stream);
+  return launch(a, q_dtype, cache_dtype, path, stream);
 }
 
 // Paged arena [n_blocks + 1, h, bs, d] through block tables [b, nb]; the
@@ -1033,13 +1090,13 @@ int decode_attention_contiguous(const void* q, const void* k, const void* v,
 int decode_attention_paged(const void* q, const void* k, const void* v,
                            void* out, const int* fills,
                            const int* block_tables, int b, int h, int s,
-                           int d, int bs, int nb, float scale, int q_bf16,
-                           int cache_bf16, int path, int splits, int span,
+                           int d, int bs, int nb, float scale, int q_dtype,
+                           int cache_dtype, int path, int splits, int span,
                            float* part, void* stream) {
   if (block_tables == nullptr || nb < 1) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, out, fills, 0, block_tables, b, h, s, d, bs, nb, scale,
          splits, span, part, 0, 0};
-  return launch(a, q_bf16, cache_bf16, path, stream);
+  return launch(a, q_dtype, cache_dtype, path, stream);
 }
 
 }  // extern "C"

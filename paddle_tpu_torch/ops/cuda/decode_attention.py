@@ -20,12 +20,16 @@ never gives way to another kernel):
 
 - s = 1 with ``d * sizeof(cache)`` a multiple of 16 bytes and a 16-byte
   aligned cache: the split-K decode kernel (16-byte vector loads);
-- s > 1 in bf16 (q and cache) at head dim 64 or 128, 16-byte aligned: the
-  mma.sync chunk kernel;
+- s > 1 with q and cache both bf16 or both f16, at head dim 64 or 128,
+  16-byte aligned: the mma.sync chunk kernel;
 - everything else: the scalar kernel.
 
-The first two are the Hopper kernels, counted also in ``.launches_sm90``
-(the chunk kernel's share in ``.launches_mma``). Both split the cache's
+q and the cache may each be f32, bf16 or f16, as in the JAX kernels: q
+is cast to the cache's dtype on load, and the output comes back in q's
+dtype. The first two are the Hopper kernels, counted also in
+``.launches_sm90`` (the chunk kernel's share in ``.launches_mma``); a
+launch with q or the cache in f16 counts also in ``.launches_f16``.
+Both split the cache's
 capacity columns (L, or nb * bs) into ``_kv_splits`` spans, planned from
 the shapes alone (never from the fills, which live on the card), and a
 combine kernel merges the splits' f32 partials in order.
@@ -42,12 +46,14 @@ __all__ = ["decode_attention", "paged_decode_attention",
 
 NEG_INF = -1e9   # finite mask fill, as the reference
 _MAX_D = 256
-_SUPPORTED = (torch.float32, torch.bfloat16)
+_SUPPORTED = (torch.float32, torch.bfloat16, torch.float16)
+# the C entries' dtype codes (csrc: Dtype)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TILE = 64       # columns of a split-K tile: a split is whole tiles
 _SCALAR, _SPLIT, _MMA = 0, 1, 2   # kernel paths (csrc: Path)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# scale, q_bf16, cache_bf16, path, splits, span, part, stream
+# scale, q_dtype, cache_dtype, path, splits, span, part, stream
 _TAIL = [_F, _I, _I, _I, _I, _I, _P, _P]
 _SIGS = {
     "decode_attention_contiguous": [_P] * 5 + [_I] * 6 + _TAIL,
@@ -81,16 +87,16 @@ def _kv_splits(b, h, q_tiles, cols, n_sm):
 
 def _path(q, k, v):
     """Which kernel takes a call: the split-K decode kernel for s = 1 with
-    16-byte rows and a 16-byte aligned cache, the mma chunk kernel for bf16
-    chunks at d 64 / 128 with 16-byte aligned q and cache, else the scalar
-    kernel."""
+    16-byte rows and a 16-byte aligned cache, the mma chunk kernel for
+    bf16 or f16 chunks (q and cache alike) at d 64 / 128 with 16-byte
+    aligned q and cache, else the scalar kernel."""
     s, d = q.shape[2], q.shape[3]
     aligned = all(t.data_ptr() % 16 == 0 for t in (k, v))
     if s == 1:
         return _SPLIT if aligned and d * k.element_size() % 16 == 0 \
             else _SCALAR
-    if q.dtype == k.dtype == torch.bfloat16 and d in (64, 128) and aligned \
-            and q.data_ptr() % 16 == 0:
+    if q.dtype == k.dtype and q.dtype != torch.float32 and \
+            d in (64, 128) and aligned and q.data_ptr() % 16 == 0:
         return _MMA
     return _SCALAR
 
@@ -209,10 +215,10 @@ def _check_status(name, status):
                            f"{status}")
 
 
-def _launch(wrapper, entry, q, k, v, cols, head_args, tail_args):
+def _launch(wrapper, entry, q, k, v, cols, head_args, scale):
     """Plan the path and the splits, launch, count. ``head_args`` are the
-    C arguments between ``out`` and ``scale``, ``tail_args`` ``scale`` and
-    the two dtype flags; ``cols`` the cache's capacity in columns."""
+    C arguments between ``out`` and ``scale``; ``cols`` the cache's
+    capacity in columns."""
     b, h, s, d = q.shape
     path, splits, span = _plan(q, k, v, cols, _n_sm(q.device.index))
     out = torch.empty_like(q)
@@ -221,13 +227,15 @@ def _launch(wrapper, entry, q, k, v, cols, head_args, tail_args):
     with torch.cuda.device(q.device):
         status = _fn(entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *head_args, *tail_args, path, splits, span,
+            *head_args, scale, _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[k.dtype], path, splits, span,
             None if part is None else part.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     _check_status(wrapper.__name__, status)
     wrapper.launches += 1
     wrapper.launches_sm90 += path != _SCALAR
     wrapper.launches_mma += path == _MMA
+    wrapper.launches_f16 += torch.float16 in (q.dtype, k.dtype)
     return out
 
 
@@ -261,8 +269,7 @@ def decode_attention(q, kc, vc, index, scale=None):
         decode_attention, "decode_attention_contiguous", q, kc, vc, L,
         (None if fills is None else fills.data_ptr(), fill_scalar,
          b, h, s, d, L),
-        (scale, int(q.dtype == torch.bfloat16),
-         int(kc.dtype == torch.bfloat16)))
+        scale)
 
 
 def paged_decode_attention(q, k_arena, v_arena, block_tables, lengths,
@@ -298,9 +305,8 @@ def paged_decode_attention(q, k_arena, v_arena, block_tables, lengths,
         paged_decode_attention, "decode_attention_paged", q, k_arena,
         v_arena, nb * bs,
         (fills.data_ptr(), block_tables.data_ptr(), b, h, s, d, bs, nb),
-        (scale, int(q.dtype == torch.bfloat16),
-         int(k_arena.dtype == torch.bfloat16)))
+        scale)
 
 
 for _w in (decode_attention, paged_decode_attention):
-    _w.launches = _w.launches_sm90 = _w.launches_mma = 0
+    _w.launches = _w.launches_sm90 = _w.launches_mma = _w.launches_f16 = 0

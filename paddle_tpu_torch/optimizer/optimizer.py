@@ -56,6 +56,11 @@ __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 _F32 = torch.float32
+# torch's own accessors: a parameter may be the port's Tensor subclass,
+# whose ``.grad`` and ``detach`` are Python; the step needs plain tensors
+_grad_of = torch.Tensor.grad.__get__
+_set_grad = torch.Tensor.grad.__set__
+_detach = torch.Tensor.detach
 
 
 def _named_parameters(parameters):
@@ -249,7 +254,7 @@ class Optimizer:
     def _collect(self):
         """The trainable parameters that have a grad, ``{name: param}`` in
         order (JAX's ``_collect``)."""
-        return {k: p for k, p in self._params() if p.grad is not None}
+        return {k: p for k, p in self._params() if _grad_of(p) is not None}
 
     def _param_meta(self, named):
         default = self._coupled_decay_default()
@@ -269,8 +274,8 @@ class Optimizer:
         named = self._collect()
         if not named:
             return
-        params = {k: p.detach() for k, p in named.items()}
-        grads = {k: p.grad for k, p in named.items()}
+        params = {k: _detach(p) for k, p in named.items()}
+        grads = {k: _grad_of(p) for k, p in named.items()}
         self._ensure_slots(params)
         self._step_count += 1
         new_params, new_slots = self.apply_gradients_pure(
@@ -283,7 +288,7 @@ class Optimizer:
     def clear_grad(self, set_to_zero=False):
         if self._named is not None:
             for _, p in self._named:
-                p.grad = None
+                _set_grad(p, None)
 
     clear_gradients = clear_grad
 

@@ -15,10 +15,12 @@ from dataclasses import dataclass
 
 import torch
 
-from ...device import resolve_device
+from ... import ops
+from ...device import device_scope
 from ...nn import functional as F
 from ...nn.layer import (CrossEntropyLoss, Dropout, Embedding, LayerNorm,
                          Linear, TransformerEncoder, TransformerEncoderLayer)
+from ...nn.layer.layers import Layer
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertPooler", "Bert",
            "BertPretrainingCriterion"]
@@ -56,21 +58,24 @@ class BertConfig:
 
 def _bert_init(root, seed, std=0.02):
     """Standard BERT init: N(0, std) truncated at two std for matrices and
-    tables, unit LayerNorm scale, zero biases; drawn from a CPU
-    ``torch.Generator`` seeded with ``seed``, in parameter order."""
+    tables, unit LayerNorm scale, zero biases; drawn on the CPU from a
+    ``torch.Generator`` seeded with ``seed``, in parameter order, and
+    copied into the parameters where they lie."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in root.named_parameters():
+            v = torch.empty(p.shape)
             if p.ndim >= 2:
-                torch.nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                torch.nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std,
                                             generator=g)
             elif "weight" in name:            # LayerNorm scale
-                p.fill_(1.0)
+                v.fill_(1.0)
             else:
-                p.zero_()
+                v.zero_()
+            torch.Tensor.copy_(p, v)
 
 
-class BertEmbeddings(torch.nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size)
@@ -84,52 +89,55 @@ class BertEmbeddings(torch.nn.Module):
 
     def forward(self, input_ids, token_type_ids=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        emb = F.add(self.word_embeddings(input_ids),
-                    self.position_embeddings(pos))
+        emb = self.word_embeddings(input_ids)
+        emb = emb + self.position_embeddings(pos)
         if token_type_ids is not None:
-            emb = F.add(emb, self.token_type_embeddings(token_type_ids))
+            emb = emb + self.token_type_embeddings(token_type_ids)
         return self.dropout(self.layer_norm(emb))
 
 
-class BertPooler(torch.nn.Module):
+class BertPooler(Layer):
     def __init__(self, hidden_size):
         super().__init__()
         self.dense = Linear(hidden_size, hidden_size)
 
     def forward(self, hidden_states):
-        return torch.tanh(self.dense(hidden_states[:, 0]))
+        return ops.tanh(self.dense(hidden_states[:, 0]))
 
 
-class Bert(torch.nn.Module):
+class Bert(Layer):
     """Encoder + MLM head (tied to the word embeddings) + optional NSP
-    head, on ``device`` (default ``cuda``; pass ``"cpu"`` for the CPU),
-    weights drawn from ``seed``, parameters in ``dtype``."""
+    head, built on ``device`` (default: the current device, the card
+    unless ``set_device("cpu")``), weights drawn from ``seed``, parameters
+    in ``dtype``."""
 
     def __init__(self, config: BertConfig = None, with_mlm=True,
                  with_nsp=False, device=None, dtype=torch.float32, seed=0):
         super().__init__()
-        dev = resolve_device(device)
         cfg = config or BertConfig.bert_base()
         self.config = cfg
-        self.embeddings = BertEmbeddings(cfg)
-        enc_layer = TransformerEncoderLayer(
-            d_model=cfg.hidden_size, nhead=cfg.num_attention_heads,
-            dim_feedforward=cfg.intermediate_size,
-            dropout=cfg.hidden_dropout_prob, activation=cfg.hidden_act,
-            attn_dropout=cfg.attention_probs_dropout_prob)
-        self.encoder = TransformerEncoder(enc_layer, cfg.num_hidden_layers)
-        self.pooler = BertPooler(cfg.hidden_size)
-        self.with_mlm = with_mlm
-        self.with_nsp = with_nsp
-        if with_mlm:
-            self.mlm_transform = Linear(cfg.hidden_size, cfg.hidden_size)
-            self.mlm_norm = LayerNorm(cfg.hidden_size,
-                                      epsilon=cfg.layer_norm_eps)
-            self.mlm_bias = torch.nn.Parameter(torch.zeros(cfg.vocab_size))
-        if with_nsp:
-            self.nsp_head = Linear(cfg.hidden_size, 2)
+        with device_scope(device):
+            self.embeddings = BertEmbeddings(cfg)
+            enc_layer = TransformerEncoderLayer(
+                d_model=cfg.hidden_size, nhead=cfg.num_attention_heads,
+                dim_feedforward=cfg.intermediate_size,
+                dropout=cfg.hidden_dropout_prob, activation=cfg.hidden_act,
+                attn_dropout=cfg.attention_probs_dropout_prob)
+            self.encoder = TransformerEncoder(enc_layer,
+                                              cfg.num_hidden_layers)
+            self.pooler = BertPooler(cfg.hidden_size)
+            self.with_mlm = with_mlm
+            self.with_nsp = with_nsp
+            if with_mlm:
+                self.mlm_transform = Linear(cfg.hidden_size, cfg.hidden_size)
+                self.mlm_norm = LayerNorm(cfg.hidden_size,
+                                          epsilon=cfg.layer_norm_eps)
+                self.mlm_bias = self.create_parameter([cfg.vocab_size],
+                                                      is_bias=True)
+            if with_nsp:
+                self.nsp_head = Linear(cfg.hidden_size, 2)
         _bert_init(self, seed)
-        self.to(device=dev, dtype=dtype)
+        self.to(dtype=dtype)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 masked_lm_labels=None):
@@ -138,15 +146,12 @@ class Bert(torch.nn.Module):
         if attention_mask is not None:
             # [b, s] 1/0 -> additive [b, 1, 1, s], the JAX model's ops (under
             # f16 O2 they run in f16, where -1e9 is -inf)
-            (m,) = F.amp_op("cast", attention_mask)
-            (m,) = F.amp_op("unsqueeze", m.to(torch.float32))
-            (m,) = F.amp_op("subtract", m[:, None, None, :])
-            (m,) = F.amp_op("multiply", 1.0 - m)
-            mask = m * -1e9
+            m = ops.unsqueeze(ops.cast(attention_mask, "float32"), [1, 2])
+            mask = (1.0 - m) * -1e9
         h = self.encoder(x, src_mask=mask)
         outputs = []
         if self.with_mlm:
-            t = self.mlm_norm(F.gelu(self.mlm_transform(h)))
+            t = self.mlm_norm(ops.gelu(self.mlm_transform(h)))
             word = self.embeddings.word_embeddings.weight
             if masked_lm_labels is not None:
                 if self.with_nsp:
@@ -158,8 +163,8 @@ class Bert(torch.nn.Module):
                 return F.fused_linear_cross_entropy(
                     t, word, self.mlm_bias, masked_lm_labels,
                     ignore_index=-100)
-            t, word = F.amp_op("matmul", t, word)
-            outputs.append(F.add(t @ word.T, self.mlm_bias))
+            outputs.append(ops.matmul(t, word, transpose_y=True)
+                           + self.mlm_bias)
         if self.with_nsp:
             outputs.append(self.nsp_head(self.pooler(h)))
         if not outputs:
@@ -170,7 +175,7 @@ class Bert(torch.nn.Module):
         return sum(p.numel() for p in self.parameters())
 
 
-class BertPretrainingCriterion(torch.nn.Module):
+class BertPretrainingCriterion(Layer):
     """MLM loss over [b, s, vocab] logits with ignore_index=-100."""
 
     def __init__(self, vocab_size):
@@ -180,5 +185,5 @@ class BertPretrainingCriterion(torch.nn.Module):
 
     def forward(self, prediction_scores, masked_lm_labels):
         b, s, v = prediction_scores.shape
-        return self.ce(prediction_scores.reshape(b * s, v),
-                       masked_lm_labels.reshape(b * s))
+        return self.ce(ops.reshape(prediction_scores, [b * s, v]),
+                       ops.reshape(masked_lm_labels, [b * s]))

@@ -17,12 +17,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ... import ops
 from ...core.rng import sample_tokens
-from ...device import resolve_device
+from ...device import device_scope
 from ...nn import functional as F
 from ...nn.kv_pool import PagedKVCache, write_slots
 from ...nn.layer import Dropout, Embedding, LayerNorm, Linear
-from ...nn.layer import MultiHeadAttention
+from ...nn.layer import LayerList, MultiHeadAttention
+from ...nn.layer.layers import Layer
 from .bert import _bert_init
 
 __all__ = ["GPTConfig", "GPTBlock", "GPT"]
@@ -44,7 +46,7 @@ class GPTConfig:
                          num_heads=2, intermediate_size=128, max_seq_len=128)
 
 
-class GPTBlock(torch.nn.Module):
+class GPTBlock(Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.ln1 = LayerNorm(cfg.hidden_size)
@@ -61,30 +63,31 @@ class GPTBlock(torch.nn.Module):
             a, cache = self.attn(h, cache=cache)
             x = x + a
         else:
-            x = F.add(x, self.attn(h, is_causal=True))
+            x = x + self.attn(h, is_causal=True)
         h = self.ln2(x)
-        x = F.add(x, self.drop(self.fc2(F.gelu(self.fc1(h)))))
+        x = x + self.drop(self.fc2(F.gelu(self.fc1(h))))
         return x if cache is None else (x, cache)
 
 
-class GPT(torch.nn.Module):
-    """GPT on ``device`` (default ``cuda``; pass ``"cpu"`` for the CPU),
-    weights drawn from ``seed``, parameters in ``dtype``."""
+class GPT(Layer):
+    """GPT built on ``device`` (default: the current device, the card
+    unless ``set_device("cpu")``), weights drawn from ``seed``, parameters
+    in ``dtype``."""
 
     def __init__(self, config: GPTConfig = None, device=None,
                  dtype=torch.float32, seed=0):
         super().__init__()
-        dev = resolve_device(device)
         cfg = config or GPTConfig()
         self.config = cfg
-        self.wte = Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size)
-        self.drop = Dropout(cfg.dropout)
-        self.blocks = torch.nn.ModuleList([GPTBlock(cfg)
-                                           for _ in range(cfg.num_layers)])
-        self.ln_f = LayerNorm(cfg.hidden_size)
+        with device_scope(device):
+            self.wte = Embedding(cfg.vocab_size, cfg.hidden_size)
+            self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size)
+            self.drop = Dropout(cfg.dropout)
+            self.blocks = LayerList([GPTBlock(cfg)
+                                     for _ in range(cfg.num_layers)])
+            self.ln_f = LayerNorm(cfg.hidden_size)
         _bert_init(self, seed)
-        self.to(device=dev, dtype=dtype)
+        self.to(dtype=dtype)
 
     @property
     def device(self):
@@ -96,8 +99,7 @@ class GPT(torch.nn.Module):
 
     def _logits(self, h):
         """Weight-tied LM head."""
-        h, w = F.amp_op("matmul", h, self.wte.weight)
-        return h @ w.T
+        return ops.matmul(h, self.wte.weight, transpose_y=True)
 
     def forward(self, input_ids, labels=None):
         """Logits [b, s, V] of every position (causal attention); with
@@ -105,7 +107,7 @@ class GPT(torch.nn.Module):
         fused, weight-tied CE head instead (no [b * s, V] logits)."""
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)
-        x = self.drop(F.add(self.wte(input_ids), self.wpe(pos)))
+        x = self.drop(self.wte(input_ids) + self.wpe(pos))
         for blk in self.blocks:
             x = blk(x)
         x = self.ln_f(x)

@@ -260,7 +260,7 @@ def test_autocast_gives_f32_leaves_f32_grads():
     op in f16 gets an f32 gradient (as tests/test_amp.py:59 holds for the
     JAX package)."""
     from paddle_tpu_torch.nn import functional as F
-    w = torch.randn(4, 3, requires_grad=True)
+    w = torch.randn(3, 4, requires_grad=True)       # [in, out]
     x = torch.randn(2, 3)
     with tamp.auto_cast(level="O1", dtype="float16"):
         y = F.linear(x, w)
@@ -330,13 +330,6 @@ def test_o2_f16_training_step_matches_jax(kernels_everywhere):
     jparams = list(jnet.parameters())
     names = list(jnet.functional_state()[0])
     tparams = dict(tnet.named_parameters())
-    # the port's Linear weights are the JAX ones transposed
-    linear = {f"{n}.weight" for n, m in tnet.named_modules()
-              if isinstance(m, torch.nn.Linear)}
-
-    def jax_layout(name, arr):
-        return arr.T if name in linear else arr
-
     jsched, jo, jsc = _f16_o2_setup(jopt, jamp, jnet, jparams)
     tsched, to, tsc = _f16_o2_setup(topt, tamp, tnet,
                                     list(tnet.named_parameters()))
@@ -361,7 +354,7 @@ def test_o2_f16_training_step_matches_jax(kernels_everywhere):
                 assert tp.grad is None, name
                 continue
             jgr = np.asarray(jp.grad._value).astype(np.float32)
-            tgr = jax_layout(name, tp.grad.float().numpy())
+            tgr = tp.grad.float().numpy()
             scale = max(float(np.abs(jgr).max()), 1e-30)
             assert np.abs(tgr - jgr).max() <= F16_STEP_TOL["grad"] * scale, \
                 name
@@ -380,13 +373,13 @@ def test_o2_f16_training_step_matches_jax(kernels_everywhere):
     outliers = total = 0
     for name, js in jslots.items():
         want = np.asarray(js["master"])
-        got = jax_layout(name, to._slots[name]["master"].numpy())
+        got = to._slots[name]["master"].numpy()
         diff = np.abs(got - want)
         outliers += int((diff > F16_STEP_TOL["master"]).sum())
         total += diff.size
         assert diff.max() <= 2 * lr_sum, name
         m_want = np.asarray(js["moment1"])
-        m_got = jax_layout(name, to._slots[name]["moment1"].numpy())
+        m_got = to._slots[name]["moment1"].numpy()
         assert np.abs(m_got - m_want).max() <= \
             F16_STEP_TOL["grad"] * np.abs(m_want).max(), name
         assert tparams[name].dtype == torch.float16

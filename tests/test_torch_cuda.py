@@ -1,8 +1,12 @@
 """paddle_tpu_torch on the card: the CUDA kernels against their plain
-versions (f16 too for the flash and CE kernels), the no-fallback rule,
+versions (f16 too), the no-fallback rule,
 tiny-GPT serving, tiny-BERT and tiny-GPT training through the kernels
-(an f16 O2 BERT step with GradScaler among them), and ``hapi.Model``'s
-step through them with forked DataLoader workers beside a live card.
+(an f16 O2 BERT step with GradScaler among them), ``hapi.Model``'s
+step through them with forked DataLoader workers beside a live card, and
+the Paddle surface (``import paddle_tpu_torch as paddle``): the default
+device, AMP's cast points, a PyLayer, a tiny BERT through the plain
+dygraph loop and a tiny f16 GPT generating through the f16 decode
+kernels.
 
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither jax nor paddle_tpu, so it also runs on a machine with
@@ -35,11 +39,13 @@ def card():
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2.5e-3)])
 def test_kernels_match_plain_versions(card, dtype, tol):
     """Both kernels against the f32 plain version on the same inputs, at
     a chunk longer than one query tile and ragged fills (0 and L - s).
-    bf16 tolerance: the output is rounded to bf16."""
+    bf16 and f16 tolerance: the output is rounded to the type (f16's an
+    eighth of bf16's)."""
     g = torch.Generator().manual_seed(0)
     b, h, s, d, L, bs = 2, 3, 37, 64, 160, 16
     q = torch.randn(b, h, s, d, generator=g).to(card, dtype)
@@ -721,3 +727,120 @@ def test_dataloader_workers_after_cuda_is_initialised(card):
     model.fit(ds, batch_size=2, epochs=1, num_workers=2, verbose=0,
               shuffle=False)
     assert model._optimizer._step_count == 4
+
+
+def test_f16_decode_runs_the_hopper_kernels_and_keeps_q_dtype(card):
+    """f16 chunks on the mma kernel and single tokens on the split-K one,
+    counted as f16 launches; q in f32 over an f16 cache gives an f32
+    output (q cast to the cache's type on load, as the JAX kernels)."""
+    g = torch.Generator().manual_seed(3)
+    kc = torch.randn(2, 4, 256, 64, generator=g).to(card, torch.float16)
+    vc = torch.randn(2, 4, 256, 64, generator=g).to(card, torch.float16)
+    kernels.reset_launch_counts()
+    for s in (1, 40):
+        q = torch.randn(2, 4, s, 64, generator=g).to(card, torch.float16)
+        out = decode_attention(q, kc, vc, 100)
+        ref = decode_attention_ref(q.float(), kc.float(), vc.float(), 100)
+        assert out.dtype == torch.float16
+        assert float((out.float() - ref).abs().max()) <= 2.5e-3
+    counts = kernels.launch_counts()
+    assert counts["decode_attention"] == counts["decode_attention.f16"] \
+        == counts["decode_attention.sm90"] == 2
+    assert counts["decode_attention.mma"] == 1
+    q32 = torch.randn(2, 4, 1, 64, generator=g).to(card)
+    out = decode_attention(q32, kc, vc, 100)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    ref = decode_attention_ref(q32.to(torch.float16).float(), kc.float(),
+                               vc.float(), 100)
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+def test_paddle_surface_on_the_card(card):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+    with tdevice.device_scope(card):
+        lin = paddle.nn.Linear(4, 4)
+        assert lin.weight.device.type == "cuda"
+        assert paddle.to_tensor([1.0]).device.type == "cuda"
+        assert paddle.zeros([2]).device.type == "cuda"
+        x, w = paddle.randn([8, 16]), paddle.randn([16, 4])
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            assert (x @ w).dtype == torch.bfloat16
+            assert (x + x).dtype == torch.float32
+
+        class Double(paddle.autograd.PyLayer):
+            @staticmethod
+            def forward(ctx, v):
+                return v * 1.0
+
+            @staticmethod
+            def backward(ctx, g):
+                return g * 2.0
+
+        v = paddle.to_tensor(np.ones(3, np.float32), stop_gradient=False)
+        Double.apply(v).sum().backward()
+        assert bool((v.grad == 2.0).all()) and isinstance(v.grad,
+                                                          paddle.Tensor)
+
+
+def test_tiny_bert_dygraph_loop_on_the_card(card):
+    """loss.backward(); opt.step(); opt.clear_grad() on a tiny BERT in
+    bf16 O2 with f32 masters: the loss falls, the CE kernels launch once
+    a step and the flash kernels once a layer (FLAGS_flash_min_seq 0)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.text.datasets import LMDataset
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    cfg = BertConfig.tiny()
+    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=32, n=8 * 4,
+                   mode="mlm", seed=0)
+    min_seq = flags.flag("FLAGS_flash_min_seq")
+    flags.set_flags({"FLAGS_flash_min_seq": 0})
+    try:
+        with tdevice.device_scope(card):
+            paddle.seed(0)
+            net = Bert(cfg)
+            opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                         parameters=net.parameters())
+            net, opt = paddle.amp.decorate(net, opt, level="O2",
+                                           dtype="bfloat16")
+            kernels.reset_launch_counts()
+            losses = []
+            for i in range(12):
+                j = i % 4
+                ids = paddle.to_tensor(ds.inputs[8 * j:8 * j + 8])
+                lab = paddle.to_tensor(ds.labels[8 * j:8 * j + 8])
+                loss = net(ids, masked_lm_labels=lab)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                losses.append(float(loss.detach()))
+    finally:
+        flags.set_flags({"FLAGS_flash_min_seq": min_seq})
+    counts = kernels.launch_counts()
+    assert np.isfinite(losses).all() and np.mean(losses[-3:]) < \
+        np.mean(losses[:3])
+    for k in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"):
+        assert counts[k] == 12
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[k] == 12 * cfg.num_hidden_layers
+
+
+def test_tiny_gpt_f16_generates_through_the_f16_decode_kernels(card):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    net = paddle.amp.decorate(GPT(GPTConfig.tiny(), device=card, seed=0),
+                              level="O2", dtype="float16")
+    net.eval()
+    ids = torch.randint(0, 1024, (2, 5), device=card)
+    kernels.reset_launch_counts()
+    out = net.generate(ids, max_new_tokens=6, temperature=0)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert out.shape == (2, 11)
+    assert counts["decode_attention"] == counts["decode_attention.f16"] > 0
+    with torch.no_grad():
+        full = net(out[:, :-1])
+    assert full.dtype == torch.float16 and bool(torch.isfinite(full).all())

@@ -179,8 +179,8 @@ def test_sm90_dispatch(dtype, d, aligned):
 
 def test_planted_fault_lines_occur_once():
     """Each of chip_smoke.py's planted faults names a line that occurs
-    exactly once in its kernel source, so ``--faults`` changes that line
-    and nothing else."""
+    exactly once in its source (a kernel source, or a module of the op
+    core), so ``--faults`` changes that line and nothing else."""
     import importlib.util
     import pathlib
     root = pathlib.Path(__file__).resolve().parents[1]
@@ -190,12 +190,15 @@ def test_planted_fault_lines_occur_once():
     spec.loader.exec_module(smoke)
     sources = set()
     for name, (source, old, new) in smoke.FAULTS.items():
-        text = (root / smoke.CSRC / source).read_text()
+        text = (root / smoke.fault_path(source)).read_text()
         assert text.count(old) == 1, name
         assert old != new and text.replace(old, new).count(new) >= 1, name
         sources.add(source)
     assert sources == {"flash_attention.cu", "flash_attention_sm90.cu",
-                       "fused_ce_sm90.cu", "decode_attention.cu"}
+                       "fused_ce_sm90.cu", "decode_attention.cu",
+                       "paddle_tpu_torch/ops/cuda/decode_attention.py",
+                       "paddle_tpu_torch/ops/_dispatch.py",
+                       "paddle_tpu_torch/core/tensor.py"}
 
 
 def test_cpu_wrappers_count_no_launch_of_either_variant():

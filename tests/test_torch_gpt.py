@@ -179,11 +179,12 @@ def test_bridge_transposes_linear_weights_only(nets):
     p = jax_params(jnet)
     sd = tnet.state_dict()
     np.testing.assert_array_equal(sd["wte.weight"].numpy(), p["wte.weight"])
+    # Linear weights keep the JAX layout [in, out]: nothing is transposed
     np.testing.assert_array_equal(sd["blocks.0.attn.qkv_proj.weight"]
                                   .numpy(),
-                                  p["blocks.0.attn.qkv_proj.weight"].T)
+                                  p["blocks.0.attn.qkv_proj.weight"])
     np.testing.assert_array_equal(sd["blocks.1.fc2.weight"].numpy(),
-                                  p["blocks.1.fc2.weight"].T)
+                                  p["blocks.1.fc2.weight"])
     np.testing.assert_array_equal(sd["blocks.1.ln2.weight"].numpy(),
                                   p["blocks.1.ln2.weight"])
 
@@ -243,11 +244,22 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
 
 
 def test_device_defaults_to_cuda_and_cpu_on_request():
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import device as tdevice
+
+    def made():
+        return (tp.nn.Linear(4, 4).weight, tp.nn.LayerNorm(4).weight,
+                tp.to_tensor([1.0]), tp.zeros([2]))
+
     assert resolve_device("cpu").type == "cpu"
     net = GPT(GPTConfig.tiny(), device="cpu")
     assert net.device.type == "cpu"
+    with tdevice.device_scope("cpu"):
+        assert {t.device.type for t in made()} == {"cpu"}
+        assert GPT(GPTConfig.tiny()).device.type == "cpu"
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
+        assert {t.device.type for t in made()} == {"cuda"}
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
@@ -255,3 +267,8 @@ def test_device_defaults_to_cuda_and_cpu_on_request():
         GPT(GPTConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GPT(GPTConfig.tiny(), device="cuda")
+    for make in (lambda: tp.nn.Linear(4, 4), lambda: tp.nn.LayerNorm(4),
+                 lambda: tp.to_tensor([1.0]), lambda: tp.zeros([2]),
+                 lambda: tp.set_device("gpu")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -84,6 +84,15 @@ def _one_thread():
 
 
 @pytest.fixture(autouse=True)
+def _cpu_device():
+    """Layers land on the current device, the card by default: the
+    networks of these tests are built on the CPU."""
+    from paddle_tpu_torch import device as tdevice
+    with tdevice.device_scope("cpu"):
+        yield
+
+
+@pytest.fixture(autouse=True)
 def _no_mesh():
     """A device mesh left by another test would turn JAX's step into a
     partitioned one."""
@@ -203,16 +212,10 @@ def fit_both(jm, tm, jdata, tdata, seed=5, **kw):
     return jr, tr
 
 
-def linear_names(tnet):
-    return {f"{n}.weight" for n, m in tnet.named_modules()
-            if isinstance(m, torch.nn.Linear)}
-
-
 def jax_layout(tnet):
-    """{name: f32 numpy in JAX's layout} of the port's parameters."""
-    lin = linear_names(tnet)
-    return {k: (p.detach().float().numpy().T if k in lin
-                else p.detach().float().numpy())
+    """{name: f32 numpy} of the port's parameters (JAX's layout: both
+    keep Linear's weight [in, out])."""
+    return {k: p.detach().float().numpy()
             for k, p in tnet.named_parameters()}
 
 
@@ -245,13 +248,11 @@ def check_params(jm, tm, dtype, lr_sum):
             np.testing.assert_allclose(got[k], want[k], rtol=0,
                                        atol=TOL[dtype]["param"], err_msg=k)
         return
-    lin = linear_names(tnet)
     tol = TOL[dtype]
     eps = 2.0 ** -8 if dtype == "bfloat16" else 2.0 ** -11
     outliers = total = 0
     for k, p in tnet.named_parameters():
         tmaster = tm._optimizer._slots[k]["master"].numpy()
-        tmaster = tmaster.T if k in lin else tmaster
         jmaster = np.asarray(jm._optimizer._slots[k]["master"])
         diff = np.abs(tmaster - jmaster)
         assert diff.max() <= 2 * lr_sum, k
@@ -370,11 +371,10 @@ def test_load_jax_checkpoint_of_a_jax_model_save(tmp_path):
     got = jax_layout(tm.network)
     for k, v in jm.network.functional_state()[0].items():
         assert np.array_equal(got[k], np.asarray(v)), k
-    lin = linear_names(tm.network)
     for k, sl in jm._optimizer._slots.items():
         for s, v in sl.items():
             t = tm._optimizer._slots[k][s].numpy()
-            assert np.array_equal(t.T if k in lin else t, np.asarray(v))
+            assert np.array_equal(t, np.asarray(v))
     assert tm._optimizer._step_count == jm._optimizer._step_count == 6
     assert tm._optimizer.get_lr() == pytest.approx(jm._optimizer.get_lr())
     jr, tr = recorder(jcb.Callback), recorder(tcb.Callback)
@@ -463,13 +463,10 @@ def _state(m, jax):
                  for k, sl in m._optimizer._slots.items()
                  for s, v in sl.items()}
         return params, slots
-    lin = linear_names(m.network)
-
-    def lay(k, t):
-        a = t.detach().float().numpy()
-        return a.T if k in lin and a.ndim == 2 else a
-    return ({k: lay(k, p) for k, p in m.network.named_parameters()},
-            {(k, s): lay(k, v) for k, sl in m._optimizer._slots.items()
+    def lay(t):
+        return t.detach().float().numpy()
+    return ({k: lay(p) for k, p in m.network.named_parameters()},
+            {(k, s): lay(v) for k, sl in m._optimizer._slots.items()
              for s, v in sl.items()})
 
 
