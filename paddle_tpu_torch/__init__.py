@@ -41,3 +41,4 @@ from .nn import ParamAttr  # noqa: F401,E402
 from .nn.layer.layers import Parameter  # noqa: F401,E402
 from .framework.io import load, save  # noqa: F401,E402
 from .hapi import InputSpec, Model  # noqa: F401,E402
+from ._legacy_api import *  # noqa: F401,F403,E402  the v1 top-level names

@@ -31,25 +31,35 @@ __all__ = ["load_jax_params", "load_jax_optimizer_state",
            "load_jax_checkpoint"]
 
 
-def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
-    """Copy ``params`` into ``module``'s parameters in place. Raises
-    KeyError on a missing or unexpected name and ValueError on a shape
-    mismatch."""
-    own = dict(module.named_parameters())
-    missing = sorted(set(own) - set(params))
-    unexpected = sorted(set(params) - set(own))
+def load_jax_params(module: torch.nn.Module, params,
+                    buffers=None) -> torch.nn.Module:
+    """Copy ``params`` into ``module``'s parameters in place, and, given
+    ``buffers`` (``functional_state()[1]``: BatchNorm's ``_mean`` /
+    ``_variance``, spectral_norm's ``weight_u`` / ``weight_v`` ...), those
+    into its buffers. Both are keyed by module path, which is unique where
+    the JAX package's ``Parameter.name``s repeat (the deep-copied layers
+    of its encoder and decoder stacks). Raises KeyError on a missing or
+    unexpected name and ValueError on a shape mismatch."""
+    _copy_named("parameter", dict(module.named_parameters()), params)
+    if buffers is not None:
+        _copy_named("buffer", dict(module.named_buffers()), buffers)
+    return module
+
+
+def _copy_named(what, own, values):
+    missing = sorted(set(own) - set(values))
+    unexpected = sorted(set(values) - set(own))
     if missing or unexpected:
-        raise KeyError(f"load_jax_params: missing {missing}, "
+        raise KeyError(f"load_jax_params: {what}s missing {missing}, "
                        f"unexpected {unexpected}")
     with torch.no_grad():
-        for name, p in own.items():
-            arr = _f32_array(params[name])
-            if tuple(arr.shape) != tuple(p.shape):
+        for name, t in own.items():
+            arr = _f32_array(values[name])
+            if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"load_jax_params: {name} has shape "
                                  f"{arr.shape}, the port wants "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr)))   # a writable copy
-    return module
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(arr)))   # a writable copy
 
 
 def _f32_array(value):

@@ -13,7 +13,8 @@ import torch
 
 __all__ = ["bool_", "uint8", "int8", "int16", "int32", "int64", "float16",
            "bfloat16", "float32", "float64", "complex64", "complex128",
-           "convert_dtype", "to_torch_dtype", "is_floating", "is_integer"]
+           "convert_dtype", "to_torch_dtype", "is_floating", "is_integer",
+           "as_float"]
 
 bool_ = torch.bool
 uint8 = torch.uint8
@@ -79,3 +80,14 @@ def is_floating(dtype) -> bool:
 
 def is_integer(dtype) -> bool:
     return convert_dtype(dtype) in INTEGER
+
+
+def as_float(x):
+    """``x`` itself when it is floating or complex, else ``x`` as float32:
+    where jnp promotes an integer or bool input to its default float (a
+    mean, a softmax, a heaviside), the port promotes to Paddle's default
+    float32 (the JAX package runs with x64 and gives float64; ROADMAP
+    Queue 3 D)."""
+    if x.is_floating_point() or x.is_complex():
+        return x
+    return x.to(torch.float32)

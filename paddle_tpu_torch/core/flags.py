@@ -89,6 +89,10 @@ define_flag("FLAGS_flash_min_seq", 128,
             "faster than the composite at every s it tried (128 to 4096, "
             "causal and not), so this is its smallest; below it the "
             "composite runs. 0 forces the kernels on whenever shapes allow")
+define_flag("FLAGS_use_decode_attention", True,
+            "route StaticKVCache attention outside training through the "
+            "contiguous decode kernel (ops/cuda/decode_attention.py); "
+            "off = the plain cache attention")
 define_flag("FLAGS_use_fused_ce", True,
             "route linear+cross-entropy loss heads through the fused CE "
             "kernels (ops/cuda/fused_ce.py); off = the plain composite "

@@ -40,6 +40,13 @@ always Paddle's. Known differences, each stated by a test in
 - ``__setitem__`` writes in place (torch) where the JAX package rebinds a
   new value; ``detach``, ``clone`` and ``.grad`` return ``Tensor``.
 
+float64: the JAX package runs with x64 on (``paddle_tpu/__init__.py``), so
+it returns float64 where the port returns Paddle's default float32, with
+the same values: an int tensor with a float scalar, int / int, ``sqrt`` /
+``exp`` and the other float functions of an int tensor, a float-argument
+``arange``, ``linspace``, ``logspace``, ``one_hot``, and ``increment`` of
+an int tensor (``test_known_difference_x64_floats_are_f32_in_the_port``).
+
 ``numpy()`` copies a CUDA tensor or one that needs a gradient to the host,
 as Paddle does (torch raises); bfloat16 comes back as float32, since numpy
 has no bfloat16 here.

@@ -17,7 +17,7 @@ import contextlib
 import torch
 
 __all__ = ["resolve_device", "set_device", "get_device", "device_scope",
-           "device_count", "is_compiled_with_cuda", "CPUPlace", "CUDAPlace"]
+           "get_all_devices", "device_count", "is_compiled_with_cuda", "CPUPlace", "CUDAPlace"]
 
 _current = None       # torch.device set by set_device; None = the card
 
@@ -111,6 +111,13 @@ def get_device() -> str:
     if dev.type == "cpu":
         return "cpu"
     return f"gpu:{dev.index if dev.index is not None else 0}"
+
+
+def get_all_devices():
+    """Paddle names of the devices: the cards (``"gpu:N"``), or
+    ``["cpu"]`` where there is none."""
+    n = torch.cuda.device_count()
+    return [f"gpu:{i}" for i in range(n)] if n else ["cpu"]
 
 
 def device_count() -> int:

@@ -1,7 +1,12 @@
 """Functional ops of the port (paddle_tpu/nn/functional): the op library's
-activations, norms, dropout and losses re-exported, plus the functions
-with layer-level semantics: ``linear``, ``embedding``, attention and the
-fused loss head.
+activations, norms, dropout and losses re-exported (with the v1 names
+whose ops are ported: ``bpr_loss``, ``pad2d`` ...), plus the functions
+with layer-level semantics: ``linear``, ``embedding``, ``bilinear``,
+``sequence_mask``, the channelwise and alpha dropouts (drawn from the
+port's generator), ``dice_loss``, ``soft_relu``,
+``add_position_encoding``, attention and the fused loss head. The names
+over the conv ops and the long-tail ops wait for ROADMAP Queue 1 items 5
+and 9.
 
 ``linear`` is the JAX package's two recorded ops, ``matmul`` then
 ``add``, whenever AMP is on (under O1 the gray bias add promotes the
@@ -52,8 +57,14 @@ from ..ops import (  # noqa: F401 - re-exported op families
     kl_div, margin_ranking_loss, hinge_embedding_loss, cosine_similarity,
     label_smooth, square_error_cost, log_loss, triplet_margin_loss,
     huber_loss)
+from ..ops import (  # noqa: F401 - op-backed names of the v1 surface
+    bpr_loss, data_norm, hinge_loss, l2_normalize, npair_loss, pad2d, pad3d,
+    pad_constant_like, rank_loss, shuffle_channel, sigmoid_focal_loss,
+    space_to_depth, teacher_student_sigmoid_loss, temporal_shift)
 from ..ops import embedding as _embedding_op
-from ..ops._dispatch import defop
+from ..core import rng as _rng
+from ..core.dtype import to_torch_dtype
+from ..ops._dispatch import defop, wrap
 from ..ops.cuda import gate_hit, gate_reject
 from ..ops.cuda.flash_attention import flash_attention, supported
 from ..ops.cuda.fused_ce import _label_hits, fused_ce
@@ -71,6 +82,99 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` at the ids ``x`` (Paddle's argument order: ids
     first). ``sparse`` is accepted; the gradient is dense."""
     return _embedding_op(weight, x, padding_idx=padding_idx, sparse=sparse)
+
+
+def bilinear(x1, x2, weight, bias=None):
+    """out[b, o] = x1[b] · weight[o] · x2[b] (+ bias[o])."""
+    out = ops.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64"):
+    """[..., maxlen] mask, 1 where the position is below the length;
+    ``maxlen`` None takes the longest length."""
+    m = int(lengths.max()) if maxlen is None else int(maxlen)
+    pos = torch.arange(m, device=lengths.device)
+    return wrap((pos < lengths[..., None]).to(to_torch_dtype(dtype)))
+
+
+def _keep_mask(shape, keep, device):
+    """Bernoulli(keep) draws of ``shape`` from the port's generator."""
+    return torch.rand(shape, generator=_rng.generator(device),
+                      device=device) < keep
+
+
+def alpha_dropout(x, p=0.5, training=True):
+    """SELU-preserving dropout: a dropped element becomes alpha' = -alpha *
+    scale of SELU, then every element takes the affine fix-up a * x + b
+    that keeps the mean and variance of SELU's fixed point."""
+    if not training or p == 0.0:
+        return x
+    alpha_p = -1.7580993408473766
+    keep = 1.0 - p
+    a = (keep + alpha_p ** 2 * keep * (1 - keep)) ** -0.5
+    b = -a * alpha_p * (1 - keep)
+    mask = _keep_mask(x.shape, keep, x.device)
+    out = a * torch.where(mask, x, torch.full_like(x, alpha_p)) + b
+    return wrap(out.to(x.dtype))
+
+
+def _dropout_nd(x, p, training, channels_first, n_spatial):
+    if not training or p == 0.0:
+        return x
+    shape = (x.shape[0], x.shape[1]) + (1,) * n_spatial if channels_first \
+        else (x.shape[0],) + (1,) * n_spatial + (x.shape[-1],)
+    keep = 1.0 - p
+    mask = _keep_mask(shape, keep, x.device)
+    return wrap((torch.where(mask, x, torch.zeros_like(x)) / keep)
+                .to(x.dtype))
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW"):
+    """Channelwise dropout: whole [H, W] feature maps dropped, the rest
+    scaled by 1 / (1 - p)."""
+    return _dropout_nd(x, p, training, data_format == "NCHW", 2)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW"):
+    """Channelwise dropout of whole [D, H, W] volumes."""
+    return _dropout_nd(x, p, training, data_format == "NCDHW", 3)
+
+
+def dice_loss(input, label, epsilon=1e-5):  # noqa: A002
+    """1 - 2|X ∩ Y| / (|X| + |Y|) over the class axis, averaged: input
+    [N, ..., C] probabilities, label ints ([N, ..., 1] or [N, ...])."""
+    lab = label.squeeze(-1) if label.shape[-1] == 1 else label
+    lab = ops.cast(ops.one_hot(lab, input.shape[-1]), input.dtype)
+    dims = list(range(1, input.ndim))
+    inter = ops.sum(input * lab, axis=dims)
+    union = ops.sum(input, axis=dims) + ops.sum(lab, axis=dims)
+    return ops.mean(1.0 - (2.0 * inter + epsilon) / (union + epsilon))
+
+
+def soft_relu(x, threshold=40.0):
+    """log(1 + exp(clip(x, -threshold, threshold)))."""
+    return ops.log1p(ops.exp(ops.clip(x, -threshold, threshold)))
+
+
+def add_position_encoding(x, alpha=1.0, beta=1.0):
+    """alpha * x + beta * the sinusoidal encoding (sines of the first half
+    of the channels, cosines of the second); x [B, T, D]."""
+    _, t, d = x.shape
+    half = d // 2
+    pos = torch.arange(t, dtype=torch.float32, device=x.device)[:, None]
+    div = torch.pow(10000.0, torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half)
+    ang = pos / div[None, :]
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
+    if pe.shape[1] < d:
+        pe = torch.nn.functional.pad(pe, (0, d - pe.shape[1]))
+    return wrap(alpha * x + beta * pe[None].to(x.dtype))
+
+
+def unfold_linear(*args, **kwargs):
+    """A placeholder of the JAX package's, which raises there too."""
+    raise NotImplementedError
 
 
 @defop

@@ -1,8 +1,8 @@
 from .layers import Layer, ParamAttr, Parameter  # noqa: F401
-from .container import (LayerDict, LayerList, ParameterList,  # noqa: F401
-                        Sequential)
-from .common import Dropout, Embedding, Linear  # noqa: F401
-from .loss import CrossEntropyLoss  # noqa: F401
-from .norm import LayerNorm  # noqa: F401
-from .transformer import (MultiHeadAttention, StaticKVCache,  # noqa: F401
-                          TransformerEncoder, TransformerEncoderLayer)
+from .common import *       # noqa: F401,F403
+from .container import *    # noqa: F401,F403
+from .norm import *         # noqa: F401,F403
+from .activation import *   # noqa: F401,F403
+from .loss import *         # noqa: F401,F403
+from .rnn import *          # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403

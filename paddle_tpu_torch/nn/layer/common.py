@@ -1,18 +1,32 @@
-"""Common layers: Linear, Embedding, Dropout (paddle_tpu/nn/layer/common.py).
+"""Common layers (paddle_tpu/nn/layer/common.py): Linear, Embedding, the
+dropouts, Identity, Flatten, the Pad layers, Bilinear and the two
+distances.
 
 ``Linear`` keeps the JAX package's layout: weight [in, out], y = x @ W + b
 (``functional.linear``). Each forward is the functional op, whose AMP
-cast point is the JAX op's.
+cast point is the JAX op's. ``Dropout2D`` / ``Dropout3D`` are the JAX
+layer's: elementwise dropout, as ``Dropout`` (the channelwise forms are
+``functional.dropout2d`` / ``dropout3d``). The layers over the conv ops
+(Upsample*, PixelShuffle, Unfold, RowConv) wait for ROADMAP Queue 1 item
+5, and TreeConv and BilinearTensorProduct, over item 9's ops, for item 9.
 """
 from __future__ import annotations
 
 import torch
 
+from ... import ops
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
+           "AlphaDropout", "Flatten", "Pad1D", "Pad2D", "Pad3D", "Identity",
+           "Bilinear", "CosineSimilarity", "PairwiseDistance"]
+
+
+class Identity(Layer):
+    def forward(self, x):
+        return x
 
 
 class Linear(Layer):
@@ -67,3 +81,110 @@ class Dropout(Layer):
 
     def forward(self, x):
         return F.dropout(x, p=self.p, training=self.training, mode=self.mode)
+
+
+class Dropout2D(Dropout):
+    pass
+
+
+class Dropout3D(Dropout):
+    pass
+
+
+class AlphaDropout(Layer):
+    """SELU-preserving dropout (``functional.alpha_dropout``); identity in
+    eval mode."""
+
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return ops.flatten(x, self.start_axis, self.stop_axis)
+
+
+class _PadN(Layer):
+    def __init__(self, padding, mode="constant", value=0.0, data_format=None):
+        super().__init__()
+        self._pad = padding if isinstance(padding, (list, tuple)) \
+            else [padding] * 2
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, list(self._pad), mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad1D(_PadN):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL"):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadN):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW"):
+        if isinstance(padding, int):
+            padding = [padding] * 4
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(_PadN):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW"):
+        if isinstance(padding, int):
+            padding = [padding] * 6
+        super().__init__(padding, mode, value, data_format)
+
+
+class Bilinear(Layer):
+    """out[b, o] = x1[b] W[o] x2[b] + bias[o], W [out, in1, in2]
+    (Xavier-uniform)."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr)
+        self.bias = self.create_parameter([out_features], attr=bias_attr,
+                                          is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class PairwiseDistance(Layer):
+    """The p-norm of |x - y| + epsilon over the last axis."""
+
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        d = ops.abs(ops.add(x, ops.scale(y, -1.0)))
+        d = ops.add(d, ops.full_like(d, self.epsilon))
+        return ops.norm(d, p=self.p, axis=-1, keepdim=self.keepdim)

@@ -69,6 +69,7 @@ class Parameter(torch.nn.Parameter, Tensor):
                  trainable=None, regularizer=None, learning_rate=1.0,
                  need_clip=True):
         self.name = name or _unique("param")
+        self._named = name is not None
         self.persistable = True
         self.optimize_attr = {"learning_rate": learning_rate}
         self.regularizer = regularizer
@@ -89,6 +90,10 @@ class Parameter(torch.nn.Parameter, Tensor):
         out = type(self)(self.data.clone(memory_format=torch.preserve_format),
                          self.requires_grad)
         out.__dict__.update({k: v for k, v in self.__dict__.items()})
+        if not self.__dict__.get("_named", True):
+            # a generated name is made anew, so the copies of a layer stack
+            # keep distinct names (the JAX package repeats them)
+            out.name = _unique("param")
         memo[id(self)] = out
         return out
 

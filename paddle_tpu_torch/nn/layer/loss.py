@@ -1,11 +1,24 @@
-"""Loss layers (paddle_tpu/nn/layer/loss.py): CrossEntropyLoss, the
-criterion behind ``BertPretrainingCriterion``."""
+"""Loss layers (paddle_tpu/nn/layer/loss.py), each over the functional op
+of the same name. CTCLoss, HSigmoidLoss and NCELoss wait for their ops
+(ROADMAP Queue 1 item 9)."""
 from __future__ import annotations
 
+from ... import ops
 from .. import functional as F
 from .layers import Layer
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
+           "BCEWithLogitsLoss", "KLDivLoss", "SmoothL1Loss", "HuberLoss",
+           "MarginRankingLoss", "HingeEmbeddingLoss", "TripletMarginLoss",
+           "CosineEmbeddingLoss"]
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return ops.mean(loss)
+    if reduction == "sum":
+        return ops.sum(loss)
+    return loss
 
 
 class CrossEntropyLoss(Layer):
@@ -24,3 +37,141 @@ class CrossEntropyLoss(Layer):
 
     def forward(self, input, label):  # noqa: A002
         return F.cross_entropy(input, label, weight=self.weight, **self.kw)
+
+
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.l1_loss(input, label, self.reduction)
+
+
+class NLLLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.nll_loss(input, label, weight=self.weight,
+                          ignore_index=self.ignore_index,
+                          reduction=self.reduction)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.binary_cross_entropy(input, label, weight=self.weight,
+                                      reduction=self.reduction)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, weight=self.weight, reduction=self.reduction,
+            pos_weight=self.pos_weight)
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.kl_div(input, label, self.reduction)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):  # noqa: A002
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class HuberLoss(Layer):
+    """The elementwise ``huber_loss`` op, then the reduction."""
+
+    def __init__(self, reduction="mean", delta=1.0):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):  # noqa: A002
+        return _reduce(F.huber_loss(input, label, self.delta),
+                       self.reduction)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):  # noqa: A002
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.kw = dict(margin=margin, p=p, epsilon=epsilon,
+                       reduction=reduction)
+
+    def forward(self, input, positive, negative):  # noqa: A002
+        return F.triplet_margin_loss(input, positive, negative, **self.kw)
+
+
+class CosineEmbeddingLoss(Layer):
+    """1 - cos(x1, x2) where the label is 1, else max(cos - margin, 0)
+    (cosine over axis 1)."""
+
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input1, input2, label):
+        sim = F.cosine_similarity(input1, input2, axis=1)
+        pos = 1.0 - sim
+        neg = ops.clip(sim - self.margin, min=0.0)
+        return _reduce(ops.where(label == 1, pos, neg), self.reduction)

@@ -1,13 +1,104 @@
-"""LayerNorm (paddle_tpu/nn/layer/norm.py): biased variance over the
-trailing ``normalized_shape`` axes, epsilon 1e-5, unit weight and zero
-bias at init."""
+"""Normalization layers (paddle_tpu/nn/layer/norm.py).
+
+LayerNorm: biased variance over the trailing ``normalized_shape`` axes,
+epsilon 1e-5, unit weight and zero bias at init.
+
+BatchNorm*: the running statistics are the buffers ``_mean`` (zeros) and
+``_variance`` (ones). In training the batch's moments normalize, and the
+buffers move by Paddle's convention, ``running = momentum * running +
+(1 - momentum) * batch`` with momentum 0.9, the batch variance biased
+(mean of squares less the squared mean) as in the JAX op
+(paddle_tpu/ops/norm_ops.py:54-55); in eval, or with
+``use_global_stats``, the buffers normalize. ``SyncBatchNorm`` is plain
+BatchNorm: the JAX layer syncs its moments only inside an SPMD region,
+which the port has not yet (ROADMAP Queue 1 item 7). SpectralNorm waits
+for item 9.
+"""
 from __future__ import annotations
 
+import torch
+
+from ... import ops
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["LayerNorm"]
+__all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
+           "SyncBatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm1D",
+           "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
+           "RMSNorm"]
+
+
+class _BatchNormBase(Layer):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None):
+        super().__init__()
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = "NCHW" if data_format in (
+            "NC", "NCL", "NCHW", "NCDHW") else "NHWC"
+        self._use_global_stats = use_global_stats
+        self.weight = self.create_parameter(
+            [num_features], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter([num_features], attr=bias_attr,
+                                          is_bias=True)
+        self.register_buffer("_mean", ops.zeros([num_features]))
+        self.register_buffer("_variance", ops.ones([num_features]))
+
+    def forward(self, x):
+        training = self.training and not self._use_global_stats
+        out, new_rm, new_rv = ops.batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=training, momentum=self._momentum,
+            epsilon=self._epsilon, data_format=self._data_format)
+        if training:
+            with torch.no_grad():
+                torch.Tensor.copy_(self._mean, new_rm)
+                torch.Tensor.copy_(self._variance, new_rv)
+        return out
+
+
+class BatchNorm(_BatchNormBase):
+    """fluid-style BatchNorm: any rank, channels on axis 1."""
+
+
+class BatchNorm1D(_BatchNormBase):
+    pass
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class BatchNorm3D(_BatchNormBase):
+    pass
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """BatchNorm whose moments the JAX layer averages over the ``sync_axis``
+    mesh axis inside an SPMD region; the port has no such region yet, so it
+    is plain BatchNorm."""
+
+    def __init__(self, *args, sync_axis="dp", **kwargs):
+        super().__init__(*args, **kwargs)
+        self._sync_axis_name = sync_axis
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """``layer`` with every BatchNorm* sublayer made a SyncBatchNorm
+        with its values."""
+        if isinstance(layer, _BatchNormBase) and \
+                not isinstance(layer, SyncBatchNorm):
+            new = SyncBatchNorm(layer.weight.shape[0], layer._momentum,
+                                layer._epsilon)
+            new.to(device=layer.weight.device)
+            new.set_state_dict(layer.state_dict())
+            return new
+        for name, sub in list(layer._modules.items()):
+            layer._modules[name] = cls.convert_sync_batchnorm(sub)
+        return layer
 
 
 class LayerNorm(Layer):
@@ -28,3 +119,71 @@ class LayerNorm(Layer):
         begin = -len(self._normalized_shape)
         return F.layer_norm(x, self.weight, self.bias, self._epsilon,
                             begin_norm_axis=begin)
+
+
+class RMSNorm(Layer):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            [hidden_size], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self._epsilon)
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            [num_channels], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter([num_channels], attr=bias_attr,
+                                          is_bias=True)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self.weight, self.bias,
+                            self._epsilon)
+
+
+class _InstanceNormBase(Layer):
+    def __init__(self, num_features, epsilon=1e-05, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 name=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = None if weight_attr is False else \
+            self.create_parameter([num_features], attr=weight_attr,
+                                  default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [num_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.instance_norm(x, self.weight, self.bias, self._epsilon)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.args = (size, alpha, beta, k)
+
+    def forward(self, x):
+        return F.local_response_norm(x, *self.args)

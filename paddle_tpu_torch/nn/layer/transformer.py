@@ -1,18 +1,27 @@
 """MultiHeadAttention with the fused qkv projection and its two decode
-caches, and the BERT encoder stack (paddle_tpu/nn/layer/transformer.py).
+caches, the encoder and decoder stacks and the encoder-decoder
+``Transformer`` (paddle_tpu/nn/layer/transformer.py).
 
 - ``StaticKVCache``: a preallocated [b, h, max_len, d] k/v pair per
   layer, written IN PLACE at ``index`` (the JAX package builds a new
-  cache with dynamic_update_slice); attention is the contiguous decode
-  kernel.
+  cache with dynamic_update_slice). Attention is the contiguous decode
+  kernel where ``_decode_kernel_eligible`` admits the call (the JAX gate:
+  ``FLAGS_use_decode_attention`` on, not training, a shape the kernel
+  takes); each rejection counts under
+  ``cuda.gate_reject.decode_attention.{flag_off,training,shape}`` and
+  runs ``_static_cache_attention``, the JAX package's plain cache
+  attention, with dropout on the probabilities in training.
 - ``PagedKVCache`` (nn/kv_pool.py): the serving arena through block
-  tables; attention is the block-table kernel.
-Both caches are eval-only, as the kernels have no dropout and no
-backward. Without a cache, attention is ``F.scaled_dot_product_attention``:
-the flash kernels (forward and backward) once ``s >= FLAGS_flash_min_seq``,
-else the composite. ``TransformerEncoderLayer`` / ``TransformerEncoder``
-pass an additive ``src_mask`` [b, 1, 1, s], which the flash route takes
-as its key bias.
+  tables; attention is the block-table kernel, and in training its plain
+  version (``training`` rejection, as in the JAX gate).
+Without a cache, attention is ``F.scaled_dot_product_attention``: the
+flash kernels (forward and backward) once ``s_k >= FLAGS_flash_min_seq``
+and the mask is a [b, 1, 1, s_k] key bias, else the composite. So in a
+``Transformer`` the encoder's self-attention and the decoder's
+cross-attention (``memory_mask`` [b, 1, 1, s_src]) take the kernels, and
+the decoder's self-attention, whose ``tgt_mask`` is [s, s], the
+composite (gate reason ``shape``); the cached decoder takes no
+``tgt_mask``, its causality comes from the cache fill.
 """
 from __future__ import annotations
 
@@ -22,8 +31,14 @@ import typing
 import torch
 
 from ... import ops
-from ...ops._dispatch import raw_scope
-from ...ops.cuda.decode_attention import decode_attention
+from ...core import flags as _flags
+from ...core import rng as _rng
+from ...core.dtype import to_torch_dtype
+from ...device import resolve_device
+from ...ops._dispatch import raw_scope, wrap
+from ...ops.cuda import gate_reject
+from ...ops.cuda.decode_attention import (decode_attention,
+                                          paged_attention_ref, supported)
 from .. import functional as F
 from ..kv_pool import PagedKVCache, paged_attention, write_kv
 from .common import Dropout, Linear
@@ -32,7 +47,8 @@ from .layers import Layer
 from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "StaticKVCache", "TransformerEncoderLayer",
-           "TransformerEncoder"]
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer"]
 
 
 class StaticKVCache(typing.NamedTuple):
@@ -42,6 +58,43 @@ class StaticKVCache(typing.NamedTuple):
     k: torch.Tensor
     v: torch.Tensor
     index: int
+
+
+def _static_cache_attention(q, kc, vc, index, scale, dropout_p, training):
+    """Attention of q [b, h, s, d] over a partly filled cache [b, h, L, d]
+    (paddle_tpu's ``_static_cache_attention``): row r attends to the
+    cache columns <= index + r; scores in f32, -1e9 on the dead columns,
+    the probabilities in q's dtype, dropped out in training through the
+    port's generator."""
+    s, L = q.shape[2], kc.shape[2]
+    row = index + torch.arange(s, device=q.device)[:, None]
+    live = torch.arange(L, device=q.device)[None, :] <= row
+    scores = torch.einsum("bhsd,bhld->bhsl", q.float(), kc.float()) * scale
+    scores = scores.masked_fill(~live, -1e9)
+    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    if dropout_p and training:
+        keep = 1.0 - dropout_p
+        mask = torch.rand(p.shape, generator=_rng.generator(p.device),
+                          device=p.device) < keep
+        p = p * mask / keep
+    dt = torch.promote_types(p.dtype, vc.dtype)
+    return torch.einsum("bhsl,bhld->bhsd", p.to(dt), vc.to(dt))
+
+
+def _decode_kernel_eligible(q, kc, training):
+    """The JAX gate of the contiguous decode kernel
+    (paddle_tpu/nn/layer/transformer.py ``_decode_kernel_eligible``), in
+    its order; its ``backend`` reason has no counterpart (CPU tensors take
+    the kernel's plain version)."""
+    if not _flags.flag("FLAGS_use_decode_attention"):
+        return gate_reject("decode_attention", "flag_off")
+    if training:
+        # the kernel has no dropout and no backward: training-time cache
+        # attention stays plain even at dropout 0
+        return gate_reject("decode_attention", "training")
+    if not supported(tuple(q.shape), tuple(kc.shape)):
+        return gate_reject("decode_attention", "shape")
+    return True
 
 
 class MultiHeadAttention(Layer):
@@ -107,9 +160,6 @@ class MultiHeadAttention(Layer):
                 raise ValueError("attn_mask is not supported with a decode "
                                  "cache: causality comes from the cache "
                                  "fill")
-            if self.training and self.dropout > 0:
-                raise RuntimeError("cache attention is eval-only; call "
-                                   ".eval()")
             with raw_scope():
                 out, new_cache = self._cache_attention(q, k, v, cache)
             return self._merge(out), new_cache
@@ -134,13 +184,24 @@ class MultiHeadAttention(Layer):
                      k.transpose(1, 2), cache.slots)
             write_kv(cache.v, cache.block_tables, cache.lengths,
                      v.transpose(1, 2), cache.slots)
-            out = paged_attention(qh, cache.k, cache.v, cache.block_tables,
-                                  cache.lengths, scale)
+            if self.training:
+                gate_reject("paged_decode_attention", "training")
+                out = paged_attention_ref(qh, cache.k, cache.v,
+                                          cache.block_tables, cache.lengths,
+                                          scale)
+            else:
+                out = paged_attention(qh, cache.k, cache.v,
+                                      cache.block_tables, cache.lengths,
+                                      scale)
             return out, cache._replace(lengths=cache.lengths + s, slots=None)
         idx = int(cache.index)
         cache.k[:, :, idx:idx + s] = k
         cache.v[:, :, idx:idx + s] = v
-        out = decode_attention(qh, cache.k, cache.v, idx, scale)
+        if _decode_kernel_eligible(qh, cache.k, self.training):
+            out = decode_attention(qh, cache.k, cache.v, idx, scale)
+        else:
+            out = _static_cache_attention(qh, cache.k, cache.v, idx, scale,
+                                          self.dropout, self.training)
         return out, StaticKVCache(cache.k, cache.v, idx + s)
 
     def gen_cache(self, key, value=None, type=None):  # noqa: A002
@@ -153,9 +214,11 @@ class MultiHeadAttention(Layer):
 
     def gen_static_cache(self, batch_size, max_len, dtype=torch.float32,
                          device=None):
-        """Zeroed preallocated decode cache (see StaticKVCache)."""
+        """Zeroed preallocated decode cache (see StaticKVCache); ``dtype``
+        a torch dtype or a Paddle name."""
         w = self.qkv_proj.weight if self._fuse_qkv else self.q_proj.weight
         device = w.device if device is None else device
+        dtype = to_torch_dtype(dtype)
         shape = (batch_size, self.num_heads, max_len, self.head_dim)
         return StaticKVCache(torch.zeros(shape, dtype=dtype, device=device),
                              torch.zeros(shape, dtype=dtype, device=device),
@@ -229,3 +292,163 @@ class TransformerEncoder(Layer):
         if self.norm is not None:
             out = self.norm(out)
         return out
+
+
+class TransformerDecoderLayer(Layer):
+    """Self-attention, cross-attention over ``memory`` and feed-forward,
+    post-norm unless ``normalize_before``. With a ``StaticKVCache`` the
+    self-attention is the cached decode step (returns (out, new_cache))
+    and ``tgt_mask`` is not used."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                             weight_attr=weight_attr,
+                                             bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.act_dropout = Dropout(act_dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if isinstance(cache, StaticKVCache):
+            tgt, new_cache = self.self_attn(tgt, cache=cache)
+        else:
+            tgt = self.self_attn(tgt, attn_mask=tgt_mask)
+            new_cache = None
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        tgt = self.cross_attn(tgt, memory, memory, attn_mask=memory_mask)
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.act_dropout(self.activation(
+            self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        if new_cache is not None:
+            return tgt, new_cache
+        return tgt
+
+    def gen_static_cache(self, batch_size, max_len, dtype=torch.float32,
+                         device=None):
+        return self.self_attn.gen_static_cache(batch_size, max_len, dtype,
+                                               device)
+
+
+class TransformerDecoder(Layer):
+    """``num_layers`` copies of ``decoder_layer`` (the first is the layer
+    itself), then an optional final norm. ``cache``: a list of per-layer
+    StaticKVCache (``gen_static_cache``) for incremental decoding; the
+    call then returns (out, new_caches)."""
+
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList(
+            [decoder_layer] + [copy.deepcopy(decoder_layer)
+                               for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        out = tgt
+        new_caches = [] if cache is not None else None
+        for i, layer in enumerate(self.layers):
+            if cache is not None:
+                out, c = layer(out, memory, memory_mask=memory_mask,
+                               cache=cache[i])
+                new_caches.append(c)
+            else:
+                out = layer(out, memory, tgt_mask=tgt_mask,
+                            memory_mask=memory_mask)
+        if self.norm is not None:
+            out = self.norm(out)
+        if new_caches is not None:
+            return out, new_caches
+        return out
+
+    def gen_static_cache(self, batch_size, max_len, dtype=torch.float32,
+                         device=None):
+        """One StaticKVCache per layer."""
+        return [layer.gen_static_cache(batch_size, max_len, dtype, device)
+                for layer in self.layers]
+
+
+class Transformer(Layer):
+    """The encoder-decoder of Vaswani et al. (JAX reference
+    nn/layer/transformer.py:967). Its defaults are their "base" model:
+    d_model 512, 8 heads, 6 + 6 layers, FFN 2048, dropout 0.1, ReLU,
+    post-norm (a final norm on each stack only with
+    ``normalize_before``)."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None):
+        super().__init__()
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            enc_layer = TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            enc_norm = LayerNorm(d_model) if normalize_before else None
+            self.encoder = TransformerEncoder(enc_layer, num_encoder_layers,
+                                              enc_norm)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            dec_layer = TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            dec_norm = LayerNorm(d_model) if normalize_before else None
+            self.decoder = TransformerDecoder(dec_layer, num_decoder_layers,
+                                              dec_norm)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask=src_mask)
+        return self.decoder(tgt, memory, tgt_mask=tgt_mask,
+                            memory_mask=memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length, device=None):
+        """[length, length] float32, 0 on and below the diagonal and -inf
+        above it, on the current device."""
+        m = torch.full((length, length), float("-inf"),
+                       device=resolve_device(device)).triu(1)
+        return wrap(m)

@@ -21,7 +21,7 @@ import torch
 from ..core.tensor import Tensor
 from . import activation, creation, linalg, logic, manipulation, math, \
     reduction
-from ._dispatch import _state, retype_in_place
+from ._dispatch import _state, raw_scope, retype_in_place
 
 _T = torch.Tensor
 
@@ -82,6 +82,20 @@ def _getitem(self, idx):
 
 
 Tensor.__getitem__ = _getitem
+
+
+def _setitem(self, idx, value):
+    """torch's in-place write; an index with a negative-step slice (which
+    torch refuses) writes the whole of the JAX op's result in place."""
+    if not _state.depth and manipulation._positive_steps(self, idx)[0]:
+        with raw_scope():
+            new = manipulation._setitem(self, value, idx=idx)
+            _T.copy_(self, new)
+        return
+    _T.__setitem__(self, idx, value)
+
+
+Tensor.__setitem__ = _setitem
 
 # the JAX binding's methods (paddle_tpu/ops/_bind.py), less the
 # decompositions not ported yet

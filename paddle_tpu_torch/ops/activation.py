@@ -8,6 +8,7 @@ import torch.nn.functional as tF
 
 from ._dispatch import defop
 from ..core import rng as _rng
+from ..core.dtype import as_float
 
 __all__ = ["relu", "relu6", "leaky_relu", "prelu", "elu", "selu", "celu",
            "gelu", "sigmoid", "hardsigmoid", "hardswish", "hardtanh",
@@ -28,12 +29,12 @@ def relu(x):
 
 @defop
 def relu6(x):
-    return tF.relu6(x)
+    return tF.relu6(as_float(x))
 
 
 @defop
 def leaky_relu(x, negative_slope=0.01):
-    return tF.leaky_relu(x, negative_slope)
+    return tF.leaky_relu(as_float(x), negative_slope)
 
 
 @defop
@@ -43,7 +44,7 @@ def prelu(x, weight):
 
 @defop
 def elu(x, alpha=1.0):
-    return tF.elu(x, alpha)
+    return tF.elu(as_float(x), alpha)
 
 
 @defop
@@ -54,12 +55,12 @@ def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772):
 
 @defop
 def celu(x, alpha=1.0):
-    return tF.celu(x, alpha)
+    return tF.celu(as_float(x), alpha)
 
 
 @defop
 def gelu(x, approximate=False):
-    return tF.gelu(x, approximate="tanh" if approximate else "none")
+    return tF.gelu(as_float(x), approximate="tanh" if approximate else "none")
 
 
 @defop
@@ -85,6 +86,7 @@ def hardtanh(x, min=-1.0, max=1.0):  # noqa: A002
 
 @defop
 def hardshrink(x, threshold=0.5):
+    x = as_float(x)
     return torch.where(torch.gt(torch.abs(x), threshold), x, _zero(x))
 
 
@@ -110,6 +112,7 @@ swish = silu
 
 @defop
 def mish(x):
+    x = as_float(x)
     return torch.mul(x, torch.tanh(tF.softplus(x)))
 
 
@@ -128,17 +131,17 @@ def softsign(x):
 
 @defop
 def softmax(x, axis=-1):
-    return torch.softmax(x, axis)
+    return torch.softmax(as_float(x), axis)
 
 
 @defop
 def log_softmax(x, axis=-1):
-    return torch.log_softmax(x, axis)
+    return torch.log_softmax(as_float(x), axis)
 
 
 @defop
 def log_sigmoid(x):
-    return tF.logsigmoid(x)
+    return tF.logsigmoid(as_float(x))
 
 
 @defop
@@ -165,6 +168,7 @@ def maxout(x, groups, axis=1):
 
 @defop
 def thresholded_relu(x, threshold=1.0):
+    x = as_float(x)
     return torch.where(torch.gt(x, threshold), x, _zero(x))
 
 
@@ -176,5 +180,6 @@ def glu(x, axis=-1):
 
 @defop
 def normalize(x, p=2, axis=1, epsilon=1e-12):
+    x = as_float(x)
     n = torch.linalg.vector_norm(x, ord=p, dim=axis, keepdim=True)
     return torch.div(x, torch.clamp_min(n, epsilon))

@@ -42,7 +42,7 @@ import functools
 import torch
 
 __all__ = ["decode_attention", "paged_decode_attention",
-           "decode_attention_ref", "paged_attention_ref"]
+           "decode_attention_ref", "paged_attention_ref", "supported"]
 
 NEG_INF = -1e9   # finite mask fill, as the reference
 _MAX_D = 256
@@ -169,6 +169,18 @@ def paged_attention_ref(q, k_arena, v_arena, block_tables, lengths,
 # --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
+
+def supported(q_shape, cache_shape) -> bool:
+    """The JAX kernel's shape gate (paddle_tpu/ops/pallas/
+    decode_attention.py ``supported``): q [b, h, s, d] against a cache
+    [b, h, L, d] with d <= 256, 1 <= s <= 256 and L >= 8."""
+    if len(q_shape) != 4 or len(cache_shape) != 4:
+        return False
+    b, h, s, d = q_shape
+    bl, hl, L, dl = cache_shape
+    return (bl, hl, dl) == (b, h, d) and d <= _MAX_D and 1 <= s <= 256 \
+        and L >= 8
+
 
 def _check_common(name, q, k, v):
     if q.dim() != 4 or k.dim() != 4:

@@ -312,8 +312,10 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW"):
 
 @defop(name="topk_op")
 def _topk(x, k, axis, largest):
-    vals, idx = torch.topk(x, k, dim=axis, largest=largest, sorted=True)
-    return vals, idx.to(torch.int64)
+    # a stable sort cut to k: ties come lower index first, as lax.top_k
+    # gives them (torch.topk leaves their order open)
+    vals, idx = torch.sort(x, dim=axis, descending=largest, stable=True)
+    return vals.narrow(axis, 0, k), idx.narrow(axis, 0, k).to(torch.int64)
 
 
 def topk(x, k, axis=-1, largest=True, sorted=True):  # noqa: A002
@@ -407,9 +409,42 @@ def strided_slice(x, axes, starts, ends, strides):
                             [_int(s) for s in strides])
 
 
+def _positive_steps(x, idx):
+    """(dims to flip, ``idx`` with every negative-step slice made a
+    positive-step slice of the flipped dim): torch's indexing takes no
+    negative step. A slice s of a dim of size n reads n-1-i in the flip
+    for each i it reads in x."""
+    items = idx if isinstance(idx, tuple) else (idx,)
+    if not any(isinstance(i, builtins.slice) and i.step is not None
+               and _int(i.step) < 0 for i in items):
+        return (), idx
+
+    def width(i):
+        if i is None or i is Ellipsis:
+            return 0
+        if isinstance(i, torch.Tensor) and i.dtype == torch.bool:
+            return i.ndim
+        return 1
+    n_ell = x.ndim - builtins.sum(width(i) for i in items)
+    dims, out, d = [], [], 0
+    for i in items:
+        if i is Ellipsis:
+            d += n_ell
+        elif isinstance(i, builtins.slice) and i.step is not None \
+                and _int(i.step) < 0:
+            n = x.shape[d]
+            start, stop, step = i.indices(n)
+            dims.append(d)
+            i = builtins.slice(n - 1 - start, n - 1 - stop, -step)
+        d += width(i)
+        out.append(i)
+    return tuple(dims), tuple(out) if isinstance(idx, tuple) else out[0]
+
+
 @defop(name="getitem")
 def _getitem(x, idx):
-    return x[idx]
+    dims, idx = _positive_steps(x, idx)
+    return (torch.flip(x, dims) if dims else x)[idx]
 
 
 def getitem(x, idx):
@@ -418,9 +453,10 @@ def getitem(x, idx):
 
 @defop(name="setitem")
 def _setitem(x, v, idx):
-    out = torch.clone(x)
+    dims, idx = _positive_steps(x, idx)
+    out = torch.flip(x, dims) if dims else torch.clone(x)
     out[idx] = v.to(x.dtype) if isinstance(v, torch.Tensor) else v
-    return out
+    return torch.flip(out, dims) if dims else out
 
 
 def setitem(x, idx, value):

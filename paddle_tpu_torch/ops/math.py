@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ._dispatch import defop
-from ..core.dtype import to_torch_dtype
+from ..core.dtype import as_float, to_torch_dtype
 
 __all__ = ["add", "subtract", "multiply", "divide", "floor_divide",
            "remainder", "mod", "pow", "maximum", "minimum", "fmax", "fmin",
@@ -122,7 +122,10 @@ def abs(x):  # noqa: A001
 
 @defop
 def sign(x):
-    return torch.sign(x)
+    # nan and -0.0 are their own sign, as in jnp (torch gives 0); the
+    # kept values carry no gradient, as sign's has none
+    keep = torch.eq(x, 0) | torch.isnan(x)
+    return torch.where(keep, x.detach(), torch.sign(x))
 
 
 @defop
@@ -282,6 +285,13 @@ def lerp(x, y, weight):
     return torch.add(x, torch.mul(weight, torch.sub(y, x)))
 
 
+def _int_keep(x):
+    """The dtype a running sum or product keeps: an integer input's own
+    (torch widens it to int64, jnp keeps it); None for the rest."""
+    return x.dtype if x.dtype in (torch.int8, torch.int16, torch.int32,
+                                  torch.uint8) else None
+
+
 def _flat_axis(x, axis):
     if axis is None:
         return torch.reshape(x, (-1,)), 0
@@ -291,13 +301,13 @@ def _flat_axis(x, axis):
 @defop
 def cumsum(x, axis=None):
     x, axis = _flat_axis(x, axis)
-    return torch.cumsum(x, axis)
+    return torch.cumsum(x, axis, dtype=_int_keep(x))
 
 
 @defop
 def cumprod(x, dim=None):
     x, dim = _flat_axis(x, dim)
-    return torch.cumprod(x, dim)
+    return torch.cumprod(x, dim, dtype=_int_keep(x))
 
 
 @defop
@@ -308,7 +318,8 @@ def logcumsumexp(x, axis=None):
 
 @defop
 def logaddexp(x, y):
-    return torch.logaddexp(x, _t(y, x))
+    x = as_float(x)
+    return torch.logaddexp(x, as_float(_t(y, x)))
 
 
 @defop
@@ -320,7 +331,9 @@ def logit(x, eps=None):
 
 @defop
 def digamma(x):
-    return torch.digamma(x)
+    # jnp's digamma is nan at 0 and -0.0, where torch's is -inf / inf
+    out = torch.digamma(x)
+    return torch.where(torch.eq(x, 0), torch.nan, out)
 
 
 @defop
@@ -330,6 +343,7 @@ def lgamma(x):
 
 @defop
 def multiply_no_nan(x, y):
+    x = as_float(x)
     return torch.where(torch.eq(y, 0), torch.zeros((), dtype=x.dtype,
                                                    device=x.device),
                        torch.mul(x, y))
@@ -342,7 +356,22 @@ def stanh(x, scale_a=0.67, scale_b=1.7159):
 
 @defop
 def cast(x, dtype):
-    return x.to(to_torch_dtype(dtype))
+    dt = to_torch_dtype(dtype)
+    if not (x.is_floating_point() and dt in _SATURATE):
+        return x.to(dt)
+    # float -> narrower integer saturates as XLA's convert does: nan -> 0,
+    # values past the range (inf too) -> its bound; torch wraps instead
+    info = torch.iinfo(dt)
+    hi, lo = torch.ge(x, info.max), torch.le(x, info.min)
+    safe = torch.where(hi | lo | torch.isnan(x), 0, x.detach())
+    out = safe.to(dt)
+    out = torch.where(hi, torch.tensor(info.max, dtype=dt, device=x.device),
+                      out)
+    return torch.where(lo, torch.tensor(info.min, dtype=dt, device=x.device),
+                       out)
+
+
+_SATURATE = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
 
 
 @defop
@@ -362,7 +391,12 @@ def diff(x, n=1, axis=-1):
 
 @defop
 def angle(x):
-    return torch.angle(x)
+    if x.is_complex():
+        return torch.angle(x)
+    # jnp's angle is atan2(0, x): pi for -0.0 too (torch gives 0)
+    x = as_float(x)
+    out = torch.where(torch.signbit(x), torch.pi, 0.0).to(x.dtype)
+    return torch.where(torch.isnan(x), x, out)
 
 
 @defop
@@ -407,7 +441,8 @@ def lcm(x, y):
 
 @defop
 def heaviside(x, y):
-    return torch.heaviside(x, _t(y, x))
+    x = as_float(x)
+    return torch.heaviside(x, as_float(_t(y, x)).to(x.dtype))
 
 
 @defop

@@ -12,7 +12,7 @@ import builtins
 import torch
 
 from ._dispatch import defop
-from ..core.dtype import to_torch_dtype
+from ..core.dtype import as_float, to_torch_dtype
 
 __all__ = ["sum", "mean", "max", "min", "amax", "amin", "prod", "logsumexp",
            "argmax", "argmin", "all", "any", "std", "var", "median",
@@ -51,7 +51,7 @@ def sum(x, axis=None, dtype=None, keepdim=False):  # noqa: A001
 
 @defop
 def mean(x, axis=None, keepdim=False):
-    return torch.mean(x, dim=_dims(x, axis), keepdim=keepdim)
+    return torch.mean(as_float(x), dim=_dims(x, axis), keepdim=keepdim)
 
 
 @defop(name="max")
@@ -116,25 +116,28 @@ def any(x, axis=None, keepdim=False):  # noqa: A001
 
 @defop
 def std(x, axis=None, unbiased=True, keepdim=False):
+    x = as_float(x)
     return torch.std(x, dim=_dims(x, axis), correction=1 if unbiased else 0,
                      keepdim=keepdim)
 
 
 @defop
 def var(x, axis=None, unbiased=True, keepdim=False):
+    x = as_float(x)
     return torch.var(x, dim=_dims(x, axis), correction=1 if unbiased else 0,
                      keepdim=keepdim)
 
 
 @defop
 def median(x, axis=None, keepdim=False):
-    xm, keep_shape = _moved_flat(x, axis)
+    xm, keep_shape = _moved_flat(as_float(x), axis)
     out = torch.quantile(xm, 0.5, dim=-1)
     return out.reshape(keep_shape) if keepdim else out
 
 
 @defop
 def quantile(x, q, axis=None, keepdim=False):
+    x = as_float(x)
     xm, keep_shape = _moved_flat(x, axis)
     qt = torch.as_tensor(q, dtype=x.dtype, device=x.device)
     out = torch.quantile(xm, qt, dim=-1)
@@ -150,7 +153,7 @@ def nansum(x, axis=None, keepdim=False):
 
 @defop
 def nanmean(x, axis=None, keepdim=False):
-    return torch.nanmean(x, dim=_dims(x, axis), keepdim=keepdim)
+    return torch.nanmean(as_float(x), dim=_dims(x, axis), keepdim=keepdim)
 
 
 @defop

@@ -844,3 +844,117 @@ def test_tiny_gpt_f16_generates_through_the_f16_decode_kernels(card):
     with torch.no_grad():
         full = net(out[:, :-1])
     assert full.dtype == torch.float16 and bool(torch.isfinite(full).all())
+
+
+# -- the encoder-decoder Transformer's shapes ---------------------------------
+
+@pytest.mark.parametrize("sq,sk", [(256, 200), (1, 256)])
+def test_flash_kernels_at_the_transformer_shapes(card, sq, sk):
+    """The cross-attention of Transformer-base: s_q != s_k (the target
+    against the source, and one decoded token against the source), d 64,
+    bf16, a key bias with -1e9 on each row's padded keys, not causal: the
+    Hopper forward and backward against the plain versions (FLASH_TOL)."""
+    g = torch.Generator().manual_seed(11)
+    b, h, d, dtype = 2, 8, 64, torch.bfloat16
+    q = torch.randn(b * h, sq, d, generator=g).to(card, dtype)
+    k = torch.randn(b * h, sk, d, generator=g).to(card, dtype)
+    v = torch.randn(b * h, sk, d, generator=g).to(card, dtype)
+    do = torch.randn(b * h, sq, d, generator=g).to(card, dtype)
+    keep = torch.tensor([sk, sk - 57])
+    bb = torch.where(torch.arange(sk)[None] < keep[:, None], 0.0,
+                     -1e9).to(card)
+    before = kernels.launch_counts()
+    o_r, lse_r = flash_fwd_ref(q, k, v, bb, False)
+    o, lse = flash_fwd(q, k, v, bb, False)
+    delta = flash_delta(o_r, do)
+    dq = flash_bwd_dq(q, k, v, bb, do, lse_r, delta, False)
+    dk, dv = flash_bwd_dkv(q, k, v, bb, do, lse_r, delta, False)
+    torch.cuda.synchronize()
+    dq_r, dk_r, dv_r = flash_bwd_ref(q, k, v, bb, o_r, lse_r, do, False)
+    after = kernels.launch_counts()
+    for n in ("flash_fwd.sm90", "flash_bwd_dq.sm90", "flash_bwd_dkv.sm90"):
+        assert after[n] - before[n] == 1, n
+    tol = FLASH_TOL[dtype]
+    assert float((lse - lse_r).abs().max()) <= tol["lse"]
+    for name, got, ref in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r),
+                           ("dv", dv, dv_r)):
+        err_max, err_norm = _rel(got, ref)
+        assert err_max <= tol[name + "_max"], (name, err_max)
+        assert err_norm <= tol[name + "_norm"], (name, err_norm)
+
+
+def test_decode_kernel_at_the_transformer_shape(card):
+    """Greedy decoding of Transformer-base: b 32, 8 heads, d 64, a cache of
+    320 columns filled to 255, s 1 (the split-K kernel), bf16."""
+    g = torch.Generator().manual_seed(12)
+    b, h, d, L, fill = 32, 8, 64, 320, 255
+    q = torch.randn(b, h, 1, d, generator=g).to(card, torch.bfloat16)
+    kc = torch.randn(b, h, L, d, generator=g).to(card, torch.bfloat16)
+    vc = torch.randn(b, h, L, d, generator=g).to(card, torch.bfloat16)
+    before = kernels.launch_counts()["decode_attention.sm90"]
+    out = decode_attention(q, kc, vc, fill)
+    ref = decode_attention_ref(q.float(), kc.float(), vc.float(), fill)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention.sm90"] == before + 1
+    assert float((out.float() - ref).abs().max()) <= 2e-2
+
+
+def test_topk_ties_on_the_card(card):
+    """Ties come lower index first on a CUDA tensor too (ROADMAP Queue 3
+    C2), for largest and smallest, f32 and bf16."""
+    import paddle_tpu_torch as paddle
+    x = torch.tensor([[3, 1, 3, 2, 1, 3], [0, 0, 0, 1, 1, 0]],
+                     dtype=torch.float32, device=card)
+    for dt in (torch.float32, torch.bfloat16):
+        _, big = paddle.topk(x.to(dt), 3)
+        _, small = paddle.topk(x.to(dt), 3, largest=False)
+        assert big.tolist() == [[0, 2, 5], [3, 4, 0]]
+        assert small.tolist() == [[1, 4, 3], [0, 1, 2]]
+
+
+def test_tiny_transformer_trains_and_decodes_on_the_card(card):
+    """A tiny encoder-decoder (d 64, 2 + 2 layers) at s 128 with a padded
+    source: a training step launches the flash kernels for the encoder
+    self-attention and the cross-attention (2 each) and the CE kernels
+    once; the decoder's [s, s] mask takes the composite. Cached greedy
+    decoding in eval launches the decode kernel once a layer a token."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import monitor
+    F = paddle.nn.functional
+    with paddle.device.device_scope(card):
+        paddle.seed(0)
+        emb = paddle.nn.Embedding(100, 64)
+        tf = paddle.nn.Transformer(64, 2, 2, 2, 128, dropout=0.0)
+    src = torch.randint(1, 100, (2, 128), device=card)
+    src[1, 100:] = 0
+    tgt = torch.randint(1, 100, (2, 128), device=card)
+    mask = (src != 0)[:, None, None, :]
+    sq = paddle.nn.Transformer.generate_square_subsequent_mask(128, card)
+    kernels.reset_launch_counts()
+    monitor.reset(prefix="cuda.")
+    h = tf(emb(src), emb(tgt), mask, sq, mask)
+    loss = F.fused_linear_cross_entropy(h, emb.weight, None, tgt,
+                                        ignore_index=0)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert bool(torch.isfinite(loss))
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[k] == 4, k
+    for k in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"):
+        assert counts[k] == 1, k
+    assert monitor.stats("cuda.gate_reject.flash_attention") == {
+        "cuda.gate_reject.flash_attention.shape": 2}
+    tf.eval()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        memory = tf.encoder(emb(src), src_mask=mask)
+        caches = tf.decoder.gen_static_cache(2, 8)
+        tok = tgt[:, :1]
+        for _ in range(4):
+            out, caches = tf.decoder(emb(tok), memory, memory_mask=mask,
+                                     cache=caches)
+            tok = paddle.argmax(paddle.matmul(out, emb.weight,
+                                              transpose_y=True), axis=-1)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == 4 * 2

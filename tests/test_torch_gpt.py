@@ -163,11 +163,18 @@ def test_generate_rejects_over_max_seq_len(nets):
 
 
 def test_cache_attention_is_eval_only():
+    """The decode kernel is eval-only: in train mode the JAX gate rejects
+    it as ``training`` and the cache attention runs plain (with dropout on
+    the probabilities); generate no longer raises there."""
+    from paddle_tpu_torch.core import monitor
     net = GPT(GPTConfig.tiny(), device="cpu")
     net.train()
-    with pytest.raises(RuntimeError, match="eval-only"):
-        net.generate(np.zeros((1, 3), np.int64), max_new_tokens=2,
-                     temperature=0)
+    key = "cuda.gate_reject.decode_attention.training"
+    before = monitor.stats("").get(key, 0)
+    out = net.generate(np.zeros((1, 3), np.int64), max_new_tokens=2,
+                       temperature=0)
+    assert out.shape == (1, 5)
+    assert monitor.stats("").get(key, 0) > before
 
 
 # --------------------------------------------------------------------------

@@ -90,6 +90,11 @@ def _compare(got, want, rtol, atol, what):
                                     f"{want.shape}"
     assert _kind(got) == _kind(want), f"{what}: dtype {got.dtype} vs " \
                                       f"{want.dtype}"
+    if _kind(want) != "f":
+        # integer and bool outputs hold the dtype itself; a float output
+        # holds its kind (JAX runs with x64: D in core/tensor.py)
+        assert got.dtype == want.dtype, f"{what}: dtype {got.dtype} vs " \
+                                        f"{want.dtype}"
     if _kind(want) == "f":
         np.testing.assert_allclose(got.astype(np.float64),
                                    want.astype(np.float64), rtol=rtol,
@@ -126,6 +131,13 @@ def run(case):
 
 X = f32(3, 4)
 Y = f32(3, 4, seed=1)
+# the special values of a float, each op's edge cases (ROADMAP Queue 3 C5)
+SPECIAL = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -1.0, 0.5, 2.0],
+                   np.float32)
+# floats past an integer range: a cast saturates (C4)
+SATURATE = np.array([300.0, -300.0, np.nan, np.inf, -np.inf, -1.7, 1e10,
+                     127.9, -128.9], np.float32)
+INT32 = ints(3, 4, lo=-4, hi=6, dtype=np.int32)
 P = pos(3, 4)
 V = f32(5)
 
@@ -183,6 +195,22 @@ MATH = [
                        np.array([0.5, 0.5, 0.5], np.float32))),
     Case("nan_to_num", (np.array([np.nan, 1.0, -2.0], np.float32),)),
     Case("assign", (X,), grad=(0,)),
+    *[Case(n, (SPECIAL,), id="special") for n in
+      ("neg", "abs", "sign", "exp", "expm1", "log", "log2", "log10",
+       "log1p", "sqrt", "rsqrt", "square", "reciprocal", "sin", "cos",
+       "tan", "asin", "acos", "atan", "sinh", "cosh", "tanh", "asinh",
+       "acosh", "atanh", "erf", "erfinv", "floor", "ceil", "round",
+       "trunc", "digamma", "lgamma", "stanh", "frac", "rad2deg", "deg2rad",
+       "angle", "real", "imag", "logit", "nan_to_num")],
+    *[Case("cast", (SATURATE, Raw(d)), id=f"saturate_{d}") for d in
+      ("int8", "uint8", "int16", "int32", "int64")],
+    Case("cumsum", (INT32,), {"axis": 1}, id="int32"),
+    Case("cumsum", (INT32,), id="int32_flat"),
+    Case("cumprod", (INT32,), {"dim": 0}, id="int32"),
+    Case("heaviside", (ints(6, lo=-2, hi=3), ints(6, seed=1)), id="int"),
+    Case("multiply_no_nan", (INT32, ints(3, 4, lo=-1, hi=2, seed=1,
+                                         dtype=np.int32)), id="int"),
+    Case("logaddexp", (INT32, ints(3, 4, seed=1)), id="int"),
     Case("addmm", (f32(4), X, f32(4, 4, seed=3)), grad=(0, 1, 2)),
     Case("addmm", (f32(5), f32(2, 3, 4), f32(4, 5, seed=3)), grad=(0, 1, 2),
          id="3d"),
@@ -217,6 +245,7 @@ LINALG = [
 ]
 
 X3 = f32(2, 3, 4)
+TIES = np.array([[3, 1, 3, 2, 1, 3], [0, 0, 0, 1, 1, 0]], np.float32)
 
 MANIPULATION = [
     Case("reshape", (X, Raw([4, 3])), grad=(0,)),
@@ -276,6 +305,10 @@ MANIPULATION = [
     Case("pad3d", (f32(1, 2, 2, 3, 4), Raw([1, 0, 1, 1, 0, 2]))),
     Case("topk_op", (X, Raw(2), Raw(1), Raw(True)), grad=(0,)),
     Case("topk", (X, Raw(2)), {"largest": False}, grad=(0,)),
+    # ties: lower index first, as lax.top_k (C2)
+    Case("topk", (TIES, Raw(3)), id="ties"),
+    Case("topk", (TIES, Raw(3)), {"largest": False}, id="ties_smallest"),
+    Case("topk_op", (TIES.T.copy(), Raw(2), Raw(0), Raw(True)), id="ties"),
     Case("sort", (X,), {"axis": 1, "descending": True}, grad=(0,)),
     Case("argsort", (X,), {"axis": 0}),
     Case("tril", (X,), {"diagonal": 1}, grad=(0,)),
@@ -289,7 +322,21 @@ MANIPULATION = [
     Case("strided_slice", (X3, Raw([2]), Raw([0]), Raw([4]), Raw([2])),
          grad=(0,)),
     Case("getitem", (X3,), {"idx": Raw((slice(None), 1))}, grad=(0,)),
+    # negative steps (C1)
+    Case("getitem", (X3,), {"idx": Raw(slice(None, None, -1))}, grad=(0,),
+         id="reverse"),
+    Case("getitem", (X3,), {"idx": Raw((slice(None), slice(None, None, -2)))},
+         grad=(0,), id="step_minus_2"),
+    Case("getitem", (X3,), {"idx": Raw((Ellipsis, slice(3, 0, -2)))},
+         grad=(0,), id="ellipsis"),
+    Case("getitem", (X3,), {"idx": Raw((1, None, slice(-1, -5, -1), 2))},
+         grad=(0,), id="mixed"),
     Case("setitem", (X, f32(4, seed=7)), {"idx": Raw(1)}, grad=(0, 1)),
+    Case("setitem", (X, f32(3, 4, seed=7)),
+         {"idx": Raw(slice(None, None, -1))}, grad=(0, 1), id="reverse"),
+    Case("setitem", (X, f32(3, 2, seed=7)),
+         {"idx": Raw((slice(None), slice(None, None, -2)))}, grad=(0, 1),
+         id="step_minus_2"),
     Case("set_value", (X, f32(4, seed=7)), {"item": Raw(2)}, grad=(0,)),
     Case("one_hot", (ints(5, hi=4), Raw(4))),
     Case("tensordot", (X3, f32(4, 3, 2, seed=1)),
@@ -318,6 +365,14 @@ REDUCTION = [
           "std", "var", "nansum", "nanmean")],
     Case("sum", (X,), {"axis": [0, 1]}, grad=(0,), id="axes"),
     Case("sum", (ints(3, 4),), {"dtype": "float32"}, id="dtype"),
+    # integer inputs (C3): the float mean, int32 kept
+    Case("mean", (np.array([3, 4], np.int64),), id="int"),
+    Case("mean", (INT32,), {"axis": 1}, id="int32"),
+    *[Case(n, (INT32,), {"axis": 0}, id="int") for n in
+      ("std", "var", "nanmean", "median")],
+    Case("sum", (INT32,), {"axis": 1}, id="int32"),
+    Case("prod", (INT32,), {"axis": 0}, id="int32"),
+    Case("max", (INT32,), {"axis": 1}, id="int32"),
     Case("std", (X,), {"axis": 0, "unbiased": False}, grad=(0,), id="biased"),
     Case("argmax", (X,)), Case("argmax", (X,), {"axis": 1}, id="axis"),
     Case("argmin", (X,), {"axis": 0, "keepdim": True}),
@@ -370,6 +425,10 @@ ACTIVATION = [
     Case("glu", (XA,), {"axis": 1}, grad=(0,)),
     Case("normalize", (XA,), {"axis": 1}, grad=(0,)),
     Case("normalize", (XA,), {"p": 1, "axis": 0}, grad=(0,), id="p1"),
+    *[Case(n, (INT32,), id="int") for n in
+      ("relu", "relu6", "hardshrink", "thresholded_relu", "softmax",
+       "log_softmax", "elu", "celu", "leaky_relu", "log_sigmoid", "mish",
+       "normalize")],
 ]
 
 NCHW = f32(2, 4, 3, 3, seed=5)
@@ -474,9 +533,33 @@ HEAD = [
     Case("ce_head_fallback", (H2, W2, B2, Y2, Raw(-100)), grad=(0, 1, 2)),
 ]
 
+# the recurrent scans of nn/layer/rnn.py: b 3, t 5, in 4, H 6, rows of
+# lengths 5, 3 and 1 (a masked row keeps and emits its state)
+RX = f32(3, 5, 4, seed=20)
+RH = f32(3, 6, seed=21) * 0.5
+RC = f32(3, 6, seed=22) * 0.5
+RMASK = np.arange(5)[None, :] < np.array([5, 3, 1])[:, None]
+
+
+def _rnn_weights(gates, seed):
+    return (f32(gates * 6, 4, seed=seed) * 0.4,
+            f32(gates * 6, 6, seed=seed + 1) * 0.4,
+            f32(gates * 6, seed=seed + 2) * 0.4,
+            f32(gates * 6, seed=seed + 3) * 0.4)
+
+
+RNN = [
+    Case("rnn_scan_tanh", (RX, RH, *_rnn_weights(1, 30), RMASK),
+         grad=(0, 1, 2, 3, 4, 5)),
+    Case("lstm_scan", (RX, RH, RC, *_rnn_weights(4, 40), RMASK),
+         grad=(0, 1, 2, 3, 4, 5, 6)),
+    Case("gru_scan", (RX, RH, *_rnn_weights(3, 50), RMASK),
+         grad=(0, 1, 2, 3, 4, 5)),
+]
+
 GROUPS = {"math": MATH, "linalg": LINALG, "manipulation": MANIPULATION,
           "reduction": REDUCTION, "logic": LOGIC, "activation": ACTIVATION,
-          "norm": NORM, "loss": LOSS, "head": HEAD}
+          "norm": NORM, "loss": LOSS, "head": HEAD, "rnn": RNN}
 
 # ops whose output is random, made on the current device, on the host, or
 # a list argument: each has its own test in test_torch_ops_registry.py

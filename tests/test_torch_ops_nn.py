@@ -38,7 +38,7 @@ def _kernels_in_interpret_mode():
                   "FLAGS_flash_attention_interpret": False})
 
 
-@pytest.mark.parametrize("case", P.ACTIVATION + P.NORM + P.LOSS + P.HEAD,
-                         ids=str)
+@pytest.mark.parametrize("case", P.ACTIVATION + P.NORM + P.LOSS + P.HEAD
+                         + P.RNN, ids=str)
 def test_op_matches_jax(case):
     P.run(case)

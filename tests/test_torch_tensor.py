@@ -411,3 +411,43 @@ def test_tensors_and_layers_default_to_the_card():
         assert tp.to_tensor([1.0], place="cpu").place == tp.CPUPlace()
     finally:
         tdevice._current = prev
+
+
+# -- negative-step slices (ROADMAP Queue 3 C1) --------------------------------
+
+def test_negative_step_slices_read_and_write_as_jax():
+    for idx in (slice(None, None, -1), (slice(None), slice(None, None, -2)),
+                (slice(2, 0, -1), slice(None, None, -3))):
+        same(lambda p: p.to_tensor(X)[idx])
+    t = tp.to_tensor(X)
+    v = np.arange(6, dtype="float32").reshape(3, 2) * 10
+    t[:, ::-2] = tp.to_tensor(v)
+    want = jp.to_tensor(X)
+    want[:, ::-2] = jp.to_tensor(v)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(want.numpy()))
+
+
+# -- float64 (ROADMAP Queue 3 D) ----------------------------------------------
+
+_X64 = {
+    "int_with_float_scalar": lambda p: p.to_tensor(np.array([1, 2, 3])) * 1.5,
+    "int_divide_int": lambda p: p.to_tensor(np.array([1, 2, 3])) / p.to_tensor(
+        np.array([2, 2, 2])),
+    "sqrt_of_int": lambda p: p.sqrt(p.to_tensor(np.array([1, 4, 9]))),
+    "exp_of_int": lambda p: p.exp(p.to_tensor(np.array([0, 1, 2]))),
+    "arange_float": lambda p: p.arange(0.0, 2.0, 0.5),
+    "linspace": lambda p: p.linspace(0.0, 1.0, 5),
+    "logspace": lambda p: p.logspace(0.0, 2.0, 3),
+    "one_hot": lambda p: p.one_hot(p.to_tensor(np.array([0, 2])), 3),
+    "increment_int": lambda p: p.increment(p.to_tensor(np.array([1, 2]))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_X64))
+def test_known_difference_x64_floats_are_f32_in_the_port(name):
+    """The JAX package runs with x64 on, so these give float64 there; the
+    port gives Paddle's default float32, with the same values."""
+    j, t = _X64[name](jp), _X64[name](tp)
+    assert np.asarray(j.numpy()).dtype == np.float64
+    assert t.dtype == torch.float32
+    np.testing.assert_allclose(t.numpy(), np.asarray(j.numpy()), rtol=1e-6)
