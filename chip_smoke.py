@@ -170,7 +170,28 @@ Phases, each printing its own lines; any failure exits non-zero:
     the composites (``TF_STEP_TOL``); f32 cached greedy tokens against an
     uncached decoder (phase 4's near-tie rule); the masks hold (a padded
     source token or a later target token changed leaves the outputs as
-    they were, ``TF_MASK_TOL``).
+    they were, ``TF_MASK_TOL``);
+20. vision and conv, through none of the eight kernels (every launch
+    count stays 0 over the phase): (a) the conv ops on the card against a
+    float64 numpy oracle written here (im2col for the convs, a scatter for
+    the transposed ones, explicit windows for the pools, the resize
+    weights of jax.image), f32 and bf16, each op within its limit
+    (``CONV_ORACLE_TOL``): conv2d with groups, depthwise, dilation, SAME
+    at stride 2 on odd and even sizes, 4-element pads and NHWC;
+    conv2d_transpose with output_padding, groups and 4-element pads; max
+    and avg pools with ceil_mode (the windows of padding only among
+    them); every interpolate mode; (b) LeNet through ``Model.fit`` on
+    MNIST's synthetic digits (Adam 1e-3, b64, f32, 2 epochs = 256 steps),
+    then ``evaluate`` on the test split: step ms, the loss, test accuracy
+    above 0.3; (c) ResNet-50 in ``bench.py:bench_resnet``'s recipe through
+    ``Model.fit``, bf16 O2 (b64, 224^2, Momentum 0.02 / 0.9 with decay
+    1e-4 and f32 masters, 8 synthetic batches cycled, 40 steps): step ms
+    over the last 30, images/s, busy and idle over 10 profiled steps,
+    peak memory, FLOPs (``FlopCounterMode``) and MFU, the loss finite and
+    falling; (d) one ResNet-50 step at b2 64^2 on the card against the
+    port's CPU path from the same weights, f64 and f32
+    (``VISION_STEP_TOL``); (e) gelu's special values against
+    jax.nn.gelu's.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -180,9 +201,10 @@ One phase alone (after ``phase_build()``), from the repo root:
 ``python3 -c "import chip_smoke as c; c.setup(); c.phase_build();
 c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phases 2-3
 (decode faults), 6 (CE faults), 10 (flash faults), 14 (f16 faults),
-18's API checks (op-core faults) or 19's mask checks (a Transformer
-fault) on copies of the checkout with one
-planted fault each (``FAULTS``) and exits 0 when every copy fails them.
+18's API checks (op-core faults), 19's mask checks (a Transformer
+fault) or 20's conv oracle (a conv fault) on copies of the checkout with
+one planted fault each (``FAULTS``) and exits 0 when every copy fails
+them.
 ``python3 chip_smoke.py --compare DIR`` runs phases 8 and 15 of the
 checkout at DIR and of this one, each in a fresh process, in the order
 DIR, this, this, DIR twice over, and prints their step ms as one JSON
@@ -196,6 +218,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2896,6 +2919,609 @@ def phase_transformer(card=None):
     return train_counts, decode_counts, res
 
 
+# --------------------------------------------------------------------------
+# phase 20: vision and conv
+# --------------------------------------------------------------------------
+
+# Phase 20(a)'s limits: the largest |port - oracle| over the finite
+# entries, over max(1, the largest |oracle|), per op and dtype. The
+# oracle is float64 numpy on the same (bf16-rounded) values. f32 (no TF32,
+# ``setup()``): sums of at most 128 products. bf16: the output rounded to
+# bf16 (2^-9 of its value); the port's CPU path reads up to 4.3e-3 for a
+# conv and 5.3e-3 for interpolate (its weights rounded to bf16, as JAX
+# casts them to the input dtype, and one more rounding between the two
+# axes); an average's sum and quotient are two roundings. A max reads
+# stored values: exact in both. A wrong pad moves entries by O(1).
+CONV_ORACLE_TOL = {
+    "conv2d": {torch.float32: 1e-5, torch.bfloat16: 2 ** -6},
+    "conv2d_transpose": {torch.float32: 1e-5, torch.bfloat16: 2 ** -6},
+    "max_pool2d": {torch.float32: 0.0, torch.bfloat16: 0.0},
+    "avg_pool2d": {torch.float32: 1e-6, torch.bfloat16: 2 ** -7},
+    "interpolate": {torch.float32: 1e-5, torch.bfloat16: 2 ** -6},
+}
+# phase 20(d), ResNet-50 at b2 64^2, the card against the port's CPU path
+# on the same weights and batch. f64: both sides compute the same
+# function, so loss, every gradient's norm and every BN running stat
+# agree to rounding (readings on the H100: 1.9e-15, 1.7e-13, 1.3e-13).
+# f32: the JAX formula's variance (E[x^2] - E[x]^2) at 8 values a channel
+# in the last stage amplifies each side's own rounding (two packages on
+# one CPU differ there by up to 9% of a gradient's norm,
+# tests/test_torch_vision.py), so f32 holds the gradient norms loosely
+# (readings: loss 2.5e-6, gradient norms 4.6e-3, running stats 8.8e-5).
+VISION_STEP_TOL = {torch.float64: {"loss": 1e-9, "grad_norm": 1e-8,
+                                   "stat": 1e-9},
+                   torch.float32: {"loss": 1e-4, "grad_norm": 0.05,
+                                   "stat": 1e-3}}
+RESNET_PEAK = 989e12          # H100 SXM dense bf16, data sheet
+# name fragments of the kernels a ResNet-50 step runs, summed per step:
+# cuDNN's convs (xmma / cutlass / cudnn names) and layout transposes,
+# torch's elementwise, reduction and copy kernels (BN's composite, ReLU,
+# the adds, the casts, the optimizer)
+RESNET_KERNEL_KINDS = ("xmma", "cutlass", "cudnn", "nchwToNhwc",
+                       "nhwcToNchw", "elementwise", "reduce_kernel", "copy",
+                       "Memcpy", "max_pool")
+
+
+def _np_same(size, k, s, d=1):
+    """XLA's SAME pads of one axis, for the oracle."""
+    out = -(-size // s)
+    total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def _np_conv2d(x, w, stride, pads, dilation, groups):
+    """float64 im2col: x [N, C, H, W], w [O, C / groups, kh, kw], pads
+    ((lo, hi), (lo, hi))."""
+    x = np.pad(x, ((0, 0), (0, 0)) + tuple(pads))
+    n, c, hp, wp = x.shape
+    o, cg, kh, kw = w.shape
+    (sh, sw), (dh, dw) = stride, dilation
+    oh = (hp - (kh - 1) * dh - 1) // sh + 1
+    ow = (wp - (kw - 1) * dw - 1) // sw + 1
+    cols = np.empty((n, c, kh, kw, oh, ow))
+    for i in range(kh):
+        for j in range(kw):
+            cols[:, :, i, j] = x[:, :, i * dh:i * dh + (oh - 1) * sh + 1:sh,
+                                 j * dw:j * dw + (ow - 1) * sw + 1:sw]
+    cols = cols.reshape(n, groups, cg, kh, kw, oh, ow)
+    wg = w.reshape(groups, o // groups, cg, kh, kw)
+    return np.einsum("ngcijhw,gocij->ngohw", cols, wg).reshape(n, o, oh, ow)
+
+
+def _np_conv2d_transpose(x, w, stride, pads, opad, dilation, groups):
+    """float64 scatter of each input entry times each tap: w [Ci, Co /
+    groups, kh, kw]; the full output cut by lo at the low side and
+    hi - output_padding at the high side (zeros past its end)."""
+    n, ci, h, wd = x.shape
+    _, cog, kh, kw = w.shape
+    (sh, sw), (dh, dw) = stride, dilation
+    cig = ci // groups
+    fh, fw = (h - 1) * sh + (kh - 1) * dh + 1, (wd - 1) * sw + (kw - 1) * dw + 1
+    full = np.zeros((n, cog * groups, fh + opad[0], fw + opad[1]))
+    for g in range(groups):
+        xg, wg = x[:, g * cig:(g + 1) * cig], w[g * cig:(g + 1) * cig]
+        for i in range(kh):
+            for j in range(kw):
+                full[:, g * cog:(g + 1) * cog,
+                     i * dh:i * dh + (h - 1) * sh + 1:sh,
+                     j * dw:j * dw + (wd - 1) * sw + 1:sw] += np.einsum(
+                    "nchw,co->nohw", xg, wg[:, :, i, j])
+    (lh, hh), (lw, hw) = pads
+    return full[:, :, lh:fh - hh + opad[0], lw:fw - hw + opad[1]]
+
+
+def _np_pool(x, k, s, pads, ceil_mode, kind, exclusive=True):
+    """float64 explicit windows under JAX's rule: with ceil_mode the count
+    is ceil((L + lo + hi - k) / s) + 1 and a window may cover padding
+    only (max -inf, exclusive average 0 / 0); padding is never a max and
+    never counted by an exclusive average."""
+    n, c, h, w = x.shape
+    counts = []
+    for size, kk, ss, (lo, hi) in zip((h, w), k, s, pads):
+        span = size + lo + hi - kk
+        counts.append((-(-span // ss) if ceil_mode else span // ss) + 1)
+    out = np.empty((n, c) + tuple(counts))
+    for a in range(counts[0]):
+        for b in range(counts[1]):
+            y0, x0 = a * s[0] - pads[0][0], b * s[1] - pads[1][0]
+            ys = [y for y in range(y0, y0 + k[0]) if 0 <= y < h]
+            xs = [v for v in range(x0, x0 + k[1]) if 0 <= v < w]
+            win = x[:, :, ys][:, :, :, xs].reshape(n, c, -1)
+            if kind == "max":
+                out[:, :, a, b] = win.max(-1) if win.shape[-1] else -np.inf
+                continue
+            total = win.sum(-1) if win.shape[-1] else np.zeros((n, c))
+            div = win.shape[-1] if exclusive else k[0] * k[1]
+            with np.errstate(invalid="ignore"):
+                out[:, :, a, b] = total / div if div else total / 0.0
+    return out
+
+
+def _np_resize_weights(m, n, method):
+    """jax.image.resize's [m, n] weights of one axis (antialiased when it
+    shrinks), float64."""
+    scale = n / m
+    ksc = max(1.0 / scale, 1.0)
+    sample = (np.arange(n) + 0.5) / scale - 0.5
+    t = np.abs(sample[None, :] - np.arange(m)[:, None]) / ksc
+    if method == "linear":
+        wts = np.maximum(0.0, 1.0 - t)
+    else:    # Keys' cubic, a = -0.5
+        wts = np.where(t < 1, (1.5 * t - 2.5) * t * t + 1,
+                       np.where(t < 2, ((-0.5 * t + 2.5) * t - 4) * t + 2,
+                                0.0))
+    tot = wts.sum(0, keepdims=True)
+    wts = np.where(np.abs(tot) > 1000 * np.finfo(np.float32).eps,
+                   wts / np.where(tot != 0, tot, 1), 0.0)
+    keep = (sample >= -0.5) & (sample <= m - 0.5)
+    return np.where(keep[None, :], wts, 0.0)
+
+
+def _np_interpolate(x, size, mode):
+    method = {"nearest": "nearest", "bilinear": "linear",
+              "bicubic": "cubic", "area": "linear"}[mode]
+    for axis, n in ((2, size[0]), (3, size[1])):
+        m = x.shape[axis]
+        if m == n:
+            continue
+        if method == "nearest":
+            src = np.floor((np.arange(n, dtype=np.float32) + np.float32(0.5))
+                           * np.float32(m) / np.float32(n)).astype(int)
+            x = np.take(x, src, axis=axis)
+        else:
+            x = np.moveaxis(np.tensordot(x, _np_resize_weights(m, n, method),
+                                         axes=([axis], [0])), -1, axis)
+    return x
+
+
+def _oracle_cases():
+    """(op, case, port call, oracle, [input arrays]) of phase 20(a): the
+    oracle takes the float64 copies of the inputs as the card holds
+    them."""
+    r = np.random.RandomState(20)
+
+    def a(*shape, scale=1.0):
+        return (r.randn(*shape) * scale).astype(np.float32)
+
+    x17, x16, x9, x5 = a(2, 8, 17, 17), a(2, 8, 16, 16), a(2, 8, 9, 9), \
+        a(1, 2, 5, 5)
+    relu = np.maximum(a(2, 8, 18, 18), 0)
+    cases = []
+
+    def conv(name, x, w, b, stride=1, padding=0, dilation=1, groups=1,
+             nhwc=False):
+        st, dl = (stride,) * 2, (dilation,) * 2
+        k = w.shape[:2] if nhwc else w.shape[2:]
+        hw = x.shape[1:3] if nhwc else x.shape[2:]
+        if padding == "SAME":
+            pads = tuple(_np_same(hw[i], k[i], st[i], dl[i]) for i in (0, 1))
+        elif isinstance(padding, list):
+            pads = ((padding[0], padding[1]), (padding[2], padding[3]))
+        else:
+            pads = ((padding, padding),) * 2
+
+        def oracle(xo, wo, bo):
+            if nhwc:
+                xo, wo = xo.transpose(0, 3, 1, 2), wo.transpose(3, 2, 0, 1)
+            out = _np_conv2d(xo, wo, st, pads, dl, groups) \
+                + bo.reshape(1, -1, 1, 1)
+            return out.transpose(0, 2, 3, 1) if nhwc else out
+        cases.append(("conv2d", name, lambda p, xt, wt, bt: p.ops.conv2d(
+            xt, wt, bt, stride=stride, padding=padding, dilation=dilation,
+            groups=groups, data_format="NHWC" if nhwc else "NCHW"),
+            oracle, [x, w, b]))
+
+    conv("groups", x17, a(16, 4, 3, 3, scale=0.3), a(16), padding=1,
+         groups=2)
+    conv("depthwise_s2", x17, a(8, 1, 3, 3, scale=0.3), a(8), stride=2,
+         padding=1, groups=8)
+    conv("dilation", x17, a(16, 8, 3, 3, scale=0.2), a(16), padding=2,
+         dilation=2)
+    conv("same_s2_odd", x17, a(16, 8, 4, 4, scale=0.2), a(16), stride=2,
+         padding="SAME")
+    conv("same_s2_even", x16, a(16, 8, 3, 3, scale=0.2), a(16), stride=2,
+         padding="SAME")
+    conv("pads4_s2", x17, a(16, 8, 3, 3, scale=0.2), a(16), stride=2,
+         padding=[1, 2, 0, 1])
+    conv("nhwc", x17.transpose(0, 2, 3, 1).copy(), a(3, 3, 8, 16, scale=0.2),
+         a(16), padding=1, nhwc=True)
+
+    def convt(name, x, w, b, stride, padding, opad, groups=1):
+        pads = ((padding[0], padding[1]), (padding[2], padding[3])) \
+            if isinstance(padding, list) else ((padding, padding),) * 2
+        cases.append((
+            "conv2d_transpose", name,
+            lambda p, xt, wt, bt: p.ops.conv2d_transpose(
+                xt, wt, bt, stride=stride, padding=padding,
+                output_padding=opad, groups=groups),
+            lambda xo, wo, bo: _np_conv2d_transpose(
+                xo, wo, (stride,) * 2, pads, (opad,) * 2, (1, 1), groups)
+            + bo.reshape(1, -1, 1, 1), [x, w, b]))
+
+    convt("opad", x9, a(8, 6, 3, 3, scale=0.3), a(6), 2, 1, 1)
+    convt("groups", x9, a(8, 3, 3, 3, scale=0.3), a(6), 2, 0, 0, groups=2)
+    convt("pads4_opad", x9, a(8, 6, 3, 3, scale=0.3), a(6), 2, [1, 0, 0, 2],
+          1)
+
+    def pool(op, name, x, k, s, p, ceil, exclusive=True):
+        kw = {} if op == "max_pool2d" else {"exclusive": exclusive}
+        cases.append((op, name, lambda pk, xt: pk.ops.OP_REGISTRY[op](
+            xt, k, stride=s, padding=p, ceil_mode=ceil, **kw),
+            lambda xo: _np_pool(xo, (k, k), (s, s), ((p, p), (p, p)), ceil,
+                                op[:3], exclusive), [x]))
+
+    pool("max_pool2d", "resnet_ties", relu, 3, 2, 1, False)
+    pool("max_pool2d", "ceil_padding_window", x5, 2, 2, 1, True)
+    pool("max_pool2d", "ceil", x17, 3, 2, 0, True)
+    pool("avg_pool2d", "exclusive", x17, 3, 2, 1, False)
+    pool("avg_pool2d", "inclusive", x17, 3, 2, 1, False, exclusive=False)
+    pool("avg_pool2d", "ceil_padding_window_nan", x5, 2, 2, 1, True)
+    pool("avg_pool2d", "ceil_overhang", x17, 3, 2, 1, True)
+
+    for mode, size in (("nearest", (29, 23)), ("nearest", (7, 9)),
+                       ("bilinear", (29, 23)), ("bilinear", (7, 9)),
+                       ("bicubic", (29, 12)), ("area", (8, 6))):
+        cases.append(("interpolate", f"{mode}_{size[0]}x{size[1]}",
+                      lambda p, xt, size=size, mode=mode: p.ops.interpolate(
+                          xt, size=list(size), mode=mode),
+                      lambda xo, size=size, mode=mode: _np_interpolate(
+                          xo, size, mode), [x17]))
+    return cases
+
+
+def conv_oracle_errors(device="cuda", dtypes=(torch.float32,
+                                              torch.bfloat16)):
+    """Phase 20(a)'s readings: {op: {dtype: worst}} and every case's
+    (op, case, dtype, error, limit); each case must keep the oracle's
+    shape, its -inf and nan entries, and stay within its limit."""
+    import paddle_tpu_torch as paddle
+    worst, rows = {}, []
+    for op, name, call, oracle, arrays in _oracle_cases():
+        for dt in dtypes:
+            ts = [torch.from_numpy(v).to(device, dt) for v in arrays]
+            got = call(paddle, *ts).float().cpu().numpy().astype(np.float64)
+            ref = oracle(*(t.double().cpu().numpy() for t in ts))
+            check(got.shape == ref.shape, f"{op} {name} {dt}: shape "
+                                          f"{got.shape}, oracle {ref.shape}")
+            check(np.array_equal(np.isnan(got), np.isnan(ref))
+                  and np.array_equal(np.isneginf(got), np.isneginf(ref)),
+                  f"{op} {name} {dt}: its -inf / nan entries are not the "
+                  f"oracle's")
+            fin = np.isfinite(ref)
+            err = float(np.abs(got[fin] - ref[fin]).max(initial=0.0)) \
+                / max(1.0, float(np.abs(ref[fin]).max(initial=0.0)))
+            tol, tag = CONV_ORACLE_TOL[op][dt], str(dt).split(".")[-1]
+            rows.append((op, name, tag, err, tol))
+            per_op = worst.setdefault(op, {})
+            per_op[tag] = max(err, per_op.get(tag, 0.0))
+            check(err <= tol, f"{op} {name} {dt}: {err:.3e} from the "
+                              f"float64 oracle, limit {tol:.3e}")
+    return worst, rows
+
+
+def phase_conv_oracle():
+    """Phase 20(a): the conv ops on the card against the float64 oracle."""
+    worst, rows = conv_oracle_errors()
+    for op, name, dt, err, tol in rows:
+        log(f"[conv oracle] {op} {name} {dt}: {err:.3e} (limit {tol:.3e})")
+    log(f"[conv oracle] worst {json.dumps(worst)}")
+    return worst
+
+
+def _fit_clock(start):
+    """A ``Model.fit`` callback: every step's loss kept unread, and the
+    step clock from step ``start`` (counted across epochs) to the last
+    (synced at both ends)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Clock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.t0, self.t1 = [], None, None
+
+        def on_train_batch_begin(self, step, logs=None):
+            if len(self.losses) == start:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+        def on_end(self, mode, logs=None):
+            if mode == "train":
+                torch.cuda.synchronize()
+                self.t1 = time.perf_counter()
+
+        def step_ms(self):
+            return (self.t1 - self.t0) * 1e3 / (len(self.losses) - start)
+    return Clock()
+
+
+def _vision_lenet(paddle, card):
+    """(b) LeNet on the synthetic MNIST through Model.fit: Adam 1e-3,
+    CrossEntropyLoss, Accuracy, b64, f32, 2 epochs (256 steps), then
+    evaluate on the test split."""
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.vision.datasets import MNIST
+    paddle.seed(1)
+    model = paddle.Model(paddle.vision.models.LeNet())
+    model.prepare(optimizer=paddle.optimizer.Adam(
+        learning_rate=0.001, parameters=model.parameters()),
+        loss=paddle.nn.CrossEntropyLoss(), metrics=Accuracy())
+    train, test = MNIST(mode="train"), MNIST(mode="test")
+    clock = _fit_clock(start=128)
+    t0 = time.perf_counter()
+    model.fit(train, batch_size=64, epochs=2, verbose=0, shuffle=True,
+              drop_last=True, callbacks=[clock])
+    fit_s = time.perf_counter() - t0
+    logs = model.evaluate(test, batch_size=64, verbose=0)
+    losses = [float(v) for v in clock.losses]
+    res = {"card": card, "images": len(train), "steps": len(losses),
+           "step_ms_epoch2": clock.step_ms(), "fit_s": fit_s,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "loss_first10_mean": float(np.mean(losses[:10])),
+           "loss_last10_mean": float(np.mean(losses[-10:])),
+           "test_acc": float(logs["acc"]), "test_loss": float(logs["loss"])}
+    check(len(losses) == 256, f"LeNet ran {len(losses)} steps, not 256")
+    check(bool(np.isfinite(losses).all()) and res["loss_last10_mean"]
+          < res["loss_first10_mean"], "the LeNet loss did not fall")
+    check(res["test_acc"] > 0.3, f"LeNet test accuracy {res['test_acc']}")
+    log(f"[vision lenet] {json.dumps(res)}")
+    return res
+
+
+def _resnet_model(paddle, amp=True):
+    """bench.py's bench_resnet trainer through Model: resnet50, Momentum
+    0.02 / 0.9, weight decay 1e-4, f32 masters; bf16 O2."""
+    paddle.seed(0)
+    model = paddle.Model(paddle.vision.models.resnet50())
+    model.prepare(optimizer=paddle.optimizer.Momentum(
+        learning_rate=0.02, momentum=0.9, parameters=model.parameters(),
+        weight_decay=1e-4, multi_precision=True),
+        loss=paddle.nn.CrossEntropyLoss(),
+        amp_configs={"level": "O2", "dtype": "bfloat16"} if amp else None)
+    return model
+
+
+def _vision_resnet(paddle, card, batch=64, img=224, steps=40, timed=30,
+                   profiled=10):
+    """(c) ResNet-50 as bench_resnet trains it (b64, 224^2, 8 synthetic
+    batches of N(0, 1) images and labels from RandomState(0), cycled, bf16
+    on the card as bench.py holds them), through Model.fit in bf16 O2:
+    step ms over the last ``timed`` of ``steps``, busy and idle over
+    ``profiled`` more, peak memory, the FLOPs of one step (FlopCounterMode:
+    the convs and matmuls of forward and backward) and the MFU they give."""
+    from torch.utils.flop_counter import FlopCounterMode
+    rng = np.random.RandomState(0)
+    batches = []
+    for _ in range(8):
+        x = torch.from_numpy(rng.randn(batch, 3, img, img).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        y = torch.from_numpy(rng.randint(0, 1000, batch)).to("cuda")
+        batches.append([x, y])
+    model = _resnet_model(paddle)
+    data = [batches[i % 8] for i in range(steps)]
+    clock = _fit_clock(start=steps - timed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.fit(data, epochs=1, verbose=0, callbacks=[clock])
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = clock.step_ms()
+    losses = [float(v) for v in clock.losses]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    res = {"card": card, "config": "resnet50", "amp": "O2 bfloat16",
+           "batch": batch, "image": img, "steps": steps,
+           "timed_steps": timed, "step_ms": step_ms,
+           "images_per_s": batch * 1e3 / step_ms,
+           "peak_memory_gib": peak / 2 ** 30,
+           "loss_first5": float(first), "loss_last5": float(last),
+           "losses": losses}
+    check(bool(np.isfinite(losses).all()) and last < first,
+          f"the ResNet-50 loss is not finite and falling: {first} -> {last}")
+    try:
+        prof = _profile_steps(lambda: model.fit(data[:profiled], epochs=1,
+                                                verbose=0),
+                              n=1, steps_per_call=profiled,
+                              named=RESNET_KERNEL_KINDS)
+    except Exception as e:   # the measurement is optional, the fit is not
+        prof = None
+        log(f"[vision resnet profile] not measured: {type(e).__name__}: {e}")
+    if prof is not None:
+        res["device_busy_ms_per_step"] = prof["device_busy_ms_per_step"]
+        res["device_idle_share"] = 1 - prof["device_busy_ms_per_step"] \
+            / step_ms
+        res["top"] = prof["top"]
+        res["kernel_kinds_ms_per_step"] = prof["kernel_ms_per_step"]
+    with FlopCounterMode(display=False) as fc:
+        model.train_batch([batches[0][0]], [batches[0][1]])
+    torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    res["flops_per_step"] = flops
+    res["mfu"] = flops / (step_ms / 1e3) / RESNET_PEAK
+    res["mfu_peak"] = PEAK_NAME
+    log(f"[vision resnet50] {json.dumps(res)}")
+    del model, batches, data
+    return res
+
+
+def _resnet_step_state(paddle, device, dtype, state, x, y):
+    """One train-mode step of ResNet-50 (no AMP) on ``device`` in
+    ``dtype`` from ``state``: the loss, every gradient's norm and the BN
+    buffers after it, on the host in float64."""
+    with paddle.device.device_scope(device):
+        paddle.seed(0)
+        net = paddle.vision.models.resnet50()
+    net.set_state_dict(state)
+    net.to(device=device, dtype=dtype)
+    net.train()
+    xt = torch.from_numpy(x).to(device, dtype)
+    loss = paddle.nn.functional.cross_entropy(
+        net(xt), torch.from_numpy(y).to(device))
+    loss.backward()
+    norms = {k: float(p.grad.double().norm()) for k, p in
+             net.named_parameters()}
+    bufs = {k: b.double().cpu().numpy() for k, b in net.named_buffers()}
+    return float(loss.detach()), norms, bufs
+
+
+def _vision_cpu_vs_card(paddle):
+    """(d) One ResNet-50 step at b2, 64^2 on the card and on the port's
+    CPU path, from the same weights and batch, in f32 and f64."""
+    with paddle.device.device_scope("cpu"):
+        paddle.seed(0)
+        state = {k: v.clone() for k, v in
+                 paddle.vision.models.resnet50().state_dict().items()}
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 3, 64, 64).astype(np.float32)
+    y = rng.randint(0, 1000, 2)
+    res = {}
+    for dt in (torch.float64, torch.float32):
+        tol = VISION_STEP_TOL[dt]
+        lc, nc, bc = _resnet_step_state(paddle, "cuda", dt, state, x, y)
+        lh, nh, bh = _resnet_step_state(paddle, "cpu", dt, state, x, y)
+        loss_err = abs(lc - lh) / abs(lh)
+        grad_err = max(abs(nc[k] - nh[k]) / max(nh[k], 1e-30) for k in nh)
+        stat_err = max(float(np.linalg.norm(bc[k] - bh[k])
+                             / max(np.linalg.norm(bh[k]), 1e-30))
+                       for k in bh)
+        tag = str(dt).split(".")[-1]
+        res[tag] = {"loss_card": lc, "loss_cpu": lh, "loss_rel": loss_err,
+                    "grad_norm_rel_max": grad_err, "bn_stat_rel_max": stat_err,
+                    "limits": tol}
+        check(loss_err <= tol["loss"] and grad_err <= tol["grad_norm"]
+              and stat_err <= tol["stat"],
+              f"ResNet-50 {tag} card vs CPU: {res[tag]}")
+    log(f"[vision cpu vs card] {json.dumps(res)}")
+    return res
+
+
+def _gelu_special_values():
+    """(e) gelu and gelu(approximate=True) at +inf, -inf, nan, 0, -0.0 in
+    tensors of 1 and 64 elements, f32 and bf16, on the card: the port's
+    op must give jax.nn.gelu's values (inf, nan, nan, 0, -0.0); torch's
+    own F.gelu is read beside it (ROADMAP Queue 3 C7)."""
+    import paddle_tpu_torch as paddle
+    special = torch.tensor([math.inf, -math.inf, math.nan, 0.0, -0.0])
+    want = torch.tensor([math.inf, math.nan, math.nan, 0.0, -0.0])
+    res = {}
+    for n in (1, 64):
+        for dt in (torch.float32, torch.bfloat16):
+            for approx in (False, True):
+                x = special[:1] if n == 1 else special.repeat(13)[:64]
+                w = want[:1] if n == 1 else want.repeat(13)[:64]
+                x = x.to("cuda", dt)
+                got = paddle.nn.functional.gelu(x, approximate=approx)
+                raw = torch.nn.functional.gelu(
+                    x, approximate="tanh" if approx else "none")
+                got, raw = got.float().cpu(), raw.float().cpu()
+                key = f"n{n}_{str(dt).split('.')[-1]}" \
+                      f"{'_tanh' if approx else ''}"
+                res[key] = {"port": [str(v) for v in got[:5].tolist()],
+                            "torch": [str(v) for v in raw[:5].tolist()]}
+                same = torch.equal(torch.isnan(got), torch.isnan(w)) and \
+                    torch.equal(got[~torch.isnan(w)], w[~torch.isnan(w)]) \
+                    and torch.equal(torch.signbit(got[~torch.isnan(w)]),
+                                    torch.signbit(w[~torch.isnan(w)]))
+                check(same, f"gelu {key} on the card: {got[:5].tolist()}, "
+                            f"jax.nn.gelu gives {w[:5].tolist()}")
+    log(f"[vision gelu] {json.dumps(res)}")
+    return res
+
+
+def phase_vision(card=None):
+    """Phase 20: vision and conv. (a) the conv ops on the card against a
+    float64 numpy oracle; (b) LeNet through Model.fit on the synthetic
+    MNIST; (c) ResNet-50 in bench_resnet's recipe through Model.fit, bf16
+    O2; (d) one ResNet-50 step, card against CPU; (e) gelu's special
+    values. None of the eight kernels lies on this path: every launch
+    count must stay 0 over the phase."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import cuda as kernels
+    paddle.set_device("gpu")
+    kernels.reset_launch_counts()
+    res = {"conv_oracle": phase_conv_oracle(),
+           "lenet": _vision_lenet(paddle, card),
+           "resnet50": _vision_resnet(paddle, card),
+           "resnet50_cpu_vs_card": _vision_cpu_vs_card(paddle),
+           "gelu": _gelu_special_values()}
+    counts = kernels.launch_counts()
+    res["kernel_launches"] = counts
+    check(not any(counts.values()), f"phase 20 launched kernels: {counts}")
+    return res
+
+
+def _native_bn_forward(self, x):
+    """A BatchNorm layer's forward on torch's fused kernel (cuDNN on the
+    card) in f32, as the port's composite runs under O2: a measurement of
+    the composite's cost only, since its running variance is unbiased."""
+    return torch.nn.functional.batch_norm(
+        x.float(), self._mean, self._variance, self.weight.float(),
+        self.bias.float(), self.training and not self._use_global_stats,
+        1 - self._momentum, self._epsilon)
+
+
+def vision_probes(steps=20, timed=10, profiled=5):
+    """Open questions of phase 20(c), measured and not enacted: ResNet-50's
+    bf16 O2 ``Model.fit`` step (b64, 224^2, bench_resnet's data) as the
+    port runs it, with cuDNN's algorithm search on
+    (``cudnn.benchmark``), with the network and images in channels_last,
+    and with BN on torch's fused kernel in place of the composite; in
+    turns, the default first and last. Step ms over the last ``timed`` of
+    ``steps``, busy over ``profiled`` more; one line of JSON."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn.layer import norm
+    paddle.set_device("gpu")
+    rng = np.random.RandomState(0)
+    batches = [[torch.from_numpy(rng.randn(64, 3, 224, 224).astype(
+        np.float32)).to("cuda", torch.bfloat16),
+        torch.from_numpy(rng.randint(0, 1000, 64)).to("cuda")]
+        for _ in range(8)]
+    plain_forward = norm._BatchNormBase.forward
+
+    @contextlib.contextmanager
+    def variant(name):
+        norm._BatchNormBase.forward = _native_bn_forward \
+            if name == "native_bn" else plain_forward
+        torch.backends.cudnn.benchmark = name == "cudnn_benchmark"
+        try:
+            yield
+        finally:
+            norm._BatchNormBase.forward = plain_forward
+            torch.backends.cudnn.benchmark = False
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    out = {"card": card, "steps": steps, "timed": timed, "runs": []}
+    for name in ("default", "cudnn_benchmark", "channels_last", "native_bn",
+                 "default"):
+        with variant(name):
+            model = _resnet_model(paddle)
+            data = [batches[i % 8] for i in range(steps)]
+            if name == "channels_last":
+                model.network.to(memory_format=torch.channels_last)
+                data = [[x.contiguous(memory_format=torch.channels_last), y]
+                        for x, y in data]
+            clock = _fit_clock(start=steps - timed)
+            model.fit(data, epochs=1, verbose=0, callbacks=[clock])
+            prof = _profile_steps(lambda: model.fit(
+                data[:profiled], epochs=1, verbose=0), n=1,
+                steps_per_call=profiled, named=RESNET_KERNEL_KINDS)
+            losses = [float(v) for v in clock.losses]
+            run = {"variant": name, "step_ms": clock.step_ms(),
+                   "loss_first": losses[0], "loss_last": losses[-1]}
+            if prof is not None:
+                run["device_busy_ms_per_step"] = \
+                    prof["device_busy_ms_per_step"]
+                run["kernel_kinds_ms_per_step"] = prof["kernel_ms_per_step"]
+            out["runs"].append(run)
+            log(f"[vision probe] {json.dumps(run)}")
+            del model, data
+    print(json.dumps(out))
+    return out
+
+
 def compare(parent, runs=("parent", "change", "change", "parent") * 2):
     """Phases 8 and 15 of the checkout at ``parent`` and of this one, each
     run in a fresh process, in the order ``runs``: the step ms of each
@@ -3488,6 +4114,12 @@ FAULTS = {
         ("paddle_tpu_torch/nn/layer/transformer.py",
          "tgt = self.cross_attn(tgt, memory, memory, attn_mask=memory_mask)",
          "tgt = self.cross_attn(tgt, memory, memory, attn_mask=None)"),
+    # the conv ops (phase 20(a)'s oracle): XLA's SAME pads with the odd
+    # element on the low side
+    "vision_same_pads_low_side":
+        ("paddle_tpu_torch/ops/conv.py",
+         "        pads.append((total // 2, total - total // 2))",
+         "        pads.append((total - total // 2, total // 2))"),
 }
 CSRC = "paddle_tpu_torch/ops/cuda/csrc"
 
@@ -3506,6 +4138,8 @@ def _fault_phase(name, source):
         return ("phase_api_checks",), "18"
     if name.startswith("transformer_"):
         return ("phase_transformer_masks",), "19"
+    if name.startswith("vision_"):
+        return ("phase_conv_oracle",), "20"
     if source.startswith("fused_ce"):
         return ("phase_ce",), "6"
     if "decode_attention" in source:
@@ -3612,6 +4246,7 @@ def main():
     hapi_counts, hapi = phase_hapi(card, flagship, o2)
     dy_counts, dy_serve_counts, dygraph = phase_dygraph(card)
     tf_counts, tf_decode_counts, transformer = phase_transformer(card)
+    vision = phase_vision(card)
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -3711,7 +4346,7 @@ def main():
                           "gpt_head": ce_gpt["whole_backward"]},
                       "o2_f16": o2, "o2_f16_equivalence": o2_equiv,
                       "hapi": hapi, "dygraph": dygraph,
-                      "transformer": transformer}))
+                      "transformer": transformer, "vision": vision}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

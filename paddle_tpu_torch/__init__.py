@@ -37,6 +37,7 @@ from .ops import *  # noqa: F401,F403,E402  paddle.* tensor functions
 from . import ops  # noqa: F401,E402
 from . import autograd  # noqa: F401,E402
 from . import amp, nn, optimizer  # noqa: F401,E402
+from . import vision  # noqa: F401,E402
 from .nn import ParamAttr  # noqa: F401,E402
 from .nn.layer.layers import Parameter  # noqa: F401,E402
 from .framework.io import load, save  # noqa: F401,E402

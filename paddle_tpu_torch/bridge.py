@@ -4,9 +4,11 @@
 ``{name: array}`` under the same dotted names the port's modules use
 (GPT's ``blocks.{i}.attn.qkv_proj.weight``, ``wte.weight`` ...; BERT's
 ``encoder.layers.{i}.self_attn.qkv_proj.weight``, ``pooler.dense.weight``,
-``mlm_bias`` ...). The name sets must match one to one. Both packages'
-``Linear`` store the weight [in, out] and compute ``x @ W``, so every
-parameter copies as it is.
+``mlm_bias`` ...; a ResNet's ``layer1.0.conv1.weight``,
+``layer1.0.bn1._mean`` ...). The name sets must match one to one. Both
+packages' ``Linear`` store the weight [in, out] and compute ``x @ W``,
+and both packages' conv layers keep OI<spatial> weights (IO<spatial>
+for the transposes), so every parameter copies as it is.
 
 ``load_jax_optimizer_state`` carries a JAX ``Optimizer.state_dict()``
 (every ``"{param}/{slot}"``, ``_step_count``, ``LR_Scheduler``) and a JAX

@@ -1,8 +1,7 @@
 """paddle.nn of the port (paddle_tpu/nn): ``Layer`` and its containers,
-the layers of ``layer/`` (common, norm, activation, loss, rnn,
-transformer), ``functional``, ``initializer`` and ``utils``. The conv and
-pooling layers wait for ROADMAP Queue 1 item 5, and ``decode``'s beam
-search for item 4."""
+the layers of ``layer/`` (common, conv, norm, pooling, activation, loss,
+rnn, transformer), ``functional``, ``initializer`` and ``utils``.
+``decode``'s beam search waits for ROADMAP Queue 1 item 4."""
 from . import functional, initializer, utils  # noqa: F401
 from .layer import *  # noqa: F401,F403
 from .layer import Layer, Parameter, ParamAttr  # noqa: F401

@@ -4,9 +4,12 @@ whose ops are ported: ``bpr_loss``, ``pad2d`` ...), plus the functions
 with layer-level semantics: ``linear``, ``embedding``, ``bilinear``,
 ``sequence_mask``, the channelwise and alpha dropouts (drawn from the
 port's generator), ``dice_loss``, ``soft_relu``,
-``add_position_encoding``, attention and the fused loss head. The names
-over the conv ops and the long-tail ops wait for ROADMAP Queue 1 items 5
-and 9.
+``add_position_encoding``, attention and the fused loss head; the conv
+family, the pools, ``interpolate`` / ``upsample`` with the v1
+``image_resize`` / ``resize_*``, ``pixel_shuffle``, ``unfold`` and the
+other names over ``ops/conv.py`` (``avg_pool1d`` and the 1-D adaptive
+pools go through the 2-D ops over a unit height, as in the JAX package).
+The names over the long-tail ops wait for ROADMAP Queue 1 item 9.
 
 ``linear`` is the JAX package's two recorded ops, ``matmul`` then
 ``add``, whenever AMP is on (under O1 the gray bias add promotes the
@@ -61,6 +64,13 @@ from ..ops import (  # noqa: F401 - op-backed names of the v1 surface
     bpr_loss, data_norm, hinge_loss, l2_normalize, npair_loss, pad2d, pad3d,
     pad_constant_like, rank_loss, shuffle_channel, sigmoid_focal_loss,
     space_to_depth, teacher_student_sigmoid_loss, temporal_shift)
+from ..ops import (  # noqa: F401 - the conv ops (ops/conv.py)
+    conv1d, conv2d, conv3d, conv1d_transpose, conv2d_transpose,
+    conv3d_transpose, max_pool1d, max_pool2d, max_pool3d, avg_pool2d,
+    avg_pool3d, adaptive_avg_pool2d, adaptive_max_pool2d,
+    adaptive_avg_pool3d, adaptive_max_pool3d, interpolate, pixel_shuffle,
+    unfold, affine_channel, deform_conv2d, deformable_conv, im2sequence,
+    psroi_pool, random_crop, row_conv)
 from ..ops import embedding as _embedding_op
 from ..core import rng as _rng
 from ..core.dtype import to_torch_dtype
@@ -170,6 +180,49 @@ def add_position_encoding(x, alpha=1.0, beta=1.0):
     if pe.shape[1] < d:
         pe = torch.nn.functional.pad(pe, (0, d - pe.shape[1]))
     return wrap(alpha * x + beta * pe[None].to(x.dtype))
+
+
+upsample = interpolate
+
+
+def image_resize(x, out_shape=None, scale=None, resample="BILINEAR",
+                 align_corners=True, data_format="NCHW"):
+    """The v1 name over ``interpolate`` (TRILINEAR raises KeyError there,
+    as in the JAX package)."""
+    mode = {"BILINEAR": "bilinear", "NEAREST": "nearest",
+            "TRILINEAR": "trilinear"}[resample.upper()]
+    return interpolate(x, size=out_shape, scale_factor=scale, mode=mode,
+                       data_format=data_format)
+
+
+def resize_bilinear(x, out_shape=None, scale=None, **kw):
+    return image_resize(x, out_shape, scale, "BILINEAR")
+
+
+def resize_nearest(x, out_shape=None, scale=None, **kw):
+    return image_resize(x, out_shape, scale, "NEAREST")
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False):
+    """``avg_pool2d`` over a unit height."""
+    k = (1, kernel_size if isinstance(kernel_size, int) else kernel_size[0])
+    s = (1, (stride if isinstance(stride, int) else
+             (stride[0] if stride else k[1])) or k[1])
+    p = (0, padding if isinstance(padding, int) else padding[0])
+    out = avg_pool2d(ops.unsqueeze(x, [2]), k, stride=s, padding=p,
+                     ceil_mode=ceil_mode, exclusive=exclusive)
+    return ops.squeeze(out, [2])
+
+
+def adaptive_avg_pool1d(x, output_size):
+    out = adaptive_avg_pool2d(ops.unsqueeze(x, [2]), (1, output_size))
+    return ops.squeeze(out, [2])
+
+
+def adaptive_max_pool1d(x, output_size):
+    out = adaptive_max_pool2d(ops.unsqueeze(x, [2]), (1, output_size))
+    return ops.squeeze(out, [2])
 
 
 def unfold_linear(*args, **kwargs):

@@ -1,7 +1,9 @@
 from .layers import Layer, ParamAttr, Parameter  # noqa: F401
 from .common import *       # noqa: F401,F403
 from .container import *    # noqa: F401,F403
+from .conv import *         # noqa: F401,F403
 from .norm import *         # noqa: F401,F403
+from .pooling import *      # noqa: F401,F403
 from .activation import *   # noqa: F401,F403
 from .loss import *         # noqa: F401,F403
 from .rnn import *          # noqa: F401,F403

@@ -6,9 +6,11 @@ distances.
 (``functional.linear``). Each forward is the functional op, whose AMP
 cast point is the JAX op's. ``Dropout2D`` / ``Dropout3D`` are the JAX
 layer's: elementwise dropout, as ``Dropout`` (the channelwise forms are
-``functional.dropout2d`` / ``dropout3d``). The layers over the conv ops
-(Upsample*, PixelShuffle, Unfold, RowConv) wait for ROADMAP Queue 1 item
-5, and TreeConv and BilinearTensorProduct, over item 9's ops, for item 9.
+``functional.dropout2d`` / ``dropout3d``). The layers over the conv ops:
+``Upsample`` and its two fixed-mode forms (``interpolate``, which is
+``jax.image.resize``: ``align_corners`` is kept and ignored),
+``PixelShuffle``, ``Unfold`` and ``RowConv``. TreeConv and
+BilinearTensorProduct, over item 9's ops, wait for ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ from .layers import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
            "AlphaDropout", "Flatten", "Pad1D", "Pad2D", "Pad3D", "Identity",
-           "Bilinear", "CosineSimilarity", "PairwiseDistance"]
+           "Bilinear", "CosineSimilarity", "PairwiseDistance", "Upsample",
+           "UpsamplingBilinear2D", "UpsamplingNearest2D", "PixelShuffle",
+           "Unfold", "RowConv"]
 
 
 class Identity(Layer):
@@ -188,3 +192,62 @@ class PairwiseDistance(Layer):
         d = ops.abs(ops.add(x, ops.scale(y, -1.0)))
         d = ops.add(d, ops.full_like(d, self.epsilon))
         return ops.norm(d, p=self.p, axis=-1, keepdim=self.keepdim)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, data_format="NCHW", name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, size=self.size,
+                             scale_factor=self.scale_factor, mode=self.mode,
+                             align_corners=self.align_corners,
+                             data_format=self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW"):
+        super().__init__(size, scale_factor, "bilinear", True, data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW"):
+        super().__init__(size, scale_factor, "nearest", False, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW"):
+        super().__init__()
+        self.factor = upscale_factor
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.factor)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class RowConv(Layer):
+    """The lookahead conv of DeepSpeech 2 (``ops.row_conv``): weight
+    [future_context_size + 1, num_channels], Xavier-normal."""
+
+    def __init__(self, num_channels, future_context_size, param_attr=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [future_context_size + 1, num_channels], attr=param_attr,
+            default_initializer=I.XavierNormal())
+
+    def forward(self, x):
+        return ops.row_conv(x, self.weight)

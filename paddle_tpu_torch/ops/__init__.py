@@ -15,13 +15,14 @@ from .reduction import *     # noqa: F401,F403
 from .logic import *         # noqa: F401,F403
 from .linalg import *        # noqa: F401,F403
 from .activation import *    # noqa: F401,F403
+from .conv import *          # noqa: F401,F403
 from .norm_ops import *      # noqa: F401,F403
 from .loss import *          # noqa: F401,F403
 
 from . import _bind  # noqa: F401,E402  attaches Tensor operators/methods
 
 _MODULES = ("math", "creation", "manipulation", "reduction", "logic",
-            "linalg", "activation", "norm_ops", "loss")
+            "linalg", "activation", "conv", "norm_ops", "loss")
 
 
 def _register_plain_ops():

@@ -3,6 +3,8 @@ function with the JAX op's formula it is one call (``gelu`` exact or
 tanh-approximate, ``softmax`` ...); otherwise the JAX op's formula."""
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as tF
 
@@ -60,7 +62,14 @@ def celu(x, alpha=1.0):
 
 @defop
 def gelu(x, approximate=False):
-    return tF.gelu(as_float(x), approximate="tanh" if approximate else "none")
+    x = as_float(x)
+    out = tF.gelu(x, approximate="tanh" if approximate else "none")
+    if x.device.type == "cpu" and not approximate:
+        # torch's vectorized CPU kernel gives nan for +inf (a lone +inf
+        # gives inf); jax.nn.gelu gives inf, as the card does (ROADMAP
+        # Queue 3 C7)
+        out = torch.where(x == math.inf, x, out)
+    return out
 
 
 @defop

@@ -958,3 +958,20 @@ def test_tiny_transformer_trains_and_decodes_on_the_card(card):
                                               transpose_y=True), axis=-1)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["decode_attention"] == 4 * 2
+
+
+def test_conv_ops_match_the_float64_oracle_on_the_card(card):
+    """chip_smoke.py phase 20(a): conv2d (groups, depthwise, dilation,
+    SAME at stride 2 on odd and even sizes, 4-element pads, NHWC),
+    conv2d_transpose, the pools with ceil_mode and every interpolate mode
+    on the card, f32 and bf16, against the float64 numpy oracle written
+    there, each op within ``CONV_ORACLE_TOL``."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        worst, rows = smoke.conv_oracle_errors("cuda")
+    assert len(rows) == 2 * 23

@@ -199,7 +199,8 @@ def test_planted_fault_lines_occur_once():
                        "paddle_tpu_torch/ops/cuda/decode_attention.py",
                        "paddle_tpu_torch/ops/_dispatch.py",
                        "paddle_tpu_torch/core/tensor.py",
-                       "paddle_tpu_torch/nn/layer/transformer.py"}
+                       "paddle_tpu_torch/nn/layer/transformer.py",
+                       "paddle_tpu_torch/ops/conv.py"}
 
 
 def test_cpu_wrappers_count_no_launch_of_either_variant():

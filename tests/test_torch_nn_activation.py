@@ -57,3 +57,26 @@ def test_every_jax_activation_layer_is_ported():
     assert tact.__all__ == jact.__all__
     assert set(jact.__all__) == set(LAYERS) | {"PReLU"}
     assert np.all([hasattr(tact, n) for n in jact.__all__])
+
+
+@pytest.mark.parametrize("approximate", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 5, 64])
+def test_gelu_special_values_match_jax(n, dtype, approximate):
+    """gelu at {+inf, -inf, nan, 0, -0.0}, alone and tiled into 5 and 64
+    elements (torch's vectorized CPU kernel gave nan for +inf from 8 on:
+    ROADMAP Queue 3 C7), against jax.nn.gelu: +inf -> inf, -inf -> nan,
+    and the sign of a zero kept."""
+    import paddle_tpu as jp
+    import paddle_tpu_torch as tp
+    special = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0], np.float32)
+    x = special[:1] if n == 1 else np.resize(special, n)
+    j = np.asarray(jp.nn.functional.gelu(
+        jp.to_tensor(x, dtype=dtype), approximate=approximate)
+        .astype("float32").numpy())
+    t = tp.nn.functional.gelu(tp.to_tensor(x, dtype=dtype),
+                              approximate=approximate).float().numpy()
+    assert j[0] == np.inf
+    np.testing.assert_array_equal(t, j)
+    np.testing.assert_array_equal(np.signbit(t[~np.isnan(t)]),
+                                  np.signbit(j[~np.isnan(j)]))

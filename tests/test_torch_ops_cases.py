@@ -6,10 +6,11 @@ sum(out * c) for a seeded cotangent c.
 
 A case names the op, its arguments (numpy arrays become tensors in each
 package; ``Raw`` values pass as they are) and its keywords, the argument
-positions to differentiate and the tolerance (f32 unless the case says
-otherwise). This module holds no test of its own: the other
-``test_torch_ops_*.py`` files each run a group, and
-``test_torch_ops_registry.py`` holds the groups to the whole registry.
+positions to differentiate, the tolerance and the dtype its float
+arrays become (f32 unless the case says otherwise). This module holds no
+test of its own: the other ``test_torch_ops_*.py`` files each run a
+group, and ``test_torch_ops_registry.py`` holds the groups to the whole
+registry.
 """
 import dataclasses
 
@@ -34,6 +35,7 @@ class Case:
     rtol: float = 1e-5
     atol: float = 1e-6
     id: str = ""
+    dtype: str = ""              # the float arrays' dtype ("" keeps f32)
 
     def __str__(self):
         return self.name + (f"-{self.id}" if self.id else "")
@@ -59,10 +61,12 @@ def bools(*shape, seed=0):
     return rs(seed).rand(*shape) > 0.5
 
 
-def _tensor(pkg, a, grad):
+def _tensor(pkg, a, grad, dtype=""):
     if isinstance(a, Raw):
         return a.value
     if isinstance(a, np.ndarray):
+        if dtype and a.dtype.kind == "f":
+            return pkg.to_tensor(a, dtype=dtype, stop_gradient=not grad)
         return pkg.to_tensor(a, stop_gradient=not grad)
     return a
 
@@ -107,9 +111,10 @@ def run(case):
     """Forward (and gradients) of ``case`` in both packages, compared."""
     outs, grads = {}, {}
     for pkg in (jp, tp):
-        args = [_tensor(pkg, a, i in case.grad)
+        args = [_tensor(pkg, a, i in case.grad, case.dtype)
                 for i, a in enumerate(case.args)]
-        kw = {k: _tensor(pkg, v, False) for k, v in case.kw.items()}
+        kw = {k: _tensor(pkg, v, False, case.dtype)
+              for k, v in case.kw.items()}
         out = pkg.ops.OP_REGISTRY[case.name](*args, **kw)
         outs[pkg] = _flat(out)
         if case.grad:
@@ -557,9 +562,239 @@ RNN = [
          grad=(0, 1, 2, 3, 4, 5)),
 ]
 
+# ops/conv.py: every op, forward and gradients, with a case per trouble
+# spot of the port (ops/conv.py's docstring): SAME pads at stride 2 on odd
+# and even sizes (asymmetric on even), 4-element (lo, hi) pads, groups,
+# depthwise, dilation, NHWC with HWIO weights, the ceil-mode windows of
+# padding only (-inf for max, 0 / 0 for an exclusive average), the
+# average divisors, the integral image of a non-divisible adaptive
+# average, max-pool ties after a ReLU (whole windows of zeros, ResNet's
+# overlapping 3x3 / s2), and interpolate as jax.image.resize (antialiased
+# downsampling, Keys cubic, half-pixel nearest). f32 rtol / atol 1e-5;
+# bf16 (the port's and XLA's CPU convs accumulate in f32 and round once,
+# in different orders, and reduce a gradient over hundreds of bf16 terms):
+# rtol / atol 2^-5, a few bf16 ulps (the transposed conv's bias gradient
+# differs by two), and atol 2^-4 where a bf16 sum feeds a second op (the
+# integral image, a resize's second axis)
+CX = f32(2, 4, 9, 9, seed=40)
+CX8 = f32(2, 4, 8, 8, seed=41)
+CW = f32(6, 4, 3, 3, seed=42) * 0.3
+CB = f32(6, seed=43)
+RELU = np.maximum(f32(2, 3, 9, 9, seed=44), 0).astype(np.float32)
+P5 = f32(1, 2, 5, 5, seed=45)
+TW = f32(4, 3, 3, 3, seed=46) * 0.3           # transposed: [in, out, k, k]
+BF = dict(dtype="bfloat16", rtol=2 ** -5, atol=2 ** -5)
+BF_SUM = dict(dtype="bfloat16", rtol=2 ** -5, atol=2 ** -4)
+_C = dict(rtol=1e-5, atol=1e-5)
+
+
+def _unpool_indices(n, c, oh, ow, k, seed):
+    r = rs(seed)
+    dy = r.randint(0, k, (n, c, oh, ow))
+    dx = r.randint(0, k, (n, c, oh, ow))
+    oy = np.arange(oh)[:, None] * k + dy
+    ox = np.arange(ow)[None, :] * k + dx
+    return (oy * (ow * k) + ox).astype(np.int32)
+
+
+CONV = [
+    Case("conv2d", (CX, CW, CB), {"padding": 1}, grad=(0, 1, 2), **_C),
+    # forward only: JAX 0.9's bf16 conv2d cannot be differentiated (its f32
+    # preferred element type meets bf16 weights in the transpose rule);
+    # the port's bf16 gradients: test_torch_ops_conv.py
+    Case("conv2d", (CX, CW, CB), {"padding": 1}, id="bf16", **BF),
+    Case("conv2d", (CX, CW, CB), {"stride": 2, "padding": "SAME"},
+         grad=(0, 1), id="same_s2_odd", **_C),
+    Case("conv2d", (CX8, CW, CB), {"stride": 2, "padding": "same"},
+         grad=(0, 1), id="same_s2_even", **_C),
+    Case("conv2d", (CX, CW), {"padding": [1, 2, 0, 1], "stride": 2},
+         grad=(0, 1), id="pads4", **_C),
+    Case("conv2d", (CX, CW), {"padding": "VALID", "dilation": 2},
+         grad=(0, 1), id="dilation", **_C),
+    Case("conv2d", (CX, CW, CB), {"padding": "SAME", "dilation": 2,
+                                  "stride": 2}, grad=(0, 1),
+         id="same_dilated", **_C),
+    Case("conv2d", (CX, f32(6, 2, 3, 3, seed=47) * 0.3, CB),
+         {"padding": 1, "groups": 2}, grad=(0, 1, 2), id="groups", **_C),
+    Case("conv2d", (CX, f32(8, 1, 3, 3, seed=48) * 0.3),
+         {"padding": 1, "groups": 4, "stride": 2}, grad=(0, 1),
+         id="depthwise", **_C),
+    Case("conv2d", (f32(2, 9, 9, 4, seed=49), f32(3, 3, 4, 6, seed=50) * 0.3,
+                    CB), {"padding": 1, "data_format": "NHWC"},
+         grad=(0, 1, 2), id="nhwc", **_C),
+    Case("conv1d", (f32(2, 4, 11, seed=51), f32(5, 4, 3, seed=52) * 0.3,
+                    f32(5, seed=53)), {"padding": 1}, grad=(0, 1, 2), **_C),
+    Case("conv1d", (f32(2, 11, 4, seed=51), f32(3, 4, 5, seed=52) * 0.3),
+         {"stride": 2, "padding": "SAME", "data_format": "NLC"},
+         grad=(0, 1), id="nlc_same", **_C),
+    Case("conv3d", (f32(1, 3, 5, 6, 7, seed=54), f32(4, 3, 3, 3, 3, seed=55)
+                    * 0.3, f32(4, seed=56)), {"padding": 1, "stride": 2},
+         grad=(0, 1, 2), **_C),
+    Case("conv3d", (f32(1, 3, 5, 6, 7, seed=54),
+                    f32(4, 3, 2, 3, 2, seed=55) * 0.3),
+         {"padding": "SAME", "stride": 2}, grad=(0, 1), id="same", **_C),
+    Case("conv1d_transpose", (f32(2, 4, 7, seed=57),
+                              f32(4, 3, 3, seed=58) * 0.3, f32(3, seed=59)),
+         {"stride": 2, "padding": 1, "output_padding": 1}, grad=(0, 1, 2),
+         **_C),
+    Case("conv2d_transpose", (f32(2, 4, 5, 5, seed=60), TW, f32(3, seed=61)),
+         {"stride": 2, "padding": 1, "output_padding": 1}, grad=(0, 1, 2),
+         **_C),
+    Case("conv2d_transpose", (f32(2, 4, 5, 5, seed=60), TW, f32(3, seed=61)),
+         {"stride": 2, "padding": 1, "output_padding": 1}, grad=(0, 1, 2),
+         id="bf16", **BF),
+    Case("conv2d_transpose", (f32(2, 4, 5, 5, seed=60),
+                              f32(4, 2, 3, 3, seed=62) * 0.3),
+         {"stride": 2, "groups": 2, "dilation": 2}, grad=(0, 1),
+         id="groups_dilated", **_C),
+    Case("conv2d_transpose", (f32(2, 4, 5, 5, seed=60), TW),
+         {"stride": 2, "padding": [1, 0, 0, 2], "output_padding": 1},
+         grad=(0, 1), id="pads4", **_C),
+    Case("conv2d_transpose", (f32(2, 4, 5, 5, seed=60), TW),
+         {"stride": 3, "padding": 0, "output_padding": 2}, grad=(0, 1),
+         id="opad_past_pad", **_C),
+    Case("conv3d_transpose", (f32(1, 4, 3, 4, 3, seed=63),
+                              f32(4, 2, 3, 3, 3, seed=64) * 0.3,
+                              f32(2, seed=65)),
+         {"stride": 2, "padding": 1}, grad=(0, 1, 2), **_C),
+    Case("max_pool2d", (RELU,), {"kernel_size": 3, "stride": 2,
+                                 "padding": 1}, grad=(0,), id="relu_ties"),
+    Case("max_pool2d", (RELU,), {"kernel_size": 3, "stride": 2,
+                                 "padding": 1}, grad=(0,),
+         id="relu_ties_bf16", **BF),
+    Case("max_pool2d", (CX,), {"kernel_size": 2}, grad=(0,)),
+    Case("max_pool2d", (P5,), {"kernel_size": 2, "stride": 2, "padding": 1,
+                               "ceil_mode": True}, grad=(0,),
+         id="ceil_padding_window"),
+    Case("max_pool2d", (CX,), {"kernel_size": 3, "stride": 2,
+                               "padding": [0, 2, 1, 1]}, grad=(0,),
+         id="pads4"),
+    Case("max_pool2d", (f32(2, 9, 9, 4, seed=66),),
+         {"kernel_size": 3, "stride": 2, "padding": 1, "data_format": "NHWC"},
+         grad=(0,), id="nhwc"),
+    Case("max_pool2d", (ints(2, 3, 6, 6, lo=-9, hi=9),),
+         {"kernel_size": 2, "padding": 1}, id="int"),
+    Case("avg_pool2d", (CX,), {"kernel_size": 3, "stride": 2, "padding": 1},
+         grad=(0,), id="exclusive"),
+    Case("avg_pool2d", (CX,), {"kernel_size": 3, "stride": 2, "padding": 1},
+         grad=(0,), id="exclusive_bf16", **BF),
+    Case("avg_pool2d", (CX,), {"kernel_size": 3, "stride": 2, "padding": 1,
+                               "exclusive": False}, grad=(0,),
+         id="inclusive"),
+    Case("avg_pool2d", (P5,), {"kernel_size": 2, "stride": 2, "padding": 1,
+                               "ceil_mode": True}, grad=(0,),
+         id="ceil_padding_window_nan"),
+    Case("avg_pool2d", (CX,), {"kernel_size": 2, "stride": 2,
+                               "ceil_mode": True, "exclusive": False},
+         grad=(0,), id="ceil_inclusive"),
+    Case("avg_pool2d", (CX,), {"kernel_size": 3, "stride": 2, "padding": 1,
+                               "ceil_mode": True}, grad=(0,),
+         id="ceil_exclusive_overhang"),
+    Case("avg_pool2d", (CX,), {"kernel_size": 3, "padding": [2, 0, 1, 2]},
+         grad=(0,), id="pads4"),
+    Case("avg_pool2d", (f32(2, 9, 9, 4, seed=67),),
+         {"kernel_size": 2, "padding": 1, "data_format": "NHWC"}, grad=(0,),
+         id="nhwc"),
+    Case("max_pool1d", (f32(2, 3, 11, seed=68),), {"kernel_size": 3,
+                                                   "stride": 2, "padding": 1},
+         grad=(0,)),
+    Case("max_pool1d", (f32(2, 3, 11, seed=68),), {"kernel_size": 2,
+                                                   "stride": 2,
+                                                   "ceil_mode": True},
+         grad=(0,), id="ceil"),
+    Case("max_pool3d", (f32(1, 2, 5, 6, 7, seed=69),),
+         {"kernel_size": 3, "stride": 2, "padding": 1}, grad=(0,)),
+    Case("max_pool3d", (f32(1, 2, 5, 6, 7, seed=69),),
+         {"kernel_size": 2, "ceil_mode": True}, grad=(0,), id="ceil"),
+    Case("max_pool3d", (f32(1, 2, 5, 6, 8, seed=69),),
+         {"kernel_size": 3, "stride": 2, "padding": "SAME"}, grad=(0,),
+         id="same"),
+    Case("avg_pool3d", (f32(1, 2, 5, 6, 7, seed=70),),
+         {"kernel_size": 3, "stride": 2, "padding": 1}, grad=(0,)),
+    Case("avg_pool3d", (f32(1, 2, 5, 6, 7, seed=70),),
+         {"kernel_size": 2, "ceil_mode": True, "exclusive": False},
+         grad=(0,), id="ceil_inclusive"),
+    Case("avg_pool3d", (f32(1, 2, 5, 6, 8, seed=70),),
+         {"kernel_size": 3, "stride": 2, "padding": "SAME"}, grad=(0,),
+         id="same_not_exclusive"),
+    Case("adaptive_avg_pool2d", (CX8,), {"output_size": 4}, grad=(0,),
+         id="divisible"),
+    Case("adaptive_avg_pool2d", (f32(2, 8, 7, 7, seed=71),),
+         {"output_size": 1}, grad=(0,), id="resnet_7_to_1"),
+    Case("adaptive_avg_pool2d", (CX,), {"output_size": [4, 5]}, grad=(0,),
+         id="integral_image", **_C),
+    Case("adaptive_avg_pool2d", (CX,), {"output_size": [4, 5]}, grad=(0,),
+         id="integral_image_bf16", **BF_SUM),
+    Case("adaptive_max_pool2d", (CX8,), {"output_size": [2, 4]}, grad=(0,)),
+    Case("adaptive_avg_pool3d", (f32(1, 2, 4, 6, 6, seed=72),),
+         {"output_size": 2}, grad=(0,)),
+    Case("adaptive_max_pool3d", (f32(1, 2, 4, 6, 6, seed=72),),
+         {"output_size": [2, 3, 3]}, grad=(0,)),
+    Case("max_pool2d_with_index", (CX,), {"kernel_size": 3, "stride": 2,
+                                          "padding": 1}, grad=(0,)),
+    Case("max_pool2d_with_index", (RELU,), {"kernel_size": 2}, grad=(0,),
+         id="ties"),
+    Case("max_unpool2d", (f32(2, 3, 3, 4, seed=73),
+                          _unpool_indices(2, 3, 3, 4, 2, 74)),
+         {"kernel_size": 2}, grad=(0,)),
+    Case("interpolate", (CX,), {"size": [13, 17], "mode": "nearest"},
+         grad=(0,), id="nearest_up"),
+    Case("interpolate", (CX,), {"size": [4, 6], "mode": "nearest"},
+         grad=(0,), id="nearest_down"),
+    Case("interpolate", (CX,), {"scale_factor": 2}, grad=(0,),
+         id="nearest_scale"),
+    Case("interpolate", (CX,), {"size": [13, 17], "mode": "bilinear"},
+         grad=(0,), id="bilinear_up", **_C),
+    Case("interpolate", (CX,), {"size": [13, 17], "mode": "bilinear"},
+         grad=(0,), id="bilinear_up_bf16", **BF_SUM),
+    Case("interpolate", (CX,), {"size": [4, 6], "mode": "bilinear",
+                                "align_corners": True},
+         grad=(0,), id="bilinear_down_antialiased", **_C),
+    Case("interpolate", (CX,), {"size": [13, 4], "mode": "bicubic"},
+         grad=(0,), id="bicubic_keys", **_C),
+    Case("interpolate", (CX,), {"scale_factor": [0.5, 1.5], "mode": "area"},
+         grad=(0,), id="area_is_linear", **_C),
+    Case("pixel_shuffle", (f32(2, 8, 3, 3, seed=75), Raw(2)), grad=(0,)),
+    Case("unfold", (CX, Raw(3)), {"strides": 2, "paddings": 1}, grad=(0,)),
+    Case("unfold", (CX, Raw([2, 3])), {"dilations": 2}, grad=(0,),
+         id="dilated"),
+    Case("affine_channel", (CX, f32(4, seed=76), f32(4, seed=77)),
+         grad=(0, 1, 2)),
+    Case("affine_channel", (f32(2, 5, 5, 4, seed=78), f32(4, seed=76),
+                            f32(4, seed=77)), {"data_format": "NHWC"},
+         grad=(0, 1, 2), id="nhwc"),
+    Case("row_conv", (f32(2, 6, 4, seed=79), f32(3, 4, seed=80)),
+         grad=(0, 1)),
+    Case("im2sequence", (f32(2, 3, 6, 6, seed=81), Raw(2)), {"stride": 2},
+         grad=(0,)),
+    Case("im2sequence", (f32(2, 3, 5, 5, seed=81), Raw([2, 3])),
+         {"stride": 1, "padding": 1}, grad=(0,), id="padded"),
+    Case("psroi_pool", (f32(1, 8, 6, 6, seed=82),
+                        np.array([[0.0, 0.0, 4.0, 4.0], [1.0, 2.0, 5.0, 5.5],
+                                  [2.5, 1.0, 3.0, 6.0]], np.float32)),
+         {"pooled_height": 2, "pooled_width": 2}, grad=(0,), **_C),
+    Case("psroi_pool", (f32(1, 12, 8, 8, seed=83),
+                        np.array([[2.0, 4.0, 10.0, 14.0]], np.float32)),
+         {"output_channels": 3, "spatial_scale": 0.5, "pooled_height": 2,
+          "pooled_width": 2}, grad=(0,), id="scaled", **_C),
+    Case("deform_conv2d", (f32(1, 4, 5, 5, seed=84),
+                           f32(1, 18, 5, 5, seed=85) * 1.5, CW, CB),
+         {"padding": 1}, grad=(0, 1, 2, 3), **_C),
+    Case("deform_conv2d", (f32(1, 4, 5, 5, seed=84),
+                           f32(1, 36, 3, 3, seed=86) * 1.5,
+                           f32(6, 2, 3, 3, seed=87) * 0.3),
+         {"stride": 2, "padding": 1, "deformable_groups": 2, "groups": 2,
+          "mask": pos(1, 18, 3, 3, seed=88)}, grad=(0, 1, 2),
+         id="v2_groups", **_C),
+    Case("deformable_conv", (f32(1, 4, 5, 5, seed=84),
+                             f32(1, 18, 5, 5, seed=85), None, CW),
+         {"padding": 1}, grad=(0, 3), **_C),
+]
+
 GROUPS = {"math": MATH, "linalg": LINALG, "manipulation": MANIPULATION,
           "reduction": REDUCTION, "logic": LOGIC, "activation": ACTIVATION,
-          "norm": NORM, "loss": LOSS, "head": HEAD, "rnn": RNN}
+          "norm": NORM, "loss": LOSS, "head": HEAD, "rnn": RNN,
+          "conv": CONV}
 
 # ops whose output is random, made on the current device, on the host, or
 # a list argument: each has its own test in test_torch_ops_registry.py
@@ -570,5 +805,5 @@ OWN_TESTS = {
     "randperm", "bernoulli", "poisson", "multinomial", "standard_normal",
     "gumbel_softmax", "dropout", "dropout_op", "nonzero", "unique",
     "unique_consecutive", "scatter_nd", "equal_all", "partial_concat",
-    "partial_sum",
+    "partial_sum", "random_crop", "shuffle_batch",
 }
