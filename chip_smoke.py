@@ -191,7 +191,30 @@ Phases, each printing its own lines; any failure exits non-zero:
     falling; (d) one ResNet-50 step at b2 64^2 on the card against the
     port's CPU path from the same weights, f64 and f32
     (``VISION_STEP_TOL``); (e) gelu's special values against
-    jax.nn.gelu's.
+    jax.nn.gelu's;
+21. generation and serving, the rest, on GPT-2 small at full width
+    (random weights, seed 0): (a) ``BeamSearchDecoder`` over StaticKVCache
+    states through ``dynamic_decode`` in bf16 (8 prompts of 32, beam 4, 32
+    steps): ms a step, tokens/s, 12 decode launches a pass (split-K, 32
+    rows); the scores against an uncached forward of each path; in f32
+    beam 1 against greedy ``generate`` (phase 4's rule) and the beam-4
+    scores within ``BEAM_SCORE_TOL`` (``phase_beam_scores``); (b)
+    ``export_decode`` (bf16, b 8, prompt 32, 32 new) into a torch.export
+    artifact run by ``create_predictor``: its tokens against
+    ``generate``'s, 12 x 32 decode launches in ``run``, ms a token of
+    both; (f, first) ``pick_block_size`` measuring the paged kernel at
+    256 / 128 / 64 for h12 d64 bf16 at L 1024 into ``BLOCK_TABLE``, no
+    candidate failing; (c) ``traffic.run_spec`` of the steady, diurnal
+    and flash shapes (30 requests/s for 6 s, bench_serve's lengths)
+    through one bf16 ``ServeLoop`` (max_active 64, the measured block
+    size): completed, errors, TTFT and token ms p50 / p99, tokens/s,
+    backpressure waits, preemptions, paged launches; errors 0 and every
+    event completed; (e) the steady replay's Chrome trace, with
+    ``serve/decode_step`` and ``serve/prefill`` slices and flow events;
+    (d) the steady replay with one 0.2 s STALL at ("serve", "beat"): it
+    fires once, nothing fails, a request waits it out and TTFT p99 rises;
+    then three RESETs there, absorbed; (f) bench_serve's 64 requests
+    served at each block size, tokens/s.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -202,16 +225,18 @@ One phase alone (after ``phase_build()``), from the repo root:
 c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phases 2-3
 (decode faults), 6 (CE faults), 10 (flash faults), 14 (f16 faults),
 18's API checks (op-core faults), 19's mask checks (a Transformer
-fault) or 20's conv oracle (a conv fault) on copies of the checkout with
-one planted fault each (``FAULTS``) and exits 0 when every copy fails
-them.
+fault), 20's conv oracle (a conv fault) or 21(a)'s f32 beam scores (a
+beam-search fault) on copies of the checkout with one planted fault each
+(``FAULTS``) and exits 0 when every copy fails them.
 ``python3 chip_smoke.py --compare DIR`` runs phases 8 and 15 of the
 checkout at DIR and of this one, each in a fresh process, in the order
 DIR, this, this, DIR twice over, and prints their step ms as one JSON
 line; ``--attribute DIR`` takes phase 8's step apart on the host (the
 forward, the backward, the zero grads, ``opt.step()``, ``clear_grad``,
 then a cProfile) for DIR's package and this one, in the order DIR, this,
-this, DIR.
+this, DIR. ``--compare-serve DIR`` runs phase 4's bf16 serve run of
+DIR's checkout and of this one in the order DIR, this, this, DIR, and
+prints the decode step's wall and busy ms.
 """
 import contextlib
 import copy
@@ -3559,6 +3584,42 @@ def compare(parent, runs=("parent", "change", "change", "parent") * 2):
     return 0
 
 
+def compare_serve(parent, runs=("parent", "change", "change", "parent")):
+    """Phase 4's bf16 serve run (``phase_serve_bf16``: the continuous-
+    batching run and its profiled decode steps) of the checkout at
+    ``parent`` and of this one, each in a fresh process, in the order
+    ``runs``: the decode step's wall and busy ms, tokens/s and TTFT,
+    printed as one JSON line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import chip_smoke as c; c.setup(); c.phase_build(); "
+            "c.phase_serve_bf16()")
+    out = []
+    for tag in runs:
+        cwd = parent if tag == "parent" else here
+        proc = subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                              capture_output=True, text=True, timeout=900)
+        rec = {"tree": tag, "exit": proc.returncode}
+        for line in proc.stdout.splitlines():
+            if line.startswith("[serve bf16] "):
+                r = json.loads(line[len("[serve bf16] "):])
+                prof = r.get("decode_profile") or {}
+                rec.update({
+                    "decode_step_wall_ms": prof.get("wall_ms_per_step"),
+                    "decode_step_busy_ms": prof.get(
+                        "device_busy_ms_per_step"),
+                    "paged_kernel_ms_per_step": prof.get(
+                        "paged_kernel_ms_per_step"),
+                    "tokens_per_s": r["tokens_per_s"],
+                    "ttft_ms_p50": r["ttft_ms_p50"],
+                    "ttft_ms_p99": r["ttft_ms_p99"]})
+        log(f"[compare serve] {json.dumps(rec)}")
+        check(proc.returncode == 0, f"{tag} run failed: "
+                                    f"{proc.stderr[-2000:]}")
+        out.append(rec)
+    print(json.dumps({"compare_serve": out}))
+    return 0
+
+
 def host_attribution(steps=20, profiled=10):
     """Phase 8's step taken apart on the host, for whichever
     ``paddle_tpu_torch`` is first on ``sys.path``: the host ms of the
@@ -4025,6 +4086,438 @@ def phase_flash_timings():
                     "min_seq_default": default}
 
 
+# --------------------------------------------------------------------------
+# phase 21: generation and serving, the rest
+# --------------------------------------------------------------------------
+
+GEN_BATCH, GEN_PROMPT, GEN_BEAM, GEN_NEW = 8, 32, 4, 32
+# beam scores against an uncached forward of each path (the sum of the
+# chosen tokens' log-probs over GEN_NEW tokens): f32 2e-3, the cached
+# split-K decode kernel against the uncached composite attention (the
+# CPU's f32 readings are ~1e-5 at 8 tokens); bf16 0.05 a token, the
+# logits' bf16 rounding (2^-8 of values ~10) on two attention paths. A
+# cache reordered by the token in place of the parent beam (the planted
+# beam fault) moved f32 sums by ~1 on the CPU at 8 tokens.
+BEAM_SCORE_TOL = {torch.float32: 2e-3, torch.bfloat16: 0.05 * GEN_NEW}
+STALL_S = 0.2
+TRAFFIC_RATE, TRAFFIC_SECONDS = 30.0, 6.0
+BLOCK_TABLE = ".scratch/block_size_table.json"    # listed in .gitignore
+BLOCK_L, BLOCK_H, BLOCK_D, BLOCK_BATCH = 1024, 12, 64, 64
+
+
+class _BeamCell:
+    """GPT over StaticKVCache states for BeamSearchDecoder: the first call
+    returns the prompts' last logits tiled over the beams and runs no
+    pass; each later call is one cached one-token pass at the fill."""
+
+    def __init__(self, net, first):
+        self.net, self.first = net, first
+
+    def __call__(self, inputs, states):
+        if self.first is not None:
+            lg = self.first.repeat_interleave(
+                inputs.shape[0] // self.first.shape[0], 0)
+            self.first = None
+            return lg, states
+        return self.net._forward_cached(inputs[:, None], states,
+                                        states[0].index)
+
+
+def _gen_prompts(seed=0):
+    ids = np.random.RandomState(seed).randint(1, 50257,
+                                              (GEN_BATCH, GEN_PROMPT))
+    return torch.from_numpy(ids).to("cuda")
+
+
+def _beam_search(net, ids, beam, new):
+    """Beam search from each prompt's last logits; the decode launches of
+    the steps alone (the prefill's are not counted)."""
+    from paddle_tpu_torch.nn import BeamSearchDecoder, dynamic_decode
+    from paddle_tpu_torch.ops import cuda as kernels
+    b, p = ids.shape
+    caches = [blk.attn.gen_static_cache(b, p + new, net.dtype)
+              for blk in net.blocks]
+    with torch.no_grad():
+        lg, caches = net._forward_cached(ids, caches, 0)
+    dec = BeamSearchDecoder(_BeamCell(net, lg), start_token=0, end_token=-1,
+                            beam_size=beam)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    (paths, scores), _ = dynamic_decode(dec, caches, max_step_num=new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return paths.numpy(), scores.numpy(), dt, kernels.launch_counts()
+
+
+def _beam_score_error(net, ids, paths, scores):
+    """Largest |beam score - the sum of its tokens' log-probs from one
+    uncached forward of prompt + path|."""
+    b, k, t = paths.shape
+    p = ids.shape[1]
+    full = torch.cat([ids.repeat_interleave(k, 0),
+                      torch.from_numpy(paths.reshape(b * k, t)).to("cuda")],
+                     1)
+    with torch.no_grad():
+        logp = torch.log_softmax(net(full).float(), -1)
+    picked = logp[:, p - 1:p - 1 + t].gather(-1, full[:, p:, None])[..., 0]
+    return float(np.abs(picked.sum(-1).cpu().numpy().reshape(b, k)
+                        - scores).max())
+
+
+def _greedy_rule(net, ids, got, ref, what, tie):
+    """Phase 4's rule: tokens equal, or equal up to a first divergence
+    where the top-2 logit gap is below ``tie``; [(row, position, gap)]."""
+    ties = []
+    for i in range(got.shape[0]):
+        diff = np.nonzero(got[i] != ref[i])[0]
+        if diff.size == 0:
+            continue
+        j = int(diff[0])
+        prefix = np.concatenate([ids[i].cpu().numpy(), ref[i, :j]])
+        gap = _top2_gap(net, prefix)
+        log(f"[{what}] row {i} diverges at token {j}: {got[i, j]} vs "
+            f"{ref[i, j]}, top-2 logit gap {gap:.3e}")
+        check(gap < tie, f"{what}: divergence without a near-tie")
+        ties.append((i, j, gap))
+    return ties
+
+
+def phase_beam_scores(net=None, ids=None):
+    """21(a)'s f32 checks on GPT-2 small: beam 1 equals greedy generate
+    (phase 4's near-tie rule) and the beam-4 scores equal an uncached
+    forward of each path within BEAM_SCORE_TOL; the second fails when
+    the cache is not reordered by parent beam."""
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    if net is None:
+        net = GPT(GPTConfig(), device="cuda", dtype=torch.float32, seed=0)
+        net.eval()
+    ids = _gen_prompts() if ids is None else ids
+    p1, _, _, _ = _beam_search(net, ids, 1, GEN_NEW)
+    ref = net.generate(ids, max_new_tokens=GEN_NEW,
+                       temperature=0)[:, GEN_PROMPT:].cpu().numpy()
+    ties = _greedy_rule(net, ids, p1[:, 0], ref, "beam f32", 1e-4)
+    p4, s4, _, _ = _beam_search(net, ids, GEN_BEAM, GEN_NEW)
+    err = _beam_score_error(net, ids, p4, s4)
+    log(f"[beam f32] beam 1 = greedy generate on {GEN_BATCH - len(ties)}"
+        f"/{GEN_BATCH} rows, near-ties {ties}; beam {GEN_BEAM} score error "
+        f"{err:.3e} (tol {BEAM_SCORE_TOL[torch.float32]:g})")
+    check(err <= BEAM_SCORE_TOL[torch.float32],
+          f"beam scores disagree with an uncached forward: {err}")
+    return {"beam1_near_ties": ties, "beam4_score_err_f32": err}
+
+
+def _gen_beam(net, net32):
+    """21(a): bf16 beam search, b 8 x beam 4 from prompts of 32, 32 steps,
+    then phase_beam_scores in f32."""
+    ids = _gen_prompts()
+    _beam_search(net, ids[:2], GEN_BEAM, 3)                 # warm-up
+    paths, scores, dt, counts = _beam_search(net, ids, GEN_BEAM, GEN_NEW)
+    passes = GEN_NEW - 1          # the first step reuses the prefill
+    n = counts["decode_attention"]
+    check(n == 12 * passes, f"beam search: {n} decode launches in "
+                            f"{passes} passes, not 12 a pass")
+    check(counts["decode_attention.sm90"] == n and
+          counts["decode_attention.mma"] == 0,
+          f"beam steps missed the split-K kernel: {counts}")
+    check(counts["paged_decode_attention"] == 0, "paged launches in beam")
+    err = _beam_score_error(net, ids, paths, scores)
+    res = {"batch": GEN_BATCH, "beam": GEN_BEAM, "prompt": GEN_PROMPT,
+           "new": GEN_NEW, "ms_per_step": dt * 1e3 / GEN_NEW,
+           "tokens_per_s": GEN_BATCH * GEN_NEW / dt,
+           "beam_tokens_per_s": GEN_BATCH * GEN_BEAM * GEN_NEW / dt,
+           "decode_launches": n, "decode_launches_per_pass": n / passes,
+           "decode_launches_sm90": counts["decode_attention.sm90"],
+           "score_err_bf16": err,
+           "score_tol_bf16": BEAM_SCORE_TOL[torch.bfloat16]}
+    log(f"[beam bf16] {json.dumps(res)}")
+    check(np.isfinite(scores).all(), "non-finite beam scores")
+    check(err <= BEAM_SCORE_TOL[torch.bfloat16],
+          f"bf16 beam scores disagree with an uncached forward: {err}")
+    res.update(phase_beam_scores(net32, ids))
+    return res, counts
+
+
+def _gen_export(net):
+    """21(b): export_decode of the bf16 GPT-2 (b 8, prompt 32, 32 new),
+    create_predictor(...).run, against generate."""
+    import tempfile
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models.gpt import export_decode
+    ids = _gen_prompts()
+    ids32 = ids.to(torch.int32).cpu().numpy()
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "gpt2_decode")
+        t0 = time.perf_counter()
+        export_decode(net, prefix, GEN_BATCH, GEN_PROMPT, GEN_NEW)
+        t_export = time.perf_counter() - t0
+        size = os.path.getsize(prefix + ".pt2")
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(prefix))
+        t_load = time.perf_counter() - t0
+        pred.run([ids32, np.int32(0)])                     # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        (toks,) = pred.run([ids32, np.int32(0)])
+        dt = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    net.generate(ids[:2], max_new_tokens=2, temperature=0)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = net.generate(ids, max_new_tokens=GEN_NEW, temperature=0)
+    torch.cuda.synchronize()
+    dt_gen = time.perf_counter() - t0
+    ref = ref[:, GEN_PROMPT:].cpu().numpy()
+    n = counts["decode_attention"]
+    check(n == 12 * GEN_NEW, f"the artifact's run launched {n} decode "
+                             f"kernels, not 12 x {GEN_NEW}")
+    check(counts["paged_decode_attention"] == 0, "paged launches in run")
+    # bf16 logits: a divergence passes where the top two are within one
+    # bf16 step of each other (2^-7 at the logits' size, ~10)
+    ties = _greedy_rule(net, ids, toks.astype(np.int64), ref, "export",
+                        0.0625)
+    res = {"batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": GEN_NEW,
+           "export_s": t_export, "load_s": t_load, "pt2_bytes": size,
+           "run_ms_per_token": dt * 1e3 / GEN_NEW,
+           "generate_ms_per_token": dt_gen * 1e3 / GEN_NEW,
+           "decode_launches_run": n,
+           "decode_launches_run_sm90": counts["decode_attention.sm90"],
+           "decode_launches_run_mma": counts["decode_attention.mma"],
+           "token_identical_rows": GEN_BATCH - len(ties),
+           "near_ties": ties}
+    log(f"[export] {json.dumps(res)}")
+    return res, counts
+
+
+def _traffic_spec(name):
+    """builtin_spec's arrivals (30 requests/s for 6 s) and tenant mix, at
+    GPT-2's vocabulary and context, the lengths widened to bench_serve's
+    scale: prompts of median 32, 16-64 new tokens."""
+    from paddle_tpu_torch.traffic import workload
+    base = workload.builtin_spec(name, rate=TRAFFIC_RATE,
+                                 duration_s=TRAFFIC_SECONDS)
+    tenants = (
+        {"name": "chat", "weight": 0.7, "kind": "llm",
+         "prompt": {"kind": "lognormal", "median": 32, "sigma": 0.45,
+                    "lo": 2, "hi": 128},
+         "new": {"kind": "uniform", "lo": 16, "hi": 64}},
+        {"name": "recsys", "weight": 0.3, "kind": "hybrid", "lookups": 8,
+         "lookup_vocab": 65_536,
+         "prompt": {"kind": "lognormal", "median": 27, "sigma": 0.35,
+                    "lo": 2, "hi": 96},
+         "new": {"kind": "fixed", "value": 32}})
+    return workload.WorkloadSpec(name=name, arrival=base.arrival,
+                                 duration_s=base.duration_s, tenants=tenants,
+                                 vocab=50257, max_seq_len=1024)
+
+
+def _traffic_line(rep, counts):
+    return {"spec": rep.spec, "events": rep.events,
+            "completed": rep.completed, "errors": rep.errors,
+            "ttft_ms": rep.ttft_ms, "token_ms": rep.token_ms,
+            "tokens_per_s": rep.tokens_per_s,
+            "throughput_rps": rep.throughput_rps,
+            "offered_rps": rep.offered_rps, "wall_s": rep.wall_s,
+            "backpressure_waits": rep.backpressure_waits,
+            "preempted": rep.preempted,
+            "paged_launches": counts["paged_decode_attention"],
+            "paged_launches_sm90": counts["paged_decode_attention.sm90"],
+            "schedule_digest": rep.schedule_digest[:16],
+            "outputs_digest": rep.outputs_digest[:16]}
+
+
+def _replay(loop, name, **kw):
+    """One run_spec of ``name`` through ``loop``, counted and checked:
+    nothing failed, every event completed, the schedule is the seed's."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.traffic import harness, workload
+    spec = _traffic_spec(name)
+    kernels.reset_launch_counts()
+    rep = harness.run_spec(spec, seed=0, loop=loop, **kw)
+    counts = kernels.launch_counts()
+    check(rep.errors == 0, f"{name}: {rep.errors} requests failed")
+    check(rep.completed == rep.events > 0,
+          f"{name}: {rep.completed} of {rep.events} completed")
+    check(rep.schedule_digest == workload.schedule_digest(
+        workload.schedule(spec, 0)), f"{name}: the schedule is not the "
+                                     "seed's")
+    check(counts["paged_decode_attention"] > 0, f"{name}: no paged launch")
+    return rep, counts
+
+
+def _gen_traffic(net):
+    """21(c)-(e): the three arrival shapes through one GPT-2 bf16 ServeLoop
+    (max_active 64, the measured block size), the steady replay under
+    trace.start(); then the fault seam on the steady replay."""
+    import tempfile
+
+    from paddle_tpu_torch.core import monitor, trace
+    from paddle_tpu_torch.inference import ServeConfig, ServeLoop
+    from paddle_tpu_torch.testing import faults
+    loop = ServeLoop(net, ServeConfig(max_active=64, kv_blocks=512,
+                                      max_seq_len=1024))
+    res, counts = {"block_size": loop.stats()["block_size"]}, {}
+    for name in ("steady", "diurnal", "flash"):
+        if name == "steady":
+            trace.reset()
+            trace.start()
+        rep, c = _replay(loop, name)
+        counts[name] = c
+        res[name] = _traffic_line(rep, c)
+        log(f"[traffic] {json.dumps(res[name])}")
+        if name == "steady":
+            spans = trace.stop()
+            ttft_max = monitor.histogram_summary("serve/ttft_ms")["max"]
+            with tempfile.TemporaryDirectory() as d:
+                path = trace.export_chrome_trace(os.path.join(d, "t.json"),
+                                                 spans)
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+                size = os.path.getsize(path)
+            names = {e["name"] for e in events if e["ph"] == "X"}
+            flows = [e for e in events if e.get("cat") == "flow"]
+            res["chrome_trace"] = {
+                "events": len(events), "bytes": size, "spans": len(spans),
+                "flow_events": len(flows),
+                "threads": sorted({e["args"]["name"] for e in events
+                                   if e["ph"] == "M"}),
+                "decode_step_slices": sum(1 for e in events
+                                          if e["name"] == "serve/decode_step"
+                                          and e["ph"] == "X")}
+            log(f"[chrome trace] {json.dumps(res['chrome_trace'])}")
+            check({"serve/decode_step", "serve/prefill"} <= names,
+                  f"the trace lacks serve slices: {sorted(names)}")
+            check(flows and {e["ph"] for e in flows} == {"s", "t", "f"},
+                  "the trace lacks the request flows")
+    # (d) the fault seam: one STALL at ("serve", "beat") on the steady
+    # replay (the loop is warm; the stall lands on the run's first beat),
+    # then RESETs there, absorbed
+    clean = res["steady"]
+    with faults.inject(faults.Fault("serve", "beat", faults.STALL,
+                                    delay=STALL_S)) as inj:
+        rep, c = _replay(loop, "steady", warm=False)
+    stall_max = monitor.histogram_summary("serve/ttft_ms")["max"]
+    res["stall"] = dict(_traffic_line(rep, c), fired=inj.fired(),
+                        stall_ms=STALL_S * 1e3, ttft_max_ms=stall_max,
+                        ttft_max_ms_clean=ttft_max,
+                        ttft_p99_rise_ms=rep.ttft_ms["p99"]
+                        - clean["ttft_ms"]["p99"])
+    log(f"[serve fault] {json.dumps(res['stall'])}")
+    check(inj.log == [("serve", "beat", "tick", faults.STALL)],
+          f"the stall fired {inj.log}")
+    check(stall_max >= STALL_S * 1e3, "no request waited out the stall")
+    check(rep.ttft_ms["p99"] > clean["ttft_ms"]["p99"],
+          "TTFT p99 did not rise under the stall")
+    with faults.inject(faults.Fault("serve", "beat", faults.RESET,
+                                    times=3)) as inj:
+        rep, c = _replay(loop, "steady", warm=False)
+    res["reset"] = dict(_traffic_line(rep, c), fired=inj.fired())
+    log(f"[serve fault] {json.dumps(res['reset'])}")
+    check(inj.fired() == 3, f"the resets fired {inj.log}")
+    res["outputs_digest_repeats"] = len({res[k]["outputs_digest"] for k in
+                                         ("steady", "stall", "reset")}) == 1
+    log(f"[traffic] steady outputs_digest repeats over the three steady "
+        f"replays: {res['outputs_digest_repeats']}")
+    return res, counts
+
+
+def _gen_block_size(net):
+    """21(f): pick_block_size measures the paged kernel at 256 / 128 / 64
+    for h12 d64 bf16 at L 1024 (64 rows, every row's cache full) and
+    writes the table to BLOCK_TABLE; then bench_serve's 64 requests
+    (prompt 32, 64 new) served at each candidate."""
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.inference import ServeConfig, ServeLoop
+    from paddle_tpu_torch.nn.kv_pool import pick_block_size
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops.cuda import autotune
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, BLOCK_TABLE)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    for p in (path, path + ".lock"):
+        if os.path.exists(p):
+            os.remove(p)
+    os.environ["PADDLE_TPU_CUDA_AUTOTUNE_CACHE"] = path
+    autotune.clear()
+    monitor.reset(prefix="autotune.")
+    kernels.reset_launch_counts()
+    winner = pick_block_size(BLOCK_L, BLOCK_H, BLOCK_D, torch.bfloat16,
+                             BLOCK_BATCH, device="cuda")
+    counts = kernels.launch_counts()
+    with open(path) as f:
+        table = json.load(f)
+    key = (f"paged_decode_attention|{BLOCK_L},{BLOCK_D}|bfloat16|"
+           f"{torch.cuda.get_device_name(0)}")
+    entry = table["entries"][key]
+    failed = monitor.stat_get(
+        "autotune.failed_candidate.paged_decode_attention")
+    res = {"key": key, "winner": winner,
+           "candidates_ms": {str(p[0]): t * 1e3
+                             for p, t in entry["candidates"]},
+           "failed_candidates": failed,
+           "measured": monitor.stat_get(
+               "autotune.measured.paged_decode_attention"),
+           "sweep_launches": counts["paged_decode_attention"],
+           "bound_ms": bound(BLOCK_BATCH, BLOCK_H, 1, BLOCK_D, BLOCK_L - 1,
+                             torch.bfloat16)[0],
+           "table_file": BLOCK_TABLE}
+    log(f"[block size] {json.dumps(res)}")
+    check(failed == 0, f"{failed} block-size candidates failed")
+    check(res["measured"] == 1 and len(res["candidates_ms"]) == 3,
+          "the block sizes were not measured")
+    check(winner == entry["params"][0], "the winner is not the table's")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 50304, (32,)).astype(np.int64)
+               for _ in range(64)]
+    loops = {bs: ServeLoop(net, ServeConfig(max_active=64, kv_blocks=512,
+                                            max_seq_len=BLOCK_L,
+                                            block_size=bs))
+             for bs in (64, 128, 256)}
+    for loop in loops.values():
+        loop.serve([prompts[0]], max_new_tokens=2)           # warm-up
+    res["serve_tokens_per_s"] = {str(bs): [] for bs in loops}
+    # in turns, each block size twice: 64, 128, 256, 256, 128, 64
+    for bs in (64, 128, 256, 256, 128, 64):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = loops[bs].serve(prompts, max_new_tokens=64)
+        dt = time.perf_counter() - t0
+        check(all(o.shape == (64,) for o in outs), "bad served tokens")
+        res["serve_tokens_per_s"][str(bs)].append(64 * 64 / dt)
+    del loops
+    log(f"[block size serve] {json.dumps(res['serve_tokens_per_s'])} "
+        f"(winner {winner})")
+    return res, counts
+
+
+def phase_generation(card=None):
+    """Phase 21: generation and serving, the rest, on GPT-2 small at full
+    width (random weights, seed 0). (a) beam search over the KV cache;
+    (b) export_decode through a Predictor; (f, measured first) the pool's
+    block size; (c) the traffic replay of the three arrival shapes with
+    SLO scoring; (e) the Chrome trace of the steady replay; (d) the fault
+    seam of the scheduler beat; (f) serving at each block size."""
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    t0 = time.perf_counter()
+    net = GPT(GPTConfig(), device="cuda", dtype=torch.bfloat16, seed=0)
+    net.eval()
+    net32 = GPT(GPTConfig(), device="cuda", dtype=torch.float32, seed=0)
+    net32.eval()
+    res, counts = {}, {}
+    res["beam"], counts["beam"] = _gen_beam(net, net32)
+    del net32
+    res["export"], counts["export"] = _gen_export(net)
+    res["block_size"], counts["block_sweep"] = _gen_block_size(net)
+    res["traffic"], counts["traffic"] = _gen_traffic(net)
+    os.environ.pop("PADDLE_TPU_CUDA_AUTOTUNE_CACHE", None)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[generation] {res['seconds']:.1f} s")
+    return res, counts
+
+
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
@@ -4120,6 +4613,13 @@ FAULTS = {
         ("paddle_tpu_torch/ops/conv.py",
          "        pads.append((total // 2, total - total // 2))",
          "        pads.append((total - total // 2, total // 2))"),
+    # beam search (phase 21(a)'s score check): the StaticKVCache states
+    # reordered by the chosen token in place of the parent beam
+    "beam_cache_gathered_by_token":
+        ("paddle_tpu_torch/nn/decode.py",
+         "        cache_rows = gather_idx",
+         "        cache_rows = to_tensor((np.arange(b)[:, None] * k + "
+         "token.cpu().numpy() % k).reshape(-1), place=logp.device)"),
 }
 CSRC = "paddle_tpu_torch/ops/cuda/csrc"
 
@@ -4140,6 +4640,8 @@ def _fault_phase(name, source):
         return ("phase_transformer_masks",), "19"
     if name.startswith("vision_"):
         return ("phase_conv_oracle",), "20"
+    if name.startswith("beam_"):
+        return ("phase_beam_scores",), "21(a)"
     if source.startswith("fused_ce"):
         return ("phase_ce",), "6"
     if "decode_attention" in source:
@@ -4247,6 +4749,7 @@ def main():
     dy_counts, dy_serve_counts, dygraph = phase_dygraph(card)
     tf_counts, tf_decode_counts, transformer = phase_transformer(card)
     vision = phase_vision(card)
+    generation, gen_counts = phase_generation(card)
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -4274,6 +4777,16 @@ def main():
         # phase 19's greedy decoding (the contiguous kernel only)
         rec["launches_transformer"] = tf_decode_counts[name]
         rec["launches_transformer_sm90"] = tf_decode_counts[f"{name}.sm90"]
+        # phase 21: beam search's steps and the exported program's run
+        # (contiguous), the three traffic replays and the block-size
+        # sweep (paged)
+        for tag, c in (("beam", gen_counts["beam"]),
+                       ("export_run", gen_counts["export"]),
+                       ("block_sweep", gen_counts["block_sweep"]),
+                       *((f"traffic_{k}", v) for k, v in
+                         gen_counts["traffic"].items())):
+            rec[f"launches_{tag}"] = c[name]
+            rec[f"launches_{tag}_sm90"] = c[f"{name}.sm90"]
         kernels.append(rec)
     for name in CE_KERNELS:
         rec = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -4346,7 +4859,8 @@ def main():
                           "gpt_head": ce_gpt["whole_backward"]},
                       "o2_f16": o2, "o2_f16_equivalence": o2_equiv,
                       "hapi": hapi, "dygraph": dygraph,
-                      "transformer": transformer, "vision": vision}))
+                      "transformer": transformer, "vision": vision,
+                      "generation": generation}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4357,11 +4871,12 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--faults"]:
         sys.exit(plant_faults())
-    if sys.argv[1:2] in (["--compare"], ["--attribute"]) and \
-            len(sys.argv) == 3:
+    if sys.argv[1:2] in (["--compare"], ["--attribute"],
+                         ["--compare-serve"]) and len(sys.argv) == 3:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
-        run = compare if sys.argv[1] == "--compare" else attribute
+        run = {"--compare": compare, "--attribute": attribute,
+               "--compare-serve": compare_serve}[sys.argv[1]]
         sys.exit(run(os.path.abspath(sys.argv[2])))
     sys.exit(main())

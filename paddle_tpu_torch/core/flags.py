@@ -101,3 +101,34 @@ define_flag("FLAGS_check_nan_inf", False,
             "sweep every hapi training step's loss and parameters for "
             "inf / nan (core/numeric_check in the JAX package); the port "
             "has no numeric_check yet, so hapi.Model raises when it is on")
+define_flag("FLAGS_trace_ring_size", 4096,
+            "bounded ring of recent finished spans kept by the always-on "
+            "tracer (core/trace.py); 0 = unbounded. A runtime change "
+            "applies at the next trace.start()/reset(), or at once through "
+            "trace.set_ring_size()")
+define_flag("FLAGS_monitor_series_len", 256,
+            "per-metric bounded time-series ring in core/monitor: every "
+            "stat_add/stat_set/observe appends (unix_ts, value)")
+define_flag("PADDLE_TRAFFIC_SEED", 0,
+            "base seed for the traffic lab's named splitmix64 draw "
+            "streams (traffic/workload.py); two runs of the same spec "
+            "with the same seed are byte-identical, schedule and "
+            "per-request token draws")
+define_flag("PADDLE_TRAFFIC_TIME_SCALE", 1.0,
+            "wall-clock multiplier the harness paces a workload schedule "
+            "with (traffic/harness.run_spec): 1.0 replays the spec in real "
+            "time, 0.5 compresses it 2x, 2.0 stretches it")
+define_flag("PADDLE_TRAFFIC_CLIENTS", 4,
+            "number of submitter threads the traffic harness partitions a "
+            "schedule across (round-robin by event index)")
+define_flag("FLAGS_pallas_autotune", True,
+            "block-size autotuning of the CUDA kernels (ops/cuda/"
+            "autotune.py): measure the candidates at each new (kernel, "
+            "shape bucket, dtype, device name) key and keep the winner, in "
+            "process and, when PADDLE_TPU_CUDA_AUTOTUNE_CACHE names a json "
+            "file, on disk. Measuring happens only for a CUDA device; "
+            "elsewhere the heuristic default is used. FLAGS_serve_block_size "
+            "wins over the table")
+define_flag("FLAGS_pallas_autotune_force", False,
+            "measure autotune candidates off the card too (tests exercise "
+            "the measuring path with a fake measure)")

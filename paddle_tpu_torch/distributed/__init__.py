@@ -1,3 +1,4 @@
-"""Distributed tier of the port (paddle_tpu/distributed). Only the two
+"""Distributed tier of the port (paddle_tpu/distributed). The two
 environment readers that ``io.DistributedBatchSampler`` needs are here
-(``env.py``); the rest waits for ROADMAP Queue 1 item 7."""
+(``env.py``), and the fault-injection seam of the PS transport
+(``ps/rpc.py``); the rest waits for ROADMAP Queue 1 items 7 and 8."""

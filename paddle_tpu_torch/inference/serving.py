@@ -32,7 +32,11 @@ hot_swap}`` with a per-request flow chain, gauges ``serve.{queue_depth,
 active_slots,kv_pool_used_blocks,kv_pool_free_blocks,model_version}``,
 counters ``serve.{preempted,tokens_generated,requests_completed,
 requests_errored,hot_swaps,completion_log_errors,backpressure_waits}``,
-histograms ``serve/ttft_ms`` and ``serve/token_ms``.
+histograms ``serve/ttft_ms`` and ``serve/token_ms``. Each scheduler beat
+consults the fault seam (``distributed/ps/rpc._fault("serve", "beat",
+"tick")``): a scripted STALL delays the beat, a RESET is absorbed. A
+kernel that fails on the card raises; there is no demotion to a plain
+version.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import torch
 from ..core import monitor as _monitor
 from ..core import trace as _trace
 from ..core.rng import sample_tokens
+from ..distributed.ps.rpc import _fault
 from ..nn.kv_pool import KVBlockPool, PagedKVCache, pick_block_size
 from ..static.pipeline_runner import (FLOW_NS, InflightDriver,
                                       PipelineStepError)
@@ -80,7 +85,9 @@ class ServeConfig:
                         or _flags.flag("FLAGS_serve_kv_blocks"))
         max_seq = min(int(self.max_seq_len or cfg.max_seq_len),
                       cfg.max_seq_len)
-        block_size = int(self.block_size or pick_block_size(max_seq))
+        block_size = int(self.block_size or pick_block_size(
+            max_seq, cfg.num_heads, cfg.hidden_size // cfg.num_heads,
+            net.dtype, max_active, device=net.device))
         max_inflight = int(self.max_inflight
                            or _flags.flag("FLAGS_executor_max_inflight"))
         return max_active, kv_blocks, block_size, max_seq, \
@@ -382,6 +389,13 @@ class ServeLoop:
         """One scheduler beat: settle enough of the pipeline to bound the
         window, admit, grow/preempt, dispatch the next fused decode step
         (step N+1 overlapping the settle of step N)."""
+        # testing/faults.py ("serve", "beat") boundary: a scripted STALL
+        # here models a hung scheduler beat. Transport-shaped faults
+        # (RESET) have no meaning at a beat and are absorbed.
+        try:
+            _fault("serve", "beat", "tick")
+        except ConnectionError:
+            pass
         while len(self._pending) >= self._max_inflight:
             self._settle_one()
         if self._staged_swap is not None:

@@ -1,8 +1,9 @@
 """paddle.nn of the port (paddle_tpu/nn): ``Layer`` and its containers,
 the layers of ``layer/`` (common, conv, norm, pooling, activation, loss,
-rnn, transformer), ``functional``, ``initializer`` and ``utils``.
-``decode``'s beam search waits for ROADMAP Queue 1 item 4."""
+rnn, transformer), ``functional``, ``initializer``, ``utils`` and
+``decode``'s beam search (``BeamSearchDecoder``, ``dynamic_decode``)."""
 from . import functional, initializer, utils  # noqa: F401
+from .decode import BeamSearchDecoder, Decoder, dynamic_decode  # noqa: F401
 from .layer import *  # noqa: F401,F403
 from .layer import Layer, Parameter, ParamAttr  # noqa: F401
 

@@ -58,12 +58,24 @@ def _pick_block(n: int, target: int):
     return None
 
 
-def pick_block_size(max_seq_len):
-    """Pool block size: ``FLAGS_serve_block_size`` if set, else the
-    128-column heuristic clamped to the sequence budget. Always a
-    multiple of 8. The TPU autotune table is not carried over; the right
-    size for the H100 is still to be measured."""
+def pick_block_size(max_seq_len, heads, head_dim, dtype="float32",
+                    batch=1, device=None):
+    """Pool block size = the paged kernel's KV block
+    (paddle_tpu/nn/kv_pool.py ``pick_block_size``):
+    ``FLAGS_serve_block_size`` if set; else the autotune table
+    (ops/cuda/autotune.py, keyed by the card's name), which on a CUDA
+    ``device`` (None: the current device) measures the paged kernel at
+    each of 256 / 128 / 64 that divides the sequence budget L; else the
+    128-column heuristic clamped to L. Always a multiple of 8.
+
+    The measurement is one serve decode step's attention at its worst
+    case: ``batch`` rows of one query each, every row's cache full at L
+    tokens in blocks of its own (the JAX package times 8 query rows over
+    one shared set of blocks, its TPU tile)."""
     from ..core import flags as _flags
+    from ..core.dtype import to_torch_dtype
+    from ..device import resolve_device
+    from ..ops.cuda import autotune
     cfg = int(_flags.flag("FLAGS_serve_block_size") or 0)
     if cfg:
         if cfg % 8 != 0:
@@ -71,7 +83,31 @@ def pick_block_size(max_seq_len):
                 f"FLAGS_serve_block_size={cfg} must be a multiple of 8")
         return cfg
     L = -(-max(int(max_seq_len), 8) // 8) * 8
-    return _pick_block(L, 128) or 8
+    default = _pick_block(L, 128) or 8
+    dtype = to_torch_dtype(dtype)
+    device = resolve_device(device)
+    h, d, b = int(heads), int(head_dim), int(batch)
+
+    def measure(params):
+        (bs_,) = params
+        nb = max(L // bs_, 1)
+        gen = torch.Generator().manual_seed(0)
+        k, v = (torch.randn((b * nb + 1, h, bs_, d), generator=gen)
+                .to(device, dtype) for _ in range(2))
+        q = torch.randn((b, h, 1, d), generator=gen).to(device, dtype)
+        bt = torch.arange(1, b * nb + 1, dtype=torch.int32,
+                          device=device).reshape(b, nb)
+        lens = torch.full((b,), nb * bs_ - 1, dtype=torch.int32,
+                          device=device)
+        return autotune.time_thunk(lambda: paged_decode_attention(
+            q, k, v, bt, lens, float(d) ** -0.5))
+
+    cands = [(x,) for x in (256, 128, 64) if L % x == 0]
+    if len(cands) <= 1:
+        return default
+    return autotune.lookup(
+        "paged_decode_attention", (autotune.bucket(L), d), dtype, cands,
+        measure, (default,), device=device)[0]
 
 
 class KVBlockPool:

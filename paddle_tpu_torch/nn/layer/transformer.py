@@ -10,7 +10,9 @@ caches, the encoder and decoder stacks and the encoder-decoder
   takes); each rejection counts under
   ``cuda.gate_reject.decode_attention.{flag_off,training,shape}`` and
   runs ``_static_cache_attention``, the JAX package's plain cache
-  attention, with dropout on the probabilities in training.
+  attention, with dropout on the probabilities in training. While
+  ``torch.export`` traces (``GPT.export_decode``), the kernel is reached
+  through its custom op ``paddle_tpu_torch::decode_attention``.
 - ``PagedKVCache`` (nn/kv_pool.py): the serving arena through block
   tables; attention is the block-table kernel, and in training its plain
   version (``training`` rejection, as in the JAX gate).
@@ -38,6 +40,7 @@ from ...device import resolve_device
 from ...ops._dispatch import raw_scope, wrap
 from ...ops.cuda import gate_reject
 from ...ops.cuda.decode_attention import (decode_attention,
+                                          decode_attention_op,
                                           paged_attention_ref, supported)
 from .. import functional as F
 from ..kv_pool import PagedKVCache, paged_attention, write_kv
@@ -198,7 +201,10 @@ class MultiHeadAttention(Layer):
         cache.k[:, :, idx:idx + s] = k
         cache.v[:, :, idx:idx + s] = v
         if _decode_kernel_eligible(qh, cache.k, self.training):
-            out = decode_attention(qh, cache.k, cache.v, idx, scale)
+            # torch.export sees the launch only as a custom op
+            kernel = decode_attention_op if torch.compiler.is_exporting() \
+                else decode_attention
+            out = kernel(qh, cache.k, cache.v, idx, scale)
         else:
             out = _static_cache_attention(qh, cache.k, cache.v, idx, scale,
                                           self.dropout, self.training)

@@ -18,11 +18,12 @@ from .activation import *    # noqa: F401,F403
 from .conv import *          # noqa: F401,F403
 from .norm_ops import *      # noqa: F401,F403
 from .loss import *          # noqa: F401,F403
+from .op_tail import *       # noqa: F401,F403
 
 from . import _bind  # noqa: F401,E402  attaches Tensor operators/methods
 
 _MODULES = ("math", "creation", "manipulation", "reduction", "logic",
-            "linalg", "activation", "conv", "norm_ops", "loss")
+            "linalg", "activation", "conv", "norm_ops", "loss", "op_tail")
 
 
 def _register_plain_ops():

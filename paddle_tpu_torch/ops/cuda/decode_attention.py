@@ -33,6 +33,16 @@ Both split the cache's
 capacity columns (L, or nb * bs) into ``_kv_splits`` spans, planned from
 the shapes alone (never from the fills, which live on the card), and a
 combine kernel merges the splits' f32 partials in order.
+
+``decode_attention_op`` is the contiguous wrapper registered as the torch
+custom op ``paddle_tpu_torch::decode_attention`` (its CUDA implementation
+launches the kernel through ``decode_attention``, its CPU one runs
+``decode_attention_ref``; a fake implementation gives the output's shape
+and dtype). ``torch.export`` cannot capture a ctypes launch, so the
+cached attention calls the op while exporting
+(``text/models/gpt.export_decode``), and the exported program launches
+the kernel when it runs; eager calls keep the direct call, which costs no
+dispatcher time on the serving path.
 """
 from __future__ import annotations
 
@@ -42,7 +52,8 @@ import functools
 import torch
 
 __all__ = ["decode_attention", "paged_decode_attention",
-           "decode_attention_ref", "paged_attention_ref", "supported"]
+           "decode_attention_ref", "paged_attention_ref", "supported",
+           "decode_attention_op"]
 
 NEG_INF = -1e9   # finite mask fill, as the reference
 _MAX_D = 256
@@ -322,3 +333,21 @@ def paged_decode_attention(q, k_arena, v_arena, block_tables, lengths,
 
 for _w in (decode_attention, paged_decode_attention):
     _w.launches = _w.launches_sm90 = _w.launches_mma = _w.launches_f16 = 0
+
+
+@torch.library.custom_op("paddle_tpu_torch::decode_attention",
+                         mutates_args=(), device_types="cuda")
+def decode_attention_op(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                        index: int, scale: float) -> torch.Tensor:
+    """``decode_attention`` with an int fill, as a torch custom op."""
+    return decode_attention(q, kc, vc, index, scale)
+
+
+@decode_attention_op.register_kernel("cpu")
+def _decode_attention_op_cpu(q, kc, vc, index, scale):
+    return decode_attention_ref(q, kc, vc, index, scale)
+
+
+@decode_attention_op.register_fake
+def _decode_attention_op_fake(q, kc, vc, index, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)

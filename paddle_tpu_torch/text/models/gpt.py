@@ -5,7 +5,9 @@ logits, or with ``labels`` the LM loss through the fused CE head (no
 bias). The two cached
 passes feed generation and serving: ``_forward_cached`` over per-layer
 StaticKVCaches (``generate``), ``_forward_paged`` over the serving pool's
-PagedKVCaches (``inference/serving.py``). Parameter names match the JAX
+PagedKVCaches (``inference/serving.py``). ``export_decode`` writes the
+cached generation program as a ``torch.export`` artifact for the
+inference Predictor. Parameter names match the JAX
 model one to one (``blocks.{i}.attn.qkv_proj.weight``, ``wte.weight``
 ...), so ``paddle_tpu_torch.bridge.load_jax_params`` can copy weights
 across.
@@ -27,7 +29,7 @@ from ...nn.layer import LayerList, MultiHeadAttention
 from ...nn.layer.layers import Layer
 from .bert import _bert_init
 
-__all__ = ["GPTConfig", "GPTBlock", "GPT"]
+__all__ = ["GPTConfig", "GPTBlock", "GPT", "export_decode"]
 
 
 @dataclass
@@ -231,3 +233,98 @@ class GPT(Layer):
             if eos_id is not None and bool(finished.all()):
                 break
         return ids
+
+
+class _DecodeProgram(torch.nn.Module):
+    """The whole greedy generation as one traceable program: the cached
+    prefill, then ``max_new`` one-token passes over StaticKVCaches made
+    inside it. (input_ids [b, s] int32, seed [] int32) -> tokens
+    [b, max_new] int32. Finished rows are frozen to EOS with torch.where,
+    so nothing branches on tensor values; unlike the JAX program, the
+    passes after every row has finished still run."""
+
+    def __init__(self, net, max_new, eos_id):
+        super().__init__()
+        self.net = net
+        self.max_new = max_new
+        self.eos_id = eos_id
+
+    def forward(self, input_ids, seed):
+        net = self.net
+        ids = input_ids.long()
+        b, s = ids.shape
+        total = s + self.max_new
+        caches = [blk.attn.gen_static_cache(b, total, net.dtype)
+                  for blk in net.blocks]
+        logits, caches = net._forward_cached(ids, caches, 0)
+        finished = torch.zeros((b,), dtype=torch.bool, device=ids.device)
+        toks = []
+        for step in range(self.max_new):
+            nxt = torch.argmax(logits, dim=-1)
+            if self.eos_id is not None:
+                nxt = torch.where(finished, torch.full_like(
+                    nxt, self.eos_id), nxt)
+                finished = finished | (nxt == self.eos_id)
+            toks.append(nxt)
+            if step < self.max_new - 1:
+                logits, caches = net._forward_cached(nxt[:, None], caches,
+                                                     s + step)
+        return torch.stack(toks, dim=1).to(torch.int32)
+
+
+def export_decode(net, path, batch_size, prompt_len, max_new_tokens,
+                  temperature=0.0, top_k=None, eos_token_id=None):
+    """Export the whole generation program (the prefill and the cached
+    decode steps over StaticKVCaches, paddle_tpu/text/models/gpt.py
+    ``export_decode``) as a ``torch.export`` artifact the inference
+    Predictor runs, on the model's device. Inputs: input_ids
+    [batch, prompt_len] int32, seed [] int32; output: the generated
+    tokens [batch, max_new_tokens] int32, greedy.
+
+    The decode steps are unrolled (export cannot trace a loop that carries
+    caches), and the attention reaches the contiguous decode kernel
+    through its custom op (ops/cuda/decode_attention.decode_attention_op),
+    so running the program launches the kernel. The parameters travel
+    inside the artifact. Writes ``{path}.pt2`` and ``{path}.pdinfer.json``
+    (JAX's fields, plus ``device``: the program runs where it was
+    exported; JAX exports for cpu and tpu at once).
+
+    Sampling (temperature > 0) is not exported: the port draws each token
+    from a host generator seeded by (seed, position), which a traced
+    program cannot hold."""
+    import json
+    import os
+
+    if float(temperature) != 0.0:
+        raise NotImplementedError(
+            "export_decode exports greedy decoding only: the port's "
+            "sampler draws from host generators (core/rng.sample_tokens)")
+    b, s, new = int(batch_size), int(prompt_len), int(max_new_tokens)
+    if s + new > net.config.max_seq_len:
+        raise ValueError("prompt_len + max_new_tokens exceeds max_seq_len")
+    eos = None if eos_token_id is None else int(eos_token_id)
+    program = _DecodeProgram(net, new, eos)
+    args = (torch.zeros((b, s), dtype=torch.int32, device=net.device),
+            torch.zeros((), dtype=torch.int32, device=net.device))
+    was_training = net.training
+    net.eval()
+    try:
+        with torch.no_grad():
+            exported = torch.export.export(program, args, strict=False)
+    finally:
+        if was_training:
+            net.train()
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    torch.export.save(exported, path + ".pt2")
+    with open(path + ".pdinfer.json", "w") as f:
+        json.dump({"input_names": ["input_ids", "seed"],
+                   "output_names": ["tokens"],
+                   "input_dtypes": ["int32", "int32"],
+                   "decode": {"batch_size": b, "prompt_len": s,
+                              "max_new_tokens": new,
+                              "temperature": float(temperature),
+                              "top_k": top_k, "eos_token_id": eos_token_id},
+                   "device": net.device.type}, f)
+    return path

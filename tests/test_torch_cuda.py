@@ -975,3 +975,95 @@ def test_conv_ops_match_the_float64_oracle_on_the_card(card):
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         worst, rows = smoke.conv_oracle_errors("cuda")
     assert len(rows) == 2 * 23
+
+
+def test_decode_custom_op_launches_the_kernel(card):
+    """The decode kernel as the custom op paddle_tpu_torch::decode_attention:
+    on CUDA tensors it launches the kernel (counted) and matches the plain
+    version; its fake implementation gives the output's shape and dtype."""
+    from paddle_tpu_torch.ops.cuda.decode_attention import (
+        _decode_attention_op_fake)
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(4, 2, 1, 64, generator=g).to(card, torch.bfloat16)
+    kc = torch.randn(4, 2, 48, 64, generator=g).to(card, torch.bfloat16)
+    kernels.reset_launch_counts()
+    out = torch.ops.paddle_tpu_torch.decode_attention(q, kc, kc, 20, 0.125)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == 1
+    ref = decode_attention_ref(q.float(), kc.float(), kc.float(), 20, 0.125)
+    assert float((out.float() - ref).abs().max()) <= 2e-2
+    fake = _decode_attention_op_fake(q, kc, kc, 20, 0.125)
+    assert fake.shape == out.shape and fake.dtype == out.dtype
+
+
+def test_export_decode_predictor_on_the_card(card, tmp_path):
+    """A tiny GPT exported on the card: the Predictor's tokens equal
+    generate's and its run launches the decode kernel, one a layer a
+    pass."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig, export_decode
+    net = GPT(GPTConfig.tiny(), device=card, seed=0)
+    net.eval()
+    ids = np.random.RandomState(9).randint(1, 1024, (2, 12))
+    export_decode(net, str(tmp_path / "d"), 2, 12, 5)
+    pred = inference.create_predictor(str(tmp_path / "d"))
+    kernels.reset_launch_counts()
+    (toks,) = pred.run([ids.astype(np.int32), np.int32(0)])
+    assert kernels.launch_counts()["decode_attention"] == 2 * 5
+    ref = net.generate(torch.as_tensor(ids, device=card), max_new_tokens=5,
+                       temperature=0)[:, 12:].cpu().numpy()
+    np.testing.assert_array_equal(toks.astype(np.int64), ref)
+
+
+def test_beam_search_on_the_card_matches_the_cpu(card):
+    """A tiny GPT's beam 3 over StaticKVCache states through the decode
+    kernel on the card gives the CPU path's beams (f32)."""
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.nn import BeamSearchDecoder, dynamic_decode
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    ids = np.random.RandomState(5).randint(1, 1024, (2, 10))
+    outs = []
+    for dev in ("cpu", card):
+        with tdevice.device_scope(dev):
+            net = GPT(GPTConfig.tiny(), device=dev, seed=0)
+            net.eval()
+            t = torch.as_tensor(ids, device=dev)
+            caches = [blk.attn.gen_static_cache(2, 17, torch.float32)
+                      for blk in net.blocks]
+            with torch.no_grad():
+                _, caches = net._forward_cached(t[:, :-1], caches, 0)
+
+            def cell(inputs, states, net=net):
+                return net._forward_cached(inputs[:, None], states,
+                                           states[0].index)
+
+            kernels.reset_launch_counts()
+            (paths, scores), _ = dynamic_decode(
+                BeamSearchDecoder(cell, int(ids[0, -1]), -1, 3), caches,
+                max_step_num=6)
+            outs.append((paths.cpu().numpy(), scores.cpu().numpy(),
+                         kernels.launch_counts()["decode_attention"]))
+    assert outs[1][2] == 6 * 2 and outs[0][2] == 0
+    np.testing.assert_array_equal(outs[1][0], outs[0][0])
+    np.testing.assert_allclose(outs[1][1], outs[0][1], rtol=0, atol=1e-4)
+
+
+def test_pick_block_size_measures_on_the_card(card, tmp_path, monkeypatch):
+    """On the card the pool's block size is measured: the table's key
+    names the card, every candidate is timed and none fails."""
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.nn.kv_pool import pick_block_size
+    from paddle_tpu_torch.ops.cuda import autotune
+    monkeypatch.setenv("PADDLE_TPU_CUDA_AUTOTUNE_CACHE",
+                       str(tmp_path / "t.json"))
+    autotune.clear()
+    monitor.reset(prefix="autotune.")
+    try:
+        bs = pick_block_size(256, 4, 64, torch.bfloat16, 4, device=card)
+        key = ("paged_decode_attention", (256, 64), "bfloat16",
+               torch.cuda.get_device_name(card))
+        assert autotune.table_snapshot() == {key: (bs,)}
+        assert monitor.stat_get(
+            "autotune.failed_candidate.paged_decode_attention") == 0
+    finally:
+        autotune.clear()

@@ -171,19 +171,19 @@ def test_pool_alloc_free_invariants():
 @pytest.mark.parametrize("max_seq,want", [(96, 32), (128, 128), (64, 64),
                                           (1024, 128), (100, 8), (5, 8)])
 def test_pick_block_size_heuristic(max_seq, want):
-    """The 128-column heuristic of the JAX pool (without its TPU
-    autotune table)."""
-    assert tpool.pick_block_size(max_seq) == want
+    """The 128-column heuristic of the JAX pool, its default where nothing
+    is measured (the CPU)."""
+    assert tpool.pick_block_size(max_seq, 12, 64, device="cpu") == want
 
 
 def test_pick_block_size_flag():
     from paddle_tpu_torch.core import flags
     flags.set_flags({"FLAGS_serve_block_size": 24})
     try:
-        assert tpool.pick_block_size(128) == 24
+        assert tpool.pick_block_size(128, 12, 64) == 24
         flags.set_flags({"FLAGS_serve_block_size": 12})
         with pytest.raises(ValueError, match="multiple of 8"):
-            tpool.pick_block_size(128)
+            tpool.pick_block_size(128, 12, 64)
     finally:
         flags.set_flags({"FLAGS_serve_block_size": 0})
 

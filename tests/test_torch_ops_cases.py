@@ -791,13 +791,65 @@ CONV = [
          {"padding": 1}, grad=(0, 3), **_C),
 ]
 
+# ops/op_tail.py (its deterministic ops; truncated_normal, sampling_id,
+# print_op and assert_op have their own tests in test_torch_ops_tail.py)
+_SEG = ints(7, lo=0, hi=4, seed=90)
+_PRE_IDS = np.array([[3, 1], [4, 0], [2, 4]], np.int64)  # 4 = end: frozen
+_PROBS = rs(91).dirichlet(np.ones(6), (3, 2)).astype(np.float32)
+_TRELLIS_IDS = ints(5, 2, 3, lo=0, hi=9, seed=92)
+_TRELLIS_PAR = ints(5, 2, 3, lo=0, hi=3, seed=93, dtype=np.int32)
+OP_TAIL = [
+    Case("spectral_norm", (f32(4, 6, seed=94), f32(4, seed=95),
+                           f32(6, seed=96)), {"power_iters": 3},
+         grad=(0,), rtol=1e-4, atol=1e-5),
+    Case("spectral_norm", (f32(3, 5, 2, seed=97), f32(5, seed=98),
+                           f32(6, seed=99)), {"dim": 1, "power_iters": 2},
+         grad=(0,), rtol=1e-4, atol=1e-5, id="dim1"),
+    Case("beam_search", (_PRE_IDS, f32(3, 2, seed=100, lo=-3, hi=0),
+                         np.log(_PROBS), 2, 4), rtol=1e-6),
+    Case("beam_search", (_PRE_IDS, f32(3, 2, seed=100, lo=-3, hi=0),
+                         _PROBS, 2, 4), {"is_accumulated": False},
+         rtol=1e-6, id="probabilities"),
+    Case("beam_search", (np.array([[0, 1]]), np.zeros((1, 2), np.float32),
+                         np.zeros((1, 2, 3), np.float32), 2, 5),
+         id="ties"),
+    Case("beam_search_decode", (_TRELLIS_IDS, _TRELLIS_PAR, 0)),
+    Case("segment_sum", (f32(7, 3, seed=101), _SEG)),
+    Case("segment_sum", (f32(7, seed=101), _SEG), {"num_segments": 6},
+         id="empty_segments"),
+    Case("segment_mean", (f32(7, 3, seed=102), _SEG)),
+    Case("segment_mean", (f32(7, 3, seed=102), _SEG), {"num_segments": 6},
+         id="empty_segments"),
+    Case("segment_max", (f32(7, 3, seed=103), _SEG)),
+    Case("segment_max", (f32(7, 3, seed=103), _SEG), {"num_segments": 6},
+         id="empty_segments"),
+    Case("segment_min", (f32(7, 3, seed=104), _SEG)),
+    Case("segment_min", (ints(7, 2, lo=-9, hi=9, seed=105, dtype=np.int32),
+                         _SEG), {"num_segments": 5}, id="int32"),
+    Case("spp", (f32(2, 3, 8, 8, seed=106),), {"pyramid_height": 3}),
+    Case("spp", (f32(2, 3, 8, 8, seed=106),),
+         {"pyramid_height": 2, "pool_type": "avg"}, id="avg"),
+    Case("dequantize_log", (np.array([-128, -3, -1, 0, 1, 5, 127],
+                                     np.int8), pos(128, seed=107))),
+    Case("positive_negative_pair", (f32(9, seed=108),
+                                    ints(9, lo=0, hi=3, seed=109)
+                                    .astype(np.float32),
+                                    ints(9, lo=0, hi=3, seed=110))),
+    Case("positive_negative_pair", (np.array([1.0, 1.0, 2.0, 0.5],
+                                             np.float32),
+                                    np.array([0.0, 1.0, 1.0, 0.0],
+                                             np.float32),
+                                    np.zeros(4, np.int64)), id="ties"),
+]
+
 GROUPS = {"math": MATH, "linalg": LINALG, "manipulation": MANIPULATION,
           "reduction": REDUCTION, "logic": LOGIC, "activation": ACTIVATION,
           "norm": NORM, "loss": LOSS, "head": HEAD, "rnn": RNN,
-          "conv": CONV}
+          "conv": CONV, "op_tail": OP_TAIL}
 
 # ops whose output is random, made on the current device, on the host, or
-# a list argument: each has its own test in test_torch_ops_registry.py
+# a list argument: each has its own test in test_torch_ops_registry.py (the
+# last four in test_torch_ops_tail.py)
 OWN_TESTS = {
     "zeros", "ones", "full", "zeros_like", "ones_like", "full_like",
     "arange", "linspace", "logspace", "eye", "empty", "empty_like", "diag",
@@ -806,4 +858,5 @@ OWN_TESTS = {
     "gumbel_softmax", "dropout", "dropout_op", "nonzero", "unique",
     "unique_consecutive", "scatter_nd", "equal_all", "partial_concat",
     "partial_sum", "random_crop", "shuffle_batch",
+    "truncated_normal", "sampling_id", "print_op", "assert_op",
 }
