@@ -215,6 +215,25 @@ Phases, each printing its own lines; any failure exits non-zero:
     fires once, nothing fails, a request waits it out and TTFT p99 rises;
     then three RESETs there, absorbed; (f) bench_serve's 64 requests
     served at each block size, tokens/s.
+22. the static graph and jit (``phase_static``): (a) BASELINE config 3,
+    BERT-base built under ``paddle.enable_static()`` + ``program_guard``
+    (b32 s128, ``masked_lm_labels``), ``static.amp.decorate`` of AdamW
+    (lr 1e-4, wd 0.01) at O2 bf16, 40 ``Executor.run`` steps of LMDataset
+    batches: step ms (median after 10 warm-up steps), samples/s, MFU,
+    busy and idle over 10 profiled steps, the loss falling, 12 / 12 / 12 /
+    1 / 1 / 1 Hopper launches of the flash and CE kernels a step, one
+    lowering over the 40 runs; (b) one f32 BERT-base step (b8, dropout 0)
+    through ``Executor.run`` against phase 18's dygraph step from the same
+    weights and batch (loss, every gradient, parameters after, within
+    ``STEP_TOL``), then the ``clone(for_test)`` program's loss twice, the
+    same bits; (c) ``to_static`` of GPT-2 small's f32 forward against
+    eager (``GPT_STEP_TOL``); ``jit.save`` of BERT-base in bf16 eval
+    (spec [None, 128] int64), then ``jit.load``, ``create_predictor`` on
+    the ``.pdmodel`` and on the ``.pt2``, each against eager at b32
+    within ``JIT_BF16_TOL``, the flash forward's launches counted in every
+    route, save / export / load seconds, artifact sizes, ms a batch;
+    (d) a layer with a data-dependent ``while`` saved, loaded and run on
+    CUDA tensors, equal to eager at two trip counts.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -293,6 +312,9 @@ CE_TOL = {
 # f32 BERT-base step, kernels against the plain head: every parameter's
 # gradient (largest |error| over largest |entry|, per tensor) and loss
 STEP_TOL = {"loss": 1e-4, "grad": 1e-5, "param": 1e-5}
+# phase 22(c): jit routes of BERT-base bf16 eval against eager, the largest
+# |difference| over the largest |logit| (bf16's rounding step is 2^-8)
+JIT_BF16_TOL = 2e-2
 SOURCES = {
     "decode_attention": "paddle_tpu_torch/ops/cuda/csrc/decode_attention.cu",
     "paged_decode_attention":
@@ -4518,6 +4540,348 @@ def phase_generation(card=None):
     return res, counts
 
 
+# --------------------------------------------------------------------------
+# phase 22: the static graph and jit
+# --------------------------------------------------------------------------
+
+STATIC_STEP_LAUNCHES = {"flash_fwd": 12, "flash_bwd_dq": 12,
+                        "flash_bwd_dkv": 12, "fused_ce_fwd": 1,
+                        "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1}
+
+
+def _static_bert(paddle, cfg, batch, seq, amp=True, seed=0):
+    """BERT-base recorded into a Program with the fused MLM loss, AdamW
+    (bench.py:bench_bert's lr 1e-4, wd 0.01), at O2 bf16 through
+    static.amp.decorate when ``amp``. Returns (program, net, loss var,
+    [(param, grad var)])."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.text.models import Bert
+    paddle.enable_static()
+    try:
+        main = static.Program("bert_static")
+        with static.program_guard(main, static.Program()):
+            ids = static.data("ids", [batch, seq], "int64")
+            lab = static.data("labels", [batch, seq], "int64")
+            net = Bert(cfg, seed=seed)
+            loss = net(ids, masked_lm_labels=lab)
+            opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                         weight_decay=0.01,
+                                         parameters=net.parameters())
+            if amp:
+                opt = static.amp.decorate(opt, level="O2", dtype="bfloat16")
+            _, pairs = opt.minimize(loss)
+    finally:
+        paddle.disable_static()
+    return main, net, loss, pairs
+
+
+def _static_train(paddle, card):
+    """22(a): 40 static bf16 O2 steps of BERT-base b32 s128."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models import BertConfig
+    batch, seq, steps, warmup, n_batches = 32, 128, 40, 10, 16
+    cfg = BertConfig.bert_base()
+    ids, lab = _bert_batches(cfg, batch, seq, n_batches)
+    t0 = time.perf_counter()
+    main, net, loss, _ = _static_bert(paddle, cfg, batch, seq)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in net.parameters())
+    exe = static.Executor()
+    it = itertools.count()
+
+    def step():
+        i = next(it) % n_batches
+        return exe.run(main, feed={"ids": ids[i], "labels": lab[i]},
+                       fetch_list=[loss])[0]
+
+    kernels.reset_launch_counts()
+    lowerings = monitor.stat_get("executor/lowerings")
+    losses, ms = [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        losses.append(float(step()))
+        ms.append((time.perf_counter() - t) * 1e3)
+    counts = kernels.launch_counts()
+    lowered = monitor.stat_get("executor/lowerings") - lowerings
+    step_ms = statistics.median(ms[warmup:])
+    tokens = batch * seq
+    L, H = cfg.num_hidden_layers, cfg.hidden_size
+    flops = 6 * n_params * tokens + 12 * L * H * seq * tokens
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    res = {"config": "bert_base", "dtype": "bfloat16 O2 (static.amp)",
+           "batch": batch, "seq": seq, "steps": steps, "warmup": warmup,
+           "params": n_params, "build_s": build_s, "ops": len(main.ops),
+           "scope_entries": len(main.persistable_vars),
+           "step_ms": step_ms, "step_ms_min": min(ms[warmup:]),
+           "step_ms_max": max(ms[warmup:]),
+           "samples_per_s": batch / (step_ms / 1e3),
+           "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+           "mfu_peak": PEAK_NAME, "loss_first5": first, "loss_last5": last,
+           "loss_start": losses[0], "loss_end": losses[-1],
+           "lowerings": lowered,
+           "launches_per_step": {k: counts[k] / steps
+                                 for k in PATH_KERNELS + SM90_COUNTS
+                                 + CE_SM90_COUNTS}, "card": card}
+    for k, per in STATIC_STEP_LAUNCHES.items():
+        check(counts[k] == per * steps == counts[f"{k}.sm90"],
+              f"{k}: {counts[k]} launches in {steps} static steps "
+              f"({counts[k + '.sm90']} Hopper), not {per * steps}")
+    check(lowered == 1, f"executor/lowerings rose by {lowered} over "
+                        f"{steps} runs, not 1")
+    check(bool(np.isfinite(losses).all()) and last < first,
+          f"the static loss is not finite and falling: {first} -> {last}")
+    try:
+        prof = _profile_steps(step, n=10)
+    except Exception as e:   # the measurement is optional, the step is not
+        prof = None
+        log(f"[static profile] not measured: {type(e).__name__}: {e}")
+    if prof is not None:
+        res["device_busy_ms_per_step"] = prof["device_busy_ms_per_step"]
+        res["device_idle_share"] = 1 - prof["device_busy_ms_per_step"] \
+            / step_ms
+        res["top"] = prof["top"][:6]
+    log(f"[static bert] {json.dumps(res)}")
+    del main, net, exe
+    return counts, res
+
+
+def _static_vs_dygraph(paddle):
+    """22(b): one f32 step through Executor.run against phase 18's
+    dygraph step from the same weights and batch; then clone(for_test)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    cfg = BertConfig.bert_base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    ids, lab = _bert_batches(cfg, 8, 128, 1, seed=1)
+    main, net_s, loss_v, pairs = _static_bert(paddle, cfg, 8, 128,
+                                              amp=False)
+    test_prog = main.clone(for_test=True)
+    scope = static.global_scope()
+    net = Bert(cfg, dtype=torch.float32, seed=7)
+    net.train()
+    with torch.no_grad():
+        own = dict(net.named_parameters())
+        for n, sp in net_s.named_parameters():
+            torch.Tensor.copy_(own[n], scope.get(sp.scope_name))
+    exe = static.Executor()
+    feed = {"ids": ids[0], "labels": lab[0]}
+    outs = exe.run(main, feed=feed, fetch_list=[loss_v]
+                   + [g for _, g in pairs], return_numpy=False)
+    ls = float(outs[0])
+    by_scope = {sp.scope_name: n for n, sp in net_s.named_parameters()}
+    gs = {by_scope[p.scope_name]: g for (p, _), g in zip(pairs, outs[1:])}
+    ps = {n: scope.get(sp.scope_name).clone()
+          for n, sp in net_s.named_parameters()}
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 parameters=net.named_parameters())
+    loss = net(ids[0], masked_lm_labels=lab[0])
+    loss.backward()
+    _zero_missing_grads(net)
+    gd = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+    opt.step()
+    opt.clear_grad()
+    ld = float(loss.detach())
+    rel = abs(ls - ld) / abs(ld)
+    dgrad = {n: _grad_rel(gs[n], gd[n]) for n in gd}
+    worst = max(dgrad, key=dgrad.get)
+    dparam = max(float((ps[n] - p.detach()).abs().max())
+                 for n, p in net.named_parameters())
+    t1 = float(exe.run(test_prog, feed=feed, fetch_list=[loss_v])[0])
+    t2 = float(exe.run(test_prog, feed=feed, fetch_list=[loss_v])[0])
+    res = {"loss_static": ls, "loss_dygraph": ld, "loss_rel_diff": rel,
+           "grad_max_rel_diff": dgrad[worst], "grad_worst": worst,
+           "param_max_abs_diff": dparam, "tensors": len(gd),
+           "clone_for_test_losses": [t1, t2]}
+    log(f"[static vs dygraph f32] {json.dumps(res)}")
+    check(np.isfinite(ls) and rel <= STEP_TOL["loss"],
+          f"static loss {ls} != dygraph {ld}")
+    check(dgrad[worst] <= STEP_TOL["grad"],
+          f"static gradient {worst} differs: {dgrad[worst]}")
+    check(dparam <= STEP_TOL["param"],
+          f"static parameters differ after a step: {dparam}")
+    check(t1 == t2 and np.isfinite(t1), f"clone(for_test) gave {t1}, {t2}")
+    del main, net_s, net, exe, opt
+    return res
+
+
+class _LoopNet:
+    """Built on first use: a Layer with a data-dependent trip count
+    (the JAX package's tests/test_dy2static.py LoopNet)."""
+    cls = None
+
+    @classmethod
+    def make(cls):
+        if cls.cls is None:
+            import paddle_tpu_torch as paddle
+
+            class LoopNet(paddle.nn.Layer):
+                def __init__(self):
+                    super().__init__()
+                    self.scale = self.create_parameter(
+                        [1], default_initializer=paddle.nn.initializer
+                        .Constant(2.0))
+
+                def forward(self, x):
+                    s = x
+                    while s.sum() < 50.0:
+                        s = s * self.scale
+                    return s
+            cls.cls = LoopNet
+        return cls.cls()
+
+
+def _wall_ms(fn, warmup=2, runs=5):
+    """Wall ms of one fn() call (no_grad), the mean of ``runs`` after
+    ``warmup``, synchronized."""
+    with torch.no_grad():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / runs
+
+
+def _dir_bytes(prefix):
+    d, base = os.path.split(prefix)
+    return {f: os.path.getsize(os.path.join(d, f))
+            for f in sorted(os.listdir(d)) if f.startswith(base + ".")}
+
+
+def _jit_routes(paddle):
+    """22(c) and (d)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.hapi.model import InputSpec
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    res = {}
+    # to_static on GPT-2 small's f32 forward
+    gpt = GPT(GPTConfig(), device="cuda", dtype=torch.float32, seed=0)
+    gpt.eval()
+    gids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 50257, (4, 256))).to("cuda")
+    with torch.no_grad():
+        ref = gpt(gids)
+        got = jit.to_static(gpt)(gids)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    res["gpt_to_static_rel_diff"] = rel
+    check(rel <= GPT_STEP_TOL["loss"], f"to_static GPT-2 differs: {rel}")
+    del gpt, ref, got
+    # BERT-base bf16 eval through every route
+    cfg = BertConfig.bert_base()
+    bert = Bert(cfg, dtype=torch.bfloat16, seed=0)
+    bert.eval()
+    ids, _ = _bert_batches(cfg, 32, 128, 1, seed=2)
+    x = ids[0]
+    tmp = tempfile.mkdtemp()
+    prefix = os.path.join(tmp, "bert")
+    try:
+        routes = {}
+
+        def launches(fn):
+            before = kernels.launch_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            return out, {k: after[k] - before[k]
+                         for k in ("flash_fwd", "flash_fwd.sm90")}
+
+        with torch.no_grad():
+            ref, routes["eager"] = launches(lambda: bert(x))
+        ref = ref.float()
+        ms = {"eager": _wall_ms(lambda: bert(x))}
+        static_fn = jit.to_static(bert)
+        t0 = time.perf_counter()
+        jit.save(bert, prefix, input_spec=[InputSpec([None, 128], "int64",
+                                                     "ids")])
+        res["save_and_export_s"] = time.perf_counter() - t0
+        res["artifact_bytes"] = _dir_bytes(prefix)
+        with open(prefix + ".pdinfer.json") as f:
+            meta = json.load(f)
+        check("pt2_skipped" not in meta, f"no .pt2: {meta.get('pt2_skipped')}")
+        t0 = time.perf_counter()
+        loaded = jit.load(prefix)
+        res["jit_load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred_pt2 = inference.create_predictor(inference.Config(prefix))
+        res["predictor_pt2_load_s"] = time.perf_counter() - t0
+        os.rename(prefix + ".pt2", prefix + ".pt2.off")
+        t0 = time.perf_counter()
+        pred_pd = inference.create_predictor(inference.Config(prefix))
+        res["predictor_pdmodel_load_s"] = time.perf_counter() - t0
+        check(pred_pd._translated is not None and pred_pt2._program
+              is not None, "the Predictors did not take the two routes")
+        xn = x.cpu().numpy()
+        fns = {"to_static": lambda: static_fn(x),
+               "translated_layer": lambda: loaded(x),
+               "predictor_pdmodel": lambda: pred_pd.run([xn])[0],
+               "predictor_pt2": lambda: pred_pt2.run([xn])[0]}
+        errs = {}
+        for name, fn in fns.items():
+            with torch.no_grad():
+                out, routes[name] = launches(fn)
+            out = torch.as_tensor(np.asarray(out) if not isinstance(
+                out, torch.Tensor) else out.float().cpu().numpy())
+            errs[name] = float((out.to("cuda").float() - ref).abs().max()
+                               / ref.abs().max())
+        res["rel_err"] = errs
+        res["flash_fwd_launches"] = routes
+        ms.update({name: _wall_ms(fn) for name, fn in fns.items()})
+        res["ms_per_batch32"] = ms
+        for name, e in errs.items():
+            check(e <= JIT_BF16_TOL, f"{name} differs from eager: {e}")
+        for name, c in routes.items():
+            check(c["flash_fwd"] == cfg.num_hidden_layers
+                  == c["flash_fwd.sm90"],
+                  f"{name}: flash forward launches {c}, not "
+                  f"{cfg.num_hidden_layers} Hopper ones")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del bert, loaded, pred_pd, pred_pt2
+    # (d) data-dependent while on the card
+    net = _LoopNet.make()
+    net.eval()
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "loopnet")
+        jit.save(net, path, input_spec=[InputSpec([2, 2], "float32", "x")])
+        loaded = jit.load(path)
+        for v in (1.0, 4.0):
+            xv = torch.full((2, 2), v, device="cuda")
+            want, got = net(xv), loaded(xv)
+            check(got.device.type == "cuda" and torch.equal(got, want),
+                  f"loaded while-loop layer differs at {v}: "
+                  f"{got.tolist()} vs {want.tolist()}")
+        with open(path + ".pdinfer.json") as f:
+            res["loop_pt2_skipped"] = "pt2_skipped" in json.load(f)
+        res["loop_equal"] = True
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[jit] {json.dumps(res)}")
+    return res
+
+
+def phase_static(card=None):
+    """Phase 22: the static graph and jit; see the module docstring."""
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    counts, res = _static_train(paddle, card)
+    res["vs_dygraph"] = _static_vs_dygraph(paddle)
+    res["jit"] = _jit_routes(paddle)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[static] {res['seconds']:.1f} s")
+    return counts, res
+
+
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
@@ -4750,6 +5114,7 @@ def main():
     tf_counts, tf_decode_counts, transformer = phase_transformer(card)
     vision = phase_vision(card)
     generation, gen_counts = phase_generation(card)
+    st_counts, static_res = phase_static(card)
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -4810,6 +5175,8 @@ def main():
         rec["launches_dygraph_sm90"] = dy_counts[f"{name}.sm90"]
         rec["launches_transformer"] = tf_counts[name]
         rec["launches_transformer_sm90"] = tf_counts[f"{name}.sm90"]
+        rec["launches_static"] = st_counts[name]
+        rec["launches_static_sm90"] = st_counts[f"{name}.sm90"]
         if name == "fused_ce_bwd_dw":
             rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
                                      *worst_ce["db_max"].values(),
@@ -4838,6 +5205,12 @@ def main():
         rec["launches_dygraph_sm90"] = dy_counts[f"{name}.sm90"]
         rec["launches_transformer"] = tf_counts[name]
         rec["launches_transformer_sm90"] = tf_counts[f"{name}.sm90"]
+        rec["launches_static"] = st_counts[name]
+        rec["launches_static_sm90"] = st_counts[f"{name}.sm90"]
+        if name == "flash_fwd":     # 22(c): each jit route's forward
+            rec["launches_jit"] = {
+                r: c["flash_fwd"] for r, c in
+                static_res["jit"]["flash_fwd_launches"].items()}
         if name == "flash_fwd":     # phase 19's decoding: the cross-attention
             rec["launches_transformer_decode"] = tf_decode_counts[name]
             rec["launches_transformer_decode_sm90"] = \
@@ -4860,7 +5233,7 @@ def main():
                       "o2_f16": o2, "o2_f16_equivalence": o2_equiv,
                       "hapi": hapi, "dygraph": dygraph,
                       "transformer": transformer, "vision": vision,
-                      "generation": generation}))
+                      "generation": generation, "static": static_res}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

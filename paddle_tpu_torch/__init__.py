@@ -43,3 +43,17 @@ from .nn.layer.layers import Parameter  # noqa: F401,E402
 from .framework.io import load, save  # noqa: F401,E402
 from .hapi import InputSpec, Model  # noqa: F401,E402
 from ._legacy_api import *  # noqa: F401,F403,E402  the v1 top-level names
+from . import static, jit  # noqa: F401,E402
+
+
+def in_dynamic_mode():
+    return not static.in_static_mode()
+
+
+def enable_static():
+    """Record ops into static Programs (``paddle.static``) from here on."""
+    static.enable_static_()
+
+
+def disable_static():
+    static.disable_static_()

@@ -29,8 +29,8 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "load_jax_optimizer_state",
-           "load_jax_checkpoint"]
+__all__ = ["load_jax_params", "load_jax_static_params",
+           "load_jax_optimizer_state", "load_jax_checkpoint"]
 
 
 def load_jax_params(module: torch.nn.Module, params,
@@ -45,6 +45,29 @@ def load_jax_params(module: torch.nn.Module, params,
     _copy_named("parameter", dict(module.named_parameters()), params)
     if buffers is not None:
         _copy_named("buffer", dict(module.named_buffers()), buffers)
+    return module
+
+
+def load_jax_static_params(module: torch.nn.Module, params,
+                           buffers=None) -> torch.nn.Module:
+    """Static mode: write ``params`` (and ``buffers``), keyed by module
+    path, into the global-scope entries of ``module``'s static parameters
+    and buffers (``static.StaticParam`` / scope-backed ``Variable``s), each
+    cast to its variable's dtype. The JAX package's static deep copies
+    share scope entries across a stack's layers; its values arrive here by
+    path all the same. Raises KeyError on a missing or unexpected name."""
+    for what, own, values in (
+            ("parameter", dict(module.named_parameters()), params),
+            ("buffer", dict(module.named_buffers()), buffers)):
+        if values is None:
+            continue
+        missing = sorted(set(own) - set(values))
+        extra = sorted(set(values) - set(own))
+        if missing or extra:
+            raise KeyError(f"static {what}s: missing {missing}, "
+                           f"unexpected {extra}")
+        for k, var in own.items():
+            var.set_value(_f32_array(values[k]))
     return module
 
 

@@ -79,6 +79,14 @@ define_flag("FLAGS_serve_max_active", 64,
 define_flag("FLAGS_executor_max_inflight", 2,
             "pipeline depth: how many dispatched-but-not-materialized "
             "steps the serve loop keeps queued on the device stream")
+define_flag("FLAGS_executor_cache_size", 32,
+            "LRU bound on the static Executor's prepared replays (one per "
+            "program version, feed-shape set and fetch list); an eviction "
+            "bumps executor/cache_evictions")
+define_flag("FLAGS_log_memory_estimate", False,
+            "on each Executor preparation, publish static/shape_infer's "
+            "liveness peak-memory estimate as the gauge "
+            "executor/estimated_peak_bytes")
 define_flag("FLAGS_use_flash_attention", True,
             "route scaled_dot_product_attention through the flash "
             "kernels (ops/cuda/flash_attention.py) where the gate admits "

@@ -4,18 +4,19 @@ tier (``serving.py``).
 
 The JAX Predictor runs a StableHLO artifact (``jax.export``); the port's
 runs a ``torch.export`` artifact, ``{prefix}.pt2`` beside
-``{prefix}.pdinfer.json``, as ``text/models/gpt.export_decode`` writes
-it, on the device the JSON names (where it was exported). Importing this
-module registers the decode kernel's custom op
-(``paddle_tpu_torch::decode_attention``) before any artifact is loaded.
-
-Left to ROADMAP Queue 1 item 6 (static graph and jit): artifacts of
-``jit.save`` (``.pdmodel`` Programs) and the encrypted ones of
-``framework/crypto.py`` (``encrypt_model``, ``Config.set_cipher_key``);
-each raises NotImplementedError naming it.
+``{prefix}.pdinfer.json``, as ``jit.save`` and
+``text/models/gpt.export_decode`` write it, on the device the JSON names
+(where it was exported). The JAX precedence holds: the ``.pt2``
+(``{prefix}.pt2.enc`` when ``encrypt_model`` encrypted it, which needs
+``Config.set_cipher_key``; without the key a ``PermissionError``) first,
+else the ``.pdmodel`` Program through ``jit.load`` on the current device.
+Importing this module registers the kernels' custom ops
+(``paddle_tpu_torch::decode_attention``,
+``paddle_tpu_torch::flash_attention_fwd``) before any artifact is loaded.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 
@@ -23,19 +24,23 @@ import numpy as np
 import torch
 
 from ..ops.cuda import decode_attention as _decode_attention  # noqa: F401
+from ..ops.cuda import flash_attention as _flash_attention  # noqa: F401
 from .serving import (ServeConfig, ServeLoop, ServeRequest,  # noqa: F401
                       build_decode_step)
 
 __all__ = ["Config", "Predictor", "PredictorTensor", "create_predictor",
            "encrypt_model", "ServeConfig", "ServeLoop", "ServeRequest"]
 
-_ITEM6 = "ROADMAP Queue 1 item 6 (static graph and jit)"
-
 
 def encrypt_model(prefix, key):
-    """Encrypt an artifact at rest: framework/crypto.py, item 6."""
-    raise NotImplementedError(f"encrypt_model needs framework/crypto.py, "
-                              f"{_ITEM6}")
+    """Encrypt the weight-bearing artifact at rest: {prefix}.pt2 ->
+    {prefix}.pt2.enc (AES-256-GCM, ``framework/crypto.py``), plaintext
+    removed. The metadata (names and shapes only) stays readable."""
+    from ..framework.crypto import Cipher
+    c = Cipher(key)
+    src = prefix + ".pt2"
+    c.encrypt_file(src, src + ".enc")
+    os.remove(src)
 
 
 class Config:
@@ -44,14 +49,15 @@ class Config:
 
     def __init__(self, model_path=None, params_path=None):
         self._prefix = None
+        self._cipher_key = None
         if model_path is not None:
             self.set_model(model_path, params_path)
         self._ir_optim = True
         self._glog_info = True
 
     def set_cipher_key(self, key: bytes):
-        raise NotImplementedError(f"encrypted artifacts need "
-                                  f"framework/crypto.py, {_ITEM6}")
+        """Key for encrypted artifacts (``encrypt_model``)."""
+        self._cipher_key = key
 
     def set_model(self, model_path, params_path=None):
         for suffix in (".pt2", ".stablehlo", ".pdmodel", ".pdinfer.json"):
@@ -101,8 +107,9 @@ class PredictorTensor:
 
 
 class Predictor:
-    """Runs a ``torch.export`` artifact ({prefix}.pt2 and its
-    {prefix}.pdinfer.json) on the device it was exported for."""
+    """Runs a ``jit.save`` / ``export_decode`` artifact: the
+    ``torch.export`` program ({prefix}.pt2, or its encrypted .pt2.enc) on
+    the device it was exported for, else the ``.pdmodel`` Program."""
 
     def __init__(self, config):
         if isinstance(config, str):
@@ -113,8 +120,8 @@ class Predictor:
         meta_path = prefix + ".pdinfer.json"
         if not os.path.exists(meta_path):
             raise FileNotFoundError(
-                f"{meta_path} not found: export the model with "
-                "text.models.gpt.export_decode first")
+                f"{meta_path} not found: save the model with jit.save (or "
+                "text.models.gpt.export_decode) first")
         with open(meta_path) as f:
             self._meta = json.load(f)
         self._input_names = list(self._meta["input_names"])
@@ -122,12 +129,22 @@ class Predictor:
         self._inputs = {n: PredictorTensor(n) for n in self._input_names}
         self._outputs = {n: PredictorTensor(n) for n in self._output_names}
         program = prefix + ".pt2"
-        if not os.path.exists(program):
-            raise NotImplementedError(
-                f"{program} not found; artifacts of jit.save (.pdmodel) "
-                f"and encrypted ones are {_ITEM6}")
+        key = config._cipher_key
         self._device = torch.device(self._meta.get("device", "cpu"))
-        self._program = torch.export.load(program).module()
+        self._program = self._translated = None
+        if os.path.exists(program + ".enc"):
+            if key is None:
+                raise PermissionError(
+                    f"{program}.enc is encrypted; pass the key via "
+                    "Config.set_cipher_key")
+            from ..framework.crypto import Cipher
+            blob = Cipher(key).decrypt_from_file(program + ".enc")
+            self._program = torch.export.load(io.BytesIO(blob)).module()
+        elif os.path.exists(program):
+            self._program = torch.export.load(program).module()
+        else:
+            from ..jit import load as _jit_load
+            self._translated = _jit_load(prefix)
 
     # -- reference predictor API -------------------------------------------
     def get_input_names(self):
@@ -155,6 +172,10 @@ class Predictor:
         return [self._outputs[n].copy_to_cpu() for n in self._output_names]
 
     def _call(self, args):
+        if self._translated is not None:
+            outs = self._translated(*args)
+            outs = outs if isinstance(outs, (tuple, list)) else [outs]
+            return [o.numpy() for o in outs]
         dtypes = self._meta.get("input_dtypes")
         targs = [torch.as_tensor(np.array(
             a, dtype=dtypes[i] if dtypes else None)).to(self._device)
@@ -162,7 +183,8 @@ class Predictor:
         with torch.no_grad():
             outs = self._program(*targs)
         outs = outs if isinstance(outs, (tuple, list)) else [outs]
-        return [o.cpu().numpy() for o in outs]
+        return [(o.float() if o.dtype == torch.bfloat16 else o).cpu().numpy()
+                for o in outs]
 
 
 def create_predictor(config):

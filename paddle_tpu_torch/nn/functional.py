@@ -12,7 +12,7 @@ pools go through the 2-D ops over a unit height, as in the JAX package).
 The names over the long-tail ops wait for ROADMAP Queue 1 item 9.
 
 ``linear`` is the JAX package's two recorded ops, ``matmul`` then
-``add``, whenever AMP is on (under O1 the gray bias add promotes the
+``add``, whenever AMP is on or a static Program records it (under O1 the gray bias add promotes the
 low-precision product back to f32, as in the JAX package); without AMP
 it is one call, ``addmm`` (one GEMM with the bias in its epilogue, the
 [in, out] weight read by cuBLAS without a copy).
@@ -74,6 +74,7 @@ from ..ops import (  # noqa: F401 - the conv ops (ops/conv.py)
 from ..ops import embedding as _embedding_op
 from ..core import rng as _rng
 from ..core.dtype import to_torch_dtype
+from ..ops._dispatch import _state as _dispatch_state
 from ..ops._dispatch import defop, wrap
 from ..ops.cuda import gate_hit, gate_reject
 from ..ops.cuda.flash_attention import flash_attention, supported
@@ -82,7 +83,7 @@ from ..ops.cuda.fused_ce import _label_hits, fused_ce
 
 def linear(x, weight, bias=None, name=None):
     """y = x @ W (+ b), W [in, out]."""
-    if _amp.amp_active() or bias is None:
+    if _amp.amp_active() or bias is None or _dispatch_state.static:
         out = ops.matmul(x, weight)
         return out if bias is None else ops.add(out, bias)
     return ops.addmm(bias, x, weight)

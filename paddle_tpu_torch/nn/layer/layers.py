@@ -21,6 +21,12 @@ forward hooks are torch's, under Paddle's names and signatures:
 - ``functional_state()`` / ``load_functional_state()``;
 - ``to(device="gpu", dtype=...)``, ``astype``, ``full_name``.
 
+In static mode (``paddle.enable_static()``, JAX :133-182)
+``create_parameter`` returns a ``static.StaticParam`` whose initial value
+is written to the global scope, ``register_buffer`` makes a scope-backed
+``Variable``, and ``to(dtype=...)`` casts the scope values. Deep copies of
+a layer stack take fresh scope names (``StaticParam.__deepcopy__``).
+
 Assigning a tensor to a parameter's name writes its values into the
 parameter, as in the JAX package.
 """
@@ -39,6 +45,16 @@ from ...core.tensor import Tensor
 from .. import initializer as I
 
 __all__ = ["Layer", "Parameter", "ParamAttr"]
+
+
+def _static_mode():
+    from ...ops._dispatch import _state
+    return _state.static
+
+
+def _is_static(t):
+    from ...static.program import Variable
+    return isinstance(t, Variable)
 
 _counters = {}
 
@@ -148,6 +164,20 @@ class Layer(torch.nn.Module):
         if init is None:
             init = I.Constant(0.0) if is_bias else I.XavierUniform()
         value = init(shape, dtype or self._dtype)
+        if _static_mode():
+            from ...static.program import (StaticParam, default_main_program,
+                                           global_scope)
+            program = default_main_program()
+            pname = attr.name or _unique("param")
+            sp = StaticParam(shape, value.dtype, name=pname, program=program,
+                             trainable=attr.trainable,
+                             regularizer=attr.regularizer,
+                             learning_rate=attr.learning_rate,
+                             need_clip=attr.need_clip,
+                             device=_device.resolve_device())
+            global_scope().set(pname, value.to(sp.device))
+            program.add_persistable(sp)
+            return sp
         return Parameter(value.to(_device.resolve_device()), name=attr.name,
                          trainable=attr.trainable,
                          regularizer=attr.regularizer,
@@ -155,7 +185,8 @@ class Layer(torch.nn.Module):
                          need_clip=attr.need_clip)
 
     def add_parameter(self, name, parameter):
-        if parameter is not None and not isinstance(parameter, Parameter):
+        if parameter is not None and not isinstance(parameter, Parameter) \
+                and not _is_static(parameter):
             raise TypeError("add_parameter expects a Parameter")
         self.register_parameter(name, parameter)
         return parameter
@@ -168,6 +199,18 @@ class Layer(torch.nn.Module):
         if tensor is not None and not isinstance(tensor, torch.Tensor):
             tensor = torch.as_tensor(np.asarray(tensor),
                                      device=_device.resolve_device())
+        if tensor is not None and _static_mode() and not _is_static(tensor):
+            from ...static.program import (Variable, default_main_program,
+                                           global_scope)
+            program = default_main_program()
+            bname = _unique(f"buffer_{name}")
+            var = Variable(tensor.shape, tensor.dtype, name=bname,
+                           scope_name=bname, program=program,
+                           device=tensor.device)
+            var.persistable = True
+            global_scope().set(bname, torch.Tensor.detach(tensor).clone())
+            program.add_persistable(var)
+            tensor = var
         super().register_buffer(name, tensor, persistent=bool(persistable))
         return tensor
 
@@ -306,6 +349,8 @@ class Layer(torch.nn.Module):
     def to(self, *args, device=None, dtype=None, blocking=None, **kwargs):
         """``to(device="gpu" | "cpu" | ..., dtype=...)``, and torch's forms
         (``to(torch.device)``, ``to(dtype)``, ``to(tensor)``)."""
+        if _static_mode():
+            return self._static_to(args, dtype)
         args = tuple(_device._parse(a) if isinstance(a, str) else a
                      for a in args)
         if device is not None:
@@ -316,6 +361,46 @@ class Layer(torch.nn.Module):
         if blocking is not None:
             kwargs["non_blocking"] = not blocking
         return super().to(*args, **kwargs)
+
+    def _static_to(self, args, dtype):
+        """``to`` in static mode: a floating dtype casts the scope values
+        of the layer's static parameters and buffers (each gets a new
+        Variable of that dtype under the same scope name); a device is the
+        program's already."""
+        from ...static.program import (StaticParam, Variable,
+                                       global_scope)
+        for a in args:
+            if isinstance(a, torch.dtype) or (isinstance(a, str)
+                                              and a in ("float16", "bfloat16",
+                                                        "float32",
+                                                        "float64")):
+                dtype = a
+        td = to_torch_dtype(dtype)
+        if td is None:
+            return self
+        self._dtype = convert_dtype(dtype)
+        scope = global_scope()
+        for m in self.modules():
+            for store in (m._parameters, m._buffers):
+                for k, v in list(store.items()):
+                    if not isinstance(v, Variable) or v.scope_name is None \
+                            or not v.dtype.is_floating_point or v.dtype == td:
+                        continue
+                    if isinstance(v, StaticParam):
+                        new = StaticParam(
+                            v.shape, td, v.scope_name, v.program,
+                            trainable=v.trainable, regularizer=v.regularizer,
+                            learning_rate=v.optimize_attr["learning_rate"],
+                            need_clip=v.need_clip, device=v.device)
+                    else:
+                        new = Variable(v.shape, td, name=v.name,
+                                       scope_name=v.scope_name,
+                                       program=v.program, device=v.device)
+                        new.persistable = True
+                    scope.set(v.scope_name, scope.get(v.scope_name).to(td))
+                    v.program.add_persistable(new)
+                    store[k] = new
+        return self
 
     def astype(self, dtype):
         return self.to(dtype=dtype)

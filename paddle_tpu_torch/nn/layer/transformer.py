@@ -132,16 +132,17 @@ class MultiHeadAttention(Layer):
         self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
 
     def _split_heads(self, x):
-        """[b, s, E] -> [b, h, s, d] (views)."""
-        b, s = x.shape[0], x.shape[1]
-        x = ops.reshape(x, [b, s, self.num_heads, self.head_dim])
+        """[b, s, E] -> [b, h, s, d] (views). The batch dim is -1, so a
+        static Program recorded at one batch size runs at any other."""
+        s = x.shape[1]
+        x = ops.reshape(x, [-1, s, self.num_heads, self.head_dim])
         return ops.transpose(x, [0, 2, 1, 3])
 
     def _merge(self, out):
         """[b, h, s, d] -> out_proj([b, s, E])."""
         out = ops.transpose(out, [0, 2, 1, 3])
-        b, s = out.shape[0], out.shape[1]
-        return self.out_proj(ops.reshape(out, [b, s, self.embed_dim]))
+        s = out.shape[1]
+        return self.out_proj(ops.reshape(out, [-1, s, self.embed_dim]))
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None, is_causal=False):

@@ -6,8 +6,8 @@ pieces and install a forward-pre-hook that recomputes the weight from
 them through the port's ops at every call, so autograd carries the
 gradient to the pieces. The weight is also computed at once, so a read of
 ``layer.weight`` before the first call sees it. Every function takes
-eager parameters only, as the JAX package's do (a static-graph variable
-raises TypeError; the port's static graph is ROADMAP Queue 1 item 6).
+eager parameters only, as the JAX package's do: a static-graph Variable
+(``static.program.Variable``) raises TypeError.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ __all__ = ["weight_norm", "remove_weight_norm", "spectral_norm",
 
 
 def _require_eager(p, fn_name):
-    if not isinstance(p, torch.Tensor):
+    from ...static.program import Variable
+    if not isinstance(p, torch.Tensor) or isinstance(p, Variable):
         raise TypeError(
             f"nn.utils.{fn_name} operates on eager parameters; got "
             f"{type(p).__name__} — apply the transform to the layer's "

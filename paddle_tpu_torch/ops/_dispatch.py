@@ -7,8 +7,19 @@ outputs as the port's ``Tensor``. torch autograd records the gradient, so
 there is no tape here. ``OP_REGISTRY`` maps each op's name to its wrapper,
 and each wrapper carries ``op_name``, ``op_version`` and ``raw`` under the
 JAX package's names and versions, which ``static/`` and
-``framework/program_serde.py`` will look ops up by.
-``SHAPE_INFER_REGISTRY`` stays empty until the static port fills it.
+``framework/program_serde.py`` look ops up by. ``SHAPE_INFER_REGISTRY``
+holds the abstract shape rules of ``static/shape_infer.py``.
+
+Static mode (``paddle.enable_static()``, the JAX package's
+``tape._record_static``): when an argument is a static-graph ``Variable``
+the wrapper appends an ``OpNode`` of the op's raw function to the
+argument's Program (or to the sub-block a control-flow trace forces) and
+returns symbolic outputs, their shapes and dtypes inferred by
+``static/shape_infer.infer_op``; an eager ``Tensor`` argument becomes a
+captured constant. A call without Variables runs eagerly, in static mode
+too (a creation op's result is a constant of the program). The eager path
+pays one flag test for this (``_state.static``); a Variable that reaches
+an op in dynamic mode raises there, from the Variable's own torch hook.
 
 An op's body runs on torch's own meaning: while one runs, the ``Tensor``
 operators and the methods whose Paddle meaning differs from torch's fall
@@ -38,7 +49,9 @@ SHAPE_INFER_REGISTRY = {}
 
 
 class _State(threading.local):
-    depth = 0
+    def __init__(self):
+        self.depth = 0
+        self.static = False     # instance attributes: one dict hit each
 
 
 _state = _State()
@@ -94,6 +107,37 @@ def _cast(name, args, kwargs):
     return tuple(vals[:n]), dict(zip(keys, vals[n:]))
 
 
+_EAGER = object()
+
+
+def _record_static(f, name, args, kwargs):
+    """Record ``f`` into a Program when an argument is a Variable (else
+    ``_EAGER``: the call runs eagerly)."""
+    import torch.utils._pytree as pytree
+
+    from ..static.program import (Variable, default_main_program,
+                                  forced_program)
+    kw_leaves, kw_tree = pytree.tree_flatten(kwargs)
+    flat = list(args) + kw_leaves
+    program = forced_program()
+    found = False
+    for a in flat:
+        if isinstance(a, Variable):
+            found = True
+            if program is None:
+                program = a.program
+            break
+    if not found:
+        return _EAGER
+    program = program or default_main_program()
+    from ..static.shape_infer import infer_op
+    avals, multi = infer_op(f, name, flat, len(args), kw_tree)
+    rec = [_T.detach(a) if isinstance(a, _T) and not isinstance(a, Variable)
+           else a for a in flat]
+    outs = program.append_op(f, name, rec, len(args), kw_tree, avals)
+    return tuple(outs) if multi else outs[0]
+
+
 def defop(raw_fn=None, *, name=None, version=1):
     """Register ``raw_fn`` (a torch function of its inputs) as the op
     ``name`` (default: the function's name without leading underscores)
@@ -107,6 +151,10 @@ def defop(raw_fn=None, *, name=None, version=1):
             st = _state
             if st.depth:
                 return f(*args, **kwargs)
+            if st.static:
+                out = _record_static(f, opname, args, kwargs)
+                if out is not _EAGER:
+                    return out
             if amp_state.enabled:
                 args, kwargs = _cast(opname, args, kwargs)
             st.depth = 1

@@ -33,10 +33,18 @@ wrapper's f16 launches are counted also in ``.launches_f16``.
 ``_sm90_path`` makes that choice before launch (``_entry``), from dtype,
 head dim and alignment alone, for the forward, dq and dk/dv alike; a
 launch that fails raises and never gives way to the other kernel.
+
+``torch.export`` cannot see a ctypes launch, so under export
+(``torch.compiler.is_exporting()``) ``flash_attention`` calls the forward
+as the custom op ``paddle_tpu_torch::flash_attention_fwd`` (CUDA: the
+launch; CPU: the plain version; a fake for the shapes), which the
+exported program records and its run launches; eager training keeps the
+direct call.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -388,8 +396,33 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None,
     qf = q.reshape(b * h, sq, d).contiguous()
     kf = k.reshape(b * h, sk, d).contiguous()
     vf = v.reshape(b * h, sk, d).contiguous()
+    if torch.compiler.is_exporting():
+        if return_lse:
+            raise NotImplementedError("flash_attention under torch.export "
+                                      "returns the output only")
+        out = flash_attention_fwd_op(qf, kf, vf, bias, bool(causal), scale)
+        return out.reshape(b, h, sq, d)
     out, lse = _FlashAttention.apply(qf, kf, vf, bias, bool(causal), scale)
     out = out.reshape(b, h, sq, d)
     if return_lse:
         return out, lse.reshape(b, h, sq)
     return out
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cuda")
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: Optional[torch.Tensor], causal: bool,
+                           scale: float) -> torch.Tensor:
+    """``flash_fwd``'s output on [b*h, s, d], as a torch custom op."""
+    return flash_fwd(q, k, v, bias, causal, scale)[0]
+
+
+@flash_attention_fwd_op.register_kernel("cpu")
+def _flash_attention_fwd_op_cpu(q, k, v, bias, causal, scale):
+    return flash_fwd_ref(q, k, v, bias, causal, scale)[0]
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_op_fake(q, k, v, bias, causal, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)

@@ -248,6 +248,13 @@ def where(condition, x=None, y=None):
 
 
 def _host(x):
+    """x's values on the host (numpy). A host-reading op cannot be
+    recorded into a static Program: a Variable raises, naming the op."""
+    if type(x).__name__ in ("Variable", "StaticParam"):
+        import sys
+        raise TypeError(f"{sys._getframe(1).f_code.co_name} reads values "
+                        "on the host (a data-dependent output shape); it "
+                        "cannot be recorded into a static Program")
     t = x.detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 

@@ -294,7 +294,19 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """backward + step (the JAX package's dygraph ``minimize``)."""
+        """Dygraph: backward + step. Static mode (``loss`` a Variable):
+        record the backward and optimizer sections into the loss's
+        program, which ``static.Executor`` runs (JAX :238-252)."""
+        from ..static.program import Variable, default_main_program
+        if isinstance(loss, Variable):
+            from ..static import append_backward
+            plist = parameters or (None if self._named is None
+                                   else [p for _, p in self._named])
+            pairs = append_backward(loss, parameter_list=plist)
+            program = loss.program or default_main_program()
+            program.optimizer_section = (self, pairs)
+            program._version += 1
+            return [], pairs
         loss.backward()
         self.step()
         return [], []

@@ -121,13 +121,16 @@ def test_left_out_paths_raise_naming_their_item(nets, tmp_path):
         export_decode(tnet, str(tmp_path / "t"), B, S, NEW, temperature=0.7)
     with pytest.raises(ValueError, match="max_seq_len"):
         export_decode(tnet, str(tmp_path / "t"), B, 120, 20)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # item 6a's paths work now: encrypting needs the artifact, and a
+    # Predictor without a .pt2 reads the .pdmodel (absent here)
+    with pytest.raises(FileNotFoundError):
         inference.encrypt_model(str(tmp_path / "t"), b"k" * 32)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        inference.Config(str(tmp_path / "t")).set_cipher_key(b"k" * 32)
+    cfg = inference.Config(str(tmp_path / "t"))
+    cfg.set_cipher_key(b"k" * 32)
+    assert cfg._cipher_key == b"k" * 32
     (tmp_path / "prog.pdinfer.json").write_text(json.dumps(
         {"input_names": ["x"], "output_names": ["y"]}))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(FileNotFoundError, match="pdmodel"):
         inference.Predictor(str(tmp_path / "prog.pdmodel"))
     with pytest.raises(FileNotFoundError):
         inference.Predictor(str(tmp_path / "none"))
