@@ -234,6 +234,43 @@ Phases, each printing its own lines; any failure exits non-zero:
     route, save / export / load seconds, artifact sizes, ms a batch;
     (d) a layer with a data-dependent ``while`` saved, loaded and run on
     CUDA tensors, equal to eager at two trip counts.
+23. the trainer's host path (``phase_trainer_host``): (a) 22(a)'s
+    program fed by an ``InMemoryDataset`` over MultiSlot files holding
+    phase 22's 16 LMDataset batches (40 steps, batch i = batch i % 16),
+    trained through ``Executor.train_from_dataset`` in flight 0 (the
+    synchronous loop), in flight 2 and in flight 2 with scan K 4, each
+    from the same state with a fresh Executor: the loss trails (every
+    step's lazy fetch, read after the run) and final scopes bitwise
+    equal, 12 / 12 / 12 / 1 / 1 / 1 Hopper launches a step, one
+    lowering each; step ms over the last 28 steps (synced at both ends)
+    and the median over its spans of one megastep (one step unfused),
+    busy and idle over 8 profiled steps, host syncs a step (torch's
+    sync-debug warnings plus the runner's event waits) and
+    ``executor/host_overhead_ms``; then the synchronous run's step-20
+    state restored and ``start_batch=20`` in flight 2: the trail's tail
+    and final scope bitwise. (b) phase 17's BERT-base bf16 O2
+    ``Model.fit`` (40 steps of 32, shuffled) in child processes
+    (``--phase23-child``): uninterrupted and, side by side with it, with
+    ``auto_checkpoint_dir`` (every 10 steps, 2 kept) and SIGTERM after
+    step 25 (the PreemptionGuard's save, steps 20 and 25 left); resumed
+    to 40: the final parameters' manifest equal to the uninterrupted
+    run's; one flipped byte in step 40 found by its hash, quarantined,
+    the restore walking back to 30; bytes a checkpoint, async and sync
+    save seconds, restore seconds. (c) (a)'s program through
+    ``capi_train.save_train_program`` / ``create`` / ``run_step`` for 10
+    steps, bitwise equal to ``Executor.run`` from the same state. (d)
+    ``FLAGS_check_nan_inf``: an inf in a feed raises at the op layer
+    (``matmul``), at ``Executor.run``'s sweep with the scope unwritten
+    and at ``Model``'s step sweep with the parameters unwritten; a
+    failing in-flight step raises ``PipelineStepError`` naming step 3
+    and leaves a flight-recorder dump; the flag's cost a step on (a)'s
+    program. (e) a GPT-2 small bf16 ``ServeLoop`` answers 64 requests
+    (32 + 97 tokens) through the paged kernel with
+    ``on_complete=StreamingDataset.offer``; every record re-offered and
+    rejected; two ``traffic.Window`` rounds of 4 batches train GPT-2
+    small's static causal-LM step (b8 s128, bf16 O2) through
+    ``train_from_dataset`` on the flash and CE kernels, the losses
+    finite, the stream's counters exact.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -245,7 +282,8 @@ c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phases 2-3
 (decode faults), 6 (CE faults), 10 (flash faults), 14 (f16 faults),
 18's API checks (op-core faults), 19's mask checks (a Transformer
 fault), 20's conv oracle (a conv fault) or 21(a)'s f32 beam scores (a
-beam-search fault) on copies of the checkout with one planted fault each
+beam-search fault) or 23(a), (b) and (d) (the trainer's host-path
+faults) on copies of the checkout with one planted fault each
 (``FAULTS``) and exits 0 when every copy fails them.
 ``python3 chip_smoke.py --compare DIR`` runs phases 8 and 15 of the
 checkout at DIR and of this one, each in a fresh process, in the order
@@ -4882,6 +4920,770 @@ def phase_static(card=None):
     return counts, res
 
 
+# --------------------------------------------------------------------------
+# phase 23: the trainer's host path
+# --------------------------------------------------------------------------
+
+P23_DIR = ".scratch/phase23"                       # listed in .gitignore
+P23_STEPS, P23_WARMUP, P23_BATCHES, P23_PROFILED = 40, 12, 16, 8
+P23_MODES = (("sync", 0, 0), ("inflight2", 2, 0), ("inflight2_scan4", 2, 4))
+P23_RESUME_AT = 20
+P23_FIT_STEPS, P23_KILL_AFTER, P23_CKPT_FREQ = 40, 25, 10
+P23_CAPI_STEPS, P23_NAN_STEPS = 10, 6
+P23_SERVE = {"requests": 64, "prompt": 32, "new": 97, "batch": 8,
+             "round": 4}
+P23_PATH_KERNELS = PATH_KERNELS + SM90_COUNTS + CE_SM90_COUNTS
+
+
+def _p23_path(*parts):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        P23_DIR, *parts)
+
+
+def _multislot(path, rows):
+    """(ids, labels) int rows as MultiSlot lines: two slots a line."""
+    with open(path, "w") as f:
+        for ids, lab in rows:
+            f.write(f"{len(ids)} {' '.join(map(str, ids.tolist()))} "
+                    f"{len(lab)} {' '.join(map(str, lab.tolist()))}\n")
+    return path
+
+
+def _p23_dataset(feed_vars, cfg, batch, seq):
+    """23(a)'s data: phase 22's 16 LMDataset batches written as MultiSlot
+    files for 40 steps (the files' batch i is LMDataset batch i % 16) and
+    read by an InMemoryDataset in the files' order."""
+    from paddle_tpu_torch.io import InMemoryDataset
+    from paddle_tpu_torch.text.datasets import LMDataset
+    lm = LMDataset(vocab_size=cfg.vocab_size, seq_len=seq,
+                   n=P23_BATCHES * batch, mode="mlm", seed=0)
+    os.makedirs(_p23_path(), exist_ok=True)
+    half = P23_STEPS // 2
+    files = [_multislot(_p23_path(f"lm-{k}.txt"), [
+        (lm.inputs[(i % P23_BATCHES) * batch + j],
+         lm.labels[(i % P23_BATCHES) * batch + j])
+        for i in range(k * half, (k + 1) * half) for j in range(batch)])
+        for k in range(2)]
+    ds = InMemoryDataset()
+    ds.init(batch_size=batch, thread_num=2, use_var=list(feed_vars))
+    ds.set_filelist(files)
+    t0 = time.perf_counter()
+    ds.load_into_memory()
+    return ds, time.perf_counter() - t0
+
+
+def _p23_snapshot(main, opt):
+    """The scope's values, the optimizer's slots and step count and the
+    port's CPU generator (the runs' seeds) of this moment."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import rng
+    scope = static.global_scope()
+    return ({n: scope.get(n).clone() for n in main.persistable_vars
+             if scope.has(n)},
+            {n: {k: v.clone() for k, v in d.items()}
+             for n, d in opt._slots.items()},
+            opt._step_count, rng.generator("cpu").get_state())
+
+
+def _p23_restore(snap, opt):
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import rng
+    vals, slots, count, gen = snap
+    scope = static.global_scope()
+    with torch.no_grad():
+        for n, v in vals.items():
+            scope.get(n).copy_(v)
+    opt._slots = {n: {k: v.clone() for k, v in d.items()}
+                  for n, d in slots.items()}
+    opt._step_count = count
+    rng.generator("cpu").set_state(gen)
+
+
+def _p23_params(main):
+    from paddle_tpu_torch import static
+    scope = static.global_scope()
+    return {n: scope.get(n).clone() for n in main.persistable_vars
+            if scope.has(n)}
+
+
+def _same_tensors(a, b):
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                          for k in a)
+
+
+def _p23_train(main, loss, ds, inflight, scan, start_batch=0,
+               on_batch=None):
+    """One ``train_from_dataset`` run of (a)'s program in a mode, with a
+    fresh Executor: (losses, launches, lowerings, seconds over the steps
+    after the warm-up, host syncs, the runner's host overhead ms a step).
+    A handler keeps every step's lazy loss, read after the run."""
+    import warnings
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.ops import cuda as kernels
+    es = static.ExecutionStrategy()
+    es.max_inflight, es.scan_fuse_steps = inflight, scan
+    prog = static.CompiledProgram(main, exec_strategy=es)
+    exe = static.Executor()
+    handles, marks, stamps = [], {}, []
+
+    def handler(it, outs):
+        handles.append(outs[0])
+        if on_batch is not None:
+            on_batch(it)
+        if it == start_batch + P23_WARMUP:
+            torch.cuda.synchronize()
+            marks["t0"] = time.perf_counter()
+        stamps.append(time.perf_counter())
+
+    monitor.reset("executor/host_overhead_ms")
+    kernels.reset_launch_counts()
+    low0 = monitor.stat_get("executor/lowerings")
+    waits0 = monitor.stat_get("executor/retire_waits")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            exe.train_from_dataset(prog, ds, fetch_list=[loss],
+                                   print_period=0, start_batch=start_batch,
+                                   fetch_handler=handler)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    t1 = time.perf_counter()
+    steps = len(handles)
+    counts = kernels.launch_counts()
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    # the median over spans of one megastep (one step unfused) after the
+    # warm-up, each span's time shared by its steps
+    k = max(scan, 1)
+    tail = stamps[P23_WARMUP - 1:]
+    res = {"steps": steps,
+           "step_ms": (t1 - marks["t0"]) * 1e3 / (steps - P23_WARMUP),
+           "step_ms_median": statistics.median(
+               (tail[j + k] - tail[j]) * 1e3 / k
+               for j in range(0, len(tail) - k, k)),
+           "lowerings": monitor.stat_get("executor/lowerings") - low0,
+           "host_syncs_per_step": (syncs + monitor.stat_get(
+               "executor/retire_waits") - waits0) / steps,
+           "device_to_host_syncs": syncs,
+           "event_waits": monitor.stat_get("executor/retire_waits") - waits0,
+           "host_overhead_ms": monitor.stat_get(
+               "executor/host_overhead_ms") or None}
+    losses = [float(np.asarray(h)) for h in handles]
+    return losses, counts, res, exe, prog
+
+
+def _p23_modes(paddle, card):
+    """23(a): BERT-base static bf16 O2 (phase 22(a)'s program) trained
+    from a dataset three ways, the trails compared, then the resume."""
+    from paddle_tpu_torch.text.models import BertConfig
+    batch, seq = 32, 128
+    cfg = BertConfig.bert_base()
+    paddle.seed(0)
+    main, net, loss, _ = _static_bert(paddle, cfg, batch, seq)
+    opt = main.optimizer_section[0]
+    ds, load_s = _p23_dataset([main.data_vars["ids"],
+                               main.data_vars["labels"]], cfg, batch, seq)
+    start = _p23_snapshot(main, opt)
+    res = {"card": card, "config": "bert_base", "batch": batch, "seq": seq,
+           "steps": P23_STEPS, "warmup": P23_WARMUP,
+           "dataset_load_s": load_s, "modes": {}}
+    trails, finals, counts_by_mode, cut = {}, {}, {}, {}
+
+    def snapshot_at_cut(it):
+        if it == P23_RESUME_AT:
+            cut["snap"] = _p23_snapshot(main, opt)
+
+    for name, inflight, scan in P23_MODES:
+        _p23_restore(start, opt)
+        losses, counts, r, exe, prog = _p23_train(
+            main, loss, ds, inflight, scan,
+            on_batch=snapshot_at_cut if name == "sync" else None)
+        trails[name], finals[name] = losses, _p23_params(main)
+        counts_by_mode[name] = counts
+        r["launches_per_step"] = {k: counts[k] / P23_STEPS
+                                  for k in P23_PATH_KERNELS}
+        r["loss_start"], r["loss_end"] = losses[0], losses[-1]
+        for k, per in STATIC_STEP_LAUNCHES.items():
+            check(counts[k] == per * P23_STEPS == counts[f"{k}.sm90"],
+                  f"23(a) {name}: {k} {counts[k]} launches "
+                  f"({counts[k + '.sm90']} Hopper) in {P23_STEPS} steps, "
+                  f"not {per * P23_STEPS}")
+        check(r["lowerings"] == 1, f"23(a) {name}: {r['lowerings']} "
+                                   f"lowerings, not 1")
+        try:
+            prof = _profile_steps(lambda: exe.train_from_dataset(
+                prog, ds, fetch_list=[loss], print_period=0,
+                start_batch=P23_STEPS - P23_PROFILED), n=1,
+                steps_per_call=P23_PROFILED)
+        except Exception as e:  # the measurement is optional, the run not
+            prof = None
+            log(f"[23(a) profile] not measured: {type(e).__name__}: {e}")
+        if prof is not None:
+            r["device_busy_ms_per_step"] = prof["device_busy_ms_per_step"]
+            r["device_idle_share"] = 1 - prof["device_busy_ms_per_step"] \
+                / r["step_ms"]
+        res["modes"][name] = r
+        log(f"[23(a) {name}] {json.dumps(r)}")
+        del exe, prog
+    for name in trails:
+        check(trails[name] == trails["sync"], f"23(a): the {name} loss "
+              f"trail differs from the synchronous loop's")
+        check(_same_tensors(finals[name], finals["sync"]),
+              f"23(a): {name}'s final scope differs from the sync loop's")
+    check(bool(np.isfinite(trails["sync"]).all())
+          and np.mean(trails["sync"][-5:]) < np.mean(trails["sync"][:5]),
+          "23(a): the loss is not finite and falling")
+    # the resume: the step-20 state restored, start_batch=20, in flight 2
+    _p23_restore(cut.pop("snap"), opt)
+    tail, _, r, exe, _ = _p23_train(main, loss, ds, 2, 0,
+                                    start_batch=P23_RESUME_AT)
+    check(tail == trails["sync"][P23_RESUME_AT:],
+          "23(a): start_batch=20 after the step-20 restore is not the "
+          "trail's tail")
+    check(_same_tensors(_p23_params(main), finals["sync"]),
+          "23(a): the resumed run's final scope differs")
+    res["resume"] = {"start_batch": P23_RESUME_AT, "steps": len(tail),
+                     "bitwise": True, "lowerings": r["lowerings"]}
+    res["loss_trail_bitwise"] = True
+    del finals, start
+    return main, loss, ds, opt, counts_by_mode["inflight2"], res
+
+
+def _p23_capi(paddle, main, loss, ds):
+    """23(c): (a)'s program through save_train_program / create /
+    run_step for 10 steps, against Executor.run from the same state."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.static import capi_train
+    art = _p23_path("capi", "bert.pdprog")
+    os.makedirs(os.path.dirname(art), exist_ok=True)
+    t0 = time.perf_counter()
+    capi_train.save_train_program(main, art)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h = capi_train.create(art)
+    create_s = time.perf_counter() - t0
+    feeds = list(itertools.islice(ds.batches(), P23_CAPI_STEPS))
+    paddle.seed(5)
+    got = [capi_train.run_step(h, [
+        (memoryview(np.ascontiguousarray(f["ids"])), 2, f["ids"].shape),
+        (memoryview(np.ascontiguousarray(f["labels"])), 2,
+         f["labels"].shape)]) for f in feeds]
+    paddle.seed(5)
+    exe = static.Executor()
+    want = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss])[0])
+                  .mean()) for f in feeds]
+    check(got == want, f"23(c): run_step {got[:3]} ... differs from "
+                       f"Executor.run {want[:3]} ...")
+    scope = static.global_scope()
+    same = all(torch.equal(h["scope"].get(n), scope.get(n))
+               for n in main.persistable_vars if scope.has(n))
+    check(same, "23(c): the capi scope differs from Executor.run's")
+    res = {"steps": P23_CAPI_STEPS, "bitwise": True, "save_s": save_s,
+           "create_s": create_s,
+           "artifact_bytes": sum(os.path.getsize(_p23_path("capi", f))
+                                 for f in os.listdir(_p23_path("capi")))}
+    log(f"[23(c) capi_train] {json.dumps(res)}")
+    del h
+    import shutil
+    shutil.rmtree(_p23_path("capi"), ignore_errors=True)
+    return res
+
+
+def _raises(fn):
+    try:
+        fn()
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def _p23_nan(paddle, main, loss, ds):
+    """23(d): FLAGS_check_nan_inf's three raise points with an inf planted
+    in a feed, the PipelineStepError's dump, and the flag's cost a step
+    on (a)'s program."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.static.pipeline_runner import (PipelineRunner,
+                                                         PipelineStepError)
+    feeds = list(itertools.islice(ds.batches(), P23_NAN_STEPS))
+    exe = static.Executor()
+    cost = {}
+    for on in (False, True):
+        flags.set_flags({"FLAGS_check_nan_inf": on})
+        ms = []
+        for f in feeds:
+            t = time.perf_counter()
+            exe.run(main, feed=f, fetch_list=[loss])
+            ms.append((time.perf_counter() - t) * 1e3)
+        cost["on" if on else "off"] = statistics.median(ms[1:])
+    res = {"step_ms_flag_off": cost["off"], "step_ms_flag_on": cost["on"],
+           "flag_cost_ms": cost["on"] - cost["off"]}
+    flags.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        x = np.ones((4, 8), "float32")
+        x[1, 3] = np.inf
+        # the op layer
+        msg = _raises(lambda: paddle.matmul(paddle.to_tensor(x),
+                                            paddle.ones([8, 4])))
+        check(msg is not None and "op 'matmul' output 0" in msg,
+              f"23(d): the op layer did not name matmul: {msg}")
+        res["op_layer"] = msg
+        # Executor.run, before the scope is written
+        paddle.enable_static()
+        try:
+            prog = static.Program("nan")
+            with static.program_guard(prog, static.Program()):
+                xv = static.data("x", [4, 8], "float32")
+                lin = paddle.nn.Linear(8, 1)
+                lv = paddle.mean(lin(xv))
+                paddle.optimizer.SGD(learning_rate=0.1).minimize(lv)
+        finally:
+            paddle.disable_static()
+        scope = static.global_scope()
+        before = scope.get(lin.weight.scope_name).clone()
+        msg = _raises(lambda: exe.run(prog, feed={"x": x}, fetch_list=[lv]))
+        check(msg is not None and "after Executor.run step" in msg
+              and "['fetches'][0]" in msg,
+              f"23(d): Executor.run did not raise at its sweep: {msg}")
+        check(torch.equal(before, scope.get(lin.weight.scope_name)),
+              "23(d): Executor.run wrote the scope before its sweep")
+        res["executor"] = msg.splitlines()[0]
+        # Model's step
+        net = torch.nn.Sequential()
+        net.fc = paddle.nn.Linear(8, 2)
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.SGD(learning_rate=0.1,
+                                           parameters=model.parameters()),
+                      loss=paddle.nn.CrossEntropyLoss())
+        w0 = net.fc.weight.detach().clone()
+        msg = _raises(lambda: model.train_batch(
+            [x], [np.zeros((4, 1), "int64")]))
+        check(msg is not None and "after train_batch step" in msg
+              and "['loss']" in msg,
+              f"23(d): Model's step did not raise at its sweep: {msg}")
+        check(torch.equal(w0, net.fc.weight.detach()),
+              "23(d): Model's step wrote its parameters before its sweep")
+        res["model"] = msg.splitlines()[0]
+    finally:
+        flags.set_flags({"FLAGS_check_nan_inf": False})
+    # a failing in-flight step: its index named, a flight-recorder dump
+    dump_dir = _p23_path("dumps")
+    import shutil
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    os.environ["PADDLE_TPU_DUMP_DIR"] = dump_dir
+    try:
+        good = {"x": np.ones((4, 8), "float32")}
+        run = [good] * 3 + [{"x": np.ones((4, 9), "float32")}] + [good]
+        err = None
+        try:
+            with PipelineRunner(exe, prog, fetch_list=[lv],
+                                max_inflight=2) as r:
+                for hs in r.run(iter(run)):
+                    hs[0].numpy()
+        except PipelineStepError as e:
+            err = e
+        check(err is not None and err.step_index == 3,
+              f"23(d): the failing step is not named 3: {err}")
+        dumps = [f for f in os.listdir(dump_dir)
+                 if f.startswith("obsdump_pipeline_step_error")]
+        check(len(dumps) >= 1, "23(d): no flight-recorder dump")
+        with open(os.path.join(dump_dir, dumps[0])) as f:
+            rec = json.load(f)
+        check(rec["extra"]["step_index"] == 3, "23(d): the dump names "
+              f"step {rec['extra']}")
+        res["pipeline_step_error"] = str(err)
+        res["dump_spans"] = len(rec["spans"])
+    finally:
+        del os.environ["PADDLE_TPU_DUMP_DIR"]
+        shutil.rmtree(dump_dir, ignore_errors=True)
+    log(f"[23(d) nan check] {json.dumps(res)}")
+    return res
+
+
+def _p23_fit_child(mode, ckpt, out):
+    """23(b)'s child process: phase 17's BERT-base bf16 O2 Model.fit for
+    40 steps of 32 (shuffled LMDataset), with auto-checkpointing unless
+    ``mode`` is "ref"; "kill" sends itself SIGTERM after step 25. Writes
+    the final parameters' manifest to ``out`` and prints one JSON line."""
+    import signal
+    setup()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.incubate.checkpoint import (TrainingCheckpoint,
+                                                      build_manifest)
+    from paddle_tpu_torch.text.datasets import LMDataset
+    from paddle_tpu_torch.text.models import BertConfig
+    paddle.set_device("gpu")
+    cfg = BertConfig.bert_base()
+    np.random.seed(0)
+    paddle.seed(0)
+    model = _hapi_model(cfg, "bfloat16")
+    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=128,
+                   n=P23_FIT_STEPS * 32, mode="mlm", seed=0)
+
+    class Term(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            if mode == "kill" and step == P23_KILL_AFTER - 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    kw = {} if mode == "ref" else dict(
+        auto_checkpoint_dir=ckpt, auto_checkpoint_freq=P23_CKPT_FREQ,
+        keep_checkpoint_max=2)
+    model.fit(ds, batch_size=32, epochs=1, shuffle=True, log_freq=10,
+              verbose=0, callbacks=[Term()], **kw)
+    torch.cuda.synchronize()
+    res = {"mode": mode, "step_count": model._optimizer._step_count}
+    if mode != "ref":
+        res["async_save_s"] = model._acp.last_save_seconds
+        timing = TrainingCheckpoint(os.path.join(ckpt + "_timing"), keep=1)
+        state = model._acp.capture(model, 0, P23_FIT_STEPS - 1,
+                                   P23_FIT_STEPS)
+        t0 = time.perf_counter()
+        timing.save(1, state, force=True)
+        res["sync_save_s"] = time.perf_counter() - t0
+        timing.close()
+        import shutil
+        shutil.rmtree(ckpt + "_timing", ignore_errors=True)
+    with open(out, "w") as f:
+        json.dump(build_manifest(P23_FIT_STEPS,
+                                 dict(model.network.state_dict())), f)
+    print(json.dumps(res), flush=True)
+
+
+def _p23_children(*modes):
+    """Run 23(b)'s children for ``modes`` ((mode, checkpoint dir, out)
+    each) at once on the card; their CompletedProcess results."""
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase23-child", *m],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))) for m in modes]
+    out = []
+    for p, m in zip(procs, modes):
+        try:
+            so, se = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        out.append(subprocess.CompletedProcess(m, p.returncode, so, se))
+    return out
+
+
+def _p23_kill_resume():
+    """23(b): the SIGTERM'd Model.fit resumed to the uninterrupted run's
+    parameters; a flipped byte quarantined; bytes and seconds."""
+    import shutil
+    import signal
+    from paddle_tpu_torch.incubate.checkpoint import TrainingCheckpoint
+    ckpt = _p23_path("ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    os.makedirs(_p23_path(), exist_ok=True)
+    t0 = time.perf_counter()
+    # the uninterrupted run and the one SIGTERM'd, side by side
+    ref, killed = _p23_children(("ref", ckpt, _p23_path("ref.json")),
+                                ("kill", ckpt, _p23_path("killed.json")))
+    check(ref.returncode == 0, f"23(b) ref child: {ref.stderr[-2000:]}")
+    check(killed.returncode == -signal.SIGTERM,
+          f"23(b): the killed child exited {killed.returncode}: "
+          f"{killed.stderr[-2000:]}")
+    ck = TrainingCheckpoint(ckpt, keep=2)
+    check(ck.all_steps() == [20, P23_KILL_AFTER],
+          f"23(b): the kill left steps {ck.all_steps()}")
+    t1 = time.perf_counter()
+    state = ck.restore()
+    restore_s = time.perf_counter() - t1
+    check(state["counters"] == {"epoch": 0, "step": P23_KILL_AFTER - 1,
+                                "global_step": P23_KILL_AFTER},
+          f"23(b): the SIGTERM save holds {state['counters']}")
+    del state
+    (resumed,) = _p23_children(("resume", ckpt, _p23_path("resumed.json")))
+    check(resumed.returncode == 0,
+          f"23(b) resume child: {resumed.stderr[-2000:]}")
+    with open(_p23_path("ref.json")) as f:
+        want = json.load(f)["leaves"]
+    with open(_p23_path("resumed.json")) as f:
+        got = json.load(f)["leaves"]
+    check(got == want, "23(b): the resumed run's final parameters differ "
+          "from the uninterrupted run's")
+    rinfo = json.loads(resumed.stdout.strip().splitlines()[-1])
+    check(rinfo["step_count"] == P23_FIT_STEPS,
+          f"23(b): the resumed run ends at step {rinfo['step_count']}")
+    steps = ck.all_steps()
+    check(steps == [30, 40], f"23(b): the resume left steps {steps}")
+    step_dir = os.path.join(ckpt, "40")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                 for f in os.listdir(step_dir))
+    # one flipped byte in step 40's largest tensor data: quarantined, the
+    # restore walks back to step 30
+    path = os.path.join(step_dir, "state.pt")
+    with open(path, "r+b") as f:
+        f.seek(nbytes // 2)
+        b = f.read(1)
+        f.seek(nbytes // 2)
+        f.write(bytes([b[0] ^ 0x10]))
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.incubate.checkpoint import CheckpointCorruptError
+    try:
+        ck.restore(step=40)
+        reason = None
+    except CheckpointCorruptError as e:
+        reason = e.reason
+    check(reason == "sha256 mismatch", f"23(b): the flipped byte of step "
+          f"40 was not found by its manifest's hash ({reason})")
+    q0 = monitor.stat_get("ckpt.corrupt_skipped")
+    t1 = time.perf_counter()
+    state = ck.restore()
+    walk_s = time.perf_counter() - t1
+    check(state is not None and state["counters"]["global_step"] == 30,
+          "23(b): the restore did not walk back to step 30")
+    check(monitor.stat_get("ckpt.corrupt_skipped") - q0 == 1
+          and ck.all_steps() == [30], "23(b): step 40 not quarantined")
+    del state
+    res = {"fit_steps": P23_FIT_STEPS, "killed_after": P23_KILL_AFTER,
+           "checkpoint_freq": P23_CKPT_FREQ, "keep": 2, "bitwise": True,
+           "checkpoint_bytes": nbytes, "restore_s": restore_s,
+           "corrupt_walk_back_s": walk_s,
+           "async_save_s": rinfo["async_save_s"],
+           "sync_save_s": rinfo["sync_save_s"],
+           "seconds": time.perf_counter() - t0}
+    log(f"[23(b) kill and resume] {json.dumps(res)}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return res
+
+
+def _p23_stream(paddle, card):
+    """23(e): a GPT-2 small bf16 ServeLoop's completions offered to a
+    StreamingDataset (through the paged kernel), re-offers delivered
+    once, and the records trained by GPT-2 small's static causal-LM step
+    through Window rounds of train_from_dataset."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.dataset import StreamingDataset
+    from paddle_tpu_torch.inference import ServeConfig, ServeLoop
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.traffic.harness import Window
+    sv = P23_SERVE
+    seq = sv["prompt"] + sv["new"] - 1
+
+    def collate(recs):
+        full = np.asarray([r["prompt"] + r["tokens"] for r in recs],
+                          "int64")
+        return {"ids": full[:, :seq], "labels": full[:, 1:seq + 1]}
+
+    ds = StreamingDataset(batch_size=sv["batch"], collate=collate,
+                          name="phase23")
+    cfg = GPTConfig()
+    net = GPT(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    net.eval()
+    loop = ServeLoop(net, ServeConfig(max_active=64, kv_blocks=512,
+                                      max_seq_len=sv["prompt"] + sv["new"]),
+                     on_complete=ds.offer)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab_size, (sv["prompt"],))
+               .astype(np.int64) for _ in range(sv["requests"])]
+    kernels.reset_launch_counts()
+    loop.start()
+    t0 = time.perf_counter()
+    reqs = [loop.submit(p, max_new_tokens=sv["new"]) for p in prompts]
+    for r in reqs:
+        r.result(timeout=600)
+    serve_s = time.perf_counter() - t0
+    loop.stop()
+    serve_counts = kernels.launch_counts()
+    check(serve_counts["paged_decode_attention"] > 0,
+          "23(e): the serve loop launched no paged decode kernel")
+    check(ds.stats()["accepted"] == sv["requests"],
+          f"23(e): {ds.stats()['accepted']} records accepted")
+    for rec in ds.state_dict()["buffered"]:      # the transport replays
+        check(not ds.offer(rec), "23(e): a re-offer was accepted")
+    del loop, net
+    # GPT-2 small's static causal-LM step, bf16 O2, AdamW
+    paddle.seed(0)
+    paddle.enable_static()
+    try:
+        main = static.Program("gpt_stream")
+        with static.program_guard(main, static.Program()):
+            ids = static.data("ids", [sv["batch"], seq], "int64")
+            lab = static.data("labels", [sv["batch"], seq], "int64")
+            gnet = GPT(cfg, seed=0)
+            loss = gnet(ids, labels=lab)
+            opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                         weight_decay=0.01,
+                                         parameters=gnet.parameters())
+            static.amp.decorate(opt, level="O2",
+                                dtype="bfloat16").minimize(loss)
+    finally:
+        paddle.disable_static()
+    window = Window(ds)
+    exe = static.Executor()
+    losses, rounds = [], []
+    kernels.reset_launch_counts()
+    n_batches = sv["requests"] // sv["batch"]
+    for _ in range(n_batches // sv["round"]):
+        exe.train_from_dataset(main, window.take(sv["round"]),
+                               fetch_list=[loss], print_period=0,
+                               fetch_handler=lambda it, o: losses.append(
+                                   o[0]))
+        rounds.append(ds.stats())
+    ds.close()
+    train_counts = kernels.launch_counts()
+    losses = [float(np.asarray(h)) for h in losses]
+    st = ds.stats()
+    check(len(losses) == n_batches and bool(np.isfinite(losses).all()),
+          f"23(e): {len(losses)} streamed steps, losses {losses}")
+    check(st["delivered_batches"] == n_batches
+          and st["delivered_records"] == sv["requests"]
+          and st["duplicates"] == sv["requests"],
+          f"23(e): the stream's counters {st}")
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_ce_fwd",
+              "fused_ce_bwd_dh", "fused_ce_bwd_dw"):
+        check(train_counts[k] > 0 and train_counts[k]
+              == train_counts[f"{k}.sm90"],
+              f"23(e): {k} launched {train_counts[k]} times "
+              f"({train_counts[k + '.sm90']} Hopper) in the streamed steps")
+    res = {"card": card, "requests": sv["requests"], "prompt": sv["prompt"],
+           "new": sv["new"], "serve_s": serve_s,
+           "serve_tokens_per_s": sv["requests"] * sv["new"] / serve_s,
+           "train_batch": sv["batch"], "train_seq": seq,
+           "window_rounds": [{k: r[k] for k in (
+               "delivered_batches", "delivered_records", "backlog",
+               "duplicates")} for r in rounds],
+           "losses": losses,
+           "paged_launches": serve_counts["paged_decode_attention"],
+           "train_launches": {k: train_counts[k] for k in
+                              PATH_KERNELS + SM90_COUNTS + CE_SM90_COUNTS}}
+    log(f"[23(e) streaming] {json.dumps(res)}")
+    return res, serve_counts, train_counts
+
+
+def _p23_setup():
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    return paddle
+
+
+def phase_p23_modes():
+    """23(a) alone (the planted trainer faults of the scan stream and the
+    resume)."""
+    _p23_modes(_p23_setup(), None)
+
+
+def phase_p23_kill_resume():
+    """23(b) alone (the planted manifest fault)."""
+    _p23_kill_resume()
+
+
+def phase_p23_nan():
+    """23(d) alone, on (a)'s program and data (the planted sweep fault)."""
+    from paddle_tpu_torch.text.models import BertConfig
+    paddle = _p23_setup()
+    cfg = BertConfig.bert_base()
+    paddle.seed(0)
+    main, _, loss, _ = _static_bert(paddle, cfg, 32, 128)
+    ds, _ = _p23_dataset([main.data_vars["ids"], main.data_vars["labels"]],
+                         cfg, 32, 128)
+    _p23_nan(paddle, main, loss, ds)
+
+
+def p23_host_probe():
+    """Where 23(a)'s host time goes (not part of the run): each mode's
+    step ms with Python's collector on and then off for the run
+    (``gc.disable()``), the collector's passes and seconds over each run
+    (``gc.callbacks``), and a cProfile of the in-flight run (the top
+    entries by cumulative and by own time), as one JSON line."""
+    import cProfile
+    import gc
+    import io
+    import pstats
+    from paddle_tpu_torch.text.models import BertConfig
+    paddle = _p23_setup()
+    cfg = BertConfig.bert_base()
+    paddle.seed(0)
+    main, _, loss, _ = _static_bert(paddle, cfg, 32, 128)
+    opt = main.optimizer_section[0]
+    ds, _ = _p23_dataset([main.data_vars["ids"], main.data_vars["labels"]],
+                         cfg, 32, 128)
+    start = _p23_snapshot(main, opt)
+    passes = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            passes.append([info["generation"], time.perf_counter()])
+        elif passes:
+            passes[-1][1] = time.perf_counter() - passes[-1][1]
+
+    gc.callbacks.append(on_gc)
+    out = {"objects_tracked": len(gc.get_objects())}
+    try:
+        for name, inflight, scan in P23_MODES:
+            for collector in ("on", "off"):
+                _p23_restore(start, opt)
+                del passes[:]
+                if collector == "off":
+                    gc.collect()
+                    gc.disable()
+                del passes[:]
+                try:
+                    _, _, r, _, _ = _p23_train(main, loss, ds, inflight,
+                                               scan)
+                finally:
+                    gc.enable()
+                out[f"{name}_gc_{collector}"] = {
+                    "step_ms": r["step_ms"],
+                    "host_overhead_ms": r["host_overhead_ms"],
+                    "gc_passes": [sum(1 for g, _ in passes if g == k)
+                                  for k in range(3)],
+                    "gc_seconds": sum(t for _, t in passes)}
+        # the runner's submit in the main thread, no prefetch thread
+        from paddle_tpu_torch import static
+        from paddle_tpu_torch.static.pipeline_runner import PipelineRunner
+        _p23_restore(start, opt)
+        with PipelineRunner(static.Executor(), main, fetch_list=[loss],
+                            max_inflight=2) as r:
+            for i, feed in enumerate(ds.batches()):
+                if i == P23_WARMUP:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                r.submit(feed)
+        torch.cuda.synchronize()
+        out["inflight2_submit_loop_step_ms"] = (
+            (time.perf_counter() - t0) * 1e3 / (P23_STEPS - P23_WARMUP))
+        _p23_restore(start, opt)
+        prof = cProfile.Profile()
+        prof.enable()
+        _p23_train(main, loss, ds, 2, 0)
+        prof.disable()
+        for key in ("cumulative", "tottime"):
+            buf = io.StringIO()
+            pstats.Stats(prof, stream=buf).sort_stats(key).print_stats(25)
+            out[f"profile_{key}"] = buf.getvalue().splitlines()[-32:]
+    finally:
+        gc.callbacks.remove(on_gc)
+    log(f"[23 host probe] {json.dumps(out)}")
+    return out
+
+
+def phase_trainer_host(card=None):
+    """Phase 23: the trainer's host path; see the module docstring."""
+    import shutil
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    main, loss, ds, opt, tfd_counts, res = _p23_modes(paddle, card)
+    res["capi_train"] = _p23_capi(paddle, main, loss, ds)
+    res["nan_check"] = _p23_nan(paddle, main, loss, ds)
+    del main, loss, ds, opt
+    torch.cuda.empty_cache()
+    res["kill_resume"] = _p23_kill_resume()
+    res["streaming"], serve_counts, stream_counts = _p23_stream(paddle, card)
+    shutil.rmtree(_p23_path(), ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[trainer host] {res['seconds']:.1f} s")
+    return {"tfd": tfd_counts, "serve": serve_counts,
+            "stream_train": stream_counts}, res
+
+
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
@@ -4979,6 +5781,34 @@ FAULTS = {
          "        pads.append((total - total // 2, total // 2))"),
     # beam search (phase 21(a)'s score check): the StaticKVCache states
     # reordered by the chosen token in place of the parent beam
+    # the trainer's host path (phase 23): the scan megastep's per-step
+    # stream one step ahead (its step t, which sets AdamW's bias
+    # correction; the lr is constant); train_from_dataset's resume one
+    # batch late; verify_manifest not comparing hashes; the Executor's
+    # nan sweep after the scope write-back
+    "trainer_scan_stream_one_step_ahead":
+        ("paddle_tpu_torch/static/pipeline_runner.py",
+         "stream.append((lr, t, self._exe._next_seed()))",
+         "stream.append((lr, t + 1, self._exe._next_seed()))"),
+    "trainer_resume_skips_a_batch":
+        ("paddle_tpu_torch/io/fleet_dataset.py",
+         "for lo in range(int(start_batch) * bs, stop, bs):",
+         "for lo in range((int(start_batch) + bool(start_batch)) * bs, "
+         "stop, bs):"),
+    "trainer_manifest_hashes_unchecked":
+        ("paddle_tpu_torch/incubate/checkpoint.py",
+         'if rec["sha256"] != ref["sha256"]:',
+         'if False and rec["sha256"] != ref["sha256"]:'),
+    "trainer_nan_sweep_after_write_back":
+        ("paddle_tpu_torch/static/executor.py",
+         "        if _flags.flag(\"FLAGS_check_nan_inf\"):\n"
+         "            _sweep_step(fetches, new_scope)\n"
+         "        fetches = _unalias(fetches, scope_vals)\n"
+         "        write_back(scope, scope_vals, new_scope)\n",
+         "        fetches = _unalias(fetches, scope_vals)\n"
+         "        write_back(scope, scope_vals, new_scope)\n"
+         "        if _flags.flag(\"FLAGS_check_nan_inf\"):\n"
+         "            _sweep_step(fetches, new_scope)\n"),
     "beam_cache_gathered_by_token":
         ("paddle_tpu_torch/nn/decode.py",
          "        cache_rows = gather_idx",
@@ -5006,6 +5836,14 @@ def _fault_phase(name, source):
         return ("phase_conv_oracle",), "20"
     if name.startswith("beam_"):
         return ("phase_beam_scores",), "21(a)"
+    if name.startswith("trainer_"):
+        return {"trainer_scan_stream_one_step_ahead": (
+            ("phase_p23_modes",), "23(a)"),
+            "trainer_resume_skips_a_batch": (("phase_p23_modes",), "23(a)"),
+            "trainer_manifest_hashes_unchecked": (
+                ("phase_p23_kill_resume",), "23(b)"),
+            "trainer_nan_sweep_after_write_back": (
+                ("phase_p23_nan",), "23(d)")}[name]
     if source.startswith("fused_ce"):
         return ("phase_ce",), "6"
     if "decode_attention" in source:
@@ -5085,6 +5923,16 @@ def _hapi_fields(rec, name, counts):
         rec[f"launches_hapi_{tag}_f16"] = c[f"{name}.f16"]
 
 
+def _trainer_host_fields(rec, name, counts):
+    """Phase 23's launches of one of the six training kernels: the
+    in-flight-2 train_from_dataset run of 23(a) (40 steps) and 23(e)'s
+    streamed GPT-2 steps, all and on the Hopper kernel."""
+    for tag, c in (("tfd", counts["tfd"]),
+                   ("stream_train", counts["stream_train"])):
+        rec[f"launches_{tag}"] = c[name]
+        rec[f"launches_{tag}_sm90"] = c[f"{name}.sm90"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5115,6 +5963,7 @@ def main():
     vision = phase_vision(card)
     generation, gen_counts = phase_generation(card)
     st_counts, static_res = phase_static(card)
+    th_counts, trainer_host = phase_trainer_host(card)
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -5142,6 +5991,9 @@ def main():
         # phase 19's greedy decoding (the contiguous kernel only)
         rec["launches_transformer"] = tf_decode_counts[name]
         rec["launches_transformer_sm90"] = tf_decode_counts[f"{name}.sm90"]
+        # phase 23(e): the serve loop that fed the stream
+        rec["launches_stream_serve"] = th_counts["serve"][name]
+        rec["launches_stream_serve_sm90"] = th_counts["serve"][f"{name}.sm90"]
         # phase 21: beam search's steps and the exported program's run
         # (contiguous), the three traffic replays and the block-size
         # sweep (paged)
@@ -5177,6 +6029,7 @@ def main():
         rec["launches_transformer_sm90"] = tf_counts[f"{name}.sm90"]
         rec["launches_static"] = st_counts[name]
         rec["launches_static_sm90"] = st_counts[f"{name}.sm90"]
+        _trainer_host_fields(rec, name, th_counts)
         if name == "fused_ce_bwd_dw":
             rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
                                      *worst_ce["db_max"].values(),
@@ -5207,6 +6060,7 @@ def main():
         rec["launches_transformer_sm90"] = tf_counts[f"{name}.sm90"]
         rec["launches_static"] = st_counts[name]
         rec["launches_static_sm90"] = st_counts[f"{name}.sm90"]
+        _trainer_host_fields(rec, name, th_counts)
         if name == "flash_fwd":     # 22(c): each jit route's forward
             rec["launches_jit"] = {
                 r: c["flash_fwd"] for r, c in
@@ -5233,7 +6087,8 @@ def main():
                       "o2_f16": o2, "o2_f16_equivalence": o2_equiv,
                       "hapi": hapi, "dygraph": dygraph,
                       "transformer": transformer, "vision": vision,
-                      "generation": generation, "static": static_res}))
+                      "generation": generation, "static": static_res,
+                      "trainer_host": trainer_host}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5242,6 +6097,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase23-child"] and len(sys.argv) == 5:
+        _p23_fit_child(*sys.argv[2:])
+        sys.exit(0)
     if sys.argv[1:] == ["--faults"]:
         sys.exit(plant_faults())
     if sys.argv[1:2] in (["--compare"], ["--attribute"],

@@ -44,6 +44,11 @@ from .framework.io import load, save  # noqa: F401,E402
 from .hapi import InputSpec, Model  # noqa: F401,E402
 from ._legacy_api import *  # noqa: F401,F403,E402  the v1 top-level names
 from . import static, jit  # noqa: F401,E402
+from .core import flight_recorder as _flight_recorder  # noqa: E402
+
+# with PADDLE_TPU_DUMP_DIR set, SIGTERM / SIGUSR1 write a flight-recorder
+# dump (core/flight_recorder.py); unset, nothing is installed
+_flight_recorder.maybe_install()
 
 
 def in_dynamic_mode():

@@ -78,7 +78,16 @@ define_flag("FLAGS_serve_max_active", 64,
             "advances this many concurrent streams")
 define_flag("FLAGS_executor_max_inflight", 2,
             "pipeline depth: how many dispatched-but-not-materialized "
-            "steps the serve loop keeps queued on the device stream")
+            "steps the serve loop, the static PipelineRunner "
+            "(train_from_dataset) and Model.fit keep queued on the device "
+            "stream; 0 makes train_from_dataset run its synchronous loop")
+define_flag("FLAGS_executor_scan_steps", 0,
+            "scan-fused megasteps: when > 1 and the feed shapes are "
+            "stable, the PipelineRunner stacks K batches on the host, "
+            "copies them to the device at once and replays the K steps back "
+            "to back with no host sync between them, bitwise equal to the "
+            "serial loop (the per-step lr, step and seed stream is drawn "
+            "as the serial loop draws it). 0/1 disables fusion")
 define_flag("FLAGS_executor_cache_size", 32,
             "LRU bound on the static Executor's prepared replays (one per "
             "program version, feed-shape set and fetch list); an eviction "
@@ -106,9 +115,11 @@ define_flag("FLAGS_use_fused_ce", True,
             "kernels (ops/cuda/fused_ce.py); off = the plain composite "
             "that materializes the logits")
 define_flag("FLAGS_check_nan_inf", False,
-            "sweep every hapi training step's loss and parameters for "
-            "inf / nan (core/numeric_check in the JAX package); the port "
-            "has no numeric_check yet, so hapi.Model raises when it is on")
+            "check for inf / nan (core/numeric_check.py): every eager op's "
+            "floating outputs after its kernel, naming the op; every "
+            "Executor.run step's fetches and new scope, every hapi training "
+            "step's loss and parameters and every PipelineRunner sync's "
+            "carry before they are written back. Each check syncs")
 define_flag("FLAGS_trace_ring_size", 4096,
             "bounded ring of recent finished spans kept by the always-on "
             "tracer (core/trace.py); 0 = unbounded. A runtime change "
@@ -117,6 +128,18 @@ define_flag("FLAGS_trace_ring_size", 4096,
 define_flag("FLAGS_monitor_series_len", 256,
             "per-metric bounded time-series ring in core/monitor: every "
             "stat_add/stat_set/observe appends (unix_ts, value)")
+define_flag("PADDLE_STREAM_QUEUE_CAP", 1024,
+            "bounded-queue capacity of dataset/streaming.StreamingDataset: "
+            "producers (ServeLoop completion hooks) block in offer() once "
+            "this many undelivered records are buffered")
+define_flag("PADDLE_STREAM_DEDUPE_WINDOW", 4096,
+            "record-id dedupe window of StreamingDataset: the ids of the "
+            "last N accepted records are remembered and re-offers of any "
+            "of them are rejected; the window rides state_dict()")
+define_flag("PADDLE_CKPT_VERIFY", True,
+            "verify every restored checkpoint step against its sha256 "
+            "manifest (incubate/checkpoint.py); a mismatch quarantines "
+            "the step and the restore walks back")
 define_flag("PADDLE_TRAFFIC_SEED", 0,
             "base seed for the traffic lab's named splitmix64 draw "
             "streams (traffic/workload.py); two runs of the same spec "

@@ -1,9 +1,10 @@
 """Training callbacks (paddle_tpu/hapi/callbacks.py): Callback,
 CallbackList, History, ProgBarLogger, ModelCheckpoint, EarlyStopping,
-LRSchedulerCallback and config_callbacks.
+LRSchedulerCallback, VisualDL (over ``utils/log_writer``) and
+config_callbacks.
 
-``VisualDL`` (needs ``utils/log_writer``) and ``ProfilerCallback`` (needs
-``profiler/``) wait for ROADMAP Queue 1 items 8 and 9."""
+``ProfilerCallback`` (needs ``profiler/``) waits for ROADMAP Queue 1 item
+9."""
 from __future__ import annotations
 
 import numbers
@@ -13,7 +14,7 @@ import time
 import numpy as np
 
 __all__ = ["Callback", "CallbackList", "ProgBarLogger", "ModelCheckpoint",
-           "EarlyStopping", "LRSchedulerCallback", "History",
+           "EarlyStopping", "LRSchedulerCallback", "History", "VisualDL",
            "config_callbacks"]
 
 
@@ -219,6 +220,72 @@ class LRSchedulerCallback(Callback):
     def on_train_batch_end(self, step, logs=None):
         if self.by_step and self._sched() is not None:
             self._sched().step()
+
+
+class VisualDL(Callback):
+    """Stream per-step loss and per-epoch metrics to a LogWriter
+    (reference hapi/callbacks.py VisualDL; zero-egress JSON-lines form,
+    ``utils.LogWriter``).
+
+    `sample_freq`: write buffered per-batch losses every N batches
+    instead of per batch. Under the async fit loop the per-batch
+    `logs["loss"]` is a lazy window entry (hapi/model.py _LazyLoss) and
+    reading it every batch forces a device sync that defeats the
+    pipeline; the default N=10 matches fit's log_freq window boundary,
+    where the loop has ALREADY drained the window — so the buffered
+    reads cost no extra sync and per-batch values stay exact.
+    sample_freq=1 restores write-every-batch (per-batch sync under the
+    async loop). Pass the same value as fit(log_freq=...) if you change
+    either."""
+
+    def __init__(self, log_dir, sample_freq=10):
+        from ..utils.log_writer import LogWriter
+        self.writer = LogWriter(log_dir)
+        self.sample_freq = max(1, int(sample_freq))
+        self._step = 0
+        self._pending = []   # [(global_step, loss-ish)] awaiting a write
+
+    def _flush_pending(self):
+        pending, self._pending = self._pending, []
+        for s, v in pending:
+            try:
+                val = float(v)
+            except Exception:
+                # a buffered loss of a crashed in-flight step can refuse
+                # to materialize; the earlier (good) entries still land
+                continue
+            # writer (I/O) errors propagate, as they always did
+            self.writer.add_scalar("train/loss", val, s)
+
+    def on_train_batch_end(self, step, logs=None):
+        self._step += 1
+        if logs and "loss" in logs:
+            self._pending.append((self._step, logs["loss"]))
+        # cadence keyed on fit's PER-EPOCH step (the `step` argument), so
+        # it stays phase-aligned with the loop's own log_freq drain even
+        # when an epoch's length isn't a multiple of sample_freq
+        if (step + 1) % self.sample_freq == 0:
+            self._flush_pending()
+
+    def on_epoch_end(self, epoch, logs=None):
+        self._flush_pending()
+        for k, v in (logs or {}).items():
+            if isinstance(v, (int, float)):
+                self.writer.add_scalar(f"epoch/{k}", v, epoch)
+        self.writer.flush()
+
+    def on_end(self, mode, logs=None):
+        self._flush_pending()
+        self.writer.close()
+
+    def __del__(self):
+        # fit() skips on_end when training raises; don't lose the
+        # buffered tail — those are the losses closest to the crash
+        try:
+            self._flush_pending()
+            self.writer.flush()
+        except Exception:
+            pass
 
 
 def config_callbacks(callbacks=None, model=None, epochs=None, steps=None,

@@ -33,13 +33,21 @@ keeps the JAX step's semantics:
   ``log_freq`` boundaries, at the epoch end or when a callback reads it.
   Counter ``hapi/loss_reads`` counts the host reads of a loss.
 
+- ``FLAGS_check_nan_inf``: the step runs as one compiled step of the
+  JAX package does (``numeric_check.step_scope``: no per-op checks), and
+  its loss and new parameters are swept before they are written back;
+- ``fit(auto_checkpoint_dir=...)``: ``incubate/checkpoint``'s
+  ``TrainingCheckpoint`` restores the newest verified step (parameters,
+  optimizer, generators, the DataLoader's position) and fit resumes at
+  the batch after it; a save every ``auto_checkpoint_freq`` steps,
+  ``keep_checkpoint_max`` kept, and a ``PreemptionGuard`` that saves the
+  last completed batch on SIGTERM.
+
 Not here: ``torch.compile`` and CUDA graphs (the JAX engine has neither);
 the elastic step pulse (``distributed/elastic``). What needs a module the
 port does not have yet raises NotImplementedError naming its ROADMAP
-item: ``auto_checkpoint_dir`` (``incubate/checkpoint``), a fleet
-strategy on the optimizer (LocalSGD, recompute, its AMP knob) and ZeRO
-sharding (``distributed/``), and ``FLAGS_check_nan_inf``
-(``core/numeric_check``).
+item: a fleet strategy on the optimizer (LocalSGD, recompute, its AMP
+knob) and ZeRO sharding (``distributed/``).
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ import torch
 
 from ..core import flags as _flags
 from ..core import monitor as _monitor
+from ..core import numeric_check as _nc
 from ..core import trace as _trace
 from ..framework.io import load as _load, save as _save, to_numpy
 from ..metric import Metric
@@ -184,8 +193,10 @@ class _Engine:
 
     # ---- train -------------------------------------------------------------
     def train_batch(self, inputs, labels, update=True):
-        if _flags.flag("FLAGS_check_nan_inf"):
-            raise _unported("FLAGS_check_nan_inf", "core/numeric_check.py", 8)
+        with _nc.step_scope():
+            return self._train_batch(inputs, labels, update)
+
+    def _train_batch(self, inputs, labels, update):
         model = self.model
         net = model.network
         net.train()
@@ -199,7 +210,7 @@ class _Engine:
             _monitor.stat_add("hapi/train_steps")
             with _trace.span("hapi/train_step"):
                 lval, outs, grads = self._grads(named, inputs, labels, scaler)
-                self._apply(named, grads)
+                self._apply(named, grads, loss=lval)
             return lval, outs
         lval, outs, grads = self._grads(named, inputs, labels, scaler)
         if self._accum_grads is None:
@@ -212,7 +223,8 @@ class _Engine:
             self._accum_grads = dict(zip(keys, summed))
             self._accum_count += 1
         if update:
-            self._apply(named, self._accum_grads, self._accum_count)
+            self._apply(named, self._accum_grads, self._accum_count,
+                        loss=lval)
             self._accum_grads = None
             self._accum_count = 0
         return lval, outs
@@ -232,9 +244,11 @@ class _Engine:
         return loss.detach(), outs, {n: g for (n, _), g in zip(named, grads)}
 
     @torch.no_grad()
-    def _apply(self, named, grads, accum_count=None):
+    def _apply(self, named, grads, accum_count=None, loss=None):
         """The update from ``grads`` (scaled where there is a scaler; the
-        sum of ``accum_count`` micro-batches' where given)."""
+        sum of ``accum_count`` micro-batches' where given). With
+        ``FLAGS_check_nan_inf`` the loss and the new parameters are swept
+        before the write-back."""
         opt = self.model._optimizer
         scaler = self._scaler()
         params = {n: p.detach() for n, p in named}
@@ -258,6 +272,9 @@ class _Engine:
                              for s, v in sl.items()}
                          for k, sl in new_slots.items()}
             scaler.load_scale_state(state)
+        if _flags.flag("FLAGS_check_nan_inf"):
+            _nc.sweep({"loss": loss, "params": new_params},
+                      "train_batch step")
         torch._foreach_copy_([p for _, p in named],
                              [new_params[n] for n, _ in named])
         opt._slots.update(new_slots)
@@ -279,6 +296,16 @@ class _Engine:
         self.model.network.eval()
         _, outs = self._forward_loss(self._batch(inputs), None)
         return outs
+
+
+def _loader_state(loader):
+    """The loader's resume position, or None where it has none."""
+    if hasattr(loader, "state_dict"):
+        try:
+            return loader.state_dict()
+        except Exception:
+            return None
+    return None
 
 
 def _set_state_dict(module, state):
@@ -426,9 +453,6 @@ class Model:
             keep_checkpoint_max=3):
         from ..io import DataLoader, Dataset
 
-        if auto_checkpoint_dir is not None:
-            raise _unported("fit(auto_checkpoint_dir=...)",
-                            "incubate/checkpoint.py", 8)
         if self._optimizer is None or self._loss is None:
             raise RuntimeError(
                 "call prepare(optimizer=..., loss=...) before fit()")
@@ -454,22 +478,89 @@ class Model:
                                 save_freq=save_freq, save_dir=save_dir,
                                 verbose=verbose,
                                 metrics=self._metrics_name())
+        acp, start_epoch, skip_steps, step_offset = None, 0, 0, 0
+        if auto_checkpoint_dir is not None:
+            acp, start_epoch, skip_steps, step_offset = self._acp_resume(
+                auto_checkpoint_dir, auto_checkpoint_freq,
+                keep_checkpoint_max, train_loader, steps)
+        self._acp = acp
+        guard = contextlib.nullcontext()
+        if acp is not None:
+            from ..incubate.checkpoint import PreemptionGuard
+            self._acp_pos = (start_epoch,
+                             max(skip_steps + step_offset - 1, 0))
+            # the guard saves the data state of the last completed batch
+            # (kept in step with _acp_pos by _run_one_epoch), never the
+            # live loader cursor, which a SIGTERM mid-batch would save
+            # one batch ahead of the applied optimizer state
+            self._acp_data_state = _loader_state(train_loader)
+            guard = PreemptionGuard(
+                acp, lambda: (self._global_step,
+                              acp.capture(self, *self._acp_pos,
+                                          self._global_step,
+                                          data_state=self._acp_data_state)))
         cbks.on_begin("train")
         logs = {}
-        for epoch in range(epochs):
-            cbks.on_epoch_begin(epoch)
-            logs = self._run_one_epoch(train_loader, cbks, "train",
-                                       num_iters=num_iters,
-                                       accum=accumulate_grad_batches,
-                                       log_freq=log_freq)
-            cbks.on_epoch_end(epoch, logs)
-            if do_eval and epoch % eval_freq == 0:
-                eval_logs = self.evaluate(eval_loader, callbacks=cbks)
-                logs.update({f"eval_{k}": v for k, v in eval_logs.items()})
-            if self.stop_training:
-                break
+        with guard:
+            for epoch in range(start_epoch, epochs):
+                cbks.on_epoch_begin(epoch)
+                logs = self._run_one_epoch(train_loader, cbks, "train",
+                                           num_iters=num_iters,
+                                           accum=accumulate_grad_batches,
+                                           log_freq=log_freq, epoch=epoch,
+                                           skip_steps=skip_steps,
+                                           step_offset=step_offset)
+                skip_steps = step_offset = 0
+                cbks.on_epoch_end(epoch, logs)
+                if do_eval and epoch % eval_freq == 0:
+                    eval_logs = self.evaluate(eval_loader, callbacks=cbks)
+                    logs.update({f"eval_{k}": v
+                                 for k, v in eval_logs.items()})
+                if self.stop_training:
+                    break
+        if acp is not None:
+            acp.wait()
         cbks.on_end("train", logs)
         return self
+
+    def _acp_resume(self, directory, freq, keep, train_loader, steps):
+        """(checkpoint, start epoch, steps to skip, step offset) of
+        ``fit(auto_checkpoint_dir=...)`` (JAX hapi/model.py:833-898): the
+        newest verified step restored into the model, and where the loader
+        resumes itself (``DataLoader.load_state_dict``), fit only offsets
+        its step numbering."""
+        from ..incubate.checkpoint import TrainingCheckpoint
+        acp = TrainingCheckpoint(directory, keep=keep,
+                                 save_interval_steps=freq)
+        resumable = train_loader if hasattr(train_loader,
+                                            "load_state_dict") else None
+        counters = acp.restore_into(self, data_loader=resumable)
+        start_epoch = skip_steps = step_offset = 0
+        if counters is None:
+            self._global_step = 0
+            return acp, start_epoch, skip_steps, step_offset
+        self._global_step = counters["global_step"]
+        start_epoch = counters["epoch"]
+        skip_steps = counters["step"] + 1
+        if counters.get("data_resumed"):
+            step_offset, skip_steps = skip_steps, 0
+            # a cursor at the epoch boundary (the loader's end or fit's
+            # steps= cap) means that epoch is done: roll fit's epoch label
+            # with the loader's own roll
+            bounds = [steps]
+            try:
+                bounds.append(len(train_loader))
+            except TypeError:
+                pass
+            bounds = [b for b in bounds if b is not None]
+            epoch_len = min(bounds) if bounds else None
+            if epoch_len is not None and step_offset >= epoch_len:
+                start_epoch, step_offset = start_epoch + 1, 0
+                if hasattr(resumable, "roll_resumed_epoch"):
+                    resumable.roll_resumed_epoch()
+        elif steps is not None and skip_steps >= steps:
+            start_epoch, skip_steps = start_epoch + 1, 0
+        return acp, start_epoch, skip_steps, step_offset
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None):
@@ -517,7 +608,7 @@ class Model:
         return merged
 
     def _run_one_epoch(self, loader, cbks, mode, num_iters=None, accum=1,
-                       log_freq=10):
+                       log_freq=10, epoch=0, skip_steps=0, step_offset=0):
         from collections import deque
         for m in self._metrics:
             m.reset()
@@ -540,7 +631,10 @@ class Model:
                               or len(window) > inflight):
                 window.popleft()._materialize()
 
-        for step, batch in enumerate(loader):
+        acp = getattr(self, "_acp", None)
+        for step, batch in enumerate(loader, start=step_offset):
+            if step < skip_steps:
+                continue  # resumed mid-epoch: skip the consumed batches
             cbks.on_batch_begin(mode, step, logs)
             inputs, labels = self._split_batch(batch)
             update = accum <= 1 or (step + 1) % accum == 0
@@ -560,6 +654,14 @@ class Model:
                 logs["loss"] = _read_loss(lval)
             logs["batch_size"] = int(inputs[0].shape[0])
             logs.update(self._update_metrics(outs, labels))
+            if acp is not None and mode == "train":
+                # account the completed batch before the callbacks: a
+                # SIGTERM raised from a callback saves this step as done
+                self._global_step = getattr(self, "_global_step", 0) + 1
+                self._acp_pos = (epoch, step)
+                self._acp_data_state = _loader_state(loader)
+                acp.maybe_save(self, epoch, step, self._global_step,
+                               data_state=self._acp_data_state)
             cbks.on_batch_end(mode, step, logs)
             if num_iters is not None and step + 1 >= num_iters:
                 break

@@ -27,6 +27,11 @@ through to torch, and a port op called from inside another is a plain call
 (no second cast point, no re-wrapping). ``raw_scope()`` gives code outside
 an op (a kernel wrapper called from a layer) the same treatment. The
 wrapper catches nothing.
+
+With ``FLAGS_check_nan_inf`` on, the wrapper checks the op's floating
+outputs after its kernel (``core/numeric_check.check_op_outputs``, the
+JAX package's ``record_op`` hook) and raises naming the op; off, the hot
+path pays one flag read.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ import threading
 import torch
 
 from .. import amp as _amp
+from ..core import numeric_check as _nc
+from ..core.flags import _REGISTRY as _FLAGS
 from ..core.tensor import Tensor
 
 _T = torch.Tensor
@@ -162,6 +169,8 @@ def defop(raw_fn=None, *, name=None, version=1):
                 out = f(*args, **kwargs)
             finally:
                 st.depth = 0
+            if _FLAGS["FLAGS_check_nan_inf"] and _nc.op_checks_on():
+                _nc.check_op_outputs(opname, out)
             if type(out) is not _T:
                 return wrap(out, args)
             for a in args:                 # _retype, inlined: the hot path

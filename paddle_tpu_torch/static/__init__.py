@@ -16,7 +16,10 @@ train and serve it through ``Executor.run``::
 the replay on the device, ``shape_infer.py`` the abstract shapes,
 ``amp.py`` program-level AMP, ``control_flow.py`` ``cond`` /
 ``while_loop``, ``verifier.py`` / ``passes.py`` the structural checks and
-rewrites; ``pipeline_runner.py`` keeps a window of asynchronous steps.
+rewrites; ``pipeline_runner.py`` the ``PipelineRunner`` (in-flight
+steps, the carry kept on the device, scan-fused megasteps) and the
+serve loop's window, ``capi_train.py`` the training artifact of the C
+ABI trainer.
 
 Values computed at record time are baked into the Program, as in the JAX
 package: a ``data`` dim given as -1 (or None) records as 1, and a constant
@@ -36,7 +39,8 @@ from . import amp  # noqa: F401
 from .executor import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy, Executor)
 from .pipeline_runner import (FetchHandle, InflightDriver,  # noqa: F401
-                              PipelineStepError)
+                              PipelineRunner, PipelineStepError,
+                              StagedPipelineRunner)
 from .program import (Program, StaticParam, Variable,  # noqa: F401
                       default_main_program, default_startup_program,
                       disable_static_, enable_static_, global_scope,
@@ -54,7 +58,8 @@ __all__ = ["data", "InputSpec", "Program", "Variable", "Executor",
            "cpu_places", "cuda_places", "verify_program",
            "ProgramVerifyError", "infer_program", "ShapeInferError",
            "register_infer_rule", "analyze_memory", "InflightDriver",
-           "FetchHandle", "PipelineStepError"]
+           "FetchHandle", "PipelineStepError", "PipelineRunner",
+           "StagedPipelineRunner"]
 
 
 def data(name, shape, dtype="float32", lod_level=0):

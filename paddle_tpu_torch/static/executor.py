@@ -18,22 +18,35 @@ torch's generators from a seed drawn from the port's generator
 (``core/rng``), as JAX re-seats its chain on a fresh key, so dropout
 masks differ from run to run and follow ``paddle.seed``.
 
-The write-back updates the scope's tensors in place (JAX donates them):
-the trained parameters, the state writes (BatchNorm's running
-statistics) and, for f16 AMP, the loss-scaling state; the optimizer's
-slots are rebound. A fetch returned with ``return_numpy=False`` that
-shares storage with a scope tensor is copied, so the next run does not
-overwrite it.
+A step is a function (``Executor._step``): from the feeds, the scope
+values, the optimizer's slots, the learning rate, the step count and a
+seed it returns the fetches, the new scope values (the trained
+parameters, the state writes such as BatchNorm's running statistics and,
+for f16 AMP, the loss-scaling state) and the new slots, and writes
+nothing. ``run`` then sweeps them for inf / nan (``FLAGS_check_nan_inf``)
+before it writes them back: the scope's tensors are updated in place (JAX
+donates them) and the optimizer's slots rebound. A fetch returned with
+``return_numpy=False`` that shares storage with a scope tensor is copied,
+so the next run does not overwrite it; ``return_handles=True`` returns
+lazy ``FetchHandle``s that copy to the host only when read.
+``static/pipeline_runner.PipelineRunner`` drives the same step with the
+scope values kept on the device between steps (the JAX package's
+device-resident carry).
 
 No ``torch.compile`` and no CUDA graphs: ``torch.compile`` cannot trace
 the kernels' ctypes launches, and graph capture of the replay is host-time
 work for later. ``data_parallel`` over more than one device and recompute
-(ROADMAP Queue 1 item 7), ``ps_config``, ``train_from_dataset`` /
-``infer_from_dataset`` and ``FLAGS_check_nan_inf`` (item 8) raise
-NotImplementedError naming the item.
+(ROADMAP Queue 1 item 7) and ``train_from_dataset(ps_config=...)`` (item
+8's parameter-server tier) raise NotImplementedError naming the item.
+
+``train_from_dataset`` / ``infer_from_dataset`` drive a dataset's
+batches (``io/fleet_dataset.py``, ``dataset/streaming.py``): through a
+``PipelineRunner`` when the in-flight depth is above 0, else one
+``run`` a batch.
 
 Counters (``core/monitor``): ``executor/lowerings`` (one per prepared
-replay), ``executor/runs``, ``executor/cache_evictions``; spans
+replay), ``executor/runs``, ``executor/cache_evictions``,
+``executor/dataset_batches``; spans
 ``executor/lower_program`` and ``executor/run_step`` (``core/trace``).
 """
 from __future__ import annotations
@@ -56,7 +69,7 @@ __all__ = ["Executor", "CompiledProgram", "BuildStrategy",
            "ExecutionStrategy"]
 
 _ITEM7 = "ROADMAP Queue 1 item 7 (distributed)"
-_ITEM8 = "ROADMAP Queue 1 item 8"
+_ITEM8_PS = "ROADMAP Queue 1 item 8's parameter-server tier (distributed/ps)"
 
 
 class BuildStrategy:
@@ -71,9 +84,15 @@ class BuildStrategy:
 
 
 class ExecutionStrategy:
+    """``max_inflight`` / ``scan_fuse_steps``: the PipelineRunner's depth
+    and megastep size under ``train_from_dataset`` (None: the flags
+    ``FLAGS_executor_max_inflight`` / ``FLAGS_executor_scan_steps``)."""
+
     def __init__(self):
         self.num_threads = 1
         self.num_iteration_per_drop_scope = 100
+        self.max_inflight = None
+        self.scan_fuse_steps = None
 
 
 class CompiledProgram:
@@ -116,7 +135,18 @@ class _Prepared:
     __slots__ = ("steps", "n_slots", "feed_slots", "persist_slots",
                  "fetch_slots", "write_slots", "loss_slot", "grad_slots",
                  "grad_names", "opt", "opt_pnames", "meta", "amp_dyn",
-                 "amp_keys", "amp_hp")
+                 "amp_keys", "amp_hp", "read_names", "feed_names")
+
+    def amp_init(self, device):
+        """{scope name: initial value} of the loss-scaling state (f16
+        dynamic scaling), empty without it."""
+        if not self.amp_dyn:
+            return {}
+        return dict(zip(self.amp_keys, (
+            torch.tensor(float(self.amp_hp.get("init", 2.0 ** 15)),
+                         dtype=torch.float32, device=device),
+            torch.zeros((), dtype=torch.int32, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))))
 
 
 class Executor:
@@ -171,7 +201,10 @@ class Executor:
         return entry
 
     @staticmethod
-    def _convert_feeds(program, feed, device):
+    def _convert_feeds(program, feed, device, pin=False):
+        """The feeds as tensors on ``device`` in their Variables' dtypes;
+        ``pin``: a host array goes through pinned memory and a
+        non-blocking copy (the PipelineRunner's prefetch)."""
         out = {}
         for name, val in feed.items():
             var = program.data_vars.get(name)
@@ -185,14 +218,15 @@ class Executor:
                 if arr.dtype.name == "bfloat16":
                     arr = arr.astype(np.float32)
                 t = torch.from_numpy(np.ascontiguousarray(arr))
-            out[name] = t.to(device=device, dtype=var.dtype)
+                if pin and device.type == "cuda":
+                    t = t.pin_memory()
+            out[name] = t.to(device=device, dtype=var.dtype,
+                             non_blocking=pin)
         return out
 
-    # -- public API ----------------------------------------------------------
-    def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True, use_program_cache=True):
-        feed = feed or {}
-        fetch_list = list(fetch_list or [])
+    @staticmethod
+    def _resolve(program):
+        """(program, data_parallel) of a Program or CompiledProgram."""
         data_parallel = False
         if isinstance(program, CompiledProgram):
             data_parallel = program.data_parallel
@@ -205,32 +239,153 @@ class Executor:
             program = program.program
         if program is None:
             program = default_main_program()
+        if getattr(program, "recompute_checkpoints", None):
+            raise NotImplementedError(f"recompute segments are {_ITEM7}")
+        return program, data_parallel
+
+    @staticmethod
+    def _opt_inputs(e, scope_vals):
+        """(slots, lr, t) of the next step: the optimizer's slots (made
+        at the first step), its step count advanced, and the rate at it."""
+        opt = e.opt
+        if opt is None:
+            return {}, 0.0, 0
+        opt._ensure_slots({n: scope_vals[n] for n in e.opt_pnames})
+        opt._step_count += 1
+        return ({n: opt._slots[n] for n in e.opt_pnames}, opt.get_lr(),
+                opt._step_count)
+
+    @staticmethod
+    def _next_seed():
+        """The seed of one run's generators, drawn from the port's."""
+        return int(torch.randint(0, 2 ** 62, (),
+                                 generator=_rng.generator("cpu")))
+
+    # -- public API ----------------------------------------------------------
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
+            return_numpy=True, use_program_cache=True,
+            return_handles=False):
+        feed = feed or {}
+        fetch_list = list(fetch_list or [])
+        program, data_parallel = self._resolve(program)
         if program is default_startup_program() or program.name == "startup":
             # initializers already ran at parameter creation
             return []
-        if _flags.flag("FLAGS_check_nan_inf"):
-            raise NotImplementedError(
-                f"FLAGS_check_nan_inf needs core/numeric_check, {_ITEM8}")
-        if getattr(program, "recompute_checkpoints", None):
-            raise NotImplementedError(f"recompute segments are {_ITEM7}")
         scope = scope or global_scope()
         device = self._device(program)
         feed_vals = self._convert_feeds(program, feed, device)
-        entry = self._prepare(program, feed_vals, fetch_list, data_parallel)
+        e = self._prepare(program, feed_vals, fetch_list, data_parallel)
+        for n, v0 in e.amp_init(device).items():
+            if not scope.has(n):
+                scope.set(n, v0)
+        scope_vals = {n: scope.get(n) for n in e.read_names}
+        slots, lr, t = self._opt_inputs(e, scope_vals)
         _monitor.stat_add("executor/runs")
         with _trace.span("executor/run_step", program=program.name):
-            fetches = self._run(entry, feed_vals, scope, device)
+            fetches, new_scope, new_slots = self._step(
+                e, feed_vals, scope_vals, slots, lr, t, self._next_seed(),
+                device)
+        # the sweep comes before the write-back (never commit a nan
+        # state), in return_handles mode too
+        if _flags.flag("FLAGS_check_nan_inf"):
+            _sweep_step(fetches, new_scope)
+        fetches = _unalias(fetches, scope_vals)
+        write_back(scope, scope_vals, new_scope)
+        if e.opt is not None:
+            e.opt._slots.update(new_slots)
+        if return_handles:
+            from .pipeline_runner import FetchHandle
+            idx = int(_monitor.stat_get("executor/runs")) - 1
+            return [FetchHandle(f, idx) for f in fetches]
         if return_numpy:
             return [_numpy(f) for f in fetches]
         return fetches
 
-    def train_from_dataset(self, *args, **kwargs):
-        raise NotImplementedError(f"train_from_dataset needs dataset/, "
-                                  f"{_ITEM8}")
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           ps_config=None, start_batch=0,
+                           fetch_handler=None):
+        """Train on every batch of ``dataset`` (paddle_tpu/static/
+        executor.py:346): an ``io.InMemoryDataset`` / ``QueueDataset``, a
+        ``dataset.StreamingDataset`` or any object with ``batches()``.
 
-    def infer_from_dataset(self, *args, **kwargs):
-        raise NotImplementedError(f"infer_from_dataset needs dataset/, "
-                                  f"{_ITEM8}")
+        With an in-flight depth above 0 (the program's
+        ``exec_strategy.max_inflight``, else ``FLAGS_executor_max_inflight``)
+        the batches go through a ``PipelineRunner`` (in-flight steps, the
+        carry kept on the device, scan-fused megasteps at
+        ``exec_strategy.scan_fuse_steps`` / ``FLAGS_executor_scan_steps``)
+        and the fetches are read only at ``print_period``; at 0 each batch
+        is one ``run``. ``start_batch`` skips the first batches (at the
+        dataset's index level where ``batches(start_batch=)`` exists) and
+        numbers the steps on from there: with the dataset's and the
+        scope's state of that point it resumes a run exactly.
+        ``fetch_handler(batch_number, fetches)`` (the reference's
+        parameter; the JAX package has none) is called after every batch
+        with its fetches: lazy ``FetchHandle``s on the pipelined path, so
+        a handler that keeps them adds no sync. ``ps_config`` (the
+        Downpour / online modes) is the parameter-server tier's. Returns
+        None, as the JAX package's does."""
+        if dataset is None:
+            raise ValueError("train_from_dataset requires a dataset")
+        if ps_config:
+            raise NotImplementedError(f"train_from_dataset(ps_config=...) "
+                                      f"needs {_ITEM8_PS}")
+        base_fetch = list(fetch_list or [])
+        names = fetch_info or [getattr(f, "name", str(f))
+                               for f in base_fetch]
+        es = program.exec_strategy if isinstance(program, CompiledProgram) \
+            else None
+        inflight = getattr(es, "max_inflight", None)
+        if inflight is None:
+            inflight = _flags.flag("FLAGS_executor_max_inflight")
+        start_batch = int(start_batch or 0)
+
+        def batches():
+            try:
+                return dataset.batches(start_batch=start_batch)
+            except TypeError:
+                import itertools
+                return itertools.islice(dataset.batches(), start_batch,
+                                        None)
+
+        def report(it, outs):
+            if fetch_handler is not None:
+                fetch_handler(it, outs)
+            if debug or (base_fetch and print_period
+                         and it % print_period == 0):
+                msg = ", ".join(f"{n}={np.asarray(v).mean():.6f}"
+                                for n, v in zip(names, outs))
+                print(f"batch {it}: {msg}")
+
+        it = start_batch
+        if inflight > 0:
+            from .pipeline_runner import PipelineRunner
+            with PipelineRunner(
+                    self, program, fetch_list=base_fetch, scope=scope,
+                    max_inflight=inflight,
+                    scan_steps=getattr(es, "scan_fuse_steps", None)) \
+                    as runner:
+                for handles in runner.run(batches()):
+                    _monitor.stat_add("executor/dataset_batches")
+                    it += 1
+                    report(it, handles)
+            return None
+        for feed in batches():
+            outs = self.run(program, feed=feed, fetch_list=base_fetch,
+                            scope=scope)
+            _monitor.stat_add("executor/dataset_batches")
+            it += 1
+            report(it, outs)
+        return None
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """The same loop; the program has no optimizer section."""
+        return self.train_from_dataset(program, dataset, scope, thread,
+                                       debug, fetch_list, fetch_info,
+                                       print_period)
 
     # -- the replay ----------------------------------------------------------
     def _compile(self, program: Program, feed_names, fetch_ids):
@@ -299,6 +454,9 @@ class Executor:
                 "need_clip": getattr(p, "need_clip", True)}
                 for p, _ in opt_sec[1]}
         e.n_slots = len(slots)
+        e.feed_names = list(feed_names)
+        e.read_names = [n for n, _ in e.persist_slots] \
+            + (list(e.amp_keys) if e.amp_dyn else [])
         return e
 
     @staticmethod
@@ -319,17 +477,17 @@ class Executor:
                 for s, v in zip(outs, out):
                     env[s] = v
 
-    def _run(self, e, feed_vals, scope, device):
-        scope_vals = {n: scope.get(n) for n, _ in e.persist_slots}
+    def _step(self, e, feed_vals, scope_vals, slots, lr, t, seed, device):
+        """One run of the prepared replay as a function: (fetches, new
+        scope values {name: tensor}, new optimizer slots). ``scope_vals``
+        holds every name of ``e.read_names``; nothing is written."""
         env = [None] * e.n_slots
         for n, s in e.feed_slots:
             env[s] = feed_vals[n]
         for n, s in e.persist_slots:
             env[s] = scope_vals[n]
-        seed = int(torch.randint(0, 2 ** 62, (),
-                                 generator=_rng.generator("cpu")))
         cuda = [device] if device.type == "cuda" else []
-        leaves = {}
+        new_scope, new_slots = {}, {}
         with torch.random.fork_rng(devices=cuda, device_type="cuda"), \
                 raw_scope():
             torch.manual_seed(seed)
@@ -338,6 +496,7 @@ class Executor:
                     self._replay(e, env)
             else:
                 slot_of = dict(e.persist_slots)
+                leaves = {}
                 with torch.enable_grad():
                     for n in e.grad_names:
                         leaf = scope_vals[n].detach().requires_grad_(True)
@@ -346,11 +505,7 @@ class Executor:
                     self._replay(e, env)
                     loss = env[e.loss_slot]
                     if e.amp_dyn:
-                        for k, v0 in zip(e.amp_keys, self._amp_init(e,
-                                                                     device)):
-                            if not scope.has(k):
-                                scope.set(k, v0)
-                        scale = scope.get(e.amp_keys[0])
+                        scale = scope_vals[e.amp_keys[0]]
                         loss = (loss.float() * scale).to(loss.dtype)
                     grads = torch.autograd.grad(
                         loss, [leaves[n] for n in e.grad_names],
@@ -358,68 +513,85 @@ class Executor:
                 env[e.loss_slot] = env[e.loss_slot].detach()
                 grads = {n: (torch.zeros_like(leaves[n]) if g is None else g)
                          for n, g in zip(e.grad_names, grads)}
-                self._backward_tail(e, env, grads, scope, scope_vals)
+                new_scope, new_slots = self._backward_tail(
+                    e, env, grads, scope_vals, slots, lr, t)
             fetches = [env[s] for s in e.fetch_slots]
             fetches = [f.detach() if isinstance(f, torch.Tensor) else f
                        for f in fetches]
-        with torch.no_grad():
-            writes = [(scope.get(n), env[s]) for n, s in e.write_slots]
-            if writes:
-                torch._foreach_copy_([d for d, _ in writes],
-                                     [s.detach() for _, s in writes])
-        live = {t.untyped_storage().data_ptr() for t in scope_vals.values()}
-        return [f.clone() if isinstance(f, torch.Tensor)
-                and f.untyped_storage().data_ptr() in live else f
-                for f in fetches]
+        for n, s in e.write_slots:
+            new_scope[n] = env[s].detach()
+        return fetches, new_scope, new_slots
 
     @staticmethod
-    def _amp_init(e, device):
-        return (torch.tensor(float(e.amp_hp.get("init", 2.0 ** 15)),
-                             dtype=torch.float32, device=device),
-                torch.zeros((), dtype=torch.int32, device=device),
-                torch.zeros((), dtype=torch.int32, device=device))
-
-    @staticmethod
-    def _backward_tail(e, env, grads, scope, scope_vals):
-        """Loss-scaling, the grad fetches, the optimizer update and the
-        parameters' in-place write-back."""
+    def _backward_tail(e, env, grads, scope_vals, slots, lr, t):
+        """Loss scaling, the grad fetches and the optimizer update:
+        (new scope values, new slots)."""
         from .. import amp as amp_mod
         found_inf = None
+        new_scope = {}
         if e.amp_dyn:
             sk, gk, bk = e.amp_keys
-            scale = scope.get(sk)
+            scale = scope_vals[sk]
             grads, found_inf = amp_mod.check_finite_and_unscale(grads, scale)
             hp = e.amp_hp
             new = amp_mod.update_loss_scaling(
-                scale, scope.get(gk), scope.get(bk), found_inf,
+                scale, scope_vals[gk], scope_vals[bk], found_inf,
                 incr_ratio=hp.get("incr_ratio", 2.0),
                 decr_ratio=hp.get("decr_ratio", 0.5),
                 incr_every_n_steps=hp.get("incr_every_n_steps", 1000),
                 decr_every_n_nan_or_inf=hp.get("decr_every_n_nan_or_inf", 2))
-            for k, v in zip(e.amp_keys, new):
-                scope.set(k, v)
+            new_scope.update(zip(e.amp_keys, new))
         for n, s in zip(e.grad_names, e.grad_slots):
             env[s] = grads[n]
         opt = e.opt
         if opt is None:
-            return
+            return new_scope, {}
         pvals = {n: scope_vals[n] for n in e.opt_pnames}
-        opt._ensure_slots(pvals)
-        slots = {n: opt._slots[n] for n in e.opt_pnames}
-        opt._step_count += 1
         new_p, new_slots = opt.apply_gradients_pure(
-            pvals, {n: grads.get(n) for n in e.opt_pnames}, slots,
-            opt.get_lr(), opt._step_count, param_meta=e.meta)
+            pvals, {n: grads.get(n) for n in e.opt_pnames}, slots, lr, t,
+            param_meta=e.meta)
         if found_inf is not None:       # skip the update on overflow
             new_p = {n: torch.where(found_inf, pvals[n], v)
                      for n, v in new_p.items()}
             new_slots = {n: {k: torch.where(found_inf, slots[n][k], v)
                              for k, v in d.items()}
                          for n, d in new_slots.items()}
+        new_scope.update(new_p)
+        return new_scope, new_slots
+
+
+def _sweep_step(fetches, new_scope):
+    from ..core.numeric_check import sweep
+    sweep({"fetches": list(fetches), "scope": new_scope},
+          "Executor.run step")
+
+
+def write_back(scope, scope_vals, new_scope):
+    """The new scope values into the scope: in place into the scope's
+    own tensors (``scope_vals``, read before the step), set where the
+    scope has none."""
+    dst, src = [], []
+    for n, v in new_scope.items():
+        old = scope_vals.get(n)
+        if old is None or old is not scope.get(n) \
+                or old.shape != v.shape or old.dtype != v.dtype:
+            scope.set(n, v)
+        elif v is not old:
+            dst.append(old)
+            src.append(v)
+    if dst:
         with torch.no_grad():
-            torch._foreach_copy_([pvals[n] for n in e.opt_pnames],
-                                 [new_p[n] for n in e.opt_pnames])
-        opt._slots.update(new_slots)
+            torch._foreach_copy_(dst, src)
+
+
+def _unalias(fetches, scope_vals):
+    """Fetches that share storage with a scope tensor, copied (the
+    write-back updates those in place)."""
+    live = {t.untyped_storage().data_ptr() for t in scope_vals.values()
+            if isinstance(t, torch.Tensor)}
+    return [f.clone() if isinstance(f, torch.Tensor)
+            and f.untyped_storage().data_ptr() in live else f
+            for f in fetches]
 
 
 def _numpy(f):

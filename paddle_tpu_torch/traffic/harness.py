@@ -10,11 +10,16 @@ drives traffic at the system.
   through a ServeLoop (the tiny GPT's, or the caller's `loop=`) and score
   it from the monitor's histograms with core/slo.py's estimator.
 
-Left to ROADMAP Queue 1 item 8, whose modules they need: `Window` (the
-StreamingDataset) and `run_spec(hub=...)` (the TelemetryHub as the
-scorekeeper). Both raise NotImplementedError naming it.
+- `Window`: a shared `dataset/streaming.StreamingDataset` handed to
+  `Executor.train_from_dataset` a fixed number of batches at a time.
+
+Left to ROADMAP Queue 1 item 8: `run_spec(hub=...)` (the TelemetryHub of
+core/telemetry.py as the scorekeeper, which needs the PS tier's
+`rpc.serve`) raises NotImplementedError naming it.
 """
 from __future__ import annotations
+
+import itertools
 
 import threading
 import time
@@ -198,13 +203,23 @@ def run_worker_pool(worker, n_workers, *, kill_after_s=None, on_kill=None,
 
 
 class Window:
-    """A StreamingDataset exposed a fixed number of batches at a time.
-    The streaming dataset is ROADMAP Queue 1 item 8."""
+    """Expose a shared StreamingDataset generator to train_from_dataset
+    a fixed number of batches at a time (one trainer session per round
+    over the same exactly-once stream)."""
 
     def __init__(self, ds):
-        raise NotImplementedError(
-            "traffic.Window needs dataset/streaming.py's StreamingDataset, "
-            "ROADMAP Queue 1 item 8")
+        self.ds = ds
+        self._gen = None
+        self.n = 0
+
+    def take(self, n):
+        self.n = int(n)
+        return self
+
+    def batches(self, start_batch=0):
+        if self._gen is None:
+            self._gen = self.ds.batches(start_batch=start_batch)
+        return itertools.islice(self._gen, self.n)
 
 
 # ---------------------------------------------------------------------------

@@ -201,7 +201,11 @@ def test_planted_fault_lines_occur_once():
                        "paddle_tpu_torch/core/tensor.py",
                        "paddle_tpu_torch/nn/layer/transformer.py",
                        "paddle_tpu_torch/ops/conv.py",
-                       "paddle_tpu_torch/nn/decode.py"}
+                       "paddle_tpu_torch/nn/decode.py",
+                       "paddle_tpu_torch/static/pipeline_runner.py",
+                       "paddle_tpu_torch/io/fleet_dataset.py",
+                       "paddle_tpu_torch/incubate/checkpoint.py",
+                       "paddle_tpu_torch/static/executor.py"}
 
 
 def test_cpu_wrappers_count_no_launch_of_either_variant():

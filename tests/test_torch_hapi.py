@@ -692,13 +692,12 @@ def test_unported_branches_raise():
     silently."""
     from paddle_tpu_torch.core import flags as tflags
     _, tm, _, tdata = spare_models(sgd)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tm.fit(tdata, batch_size=BATCH, verbose=0,
-               auto_checkpoint_dir="/nonexistent")
+    # auto_checkpoint_dir and FLAGS_check_nan_inf are ported
+    # (tests/test_torch_checkpoint.py, test_torch_numeric_check.py): a
+    # finite fit passes the sweep
     tflags.set_flags({"FLAGS_check_nan_inf": True})
     try:
-        with pytest.raises(NotImplementedError, match="numeric_check"):
-            tm.fit(tdata, batch_size=BATCH, verbose=0)
+        tm.fit(tdata, batch_size=BATCH, verbose=0)
     finally:
         tflags.set_flags({"FLAGS_check_nan_inf": False})
     net = TSpare()

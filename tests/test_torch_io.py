@@ -279,3 +279,85 @@ def test_loading_a_jax_file_imports_neither_jax_nor_the_jax_package(
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["Tensor", "3", "5"]
+
+
+NEW_MODULES = (
+    "paddle_tpu_torch.core.numeric_check",
+    "paddle_tpu_torch.core.flight_recorder",
+    "paddle_tpu_torch.static.pipeline_runner",
+    "paddle_tpu_torch.static.capi_train",
+    "paddle_tpu_torch._native", "paddle_tpu_torch.io.fleet_dataset",
+    "paddle_tpu_torch.dataset", "paddle_tpu_torch.dataset.streaming",
+    "paddle_tpu_torch.incubate.checkpoint",
+    "paddle_tpu_torch.utils.log_writer", "paddle_tpu_torch.hapi.callbacks",
+    "paddle_tpu_torch.traffic.harness", "chip_smoke")
+
+
+def test_new_modules_and_saving_import_neither_jax_nor_the_jax_package(
+        tmp_path):
+    """In a process where importing jax or paddle_tpu fails, the trainer's
+    host-path modules and chip_smoke.py import, and ``save`` writes a file
+    whose leaves name the JAX package's class without importing it."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = str(tmp_path / "port.pdparams")
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["paddle_tpu"] = None
+        sys.path.insert(0, {repo!r})
+        for m in {NEW_MODULES!r}:
+            importlib.import_module(m)
+        import torch
+        from paddle_tpu_torch.framework import load, save
+        save({{"w": torch.ones(2, dtype=torch.bfloat16)}}, {path!r})
+        print(load({path!r})["w"].dtype)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["torch.bfloat16"]
+
+
+def _crossing_tree(rng):
+    return {"f32": rng.randn(3, 4).astype(np.float32),
+            "bf16": rng.randn(5).astype(np.float32),
+            "i64": rng.randint(-9, 9, (2, 3)).astype(np.int64),
+            "arr": rng.randn(2).astype(np.float32)}
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_files_cross_both_ways(writer, tmp_path):
+    """A dict of f32 / bf16 / int64 tensors and a numpy array, written by
+    one package, read by the other (and by its writer): the values and
+    kinds come back; the port reads its bf16 leaves back as bf16, JAX
+    reads them as their exact f32 values."""
+    vals = _crossing_tree(np.random.RandomState(4))
+    bf16_exact = torch.from_numpy(vals["bf16"]).to(torch.bfloat16)
+    path = str(tmp_path / f"{writer}.pdparams")
+    if writer == "port":
+        tframework.save({"f32": torch.from_numpy(vals["f32"]),
+                         "bf16": bf16_exact,
+                         "i64": torch.from_numpy(vals["i64"]),
+                         "arr": vals["arr"], "n": 3}, path)
+    else:
+        paddle.save({"f32": Tensor(jnp.asarray(vals["f32"]), _internal=True),
+                     "bf16": Tensor(jnp.asarray(vals["bf16"], jnp.bfloat16),
+                                    _internal=True),
+                     "i64": Tensor(jnp.asarray(vals["i64"]), _internal=True),
+                     "arr": vals["arr"], "n": 3}, path)
+    port = tframework.load(path)
+    assert port["bf16"].dtype == torch.bfloat16
+    assert torch.equal(port["bf16"], bf16_exact)
+    assert port["f32"].dtype == torch.float32 \
+        and np.array_equal(port["f32"].numpy(), vals["f32"])
+    assert port["i64"].dtype == torch.int64 \
+        and np.array_equal(port["i64"].numpy(), vals["i64"])
+    assert isinstance(port["arr"], np.ndarray) and port["n"] == 3
+    jax_side = paddle.load(path)
+    assert np.array_equal(np.asarray(jax_side["f32"].numpy()), vals["f32"])
+    assert np.array_equal(np.asarray(jax_side["i64"].numpy()), vals["i64"])
+    np.testing.assert_array_equal(
+        np.asarray(jax_side["bf16"].numpy()).astype(np.float32),
+        bf16_exact.float().numpy())
+    assert isinstance(jax_side["arr"], np.ndarray) and jax_side["n"] == 3

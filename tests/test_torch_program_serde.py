@@ -295,20 +295,16 @@ def test_port_fused_ce_program_runs_in_jax(tmp_path):
     PORT.static.save_inference_model(path, [x, y], [loss], exe,
                                      program=main)
     assert "fused_ce_op" in _ops_of(path)
-    # the program through JAX's loader; its scope takes the port's values
-    # (the port's .pdiparams pickles the port's leaf class, which JAX's
-    # framework.io.load does not read: ROADMAP Queue 3)
-    from paddle_tpu.framework.program_serde import load_program
-    jprog, feeds = load_program(path)
-    jscope = JAX.static.global_scope()
-    for name in jprog.persistable_vars:
-        jscope.set(name, to_np(PORT.static.global_scope().get(name)))
+    # the artifact through JAX's loader: the .pdmodel and the port's
+    # .pdiparams, which JAX's framework.io.load reads
+    jprog, feed_names, fetch_vars = JAX.static.load_inference_model(path)
+    assert sorted(feed_names) == ["ids", "labels"]
     old = jflags.flag("FLAGS_pallas_interpret")
     jflags.set_flags({"FLAGS_pallas_interpret": True})
     try:
         (got,) = JAX.static.Executor().run(
             jprog, feed={"ids": ids, "labels": labels},
-            fetch_list=jprog._jit_fetch_vars)
+            fetch_list=fetch_vars)
     finally:
         jflags.set_flags({"FLAGS_pallas_interpret": old})
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)

@@ -421,12 +421,17 @@ def test_executor_raises_for_the_later_items():
             x = static.data("x", [2], "float32")
             y = PORT.ops.exp(x)
     exe = static.Executor()
+    # the parameter-server modes of train_from_dataset stay item 8's PS
+    # tier; the dataset loop and FLAGS_check_nan_inf are ported
     with pytest.raises(NotImplementedError, match="item 8"):
-        exe.train_from_dataset(main, dataset=object())
+        exe.train_from_dataset(main, dataset=object(), ps_config={"x": 1})
     flags.set_flags({"FLAGS_check_nan_inf": True})
     try:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            exe.run(main, feed={"x": np.ones(2, "float32")},
+        (got,) = exe.run(main, feed={"x": np.ones(2, "float32")},
+                         fetch_list=[y])
+        np.testing.assert_allclose(got, np.exp(np.ones(2)), rtol=1e-6)
+        with pytest.raises(RuntimeError, match="Executor.run step"):
+            exe.run(main, feed={"x": np.full(2, 1e30, "float32")},
                     fetch_list=[y])
     finally:
         flags.set_flags({"FLAGS_check_nan_inf": False})
