@@ -199,9 +199,9 @@ Phases, each printing its own lines; any failure exits non-zero:
     rows); the scores against an uncached forward of each path; in f32
     beam 1 against greedy ``generate`` (phase 4's rule) and the beam-4
     scores within ``BEAM_SCORE_TOL`` (``phase_beam_scores``); (b)
-    ``export_decode`` (bf16, b 8, prompt 32, 32 new) into a torch.export
+    ``export_decode`` (bf16, b 8, prompt 32, 16 new) into a torch.export
     artifact run by ``create_predictor``: its tokens against
-    ``generate``'s, 12 x 32 decode launches in ``run``, ms a token of
+    ``generate``'s, 12 x 16 decode launches in ``run``, ms a token of
     both; (f, first) ``pick_block_size`` measuring the paged kernel at
     256 / 128 / 64 for h12 d64 bf16 at L 1024 into ``BLOCK_TABLE``, no
     candidate failing; (c) ``traffic.run_spec`` of the steady, diurnal
@@ -271,6 +271,39 @@ Phases, each printing its own lines; any failure exits non-zero:
     small's static causal-LM step (b8 s128, bf16 O2) through
     ``train_from_dataset`` on the flash and CE kernels, the losses
     finite, the stream's counters exact.
+24. the parameter-server tier at GPT-2 small's width (V 50304 x 768
+    f32 tables; phase 24 alone: ``c.phase_ps(card)``, its parts
+    ``c.phase_p24_downpour()``, ``phase_p24_online()``,
+    ``phase_p24_device_tier()``, ``phase_p24_telemetry()``). (a) sync
+    Downpour: ids -> Embedding -> fc -> BCE, 16 batches of 8 x 128 ids,
+    the server's SGD accessor owning the embedding; the same program
+    trained locally from the server's initial rows: rows and head within
+    ``P24_ROW_TOL``; pull / push rows/s at 8192 rows against one server
+    over loopback. (b) the closed online loop: a bf16 GPT-2 small
+    ``ServeLoop`` serves 64 requests (32 + 64 tokens, paged kernel);
+    every record offered twice to a ``StreamingDataset``; the online
+    trainer runs 8 batches (sync_every 1, an ``EmbeddingPrefetcher`` on
+    the card) against three shard servers with one backup each holding a
+    ``geo_sparse`` table; ``EmbeddingSnapshotPublisher`` (a card
+    ``HeterPSCache`` as its cache) publishes; ``publish_weights``
+    hot-swaps ``wte`` and 16 more requests are served, their greedy
+    tokens held to batched ``generate`` (phase 4's rule, bf16 gap
+    0.0625). Then the same records on a fresh cluster with a lost ack
+    (a frozen payload resent under its key) and shard 0's primary killed
+    after batch 4: the table bitwise the fault-free run's, ``applied``
+    exact on every live server, the card cache re-reading after the
+    promotion, ``model_version`` +1 a publish, no request dropped, the
+    tokens after the second swap equal the first's. (c) a
+    ``DeviceHashTable`` of 131072 x 768 f32 on the card and on the CPU
+    through the same inserts (a 16 x 64 duplicate storm, 8192-id
+    batches), removes and lookups: keys bitwise, rows and masks equal;
+    lookup of 1024 ids and insert of a 1024-id miss set timed with CUDA
+    events (median of 20). (d) a ``TelemetryHub`` here; the serve loop
+    and the trainer (here, each shipping its own names) and three PS
+    servers (child processes) ship to it: the hub's counters for each
+    member equal that member's monitor bitwise; pull / push rows/s over
+    the three; the hub stopped: ``flush()`` returns False; then a 2 s
+    replay of phase 21's steady spec through ``run_spec(hub=...)``.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -283,7 +316,7 @@ c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phases 2-3
 18's API checks (op-core faults), 19's mask checks (a Transformer
 fault), 20's conv oracle (a conv fault) or 21(a)'s f32 beam scores (a
 beam-search fault) or 23(a), (b) and (d) (the trainer's host-path
-faults) on copies of the checkout with one planted fault each
+faults) or 24(b) and (c) (the PS tier's faults) on copies of the checkout with one planted fault each
 (``FAULTS``) and exits 0 when every copy fails them.
 ``python3 chip_smoke.py --compare DIR`` runs phases 8 and 15 of the
 checkout at DIR and of this one, each in a fresh process, in the order
@@ -4151,6 +4184,11 @@ def phase_flash_timings():
 # --------------------------------------------------------------------------
 
 GEN_BATCH, GEN_PROMPT, GEN_BEAM, GEN_NEW = 8, 32, 4, 32
+# 21(b)'s new tokens: export_decode unrolls every decode step into the
+# graph, so its export and load grow with them (111 s and 36 s at 32 on
+# an H100 80GB HBM3 at 700 W, in a whole run past the script's budget);
+# 16 keeps the same checks
+EXPORT_NEW = 16
 # beam scores against an uncached forward of each path (the sum of the
 # chosen tokens' log-probs over GEN_NEW tokens): f32 2e-3, the cached
 # split-K decode kernel against the uncached composite attention (the
@@ -4299,7 +4337,7 @@ def _gen_beam(net, net32):
 
 
 def _gen_export(net):
-    """21(b): export_decode of the bf16 GPT-2 (b 8, prompt 32, 32 new),
+    """21(b): export_decode of the bf16 GPT-2 (b 8, prompt 32, 16 new),
     create_predictor(...).run, against generate."""
     import tempfile
 
@@ -4311,7 +4349,7 @@ def _gen_export(net):
     with tempfile.TemporaryDirectory() as d:
         prefix = os.path.join(d, "gpt2_decode")
         t0 = time.perf_counter()
-        export_decode(net, prefix, GEN_BATCH, GEN_PROMPT, GEN_NEW)
+        export_decode(net, prefix, GEN_BATCH, GEN_PROMPT, EXPORT_NEW)
         t_export = time.perf_counter() - t0
         size = os.path.getsize(prefix + ".pt2")
         t0 = time.perf_counter()
@@ -4327,22 +4365,22 @@ def _gen_export(net):
     net.generate(ids[:2], max_new_tokens=2, temperature=0)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = net.generate(ids, max_new_tokens=GEN_NEW, temperature=0)
+    ref = net.generate(ids, max_new_tokens=EXPORT_NEW, temperature=0)
     torch.cuda.synchronize()
     dt_gen = time.perf_counter() - t0
     ref = ref[:, GEN_PROMPT:].cpu().numpy()
     n = counts["decode_attention"]
-    check(n == 12 * GEN_NEW, f"the artifact's run launched {n} decode "
-                             f"kernels, not 12 x {GEN_NEW}")
+    check(n == 12 * EXPORT_NEW, f"the artifact's run launched {n} decode "
+                                f"kernels, not 12 x {EXPORT_NEW}")
     check(counts["paged_decode_attention"] == 0, "paged launches in run")
     # bf16 logits: a divergence passes where the top two are within one
     # bf16 step of each other (2^-7 at the logits' size, ~10)
     ties = _greedy_rule(net, ids, toks.astype(np.int64), ref, "export",
                         0.0625)
-    res = {"batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": GEN_NEW,
+    res = {"batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": EXPORT_NEW,
            "export_s": t_export, "load_s": t_load, "pt2_bytes": size,
-           "run_ms_per_token": dt * 1e3 / GEN_NEW,
-           "generate_ms_per_token": dt_gen * 1e3 / GEN_NEW,
+           "run_ms_per_token": dt * 1e3 / EXPORT_NEW,
+           "generate_ms_per_token": dt_gen * 1e3 / EXPORT_NEW,
            "decode_launches_run": n,
            "decode_launches_run_sm90": counts["decode_attention.sm90"],
            "decode_launches_run_mma": counts["decode_attention.mma"],
@@ -4352,13 +4390,14 @@ def _gen_export(net):
     return res, counts
 
 
-def _traffic_spec(name):
-    """builtin_spec's arrivals (30 requests/s for 6 s) and tenant mix, at
-    GPT-2's vocabulary and context, the lengths widened to bench_serve's
-    scale: prompts of median 32, 16-64 new tokens."""
+def _traffic_spec(name, seconds=TRAFFIC_SECONDS):
+    """builtin_spec's arrivals (30 requests/s for ``seconds``, 6 s by
+    default) and tenant mix, at GPT-2's vocabulary and context, the
+    lengths widened to bench_serve's scale: prompts of median 32, 16-64
+    new tokens."""
     from paddle_tpu_torch.traffic import workload
     base = workload.builtin_spec(name, rate=TRAFFIC_RATE,
-                                 duration_s=TRAFFIC_SECONDS)
+                                 duration_s=seconds)
     tenants = (
         {"name": "chat", "weight": 0.7, "kind": "llm",
          "prompt": {"kind": "lognormal", "median": 32, "sigma": 0.45,
@@ -4389,12 +4428,12 @@ def _traffic_line(rep, counts):
             "outputs_digest": rep.outputs_digest[:16]}
 
 
-def _replay(loop, name, **kw):
+def _replay(loop, name, seconds=TRAFFIC_SECONDS, **kw):
     """One run_spec of ``name`` through ``loop``, counted and checked:
     nothing failed, every event completed, the schedule is the seed's."""
     from paddle_tpu_torch.ops import cuda as kernels
     from paddle_tpu_torch.traffic import harness, workload
-    spec = _traffic_spec(name)
+    spec = _traffic_spec(name, seconds)
     kernels.reset_launch_counts()
     rep = harness.run_spec(spec, seed=0, loop=loop, **kw)
     counts = kernels.launch_counts()
@@ -5684,6 +5723,696 @@ def phase_trainer_host(card=None):
             "stream_train": stream_counts}, res
 
 
+# --------------------------------------------------------------------------
+# phase 24: the parameter-server tier and cluster telemetry
+# --------------------------------------------------------------------------
+
+PS_V, PS_DIM = 50304, 768       # GPT-2 small's padded vocabulary and width
+# PS transport for phase 24 (generous deadlines: 768-wide rows are ~3 KB
+# each) and a 2 s heartbeat deadline, as the CPU tests use
+P24_RPC = dict(timeout=30.0, max_retries=2, backoff_base=0.01,
+               backoff_max=0.05, connect_retry_s=30.0)
+P24_HB = dict(heartbeat_s=0.1, heartbeat_timeout_s=2.0)
+P24_SERVE = {"requests": 64, "prompt": 32, "new": 64, "after_swap": 16,
+             "batch_records": 8}
+# 24(a): the PS-held rows against the local run's: bitwise. The same
+# gradients come from the same program on the card, and the server's
+# numpy update row - lr * g rounds twice, as the card's SGD does (a
+# multiply, then a subtraction; no fused multiply-add in its kernels)
+P24_ROW_TOL = 0.0
+P24_KILL_AFTER = 4              # 24(b): the primary dies after batch 4
+
+
+def _p24_cluster(specs, n=3, k=1):
+    from paddle_tpu_torch.distributed.ps import PSServer, ShardMap
+    servers = [PSServer("127.0.0.1:0", dict(specs)) for _ in range(n)]
+    eps = [s.start() for s in servers]
+    if k:
+        smap = ShardMap.create(eps, n_backups=k)
+        for s in servers:
+            s.enable_replication(shard_map=smap, peers=eps, n_backups=k,
+                                 rpc_opts=dict(P24_RPC), **P24_HB)
+    return servers, eps
+
+
+def _p24_close(servers, *closers):
+    for c in closers:
+        try:
+            c.close()
+        except Exception:
+            pass
+    for s in servers:
+        s.shutdown()
+
+
+def _p24_static(paddle, name, build):
+    from paddle_tpu_torch import static
+    paddle.enable_static()
+    try:
+        main = static.Program(name)
+        with static.program_guard(main, static.Program()):
+            out = build(static)
+    finally:
+        paddle.disable_static()
+    return (main,) + out
+
+
+def _p24_downpour(paddle):
+    """24(a): sync Downpour at V 50304 x 768: the server owns the
+    embedding's SGD; 16 batches of 8 x 128 ids. The same program trained
+    locally from the same weights is the reference."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.distributed.ps import PSClient, PSServer
+    b, s, n = 8, 128, 16
+    rng = np.random.RandomState(24)
+    feeds = []
+    for _ in range(n):
+        ids = rng.randint(0, PS_V, (b, s)).astype(np.int64)
+        feeds.append({"ids": ids,
+                      "label": (ids % 2).astype(np.float32)[..., None]})
+
+    def build(st):
+        ids = st.data("ids", [b, s], "int64")
+        label = st.data("label", [b, s, 1], "float32")
+        emb = paddle.nn.Embedding(PS_V, PS_DIM)
+        head = paddle.nn.Linear(PS_DIM, 1, bias_attr=False)
+        loss = paddle.ops.mean(
+            paddle.nn.functional.binary_cross_entropy_with_logits(
+                head(emb(ids)), label))
+        paddle.optimizer.SGD(learning_rate=0.5).minimize(loss)
+        return loss, emb.weight.scope_name, head.weight.scope_name
+
+    ps_main, ps_loss, ps_emb, ps_head = _p24_static(paddle, "p24_ps", build)
+    lo_main, lo_loss, lo_emb, lo_head = _p24_static(paddle, "p24_local",
+                                                    build)
+
+    class Feeds:
+        def batches(self):
+            yield from feeds
+
+    srv = PSServer(tables={"emb": {"type": "sparse", "dim": PS_DIM,
+                                   "optimizer": "sgd", "lr": 0.5,
+                                   "init": "uniform", "seed": 24}})
+    client = PSClient([srv.start()], **P24_RPC)
+    scope = static.global_scope()
+    res = {}
+    try:
+        # the server's initial rows are the local run's embedding
+        t0 = time.perf_counter()
+        init = client.pull_sparse("emb", np.arange(PS_V, dtype=np.int64))
+        res["pull_all_s"] = time.perf_counter() - t0
+        scope.set(lo_emb, torch.tensor(init, device="cuda"))
+        scope.set(lo_head, scope.get(ps_head).clone())
+        exe = static.Executor()
+        saved = flags.get_flags(["FLAGS_executor_max_inflight"])
+        flags.set_flags({"FLAGS_executor_max_inflight": 0})
+        losses = {"ps": [], "local": []}
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.train_from_dataset(
+                ps_main, Feeds(), fetch_list=[ps_loss], print_period=0,
+                fetch_handler=lambda it, o: losses["ps"].append(
+                    float(np.asarray(o[0]))),
+                ps_config={"client": client,
+                           "sparse": [{"param": ps_emb, "slot": "ids",
+                                       "table": "emb"}]})
+            res["ps_train_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            exe.train_from_dataset(
+                lo_main, Feeds(), fetch_list=[lo_loss], print_period=0,
+                fetch_handler=lambda it, o: losses["local"].append(
+                    float(np.asarray(o[0]))))
+            torch.cuda.synchronize()
+            res["local_train_s"] = time.perf_counter() - t0
+        finally:
+            flags.set_flags(saved)
+        check(all(p.scope_name != ps_emb
+                  for p, _ in ps_main.optimizer_section[1])
+              and srv.table("emb").applied == n,
+              f"24(a): {srv.table('emb').applied} pushes applied, not {n}")
+        touched = np.unique(np.concatenate([f["ids"].ravel()
+                                            for f in feeds]))
+        ps_rows = client.pull_sparse("emb", touched)
+        lo_rows = scope.get(lo_emb)[torch.as_tensor(
+            touched, device="cuda")].cpu().numpy()
+        head_err = float((scope.get(ps_head) - scope.get(lo_head)).abs()
+                         .max())
+        row_err = float(np.abs(ps_rows - lo_rows).max())
+        moved = float(np.abs(ps_rows - init[touched]).max())
+        res.update({"vocab": PS_V, "dim": PS_DIM, "batches": n,
+                    "batch_ids": b * s, "touched_rows": int(touched.size),
+                    "row_max_abs_err": row_err,
+                    "rows_bitwise": bool(np.array_equal(ps_rows, lo_rows)),
+                    "head_max_abs_err": head_err, "rows_moved": moved,
+                    "losses_ps": losses["ps"],
+                    "losses_local": losses["local"]})
+        log(f"[24(a) downpour] {json.dumps(res)}")
+        check(moved > 0.0, "24(a): the rows did not train")
+        check(row_err <= P24_ROW_TOL and head_err <= P24_ROW_TOL,
+              f"24(a): PS rows / head differ from the local run by "
+              f"{row_err:.3e} / {head_err:.3e} (> {P24_ROW_TOL})")
+        # pull / push rows/s at dim 768 over loopback, one server
+        ids = np.arange(8192, dtype=np.int64) * 5
+        grads = np.full((ids.size, PS_DIM), 1e-3, np.float32)
+        pulls, pushes = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            client.pull_sparse("emb", ids)
+            pulls.append(ids.size / (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            client.push_sparse_grad("emb", ids, grads)
+            pushes.append(ids.size / (time.perf_counter() - t0))
+        res["pull_rows_per_s_1server"] = statistics.median(pulls)
+        res["push_rows_per_s_1server"] = statistics.median(pushes)
+        log(f"[24(a) loopback] pull {res['pull_rows_per_s_1server']:.0f} "
+            f"rows/s, push {res['push_rows_per_s_1server']:.0f} rows/s "
+            f"(8192 x {PS_DIM} f32, one server)")
+    finally:
+        _p24_close([srv], client)
+        for name in (ps_emb, ps_head, lo_emb, lo_head):
+            scope.set(name, None)
+    return res
+
+
+def _p24_await_promotion(client, dead_ep, deadline=20.0):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < deadline:
+        try:
+            client.refresh_shard_map()
+        except Exception:
+            pass
+        if dead_ep not in client.shard_map.servers:
+            return time.perf_counter() - t0
+        time.sleep(0.1)
+    check(False, f"24(b): no promotion after {dead_ep} died")
+
+
+def _p24_online_program(paddle):
+    def build(st):
+        ids = st.data("ids", [-1], "int64")
+        target = st.data("target", [-1, PS_DIM], "float32")
+        emb = paddle.nn.Embedding(PS_V, PS_DIM)
+        diff = emb(ids) - target
+        loss = paddle.ops.mean(paddle.ops.sum(diff * diff, axis=-1))
+        paddle.optimizer.SGD(learning_rate=0.25).minimize(loss)
+        return loss, emb.weight.scope_name
+    return _p24_static(paddle, "p24_online", build)
+
+
+def _p24_train_leg(paddle, records, target, kill):
+    """One online training run over ``records`` (each offered twice) on a
+    fresh 3-server / 1-backup cluster: 8 batches, sync_every 1, an
+    EmbeddingPrefetcher landing rows on the card. With ``kill``: shard
+    0's primary dies after batch 4, for good; the last batch's first
+    delta push is applied but its acks are lost past the transport
+    retries (failover re-routes off), so the payload freezes and the end
+    of the stream resends it under its key (no batch reads the local
+    view after it, so the trained values stay the fault-free run's); the
+    serving cache, warmed before training, must not serve a
+    pre-promotion row after the training. Returns the cluster's
+    state."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import flags, monitor
+    from paddle_tpu_torch.dataset import StreamingDataset
+    from paddle_tpu_torch.distributed.ps import (EmbeddingPrefetcher,
+                                                 HeterPSCache, PSClient)
+    from paddle_tpu_torch.testing import faults
+    servers, eps = _p24_cluster({"wte": {"type": "geo_sparse",
+                                         "dim": PS_DIM, "init": "zeros"}})
+    client_t = PSClient(eps, **P24_RPC)
+    client_p = PSClient(eps, **P24_RPC)
+    cache = HeterPSCache(client_p, "wte", PS_DIM, host_rows=0,
+                         device="cuda")
+    pf = EmbeddingPrefetcher(client_t, table="wte", device="cuda")
+    main, loss, emb_name = _p24_online_program(paddle)
+    ds = StreamingDataset(batch_size=P24_SERVE["batch_records"],
+                          name=f"p24-{kill}",
+                          collate=lambda recs: _p24_collate(recs, target))
+    for rec in records:                 # at-least-once: every record twice
+        ds.offer(rec)
+        ds.offer(rec)
+    ds.close()
+    first = np.unique(_p24_collate(records[:P24_SERVE["batch_records"]],
+                                   target)["ids"])
+    cache.pull(first)                   # warm: every row zero
+    holder, res = {}, {"killed": kill}
+    default_failover = flags.get_flags(["PADDLE_PS_FAILOVER_RETRIES"])
+
+    n_batches = len(records) // P24_SERVE["batch_records"]
+    stack = contextlib.ExitStack()
+
+    def on_batch(drv):
+        holder["drv"] = drv
+        if kill and drv._batch_count == P24_KILL_AFTER:
+            res["k_kill"] = len(drv.flush_log)
+            servers[0].shutdown()
+        if kill and drv._batch_count == n_batches - 1:
+            # the last flush pushes shard 0 first: its replies are the
+            # backup's forward (where shard 0 still has a backup), then
+            # the primary's; drop the primary's three times (one try and
+            # two transport retries)
+            flags.set_flags({"PADDLE_PS_FAILOVER_RETRIES": 0})
+            holder["inj"] = stack.enter_context(faults.inject(faults.Fault(
+                "server", "reply", faults.DROP, method="push_sparse_delta",
+                after=1 if client_t.shard_map.backups(0) else 0,
+                times=3)))
+
+    before = monitor.stats("ps.")
+    try:
+        t0 = time.perf_counter()
+        static.Executor().train_from_dataset(
+            main, ds, ps_config={
+                "client": client_t, "mode": "online", "sync_every": 1,
+                "trainer_id": 24, "on_batch": on_batch,
+                "sparse": [{"param": emb_name, "slot": "ids",
+                            "table": "wte", "prefetcher": pf}]})
+        torch.cuda.synchronize()
+        res["train_s"] = time.perf_counter() - t0
+        stack.close()
+    finally:
+        stack.close()
+        flags.set_flags(default_failover)
+    drv = holder["drv"]
+    log_ = drv.flush_log
+    check([seq for _, seq, _ in log_] == list(range(n_batches)),
+          f"24(b): flush log {[seq for _, seq, _ in log_]}")
+    expected = {ep: 0 for ep in eps}
+    for _, seq, ids in log_:
+        for s in sorted({int(i) % 3 for i in ids}):
+            for ep in (eps[s], eps[(s + 1) % 3]):
+                if kill and seq >= res["k_kill"] and ep == eps[0]:
+                    continue
+                expected[ep] += 1
+    live = servers[1:] if kill else servers
+    applied = {s.endpoint: s.table("wte").applied for s in live}
+    check(all(applied[ep] == expected[ep] for ep in applied),
+          f"24(b): applied {applied}, the schedule says {expected}")
+    res["applied"] = list(applied.values())
+    if kill:
+        check(holder["inj"].fired(faults.DROP) == 3
+              and monitor.stat_get("ps.online.deferred_flushes")
+              - before.get("ps.online.deferred_flushes", 0) == 1,
+              "24(b): the lost ack did not defer exactly one flush")
+        res["promotion_s"] = _p24_await_promotion(client_p, eps[0])
+        rows, inv = cache.pull(first)
+        fresh = client_p.pull_sparse("wte", first)
+        check(torch.equal(rows.cpu(), torch.from_numpy(fresh)),
+              "24(b): the card cache served a row cached before the "
+              "promotion")
+        res["cache_invalidations"] = monitor.stat_get(
+            "ps.heter.invalidations") - before.get(
+            "ps.heter.invalidations", 0)
+    res["trained_ids"] = sorted({int(i) for _, _, ids in log_ for i in ids})
+    res["table"] = client_p.pull_sparse(
+        "wte", np.asarray(res["trained_ids"], np.int64))
+    return res, {"servers": live, "clients": (client_t, client_p, pf),
+                 "cache": cache, "log": log_}
+
+
+def _p24_collate(recs, target):
+    ids = np.concatenate([np.asarray(r["prompt"] + r["tokens"], np.int64)
+                          for r in recs])
+    return {"ids": ids, "target": target[ids]}
+
+
+def _p24_online(paddle):
+    """24(b): the closed online loop at GPT-2 small's width."""
+    from paddle_tpu_torch.distributed.ps import EmbeddingSnapshotPublisher
+    from paddle_tpu_torch.inference import ServeConfig, ServeLoop
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    sv = P24_SERVE
+    t_all = time.perf_counter()
+    cfg = GPTConfig()
+    net = GPT(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    net.eval()
+    records = []
+    loop = ServeLoop(net, ServeConfig(max_active=64, kv_blocks=512,
+                                      max_seq_len=sv["prompt"] + sv["new"]),
+                     on_complete=records.append)
+    rng = np.random.RandomState(24)
+    prompts = [rng.randint(1, cfg.vocab_size, (sv["prompt"],))
+               .astype(np.int64) for _ in range(sv["requests"])]
+    target = np.random.RandomState(77).uniform(
+        -0.05, 0.05, (PS_V, PS_DIM)).astype(np.float32)
+    res, legs = {}, {}
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [loop.submit(p, max_new_tokens=sv["new"]) for p in prompts]
+    loop.run_until_idle()
+    torch.cuda.synchronize()
+    legs["serve_s"] = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(counts["paged_decode_attention"] > 0,
+          "24(b): the serve leg launched no paged decode kernel")
+    check(len(records) == sv["requests"]
+          and all(len(r.result(timeout=0)) == sv["new"] for r in reqs),
+          f"24(b): {len(records)} records of {sv['requests']} requests")
+    base = net.wte.weight.detach().float().cpu().numpy()
+    after_prompts = torch.tensor(np.stack(prompts[:sv["after_swap"]]),
+                                 device="cuda")
+    served = list(records)
+    outs = {}
+    for kill in (False, True):
+        leg, keep = _p24_train_leg(paddle, served, target, kill)
+        pub = EmbeddingSnapshotPublisher(keep["clients"][1], "wte",
+                                         cache=keep["cache"])
+        try:
+            t0 = time.perf_counter()
+            version, _ = pub.publish()
+            snap = pub.materialize(base)
+            leg["publish_s"] = time.perf_counter() - t0
+            v0 = loop.model_version
+            records.clear()
+            t0 = time.perf_counter()
+            loop.publish_weights(v0 + 1, {"wte.weight": snap})
+            kernels.reset_launch_counts()
+            reqs = [loop.submit(p, max_new_tokens=sv["new"])
+                    for p in prompts[:sv["after_swap"]]]
+            loop.run_until_idle()
+            torch.cuda.synchronize()
+            leg["swap_serve_s"] = time.perf_counter() - t0
+            c = kernels.launch_counts()
+            counts = {k: counts.get(k, 0) + c.get(k, 0)
+                      for k in set(counts) | set(c)}
+            check(loop.model_version == v0 + 1,
+                  f"24(b): model_version {loop.model_version} after a "
+                  f"publish from {v0}")
+            got = np.stack([r.result(timeout=0) for r in reqs])
+            check(len(records) == sv["after_swap"]
+                  and all(r["version"] == v0 + 1 for r in records),
+                  "24(b): a request after the swap ran on another version "
+                  "or was dropped")
+            ref = net.generate(after_prompts, max_new_tokens=sv["new"],
+                               temperature=0)[:, sv["prompt"]:]
+            ties = _greedy_rule(net, after_prompts, got,
+                                ref.cpu().numpy(), "24(b) swap", 0.0625)
+            leg.update({"version": loop.model_version,
+                        "publish_version": version, "near_ties": ties})
+            outs[kill] = (leg.pop("table"), leg.pop("trained_ids"), got)
+            legs["killed" if kill else "fault_free"] = leg
+        finally:
+            _p24_close(keep["servers"], *keep["clients"])
+    (ref_t, ref_ids, ref_got), (k_t, k_ids, k_got) = outs[False], outs[True]
+    check(k_ids == ref_ids and np.array_equal(k_t, ref_t),
+          "24(b): the killed run's table differs from the fault-free "
+          f"run's ({int((k_t != ref_t).sum()) if k_t.shape == ref_t.shape else 'shape'} values)")
+    check(np.array_equal(k_got, ref_got),
+          "24(b): the tokens served after the two swaps differ")
+    res.update(legs)
+    res.update({"requests": sv["requests"], "prompt": sv["prompt"],
+                "new": sv["new"], "after_swap": sv["after_swap"],
+                "trained_rows": len(ref_ids),
+                "table_bitwise_killed_vs_fault_free": True,
+                "seconds": time.perf_counter() - t_all})
+    del loop, net
+    torch.cuda.empty_cache()
+    log(f"[24(b) online loop] {json.dumps(res)}")
+    return res, counts
+
+
+def _p24_device_tier():
+    """24(c): DeviceHashTable at 2 x PADDLE_PS_HETER_CACHE_ROWS x 768 f32
+    on the card against the same operations through the CPU path."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.distributed.ps.heter import DeviceHashTable
+    cap = 2 * int(flags.flag("PADDLE_PS_HETER_CACHE_ROWS"))
+    card = DeviceHashTable(cap, PS_DIM, device="cuda")
+    host = DeviceHashTable(cap, PS_DIM, device="cpu")
+    rng = np.random.RandomState(24)
+
+    def rows(n):
+        return rng.standard_normal((n, PS_DIM)).astype(np.float32)
+
+    def same(what, probe):
+        check(np.array_equal(card.keys.cpu().numpy(), host.keys.numpy())
+              and len(card) == len(host), f"24(c): keys differ ({what})")
+        cr, cf = card.lookup(probe)
+        hr, hf = host.lookup(probe)
+        check(torch.equal(cf.cpu(), hf) and torch.equal(cr.cpu(), hr),
+              f"24(c): lookups differ ({what})")
+
+    # a duplicate storm: 16 ids, 64 copies each with their own rows
+    storm = np.repeat(rng.randint(0, PS_V, 16), 64)
+    rng.shuffle(storm)
+    ops = [("insert", storm, rows(storm.size))]
+    for _ in range(4):
+        ids = rng.randint(0, 4 * PS_V, 8192).astype(np.int64)
+        ops.append(("insert", ids, rows(ids.size)))
+        ops.append(("remove", rng.choice(ids, 2048), None))
+    t0 = time.perf_counter()
+    for i, (op, ids, vals) in enumerate(ops):
+        if op == "insert":
+            pc = card.insert(ids, vals, best_effort=True)
+            ph = host.insert(ids, vals, best_effort=True)
+            check(np.array_equal(pc, ph), "24(c): placed masks differ")
+        else:
+            card.remove(ids)
+            host.remove(ids)
+        same(f"op {i} {op}", rng.randint(0, 4 * PS_V, 4096))
+    script_s = time.perf_counter() - t0
+    # timings: lookup of 1024 ids (on the card), insert of a fresh
+    # 1024-id miss set (host placement + two scatters)
+    look = torch.as_tensor(rng.randint(0, 4 * PS_V, 1024), device="cuda")
+    lookup = time_samples(lambda: card.lookup(look), runs=20, warmup=3)
+    fresh = iter([(np.arange(1024, dtype=np.int64) + (10 + k) * PS_V * 4,
+                   rows(1024)) for k in range(23)])
+    done = []
+
+    def insert():
+        ids, vals = next(fresh)
+        done.append((ids, vals))
+        card.insert(ids, vals)
+
+    ins = time_samples(insert, runs=20, warmup=3)
+    for ids, vals in done:
+        host.insert(ids, vals)
+    same("after the timed inserts", np.concatenate(
+        [done[0][0], done[-1][0], rng.randint(0, 4 * PS_V, 2048)]))
+    res = {"capacity": cap, "dim": PS_DIM,
+           "values_bytes": cap * PS_DIM * 4, "rows_resident": len(card),
+           "script_ops": len(ops), "script_s": script_s,
+           "lookup_1024_ms": statistics.median(lookup),
+           "insert_1024_ms": statistics.median(ins),
+           "keys_bitwise": True}
+    log(f"[24(c) device tier] {json.dumps(res)}")
+    del card, host
+    torch.cuda.empty_cache()
+    return res
+
+
+# A PS server process of 24(d): it binds port 0 and prints its endpoint,
+# reads its peers and replicates with them (one backup a shard), ships
+# its monitor to the hub; on "quiesce" it stops its heartbeats, on
+# "report" it drains its shipper and prints its monitor, on "stop" it
+# exits.
+_P24_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+from paddle_tpu_torch.core import monitor, telemetry
+from paddle_tpu_torch.distributed.ps import PSServer, ShardMap
+hub, member, dim = sys.argv[1], sys.argv[2], int(sys.argv[3])
+srv = PSServer(tables={"wte": {"type": "geo_sparse", "dim": dim,
+                               "init": "zeros"}})
+ep = srv.start()
+ship = telemetry.TelemetryShipper(hub, member_id=member, role="ps",
+                                  flush_s=0.2, capture_spans=False,
+                                  report_incidents=False).start()
+print(json.dumps({"endpoint": ep}), flush=True)
+peers = json.loads(sys.stdin.readline())
+srv.enable_replication(shard_map=ShardMap.create(peers, n_backups=1),
+                       peers=peers, n_backups=1, heartbeat_s=0.1,
+                       heartbeat_timeout_s=2.0)
+print("ready", flush=True)
+sys.stdin.readline()
+srv.replica.close()
+time.sleep(0.5)
+print("quiet", flush=True)
+sys.stdin.readline()
+ok = ship.drain(timeout=20.0)
+print(json.dumps({"drained": ok, "stats": monitor.stats("")}), flush=True)
+sys.stdin.readline()
+ship.close(drain_timeout=0.5)
+srv.shutdown()
+"""
+
+
+def _p24_tell(kid, line):
+    """Send one line to a 24(d) server process; its one-line answer."""
+    kid.stdin.write(line + "\n")
+    kid.stdin.flush()
+    return kid.stdout.readline()
+
+
+def _p24_member_snapshot(prefixes):
+    """A shipper snapshot of the monitor names under ``prefixes``: two
+    members in one process ship their own names, not each other's."""
+    from paddle_tpu_torch.core import monitor
+
+    def snap():
+        s = monitor.snapshot(include_series=False)
+        return {"values": {n: v for n, v in s["values"].items()
+                           if n.startswith(prefixes)},
+                "types": {n: t for n, t in s["types"].items()
+                          if n.startswith(prefixes)},
+                "histograms": {n: h for n, h in s["histograms"].items()
+                               if n.startswith(prefixes)}}
+    return snap
+
+
+def _p24_telemetry():
+    """24(d): a TelemetryHub in this process; the serve loop and the
+    trainer (here) and three PS servers (child processes) ship to it."""
+    from paddle_tpu_torch.core import monitor, telemetry
+    from paddle_tpu_torch.distributed.ps import PSClient
+    from paddle_tpu_torch.inference import ServeConfig, ServeLoop
+    from paddle_tpu_torch.text.models.gpt import GPT, GPTConfig
+    t_all = time.perf_counter()
+    hub = telemetry.TelemetryHub()
+    root = os.path.dirname(os.path.abspath(__file__))
+    kids = [subprocess.Popen(
+        [sys.executable, "-c", _P24_CHILD, hub.endpoint, f"ps{k}",
+         str(PS_DIM)], cwd=root, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True) for k in range(3)]
+    ships, client, res = [], None, {}
+    try:
+        eps = [json.loads(k.stdout.readline())["endpoint"] for k in kids]
+        for kid in kids:
+            check(_p24_tell(kid, json.dumps(eps)).strip() == "ready",
+                  "24(d): a server process did not start replicating")
+        ships = [telemetry.TelemetryShipper(
+            hub.endpoint, member_id=m, role=m, flush_s=0.2,
+            snapshot_fn=_p24_member_snapshot(p), capture_spans=False,
+            report_incidents=False, rpc_opts=dict(
+                timeout=1.0, max_retries=1, connect_retry_s=0.5)).start()
+            for m, p in (("serve", ("serve.", "serve/")),
+                         ("trainer", ("ps.", "executor/")))]
+        net = GPT(GPTConfig(), device="cuda", dtype=torch.bfloat16, seed=0)
+        net.eval()
+        loop = ServeLoop(net, ServeConfig(max_active=8, kv_blocks=64,
+                                          max_seq_len=64))
+        rng = np.random.RandomState(5)
+        loop.serve([rng.randint(1, 50257, 16) for _ in range(8)],
+                   max_new_tokens=16)
+        client = PSClient(eps, **P24_RPC)
+        pulls, pushes = [], []
+        for r in range(6):
+            ids = np.arange(4096, dtype=np.int64) * 7 + r
+            t0 = time.perf_counter()
+            client.pull_sparse("wte", ids)
+            pulls.append(ids.size / (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            client.push_sparse_delta(
+                "wte", ids, np.full((ids.size, PS_DIM), 1e-3, np.float32),
+                request_key=("p24d", r))
+            pushes.append(ids.size / (time.perf_counter() - t0))
+        res["pull_rows_per_s"] = statistics.median(pulls)
+        res["push_rows_per_s"] = statistics.median(pushes)
+        for s in ships:
+            check(s.drain(timeout=20.0), f"24(d): {s.member_id} did not "
+                                         "drain")
+        local = monitor.stats("")
+        for kid in kids:
+            check(_p24_tell(kid, "quiesce").strip() == "quiet",
+                  "24(d): a server process did not stop its heartbeats")
+        checked = {}
+        for s in ships:
+            got = hub.member_counters(s.member_id)
+            check(got and all(v == local[n] for n, v in got.items()),
+                  f"24(d): the hub's {s.member_id} counters differ from "
+                  f"the local monitor's")
+            checked[s.member_id] = len(got)
+        for k, kid in enumerate(kids):
+            rep = json.loads(_p24_tell(kid, "report"))
+            got = hub.member_counters(f"ps{k}")
+            check(rep["drained"] and got
+                  and all(v == rep["stats"][n] for n, v in got.items()),
+                  f"24(d): the hub's ps{k} counters differ from that "
+                  f"server's monitor")
+            checked[f"ps{k}"] = len(got)
+        res["members_bitwise"] = checked
+        for kid in kids:                  # the servers leave while the
+            kid.stdin.write("stop\n")    # hub still answers their drain
+            kid.stdin.flush()
+        for kid in kids:
+            kid.wait(timeout=60)
+        ships.pop(0).close(drain_timeout=5.0)      # the serve member
+        # the hub dies mid-run: a flush degrades to False, never raises
+        hub.stop()
+        ok = ships[0].flush()                       # the trainer
+        check(ok is False, f"24(d): flush() against a stopped hub gave "
+                           f"{ok!r}")
+        res["flush_after_hub_stop"] = ok
+        del loop
+        # phase 21's steady spec for 2 s, scored by a hub
+        hub2 = telemetry.TelemetryHub()
+        try:
+            rloop = ServeLoop(net, ServeConfig(max_active=64, kv_blocks=512,
+                                               max_seq_len=1024))
+            rep, c = _replay(rloop, "steady", seconds=2.0, hub=hub2)
+            check(rep.scored_by == "hub", "24(d): run_spec was not scored "
+                                          "by the hub")
+            snap = hub2.snapshot()
+            check(int(snap["counters"].get("serve.requests_completed", 0))
+                  == rep.completed, "24(d): the hub's completed count "
+                                    "differs from the replay's")
+            res["steady_2s"] = _traffic_line(rep, c)
+        finally:
+            hub2.stop()
+            del rloop
+        del net
+    finally:
+        for s in ships:
+            s.close(drain_timeout=0.0)
+        if client is not None:
+            client.close()
+        hub.stop()
+        for kid in kids:
+            if kid.poll() is None:
+                kid.kill()
+                kid.wait(timeout=30)
+    res["seconds"] = time.perf_counter() - t_all
+    torch.cuda.empty_cache()
+    log(f"[24(d) telemetry] {json.dumps(res)}")
+    return res
+
+
+def phase_p24_downpour():
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    return _p24_downpour(paddle)
+
+
+def phase_p24_online():
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    return _p24_online(paddle)
+
+
+def phase_p24_device_tier():
+    return _p24_device_tier()
+
+
+def phase_p24_telemetry():
+    return _p24_telemetry()
+
+
+def phase_ps(card=None):
+    """Phase 24: the parameter-server tier, the online loop, the device
+    cache and cluster telemetry at GPT-2 small's width."""
+    t0 = time.perf_counter()
+    res = {"card": card, "downpour": phase_p24_downpour()}
+    res["online"], counts = phase_p24_online()
+    res["device_tier"] = phase_p24_device_tier()
+    res["telemetry"] = phase_p24_telemetry()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[ps] {res['seconds']:.1f} s; card: {card}")
+    return counts, res
+
+
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
@@ -5809,6 +6538,23 @@ FAULTS = {
          "        write_back(scope, scope_vals, new_scope)\n"
          "        if _flags.flag(\"FLAGS_check_nan_inf\"):\n"
          "            _sweep_step(fetches, new_scope)\n"),
+    # the parameter-server tier (phase 24): the online trainer's delta
+    # push without its replay key (a resent frozen payload applies twice,
+    # 24(b)); the card cache deaf to shard-map changes (a pre-promotion
+    # row served, 24(b)); the device table's insert scattering duplicate
+    # slots without keeping each slot's last write (24(c))
+    "ps_delta_push_without_replay_key":
+        ("paddle_tpu_torch/distributed/ps/client.py",
+         "            key = self._rkey(request_key, \"psd\", table)",
+         "            key = None"),
+    "ps_cache_ignores_map_changes":
+        ("paddle_tpu_torch/distributed/ps/heter.py",
+         "        if self._invalidate_pending or e != self._valid_epoch:",
+         "        if False:"),
+    "ps_insert_duplicates_not_deduped":
+        ("paddle_tpu_torch/distributed/ps/heter.py",
+         "            keep = keep[last_per_slot(slots[keep])]",
+         "            keep = keep"),
     "beam_cache_gathered_by_token":
         ("paddle_tpu_torch/nn/decode.py",
          "        cache_rows = gather_idx",
@@ -5836,6 +6582,12 @@ def _fault_phase(name, source):
         return ("phase_conv_oracle",), "20"
     if name.startswith("beam_"):
         return ("phase_beam_scores",), "21(a)"
+    if name.startswith("ps_"):
+        return {"ps_delta_push_without_replay_key": (
+            ("phase_p24_online",), "24(b)"),
+            "ps_cache_ignores_map_changes": (("phase_p24_online",), "24(b)"),
+            "ps_insert_duplicates_not_deduped": (
+                ("phase_p24_device_tier",), "24(c)")}[name]
     if name.startswith("trainer_"):
         return {"trainer_scan_stream_one_step_ahead": (
             ("phase_p23_modes",), "23(a)"),
@@ -5964,6 +6716,7 @@ def main():
     generation, gen_counts = phase_generation(card)
     st_counts, static_res = phase_static(card)
     th_counts, trainer_host = phase_trainer_host(card)
+    ps_counts, ps_res = phase_ps(card)
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -5994,6 +6747,10 @@ def main():
         # phase 23(e): the serve loop that fed the stream
         rec["launches_stream_serve"] = th_counts["serve"][name]
         rec["launches_stream_serve_sm90"] = th_counts["serve"][f"{name}.sm90"]
+        # phase 24(b): the online loop's serve legs (before and after the
+        # two hot swaps)
+        rec["launches_online_serve"] = ps_counts.get(name, 0)
+        rec["launches_online_serve_sm90"] = ps_counts.get(f"{name}.sm90", 0)
         # phase 21: beam search's steps and the exported program's run
         # (contiguous), the three traffic replays and the block-size
         # sweep (paged)
@@ -6088,7 +6845,7 @@ def main():
                       "hapi": hapi, "dygraph": dygraph,
                       "transformer": transformer, "vision": vision,
                       "generation": generation, "static": static_res,
-                      "trainer_host": trainer_host}))
+                      "trainer_host": trainer_host, "ps": ps_res}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
-"""Flag registry — the subset of paddle_tpu/core/flags.py the serving
-and training slices read.
+"""Flag registry — the subset of paddle_tpu/core/flags.py the port
+reads: serving, training, the parameter-server tier (``PADDLE_PS_*``),
+online learning (``PADDLE_ONLINE_*``) and cluster telemetry
+(``PADDLE_TELEMETRY_*``, ``PADDLE_SLO_*``).
 
 Flags are declared once with a type and default, seeded from a
 same-named ``FLAGS_*`` environment variable at import, and get/set-able
@@ -163,3 +165,155 @@ define_flag("FLAGS_pallas_autotune", True,
 define_flag("FLAGS_pallas_autotune_force", False,
             "measure autotune candidates off the card too (tests exercise "
             "the measuring path with a fake measure)")
+
+# --- PS transport fault tolerance (distributed/ps/rpc.py) ---------------
+# The reference's brpc channel exposes the same three knobs
+# (connect_timeout_ms / timeout_ms / max_retry in brpc_ps_client.cc);
+# flag names double as their env-var spelling, so a job script can export
+# PADDLE_PS_CALL_TIMEOUT=5 without touching code.
+define_flag("PADDLE_PS_CALL_TIMEOUT", 60.0,
+            "per-RPC deadline in seconds; a call that stalls past it "
+            "times out, retries, and finally raises DeadlineExceeded")
+define_flag("PADDLE_PS_MAX_RETRIES", 5,
+            "transport retry budget per call (attempts = retries + 1); "
+            "mutating calls are made retry-safe by the server-side "
+            "idempotent replay cache")
+define_flag("PADDLE_PS_BACKOFF_BASE_S", 0.05,
+            "first retry backoff in seconds; doubles per retry with "
+            "jitter up to PADDLE_PS_BACKOFF_MAX_S")
+define_flag("PADDLE_PS_BACKOFF_MAX_S", 2.0,
+            "exponential backoff ceiling in seconds")
+define_flag("PADDLE_PS_CONNECT_RETRY_S", 30.0,
+            "initial-dial retry window: workers racing the server's bind "
+            "at job start keep redialing this long before giving up")
+define_flag("PADDLE_PS_MAX_FRAME", 1 << 30,
+            "largest RPC frame either side will accept; a length prefix "
+            "over this is rejected as a FrameError instead of an "
+            "unbounded allocation from one garbled header")
+define_flag("PADDLE_PS_REPLAY_CACHE", 512,
+            "per-client entries in the server's idempotent-replay LRU; "
+            "a retried mutating request inside this window replays the "
+            "cached reply instead of re-applying the gradient")
+define_flag("PADDLE_PS_SEND_RETRIES", 2,
+            "extra Communicator send-thread attempts (with backoff) on "
+            "top of the per-call transport retries before the thread "
+            "declares itself dead")
+
+# --- PS replicated storage tier (distributed/ps/{shard_map,replica}.py) --
+define_flag("PADDLE_PS_REPLICA_BACKUPS", 0,
+            "backups per shard when the fleet wiring builds the initial "
+            "shard map (0 = replication off: the default map reproduces "
+            "the legacy id%n_servers placement exactly). With k>0 every "
+            "mutation is applied on the primary, forwarded to its "
+            "backups under the SAME replay id, and acked only once "
+            "durable on the write quorum")
+define_flag("PADDLE_PS_REPLICA_QUORUM", 0,
+            "replicas (primary included) that must ack a write before "
+            "the client is acked; 0 = every LIVE replica (unreachable "
+            "backups are evicted from the map rather than wedging "
+            "writes)")
+define_flag("PADDLE_PS_REPLICA_DELTA_LOG", 512,
+            "per-table entries in the replay-keyed mutation log primaries "
+            "keep for rejoin catch-up: a restarted server loads the "
+            "snapshot, then replays the log suffix past its cursor; a "
+            "cursor that fell off the bounded log restarts the fetch")
+define_flag("PADDLE_PS_HEARTBEAT_S", 0.5,
+            "replica heartbeat interval in seconds: every server beats "
+            "replica_beat into its peers; beat replies gossip shard-map "
+            "epochs so a behind server catches up")
+define_flag("PADDLE_PS_HEARTBEAT_TIMEOUT_S", 3.0,
+            "suspicion deadline: a primary whose beats stop for this "
+            "long is declared dead and its first live backup promotes "
+            "itself (shard-map epoch bump + broadcast)")
+define_flag("PADDLE_PS_FAILOVER_RETRIES", 8,
+            "extra client re-route attempts per logical call after a "
+            "stale-map redirect or dead endpoint; paced by "
+            "PADDLE_PS_FAILOVER_BACKOFF_S, the loop must outlast one "
+            "heartbeat timeout + promotion")
+define_flag("PADDLE_PS_FAILOVER_BACKOFF_S", 0.25,
+            "base pause between client failover re-routes (grows "
+            "linearly up to 4x)")
+
+# --- sharded embedding engine (distributed/ps/{client,heter,embedding}.py) --
+define_flag("PADDLE_PS_FANOUT_THREADS", 4,
+            "per-shard fan-out concurrency of batched sparse lookups: a "
+            "pull whose (deduped) ids span several shard primaries issues "
+            "one RPC per shard from a pool of this many threads, so the "
+            "batch costs max(shard latency), not the sum. 1 restores the "
+            "serial per-shard loop (bitwise-identical results either way "
+            "— shard slices are disjoint)")
+define_flag("PADDLE_PS_PREFETCH_DEPTH", 2,
+            "embedding-prefetch window depth (distributed/ps/embedding."
+            "EmbeddingPrefetcher riding static/pipeline_runner."
+            "InflightDriver): how many batches of sparse pulls may be in "
+            "flight ahead of the training step. Results stay BITWISE "
+            "equal to synchronous pulls: ids pushed after a batch's "
+            "prefetch snapshot are re-pulled at materialization "
+            "(conflict fix-up), so overlap never trades determinism")
+define_flag("PADDLE_PS_HETER_CACHE_ROWS", 65536,
+            "hot-id LRU bound on the HeterPS device-resident embedding "
+            "cache (distributed/ps/heter.HeterPSCache): rows past the "
+            "bound evict oldest-first into the host-RAM tier (see "
+            "PADDLE_PS_HETER_HOST_ROWS), bumping ps.heter.evictions — "
+            "device memory holds the hot working set, not the vocab")
+define_flag("PADDLE_PS_HETER_HOST_ROWS", 262144,
+            "host-RAM second tier of the HeterPS cache: rows evicted "
+            "from the device LRU park here (HeterPS lineage — tables "
+            "larger than device memory tier through host DRAM before "
+            "the PS); a host hit re-promotes without a PS RPC "
+            "(ps.heter.host_hits). 0 disables the tier (evictions go "
+            "straight back to the PS)")
+
+# --- online learning (static/executor.py online mode) ---
+define_flag("PADDLE_ONLINE_SYNC_EVERY", 1,
+            "flush cadence of the online (continuous Downpour) trainer "
+            "mode in static/executor.py: accumulated sparse deltas are "
+            "pushed to the PS via push_sparse_delta every this many "
+            "batches — one replay-id-protected RPC per touched shard "
+            "per flush")
+define_flag("PADDLE_ONLINE_STALENESS_BATCHES", 4,
+            "bounded-staleness knob of the online trainer: the hard "
+            "bound on batches trained past the last SUCCESSFUL delta "
+            "flush. A transiently failing flush (PS chaos, failover in "
+            "progress) is retried next cadence until this bound, then "
+            "the flush error propagates (fail-stop) rather than letting "
+            "the served model fall arbitrarily behind")
+
+# --- cluster telemetry plane (core/telemetry.py, core/slo.py,
+# --- tools/cluster_obs_drill.py) ---
+define_flag("PADDLE_TELEMETRY_HUB", "",
+            "host:port of a TelemetryHub. When set, processes that opt "
+            "in (drills, bench.py snapshot emitters, anything that "
+            "starts a TelemetryShipper) ship metric deltas / span "
+            "batches there; empty (the default) means fully local "
+            "observability, no network")
+define_flag("PADDLE_TELEMETRY_FLUSH_S", 0.5,
+            "TelemetryShipper flush cadence: every this many seconds "
+            "the background thread snapshots the monitor registry and "
+            "ships one replay-keyed delta batch to the hub. The hot "
+            "path only ever appends to an in-memory buffer — a slow or "
+            "dead hub can delay shipping, never a decode beat")
+define_flag("PADDLE_TELEMETRY_SPAN_BUFFER", 2048,
+            "bound on the shipper's finished-span buffer. When the hub "
+            "falls behind and the buffer is full, new spans are dropped "
+            "on the floor and counted in telemetry.dropped_spans / "
+            "telemetry.dropped_batches (backpressure by shedding, "
+            "never by blocking the thread that finished the span)")
+define_flag("PADDLE_TELEMETRY_INCIDENT_WINDOW_S", 10.0,
+            "incident coalescing window of the TelemetryHub: flight-"
+            "recorder triggers and SLO breaches arriving within this "
+            "many seconds of an open incident JOIN it (one incident id, "
+            "one merged dump) instead of opening a new one")
+define_flag("PADDLE_SLO_EVAL_S", 1.0,
+            "cadence of the hub's SLO engine: every this many seconds "
+            "the merged counters/histograms are appended to the burn-"
+            "rate series and every SLOSpec is re-evaluated")
+define_flag("PADDLE_SLO_FAST_WINDOW_S", 60.0,
+            "fast burn-rate window: a breach requires the bad fraction "
+            "over BOTH this window and the slow window to exceed the "
+            "objective — the fast window bounds time-to-detect, the "
+            "slow window filters blips")
+define_flag("PADDLE_SLO_SLOW_WINDOW_S", 300.0,
+            "slow burn-rate window (see PADDLE_SLO_FAST_WINDOW_S); "
+            "also bounds how much burn-rate history the engine retains "
+            "per SLO spec (2x this window)")

@@ -45,8 +45,7 @@ __all__ = ["dump", "dump_dir", "enabled", "suppressed", "maybe_install",
 
 SCHEMA_VERSION = 2
 # The JAX package's schema, key for key: v2 (cluster telemetry) appended
-# incident_id / role / peer_members, which stay empty until the port has
-# core/telemetry.py.
+# incident_id / role / peer_members (core/telemetry.py fills them).
 SCHEMA_KEYS = ("schema", "reason", "time", "pid", "argv", "exception",
                "spans", "metrics", "flags", "env", "extra",
                "incident_id", "role", "peer_members")
@@ -116,8 +115,7 @@ def _flags_snapshot():
 # Cluster identity (schema v2): a fleet member's role ("serve", "ps0",
 # "trainer", ...) and its known peers, stamped into every dump so a
 # merged incident can say WHO each record came from. Set once at member
-# startup (a telemetry shipper does it for its owner; the port has none
-# until core/telemetry.py).
+# startup (core/telemetry.py's TelemetryShipper does it for its owner).
 _role: str = ""
 _peer_members: list = []
 
@@ -201,7 +199,7 @@ def _fire_emergency_hooks(reason, exc):
 
 # Dump listeners: fn(reason, exc, incident_id) fired for EVERY dump
 # trigger regardless of reason and of PADDLE_TPU_DUMP_DIR — the cluster
-# telemetry shipper (core/telemetry.py, to come) uses this to report the trigger to the hub so the
+# telemetry shipper (core/telemetry.py) uses this to report the trigger to the hub so the
 # whole fleet dumps under one incident id. Listeners get the incident_id
 # the dump was requested with (None for a locally-originated failure)
 # so a hub-requested incident dump does not re-report itself.

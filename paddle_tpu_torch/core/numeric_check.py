@@ -54,7 +54,7 @@ def step_scope():
 def _float_tensor(v):
     from ..static.program import Variable
     return isinstance(v, torch.Tensor) and not isinstance(v, Variable) \
-        and (v.is_floating_point() or v.is_complex())
+        and v.is_floating_point()
 
 
 def _np_dtype(t):
@@ -81,11 +81,15 @@ def check_op_outputs(op_name: str, out_val):
 
 
 def _flatten(tree, path=""):
-    """(keystr path, leaf) pairs: dicts by sorted key, as jax flattens
-    them, sequences by index."""
+    """(keystr path, leaf) pairs, named as ``jax.tree_util.keystr`` names
+    them: dicts by sorted key, namedtuples by field (``.w``), other
+    sequences by index."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _flatten(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from _flatten(v, f"{path}.{k}")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _flatten(v, f"{path}[{i}]")

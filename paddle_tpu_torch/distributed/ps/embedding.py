@@ -1,0 +1,354 @@
+"""Async embedding prefetch over the sharded PS — bitwise-safe overlap
+(paddle_tpu/distributed/ps/embedding.py). The rows land on the trainer's
+device: the background thread pulls them and copies them there in one
+piece, so the copy overlaps the step too, and ``get()`` returns a tensor
+on that device.
+
+Every sparse pull used to be synchronous on the training hot path: the
+step stalls for one full PS round trip per batch (worse under a slow or
+failing-over shard). This module overlaps the NEXT batch's sparse pulls
+with the CURRENT dense step, the way the reference's HeterPS pipeline
+prefetches embedding rows ahead of the GPU pass — without giving up the
+robustness bar: results are provably BITWISE-equal to the
+synchronous path, chaos included.
+
+Machinery:
+
+- pulls run on a single background thread (issue order == program
+  order), each one dispatched through an `InflightDriver`
+  (static/pipeline_runner.py), so the prefetch stage inherits the
+  bounded in-flight window (`PADDLE_PS_PREFETCH_DEPTH`), lazy
+  `FetchHandle` materialization, `PipelineStepError` naming the failed
+  prefetch step (with a flight-recorder dump), per-step dispatch/retire
+  spans, and elastic liveness pulses — a prefetching trainer renders in
+  obs_report exactly like a pipelined one.
+
+- **conflict fix-up is what makes the overlap bitwise-safe.** A
+  prefetched pull may race the current step's `push_grad`: the rows it
+  fetched for ids the push touched are stale the moment the push lands.
+  The prefetcher keeps a per-id version counter, bumped on every push
+  routed through it; `get()` compares each id's version against the
+  snapshot taken at `prefetch()` time and synchronously RE-PULLS just
+  the conflicted ids (tiny set in practice — consecutive batches rarely
+  overlap much), splicing the fresh rows in. Unconflicted ids were
+  untouched by any push between snapshot and materialization, so their
+  prefetched value IS the synchronous value; conflicted ids are re-read
+  after the push, which is exactly when the synchronous path would have
+  read them. Chaos, failover and cache invalidation ride underneath
+  unchanged: the pull itself goes through the same PSClient /
+  HeterPSCache stack as a synchronous call.
+
+Contract: route pushes for the table through `push_grad` (or call
+`note_pushed(ids)` after an out-of-band push) — an invisible writer
+defeats conflict tracking exactly as it would defeat any cache.
+
+Overlap accounting (`stats()` / `overlap_ratio`): per-pull wall time is
+measured on the background thread, exposed wait at `get()` on the
+caller — `1 - wait/pull` is the fraction of PS latency the dense step
+absorbed.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor, wait
+
+import numpy as np
+
+from ...core import monitor as _monitor
+from ...core.flags import flag as _flag
+
+__all__ = ["EmbeddingPrefetcher"]
+
+
+class _PendingPull:
+    """Future-backed fetch leaf of the InflightDriver: ``synchronize``
+    is its retire wait (the window's backpressure; it never raises), and
+    ``rows`` the pull's result or its error, so the driver's retire /
+    failure-ordering machinery applies to host RPCs unchanged."""
+
+    __slots__ = ("_future",)
+
+    def __init__(self, future):
+        self._future = future
+
+    def synchronize(self):
+        wait([self._future])
+
+    def rows(self):
+        return self._future.result()
+
+
+class _Pending:
+    __slots__ = ("ids", "versions", "handle", "pending")
+
+    def __init__(self, ids, versions, handle, pending):
+        self.ids = ids
+        self.versions = versions
+        self.handle = handle
+        self.pending = pending
+
+
+class EmbeddingPrefetcher:
+    """Prefetch stage over a `PSClient` (pass `table=`) or a
+    `HeterPSCache` (table implied; pulls ride the tiered cache and its
+    membership-change invalidation).
+
+        pf = EmbeddingPrefetcher(cache)            # or (client, table=..)
+        pf.prefetch(ids_of_batch_0)
+        for step in range(n):
+            rows = pf.get(batch_ids(step))         # [len(ids), dim]
+            pf.prefetch(batch_ids(step + 1))       # overlaps the rest
+            grads = dense_step(rows)               # of this iteration
+            pf.push_grad(batch_ids(step), grads)
+        pf.close()
+
+    `get()` on ids that were never prefetched (cold start, resumed
+    loop) degrades to a synchronous pull — same values, no overlap.
+    """
+
+    def __init__(self, source, table=None, depth=None,
+                 name="ps.embed/prefetch", device=None):
+        from ...device import resolve_device
+        from ...static.pipeline_runner import InflightDriver
+        self._source = source
+        self._table = table
+        is_cache = hasattr(source, "push_grad") and hasattr(source, "dev")
+        if not is_cache and table is None:
+            raise ValueError(
+                "EmbeddingPrefetcher over a raw client needs table=")
+        self._is_cache = is_cache
+        # where get()'s rows land: the cache's device, else `device`
+        # (None: the current device — the card unless set_device('cpu'))
+        self._device = source.dev.device if is_cache \
+            else resolve_device(device)
+        self._depth = int(_flag("PADDLE_PS_PREFETCH_DEPTH")
+                          if depth is None else depth)
+        self._name = name
+        self._driver = InflightDriver(name=name, max_inflight=self._depth)
+        # ONE puller thread: pulls execute in submission order, so the
+        # window drains oldest-first exactly like the training pipeline
+        self._pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ps-embed-prefetch")
+        self._queue: deque[_Pending] = deque()
+        self._versions: dict[int, int] = {}
+        self._vlock = threading.Lock()
+        self._closed = False
+        # overlap accounting
+        self._n_prefetched = 0
+        self._n_sync = 0
+        self._conflict_rows = 0
+        self._wait_s = 0.0
+        self._pull_s = 0.0
+
+    # ------------------------------------------------------------ plumbing
+    def _pull_rows(self, ids):
+        """Input-order [len(ids), dim] f32 rows from the source, a tensor
+        on the trainer's device."""
+        import torch
+        if self._is_cache:
+            rows, inv = self._source.pull(ids)
+            return rows.float()[torch.as_tensor(
+                np.asarray(inv).reshape(-1), device=rows.device)]
+        rows = np.asarray(self._source.pull_sparse(self._table, ids),
+                          np.float32)
+        return torch.from_numpy(rows).to(self._device)
+
+    def _materialize(self, entry):
+        """The rows of a prefetched entry; a failed pull raises
+        PipelineStepError naming its prefetch step."""
+        from ...static.pipeline_runner import PipelineStepError
+        idx = entry.handle.step_index
+        self._driver._verify_through(idx)
+        try:
+            return entry.pending.rows()
+        except Exception as e:
+            raise PipelineStepError(idx, e) from e
+
+    def _timed_pull(self, ids):
+        t0 = time.perf_counter()
+        rows = self._pull_rows(ids)
+        self._pull_s += time.perf_counter() - t0
+        return rows
+
+    # ------------------------------------------------------------- the API
+    def prefetch(self, ids):
+        """Queue an async pull of `ids` (any int shape; flattened). The
+        bounded window applies backpressure: past
+        PADDLE_PS_PREFETCH_DEPTH in-flight batches, this blocks on the
+        oldest one."""
+        if self._closed:
+            raise RuntimeError("EmbeddingPrefetcher is closed")
+        ids = np.asarray(ids, np.int64).reshape(-1).copy()
+        entry = _Pending(ids, None, None, None)
+        with self._vlock:
+            # snapshot + window-open are ONE atomic step: a concurrent
+            # note_pushed (Communicator thread) must either land in this
+            # snapshot or see the queue non-empty and version-bump — a
+            # gap between the two would let a push slip past both and
+            # serve its pre-push rows
+            entry.versions = {int(i): self._versions.get(int(i), 0)
+                              for i in dict.fromkeys(int(x) for x in ids)}
+            self._queue.append(entry)
+        try:
+            future = self._pool.submit(self._timed_pull, ids)
+            entry.pending = _PendingPull(future)
+            _, handles = self._driver.submit(
+                lambda: (None, [entry.pending]), ids=int(ids.size))
+            entry.handle = handles[0]
+        except BaseException:
+            with self._vlock:
+                if entry in self._queue:
+                    self._queue.remove(entry)
+            raise
+        self._n_prefetched += 1
+        _monitor.stat_add("ps.embed.prefetches")
+        return entry.handle
+
+    def get(self, ids):
+        """Rows for `ids`, bitwise-equal to a synchronous pull NOW.
+        Consumes the oldest prefetched batch matching `ids`; queued
+        batches the trainer skipped past are ABANDONED (FIFO: they will
+        never be asked for again — leaving them would pin the window
+        head and kill overlap for the rest of the run), and an empty /
+        non-matching queue degrades to a synchronous pull. Raises
+        PipelineStepError (naming the prefetch step) if the async pull
+        died — the queue is then drained and the driver rebuilt, so the
+        caller may retry synchronously and later prefetches start on a
+        clean window."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        with self._vlock:
+            while self._queue and not np.array_equal(self._queue[0].ids,
+                                                     ids):
+                self._queue.popleft()
+                _monitor.stat_add("ps.embed.abandoned")
+            entry = self._queue[0] if self._queue else None
+            if entry is None:
+                self._versions.clear()         # no snapshots left
+        if entry is None:
+            self._n_sync += 1
+            _monitor.stat_add("ps.embed.sync_pulls")
+            return self._pull_rows(ids)
+        t0 = time.perf_counter()
+        try:
+            rows = self._materialize(entry)    # PipelineStepError here
+        except BaseException:
+            # the failure is SURFACED right here; every other queued
+            # batch rides the same poisoned driver (InflightDriver
+            # failures are sticky by design), so drain them and start a
+            # fresh window — one transient pull error must not turn
+            # every later prefetch into a dead handle
+            with self._vlock:
+                self._queue.clear()
+                self._versions.clear()
+            self._driver = type(self._driver)(name=self._name,
+                                              max_inflight=self._depth)
+            raise
+        self._wait_s += time.perf_counter() - t0
+        # conflict fix-up: ids pushed since the prefetch snapshot are
+        # stale in `rows` — re-pull exactly those, synchronously. The
+        # entry leaves the queue only WITH its stale check, atomically:
+        # note_pushed must keep recording versions for as long as this
+        # snapshot can still be compared, else a concurrent Communicator
+        # push could slip between a pop and the check and its pre-push
+        # rows would be served
+        with self._vlock:
+            stale = [i for i, v in entry.versions.items()
+                     if self._versions.get(i, 0) != v]
+            self._queue.popleft()              # window closes HERE
+            if not self._queue:
+                # steady-state bound: the canonical get -> prefetch ->
+                # push loop empties the queue at every pop, so the
+                # version table resets each step instead of growing
+                # toward the vocab
+                self._versions.clear()
+            elif len(self._versions) > 64 + 8 * sum(
+                    len(e.versions) for e in self._queue):
+                # deep-window bound: drop keys no live snapshot can
+                # compare against (a future snapshot re-reads 0 and
+                # bumps only grow, so no stale comparison can pass)
+                live = set()
+                for e in self._queue:
+                    live.update(e.versions)
+                self._versions = {i: v for i, v in self._versions.items()
+                                  if i in live}
+        if stale:
+            import torch
+            fresh = self._pull_rows(np.asarray(stale, np.int64))
+            lookup = {i: k for k, i in enumerate(stale)}
+            sel = np.asarray([lookup.get(int(i), -1) for i in ids],
+                             np.int64)
+            mask = sel >= 0
+            rows = rows.clone()
+            rows[torch.as_tensor(mask, device=rows.device)] = fresh[
+                torch.as_tensor(sel[mask], device=fresh.device)]
+            self._conflict_rows += int(mask.sum())
+            _monitor.stat_add("ps.embed.conflict_repulls", len(stale))
+        return rows
+
+    def push_grad(self, ids, grads):
+        """Push through the underlying stack, then version-bump the ids
+        so any in-flight prefetch that saw their pre-push value gets
+        fixed up at get()."""
+        if self._is_cache:
+            self._source.push_grad(ids, grads)
+        else:
+            self._source.push_sparse_grad(self._table, ids, grads)
+        self.note_pushed(ids)
+
+    def note_pushed(self, ids):
+        """Record an out-of-band push of `ids` (a Communicator batch, a
+        peer worker you synchronize with, ...) for conflict tracking."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        with self._vlock:
+            if not self._queue:
+                # no in-flight prefetch snapshot can reference any
+                # version, so none needs recording — and the stale table
+                # can go. This bounds _versions by the ids pushed inside
+                # one prefetch window, not by the (pod-scale) vocab.
+                self._versions.clear()
+                return
+            for i in ids:
+                i = int(i)
+                self._versions[i] = self._versions.get(i, 0) + 1
+
+    # ------------------------------------------------------------- admin
+    def sync(self):
+        """Materialize every in-flight prefetch (PipelineStepError on
+        the first failure, naming its step)."""
+        self._driver.sync()
+        for entry in list(self._queue):
+            if entry.pending is not None:
+                self._materialize(entry)
+
+    def stats(self):
+        return {"prefetched": self._n_prefetched,
+                "sync_pulls": self._n_sync,
+                "conflict_rows": self._conflict_rows,
+                "wait_s": self._wait_s,
+                "pull_s": self._pull_s,
+                "overlap_ratio": self.overlap_ratio}
+
+    @property
+    def overlap_ratio(self):
+        """Fraction of background pull time the caller did NOT wait for
+        (1.0 = pulls fully hidden behind the dense step)."""
+        if self._pull_s <= 0.0:
+            return 0.0
+        return max(0.0, 1.0 - self._wait_s / self._pull_s)
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            self.sync()
+        finally:
+            self._pool.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

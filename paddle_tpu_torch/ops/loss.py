@@ -174,9 +174,14 @@ def binary_cross_entropy(input, label, weight=None,  # noqa: A002
 
 
 def _sigmoid_ce(x, label):
-    """max(x, 0) - x * label + log1p(exp(-|x|))."""
-    return torch.add(torch.sub(torch.clamp_min(x, 0.0), torch.mul(x, label)),
-                     torch.log1p(torch.exp(torch.neg(torch.abs(x)))))
+    """max(x, 0) - x * label + log1p(exp(-|x|)), with the JAX package's
+    subgradients at x = 0: ``maximum`` splits a tie (0.5 each side, as
+    ``torch.maximum`` does; ``clamp_min`` would pass 1) and ``|x|`` has
+    slope 1 there (``torch.abs`` has 0)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    abs_x = torch.where(torch.ge(x, 0), x, torch.neg(x))
+    return torch.add(torch.sub(torch.maximum(x, zero), torch.mul(x, label)),
+                     torch.log1p(torch.exp(torch.neg(abs_x))))
 
 
 @defop

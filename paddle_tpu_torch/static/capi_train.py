@@ -19,8 +19,13 @@ definitions and optimizer object) and its state into one file. ``create``
 reads such a file too, without importing jax or the JAX package: every
 class of the JAX package, jax or jaxlib in it unpickles as a stand-in
 that keeps its pickled state (``_Shim``), and ``_from_jax`` rebuilds the
-program from those states (ops by registry name, the kwargs' jax tree
-definitions unflattened, the optimizer by class name with its settings).
+program from those states (ops by registry name, control flow's
+``cond`` / ``while_loop`` ops with their sub-blocks as the port's
+``static/control_flow.py`` ones, the kwargs' jax tree definitions
+unflattened, the optimizer by class name with its settings: the weight
+decay, the gradient clip, an ``lr.LRScheduler`` with its state, and the
+parameters' ``ParamAttr`` regularizers come across as the port's objects
+of the same class and attributes, ``_rebuild``).
 The JAX package cannot read the port's artifact: it would need the
 port to write jax's private pickled objects. The C ABI itself
 (``_native``'s ``train_capi.c``) is ROADMAP Queue 1 item 9.
@@ -264,6 +269,7 @@ def _from_jax(path, device):
     from .. import optimizer as optim
     from ..core.dtype import to_torch_dtype
     from ..ops import OP_REGISTRY
+    from . import control_flow as cf
     from .executor import Executor
     from .program import OpNode, Program, Scope, Variable, _Ref
     with open(path, "rb") as f:
@@ -288,8 +294,7 @@ def _from_jax(path, device):
                 if k in f:
                     setattr(v, k, f[k])
             if f.get("regularizer") is not None:
-                raise NotImplementedError(
-                    "a parameter regularizer in a JAX train artifact")
+                v.regularizer = _rebuild(f["regularizer"])
             by_id[vid] = v
         return by_id[vid]
 
@@ -313,23 +318,40 @@ def _from_jax(path, device):
             return {k: value(v) for k, v in x.items()}
         return x
 
-    for shim in pf["ops"]:
+    def block(shim):
+        f = shim.fields()
+        return cf.SubBlock([node(o) for o in f["ops"]], f["in_ids"],
+                           f["free_ids"], f["out_ids"])
+
+    def kernel(name, fn):
+        if isinstance(fn, tuple) and fn[0] == "opreg":
+            return OP_REGISTRY[fn[1]].raw
+        qual = getattr(fn, "qual", "")
+        if qual.endswith("control_flow._CondFn"):
+            f = fn.fields()
+            return cf._CondFn(block(f["true_block"]), block(f["false_block"]))
+        if qual.endswith("control_flow._WhileFn"):
+            f = fn.fields()
+            return cf._WhileFn(block(f["cond_block"]), block(f["body_block"]),
+                               f["n_loop"], f.get("max_trip"))
+        raise NotImplementedError(
+            f"op '{name}' of a JAX train artifact is neither a registry op "
+            f"nor cond / while_loop ({qual or type(fn).__name__})")
+
+    def node(shim):
         f = shim.state
-        fn = f["fn"]
-        if not (isinstance(fn, tuple) and fn[0] == "opreg"):
-            raise NotImplementedError(
-                f"op '{f['name']}' of a JAX train artifact is not a "
-                "registry op (control flow is read from .pdmodel files)")
         flat = [value(x) for x in f["flat"]]
         n = f["n_args"]
         kwargs = _unflatten(f["kw_tree"].state[1], flat[n:])
         leaves, kw_tree = pytree.tree_flatten(kwargs)
         op = OpNode.__new__(OpNode)
-        op.fn, op.name = OP_REGISTRY[fn[1]].raw, f["name"]
+        op.fn, op.name = kernel(f["name"], f["fn"]), f["name"]
         op.flat, op.n_args, op.kw_tree = flat[:n] + leaves, n, kw_tree
         op.out_vars = [var(v) for v in f["out_vars"]]
         op.out_ids = list(f["out_ids"])
-        program.ops.append(op)
+        return op
+
+    program.ops.extend(node(shim) for shim in pf["ops"])
     program.data_vars = {k: var(v) for k, v in pf["data_vars"].items()}
     program.persistable_vars = {k: var(v) for k, v in
                                 pf["persistable_vars"].items()}
@@ -350,11 +372,11 @@ def _from_jax(path, device):
         oshim = opt_sec[0]
         cls = getattr(optim, type(oshim).__name__)
         of = oshim.fields()
-        opt = cls(learning_rate=of["_learning_rate"])
+        opt = cls(learning_rate=_rebuild(of["_learning_rate"]))
         for k, v in of.items():
             if k in opt.__dict__ and (v is None or isinstance(
-                    v, (bool, int, float, str))):
-                setattr(opt, k, v)
+                    v, (bool, int, float, str, _Shim))):
+                setattr(opt, k, _rebuild(v))
         opt._slots = {n: {k: _tensor(_array(x), device)
                           for k, x in d.items()}
                       for n, d in of.get("_slots", {}).items()}
@@ -366,6 +388,34 @@ def _from_jax(path, device):
         scope.set(name, _tensor(_array(val), device))
     return {"program": program, "exe": Executor(), "scope": scope,
             "feed_names": list(program.data_vars), "loss": loss}
+
+
+# The JAX package's modules whose pickled objects (weight decay, gradient
+# clips, LR schedulers) the port rebuilds as its own: plain attribute bags
+# with the same attributes in both packages.
+_REBUILT = ("paddle_tpu.regularizer", "paddle_tpu.optimizer.lr",
+            "paddle_tpu.optimizer.clip")
+
+
+def _rebuild(x):
+    """A pickled regularizer, gradient clip or LR scheduler of the JAX
+    package (a ``_Shim``) as the port's object of the same class, its
+    attributes (a scheduler's state among them) copied; nested ones too
+    (``LinearWarmup``'s inner scheduler). Anything else as it is."""
+    import importlib
+    if isinstance(x, (list, tuple)):
+        return type(x)(_rebuild(v) for v in x)
+    if not isinstance(x, _Shim):
+        return x
+    module, _, name = x.qual.rpartition(".")
+    if module not in _REBUILT:
+        raise NotImplementedError(
+            f"{x.qual} in a JAX train artifact's optimizer")
+    cls = getattr(importlib.import_module(
+        "paddle_tpu_torch" + module[len("paddle_tpu"):]), name)
+    obj = cls.__new__(cls)
+    obj.__dict__.update({k: _rebuild(v) for k, v in x.fields().items()})
+    return obj
 
 
 def _tensor(arr, device):

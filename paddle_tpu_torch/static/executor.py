@@ -36,13 +36,15 @@ device-resident carry).
 No ``torch.compile`` and no CUDA graphs: ``torch.compile`` cannot trace
 the kernels' ctypes launches, and graph capture of the replay is host-time
 work for later. ``data_parallel`` over more than one device and recompute
-(ROADMAP Queue 1 item 7) and ``train_from_dataset(ps_config=...)`` (item
-8's parameter-server tier) raise NotImplementedError naming the item.
+(ROADMAP Queue 1 item 7) raise NotImplementedError naming the item.
 
 ``train_from_dataset`` / ``infer_from_dataset`` drive a dataset's
 batches (``io/fleet_dataset.py``, ``dataset/streaming.py``): through a
 ``PipelineRunner`` when the in-flight depth is above 0, else one
-``run`` a batch.
+``run`` a batch. With ``ps_config`` the parameter-server loop
+(``_DownpourDriver``: sync Downpour or the online mode) runs one ``run`` a
+batch whatever the depth, as the JAX package's does: its pull before and
+push after every batch read and write the scope.
 
 Counters (``core/monitor``): ``executor/lowerings`` (one per prepared
 replay), ``executor/runs``, ``executor/cache_evictions``,
@@ -69,7 +71,6 @@ __all__ = ["Executor", "CompiledProgram", "BuildStrategy",
            "ExecutionStrategy"]
 
 _ITEM7 = "ROADMAP Queue 1 item 7 (distributed)"
-_ITEM8_PS = "ROADMAP Queue 1 item 8's parameter-server tier (distributed/ps)"
 
 
 class BuildStrategy:
@@ -323,14 +324,30 @@ class Executor:
         ``fetch_handler(batch_number, fetches)`` (the reference's
         parameter; the JAX package has none) is called after every batch
         with its fetches: lazy ``FetchHandle``s on the pipelined path, so
-        a handler that keeps them adds no sync. ``ps_config`` (the
-        Downpour / online modes) is the parameter-server tier's. Returns
-        None, as the JAX package's does."""
+        a handler that keeps them adds no sync. Returns None, as the JAX
+        package's does.
+
+        ``ps_config`` enables the Downpour loop (reference
+        framework/downpour_worker.cc: pull sparse rows before each batch,
+        run, push sparse grads after):
+          {"client": PSClient, "communicator": Communicator | None,
+           "sparse": [{"param": var_name, "slot": feed_slot,
+                       "table": table_name}]}
+        PS-managed params are pulled into the scope for the batch's ids,
+        the rows of their grads are pushed as (ids, rows) pairs, and they
+        leave the program's local optimizer section — the server's
+        accessor owns the update rule. ``{"mode": "online", ...}`` is the
+        continuous variant (docs/online_learning.md): the params keep the
+        local optimizer and accumulated deltas flow to a "geo_sparse"
+        table through replay-keyed ``push_sparse_delta`` every
+        "sync_every" batches under the PADDLE_ONLINE_STALENESS_BATCHES
+        bound. Either mode runs one ``run`` a batch."""
         if dataset is None:
             raise ValueError("train_from_dataset requires a dataset")
-        if ps_config:
-            raise NotImplementedError(f"train_from_dataset(ps_config=...) "
-                                      f"needs {_ITEM8_PS}")
+        program_ = program.program if isinstance(program, CompiledProgram) \
+            else program
+        dp = _DownpourDriver(program_ or default_main_program(), scope,
+                             ps_config) if ps_config else None
         base_fetch = list(fetch_list or [])
         names = fetch_info or [getattr(f, "name", str(f))
                                for f in base_fetch]
@@ -359,7 +376,7 @@ class Executor:
                 print(f"batch {it}: {msg}")
 
         it = start_batch
-        if inflight > 0:
+        if dp is None and inflight > 0:
             from .pipeline_runner import PipelineRunner
             with PipelineRunner(
                     self, program, fetch_list=base_fetch, scope=scope,
@@ -372,11 +389,21 @@ class Executor:
                     report(it, handles)
             return None
         for feed in batches():
-            outs = self.run(program, feed=feed, fetch_list=base_fetch,
-                            scope=scope)
+            if dp is None:
+                outs = self.run(program, feed=feed, fetch_list=base_fetch,
+                                scope=scope)
+            else:
+                feed = dp.pre_step(feed)
+                outs = self.run(program, feed=feed,
+                                fetch_list=base_fetch + dp.grad_fetches,
+                                scope=scope, return_numpy=False)
+                dp.post_step(outs[len(base_fetch):])
+                outs = [_numpy(o) for o in outs[:len(base_fetch)]]
             _monitor.stat_add("executor/dataset_batches")
             it += 1
             report(it, outs)
+        if dp is not None:
+            dp.flush()
         return None
 
     def infer_from_dataset(self, program=None, dataset=None, scope=None,
@@ -601,3 +628,260 @@ def _numpy(f):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
+
+
+class _DownpourDriver:
+    """Per-batch sparse pull / push around the step (paddle_tpu/static/
+    executor.py:702; reference framework/downpour_worker.cc
+    FillSparseValue / push_sparse).
+
+    The PS-managed embedding param stays a scope tensor on the device;
+    before each batch the rows the batch touches are pulled from the
+    server into it (one host-to-device copy), after the step those rows
+    of its gradient are pushed back (one device-to-host copy of just
+    those rows), optionally through the async Communicator. The param
+    leaves the local optimizer section: the server-side accessor
+    (sgd / adagrad / adam) owns the update.
+
+    mode="online" is the CONTINUOUS Downpour / Geo variant that closes
+    the serve -> train loop (docs/online_learning.md): the param KEEPS
+    its local optimizer, and what flows to the server is the accumulated
+    LOCAL DELTA, pushed through `push_sparse_delta` against a
+    "geo_sparse" table every `sync_every` batches. Each cut payload
+    carries a stable request key ("online", trainer id, flush sequence),
+    so a flush retried across transport faults, server failover, or a
+    trainer restart (with the client's replay state restored) applies
+    EXACTLY ONCE. A failing flush is deferred and retried at the next
+    cadence up to the staleness bound (PADDLE_ONLINE_STALENESS_BATCHES),
+    then the error propagates (fail-stop). A spec's "prefetcher"
+    (EmbeddingPrefetcher) routes pulls through the prefetch / conflict
+    machinery and gets `note_pushed` after every acked flush.
+    `flush_log` records every cut payload (spec, seq, ids)."""
+
+    def __init__(self, program, scope, ps_config):
+        self.scope = scope or global_scope()
+        self.client = ps_config["client"]
+        self.comm = ps_config.get("communicator")
+        self.mode = ps_config.get("mode", "sync")
+        if self.mode not in ("sync", "online"):
+            raise ValueError(f"ps_config mode {self.mode!r} "
+                             f"(want 'sync' or 'online')")
+        self.online = self.mode == "online"
+        self.specs = [dict(s) for s in ps_config.get("sparse", [])]
+        for s in self.specs:
+            target = s["param"]
+            pv = next((v for v in program.persistable_vars.values()
+                       if v.name == target
+                       or getattr(v, "scope_name", None) == target), None)
+            if pv is None:
+                raise ValueError(
+                    f"ps_config param {target!r} is not a persistable var "
+                    f"of the program")
+            s["_name"] = pv.name
+            s["_scope"] = getattr(pv, "scope_name", None) or pv.name
+        ps_names = {s["_name"] for s in self.specs}
+        if program.optimizer_section and not self.online:
+            opt, pairs = program.optimizer_section
+            keep = [(p, g) for p, g in pairs if p.name not in ps_names]
+            if len(keep) != len(pairs):
+                program.optimizer_section = (opt, keep)
+                program._version += 1
+        self.grad_fetches = []
+        if not self.online:
+            bw = getattr(program, "backward_section", None)
+            bw_pairs = bw[1] if bw else []
+            for s in self.specs:
+                gvar = next((g for p, g in bw_pairs
+                             if p.name == s["_name"]), None)
+                if gvar is None:
+                    raise ValueError(
+                        f"ps_config param {s['param']!r} has no grad var "
+                        "— run minimize()/append_backward over it")
+                self.grad_fetches.append(gvar)
+        else:
+            self.sync_every = int(
+                ps_config.get("sync_every")
+                or _flags.flag("PADDLE_ONLINE_SYNC_EVERY"))
+            self.staleness = max(
+                int(ps_config.get("staleness_batches")
+                    or _flags.flag("PADDLE_ONLINE_STALENESS_BATCHES")),
+                self.sync_every)
+            self.trainer_id = int(ps_config.get("trainer_id", 0))
+            self.on_batch = ps_config.get("on_batch")
+            self._pending = [{} for _ in self.specs]  # id -> delta row
+            self._frozen = [None] * len(self.specs)   # unacked payload
+            self._flush_seq = [0] * len(self.specs)
+            self._unflushed = 0       # batches past last acked flush
+            self._batch_count = 0
+            self.flush_log = []       # (spec_idx, seq, ids) of payloads
+            if ps_config.get("state"):
+                self.load_online_state(ps_config["state"])
+        self._pulled = [None] * len(self.specs)
+        self._before = [None] * len(self.specs)
+
+    def pre_step(self, feed):
+        for i, s in enumerate(self.specs):
+            ids = _numpy(feed[s["slot"]]).reshape(-1)
+            uniq = np.unique(ids.astype(np.int64))
+            w = self.scope.get(s["_scope"])
+            pf = s.get("prefetcher")
+            if self.online and pf is not None:
+                pf.prefetch(uniq)
+                rows = pf.get(uniq).to(w.device, torch.float32)
+            else:
+                rows = torch.from_numpy(np.asarray(
+                    self.client.pull_sparse(s["table"], uniq),
+                    np.float32)).to(w.device)
+            idx = torch.as_tensor(uniq, device=w.device)
+            if self.online:
+                # local view = server rows + this worker's un-acked
+                # progress (pending accumulation, then any frozen payload
+                # still in retry) — Downpour: the worker trains on its
+                # own freshest rows, the server sees deltas at flush
+                rows = self._add_rows(rows, uniq, self._pending[i])
+                frozen = self._frozen[i]
+                if frozen is not None:
+                    rows = self._add_rows(rows, uniq, {
+                        int(x): frozen[2][k]
+                        for k, x in enumerate(frozen[1])})
+                self._before[i] = rows
+            with torch.no_grad():
+                w[idx] = rows.to(w.dtype)
+            self._pulled[i] = uniq
+        return feed
+
+    @staticmethod
+    def _add_rows(rows, uniq, by_id):
+        """rows + by_id's row for each id of uniq that has one (the rest
+        untouched, so no -0.0 turns into 0.0), in one host-to-device copy."""
+        pos = [j for j, ident in enumerate(uniq.tolist()) if ident in by_id]
+        if not pos:
+            return rows
+        add = torch.from_numpy(np.stack(
+            [by_id[int(uniq[j])] for j in pos])).to(rows.device)
+        sel = torch.as_tensor(pos, device=rows.device)
+        rows = rows.clone()
+        rows[sel] = rows[sel] + add
+        return rows
+
+    def post_step(self, grad_outs):
+        if not self.online:
+            for s, uniq, g in zip(self.specs, self._pulled, grad_outs):
+                rows_g = _numpy(g[torch.as_tensor(uniq, device=g.device)])
+                if self.comm is not None:
+                    self.comm.push_sparse(s["table"], uniq, rows_g)
+                else:
+                    self.client.push_sparse_grad(s["table"], uniq, rows_g)
+            return
+        for i, s in enumerate(self.specs):
+            uniq = self._pulled[i]
+            w = self.scope.get(s["_scope"])
+            after = w[torch.as_tensor(uniq, device=w.device)].float()
+            delta = _numpy(after - self._before[i])
+            pend = self._pending[i]
+            for j, ident in enumerate(uniq.tolist()):
+                d = pend.get(ident)
+                pend[ident] = delta[j].copy() if d is None \
+                    else d + delta[j]
+        self._unflushed += 1
+        self._batch_count += 1
+        self._maybe_flush()
+        if self.on_batch is not None:
+            self.on_batch(self)
+
+    # -- online (continuous Downpour) flush machinery -----------------------
+    def _maybe_flush(self, force=False):
+        if not force and self._unflushed < self.sync_every:
+            _monitor.stat_set("ps.online.staleness_batches",
+                              self._unflushed)
+            return
+        try:
+            self._push_all()
+            self._unflushed = 0
+        except (ConnectionError, OSError, RuntimeError):
+            # transient PS trouble (chaos, failover in progress): defer
+            # to the next cadence — but only inside the staleness bound
+            _monitor.stat_add("ps.online.deferred_flushes")
+            if force or self._unflushed >= self.staleness:
+                raise
+        _monitor.stat_set("ps.online.staleness_batches",
+                          self._unflushed)
+
+    def _push_all(self):
+        for i, s in enumerate(self.specs):
+            if self._frozen[i] is not None:
+                # retry the frozen payload FIRST, under its original
+                # request key — if the failed attempt actually applied
+                # server-side, the replay cache swallows this resend
+                seq, fids, fdeltas = self._frozen[i]
+                self._push_payload(s, seq, fids, fdeltas)
+                self._frozen[i] = None
+            pend = self._pending[i]
+            if not pend:
+                continue
+            ids = np.fromiter(sorted(pend), np.int64, len(pend))
+            deltas = np.stack([pend[int(x)] for x in ids])
+            seq = self._flush_seq[i]
+            self._flush_seq[i] += 1
+            # the payload is CUT here: logged once, then pushed under a
+            # stable key until acked — the log IS the delta schedule
+            self.flush_log.append((i, seq, tuple(int(x) for x in ids)))
+            self._pending[i] = {}
+            self._frozen[i] = (seq, ids, deltas)
+            self._push_payload(s, seq, ids, deltas)
+            self._frozen[i] = None
+
+    def _push_payload(self, s, seq, ids, deltas):
+        self.client.push_sparse_delta(
+            s["table"], ids, deltas,
+            request_key=("online", self.trainer_id, int(seq)))
+        pf = s.get("prefetcher")
+        if pf is not None:
+            pf.note_pushed(ids)
+        _monitor.stat_add("ps.online.flushes")
+        _monitor.stat_add("ps.online.delta_rows", len(ids))
+
+    def online_state(self):
+        """Checkpoint payload of the continuous trainer: un-pushed
+        accumulation, any frozen (cut, unacked) payloads with their flush
+        sequence numbers, and the client's replay identity — a restarted
+        trainer restoring this (plus the dataset's state_dict) resumes
+        the EXACT delta schedule, and resent payloads dedupe
+        server-side. The same plain-container format as the JAX
+        package's."""
+        return {
+            "flush_seq": list(self._flush_seq),
+            "unflushed": int(self._unflushed),
+            "batch_count": int(self._batch_count),
+            "pending": [{int(k): v.tolist() for k, v in p.items()}
+                        for p in self._pending],
+            "frozen": [None if f is None else
+                       [int(f[0]), np.asarray(f[1]).tolist(),
+                        np.asarray(f[2]).tolist()] for f in self._frozen],
+            "flush_log": [[i, seq, list(ids)]
+                          for i, seq, ids in self.flush_log],
+            "replay": self.client.replay_state(),
+        }
+
+    def load_online_state(self, state):
+        self._flush_seq = [int(x) for x in state["flush_seq"]]
+        self._unflushed = int(state["unflushed"])
+        self._batch_count = int(state["batch_count"])
+        self._pending = [
+            {int(k): np.asarray(v, np.float32) for k, v in p.items()}
+            for p in state["pending"]]
+        self._frozen = [
+            None if f is None else
+            (int(f[0]), np.asarray(f[1], np.int64),
+             np.asarray(f[2], np.float32)) for f in state["frozen"]]
+        self.flush_log = [(int(i), int(seq), tuple(ids))
+                          for i, seq, ids in state["flush_log"]]
+        self.client.load_replay_state(state["replay"])
+
+    def flush(self):
+        if self.online:
+            # end of stream: push everything, fail-stop on error
+            self._maybe_flush(force=True)
+            return
+        if self.comm is not None:
+            self.comm.flush()

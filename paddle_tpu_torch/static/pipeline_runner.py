@@ -190,7 +190,12 @@ class _Inflight:
 
 def _step_event(tensors, device=None):
     """A CUDA event recorded after the step's work (on ``device``'s or
-    the first CUDA tensor's current stream), or None on the CPU."""
+    the first CUDA tensor's current stream), or None on the CPU. A
+    host-side step (a PS pull, distributed/ps/embedding.py) hands in a
+    fetch with its own ``synchronize``, which is its event."""
+    for f in tensors:
+        if not isinstance(f, torch.Tensor) and hasattr(f, "synchronize"):
+            return f
     if device is None:
         for f in tensors:
             if isinstance(f, torch.Tensor) and f.is_cuda:

@@ -2,8 +2,8 @@
 (paddle_tpu/testing).
 
 ``faults`` scripts seeded fault injection at the boundaries that consult
-``distributed/ps/rpc._fault``: the serve loop's scheduler beat here, the
-PS transport and the streaming dataset once item 8 ports them.
+``distributed/ps/rpc._fault``: the serve loop's scheduler beat, the PS
+transport's frame boundaries and the streaming dataset's deliveries.
 """
 from . import faults
 

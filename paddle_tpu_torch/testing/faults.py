@@ -1,10 +1,9 @@
 """Deterministic fault injection (paddle_tpu/testing/faults.py, whole).
 
-In the port the serve loop consults the process-global injector at its
-scheduler beat, ("serve", "beat", "tick") (inference/serving.py): a
-scripted STALL there delays one beat, and a RESET there is absorbed.
-The PS transport and the streaming dataset, ROADMAP Queue 1 item 8,
-consult it at these boundaries once ported:
+The serve loop consults the process-global injector at its scheduler
+beat, ("serve", "beat", "tick") (inference/serving.py): a scripted STALL
+there delays one beat, and a RESET there is absorbed. The PS transport
+(distributed/ps/rpc.py) consults it at four boundaries:
 
     ("client", "dial", endpoint) before a (re)connect — note the third
                                  field is the ENDPOINT, not a method, so
@@ -28,9 +27,8 @@ LATENCY-SKEW rule — that one server is slow (every call to it stalls),
 the rest of the cluster is healthy. Slow-shard is a different failure
 mode than dead-shard: nothing retries, nothing fails over; the tail
 latency just lands on whoever waits for that shard synchronously — the
-prefetch stage exists to absorb exactly this (tests/
-test_ps_sharded_embedding.py proves it absorbs it WITHOUT changing
-results).
+prefetch stage (distributed/ps/embedding.py) exists to absorb exactly
+this, WITHOUT changing results.
 
 An injector decides per event whether to fault. Faults are either
 SCRIPTED — an ordered list of `Fault` rules with after/times counters, so

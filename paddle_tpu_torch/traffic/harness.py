@@ -8,14 +8,12 @@ drives traffic at the system.
   mid-run and record the latency until a monitor counter ticks.
 - `run_spec`: the closed loop: replay a `workload.WorkloadSpec` schedule
   through a ServeLoop (the tiny GPT's, or the caller's `loop=`) and score
-  it from the monitor's histograms with core/slo.py's estimator.
+  it with core/slo.py's estimator: from a TelemetryHub's merged
+  histograms and counters when one is passed (`hub=`; serve metrics ship
+  there through a TelemetryShipper), else from the local monitor's.
 
 - `Window`: a shared `dataset/streaming.StreamingDataset` handed to
   `Executor.train_from_dataset` a fixed number of batches at a time.
-
-Left to ROADMAP Queue 1 item 8: `run_spec(hub=...)` (the TelemetryHub of
-core/telemetry.py as the scorekeeper, which needs the PS tier's
-`rpc.serve`) raises NotImplementedError naming it.
 """
 from __future__ import annotations
 
@@ -223,7 +221,7 @@ class Window:
 
 
 # ---------------------------------------------------------------------------
-# closed-loop spec replay, scored by the monitor
+# closed-loop spec replay, scored by the monitor or a TelemetryHub
 # ---------------------------------------------------------------------------
 
 @dataclass
@@ -253,6 +251,29 @@ class HarnessReport:
         return dict(self.__dict__)
 
 
+def _hub_observed(hub_snapshot):
+    """p50/p99 + counters out of a TelemetryHub snapshot's merged
+    histograms — the hub, not the client, is the scorekeeper."""
+    from ..core import slo
+    hists = hub_snapshot.get("hists", {})
+    counters = hub_snapshot.get("counters", {})
+
+    def q(name, p):
+        h = hists.get(name)
+        v = slo.hist_quantile(h, p) if h else None
+        return None if v is None else round(float(v), 3)
+
+    return {"ttft_ms": {"p50": q("serve/ttft_ms", 50),
+                        "p99": q("serve/ttft_ms", 99)},
+            "token_ms": {"p50": q("serve/token_ms", 50),
+                         "p99": q("serve/token_ms", 99)},
+            "completed": int(counters.get("serve.requests_completed", 0)),
+            "tokens": int(counters.get("serve.tokens_generated", 0)),
+            "backpressure": int(counters.get("serve.backpressure_waits",
+                                             0)),
+            "preempted": int(counters.get("serve.preempted", 0))}
+
+
 def build_tiny_loop(serve_cfg=None, on_complete=None, device=None):
     """The tiny-GPT ServeLoop every closed-loop drill shapes traffic at,
     on `device` (None: the current device). `serve_cfg` maps ServeConfig
@@ -279,18 +300,14 @@ def run_spec(spec, seed=0, *, loop=None, serve_cfg=None, clients=None,
 
     The schedule is generated deterministically from (spec, seed), paced
     onto the wall clock by `time_scale` (PADDLE_TRAFFIC_TIME_SCALE), and
-    submitted from `clients` threads (PADDLE_TRAFFIC_CLIENTS). The local
-    monitor registry scores the run. `hub=` (a TelemetryHub as the
-    scorekeeper) is ROADMAP Queue 1 item 8 and raises."""
+    submitted from `clients` threads (PADDLE_TRAFFIC_CLIENTS). When a
+    TelemetryHub is passed, serve metrics ship through a TelemetryShipper
+    and the report is computed from the HUB's merged histograms and
+    counters; otherwise the local monitor registry scores the run."""
     from ..core import flags as _flags
     from ..core import monitor
     from ..core import slo
     from . import workload as W
-
-    if hub is not None:
-        raise NotImplementedError(
-            "run_spec(hub=...) needs core/telemetry.py's TelemetryHub, "
-            "ROADMAP Queue 1 item 8")
 
     if clients is None:
         clients = int(_flags.flag("PADDLE_TRAFFIC_CLIENTS"))
@@ -326,6 +343,12 @@ def run_spec(spec, seed=0, *, loop=None, serve_cfg=None, clients=None,
     monitor.ensure_hist("serve/ttft_ms", TTFT_BUCKETS_MS)
     monitor.ensure_hist("serve/token_ms", TOKEN_BUCKETS_MS)
 
+    shipper = None
+    if hub is not None:
+        from ..core import telemetry
+        shipper = telemetry.TelemetryShipper(
+            hub.endpoint, member_id=f"traffic-{spec.name}-{seed}",
+            role="traffic", flush_s=0.2).start()
     loop.start()
     try:
         stats = drive_serve(
@@ -334,6 +357,8 @@ def run_spec(spec, seed=0, *, loop=None, serve_cfg=None, clients=None,
             result_timeout_s=result_timeout_s)
     finally:
         loop.stop()
+        if shipper is not None:
+            shipper.close(drain_timeout=20.0)
 
     report.completed = sum(1 for o in stats.outs if o is not None)
     report.errors = len(stats.errors)
@@ -344,9 +369,18 @@ def run_spec(spec, seed=0, *, loop=None, serve_cfg=None, clients=None,
     report.throughput_rps = round(report.completed
                                   / max(stats.wall_s, 1e-9), 3)
     report.tokens_per_s = round(stats.tokens / max(stats.wall_s, 1e-9), 2)
-    # the bucketed estimator (slo.hist_quantile over the monitor's
-    # histogram) that the JAX package's hub-scored reports use too
+    if hub is not None:
+        obs = _hub_observed(hub.snapshot())
+        report.ttft_ms = obs["ttft_ms"]
+        report.token_ms = obs["token_ms"]
+        report.backpressure_waits = obs["backpressure"]
+        report.preempted = obs["preempted"]
+        report.scored_by = "hub"
+        return report
 
+    # the same bucketed estimator (slo.hist_quantile over the monitor's
+    # histogram) the hub path uses, so "monitor"- and "hub"-scored
+    # reports are comparable sample for sample
     def q(name, p):
         h = monitor.histogram_summary(name)
         v = slo.hist_quantile(h, p) if h else None

@@ -219,3 +219,67 @@ def test_save_train_program_needs_a_backward_section(tmp_path):
             PORT.nn.Linear(3, 1)(x)
     with pytest.raises(ValueError, match="backward"):
         tcapi.save_train_program(main, str(tmp_path / "fwd"))
+
+
+def _linreg_f1(P, kind):
+    """The linear-regression train program with one of Queue 3 F1's
+    optimizer settings or a ``static.nn.cond`` in it."""
+    with static_mode(P) as static:
+        P.paddle.seed(0)
+        main = static.Program("capi_train_f1")
+        with static.program_guard(main, static.Program()):
+            x = static.data("x", [-1, 3], "float32")
+            y = static.data("y", [-1, 1], "float32")
+            attr = P.nn.ParamAttr(
+                regularizer=P.paddle.regularizer.L2Decay(0.1)) \
+                if kind == "param_regularizer" else None
+            net = P.nn.Linear(3, 1, weight_attr=attr, bias_attr=False)
+            out = net(x)
+            if kind == "cond":
+                out = static.nn.cond(P.ops.mean(x) > 0.5,
+                                     lambda: out * 2.0, lambda: out - 1.0)
+            loss = P.ops.mse_loss(out, y)
+            kw, lr = {}, 0.1
+            if kind == "l2_decay":
+                kw["weight_decay"] = P.paddle.regularizer.L2Decay(0.1)
+            elif kind == "l1_decay":
+                kw["weight_decay"] = P.paddle.regularizer.L1Decay(0.1)
+            elif kind == "global_norm_clip":
+                kw["grad_clip"] = P.nn.ClipGradByGlobalNorm(0.05)
+            elif kind == "norm_clip":
+                kw["grad_clip"] = P.nn.ClipGradByNorm(0.05)
+            elif kind == "value_clip":
+                kw["grad_clip"] = P.nn.ClipGradByValue(0.01)
+            elif kind == "step_decay":
+                # three epochs in: the scheduler's state (lr 0.025) must
+                # ride the artifact, not its base rate
+                lr = P.optimizer.lr.StepDecay(0.1, step_size=1, gamma=0.5)
+                for _ in range(2):
+                    lr.step()
+            P.optimizer.SGD(learning_rate=lr, **kw).minimize(loss)
+    return main
+
+
+@pytest.mark.parametrize("kind", [
+    "l2_decay", "l1_decay", "global_norm_clip", "norm_clip", "value_clip",
+    "step_decay", "param_regularizer", "cond"])
+def test_jax_artifact_keeps_optimizer_settings_and_cond(tmp_path, kind):
+    """Queue 3 F1: JAX's train artifact with a weight decay, a gradient
+    clip, an LR scheduler with state, a ParamAttr regularizer or a
+    ``static.nn.cond`` runs in the port's ``create`` with JAX's losses
+    (rtol 1e-5, this file's f32 bound; they differ from the plain
+    program's, so a dropped setting fails)."""
+    rng = np.random.RandomState(0)
+    X = rng.rand(8, 3).astype("float32")
+    Y = X @ rng.randn(3, 1).astype("float32")
+    art = str(tmp_path / "f1.pdprog")
+    jcapi.save_train_program(_linreg_f1(JAX, kind), art)
+    h = jcapi.create(art)
+    want = [jcapi.run_step(h, _inputs(X, Y)) for _ in range(3)]
+    h = tcapi.create(art, device="cpu")
+    got = [tcapi.run_step(h, _inputs(X, Y)) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    jcapi.save_train_program(_linreg_f1(JAX, "plain"), art)
+    h = jcapi.create(art)
+    plain = [jcapi.run_step(h, _inputs(X, Y)) for _ in range(3)]
+    assert not np.allclose(plain[1:], want[1:], rtol=1e-5)

@@ -205,7 +205,9 @@ def test_planted_fault_lines_occur_once():
                        "paddle_tpu_torch/static/pipeline_runner.py",
                        "paddle_tpu_torch/io/fleet_dataset.py",
                        "paddle_tpu_torch/incubate/checkpoint.py",
-                       "paddle_tpu_torch/static/executor.py"}
+                       "paddle_tpu_torch/static/executor.py",
+                       "paddle_tpu_torch/distributed/ps/client.py",
+                       "paddle_tpu_torch/distributed/ps/heter.py"}
 
 
 def test_cpu_wrappers_count_no_launch_of_either_variant():

@@ -183,3 +183,32 @@ def test_sweep_paths_are_keystr_paths():
         {"b": [np.asarray([1.0]), np.asarray([np.nan, np.inf])],
          "a": {"w": np.asarray([np.inf], "float32")}}, "ctx"))
     assert msg == jmsg
+
+
+def test_complex_values_are_not_checked_as_jax():
+    """Queue 3 F2: both packages check floating dtypes only; a complex
+    nan passes the op layer and the sweep."""
+    x = np.asarray([np.nan + 1j, 1 + 2j], "complex64")
+    for P in PKGS.values():
+        t = P.paddle.to_tensor(x)
+        out = to_np(P.paddle.multiply(t, t))
+        assert np.isnan(out[0]) and out.dtype == np.complex64
+    from paddle_tpu.core import numeric_check as jnc
+    jnc.sweep({"c": x}, "ctx")
+    tnc.sweep({"c": torch.from_numpy(x)}, "ctx")
+
+
+def test_namedtuple_leaves_are_named_by_field_as_jax():
+    """Queue 3 F2: a namedtuple's leaves carry their field names, as
+    ``jax.tree_util.keystr`` writes them."""
+    import collections
+    from paddle_tpu.core import numeric_check as jnc
+    NT = collections.namedtuple("NT", ["loss", "w"])
+    jmsg = _raised(lambda: jnc.sweep(
+        {"a": NT(loss=np.asarray(1.0, "float32"),
+                 w=[np.asarray([np.nan], "float32")])}, "ctx"))
+    msg = _raised(lambda: tnc.sweep(
+        {"a": NT(loss=torch.tensor(1.0), w=[torch.tensor([np.nan])])},
+        "ctx"))
+    assert msg == jmsg
+    assert msg.splitlines()[1].startswith("  ['a'].w[0]: ")

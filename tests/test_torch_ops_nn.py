@@ -42,3 +42,30 @@ def _kernels_in_interpret_mode():
                          + P.RNN, ids=str)
 def test_op_matches_jax(case):
     P.run(case)
+
+
+@pytest.mark.parametrize("op", ["binary_cross_entropy_with_logits",
+                                "rank_loss"])
+def test_sigmoid_ce_subgradients_at_zero_equal_jax(op):
+    """Queue 3 G1: at a logit of exactly 0 (a zero-initialized embedding
+    row, say) the sigmoid cross entropy's gradient is the JAX package's:
+    ``maximum`` splits its tie and ``|x|`` has slope 1 there (torch's
+    ``clamp_min`` passes 1 and ``abs`` 0, which gave 0.25 where JAX gives
+    0 and 0 where it gives -0.25). Exact."""
+    import numpy as np
+    import paddle_tpu_torch as tp
+    x = np.zeros((4, 1), np.float32)
+    y = np.array([[0.0], [1.0], [0.0], [1.0]], np.float32)
+    grads = {}
+    for name, pkg in (("jax", jp), ("port", tp)):
+        xt = pkg.to_tensor(x, stop_gradient=False)
+        yt = pkg.to_tensor(y)
+        if op == "rank_loss":
+            out = pkg.ops.rank_loss(yt, xt, pkg.to_tensor(x))
+        else:
+            out = pkg.nn.functional.binary_cross_entropy_with_logits(xt, yt)
+        pkg.ops.mean(out).backward()
+        g = xt.grad
+        grads[name] = np.asarray(g.numpy() if hasattr(g, "numpy") else g)
+    np.testing.assert_array_equal(grads["port"], grads["jax"])
+    assert grads["port"][1, 0] != 0.0

@@ -421,9 +421,10 @@ def test_executor_raises_for_the_later_items():
             x = static.data("x", [2], "float32")
             y = PORT.ops.exp(x)
     exe = static.Executor()
-    # the parameter-server modes of train_from_dataset stay item 8's PS
-    # tier; the dataset loop and FLAGS_check_nan_inf are ported
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the parameter-server modes of train_from_dataset are ported
+    # (tests/test_torch_ps.py): a ps_config without its client is refused
+    # as the JAX package refuses it
+    with pytest.raises(KeyError, match="client"):
         exe.train_from_dataset(main, dataset=object(), ps_config={"x": 1})
     flags.set_flags({"FLAGS_check_nan_inf": True})
     try:

@@ -278,12 +278,21 @@ def test_run_worker_pool_records_the_promotion_latency():
 
 
 def test_item8_pieces_raise_naming_their_item():
-    # Window is ported (tests/test_torch_streaming.py); run_spec(hub=...)
-    # waits for core/telemetry.py
+    # Window is ported (tests/test_torch_streaming.py), and so is
+    # run_spec(hub=...): the TelemetryHub scores the replay
+    # (tests/test_torch_telemetry.py holds its counts to the monitor's)
     w = harness.Window(object()).take(3)
     assert w.n == 3 and w._gen is None
-    with pytest.raises(NotImplementedError, match="item 8"):
-        harness.run_spec(tworkload.builtin_spec("steady"), hub=object())
+    from paddle_tpu_torch.core import telemetry
+    hub = telemetry.TelemetryHub()
+    try:
+        rep = harness.run_spec(
+            tworkload.builtin_spec("steady", duration_s=0.5), seed=1,
+            time_scale=0.05, clients=2, hub=hub)
+    finally:
+        hub.stop()
+    assert rep.scored_by == "hub"
+    assert rep.completed == rep.events > 0 and rep.errors == 0
 
 
 def test_port_traffic_lab_draws_from_named_streams_only():

@@ -213,7 +213,9 @@ def test_dataset_required_and_ps_config_raises():
     exe = PORT.static.Executor()
     with pytest.raises(ValueError, match="requires a dataset"):
         exe.train_from_dataset(main, None)
-    with pytest.raises(NotImplementedError, match="parameter-server"):
+    # the parameter-server modes are ported (tests/test_torch_ps.py,
+    # tests/test_torch_online_learning.py); without a client, as in JAX
+    with pytest.raises(KeyError, match="client"):
         exe.train_from_dataset(main, object(), ps_config={"mode": "online"})
 
 
