@@ -304,6 +304,35 @@ Phases, each printing its own lines; any failure exits non-zero:
     member equal that member's monitor bitwise; pull / push rows/s over
     the three; the hub stopped: ``flush()`` returns False; then a 2 s
     replay of phase 21's steady spec through ``run_spec(hub=...)``.
+25. the serve capacity model and the collective tier (``phase_distributed``;
+    its rank bodies ``p25_ranks_body`` and ``p25_dp_body`` run in child
+    processes through ``testing.spmd.run_ranks``, gloo over a FileStore,
+    every rank on the one card, after phase 1 has built the kernels). (a)
+    a ``DeviceProfile`` calibrated on GPT-2 small's bf16 ServeLoop (64
+    slots, the paged kernel) and the analytic one from ``serve_evidence``
+    at the H100's peaks; phase 21's steady / diurnal / flash specs
+    predicted by both and replayed through ``run_spec`` scored by a
+    ``TelemetryHub``: predicted, observed, the error against the
+    ``FLAGS_capacity_*_band_pct`` bands and the headroom for each profile
+    (errors 0, every event completed and hub scoring are checked; the
+    bands are recorded); ``prefill_flops`` at 8-128 and the bare
+    forward's MFU. (b) 4 ranks: the transport table (which gloo ops take
+    CUDA tensors on this torch, the rest staged through pinned host
+    buffers), the collective battery on CUDA tensors exact against numpy
+    (five reduce ops, a 3-of-4 subgroup, all_gather, reduce,
+    reduce_scatter, alltoall, broadcast, scatter, a ppermute ring, send /
+    recv, ``hierarchical_all_reduce`` on a 2 x 2 mesh), all_reduce timed
+    at 1 / 16 / 256 MB. (c) ring and Ulysses attention at sp 4, bf16, h12
+    d64, b1 s16384 (s 4096 a rank), causal and not, against one flash
+    call over the whole sequence (``P25_RING_TOL``): the flash launches a
+    rank (all on the Hopper kernel), the causal ring's skipped steps (3,
+    2, 1, 0), ms against the single call. (d) GPT-2's MLP as
+    Column / RowParallelLinear at tp 4 (f32, ``P25_TP_TOL``);
+    DataParallel BERT-base b32 s128 as 16 / 16 over 2 ranks, two AdamW
+    steps in f32 (``STEP_TOL``) and bf16 O2 (``P25_DP_BF16_TOL``) against
+    the whole batch unwrapped, step ms and the all-reduce's bytes; one
+    GPT-2 block under ``recompute``: gradients bitwise the plain ones,
+    flash forwards doubled.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -311,7 +340,8 @@ line is ``{"ok": true, "device": {...}}``. The kernel summary line
 
 One phase alone (after ``phase_build()``), from the repo root:
 ``python3 -c "import chip_smoke as c; c.setup(); c.phase_build();
-c.phase_flash()"``. ``python3 chip_smoke.py --faults`` runs phases 2-3
+c.phase_flash()"``; phase 25: ``python3 -c "import chip_smoke as c;
+c.setup(); card = c.phase_build(); c.phase_distributed(card)"``. ``python3 chip_smoke.py --faults`` runs phases 2-3
 (decode faults), 6 (CE faults), 10 (flash faults), 14 (f16 faults),
 18's API checks (op-core faults), 19's mask checks (a Transformer
 fault), 20's conv oracle (a conv fault) or 21(a)'s f32 beam scores (a
@@ -6413,6 +6443,677 @@ def phase_ps(card=None):
     return counts, res
 
 
+# --------------------------------------------------------------------------
+# phase 25: the serve capacity model and the collective tier
+# --------------------------------------------------------------------------
+
+P25_RANKS = 4
+P25_SP_S, P25_H, P25_D = 16384, 12, 64       # ring: b 1, s 16384, GPT-2 heads
+P25_MB = (1, 16, 256)                         # all_reduce sizes timed
+P25_TP_D, P25_TP_F = 768, 3072                # GPT-2 small's MLP
+# ring / Ulysses at sp 4 against one flash call over the whole s 16384,
+# bf16: FLASH_TOL's bf16 forward limits (largest |error| over largest
+# |entry|, and the error's norm over the output's): the ring merges four
+# f32 blocks (each rounded to bf16 by the kernel) where the one call
+# rounds once
+P25_RING_TOL = {"o_max": FLASH_TOL[torch.bfloat16]["o_max"],
+                "o_norm": FLASH_TOL[torch.bfloat16]["o_norm"]}
+# GPT-2's MLP at tp 4 against the dense layers, f32 (no TF32): largest
+# |error| over largest |entry| of the output and of each gradient; the
+# tp=4 split sums the 3072-wide contraction in four partial sums
+P25_TP_TOL = 1e-5
+# DataParallel BERT-base, two AdamW steps (lr 1e-4) against the unwrapped
+# model on the whole batch. f32: STEP_TOL (loss relative, the first step's
+# gradients largest |error| over largest |entry| per tensor, parameters
+# absolute). bf16 O2 (f32 masters): the loss to one bf16 step at its
+# size, 7.8e-3 (logits in bf16); the masters to twice the learning rate a
+# step, 4e-4 after two (Adam's first steps move an entry by +-lr whatever
+# the gradient's size, so an entry whose gradient is near zero can move
+# either way: O2_STEP_TOL's argument). That bound is the widest gap any
+# two runs can reach, so the gradients decide. bf16 "grad" 1e-1: the bf16
+# sum of two halves against one bf16 gradient of the whole batch read
+# 1.27e-2 on the H100 (3.1e-2 for tiny BERT on the CPU), and a planted
+# fault, a DP without the sum over ranks, 0.708 (f32: 0.699 against
+# STEP_TOL's 1e-5 and a sound 1.3e-6); the phase fails if either limit
+# passes that fault.
+P25_DP_BF16_TOL = {"loss": 7.8e-3, "grad": 1e-1, "master": 4e-4}
+P25_DP_LR = 1e-4
+
+
+def _p25_counts(before, after=None):
+    from paddle_tpu_torch.ops import cuda as kernels
+    after = after or kernels.launch_counts()
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _p25_spec(name, rate, seconds):
+    """Phase 21's arrival shapes and bench_serve-scale tenants at
+    ``rate`` requests/s for ``seconds``."""
+    from paddle_tpu_torch.traffic import workload
+    spec = _traffic_spec(name, seconds)
+    base = workload.builtin_spec(name, rate=rate, duration_s=seconds)
+    return dataclasses.replace(spec, arrival=base.arrival)
+
+
+def _p25_capacity(card):
+    """25(a): calibrate a DeviceProfile on the card's GPT-2 small bf16
+    ServeLoop, build the analytic one from serve_evidence at the H100's
+    peaks, predict phase 21's three specs with both, replay each through
+    run_spec scored by a TelemetryHub; prefill FLOPs and MFU."""
+    from paddle_tpu_torch.core import flags, telemetry
+    from paddle_tpu_torch.inference import ServeConfig, ServeLoop
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.static import capacity as C
+    from paddle_tpu_torch.text.models import GPT, GPTConfig
+    from paddle_tpu_torch.tools.capacity_plan import score
+    from paddle_tpu_torch.traffic import harness
+    t0 = time.perf_counter()
+    cfg = GPTConfig()
+    cfg.dropout = 0.0
+    net = GPT(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    net.eval()
+    loop = ServeLoop(net, ServeConfig(max_active=64, kv_blocks=512,
+                                      max_seq_len=1024))
+    bs = loop.stats()["block_size"]
+    serve = {"max_active": 64, "kv_blocks": 512, "block_size": bs,
+             "max_seq_len": 1024}
+    buckets = (8, 16, 32, 64)
+    kernels.reset_launch_counts()
+    cal = C.calibrate(serve, loop=loop, buckets=buckets,
+                      refine_specs=(_p25_spec("steady", 15.0, 4.0),
+                                    _p25_spec("steady", 45.0, 4.0)))
+    counts_cal = kernels.launch_counts()
+    t_cal = time.perf_counter() - t0
+    ev = C.serve_evidence(cfg, 64, fill=64, block_size=bs, blocks=512,
+                          max_seq_len=1024, dtype="bfloat16", prompt=32,
+                          new=40)
+    ana = C.analytic_profile(ev, device="h100-sxm", buckets=buckets,
+                             gpt_cfg=cfg)
+    band50 = float(flags.flag("FLAGS_capacity_p50_band_pct"))
+    band99 = float(flags.flag("FLAGS_capacity_p99_band_pct"))
+    log(f"[capacity] calibrated on the card in {t_cal:.1f} s: "
+        f"{json.dumps(cal.as_dict())}")
+    log(f"[capacity] analytic h100-sxm: {json.dumps(ana.as_dict())}; "
+        f"evidence {json.dumps(ev['graphs']['serve_decode']['cost_analysis'])}")
+    res = {"card": card, "block_size": bs, "calibrated": cal.as_dict(),
+           "analytic": ana.as_dict(), "bands_pct": [band50, band99],
+           "calibration_s": t_cal, "specs": {},
+           "calibration_launches": counts_cal["paged_decode_attention"],
+           "calibration_launches_sm90":
+               counts_cal["paged_decode_attention.sm90"]}
+    counts = {}
+    for name in ("steady", "diurnal", "flash"):
+        spec = _traffic_spec(name)
+        preds = {tag: C.predict(spec, 0, prof, slots=64, kv_blocks=512,
+                                block_size=bs)
+                 for tag, prof in (("calibrated", cal), ("analytic", ana))}
+        hub = telemetry.TelemetryHub(eval_s=5.0)
+        before = kernels.launch_counts()
+        try:
+            rep = harness.run_spec(spec, seed=0, loop=loop, hub=hub)
+        finally:
+            hub.stop()
+        counts[name] = _p25_counts(before)
+        check(rep.errors == 0, f"capacity {name}: {rep.errors} failed")
+        check(rep.completed == rep.events > 0,
+              f"capacity {name}: {rep.completed} of {rep.events} completed")
+        check(rep.scored_by == "hub", f"capacity {name}: scored by "
+                                      f"{rep.scored_by}")
+        row = {"observed": {"throughput_rps": rep.throughput_rps,
+                            "ttft_ms": rep.ttft_ms,
+                            "token_ms": rep.token_ms,
+                            "completed": rep.completed,
+                            "events": rep.events, "errors": rep.errors,
+                            "scored_by": rep.scored_by},
+               "paged_launches": counts[name]["paged_decode_attention"]}
+        for tag, p in preds.items():
+            errs, ok = score(p, rep, band50, band99)
+            row[tag] = {"predicted": {k: p[k] for k in
+                                      ("throughput_rps", "ttft_ms",
+                                       "token_ms", "knee_rps", "rho")},
+                        "err_pct": errs, "in_band": ok}
+        res["specs"][name] = row
+        log(f"[capacity] {name}: {json.dumps(row)}")
+    for tag in ("calibrated", "analytic"):
+        worst50 = max((e or 0.0) for r in res["specs"].values()
+                      for k, e in r[tag]["err_pct"].items()
+                      if not k.endswith("p99"))
+        worst99 = max((e or 0.0) for r in res["specs"].values()
+                      for k, e in r[tag]["err_pct"].items()
+                      if k.endswith("p99"))
+        res[f"{tag}_headroom_x"] = min(band50 / max(worst50, 1e-9),
+                                       band99 / max(worst99, 1e-9))
+        res[f"{tag}_in_band"] = all(r[tag]["in_band"]
+                                    for r in res["specs"].values())
+    # prefill FLOPs (the registry over GPT-2's Program) and the bare
+    # forward's MFU at each bucket
+    pf = {}
+    for b in (8, 16, 32, 64, 128):
+        flops = C.prefill_flops(b, cfg)
+        ids = torch.randint(0, 50257, (1, b), device="cuda")
+        with torch.no_grad():
+            ms = time_ms(lambda: net(ids), runs=20)
+        pf[b] = {"flops": flops, "forward_ms": ms,
+                 "mfu": flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+                 "calibrated_prefill_ms": cal.prefill_ms.get(b)}
+    res["prefill"] = pf
+    log(f"[capacity] prefill FLOPs and MFU over 989 TFLOP/s: "
+        f"{json.dumps(pf)}")
+    log(f"[capacity] bands p50 {band50:g}% / p99 {band99:g}% "
+        f"(FLAGS_capacity_*_band_pct); headroom calibrated "
+        f"{res['calibrated_headroom_x']:.3f}"
+        f" (in band: {res['calibrated_in_band']}), analytic "
+        f"{res['analytic_headroom_x']:.3f} (in band: "
+        f"{res['analytic_in_band']}); {time.perf_counter() - t0:.1f} s")
+    loop.stop()
+    del loop, net
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def _p25_battery_expected(n=4, k=8):
+    """numpy's result of ``testing.spmd.collectives_battery`` for each
+    rank."""
+    x = [np.arange(k, dtype=np.float32) + 3 * r for r in range(n)]
+    sg = [np.asarray([r - 1.0, 2.0, -1.0, 0.0 if r == 2 else 1.5],
+                     np.float32) for r in range(n)]
+    rs = [np.arange(4 * n, dtype=np.float32) * (i + 1) for i in range(n)]
+    sub = [0, 1, 2]
+    exp = []
+    for r in range(n):
+        e = {"all_reduce_sum": sum(x), "all_reduce_max": np.max(x, 0),
+             "all_reduce_min": np.min(x, 0), "all_reduce_avg": sum(x) / n,
+             "all_reduce_prod": np.prod(sg, 0),
+             "subgroup_sum": sum(x[i] for i in sub) if r in sub else x[r],
+             "subgroup_max": np.max([x[i] for i in sub], 0)
+             if r in sub else x[r],
+             "subgroup_prod": np.prod([sg[i] for i in sub], 0)
+             if r in sub else sg[r],
+             "all_gather": np.stack(x),
+             "reduce": sum(x) if r == 1 else x[r],
+             "reduce_scatter": np.sum(rs, 0)[4 * r:4 * r + 4],
+             "reduce_scatter_max": np.max(rs, 0)[4 * r:4 * r + 4],
+             "reduce_scatter_avg": (np.sum(rs, 0) / n)[4 * r:4 * r + 4],
+             "reduce_scatter_prod": np.prod(sg, 0)[r:r + 1],
+             "reduce_scatter_via_all_reduce":
+                 np.sum(rs, 0)[4 * r:4 * r + 4],
+             "alltoall": np.stack([np.arange(n * 3, dtype=np.float32)
+                                   .reshape(n, 3)[r] + 100 * i
+                                   for i in range(n)]),
+             "broadcast": x[3], "broadcast_sub": x[2] if r else x[0],
+             "scatter": np.arange(n * 2, dtype=np.float32)
+             .reshape(n, 2)[r] + 10,
+             "ppermute": x[(r - 1) % n],
+             "send_recv": x[r - 1] if r % 2 else np.zeros(k, np.float32),
+             "hierarchical_sum": sum(x),
+             "hierarchical_avg": (sum(x) / n)[:5],
+             "hierarchical_max": np.max(x, 0),
+             "gather_dp_pod": np.stack([x[0], x[2], x[1], x[3]])}
+        exp.append(e)
+    return exp
+
+
+def _p25_child_setup():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def p25_ranks_body():
+    """One of the 4 ranks on the card: the transport probe, the
+    collective battery on CUDA tensors, all_reduce timed at P25_MB, ring
+    and Ulysses attention at sp 4 (s 16384, bf16), GPT-2's MLP at tp 4."""
+    _p25_child_setup()
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import ring_attention as R
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.testing import spmd
+    r, n = M.world_rank(), M.world_size()
+    out = {"transport": C.probe_transport(torch.device("cuda", 0))}
+    staged0 = monitor.stat_get("dist.staged_bytes")
+    out["battery"] = spmd.collectives_battery()
+    out["battery_staged_bytes"] = monitor.stat_get("dist.staged_bytes") \
+        - staged0
+    # all_reduce at 1, 16, 256 MB of f32, host clock around synced calls
+    mesh = M.init_mesh({"dp": n})
+    times = {}
+    with M.MeshGuard(mesh):
+        for mb in P25_MB:
+            x = torch.ones(mb * 2 ** 18, device="cuda")
+            C.barrier()
+            ts = []
+            for i in range(4):
+                torch.cuda.synchronize()
+                C.barrier()
+                t = time.perf_counter()
+                y = C._allreduce_raw(x, axis="dp", op="sum")
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t) * 1e3)
+                if i == 0:
+                    check(bool((y == n).all()), f"all_reduce {mb} MB wrong")
+            times[mb] = statistics.median(ts[1:])
+    out["all_reduce_ms"] = times
+    # ring and Ulysses attention: global q, k, v from one seed on every
+    # rank; rank r holds s/n of them
+    g = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn(1, P25_H, P25_SP_S, P25_D, device="cuda",
+                           dtype=torch.bfloat16, generator=g)
+               for _ in range(3))
+    sp = M.init_mesh({"sp": n}, name="sp")
+    ring = {}
+    for mode in ("ring", "ulysses"):
+        for causal in (False, True):
+            tag = f"{mode}_causal{int(causal)}"
+            R.sequence_parallel_attention(q, k, v, mesh=sp, causal=causal,
+                                          mode=mode)    # warm
+            R.reset_ring_stats()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            C.barrier()
+            t = time.perf_counter()
+            o = R.sequence_parallel_attention(q, k, v, mesh=sp,
+                                              causal=causal, mode=mode)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            cnt = kernels.launch_counts()
+            rec = {"ms": ms, "stats": R.ring_stats(),
+                   "flash_fwd": cnt["flash_fwd"],
+                   "flash_fwd_sm90": cnt["flash_fwd.sm90"]}
+            if r == 0:
+                from paddle_tpu_torch.ops.cuda.flash_attention import \
+                    flash_attention
+                ref = flash_attention(q, k, v, causal=causal)
+                err = (o.float() - ref.float())
+                rec["o_max"] = float(err.abs().max()
+                                     / ref.float().abs().max())
+                rec["o_norm"] = float(err.norm() / ref.float().norm())
+            ring[tag] = rec
+    out["ring"] = ring
+    del q, k, v
+    # GPT-2's MLP at tp 4, f32: Column (768 -> 3072, no gather) + GELU +
+    # Row (3072 -> 768), forward and backward, against the dense layers
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as MP
+    tpm = M.init_mesh({"tp": n}, name="tp")
+    g = torch.Generator("cuda").manual_seed(1)
+    x = torch.randn(8, 128, P25_TP_D, device="cuda", generator=g)
+    wc = torch.randn(P25_TP_D, P25_TP_F, device="cuda", generator=g) * 0.02
+    bc = torch.randn(P25_TP_F, device="cuda", generator=g) * 0.02
+    wr = torch.randn(P25_TP_F, P25_TP_D, device="cuda", generator=g) * 0.02
+    br = torch.randn(P25_TP_D, device="cuda", generator=g) * 0.02
+    ct = torch.randn(8, 128, P25_TP_D, device="cuda", generator=g)
+    with M.MeshGuard(tpm):
+        col = MP.ColumnParallelLinear(P25_TP_D, P25_TP_F, gather_output=False)
+        row = MP.RowParallelLinear(P25_TP_F, P25_TP_D, input_is_parallel=True)
+    sl = slice(r * P25_TP_F // n, (r + 1) * P25_TP_F // n)
+    with torch.no_grad():
+        col.inner.weight.copy_(wc[:, sl])
+        col.inner.bias.copy_(bc[sl])
+        row.inner.weight.copy_(wr[sl])
+        row.bias.copy_(br)
+    xt = x.clone().requires_grad_()
+    outp = M.shard_map(lambda xl: row(nn.functional.gelu(col(xl))),
+                       mesh=tpm, in_specs=(M.P(),), out_specs=M.P())(xt)
+    (outp * ct).sum().backward()
+    shards = {"dwc": col.inner.weight.grad, "dbc": col.inner.bias.grad,
+              "dwr": row.inner.weight.grad}
+    gathered = {}
+    with M.MeshGuard(tpm):
+        for key, dim in (("dwc", 1), ("dbc", 0), ("dwr", 0)):
+            parts = []
+            C.all_gather(parts, shards[key].contiguous(), group="tp")
+            gathered[key] = torch.cat(parts, dim)
+    tp_err = {}
+    if r == 0:
+        ws = [t.clone().requires_grad_() for t in (wc, bc, wr, br)]
+        xd = x.clone().requires_grad_()
+        dense = torch.nn.functional.linear(torch.nn.functional.gelu(
+            xd @ ws[0] + ws[1]), ws[2].t(), ws[3])
+        (dense * ct).sum().backward()
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+        tp_err = {"out": rel(outp.detach(), dense.detach()),
+                  "dx": rel(xt.grad, xd.grad),
+                  "dwc": rel(gathered["dwc"], ws[0].grad),
+                  "dbc": rel(gathered["dbc"], ws[1].grad),
+                  "dwr": rel(gathered["dwr"], ws[2].grad),
+                  "dbr": rel(row.bias.grad, ws[3].grad)}
+    out["tp"] = tp_err
+    out["staged_bytes"] = monitor.stat_get("dist.staged_bytes")
+    M.reset_mesh()
+    return out
+
+
+def _p25_mlm_tokens(bert):
+    """BERT-base's MLM head as per-token losses (the fused CE kernels,
+    reduction "none"), so that DataParallel gathers per-token outputs and
+    the loss is taken on the global batch."""
+    from paddle_tpu_torch import nn, ops
+    from paddle_tpu_torch.nn import functional as F
+
+    class MLMTokens(nn.Layer):
+        def __init__(self, b):
+            super().__init__()
+            self.bert = b
+
+        def forward(self, ids, lab):
+            b = self.bert
+            h = b.encoder(b.embeddings(ids))
+            t = b.mlm_norm(ops.gelu(b.mlm_transform(h)))
+            return F.fused_linear_cross_entropy(
+                t, b.embeddings.word_embeddings.weight, b.mlm_bias, lab,
+                ignore_index=-100, reduction="none")
+    return MLMTokens(bert)
+
+
+def _p25_valid(lab):
+    return (lab.reshape(-1) != -100).sum().float().clamp_min(1.0)
+
+
+def _p25_dp_run(dtype, ids, lab, dp, steps=2, valid=None):
+    """``steps`` AdamW steps of BERT-base (dropout 0) on ``ids`` /
+    ``lab``, through DataParallel when ``dp`` or unwrapped: losses, step
+    ms, the first step's gradients, the parameters (f32 masters for bf16)
+    and, for dp, the gradient all-reduce's bytes. The loss is the tokens'
+    sum over ``valid`` (the batch's own count of labelled tokens by
+    default)."""
+    from paddle_tpu_torch.distributed.parallel import DataParallel
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    cfg = BertConfig.bert_base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    net = Bert(cfg, device="cuda", dtype=torch.float32, seed=0)
+    net.to(dtype=dtype)
+    valid = _p25_valid(lab) if valid is None else valid
+    net.train()
+    opt = AdamW(learning_rate=P25_DP_LR, weight_decay=0.01,
+                parameters=net.named_parameters(),
+                multi_precision=dtype != torch.float32)
+    head = _p25_mlm_tokens(net)
+    model = DataParallel(head) if dp else head
+    losses, ms = [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = model(ids, lab).sum() / valid
+        loss.backward()
+        _zero_missing_grads(net)
+        opt.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if step == 0:       # the step leaves the gradients as they were
+            grads = {kk: p.grad.detach().clone()
+                     for kk, p in net.named_parameters()}
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    if dtype == torch.float32:
+        params = {kk: p.detach().clone() for kk, p in net.named_parameters()}
+    else:
+        params = {kk: opt._slots[kk]["master"].clone()
+                  for kk, _ in net.named_parameters()
+                  if "master" in opt._slots.get(kk, {})}
+    return {"losses": losses, "ms": ms, "params": params, "grads": grads,
+            "allreduce_bytes": model.allreduce_bytes if dp else 0}
+
+
+def _p25_grad_err(got, want):
+    """The largest over parameters of each gradient's largest |error|
+    over its largest |entry| (0 where both are all zero)."""
+    err = 0.0
+    for kk, w in want.items():
+        scale = float(w.float().abs().max())
+        diff = float((got[kk].float() - w.float()).abs().max())
+        err = max(err, diff / scale if scale else diff)
+    return err
+
+
+def p25_dp_body():
+    """One of the 2 dp ranks: DataParallel BERT-base, the flagship's b32
+    s128 split 16 / 16, two AdamW steps in f32 and in bf16 O2; rank 0 then
+    runs the unwrapped model on the whole batch from the same state and
+    compares, and takes the first step's gradients of a planted fault: a
+    DP that does not sum over ranks, whose rank 0 holds the gradient of
+    its 16 rows alone."""
+    _p25_child_setup()
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models import BertConfig
+    C.probe_transport(torch.device("cuda", 0))
+    M.init_mesh({"dp": M.world_size()})
+    ids, lab = _bert_batches(BertConfig.bert_base(), 32, 128, 1)
+    ids, lab = ids[0], lab[0]
+    out = {"rank": M.world_rank()}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        kernels.reset_launch_counts()
+        staged = monitor.stat_get("dist.staged_bytes")
+        dp = _p25_dp_run(dt, ids, lab, True)
+        rec = {"losses": dp["losses"], "step_ms": dp["ms"],
+               "allreduce_bytes": dp["allreduce_bytes"],
+               "staged_bytes": monitor.stat_get("dist.staged_bytes")
+               - staged, "launches": kernels.launch_counts()}
+        if M.world_rank() == 0:
+            ref = _p25_dp_run(dt, ids, lab, False)
+            rec["grad_err"] = _p25_grad_err(dp["grads"], ref["grads"])
+            half = _p25_dp_run(dt, ids[:16], lab[:16], False, steps=1,
+                               valid=_p25_valid(lab))
+            rec["fault_grad_err"] = _p25_grad_err(half["grads"],
+                                                  ref["grads"])
+            del half
+            rec["ref_losses"] = ref["losses"]
+            rec["ref_step_ms"] = ref["ms"]
+            rec["param_max_abs_diff"] = max(
+                float((dp["params"][kk] - ref["params"][kk]).abs().max())
+                for kk in ref["params"])
+            rec["n_params_compared"] = len(ref["params"])
+        out[name] = rec
+        del dp
+        torch.cuda.empty_cache()
+    M.reset_mesh()
+    return out
+
+
+def _p25_recompute():
+    """25(d): one GPT-2 small block (bf16, b 1, s 1024) forward and
+    backward with and without ``recompute``: the gradients equal, the
+    flash forward launched twice as often."""
+    from paddle_tpu_torch.distributed import recompute
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models import GPTConfig
+    from paddle_tpu_torch.text.models.gpt import GPTBlock
+    from paddle_tpu_torch.device import device_scope
+    cfg = GPTConfig()
+    cfg.dropout = 0.0
+    with device_scope("cuda"):
+        torch.manual_seed(0)
+        blk = GPTBlock(cfg).to(dtype=torch.bfloat16)
+    g = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn(1, 1024, 768, device="cuda", dtype=torch.bfloat16,
+                    generator=g)
+    ct = torch.randn(1, 1024, 768, device="cuda", dtype=torch.bfloat16,
+                     generator=g)
+    res = {}
+    for rec in (False, True):
+        for p in blk.parameters():
+            p.grad = None
+        xt = x.clone().requires_grad_()
+        kernels.reset_launch_counts()
+        y = recompute(blk, xt) if rec else blk(xt)
+        (y.float() * ct.float()).sum().backward()
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        res[rec] = ({k: p.grad.detach().clone()
+                     for k, p in blk.named_parameters()},
+                    xt.grad.detach().clone(),
+                    {k: c[k] for k in ("flash_fwd", "flash_fwd.sm90",
+                                       "flash_bwd_dq", "flash_bwd_dkv")})
+    diff = max(float((res[True][0][k] - res[False][0][k]).abs().max())
+               for k in res[False][0])
+    diff = max(diff, float((res[True][1] - res[False][1]).abs().max()))
+    out = {"grad_max_abs_diff": diff, "launches_plain": res[False][2],
+           "launches_recompute": res[True][2]}
+    log(f"[recompute] GPT-2 block bf16 s1024: {json.dumps(out)}")
+    check(diff == 0.0, f"recompute changed the gradients by {diff}")
+    check(res[True][2]["flash_fwd"] == 2 * res[False][2]["flash_fwd"] > 0,
+          f"recompute's flash forwards: {res[True][2]} against "
+          f"{res[False][2]}")
+    return out, res[True][2]
+
+
+def phase_distributed(card=None):
+    """Phase 25: the capacity model (a), then 4 ranks on the card: the
+    collective battery (b), ring and Ulysses attention (c), the TP MLP
+    (d); 2 ranks: DataParallel BERT-base (d); recompute (d). Returns the
+    paths' launch counts (children's summed) and the results."""
+    import tempfile
+
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from paddle_tpu_torch.testing import spmd
+    t0 = time.perf_counter()
+    res = {"card": card}
+    res["capacity"], cap_counts = _p25_capacity(card)
+    t_ranks = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spmd.run_ranks(p25_ranks_body, P25_RANKS, tmp_path=tmp,
+                               device="cuda", timeout=600)
+    res["ranks_s"] = time.perf_counter() - t_ranks
+    tr = ranks[0]["transport"]
+    log(f"[collectives] transport on {torch.__version__} gloo, 4 ranks on "
+        f"one card: {json.dumps(tr)}")
+    exp = _p25_battery_expected(P25_RANKS)
+    bad = [(r, k) for r in range(P25_RANKS) for k, v in exp[r].items()
+           if not np.array_equal(np.asarray(ranks[r]["battery"][k]), v)]
+    check(not bad, f"collective battery differs from numpy: {bad[:5]}")
+    log(f"[collectives] battery on CUDA tensors: {len(exp[0])} cases x "
+        f"{P25_RANKS} ranks exact; staged bytes a rank "
+        f"{ranks[0]['battery_staged_bytes']:.0f}")
+    ar = {mb: max(r["all_reduce_ms"][mb] for r in ranks) for mb in P25_MB}
+    res["collectives"] = {
+        "transport": tr, "battery_cases": len(exp[0]),
+        "all_reduce_ms": ar,
+        "all_reduce_transport": tr.get("all_reduce"),
+        "all_reduce_gbps": {mb: mb * 2 ** 20 / (ms / 1e3) / 1e9
+                            for mb, ms in ar.items()}}
+    log(f"[collectives] all_reduce f32 over 4 ranks ({tr.get('all_reduce')}"
+        f" through gloo): {json.dumps(res['collectives']['all_reduce_ms'])}"
+        f" ms")
+    # (c) the ring against one flash call over the whole sequence here
+    g = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn(1, P25_H, P25_SP_S, P25_D, device="cuda",
+                           dtype=torch.bfloat16, generator=g)
+               for _ in range(3))
+    single = {c: time_ms(lambda c=c: flash_attention(q, k, v, causal=c),
+                         runs=10) for c in (False, True)}
+    del q, k, v
+    ring = {}
+    for tag, rec0 in ranks[0]["ring"].items():
+        causal = tag.endswith("1")
+        per = [r["ring"][tag] for r in ranks]
+        ring[tag] = {"ms": max(p["ms"] for p in per),
+                     "transport": {"p2p": tr.get("p2p")} if
+                     tag.startswith("ring") else
+                     {"all_to_all": tr.get("all_to_all")},
+                     "single_flash_ms": single[causal],
+                     "o_max": rec0["o_max"], "o_norm": rec0["o_norm"],
+                     "flash_fwd_per_rank": [p["flash_fwd"] for p in per],
+                     "flash_fwd_sm90_per_rank":
+                         [p["flash_fwd_sm90"] for p in per],
+                     "skipped_per_rank": [p["stats"]["skipped"]
+                                          for p in per]}
+        log(f"[ring] sp 4 x s {P25_SP_S // 4} bf16 h12 d64 {tag}: "
+            f"{json.dumps(ring[tag])}")
+        check(rec0["o_max"] <= P25_RING_TOL["o_max"]
+              and rec0["o_norm"] <= P25_RING_TOL["o_norm"],
+              f"{tag} differs from the single flash call: {rec0}")
+        check(ring[tag]["flash_fwd_sm90_per_rank"]
+              == ring[tag]["flash_fwd_per_rank"],
+              f"{tag}: a flash launch off the Hopper kernel")
+    check(ring["ring_causal1"]["skipped_per_rank"] == [3, 2, 1, 0],
+          "the causal ring skipped other steps than the later ranks'")
+    check(ring["ring_causal1"]["flash_fwd_per_rank"] == [1, 2, 3, 4]
+          and ring["ring_causal0"]["flash_fwd_per_rank"] == [4] * 4,
+          "the ring's flash launches a rank")
+    res["ring"] = ring
+    tp_err = ranks[0]["tp"]
+    log(f"[tp] GPT-2 MLP 768 -> 3072 -> 768 at tp 4, f32, b8 s128 against "
+        f"the dense layers (largest |error| / largest |entry|, tol "
+        f"{P25_TP_TOL:g}): {json.dumps(tp_err)}")
+    check(max(tp_err.values()) <= P25_TP_TOL, f"TP MLP differs: {tp_err}")
+    res["tp"] = tp_err
+    res["staged_bytes_per_rank"] = [r["staged_bytes"] for r in ranks]
+    # DataParallel BERT-base over dp 2
+    t_dp = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dps = spmd.run_ranks(p25_dp_body, 2, tmp_path=tmp, device="cuda",
+                             timeout=600)
+    dp0 = dps[0]
+    res["dp_s"] = time.perf_counter() - t_dp
+    res["dp"] = {}
+    for name in ("f32", "bf16"):
+        rec = dp0[name]
+        lrel = max(abs(a - b) / abs(b) for a, b in
+                   zip(rec["losses"], rec["ref_losses"]))
+        labs = max(abs(a - b) for a, b in
+                   zip(rec["losses"], rec["ref_losses"]))
+        res["dp"][name] = {
+            "losses": rec["losses"], "ref_losses": rec["ref_losses"],
+            "loss_rel_diff": lrel, "loss_abs_diff": labs,
+            "param_max_abs_diff": rec["param_max_abs_diff"],
+            "params_compared": rec["n_params_compared"],
+            "grad_err": rec["grad_err"],
+            "fault_grad_err": rec["fault_grad_err"],
+            "step_ms": rec["step_ms"], "ref_step_ms": rec["ref_step_ms"],
+            "allreduce_bytes": rec["allreduce_bytes"],
+            "staged_bytes": rec["staged_bytes"],
+            "allreduce_transport": tr.get("all_reduce")}
+        log(f"[dp] BERT-base {name} b32 s128 as 16 / 16 over dp 2, two "
+            f"AdamW steps: {json.dumps(res['dp'][name])}")
+    f32 = res["dp"]["f32"]
+    check(f32["loss_rel_diff"] <= STEP_TOL["loss"]
+          and f32["grad_err"] <= STEP_TOL["grad"]
+          and f32["param_max_abs_diff"] <= STEP_TOL["param"],
+          f"DP f32 differs from the whole-batch step: {f32}")
+    b16 = res["dp"]["bf16"]
+    check(b16["loss_abs_diff"] <= P25_DP_BF16_TOL["loss"]
+          and b16["grad_err"] <= P25_DP_BF16_TOL["grad"]
+          and b16["param_max_abs_diff"] <= P25_DP_BF16_TOL["master"],
+          f"DP bf16 differs from the whole-batch step: {b16}")
+    # the gradient limits must tell the planted fault (no sum over dp)
+    # from a sound run
+    check(f32["fault_grad_err"] > STEP_TOL["grad"]
+          and b16["fault_grad_err"] > P25_DP_BF16_TOL["grad"],
+          "the DP gradient limits pass a DP without the sum over ranks")
+    res["recompute"], rc_counts = _p25_recompute()
+    # the paths' launches: the capacity replays and calibration here, the
+    # ranks' ring / Ulysses calls and DP steps summed
+    counts = {"capacity": {k: sum(c[k] for c in cap_counts.values())
+                           for k in kernels.launch_counts()},
+              "ring": {}, "dp": {}, "recompute": rc_counts}
+    for tag in ring:
+        counts["ring"][tag] = {"flash_fwd": sum(ring[tag][
+            "flash_fwd_per_rank"]), "flash_fwd.sm90": sum(ring[tag][
+                "flash_fwd_sm90_per_rank"])}
+    for name in ("f32", "bf16"):
+        counts["dp"][name] = {k: sum(d[name]["launches"][k] for d in dps)
+                              for k in dps[0][name]["launches"]}
+    b16c = counts["dp"]["bf16"]
+    for kname in CE_KERNELS + FLASH_KERNELS:
+        check(b16c[kname] > 0 and b16c[f"{kname}.sm90"] == b16c[kname],
+              f"DP bf16: {kname} launched {b16c[kname]} times, "
+              f"{b16c[kname + '.sm90']} on the Hopper kernel")
+    check(counts["capacity"]["paged_decode_attention"] > 0,
+          "the capacity replays launched no paged kernel")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[distributed] phase 25 {res['seconds']:.1f} s (capacity "
+        f"{t_ranks - t0:.1f}, 4 ranks {res['ranks_s']:.1f}, dp "
+        f"{res['dp_s']:.1f}); card: {card}")
+    return counts, res
+
+
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
@@ -6685,6 +7386,22 @@ def _trainer_host_fields(rec, name, counts):
         rec[f"launches_{tag}_sm90"] = c[f"{name}.sm90"]
 
 
+def _distributed_fields(rec, name, counts):
+    """Phase 25's launches of one of the six training kernels, summed over
+    the ranks: the DataParallel BERT-base steps (f32 and bf16 O2, 2 ranks
+    x 2 steps), and for the flash kernels the recompute check's GPT-2
+    block and, for the forward, the ring and Ulysses calls (4 ranks)."""
+    for tag in ("f32", "bf16"):
+        rec[f"launches_dp_{tag}"] = counts["dp"][tag][name]
+        rec[f"launches_dp_{tag}_sm90"] = counts["dp"][tag][f"{name}.sm90"]
+    if name in FLASH_KERNELS:
+        rec["launches_recompute"] = counts["recompute"].get(name, 0)
+    if name == "flash_fwd":
+        for tag, c in counts["ring"].items():
+            rec[f"launches_{tag}"] = c["flash_fwd"]
+            rec[f"launches_{tag}_sm90"] = c["flash_fwd.sm90"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6717,6 +7434,7 @@ def main():
     st_counts, static_res = phase_static(card)
     th_counts, trainer_host = phase_trainer_host(card)
     ps_counts, ps_res = phase_ps(card)
+    p25_counts, p25 = phase_distributed(card)
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -6751,6 +7469,10 @@ def main():
         # two hot swaps)
         rec["launches_online_serve"] = ps_counts.get(name, 0)
         rec["launches_online_serve_sm90"] = ps_counts.get(f"{name}.sm90", 0)
+        # phase 25(a): the capacity calibration and the three hub-scored
+        # replays
+        rec["launches_capacity"] = p25_counts["capacity"][name]
+        rec["launches_capacity_sm90"] = p25_counts["capacity"][f"{name}.sm90"]
         # phase 21: beam search's steps and the exported program's run
         # (contiguous), the three traffic replays and the block-size
         # sweep (paged)
@@ -6787,6 +7509,7 @@ def main():
         rec["launches_static"] = st_counts[name]
         rec["launches_static_sm90"] = st_counts[f"{name}.sm90"]
         _trainer_host_fields(rec, name, th_counts)
+        _distributed_fields(rec, name, p25_counts)
         if name == "fused_ce_bwd_dw":
             rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
                                      *worst_ce["db_max"].values(),
@@ -6818,6 +7541,7 @@ def main():
         rec["launches_static"] = st_counts[name]
         rec["launches_static_sm90"] = st_counts[f"{name}.sm90"]
         _trainer_host_fields(rec, name, th_counts)
+        _distributed_fields(rec, name, p25_counts)
         if name == "flash_fwd":     # 22(c): each jit route's forward
             rec["launches_jit"] = {
                 r: c["flash_fwd"] for r, c in
@@ -6845,7 +7569,8 @@ def main():
                       "hapi": hapi, "dygraph": dygraph,
                       "transformer": transformer, "vision": vision,
                       "generation": generation, "static": static_res,
-                      "trainer_host": trainer_host, "ps": ps_res}))
+                      "trainer_host": trainer_host, "ps": ps_res,
+                      "distributed": p25}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

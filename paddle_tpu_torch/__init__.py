@@ -44,6 +44,12 @@ from .framework.io import load, save  # noqa: F401,E402
 from .hapi import InputSpec, Model  # noqa: F401,E402
 from ._legacy_api import *  # noqa: F401,F403,E402  the v1 top-level names
 from . import static, jit  # noqa: F401,E402
+# the collective tier's registry ops (c_*, send_v2, ring / Ulysses
+# attention, the tensor-parallel pair)
+from . import distributed  # noqa: F401,E402
+from .distributed import collective as _collective  # noqa: F401,E402
+from .distributed import ring_attention as _ring  # noqa: F401,E402
+from .distributed.fleet import meta_parallel as _mp  # noqa: F401,E402
 from .core import flight_recorder as _flight_recorder  # noqa: E402
 
 # with PADDLE_TPU_DUMP_DIR set, SIGTERM / SIGUSR1 write a flight-recorder

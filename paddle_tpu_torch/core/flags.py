@@ -317,3 +317,33 @@ define_flag("PADDLE_SLO_SLOW_WINDOW_S", 300.0,
             "slow burn-rate window (see PADDLE_SLO_FAST_WINDOW_S); "
             "also bounds how much burn-rate history the engine retains "
             "per SLO spec (2x this window)")
+define_flag("FLAGS_capacity_p50_band_pct", 25.0,
+            "capacity_plan --validate error band: hub-observed "
+            "throughput and TTFT/token p50 must land within this "
+            "percentage of the model's prediction")
+define_flag("FLAGS_capacity_p99_band_pct", 40.0,
+            "capacity_plan --validate error band for the tail: "
+            "hub-observed TTFT/token p99 within this percentage of the "
+            "prediction (tails carry sampling noise the p50 band does "
+            "not)")
+define_flag("FLAGS_capacity_knee_rho", 0.85,
+            "utilization the capacity report flags as the saturation "
+            "knee: offered loads driving predicted slot utilization "
+            "above this are marked over-knee (queueing delay diverges)")
+define_flag("FLAGS_capacity_calib_beats", 32,
+            "decode beats the calibration measures per active level when "
+            "fitting the device profile's beat_ms base and slope "
+            "(static/capacity.calibrate)")
+# Link tiers of an H100 HGX node (distributed/mesh.py axis_tiers): "ici"
+# is NVLink 4 within the node, 900 GB/s per GPU both ways together, 450
+# one way (NVIDIA H100 data sheet); "dcn" is the network between nodes,
+# one 400 Gb/s ConnectX-7 InfiniBand port per GPU, 50 GB/s one way (DGX
+# H100 user guide).
+define_flag("FLAGS_topology_ici_gbps", 450.0,
+            "per-device link bandwidth in GB/s, one way, within a node "
+            "(NVLink 4 on the H100) for the two-tier topology cost model "
+            "(mesh.axis_tiers)")
+define_flag("FLAGS_topology_dcn_gbps", 50.0,
+            "per-device link bandwidth in GB/s, one way, between nodes "
+            "(one 400 Gb/s InfiniBand port per H100) for the two-tier "
+            "topology cost model and capacity.publish_wire_ms")

@@ -859,4 +859,9 @@ OWN_TESTS = {
     "unique_consecutive", "scatter_nd", "equal_all", "partial_concat",
     "partial_sum", "random_crop", "shuffle_batch",
     "truncated_normal", "sampling_id", "print_op", "assert_op",
+    # the collective tier (tests/test_torch_distributed.py)
+    "c_allreduce", "c_allgather", "c_reduce", "c_broadcast", "c_scatter",
+    "c_alltoall", "c_reducescatter", "c_hierarchical_allreduce", "send_v2",
+    "mp_allreduce_identity_bwd", "mp_identity_allreduce_bwd",
+    "ring_attention", "ulysses_attention",
 }

@@ -42,6 +42,11 @@ def _cpu():
 
 
 def test_every_port_op_is_a_jax_op_of_the_same_version():
+    # the JAX package's collective tier registers its ops when imported
+    # (paddle_tpu.distributed loads it lazily); the port's at import
+    import paddle_tpu.distributed.collective  # noqa: F401
+    import paddle_tpu.distributed.fleet.meta_parallel  # noqa: F401
+    import paddle_tpu.distributed.ring_attention  # noqa: F401
     jreg, treg = jp.ops.OP_REGISTRY, tp.ops.OP_REGISTRY
     assert len(treg) > 250
     missing = sorted(n for n in treg if n not in jreg)
