@@ -333,6 +333,35 @@ Phases, each printing its own lines; any failure exits non-zero:
     the whole batch unwrapped, step ms and the all-reduce's bytes; one
     GPT-2 block under ``recompute``: gradients bitwise the plain ones,
     flash forwards doubled.
+26. training across processes (``phase_fleet_training``; its rank bodies
+    ``p26_fleet_body`` and ``p26_ranks_body`` run as phase 25's do). (a)
+    2 ranks: ``Model.fit`` of BERT-base (b32 s128 split 16 / 16, bf16
+    O2, AdamW, dropout 0) under ``fleet.init`` and
+    ``fleet.distributed_optimizer``, 3 steps plain (the gradients
+    all-reduced) and with ``strategy.sharding`` (ZeRO: reduce-scatter,
+    the rank's chunk of masters and slots updated, all-gather): the f32
+    masters after step 3 within ``STEP_TOL["param"]`` of each other
+    (bitwise predicted: two ranks' sums are one addition either way), the
+    optimizer-state bytes and peak memory a rank; then
+    ``strategy.localsgd`` k 2 for 4 steps: the replicas' parameters
+    bitwise equal after steps 2 and 4 only. (b) 4 ranks: GPT-2 small's 12
+    blocks at pp 4 (3 a stage; the embedding before, ln_f and the tied
+    head's fused CE on the last stage), b8 s1024 in 4 micro-batches,
+    ``gpipe``, ``1f1b`` and ``interleaved`` (3 one-block chunks a rank),
+    f32 and bf16, one forward and backward each against the whole model
+    in one process over the same micro-batches (``P26_PP_TOL``), the CE on
+    the last rank only, bf16 on the Hopper kernels. (c) ring and Ulysses
+    attention at sp 4 (s 4096 a rank, h12 d64, bf16), forward and
+    backward against one flash forward and backward over s 16384
+    (``P26_RING_GRAD_TOL``): the flash launches summed over ranks (ring
+    16 / 16 / 16 non-causal, 10 / 10 / 10 causal; Ulysses 4 each), all on
+    the Hopper kernels, ms against the single call. (d) Switch-Base-8's
+    MoE FFN (d 768, d_ff 3072, 8 experts, top-1, capacity 1.25) at ep 4,
+    b2 s512 a rank, f32, against the dense layer over each rank's tokens
+    (``P26_MOE_TOL``), dropped tokens and all_to_all bytes. (e)
+    SyncBatchNorm at ResNet-50's first BN shape ([8, 64, 56, 56] a rank)
+    over dp 4 against one BN over the concatenated batch
+    (``P26_BN_TOL``).
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -341,7 +370,8 @@ line is ``{"ok": true, "device": {...}}``. The kernel summary line
 One phase alone (after ``phase_build()``), from the repo root:
 ``python3 -c "import chip_smoke as c; c.setup(); c.phase_build();
 c.phase_flash()"``; phase 25: ``python3 -c "import chip_smoke as c;
-c.setup(); card = c.phase_build(); c.phase_distributed(card)"``. ``python3 chip_smoke.py --faults`` runs phases 2-3
+c.setup(); card = c.phase_build(); c.phase_distributed(card)"``; phase
+26 the same with ``c.phase_fleet_training(card)``. ``python3 chip_smoke.py --faults`` runs phases 2-3
 (decode faults), 6 (CE faults), 10 (flash faults), 14 (f16 faults),
 18's API checks (op-core faults), 19's mask checks (a Transformer
 fault), 20's conv oracle (a conv fault) or 21(a)'s f32 beam scores (a
@@ -361,6 +391,7 @@ prints the decode step's wall and busy ms.
 import contextlib
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -4217,8 +4248,8 @@ GEN_BATCH, GEN_PROMPT, GEN_BEAM, GEN_NEW = 8, 32, 4, 32
 # 21(b)'s new tokens: export_decode unrolls every decode step into the
 # graph, so its export and load grow with them (111 s and 36 s at 32 on
 # an H100 80GB HBM3 at 700 W, in a whole run past the script's budget);
-# 16 keeps the same checks
-EXPORT_NEW = 16
+# 8 keeps the same checks (16 until phase 26 needed the time)
+EXPORT_NEW = 8
 # beam scores against an uncached forward of each path (the sum of the
 # chosen tokens' log-probs over GEN_NEW tokens): f32 2e-3, the cached
 # split-K decode kernel against the uncached composite attention (the
@@ -4994,10 +5025,12 @@ def phase_static(card=None):
 # --------------------------------------------------------------------------
 
 P23_DIR = ".scratch/phase23"                       # listed in .gitignore
-P23_STEPS, P23_WARMUP, P23_BATCHES, P23_PROFILED = 40, 12, 16, 8
+# depth cut from 40 / 12 / 8 / 20 and 40 / 25 / 10 to make room for
+# phase 26: the same checks over fewer steps
+P23_STEPS, P23_WARMUP, P23_BATCHES, P23_PROFILED = 24, 8, 16, 6
 P23_MODES = (("sync", 0, 0), ("inflight2", 2, 0), ("inflight2_scan4", 2, 4))
-P23_RESUME_AT = 20
-P23_FIT_STEPS, P23_KILL_AFTER, P23_CKPT_FREQ = 40, 25, 10
+P23_RESUME_AT = 12
+P23_FIT_STEPS, P23_KILL_AFTER, P23_CKPT_FREQ = 24, 15, 6
 P23_CAPI_STEPS, P23_NAN_STEPS = 10, 6
 P23_SERVE = {"requests": 64, "prompt": 32, "new": 97, "batch": 8,
              "round": 4}
@@ -5457,7 +5490,8 @@ def _p23_kill_resume():
           f"23(b): the killed child exited {killed.returncode}: "
           f"{killed.stderr[-2000:]}")
     ck = TrainingCheckpoint(ckpt, keep=2)
-    check(ck.all_steps() == [20, P23_KILL_AFTER],
+    check(ck.all_steps() == [P23_KILL_AFTER // P23_CKPT_FREQ * P23_CKPT_FREQ,
+                             P23_KILL_AFTER],
           f"23(b): the kill left steps {ck.all_steps()}")
     t1 = time.perf_counter()
     state = ck.restore()
@@ -5479,12 +5513,13 @@ def _p23_kill_resume():
     check(rinfo["step_count"] == P23_FIT_STEPS,
           f"23(b): the resumed run ends at step {rinfo['step_count']}")
     steps = ck.all_steps()
-    check(steps == [30, 40], f"23(b): the resume left steps {steps}")
-    step_dir = os.path.join(ckpt, "40")
+    last, prev = P23_FIT_STEPS, P23_FIT_STEPS - P23_CKPT_FREQ
+    check(steps == [prev, last], f"23(b): the resume left steps {steps}")
+    step_dir = os.path.join(ckpt, str(last))
     nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
                  for f in os.listdir(step_dir))
-    # one flipped byte in step 40's largest tensor data: quarantined, the
-    # restore walks back to step 30
+    # one flipped byte in the last step's largest tensor data:
+    # quarantined, the restore walks back to the one before
     path = os.path.join(step_dir, "state.pt")
     with open(path, "r+b") as f:
         f.seek(nbytes // 2)
@@ -5494,20 +5529,20 @@ def _p23_kill_resume():
     from paddle_tpu_torch.core import monitor
     from paddle_tpu_torch.incubate.checkpoint import CheckpointCorruptError
     try:
-        ck.restore(step=40)
+        ck.restore(step=last)
         reason = None
     except CheckpointCorruptError as e:
         reason = e.reason
     check(reason == "sha256 mismatch", f"23(b): the flipped byte of step "
-          f"40 was not found by its manifest's hash ({reason})")
+          f"{last} was not found by its manifest's hash ({reason})")
     q0 = monitor.stat_get("ckpt.corrupt_skipped")
     t1 = time.perf_counter()
     state = ck.restore()
     walk_s = time.perf_counter() - t1
-    check(state is not None and state["counters"]["global_step"] == 30,
-          "23(b): the restore did not walk back to step 30")
+    check(state is not None and state["counters"]["global_step"] == prev,
+          f"23(b): the restore did not walk back to step {prev}")
     check(monitor.stat_get("ckpt.corrupt_skipped") - q0 == 1
-          and ck.all_steps() == [30], "23(b): step 40 not quarantined")
+          and ck.all_steps() == [prev], f"23(b): step {last} not quarantined")
     del state
     res = {"fit_steps": P23_FIT_STEPS, "killed_after": P23_KILL_AFTER,
            "checkpoint_freq": P23_CKPT_FREQ, "keep": 2, "bitwise": True,
@@ -7114,6 +7149,721 @@ def phase_distributed(card=None):
     return counts, res
 
 
+# --------------------------------------------------------------------------
+# phase 26: training across processes (pipeline, ring backward, MoE, sync
+# BN, fleet Model.fit with ZeRO and LocalSGD)
+# --------------------------------------------------------------------------
+
+P26_RANKS = 4
+P26_FIT_STEPS, P26_LSGD_STEPS, P26_LSGD_K = 3, 4, 2
+P26_PP_MICRO, P26_PP_B, P26_PP_S = 4, 8, 1024     # GPT-2 small at pp 4
+P26_MOE = {"d_model": 768, "d_ff": 3072, "experts": 8, "cf": 1.25,
+           "b": 2, "s": 512}                      # google/switch-base-8
+P26_BN = (8, 64, 56, 56)                          # ResNet-50's first BN
+# the pipeline against the whole model in one process over the same
+# micro-batches: the same ops a micro-batch, so the loss to f32 rounding;
+# the gradients differ by the order each parameter's micro-batch
+# contributions accumulate in: f32 as GPT_STEP_TOL's gradients, bf16 to
+# a few bf16 ulps of the largest entry (2^-8 each)
+P26_PP_TOL = {torch.float32: {"loss": 1e-5, "grad": 2e-5},
+              torch.bfloat16: {"loss": 1e-5, "grad": 5e-2}}
+# the ring's and Ulysses' forward and dq / dk / dv against one flash
+# forward and backward over the whole s 16384, bf16 (largest |error| over
+# largest |entry|, and the norms' ratio): the forward to P25_RING_TOL; the
+# gradients to twice FLASH_TOL's bf16 limits, since dq sums four blocks'
+# bf16-rounded partials where the one call rounds once
+P26_RING_GRAD_TOL = {"max": 2e-2, "norm": 1e-2}
+# MoE at ep 4 against the dense layer over each rank's tokens, f32 (no
+# TF32): largest |error| over largest |entry|, outputs and gradients (the
+# expert matmuls batched over other expert counts)
+P26_MOE_TOL = 1e-5
+# synchronized BN against one BN over the concatenated batch, f32: the
+# moments are the mean of four ranks' means
+P26_BN_TOL = 1e-5
+
+
+def _p26_rel(a, b):
+    a, b = a.float(), b.float()
+    scale = float(b.abs().max())
+    diff = float((a - b).abs().max())
+    return diff / scale if scale else diff
+
+
+def _p26_norm(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _p26_counts():
+    from paddle_tpu_torch.ops import cuda as kernels
+    c = kernels.launch_counts()
+    return {k: c[k] for k in PATH_KERNELS + SM90_COUNTS + CE_SM90_COUNTS}
+
+
+def _p26_sync_ms(fn, runs=3):
+    from paddle_tpu_torch.distributed import collective as C
+    ts = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        C.barrier()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ts)
+
+
+def _p26_pipeline(dtype):
+    """26(b) on this rank: GPT-2 small's 12 blocks at pp 4 (3 a stage; the
+    embedding before, ln_f and the tied head's fused CE after, on the last
+    stage), b8 s1024 in 4 micro-batches, one forward and backward in each
+    schedule; the whole model in this process over the same micro-batches
+    as the reference."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import pipeline as PL
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models import GPT, GPTConfig
+    r, n = M.world_rank(), M.world_size()
+    cfg = GPTConfig()
+    cfg.dropout = 0.0
+    net = GPT(cfg, device="cuda", dtype=dtype, seed=0)
+    ids, lab = _lm_batch(50257, P26_PP_B, P26_PP_S, seed=1)
+    ids_m = PL.micro_batch(ids, P26_PP_MICRO)
+    lab_m = PL.micro_batch(lab, P26_PP_MICRO)
+    shared = [net.wte.weight, net.wpe.weight, net.ln_f.weight,
+              net.ln_f.bias]
+
+    def zero():
+        for p in net.parameters():
+            p.grad = None
+
+    def embed(i):
+        pos = torch.arange(i.shape[1], device="cuda")
+        return net.wte(i) + net.wpe(pos)
+
+    def head(h, lbl):
+        return F.fused_linear_cross_entropy(net.ln_f(h), net.wte.weight,
+                                            None, lbl, ignore_index=-100)
+
+    zero()
+    ref_loss = sum(net(ids_m[m], lab_m[m]) for m in range(P26_PP_MICRO)) \
+        / P26_PP_MICRO
+    ref_loss.backward()
+    ref = {i: p.grad.detach().clone() for i, p in
+           enumerate(net.parameters())}
+    ref_loss = float(ref_loss)
+    mesh = M.init_mesh({"pp": n}, name="pp")
+    owned = {"gpipe": [net.blocks[3 * r + j] for j in range(3)],
+             "interleaved": [net.blocks[c * n + r] for c in range(3)]}
+    out = {}
+    for sched in ("gpipe", "1f1b", "interleaved"):
+        zero()
+        blocks = owned["interleaved" if sched == "interleaved" else "gpipe"]
+        with M.MeshGuard(mesh):
+            x_m = torch.stack([embed(ids_m[m])
+                               for m in range(P26_PP_MICRO)])
+            before = _p26_counts()
+            torch.cuda.synchronize()
+            C.barrier()
+            t = time.perf_counter()
+            if sched == "interleaved":
+                loss = PL.pipeline_loss(list(blocks), head, x_m, lab_m,
+                                        "pp", schedule="interleaved")
+            else:
+                stage = torch.nn.Sequential(*blocks)
+                loss = PL.pipeline_loss(stage, head, x_m, lab_m, "pp",
+                                        schedule=sched)
+            loss.backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            after = _p26_counts()
+            # the replicated embedding, ln_f and tied head: each rank holds
+            # its part of their gradients; the sum over pp is theirs
+            for p in shared:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                g = g.detach().contiguous()
+                C._all_reduce_(g, mesh.group("pp")[0])
+                p.grad = g
+        errs = {}
+        mine = {id(p) for b in blocks for p in b.parameters()} \
+            | {id(p) for p in shared}
+        for i, p in enumerate(net.parameters()):
+            if id(p) in mine:
+                errs[i] = _p26_rel(p.grad, ref[i])
+        out[sched] = {"loss": float(loss), "ref_loss": ref_loss,
+                      "loss_rel": abs(float(loss) - ref_loss) / abs(ref_loss),
+                      "grad_err": max(errs.values()),
+                      "params_compared": len(errs), "ms": ms,
+                      "launches": {k: after[k] - before[k] for k in after}}
+    M.reset_mesh("pp")
+    zero()
+    del net
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    return out
+
+
+def _p26_ring():
+    """26(c) on this rank: ring and Ulysses attention at sp 4 (s 4096 a
+    rank, h12 d64, bf16), forward and backward through
+    ``sequence_parallel_attention`` against one flash forward and backward
+    over s 16384 (rank 0), the flash launches of the call; then ms of a
+    rank's own forward and backward inside the region."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import ring_attention as R
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
+    r, n = M.world_rank(), M.world_size()
+    g = torch.Generator("cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(1, P25_H, P25_SP_S, P25_D, device="cuda",
+                               dtype=torch.bfloat16, generator=g)
+                   for _ in range(4))
+    sp = M.init_mesh({"sp": n}, name="sp26")
+    out = {}
+    for mode in ("ring", "ulysses"):
+        for causal in (False, True):
+            tag = f"{mode}_causal{int(causal)}"
+            ts = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = _p26_counts()
+            o = R.sequence_parallel_attention(*ts, mesh=sp, causal=causal,
+                                              mode=mode)
+            o.backward(do)
+            torch.cuda.synchronize()
+            after = _p26_counts()
+            rec = {"launches": {kk: after[kk] - before[kk] for kk in after}}
+            if r == 0:
+                rs = [t.clone().requires_grad_() for t in (q, k, v)]
+                ro = flash_attention(*rs, causal=causal)
+                ro.backward(do)
+                for name, got, want in (("o", o, ro), ("dq", ts[0].grad,
+                                                       rs[0].grad),
+                                        ("dk", ts[1].grad, rs[1].grad),
+                                        ("dv", ts[2].grad, rs[2].grad)):
+                    rec[f"{name}_max"] = _p26_rel(got.detach(), want.detach())
+                    rec[f"{name}_norm"] = _p26_norm(got.detach(),
+                                                    want.detach())
+            # a rank's own shard, forward and backward inside the region
+            lo = r * (P25_SP_S // n)
+            loc = [t[:, :, lo:lo + P25_SP_S // n].contiguous()
+                   .requires_grad_() for t in (q, k, v)]
+            dl = do[:, :, lo:lo + P25_SP_S // n].contiguous()
+            fn = R.ring_attention if mode == "ring" else R.ulysses_attention
+
+            def step():
+                with M.MeshGuard(sp):
+                    fn(*loc, axis="sp", causal=causal).backward(dl)
+            step()
+            rec["ms"] = _p26_sync_ms(step)
+            out[tag] = rec
+    if r == 0:      # one flash forward + backward over the whole sequence
+        single = [t.clone().requires_grad_() for t in (q, k, v)]
+        for causal in (False, True):
+            def whole():
+                flash_attention(*single, causal=causal).backward(do)
+            whole()
+            out[f"single_causal{int(causal)}_ms"] = time_ms(whole, runs=10)
+    C.barrier()
+    M.reset_mesh("sp26")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    return out
+
+
+def _p26_moe():
+    """26(d) on this rank: Switch-Base-8's MoE FFN at ep 4 (2 experts a
+    rank) over this rank's b2 s512 tokens, f32, forward and backward,
+    against the dense layer (all 8 experts) over the same tokens; the
+    experts' gradients summed over ranks for the comparison."""
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.moe import MoELayer
+    from paddle_tpu_torch.device import device_scope
+    r, n = M.world_rank(), M.world_size()
+    cfg = P26_MOE
+    d, f, e = cfg["d_model"], cfg["d_ff"], cfg["experts"]
+    with device_scope("cuda"):
+        dense = MoELayer(d, f, e, capacity_factor=cfg["cf"], axis="ep")
+        ep = M.init_mesh({"ep": n}, name="ep26")
+        with M.MeshGuard(ep):
+            moe = MoELayer(d, f, e, capacity_factor=cfg["cf"], axis="ep")
+    g = torch.Generator("cuda").manual_seed(3)
+    el = e // n
+    with torch.no_grad():
+        for name, scale in (("w_up", 0.02), ("b_up", 0.02),
+                            ("w_down", 0.02), ("b_down", 0.02)):
+            full = getattr(dense, name)
+            full.copy_(torch.randn(full.shape, device="cuda", generator=g)
+                       * scale)
+            getattr(moe, name).copy_(full[r * el:(r + 1) * el])
+        dense.gate.weight.copy_(torch.randn(d, e, device="cuda",
+                                            generator=g) * 0.02)
+        moe.gate.weight.copy_(dense.gate.weight)
+    gx = torch.Generator("cuda").manual_seed(100 + r)
+    x = torch.randn(cfg["b"], cfg["s"], d, device="cuda", generator=gx)
+    ct = torch.randn(cfg["b"], cfg["s"], d, device="cuda", generator=gx)
+    dropped = monitor.stat_get("moe.dropped_tokens")
+    staged = monitor.stat_get("dist.staged_bytes")
+    a2a = monitor.stat_get("dist.all_to_all_bytes")
+    xe = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with M.MeshGuard(ep):
+        ye = moe(xe)
+        (ye * ct).sum().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    out = {"dropped": monitor.stat_get("moe.dropped_tokens") - dropped,
+           "staged_bytes": monitor.stat_get("dist.staged_bytes") - staged,
+           "all_to_all_bytes": monitor.stat_get("dist.all_to_all_bytes")
+           - a2a, "ms": ms}
+    xd = x.clone().requires_grad_()
+    yd = dense(xd)
+    (yd * ct).sum().backward()
+    errs = {"out": _p26_rel(ye.detach(), yd.detach()),
+            "dx": _p26_rel(xe.grad, xd.grad),
+            "gate": _p26_rel(moe.gate.weight.grad, dense.gate.weight.grad)}
+    pg = ep.group("ep")[0]
+    for name in ("w_up", "b_up", "w_down", "b_down"):
+        full = getattr(dense, name).grad.detach().contiguous()
+        C._all_reduce_(full, pg)
+        errs[name] = _p26_rel(getattr(moe, name).grad,
+                              full[r * el:(r + 1) * el])
+    tokens = cfg["b"] * cfg["s"]
+    cap = int(cfg["cf"] * tokens / e) + 1
+    out.update(errs=errs, capacity=cap,
+               # 2 forward + 2 backward calls of [e, capacity, d] f32
+               all_to_all_bytes_expected=4 * e * cap * d * 4)
+    M.reset_mesh("ep26")
+    return out
+
+
+def _p26_sync_bn():
+    """26(e) on this rank: SyncBatchNorm over dp 4 at ResNet-50's first BN
+    shape ([8, 64, 56, 56] a rank, f32) under shard_map, against one BN
+    over the concatenated batch: outputs, running stats, gradients."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.device import device_scope
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    r, n = M.world_rank(), M.world_size()
+    b, c, hh, ww = P26_BN
+    g = torch.Generator("cuda").manual_seed(5)
+    x = torch.randn(n * b, c, hh, ww, device="cuda", generator=g) * 2 + 1
+    ct = torch.randn(n * b, c, hh, ww, device="cuda", generator=g)
+    mesh = M.init_mesh({"dp": n}, name="bn26")
+    with device_scope("cuda"):
+        sbn, bn = nn.SyncBatchNorm(c), nn.BatchNorm2D(c)
+    for m in (sbn, bn):
+        with torch.no_grad():
+            m.weight.copy_(torch.linspace(0.5, 1.5, c, device="cuda"))
+            m.bias.copy_(torch.linspace(-0.2, 0.2, c, device="cuda"))
+        m.train()
+    xs = x.clone().requires_grad_()
+    ys = M.shard_map(sbn, mesh=mesh, in_specs=(M.P("dp"),),
+                     out_specs=M.P("dp"))(xs)
+    (ys * ct).sum().backward()
+    pg = mesh.group("dp")[0]
+    dw = sbn.weight.grad.detach().contiguous()
+    db = sbn.bias.grad.detach().contiguous()
+    C._all_reduce_(dw, pg)
+    C._all_reduce_(db, pg)
+    xr = x.clone().requires_grad_()
+    yr = bn(xr)
+    (yr * ct).sum().backward()
+    errs = {"out": _p26_rel(ys.detach(), yr.detach()),
+            "dx": _p26_rel(xs.grad, xr.grad),
+            "dweight": _p26_rel(dw, bn.weight.grad),
+            "dbias": _p26_rel(db, bn.bias.grad),
+            "running_mean": float((sbn._mean - bn._mean).abs().max()),
+            "running_var": float((sbn._variance - bn._variance).abs().max())}
+    M.reset_mesh("bn26")
+    return {"errs": errs}
+
+
+def p26_ranks_body():
+    """One of the 4 ranks on the card: 26(b) the pipeline schedules in f32
+    and bf16, (c) the ring and Ulysses backward, (d) MoE, (e) sync BN."""
+    _p25_child_setup()
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.recompute import recompute
+    C.probe_transport(torch.device("cuda", 0))
+    # torch.utils.checkpoint's first call imports torch._dynamo and
+    # torch.distributed.tensor (15-21 s in four processes at once on the
+    # card's host): out of the timed schedules
+    recompute(torch.sin, torch.ones(1, device="cuda",
+                                    requires_grad=True)).sum().backward()
+    out = {"pipeline": {}}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        out["pipeline"][name] = _p26_pipeline(dt)
+    out["ring"] = _p26_ring()
+    out["moe"] = _p26_moe()
+    out["sync_bn"] = _p26_sync_bn()
+    out["max_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _p26_masters(opt, net):
+    return {k: opt._slots[k]["master"].detach().clone()
+            for k, _ in net.named_parameters()
+            if "master" in opt._slots.get(k, {})}
+
+
+def _p26_digest(net):
+    import hashlib
+    h = hashlib.sha1()
+    for _, p in sorted(net.named_parameters()):
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _p26_fit(kind, ds, steps, valid=None):
+    """``Model.fit`` of BERT-base (dropout 0, bf16 O2, AdamW lr 1e-4
+    decay 0.01) over ``steps`` batches of 32: kind "dp", "zero"
+    (``strategy.sharding``) or "localsgd" (k ``P26_LSGD_K``) under
+    ``fleet.init`` over the ranks, or "one": this process alone, no mesh.
+    The network gives the per-token MLM losses (``_p25_mlm_tokens``) and
+    the loss is their sum over the batch's labelled tokens (``valid`` in
+    their place: the planted fault). Returns the masters (dp / zero), the
+    first step's AdamW first moments (0.1 x the gradient its update got)
+    and masters (dp / one), the per-step parameter digests (localsgd),
+    the optimizer-state bytes, peak memory and the step ms."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    if kind != "one":
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 2}
+        strategy.sharding = kind == "zero"
+        if kind == "localsgd":
+            strategy.localsgd = True
+            strategy.localsgd_configs = {"k_steps": P26_LSGD_K}
+        fleet.init(is_collective=True, strategy=strategy)
+    cfg = BertConfig.bert_base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = _p25_mlm_tokens(Bert(cfg, device="cuda", dtype=torch.float32,
+                               seed=0))
+    spec = [pt.InputSpec([None, None], "int64", "ids"),
+            pt.InputSpec([None, None], "int64", "labels")]
+    model = pt.Model(net, inputs=spec,
+                     labels=[pt.InputSpec([None, None], "int64", "labels")])
+    inner = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                  parameters=model.parameters())
+    opt = inner if kind == "one" else fleet.distributed_optimizer(inner,
+                                                                  strategy)
+
+    def loss(tok, lab):
+        return tok.sum() / (_p25_valid(lab) if valid is None else valid)
+    model.prepare(opt, loss=loss,
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    rec = {"step_ms": [], "digests": [], "losses": []}
+
+    class Clock(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - self.t) * 1e3)
+            rec["losses"].append(float(logs["loss"]))
+            if kind == "localsgd":
+                rec["digests"].append(_p26_digest(net))
+            if step == 0 and kind in ("dp", "one"):
+                # on the host, out of the step's time and peak memory
+                rec["moment1"] = {k: sl["moment1"].cpu()
+                                  for k, sl in inner._slots.items()}
+                rec["masters1"] = {k: v.cpu() for k, v in
+                                   _p26_masters(inner, net).items()}
+
+    before = _p26_counts()
+    model.fit(ds, batch_size=32, epochs=1, shuffle=False, verbose=0,
+              num_iters=steps, callbacks=[Clock()])
+    after = _p26_counts()
+    rec["launches"] = {k: after[k] - before[k] for k in after}
+    rec["state_bytes"] = model._engine.zero_state_bytes()
+    rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if kind in ("dp", "zero"):
+        model._engine.consolidate_zero()
+        rec["masters"] = _p26_masters(inner, net)
+    rec["final_digest"] = _p26_digest(net)
+    del model, net, opt, inner
+    gc.collect()        # the callback's closure holds the network
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _p26_fit_ref(ids, lab, dp):
+    """26(a)'s independent reference on dp index 0: one fit step of the
+    whole b32 batch in this process, and of the planted fault (the step a
+    DP without the sum over ranks takes on rank 0: its 16 rows, the loss
+    over the whole batch's labelled tokens). Their first moments and
+    masters after the step, and the loss."""
+    from paddle_tpu_torch.io import TensorDataset
+    whole = TensorDataset([ids.cpu(), lab.cpu(), lab.cpu()])
+    ref = _p26_fit("one", whole, 1)
+    half = TensorDataset([ids[:16].cpu(), lab[:16].cpu(), lab[:16].cpu()])
+    fault = _p26_fit("one", half, 1, valid=_p25_valid(lab))
+    return {"loss_abs_diff": abs(dp["losses"][0] - ref["losses"][0]),
+            "grad_err": _p25_grad_err(dp["moment1"], ref["moment1"]),
+            "fault_grad_err": _p25_grad_err(fault["moment1"],
+                                            ref["moment1"]),
+            "param_max_abs_diff": max(
+                float((dp["masters1"][k] - ref["masters1"][k]).abs().max())
+                for k in ref["masters1"]),
+            "fault_param_max_abs_diff": max(
+                float((fault["masters1"][k] - ref["masters1"][k]).abs()
+                      .max()) for k in ref["masters1"]),
+            "n_params_compared": len(ref["masters1"]),
+            "loss_dp": dp["losses"][0], "loss_ref": ref["losses"][0],
+            "ref_step_ms": ref["step_ms"][0]}
+
+
+def p26_fleet_body():
+    """One of the 2 dp ranks: 26(a) fleet ``Model.fit`` of BERT-base b32
+    s128 (16 / 16), bf16 O2, 3 steps plain and with ZeRO; rank 0 holds the
+    plain fit's first step against one process over the whole batch and
+    a planted fault; then LocalSGD k 2 for 4 steps. Returns the
+    comparisons and readings of this rank."""
+    _p25_child_setup()
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.text.models import BertConfig
+    C.probe_transport(torch.device("cuda", 0))
+    ids, lab = _bert_batches(BertConfig.bert_base(), 32, 128,
+                             max(P26_FIT_STEPS, P26_LSGD_STEPS))
+    ids_all, lab_all = torch.cat(list(ids)).cpu(), torch.cat(list(lab)).cpu()
+    ds = TensorDataset([ids_all, lab_all, lab_all])
+    out = {"rank": M.world_rank()}
+    dp = _p26_fit("dp", ds, P26_FIT_STEPS)
+    M.reset_mesh()
+    if out["rank"] == 0:
+        out["dp_vs_one"] = _p26_fit_ref(ids[0], lab[0], dp)
+    torch.distributed.barrier()
+    for k in ("moment1", "masters1"):
+        del dp[k]
+    zero = _p26_fit("zero", ds, P26_FIT_STEPS)
+    M.reset_mesh()
+    diffs = [float((zero["masters"][k] - dp["masters"][k]).abs().max())
+             for k in dp["masters"]]
+    out["zero_vs_dp"] = {
+        "masters_compared": len(diffs), "max_abs_diff": max(diffs),
+        "bitwise": all(torch.equal(zero["masters"][k], dp["masters"][k])
+                       for k in dp["masters"]),
+        "losses_dp": dp["losses"], "losses_zero": zero["losses"]}
+    for name, rec in (("dp", dp), ("zero", zero)):
+        out[name] = {k: rec[k] for k in ("step_ms", "state_bytes",
+                                         "max_memory_gb", "launches",
+                                         "losses")}
+    del dp, zero
+    torch.cuda.empty_cache()
+    lsgd = _p26_fit("localsgd", ds, P26_LSGD_STEPS)
+    M.reset_mesh()
+    out["localsgd"] = {k: lsgd[k] for k in ("step_ms", "digests", "losses",
+                                            "final_digest", "launches")}
+    return out
+
+
+def phase_fleet_training(card=None):
+    """Phase 26: 2 ranks (a) fleet Model.fit DP / ZeRO / LocalSGD; 4 ranks
+    (b) the pipeline schedules, (c) the ring and Ulysses backward, (d)
+    MoE, (e) sync BN. Returns the paths' launch counts (ranks summed) and
+    the results."""
+    import tempfile
+    from paddle_tpu_torch.testing import spmd
+    t0 = time.perf_counter()
+    res = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        fl = spmd.run_ranks(p26_fleet_body, 2, tmp_path=tmp, device="cuda",
+                            timeout=900)
+    res["fleet_s"] = time.perf_counter() - t0
+    z = fl[0]["zero_vs_dp"]
+    a = {"zero_vs_dp": z,
+         "state_bytes": {k: [f[k]["state_bytes"] for f in fl]
+                         for k in ("dp", "zero")},
+         "max_memory_gb": {k: [f[k]["max_memory_gb"] for f in fl]
+                           for k in ("dp", "zero")},
+         "step_ms": {k: [f[k]["step_ms"] for f in fl]
+                     for k in ("dp", "zero")},
+         "localsgd": {"step_ms": [f["localsgd"]["step_ms"] for f in fl],
+                      "losses": fl[0]["localsgd"]["losses"]}}
+    same = [fl[0]["localsgd"]["digests"][i] == fl[1]["localsgd"]["digests"][i]
+            for i in range(P26_LSGD_STEPS)]
+    a["localsgd"]["replicas_equal_after_step"] = same
+    a["zero_state_share"] = [z_ / d_ for z_, d_ in
+                             zip(a["state_bytes"]["zero"],
+                                 a["state_bytes"]["dp"])]
+    log(f"[fleet fit] BERT-base bf16 O2 b32 s128 as 16 / 16, "
+        f"{P26_FIT_STEPS} AdamW steps, DP against ZeRO: {json.dumps(a)}")
+    one = fl[0]["dp_vs_one"]
+    a["dp_vs_one"] = one
+    log(f"[fleet fit] DP's first step against one process over the whole "
+        f"b32 batch, and a planted DP without the sum: {json.dumps(one)}")
+    check(one["loss_abs_diff"] <= P25_DP_BF16_TOL["loss"]
+          and one["grad_err"] <= P25_DP_BF16_TOL["grad"]
+          and one["param_max_abs_diff"] <= P25_DP_BF16_TOL["master"],
+          f"fleet DP fit differs from one process over the whole batch: "
+          f"{one}")
+    check(one["fault_grad_err"] > P25_DP_BF16_TOL["grad"],
+          f"the gradient limit {P25_DP_BF16_TOL['grad']} passes a DP "
+          f"without the sum: {one['fault_grad_err']}")
+    check(z["max_abs_diff"] <= STEP_TOL["param"],
+          f"ZeRO's masters differ from DP's by {z['max_abs_diff']}")
+    check(all(zs < ds_ for zs, ds_ in zip(a["state_bytes"]["zero"],
+                                          a["state_bytes"]["dp"])),
+          f"ZeRO's optimizer state not smaller: {a['state_bytes']}")
+    check(same == [(i + 1) % P26_LSGD_K == 0
+                   for i in range(P26_LSGD_STEPS)],
+          f"LocalSGD replicas equal after steps {same}, not after every "
+          f"{P26_LSGD_K}th only")
+    check(all(np.isfinite(fl[0][k]["losses"]).all() for k in ("dp", "zero")),
+          "non-finite fleet fit loss")
+    res["fit"] = a
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spmd.run_ranks(p26_ranks_body, P26_RANKS, tmp_path=tmp,
+                               device="cuda", timeout=900)
+    res["ranks_s"] = time.perf_counter() - t1
+    # (b) the pipeline
+    pp = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tol = P26_PP_TOL[dt]
+        for sched in ("gpipe", "1f1b", "interleaved"):
+            per = [rk["pipeline"][name][sched] for rk in ranks]
+            rec = {"loss": per[0]["loss"], "ref_loss": per[0]["ref_loss"],
+                   "loss_rel": max(p["loss_rel"] for p in per),
+                   "grad_err": max(p["grad_err"] for p in per),
+                   "params_compared": sum(p["params_compared"]
+                                          for p in per),
+                   "ms": max(p["ms"] for p in per),
+                   "launches_per_rank": {
+                       k: [p["launches"][k] for p in per]
+                       for k in ("flash_fwd", "flash_fwd.sm90",
+                                 "flash_bwd_dq", "flash_bwd_dkv",
+                                 "fused_ce_fwd", "fused_ce_fwd.sm90",
+                                 "fused_ce_bwd_dh")},
+                   "launches": {k: sum(p["launches"][k] for p in per)
+                                for k in per[0]["launches"]}}
+            pp[f"{sched}_{name}"] = rec
+            log(f"[pipeline] GPT-2 small pp 4 b8 s1024 / 4 micro-batches "
+                f"{sched} {name}: {json.dumps(rec)}")
+            check(rec["loss_rel"] <= tol["loss"]
+                  and rec["grad_err"] <= tol["grad"],
+                  f"pipeline {sched} {name} differs from the whole model: "
+                  f"{rec}")
+            ce = rec["launches_per_rank"]["fused_ce_fwd"]
+            check(ce[:-1] == [0] * (P26_RANKS - 1) and ce[-1] > 0,
+                  f"pipeline {sched} {name}: CE launches a rank {ce}")
+            if dt == torch.bfloat16:
+                for k in ("flash_fwd", "fused_ce_fwd"):
+                    check(rec["launches"][k] == rec["launches"][f"{k}.sm90"]
+                          > 0, f"pipeline {sched} bf16: {k} off the Hopper "
+                               f"kernel")
+    res["pipeline"] = pp
+    # (c) the ring backward
+    rg = {}
+    r0 = ranks[0]["ring"]
+    for tag in ("ring_causal0", "ring_causal1", "ulysses_causal0",
+                "ulysses_causal1"):
+        causal = tag.endswith("1")
+        rec = dict(r0[tag])
+        rec["launches"] = {k: sum(rk["ring"][tag]["launches"][k]
+                                  for rk in ranks)
+                           for k in r0[tag]["launches"]}
+        rec["ms"] = max(rk["ring"][tag]["ms"] for rk in ranks)
+        rec["single_flash_fwd_bwd_ms"] = r0[f"single_causal{int(causal)}_ms"]
+        rg[tag] = rec
+        log(f"[ring bwd] sp 4 x s 4096 bf16 h12 d64 {tag}: "
+            f"{json.dumps(rec)}")
+        check(rec["o_max"] <= P25_RING_TOL["o_max"]
+              and rec["o_norm"] <= P25_RING_TOL["o_norm"],
+              f"{tag} forward differs from the single flash call: {rec}")
+        for gname in ("dq", "dk", "dv"):
+            check(rec[f"{gname}_max"] <= P26_RING_GRAD_TOL["max"]
+                  and rec[f"{gname}_norm"] <= P26_RING_GRAD_TOL["norm"],
+                  f"{tag} {gname} differs from the single flash backward: "
+                  f"{rec}")
+        lc = rec["launches"]
+        for kname in FLASH_KERNELS:
+            check(lc[kname] == lc[f"{kname}.sm90"],
+                  f"{tag}: {kname} off the Hopper kernel: {lc}")
+    want = {"ring_causal0": 16, "ring_causal1": 10, "ulysses_causal0": 4,
+            "ulysses_causal1": 4}
+    for tag, nwant in want.items():
+        lc = rg[tag]["launches"]
+        check(lc["flash_bwd_dq"] == lc["flash_bwd_dkv"] == lc["flash_fwd"]
+              == nwant, f"{tag}: flash launches {lc}, not {nwant} each")
+    res["ring"] = rg
+    # (d) MoE, (e) sync BN
+    moe = {"errs": {k: max(rk["moe"]["errs"][k] for rk in ranks)
+                    for k in ranks[0]["moe"]["errs"]},
+           "dropped_per_rank": [rk["moe"]["dropped"] for rk in ranks],
+           "capacity": ranks[0]["moe"]["capacity"],
+           "all_to_all_bytes_per_rank": [rk["moe"]["all_to_all_bytes"]
+                                         for rk in ranks],
+           "all_to_all_bytes_expected": ranks[0]["moe"][
+               "all_to_all_bytes_expected"],
+           "staged_bytes_per_rank": [rk["moe"]["staged_bytes"]
+                                     for rk in ranks],
+           "ms": max(rk["moe"]["ms"] for rk in ranks)}
+    log(f"[moe] Switch-Base-8 FFN ep 4, b2 s512 a rank, f32: "
+        f"{json.dumps(moe)}")
+    check(max(moe["errs"].values()) <= P26_MOE_TOL,
+          f"MoE at ep 4 differs from the dense layer: {moe['errs']}")
+    res["moe"] = moe
+    bn = {k: max(rk["sync_bn"]["errs"][k] for rk in ranks)
+          for k in ranks[0]["sync_bn"]["errs"]}
+    log(f"[sync bn] [8, 64, 56, 56] a rank over dp 4, f32, against one BN "
+        f"over [32, 64, 56, 56]: {json.dumps(bn)}")
+    check(max(bn.values()) <= P26_BN_TOL, f"sync BN differs: {bn}")
+    res["sync_bn"] = bn
+    res["max_memory_gb_per_rank"] = [rk["max_memory_gb"] for rk in ranks]
+    counts = {"fit": {k: {kk: sum(f[k]["launches"][kk] for f in fl)
+                          for kk in fl[0][k]["launches"]}
+                      for k in ("dp", "zero")},
+              "pipeline": {t: r["launches"] for t, r in pp.items()},
+              "ring": {t: r["launches"] for t, r in rg.items()}}
+    counts["fit"]["localsgd"] = {
+        kk: sum(f["localsgd"]["launches"][kk] for f in fl)
+        for kk in fl[0]["localsgd"]["launches"]}
+    for kname in PATH_KERNELS:
+        check(counts["fit"]["dp"][kname] > 0
+              and counts["fit"]["dp"][kname]
+              == counts["fit"]["dp"][f"{kname}.sm90"],
+              f"fleet fit: {kname} launched {counts['fit']['dp'][kname]} "
+              f"times, not all on the Hopper kernel")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[fleet training] phase 26 {res['seconds']:.1f} s (2 ranks "
+        f"{res['fleet_s']:.1f}, 4 ranks {res['ranks_s']:.1f}); card: {card}")
+    return counts, res
+
+
+def _fleet_training_fields(rec, name, counts):
+    """Phase 26's launches of one of the six training kernels, summed over
+    the ranks: the fleet fits (DP, ZeRO, LocalSGD; 2 ranks), the pipeline
+    schedules (f32 and bf16; 4 ranks) and, for the flash kernels, the ring
+    and Ulysses forward and backward (4 ranks)."""
+    for tag, c in counts["fit"].items():
+        rec[f"launches_fleet_{tag}"] = c[name]
+        rec[f"launches_fleet_{tag}_sm90"] = c[f"{name}.sm90"]
+    for tag, c in counts["pipeline"].items():
+        rec[f"launches_pipeline_{tag}"] = c[name]
+        rec[f"launches_pipeline_{tag}_sm90"] = c[f"{name}.sm90"]
+    if name in FLASH_KERNELS:
+        for tag, c in counts["ring"].items():
+            rec[f"launches_{tag}_bwd_phase"] = c[name]
+            rec[f"launches_{tag}_bwd_phase_sm90"] = c[f"{name}.sm90"]
+
+
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
@@ -7435,6 +8185,7 @@ def main():
     th_counts, trainer_host = phase_trainer_host(card)
     ps_counts, ps_res = phase_ps(card)
     p25_counts, p25 = phase_distributed(card)
+    p26_counts, p26 = phase_fleet_training(card)
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -7510,6 +8261,7 @@ def main():
         rec["launches_static_sm90"] = st_counts[f"{name}.sm90"]
         _trainer_host_fields(rec, name, th_counts)
         _distributed_fields(rec, name, p25_counts)
+        _fleet_training_fields(rec, name, p26_counts)
         if name == "fused_ce_bwd_dw":
             rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
                                      *worst_ce["db_max"].values(),
@@ -7542,6 +8294,7 @@ def main():
         rec["launches_static_sm90"] = st_counts[f"{name}.sm90"]
         _trainer_host_fields(rec, name, th_counts)
         _distributed_fields(rec, name, p25_counts)
+        _fleet_training_fields(rec, name, p26_counts)
         if name == "flash_fwd":     # 22(c): each jit route's forward
             rec["launches_jit"] = {
                 r: c["flash_fwd"] for r, c in
@@ -7570,7 +8323,7 @@ def main():
                       "transformer": transformer, "vision": vision,
                       "generation": generation, "static": static_res,
                       "trainer_host": trainer_host, "ps": ps_res,
-                      "distributed": p25}))
+                      "distributed": p25, "fleet_training": p26}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

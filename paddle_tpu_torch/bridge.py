@@ -8,7 +8,12 @@
 ``layer1.0.bn1._mean`` ...). The name sets must match one to one. Both
 packages' ``Linear`` store the weight [in, out] and compute ``x @ W``,
 and both packages' conv layers keep OI<spatial> weights (IO<spatial>
-for the transposes), so every parameter copies as it is.
+for the transposes), so every parameter copies as it is. A rank that
+holds a shard of the JAX layer's whole tensor takes its slice: a
+sublayer with ``_slice_jax_param(name, array)`` picks it (``MoELayer``'s
+stacked experts under ep: the rank's num_experts / ep rows). A
+``PipelineLayer`` keeps every stage's parameters under the JAX names
+(``stages.{i}.{j}...``) on every rank, so they copy as they are.
 
 ``load_jax_optimizer_state`` carries a JAX ``Optimizer.state_dict()``
 (every ``"{param}/{slot}"``, ``_step_count``, ``LR_Scheduler``) and a JAX
@@ -42,7 +47,8 @@ def load_jax_params(module: torch.nn.Module, params,
     the JAX package's ``Parameter.name``s repeat (the deep-copied layers
     of its encoder and decoder stacks). Raises KeyError on a missing or
     unexpected name and ValueError on a shape mismatch."""
-    _copy_named("parameter", dict(module.named_parameters()), params)
+    _copy_named("parameter", dict(module.named_parameters()),
+                _sliced(module, params))
     if buffers is not None:
         _copy_named("buffer", dict(module.named_buffers()), buffers)
     return module
@@ -69,6 +75,20 @@ def load_jax_static_params(module: torch.nn.Module, params,
         for k, var in own.items():
             var.set_value(_f32_array(values[k]))
     return module
+
+
+def _sliced(module, values):
+    """``values`` with each sharded sublayer's slice taken."""
+    out = dict(values)
+    for prefix, sub in module.named_modules():
+        fn = getattr(sub, "_slice_jax_param", None)
+        if fn is None:
+            continue
+        for local, _ in sub.named_parameters(recurse=False):
+            key = f"{prefix}.{local}" if prefix else local
+            if key in out:
+                out[key] = fn(local, np.asarray(_f32_array(out[key])))
+    return out
 
 
 def _copy_named(what, own, values):

@@ -3,11 +3,13 @@
 The collective tier: the PADDLE_* env contract (``env.py``,
 ``bootstrap.py``, ``spawn.py``), named meshes over the world's ranks with
 ``shard_map`` (``mesh.py``), collectives (``collective.py``), ring and
-Ulysses attention (``ring_attention.py``), the tensor-parallel rule tables
-(``sharding.py``), ``DataParallel`` (``parallel.py``), the Megatron layers
-(``fleet/meta_parallel.py``) and ``recompute``. The parameter-server tier
-is ``ps/``. Pipeline schedules, MoE, LocalSGD, the launcher, elastic
-training and fleet's strategy wait for ROADMAP Queue 1 item 7b: their
+Ulysses attention with their backward (``ring_attention.py``), the
+tensor-parallel rule tables and ZeRO's specs (``sharding.py``),
+``DataParallel`` (``parallel.py``), the pipeline schedules
+(``pipeline.py``), MoE (``moe.py``), LocalSGD (``localsgd.py``), fleet's
+``init`` / strategy / ``distributed_optimizer`` and the Megatron layers
+(``fleet/``) and ``recompute``. The parameter-server tier is ``ps/``. The
+launcher and elastic training wait for ROADMAP Queue 1 item 7c: their
 names raise ``NotImplementedError``.
 """
 import importlib as _importlib
@@ -17,8 +19,9 @@ from . import mesh  # noqa: F401
 from .mesh import (get_mesh, init_hybrid_mesh, init_mesh,  # noqa: F401
                    in_spmd_region, mesh_axis_size, reset_mesh, shard_map)
 
-_LAZY_MODULES = ("fleet", "sharding", "spawn", "collective", "parallel",
-                 "ring_attention", "bootstrap", "ps", "recompute")
+_LAZY_MODULES = ("fleet", "sharding", "pipeline", "spawn", "moe",
+                 "collective", "parallel", "ring_attention", "bootstrap",
+                 "ps", "localsgd", "recompute")
 _LAZY_NAMES = {
     "recompute": "recompute", "checkpoint_policy": "recompute",
     "all_gather": "collective", "all_reduce": "collective",
@@ -32,8 +35,8 @@ _LAZY_NAMES = {
     "DataParallel": "parallel", "init_parallel_env": "parallel",
     "ring_attention_fn": "ring_attention",
 }
-# item 7b: modules and names not ported yet
-_ITEM_7B = ("pipeline", "moe", "localsgd", "launch", "elastic")
+# item 7c: modules not ported yet
+_ITEM_7C = ("launch", "elastic")
 
 
 def __getattr__(name):
@@ -41,10 +44,10 @@ def __getattr__(name):
         from ..io import fleet_dataset as _fd
         val = globals()[name] = getattr(_fd, name)
         return val
-    if name in _ITEM_7B:
+    if name in _ITEM_7C:
         raise NotImplementedError(
             f"paddle_tpu_torch.distributed.{name} waits for ROADMAP Queue 1 "
-            "item 7b")
+            "item 7c")
     if name in _LAZY_MODULES and name not in _LAZY_NAMES:
         mod = _importlib.import_module(f".{name}", __name__)
         globals()[name] = mod

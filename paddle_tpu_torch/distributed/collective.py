@@ -35,7 +35,7 @@ __all__ = ["ReduceOp", "all_reduce", "all_gather", "all_gather_object",
            "reduce", "broadcast", "scatter", "alltoall", "reduce_scatter",
            "hierarchical_all_reduce", "send", "recv", "p2p_permute",
            "barrier", "split", "new_group", "wait", "get_group", "Group",
-           "transport_table", "probe_transport"]
+           "transport_table", "probe_transport", "copy_to_region"]
 
 
 class ReduceOp:
@@ -309,11 +309,13 @@ def _broadcast_(x, pg, src):
 
 def _all_to_all(x, pg, ranks):
     """all_to_all_single over ``ranks``: chunk j of dim 0 goes to
-    ranks[j]; chunk j of the result came from it."""
+    ranks[j]; chunk j of the result came from it. Counter
+    ``dist.all_to_all_bytes``: the bytes of ``x``."""
     import torch.distributed as dist
     pos = _group_order(ranks)
     inv = [pos.index(i) for i in range(len(ranks))]
     x = x.reshape(len(ranks), -1, *x.shape[1:])[inv].reshape(x.shape)
+    monitor.stat_add("dist.all_to_all_bytes", x.numel() * x.element_size())
     if _staged("all_to_all", x):
         h = _host(x)
         out = torch.empty_like(h)
@@ -370,15 +372,17 @@ def _ready(x):
     return y
 
 
-@defop(name="c_allreduce")
-def _allreduce_raw(x, axis, op, groups=None):
-    """All-reduce over ``axis``, optionally over a subset of its indices
-    (``groups[0]``; the others keep their value). PROD is exact: a gather,
-    then the product in member order, as the JAX package's is."""
+def _wants_grad(x):
+    return torch.is_grad_enabled() and isinstance(x, torch.Tensor) \
+        and x.requires_grad
+
+
+def _allreduce_plain(x, axis, op, groups=None, mesh=None):
     members = list(groups[0]) if groups else None
-    pg, ranks = _axis_group(axis, members)
+    m = mesh or mesh_mod.region_mesh(axis)
+    pg, ranks = m.group(axis, members)
     y = _ready(x).clone()
-    if not ranks:
+    if len(ranks) <= 1:        # a non-member, or a line of one rank
         return y
     if op == ReduceOp.PROD:
         return torch.prod(torch.stack(_gather_list(y, pg, ranks)), 0)
@@ -386,6 +390,58 @@ def _allreduce_raw(x, axis, op, groups=None):
         _all_reduce_(y, pg, ReduceOp.SUM)
         return y / len(ranks)
     return _all_reduce_(y, pg, op)
+
+
+class _AllReduceFn(torch.autograd.Function):
+    """psum / pmean over the axis; the result is the same on every rank
+    and holds its whole cotangent there, so the backward is the identity
+    (over n for the mean)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, op, mesh):
+        ctx.n = 1 if op == ReduceOp.SUM else mesh.shape[axis]
+        return _allreduce_plain(x, axis, op, None, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.n == 1 else g / ctx.n), None, None, None
+
+
+class _CopyFn(torch.autograd.Function):
+    """The identity whose backward sums the cotangent over the axis: a
+    replicated value consumed by each rank as its own."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _allreduce_plain(g, ctx.axis, ReduceOp.SUM, None,
+                                ctx.mesh), None, None
+
+
+def copy_to_region(x, axis):
+    """``x`` (the same on every rank of ``axis``) for a per-rank
+    consumer: the identity, its gradient summed over ``axis``. Outside a
+    region, or over one rank, the identity."""
+    m = mesh_mod.region_mesh(axis)
+    if m is None or m.shape[axis] == 1 or not _wants_grad(x):
+        return x
+    return _CopyFn.apply(x, axis, m)
+
+
+@defop(name="c_allreduce")
+def _allreduce_raw(x, axis, op, groups=None):
+    """All-reduce over ``axis``, optionally over a subset of its indices
+    (``groups[0]``; the others keep their value). PROD is exact: a gather,
+    then the product in member order, as the JAX package's is. SUM and
+    AVG over the whole axis carry a gradient (``_AllReduceFn``)."""
+    if groups is None and op in (ReduceOp.SUM, ReduceOp.AVG) \
+            and _wants_grad(x):
+        return _AllReduceFn.apply(x, axis, op, mesh_mod.region_mesh(axis))
+    return _allreduce_plain(x, axis, op, groups)
 
 
 def _rebound(tensor, out):
@@ -415,9 +471,27 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     return _rebound(tensor, out)
 
 
+class _AllGatherFn(torch.autograd.Function):
+    """[x of each rank] stacked; the result is the same on every rank, so
+    the backward is this rank's slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        pg, ranks = mesh.group(axis)
+        ctx.index = mesh.axis_index(axis)
+        return torch.stack(_gather_list(_ready(x), pg, ranks))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index], None, None
+
+
 @defop(name="c_allgather")
 def _allgather_raw(x, axis):
-    pg, ranks = _axis_group(axis)
+    m = mesh_mod.region_mesh(axis)
+    if _wants_grad(x):
+        return _AllGatherFn.apply(x, axis, m)
+    pg, ranks = m.group(axis)
     return torch.stack(_gather_list(_ready(x), pg, ranks))
 
 
@@ -512,14 +586,36 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     return _rebound(tensor, out)
 
 
-@defop(name="c_alltoall")
-def _alltoall_raw(x, axis):
-    """Chunk j of dim 0 to axis index j; chunk j of the result from it."""
-    pg, ranks = _axis_group(axis)
+def _alltoall_plain(x, axis, mesh):
+    pg, ranks = mesh.group(axis)
     y = _ready(x)
     if len(ranks) <= 1:
         return y.clone()
     return _all_to_all(y, pg, ranks)
+
+
+class _AllToAllFn(torch.autograd.Function):
+    """The tiled all_to_all on dim 0; its transpose (split and concat
+    swapped) is, in this layout, the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return _alltoall_plain(x, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _alltoall_plain(g.contiguous(), ctx.axis, ctx.mesh), None, \
+            None
+
+
+@defop(name="c_alltoall")
+def _alltoall_raw(x, axis):
+    """Chunk j of dim 0 to axis index j; chunk j of the result from it."""
+    m = mesh_mod.region_mesh(axis)
+    if _wants_grad(x):
+        return _AllToAllFn.apply(x, axis, m)
+    return _alltoall_plain(x, axis, m)
 
 
 def alltoall(in_tensor_list, out_tensor_list=None, group=None, sync_op=True):
@@ -622,19 +718,44 @@ def hierarchical_all_reduce(tensor, op=ReduceOp.SUM, inner_axis="dp",
     return _rebound(tensor, out)
 
 
+def _ppermute_plain(x, axis, perm, mesh):
+    line = mesh.line(axis)
+    me = mesh.axis_index(axis)
+    y = _plain(x)
+    out = torch.zeros_like(y)
+    if (me, me) in perm:                     # to itself: no transfer
+        out.copy_(y)
+    sends = [(y, line[d]) for s, d in perm if s == me and d != me]
+    recvs = [(out, line[s]) for s, d in perm if d == me and s != me]
+    if sends or recvs:
+        _exchange(sends, recvs)
+    return out
+
+
+class _PPermuteFn(torch.autograd.Function):
+    """collective_permute; the backward sends each cotangent back along
+    the inverse permutation."""
+
+    @staticmethod
+    def forward(ctx, x, axis, perm, mesh):
+        ctx.axis, ctx.perm, ctx.mesh = axis, perm, mesh
+        return _ppermute_plain(x, axis, perm, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _ppermute_plain(g, ctx.axis, inverse, ctx.mesh), None, \
+            None, None
+
+
 @defop(name="send_v2")
 def _ppermute_raw(x, axis, perm):
     """collective_permute: ``perm`` [(src, dst)] of axis indices; a rank
     that receives nothing gets zeros."""
     m = mesh_mod.region_mesh(axis)
-    line = m.line(axis)
-    me = mesh_mod.axis_index(axis)
-    y = _plain(x)
-    sends = [(y, line[d]) for s, d in perm if s == me]
-    out = torch.zeros_like(y)
-    recvs = [(out, line[s]) for s, d in perm if d == me]
-    _exchange(sends, recvs)
-    return out
+    if _wants_grad(x):
+        return _PPermuteFn.apply(x, axis, perm, m)
+    return _ppermute_plain(x, axis, perm, m)
 
 
 def send(tensor, dst=0, group=None, sync_op=True):

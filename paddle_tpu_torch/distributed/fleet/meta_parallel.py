@@ -6,8 +6,8 @@ the RNG tracker.
 Each rank holds its shard of a parallel layer's weight. The
 identity-forward / all-reduce-backward pair (the column layer's input
 copy) and the all-reduce-forward / identity-backward pair (the row
-layer's output reduction) are ``torch.autograd.Function``s registered
-under the JAX package's op names.
+layer's output reduction) are ``collective``'s ``_CopyFn`` and
+``_AllReduceFn``, registered under the JAX package's op names.
 """
 from __future__ import annotations
 
@@ -24,48 +24,21 @@ __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "get_rng_state_tracker"]
 
 
-def _axis_all_reduce(x, axis, mesh):
-    from ..collective import _all_reduce_
-    pg, ranks = mesh.group(axis)
-    y = x.detach().as_subclass(torch.Tensor).contiguous().clone()
-    if len(ranks) > 1:
-        _all_reduce_(y, pg)
-    return y
-
-
-class _AllreduceIdentityBwd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, axis):
-        return _axis_all_reduce(x, axis, mesh_mod.region_mesh(axis))
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _IdentityAllreduceBwd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis, ctx.mesh = axis, mesh_mod.region_mesh(axis)
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _axis_all_reduce(g, ctx.axis, ctx.mesh), None
-
-
 @defop(name="mp_allreduce_identity_bwd")
 def _allreduce_fwd_identity_bwd(x, axis):
     """f(x) = all-reduce of x over ``axis``; its gradient is the identity
     (the RowParallelLinear output reduction)."""
-    return _AllreduceIdentityBwd.apply(x, axis)
+    from ..collective import ReduceOp, _AllReduceFn
+    return _AllReduceFn.apply(x, axis, ReduceOp.SUM,
+                              mesh_mod.region_mesh(axis))
 
 
 @defop(name="mp_identity_allreduce_bwd")
 def _identity_fwd_allreduce_bwd(x, axis):
     """f(x) = x with the gradient all-reduced over ``axis`` (the
     ColumnParallelLinear input copy)."""
-    return _IdentityAllreduceBwd.apply(x, axis)
+    from ..collective import _CopyFn
+    return _CopyFn.apply(x, axis, mesh_mod.region_mesh(axis))
 
 
 class ColumnParallelLinear(nn.Layer):
@@ -177,20 +150,32 @@ class LayerDesc:
 
 
 class PipelineLayer(nn.Layer):
-    """Stage container: a layer list split uniformly across the 'pp'
-    axis (reference pp_layers.py PipelineLayer). The schedules wait for
-    ROADMAP Queue 1 item 7b; ``forward`` runs the stages in turn."""
+    """Stage container: a layer list split uniformly into pp stages
+    (reference pp_layers.py PipelineLayer). Outside a region over ``pp``
+    (or at pp 1) ``forward`` runs the stages in turn; inside one each rank
+    runs its own stage in the tick-synchronous schedule of
+    ``distributed.pipeline`` over ``num_micro`` micro-batches ("gpipe" or
+    "1f1b"; with ``num_virtual_pipeline_stages`` v > 1 the list splits
+    into n * v chunks, chunk c*n + r on rank r, run interleaved), and
+    returns the finished outputs on the last stage (zeros elsewhere).
+    ``pipeline_loss`` takes ``loss_fn`` on the last stage, the mean over
+    micro-batches on every rank."""
 
     def __init__(self, layers, num_stages=None, loss_fn=None,
-                 partition_method="uniform", **kwargs):
+                 partition_method="uniform", num_micro=None,
+                 schedule="gpipe", num_virtual_pipeline_stages=1, **kwargs):
         super().__init__()
         self.descs = list(layers)
         self.num_stages = num_stages or mesh_mod.mesh_axis_size("pp")
         self.loss_fn = loss_fn
+        self.num_micro = num_micro or self.num_stages
+        self.schedule = schedule
+        self.num_virtual = int(num_virtual_pipeline_stages)
         n = len(self.descs)
-        per = -(-n // self.num_stages)
+        chunks = self.num_stages * self.num_virtual
+        per = -(-n // chunks)
         self.stage_bounds = [(i * per, min((i + 1) * per, n))
-                             for i in range(self.num_stages)]
+                             for i in range(chunks)]
         built = [d.build() if isinstance(d, LayerDesc) else d
                  for d in self.descs]
         self.stages = nn.LayerList([
@@ -199,10 +184,45 @@ class PipelineLayer(nn.Layer):
     def stage_fn(self, stage_idx):
         return self.stages[stage_idx]
 
+    def _pipelined(self):
+        return mesh_mod.in_spmd_region("pp") \
+            and mesh_mod.mesh_axis_size("pp") > 1
+
+    def _local(self):
+        """This rank's stage, or its chunks (shallow to deep)."""
+        r, n = mesh_mod.axis_index("pp"), mesh_mod.mesh_axis_size("pp")
+        if self.num_virtual > 1:
+            return [self.stages[c * n + r] for c in range(self.num_virtual)]
+        return self.stages[r]
+
     def forward(self, x):
-        for s in self.stages:
-            x = s(x)
-        return x
+        if not self._pipelined():
+            for s in self.stages:
+                x = s(x)
+            return x
+        from ..pipeline import gpipe, interleaved, micro_batch
+        xm = micro_batch(x, self.num_micro)
+        if self.num_virtual > 1:
+            outs = interleaved(self._local(), xm, "pp")
+        else:
+            outs = gpipe(self._local(), xm, "pp", schedule=self.schedule)
+        return outs.reshape((x.shape[0],) + tuple(outs.shape[2:]))
+
+    def pipeline_loss(self, x, labels):
+        """The mean micro-batch ``loss_fn`` of the pipelined stack, the
+        same on every rank (outside a pp region: of the stages in turn)."""
+        from ..pipeline import micro_batch, pipeline_loss
+        if not self._pipelined():
+            xm, lm = micro_batch(x, self.num_micro), \
+                micro_batch(labels, self.num_micro)
+            total = sum(self.loss_fn(self.forward(xm[m]), lm[m]).float()
+                        for m in range(self.num_micro))
+            return total / self.num_micro
+        schedule = "interleaved" if self.num_virtual > 1 else self.schedule
+        return pipeline_loss(self._local(), self.loss_fn,
+                             micro_batch(x, self.num_micro),
+                             micro_batch(labels, self.num_micro), "pp",
+                             schedule=schedule)
 
 
 class _RNGTracker:

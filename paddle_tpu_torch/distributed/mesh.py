@@ -14,7 +14,8 @@ global-out contract: every rank passes the global tensors, the wrapper
 takes the rank's shard by ``in_specs``, runs ``f`` with the mesh's axes
 bound (``in_spmd_region``), and gathers each output by ``out_specs``, so
 every rank returns the global result. The gather carries gradients back
-to each rank's shard.
+to each rank's shard, and an input's sharded dims gather their
+gradients back, so every rank holds the global gradient too.
 
 Axis-name conventions: dp data, tp tensor, pp pipeline, sp sequence, ep
 expert parallel.
@@ -419,9 +420,7 @@ def _dim_axes(entry):
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def _local_shard(x, spec, mesh: Mesh):
-    if not isinstance(x, torch.Tensor) or spec is None:
-        return x
+def _narrow_local(x, spec, mesh: Mesh):
     for d, entry in enumerate(tuple(spec)):
         axes = _dim_axes(entry)
         if not axes:
@@ -433,6 +432,38 @@ def _local_shard(x, spec, mesh: Mesh):
         chunk = x.shape[d] // n
         x = x.narrow(d, mesh.axis_index(axes) * chunk, chunk)
     return x
+
+
+class _ShardIn(torch.autograd.Function):
+    """This rank's shard of a global input; the backward gathers the
+    shards' gradients along each sharded dim, so every rank holds the
+    global input's whole gradient (a replicated dim's is whole on each
+    rank already)."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return _narrow_local(x, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        from . import collective
+        for d, entry in reversed(list(enumerate(tuple(ctx.spec)))):
+            axes = _dim_axes(entry)
+            if axes and int(np.prod([ctx.mesh.shape[a] for a in axes])) > 1:
+                pg, ranks = ctx.mesh.group(axes)
+                g = torch.cat(collective._gather_list(g.contiguous(), pg,
+                                                      ranks), d)
+        return g, None, None
+
+
+def _local_shard(x, spec, mesh: Mesh):
+    if not isinstance(x, torch.Tensor) or spec is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad and any(
+            _dim_axes(e) for e in tuple(spec)):
+        return _ShardIn.apply(x, spec, mesh)
+    return _narrow_local(x, spec, mesh)
 
 
 class _GatherCat(torch.autograd.Function):

@@ -16,18 +16,27 @@ parameter outside the wrapped layer is summed over ``dp`` with the rest.
 A 0-d output (a loss the layer reduced itself) is the mean of the ranks'
 values: the global value only when the layer's reduction is a mean over
 shards of equal weight, so a layer should return per-example outputs and
-the loss be taken after the gather.
+the loss be taken after the gather. A batch some tensor of which does
+not divide over ``dp`` along dim 0 is not sharded: every rank runs it
+whole, as the JAX package replicates such an input, and its gradients
+are the whole batch's with no sum.
+
+``batch_divides``, ``shard_batch``, ``gather_batch`` and ``sum_over_dp``
+are the pieces of this data parallelism; ``Model.fit``'s data-parallel
+step (hapi/model.py) is built from the same pieces.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import monitor as _monitor
 from ..nn.layer.layers import Layer
 from . import mesh as mesh_mod
 from .env import ParallelEnv, get_world_size
 
 __all__ = ["init_parallel_env", "DataParallel", "ParallelEnv",
-           "get_world_size"]
+           "get_world_size", "batch_divides", "shard_batch", "gather_batch",
+           "sum_over_dp"]
 
 
 def init_parallel_env(mesh_shape=None):
@@ -37,6 +46,59 @@ def init_parallel_env(mesh_shape=None):
     maybe_initialize_distributed()
     mesh_mod.init_mesh(mesh_shape)
     return ParallelEnv()
+
+
+def batch_divides(values, mesh):
+    """Whether every tensor of ``values`` with a dim 0 divides over the
+    ``dp`` axis of ``mesh``; each one that does not is counted in
+    ``sharding.nondivisible_fallback``."""
+    n = int(mesh.shape["dp"])
+    ok = True
+    for x in values:
+        if isinstance(x, torch.Tensor) and x.dim() and x.shape[0] % n:
+            _monitor.stat_add("sharding.nondivisible_fallback")
+            ok = False
+    return ok
+
+
+def shard_batch(x, mesh):
+    """This rank's 1/dp of ``x`` along dim 0 (a 0-d or non-tensor value
+    as it is)."""
+    if not isinstance(x, torch.Tensor) or x.dim() == 0:
+        return x
+    chunk = x.shape[0] // int(mesh.shape["dp"])
+    return x.narrow(0, mesh.axis_index("dp") * chunk, chunk)
+
+
+def gather_batch(y, mesh):
+    """The ranks' ``y`` along dim 0, differentiable (the backward is this
+    rank's slice); a 0-d ``y`` is the ranks' mean."""
+    if not isinstance(y, torch.Tensor):
+        return y
+    if y.dim() == 0:
+        return mesh_mod.gather_cat(y.reshape(1), 0, "dp", mesh).mean()
+    return mesh_mod.gather_cat(y, 0, "dp", mesh)
+
+
+def sum_over_dp(tensors, mesh):
+    """Sum ``tensors`` over the ``dp`` axis of ``mesh`` in place, one
+    flattened all-reduce a dtype. Returns the bytes reduced."""
+    from .collective import _all_reduce_
+    pg, _ = mesh.group("dp")
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    moved = 0
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        _all_reduce_(flat, pg)
+        moved += flat.numel() * flat.element_size()
+        off = 0
+        with torch.no_grad():
+            for t in group:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
+    return moved
 
 
 class DataParallel(Layer):
@@ -63,23 +125,9 @@ class DataParallel(Layer):
         m = self._mesh
         return int(m.shape["dp"]) if "dp" in m.axis_names else 1
 
-    def _shard(self, x):
-        n = self._dp()
-        if not isinstance(x, torch.Tensor) or x.dim() == 0 \
-                or x.shape[0] % n:
-            return x
-        chunk = x.shape[0] // n
-        return x.narrow(0, self._mesh.axis_index("dp") * chunk, chunk)
-
     def _gather(self, y):
-        if not isinstance(y, torch.Tensor):
-            return y
-        if y.dim() == 0:
-            g = mesh_mod.gather_cat(y.reshape(1), 0, "dp", self._mesh)
-            out = g.mean()
-        else:
-            out = mesh_mod.gather_cat(y, 0, "dp", self._mesh)
-        if out.requires_grad:
+        out = gather_batch(y, self._mesh)
+        if isinstance(out, torch.Tensor) and out.requires_grad:
             out.register_hook(self._on_grad)
         return out
 
@@ -99,11 +147,12 @@ class DataParallel(Layer):
         return g
 
     def forward(self, *inputs, **kwargs):
-        if self._dp() == 1:
+        if self._dp() == 1 or not batch_divides(
+                list(inputs) + list(kwargs.values()), self._mesh):
             return self._layers(*inputs, **kwargs)
         import torch.utils._pytree as pytree
-        inputs = [self._shard(x) for x in inputs]
-        kwargs = {k: self._shard(v) for k, v in kwargs.items()}
+        inputs = [shard_batch(x, self._mesh) for x in inputs]
+        kwargs = {k: shard_batch(v, self._mesh) for k, v in kwargs.items()}
         out = self._layers(*inputs, **kwargs)
         return pytree.tree_map(self._gather, out)
 
@@ -118,26 +167,10 @@ class DataParallel(Layer):
         if not self._pending:
             return
         self._pending = False
-        from .collective import _all_reduce_
-        pg, _ = self._mesh.group("dp")
-        by_dtype = {}
-        for p in self._layers.parameters():
-            if p.grad is not None:
-                by_dtype.setdefault(p.grad.dtype, []).append(p)
-        moved = 0
-        for params in by_dtype.values():
-            grads = [p.grad.detach().as_subclass(torch.Tensor)
-                     for p in params]
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            _all_reduce_(flat, pg)
-            moved += flat.numel() * flat.element_size()
-            off = 0
-            with torch.no_grad():
-                for g in grads:
-                    n = g.numel()
-                    g.copy_(flat[off:off + n].view_as(g))
-                    off += n
-        self.allreduce_bytes = moved
+        self.allreduce_bytes = sum_over_dp(
+            [p.grad.detach().as_subclass(torch.Tensor)
+             for p in self._layers.parameters() if p.grad is not None],
+            self._mesh)
         held, self._held = self._held, {}
         with torch.no_grad():
             for p, g in held.items():

@@ -4,6 +4,11 @@ recomputed in the backward instead of kept, through
 ``torch.utils.checkpoint`` (``use_reentrant=False``; dropout draws the
 same numbers in the recomputation, its RNG state restored).
 
+The recomputation runs under the port's AMP cast policy of the forward
+(torch's checkpoint restores torch's autocast state, not the port's,
+and the backward may run on autograd's device thread), so it casts as
+the forward did.
+
 Policies name what is kept: "nothing" (keep nothing, recompute all: the
 reference's semantics) and "dots" (keep the matmul outputs, recompute the
 elementwise chains between them) as torch's selective-checkpoint policy.
@@ -11,6 +16,8 @@ elementwise chains between them) as torch's selective-checkpoint policy.
 policies see op names, not dims, so it raises.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -57,5 +64,28 @@ def recompute(function, *args, policy="nothing", **kwargs):
     if pol is not None:
         extra["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, pol)
-    return checkpoint(function, *args, use_reentrant=False, **extra,
-                      **kwargs)
+    scope = _amp_scope()
+
+    def run(*a, **k):
+        with scope():
+            return function(*a, **k)
+    return checkpoint(run, *args, use_reentrant=False, **extra, **kwargs)
+
+
+def _amp_scope():
+    """A context that puts back the AMP cast policy in force now."""
+    from ..amp import _state
+    fields = ("enabled", "level", "dtype", "white", "black")
+    now = tuple(getattr(_state, f) for f in fields)
+
+    @contextlib.contextmanager
+    def scope():
+        prev = tuple(getattr(_state, f) for f in fields)
+        for f, v in zip(fields, now):
+            setattr(_state, f, v)
+        try:
+            yield
+        finally:
+            for f, v in zip(fields, prev):
+                setattr(_state, f, v)
+    return scope

@@ -14,8 +14,13 @@ visible key, no work).
 ``ulysses_attention`` is the all-to-all alternative (sequence-sharded to
 head-sharded, full local attention, back), for heads >= the sp degree.
 
-Forward only here: the backward through the ring waits for ROADMAP Queue
-1 item 7b.
+The ring's backward is one ``torch.autograd.Function`` over the whole
+ring (``_Ring``), not autograd over the per-block flash calls: a block's
+flash backward with its own lse and ``rowsum(dO * o_i)`` is not the
+block's share of the merged output's gradient (the flash function drops
+the lse's cotangent). It recomputes with the global lse and
+``delta = rowsum(dO * O)`` of the merged output instead, through the
+flash dq and dk/dv kernels.
 """
 from __future__ import annotations
 
@@ -49,15 +54,13 @@ def _attend(q, k, v, causal, scale):
     return o, lse
 
 
-def _ring_attention_raw(q, k, v, axis, causal, scale):
-    """q, k, v: [batch, heads, seq_local, dim] on each rank, the sequence
-    sharded along ``axis``. Per ring step, block (o_i, lse_i) merges into
-    (num, m, l) in f32; block i came from rank (my - i) mod n."""
-    from .collective import _ppermute_raw
-    n = mesh_mod.mesh_axis_size(axis)
-    my = mesh_mod.axis_index(axis)
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+def _ring_forward(q, k, v, axis, causal, scale, mesh):
+    """(out in q's dtype, global lse [b, h, s] f32). Per ring step, block
+    (o_i, lse_i) merges into (num, m, l) in f32; block i came from rank
+    (my - i) mod n."""
+    from .collective import _ppermute_plain
+    n = mesh.shape[axis]
+    my = mesh.axis_index(axis)
     b, h, s, d = q.shape
     num = torch.zeros(b, h, s, d, dtype=torch.float32, device=q.device)
     m = torch.full((b, h, s), _NEG, dtype=torch.float32, device=q.device)
@@ -80,10 +83,88 @@ def _ring_attention_raw(q, k, v, axis, causal, scale):
             l = l * sc_old + sc_new
             m = m_new
         if i + 1 < n:   # the last block needs no further rotation
-            k_cur = _ppermute_raw.raw(k_cur, axis, perm)
-            v_cur = _ppermute_raw.raw(v_cur, axis, perm)
-    out = num / torch.clamp_min(l, 1e-30)[..., None]
-    return out.to(q.dtype)
+            k_cur = _ppermute_plain(k_cur, axis, perm, mesh)
+            v_cur = _ppermute_plain(v_cur, axis, perm, mesh)
+    l = torch.clamp_min(l, 1e-30)
+    out = num / l[..., None]
+    return out.to(q.dtype), m + torch.log(l)
+
+
+def _ring_backward(q, k, v, o, lse, do, axis, causal, scale, mesh):
+    """(dq, dk, dv) of the ring. ``delta = rowsum(dO * O)`` of the merged
+    output once, then K/V rotate again: at each step the flash dq and
+    dk/dv kernels run on the visiting block with the global lse and delta
+    (causal on the diagonal, nothing for a later rank's block). dq sums
+    locally; each block's dk/dv partials travel with it in f32 and take
+    one more hop home."""
+    from ..ops.cuda.flash_attention import (flash_bwd_dkv, flash_bwd_dq,
+                                            flash_delta)
+    from .collective import _ppermute_plain
+    n = mesh.shape[axis]
+    my = mesh.axis_index(axis)
+    b, h, s, d = q.shape
+    flat = lambda t: t.reshape(b * h, s, t.shape[-1]).contiguous()  # noqa: E731
+    qf, dof = flat(q), flat(do.to(q.dtype))
+    lse_f = lse.reshape(b * h, s).contiguous()
+    delta = flash_delta(flat(o), dof).contiguous()
+    dq = torch.zeros(b * h, s, d, dtype=torch.float32, device=q.device)
+    k_cur, v_cur = flat(k), flat(v)
+    dk_acc = torch.zeros(b * h, s, d, dtype=torch.float32, device=q.device)
+    dv_acc = torch.zeros_like(dk_acc)
+    perm = tuple((j, (j + 1) % n) for j in range(n))
+    for i in range(n):
+        src = (my - i) % n
+        if not (causal and src > my):
+            diag = causal and src == my
+            dq += flash_bwd_dq(qf, k_cur, v_cur, None, dof, lse_f, delta,
+                                 diag, scale).float()
+            dk_i, dv_i = flash_bwd_dkv(qf, k_cur, v_cur, None, dof, lse_f,
+                                         delta, diag, scale)
+            dk_acc += dk_i.float()
+            dv_acc += dv_i.float()
+        if i + 1 < n:
+            k_cur = _ppermute_plain(k_cur, axis, perm, mesh)
+            v_cur = _ppermute_plain(v_cur, axis, perm, mesh)
+        # the partials follow their block; after the last step they are
+        # one hop short of home
+        dk_acc = _ppermute_plain(dk_acc, axis, perm, mesh)
+        dv_acc = _ppermute_plain(dv_acc, axis, perm, mesh)
+    shape = (b, h, s, d)
+    return (dq.to(q.dtype).reshape(shape), dk_acc.to(k.dtype).reshape(shape),
+            dv_acc.to(v.dtype).reshape(shape))
+
+
+class _Ring(torch.autograd.Function):
+    """The whole ring as one function: the forward saves q, k, v, the
+    merged output and the global lse; the backward is ``_ring_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, axis, causal, scale, mesh):
+        out, lse = _ring_forward(q, k, v, axis, causal, scale, mesh)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.axis, ctx.causal, ctx.scale, ctx.mesh = axis, causal, scale, mesh
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _ring_backward(q, k, v, o, lse, do, ctx.axis,
+                                    ctx.causal, ctx.scale, ctx.mesh)
+        return dq, dk, dv, None, None, None, None
+
+
+def _ring_attention_raw(q, k, v, axis, causal, scale):
+    """q, k, v: [batch, heads, seq_local, dim] on each rank, the sequence
+    sharded along ``axis``; differentiable in q, k and v."""
+    mesh = mesh_mod.region_mesh(axis)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    plain = [t.as_subclass(torch.Tensor) for t in (q, k, v)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in plain):
+        return _Ring.apply(*plain, axis, bool(causal), float(scale), mesh)
+    with torch.no_grad():
+        return _ring_forward(*plain, axis, bool(causal), float(scale),
+                             mesh)[0]
 
 
 @defop(name="ring_attention")
@@ -97,27 +178,14 @@ def _dense(q, k, v, causal, scale):
                                         scale=scale, training=False)
 
 
-def _forward_only(name, q, k, v):
-    """The sharded forward carries no gradient (its backward through the
-    ring or the all-to-all is ROADMAP Queue 1 item 7b): refuse inputs that
-    ask for one rather than return an output that drops it."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            f"{name}: the backward inside an SPMD region is ROADMAP Queue 1 "
-            "item 7b; call it under torch.no_grad() or on inputs that need "
-            "no gradient")
-
-
 def ring_attention(q, k, v, axis="sp", causal=False, scale=None):
     """Per-rank attention over ring-rotated K/V. Call inside a shard_map
-    region with the sequence sharded on ``axis``, forward only; outside
-    one it is exact single-process attention, with its gradient."""
+    region with the sequence sharded on ``axis``; outside one it is exact
+    single-process attention. Both carry the gradient."""
     if not mesh_mod.in_spmd_region(axis):
         return _dense(q, k, v, causal, scale)
-    _forward_only("ring_attention", q, k, v)
-    with torch.no_grad():
-        return _ring_attention_op(q, k, v, axis=axis, causal=causal,
-                                  scale=scale)
+    return _ring_attention_op(q, k, v, axis=axis, causal=causal,
+                              scale=scale)
 
 
 def _seq_to_head(x, axis, n):
@@ -158,19 +226,20 @@ def _ulysses_op(q, k, v, axis, causal, scale):
 
 
 def ulysses_attention(q, k, v, axis="sp", causal=False, scale=None):
-    """As ``ring_attention``, through all-to-alls."""
+    """As ``ring_attention``, through all-to-alls (differentiable: the
+    all_to_all's backward is the exchange back, around the flash
+    function's own backward)."""
     if not mesh_mod.in_spmd_region(axis):
         return _dense(q, k, v, causal, scale)
-    _forward_only("ulysses_attention", q, k, v)
-    with torch.no_grad():
-        return _ulysses_op(q, k, v, axis=axis, causal=causal, scale=scale)
+    return _ulysses_op(q, k, v, axis=axis, causal=causal, scale=scale)
 
 
 def sequence_parallel_attention(q, k, v, mesh=None, axis="sp", causal=False,
                                 scale=None, mode="ring"):
     """Global [b, h, s, d] tensors on every rank: shard the sequence over
     ``axis``, run ring or Ulysses attention under shard_map, return the
-    global result (no gradient) on every rank."""
+    global result on every rank. Inputs that need a gradient get the
+    global one on every rank (the JAX package's result carries none)."""
     from ..core.tensor import Tensor
     mesh = mesh or mesh_mod.auto_mesh()
     spec = mesh_mod.P(None, None, axis, None)
@@ -179,9 +248,7 @@ def sequence_parallel_attention(q, k, v, mesh=None, axis="sp", causal=False,
     def local(ql, kl, vl):
         return fn(ql, kl, vl, axis, causal, scale)
 
-    with torch.no_grad():
-        raw = [t.detach().as_subclass(torch.Tensor) for t in (q, k, v)]
-        out = mesh_mod.shard_map(local, mesh=mesh,
-                                 in_specs=(spec, spec, spec),
-                                 out_specs=spec)(*raw)
+    raw = [t.as_subclass(torch.Tensor) for t in (q, k, v)]
+    out = mesh_mod.shard_map(local, mesh=mesh, in_specs=(spec, spec, spec),
+                             out_specs=spec)(*raw)
     return out.as_subclass(Tensor) if isinstance(q, Tensor) else out

@@ -43,11 +43,40 @@ keeps the JAX step's semantics:
   ``keep_checkpoint_max`` kept, and a ``PreemptionGuard`` that saves the
   last completed batch on SIGTERM.
 
-Not here: ``torch.compile`` and CUDA graphs (the JAX engine has neither);
-the elastic step pulse (``distributed/elastic``). What needs a module the
-port does not have yet raises NotImplementedError naming its ROADMAP
-item: a fleet strategy on the optimizer (LocalSGD, recompute, its AMP
-knob) and ZeRO sharding (``distributed/``).
+Under a default mesh whose ``dp`` axis has more than one rank (one
+process a rank, every rank calling ``fit`` with the same global batches)
+the step is data-parallel, as the JAX engine's GSPMD step is, built from
+``distributed/parallel.py``'s pieces: each rank runs the network on its
+1/dp of the batch (dim 0) with BatchNorm's moments averaged over dp
+(GSPMD's global batch statistics), the outputs are gathered (a 0-d
+output is the ranks' mean), and the loss is taken on the global outputs
+and labels, so every rank holds the global loss; its gradients are the
+rank's shares, summed over dp. A ``DataParallel`` network runs its
+wrapped layer in this step, so the batch is sharded and summed once. A
+batch some tensor of which does not divide over dp (fit's last batch
+with ``drop_last=False``) runs whole on every rank, as the JAX engine
+replicates it, and dp index 0's gradients stand for the sum (the other
+ranks add zeros). The sum over dp:
+
+- plain: one all-reduce a dtype, then the same update on every rank;
+- ZeRO (``strategy.sharding`` / ``group_sharded_parallel``):
+  ``distributed.sharding.ZeroStep``'s reduce-scatter of the gradients,
+  update of this rank's chunks of the parameters, f32 masters and slots,
+  and all-gather of the new parameters. ``consolidate_zero`` (before
+  ``save``) gathers the slots whole;
+- LocalSGD (``strategy.localsgd`` / ``adaptive_localsgd``): each rank
+  steps its own replica on its shard with its local loss, and every k-th
+  step the parameters and f32 masters are averaged over dp (buffers every
+  step; the logged loss is the ranks' mean). ``finalize_localsgd`` (at
+  fit's end and before evaluate, predict and save) averages parameters
+  and slots.
+
+``strategy.recompute`` recomputes the Transformer layers (or the
+``recompute_configs["layers"]`` patterns) and ``strategy.amp`` with its
+``amp_configs`` is the AMP of ``prepare``. A mesh with a tp or pp axis of
+more than one rank raises naming ROADMAP Queue 1 item 7c (the JAX
+engine's GSPMD presets). Not here: ``torch.compile`` and CUDA graphs (the
+JAX engine has neither); the elastic step pulse (item 7c).
 """
 from __future__ import annotations
 
@@ -73,6 +102,14 @@ def _unported(what, needs, item):
     return NotImplementedError(
         f"{what} needs {needs}, which paddle_tpu_torch does not have yet "
         f"(ROADMAP Queue 1 item {item})")
+
+
+def _flat_groups(named_tensors):
+    """{dtype: [(name, tensor)]} in order."""
+    out = {}
+    for k, v in named_tensors:
+        out.setdefault(v.dtype, []).append((k, v))
+    return out
 
 
 def _read_loss(lval):
@@ -164,6 +201,8 @@ class _Engine:
         self.model = model
         self._accum_grads = None
         self._accum_count = 0
+        self._zero = None
+        self._localsgd = None
 
     def _amp_ctx(self):
         cfg = self.model._amp_configs
@@ -179,13 +218,69 @@ class _Engine:
         cfg = self.model._amp_configs
         return cfg.get("scaler") if cfg else None
 
-    def _forward_loss(self, inputs, labels):
-        with self._amp_ctx():
-            outs = _to_list(self.model.network(*inputs))
+    def _forward_loss(self, inputs, labels, plan=None):
+        """(loss, outputs). With a data-parallel ``plan`` whose batch is
+        sharded the network runs on this rank's shard with BatchNorm
+        synced over dp, and the outputs are gathered (LocalSGD: labels
+        sharded, the loss local)."""
+        net = self.model.network
+        if plan is None:
+            with self._amp_ctx():
+                outs = _to_list(net(*inputs))
+                loss = None
+                if self.model._loss is not None and labels is not None:
+                    loss = self.model._compute_loss(outs, list(labels))
+            return loss, outs
+        from ..distributed import mesh as mesh_mod
+        from ..distributed import parallel as par
+        from ..nn.layer.norm import sync_batch_stats
+        if isinstance(net, par.DataParallel):
+            net = net._layers
+        mesh, sharded = plan["mesh"], plan["sharded"]
+        local = plan["mode"] == "localsgd"
+        shard = (lambda x: par.shard_batch(x, mesh)) if sharded \
+            else (lambda x: x)
+        sync = sync_batch_stats("dp") if sharded and not local \
+            else contextlib.nullcontext()
+        with self._amp_ctx(), mesh_mod.MeshGuard(mesh), sync:
+            outs = _to_list(net(*[shard(x) for x in inputs]))
+            if local:
+                labels = [shard(y) for y in labels] if labels else labels
+            elif sharded:
+                outs = [par.gather_batch(o, mesh) for o in outs]
             loss = None
             if self.model._loss is not None and labels is not None:
                 loss = self.model._compute_loss(outs, list(labels))
         return loss, outs
+
+    # ---- data parallel -----------------------------------------------------
+    def _plan(self, inputs, labels):
+        """None for one process; else the step's data parallelism over the
+        default mesh's dp axis: {"mesh", "dp", "mode" ("dp", "zero" or
+        "localsgd"), "sharded" (whether the batch divides over dp)}."""
+        from ..distributed import mesh as mesh_mod
+        from ..distributed.parallel import batch_divides
+        mesh = mesh_mod.get_mesh()
+        if mesh is None or mesh.size == 1:
+            return None
+        wide = [a for a in mesh.axis_names if a != "dp" and mesh.shape[a] > 1]
+        if wide:
+            raise _unported(f"Model.fit under a mesh with {wide} axes",
+                            "the GSPMD presets over tp / pp meshes", "7c")
+        model = self.model
+        strat = getattr(model._optimizer, "_dist_strategy", None)
+        if strat is not None and (getattr(strat, "localsgd", False) or
+                                  getattr(strat, "adaptive_localsgd", False)):
+            mode = "localsgd"
+        elif getattr(model._optimizer, "_zero_dp", False) \
+                or getattr(model.network, "_zero_dp", False):
+            mode = "zero"
+        else:
+            mode = "dp"
+        batch = list(inputs) + (list(labels or []) if mode == "localsgd"
+                                else [])
+        return {"mesh": mesh, "dp": int(mesh.shape["dp"]), "mode": mode,
+                "sharded": batch_divides(batch, mesh)}
 
     def _batch(self, values):
         dev = _device(self.model.network)
@@ -202,17 +297,23 @@ class _Engine:
         net.train()
         opt = model._optimizer
         named = [(n, p) for n, p in net.named_parameters() if p.requires_grad]
-        opt._ensure_slots({n: p.detach() for n, p in named})
+        if self._zero is None:
+            opt._ensure_slots({n: p.detach() for n, p in named})
         inputs, labels = self._batch(inputs), self._batch(labels)
         scaler = self._scaler()
         accumulating = (not update) or self._accum_grads is not None
+        plan = self._plan(inputs, labels)
+        if plan is not None and plan["mode"] == "localsgd" \
+                and not accumulating:
+            return self._train_batch_localsgd(plan, named, inputs, labels)
         if not accumulating:
             _monitor.stat_add("hapi/train_steps")
             with _trace.span("hapi/train_step"):
-                lval, outs, grads = self._grads(named, inputs, labels, scaler)
-                self._apply(named, grads, loss=lval)
+                lval, outs, grads = self._grads(named, inputs, labels,
+                                                scaler, plan)
+                self._apply(named, grads, plan, loss=lval)
             return lval, outs
-        lval, outs, grads = self._grads(named, inputs, labels, scaler)
+        lval, outs, grads = self._grads(named, inputs, labels, scaler, plan)
         if self._accum_grads is None:
             self._accum_grads = grads
             self._accum_count = 1
@@ -223,34 +324,44 @@ class _Engine:
             self._accum_grads = dict(zip(keys, summed))
             self._accum_count += 1
         if update:
-            self._apply(named, self._accum_grads, self._accum_count,
+            self._apply(named, self._accum_grads, plan, self._accum_count,
                         loss=lval)
             self._accum_grads = None
             self._accum_count = 0
         return lval, outs
 
-    def _grads(self, named, inputs, labels, scaler):
+    def _grads(self, named, inputs, labels, scaler, plan=None):
         """(loss, outputs, {name: grad}) of one forward and backward; the
         loss is scaled by the scaler's current scale (in the loss's
-        dtype) where there is a scaler."""
-        loss, outs = self._forward_loss(inputs, labels)
+        dtype) where there is a scaler. Under a plan whose batch ran whole
+        on every rank, the ranks but dp index 0 give zeros, so that the
+        sum over dp is the whole batch's gradient."""
+        loss, outs = self._forward_loss(inputs, labels, plan)
         lv = loss
         if scaler is not None:
             lv = lv * scaler.scale_state()["scale"].to(lv.dtype)
         grads = torch.autograd.grad(lv, [p for _, p in named],
                                     allow_unused=True, materialize_grads=True)
+        if plan is not None and plan["mode"] != "localsgd" \
+                and not plan["sharded"] and plan["mesh"].axis_index("dp"):
+            grads = [torch.zeros_like(g) for g in grads]
         outs = [o.detach() if isinstance(o, torch.Tensor) else o
                 for o in outs]
         return loss.detach(), outs, {n: g for (n, _), g in zip(named, grads)}
 
     @torch.no_grad()
-    def _apply(self, named, grads, accum_count=None, loss=None):
+    def _apply(self, named, grads, plan=None, accum_count=None, loss=None):
         """The update from ``grads`` (scaled where there is a scaler; the
-        sum of ``accum_count`` micro-batches' where given). With
-        ``FLAGS_check_nan_inf`` the loss and the new parameters are swept
-        before the write-back."""
+        sum of ``accum_count`` micro-batches' where given), summed over dp
+        as ``plan`` says. With ``FLAGS_check_nan_inf`` the loss and the
+        new parameters are swept before the write-back."""
         opt = self.model._optimizer
         scaler = self._scaler()
+        if plan is not None and plan["mode"] == "zero":
+            return self._zero_apply(plan, named, grads, accum_count, loss)
+        if plan is not None and plan["mode"] == "dp":
+            from ..distributed.parallel import sum_over_dp
+            sum_over_dp(list(grads.values()), plan["mesh"])
         params = {n: p.detach() for n, p in named}
         slots = {n: opt._slots[n] for n in params}
         opt._step_count += 1
@@ -279,9 +390,138 @@ class _Engine:
                              [new_params[n] for n, _ in named])
         opt._slots.update(new_slots)
 
+    # ---- ZeRO --------------------------------------------------------------
+    @torch.no_grad()
+    def _zero_apply(self, plan, named, grads, accum_count=None, loss=None):
+        """The sharded update (``sharding.ZeroStep``): reduce-scatter, this
+        rank's chunk of the masters and slots updated, all-gather."""
+        from ..distributed.sharding import ZeroStep
+        opt = self.model._optimizer
+        if self._zero is None:
+            if self._scaler() is not None:
+                raise NotImplementedError(
+                    "ZeRO with a GradScaler (f16 dynamic loss scaling): "
+                    "use bf16")
+            self._zero = ZeroStep(opt, named, plan["mesh"])
+        z = self._zero
+        gsh = z.reduce_scatter(grads)
+        opt._step_count += 1
+        lr, t = opt.get_lr(), opt._step_count
+        if accum_count is not None:
+            inv = torch.tensor(np.float32(1.0 / accum_count),
+                               device=next(iter(gsh.values())).device)
+            gsh = {k: g.float() * inv for k, g in gsh.items()}
+        new_p = z.update(named, gsh, lr, t)
+        if _flags.flag("FLAGS_check_nan_inf"):
+            _nc.sweep({"loss": loss, "params": new_p}, "train_batch step")
+        z.all_gather(named, new_p)
+
+    def zero_state_bytes(self):
+        """Bytes of this rank's optimizer state: its ZeRO chunks, or the
+        optimizer's whole slots."""
+        if self._zero is not None:
+            return self._zero.state_bytes()
+        return sum(v.numel() * v.element_size()
+                   for sl in self.model._optimizer._slots.values()
+                   for v in sl.values())
+
+    def consolidate_zero(self):
+        """Gather the ZeRO slot chunks whole into the optimizer (every rank
+        calls it); the next sharded step re-shards."""
+        if self._zero is None:
+            return
+        self._zero.consolidate({n: tuple(p.shape) for n, p in
+                                self.model.network.named_parameters()})
+        self._zero = None
+
+    # ---- LocalSGD ----------------------------------------------------------
+    def _localsgd_cfg(self):
+        strat = getattr(self.model._optimizer, "_dist_strategy", None)
+        cfg = dict(getattr(strat, "localsgd_configs", {}) or {})
+        return {"k": max(1, int(cfg.get("k_steps", 4) or 4)),
+                "adaptive": bool(getattr(strat, "adaptive_localsgd", False)),
+                "max_k": int(cfg.get("max_k_steps", 16) or 16),
+                "rel_tol": float(cfg.get("rel_tol", 0.01) or 0.01)}
+
+    def _avg_over_dp(self, tensors, plan):
+        """Average ``tensors`` (a list) over dp in place: one flat
+        all-reduce a dtype in f32, each cast back."""
+        from ..distributed.collective import _all_reduce_
+        pg, _ = plan["mesh"].group("dp")
+        for group in _flat_groups([(i, t) for i, t in
+                                   enumerate(tensors)]).values():
+            flat = torch.cat([t.reshape(-1).float() for _, t in group])
+            _all_reduce_(flat, pg)
+            flat = flat / plan["dp"]
+            off = 0
+            for _, t in group:
+                t.copy_(flat[off:off + t.numel()].view(t.shape).to(t.dtype))
+                off += t.numel()
+
+    def _train_batch_localsgd(self, plan, named, inputs, labels):
+        """One local step of this rank's replica on its shard; every k-th
+        step the parameters and f32 masters averaged over dp."""
+        if self._scaler() is not None:
+            raise ValueError(
+                "strategy.localsgd does not compose with dynamic loss "
+                "scaling (the reference's LocalSGDOptimizer is likewise "
+                "incompatible with AMP program rewriting); use bf16 O2")
+        opt = self.model._optimizer
+        if self._localsgd is None:
+            cfg = self._localsgd_cfg()
+            self._localsgd = dict(cfg, counter=0, last_sync_loss=None,
+                                  plan=plan)
+        st = self._localsgd
+        _monitor.stat_add("hapi/train_steps")
+        with _trace.span("hapi/train_step"):
+            lval, outs, grads = self._grads(named, inputs, labels, None,
+                                            plan)
+            self._apply(named, grads, loss=lval)   # the replica's own
+        st["counter"] += 1
+        with torch.no_grad():
+            bufs = [b for b in self.model.network.buffers()
+                    if b.is_floating_point()]
+            if bufs:
+                self._avg_over_dp(bufs, plan)
+            lval = lval.float().reshape(1).clone()
+            self._avg_over_dp([lval], plan)
+            lval = lval[0]
+            k = st["k"]
+            if st["counter"] % k == 0:
+                ps = [p.detach() for _, p in named]
+                masters = [opt._slots[n]["master"] for n, _ in named
+                           if "master" in opt._slots.get(n, {})]
+                self._avg_over_dp(ps + masters, plan)
+                _monitor.stat_add("localsgd/syncs")
+                if st["adaptive"]:
+                    loss = _read_loss(lval)
+                    last = st["last_sync_loss"]
+                    if last is not None and loss > last * (1 - st["rel_tol"]):
+                        st["k"] = min(k + 1, st["max_k"])
+                    st["last_sync_loss"] = loss
+        return lval, outs
+
+    def finalize_localsgd(self):
+        """The replicas' average of parameters and slots written back
+        (fit's end, and before evaluate, predict and save)."""
+        st = self._localsgd
+        if st is None:
+            return
+        opt = self.model._optimizer
+        named = [(n, p) for n, p in self.model.network.named_parameters()
+                 if p.requires_grad]
+        with torch.no_grad():
+            ts = [p.detach() for _, p in named]
+            for n, _ in named:
+                ts.extend(v for v in opt._slots.get(n, {}).values()
+                          if v.is_floating_point())
+            self._avg_over_dp(ts, st["plan"])
+        self._localsgd = None
+
     # ---- eval / predict ----------------------------------------------------
     @torch.no_grad()
     def eval_batch(self, inputs, labels):
+        self.finalize_localsgd()
         net = self.model.network
         net.eval()
         loss, outs = self._forward_loss(self._batch(inputs),
@@ -293,6 +533,7 @@ class _Engine:
 
     @torch.no_grad()
     def predict_batch(self, inputs):
+        self.finalize_localsgd()
         self.model.network.eval()
         _, outs = self._forward_loss(self._batch(inputs), None)
         return outs
@@ -362,28 +603,47 @@ class Model:
         for m in self._metrics:
             if not isinstance(m, Metric):
                 raise TypeError(f"metrics must be Metric instances, got {m}")
-        self._check_unported()
         self._amp_configs = self._parse_amp(amp_configs)
+        self._apply_strategy_recompute()
         return self
 
-    def _check_unported(self):
-        """The JAX engine's distributed branches: a fleet strategy on the
-        optimizer (LocalSGD, recompute, its AMP knob) and ZeRO sharding."""
+    def _apply_strategy_recompute(self):
+        """strategy.recompute: ``enable_recompute`` on the layers that
+        ``recompute_configs["layers"]`` names (fnmatch patterns over
+        ``named_sublayers``), by default every TransformerEncoderLayer /
+        TransformerDecoderLayer (the reference's RecomputeOptimizer)."""
         strat = getattr(self._optimizer, "_dist_strategy", None)
-        if strat is not None:
-            raise _unported("a fleet DistributedStrategy (LocalSGD, "
-                            "recompute, its amp knob)",
-                            "distributed/fleet", 7)
-        if getattr(self._optimizer, "_zero_dp", False) \
-                or getattr(self.network, "_zero_dp", False):
-            raise _unported("ZeRO sharding of the step",
-                            "distributed/sharding.py", 7)
+        if strat is None or not getattr(strat, "recompute", False):
+            return
+        cfg = getattr(strat, "recompute_configs", {}) or {}
+        policy = cfg.get("policy", "nothing")
+        patterns = cfg.get("layers")
+        net = self.network
+        if patterns:
+            import fnmatch
+            hits = [sub for name, sub in net.named_sublayers()
+                    if any(fnmatch.fnmatch(name, p) for p in patterns)]
+        else:
+            from ..nn.layer.transformer import (TransformerDecoderLayer,
+                                                TransformerEncoderLayer)
+            hits = [sub for _, sub in net.named_sublayers()
+                    if isinstance(sub, (TransformerEncoderLayer,
+                                        TransformerDecoderLayer))]
+        for sub in hits:
+            sub.enable_recompute(policy=policy)
 
     def _parse_amp(self, amp_configs):
-        """amp_configs: None | 'O1' / 'O2' | dict. O2 casts the network's
-        parameters to the AMP dtype and turns on the optimizer's f32
-        master weights; f16 (or ``force_loss_scaling``) brings a
+        """amp_configs: None | 'O1' / 'O2' | dict (a fleet strategy's
+        ``amp`` with its ``amp_configs`` where none is given). O2 casts the
+        network's parameters to the AMP dtype and turns on the optimizer's
+        f32 master weights; f16 (or ``force_loss_scaling``) brings a
         GradScaler whose state lives on the network's device."""
+        if amp_configs is None and self._optimizer is not None:
+            strat = getattr(self._optimizer, "_dist_strategy", None)
+            if strat is not None and getattr(strat, "amp", False):
+                amp_configs = dict(strat.amp_configs)
+                if amp_configs.pop("use_pure_bf16", False):
+                    amp_configs.setdefault("level", "O2")
         if amp_configs is None:
             return None
         from .. import amp as amp_mod
@@ -520,6 +780,7 @@ class Model:
                     break
         if acp is not None:
             acp.wait()
+        self._engine.finalize_localsgd()
         cbks.on_end("train", logs)
         return self
 
@@ -723,7 +984,14 @@ class Model:
         return self.network.state_dict()
 
     def save(self, path, training=True):
-        """path prefix: writes {path}.pdparams (+ {path}.pdopt if training)."""
+        """path prefix: writes {path}.pdparams (+ {path}.pdopt if training).
+        In a data-parallel fit every rank calls it: the LocalSGD replicas
+        are averaged and ZeRO's slots gathered first, then rank 0 writes."""
+        self._engine.finalize_localsgd()
+        self._engine.consolidate_zero()
+        from ..distributed import mesh as mesh_mod
+        if mesh_mod.world_rank() != 0:
+            return
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)

@@ -264,6 +264,22 @@ class Layer(torch.nn.Module):
             yield name, m
 
     # -- hooks --------------------------------------------------------------
+    def enable_recompute(self, policy="nothing"):
+        """Recompute this layer's activations in the backward
+        (``distributed.recompute`` around ``forward``; the JAX Layer's
+        ``jax.checkpoint``)."""
+        from ...distributed.recompute import recompute
+        plain = type(self).forward.__get__(self)
+
+        def forward(*inputs, **kwargs):
+            return recompute(plain, *inputs, policy=policy, **kwargs)
+        self.__dict__["forward"] = forward
+        self._recompute, self._recompute_policy = True, policy
+
+    def disable_recompute(self):
+        self.__dict__.pop("forward", None)
+        self._recompute = False
+
     def register_forward_pre_hook(self, hook):
         """``hook(layer, inputs)``; a non-None return replaces the inputs."""
         return super().register_forward_pre_hook(hook)

@@ -9,12 +9,15 @@ buffers move by Paddle's convention, ``running = momentum * running +
 (1 - momentum) * batch`` with momentum 0.9, the batch variance biased
 (mean of squares less the squared mean) as in the JAX op
 (paddle_tpu/ops/norm_ops.py:54-55); in eval, or with
-``use_global_stats``, the buffers normalize. ``SyncBatchNorm`` is plain
-BatchNorm: the JAX layer syncs its moments only inside an SPMD region,
-which the port has not yet (ROADMAP Queue 1 item 7). SpectralNorm waits
-for item 9.
+``use_global_stats``, the buffers normalize. ``SyncBatchNorm`` averages
+the moments over its ``sync_axis`` inside a region that binds it
+(``ops.batch_norm(sync_axis=...)``), and is plain BatchNorm elsewhere.
+SpectralNorm waits for item 9.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -29,7 +32,26 @@ __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "RMSNorm"]
 
 
+_sync = threading.local()
+
+
+@contextlib.contextmanager
+def sync_batch_stats(axis):
+    """Inside the block every BatchNorm in training averages its moments
+    over ``axis`` where a region binds it: ``Model.fit``'s data-parallel
+    step, whose batch statistics are the global batch's, as the JAX
+    engine's GSPMD step computes them."""
+    prev = getattr(_sync, "axis", None)
+    _sync.axis = axis
+    try:
+        yield
+    finally:
+        _sync.axis = prev
+
+
 class _BatchNormBase(Layer):
+    _sync_axis = None
+
     def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None):
@@ -52,7 +74,9 @@ class _BatchNormBase(Layer):
         out, new_rm, new_rv = ops.batch_norm(
             x, self._mean, self._variance, self.weight, self.bias,
             training=training, momentum=self._momentum,
-            epsilon=self._epsilon, data_format=self._data_format)
+            epsilon=self._epsilon, data_format=self._data_format,
+            sync_axis=(self._sync_axis or getattr(_sync, "axis", None))
+            if training else None)
         if training:
             with torch.no_grad():
                 torch.Tensor.copy_(self._mean, new_rm)
@@ -77,13 +101,22 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """BatchNorm whose moments the JAX layer averages over the ``sync_axis``
-    mesh axis inside an SPMD region; the port has no such region yet, so it
-    is plain BatchNorm."""
+    """BatchNorm whose moments are averaged over the ``sync_axis`` mesh
+    axis inside a region that binds it (the reference's
+    sync_batch_norm_op all-reduce of the moments)."""
 
     def __init__(self, *args, sync_axis="dp", **kwargs):
         super().__init__(*args, **kwargs)
         self._sync_axis_name = sync_axis
+
+    def forward(self, x):
+        from ...distributed.mesh import in_spmd_region
+        self._sync_axis = self._sync_axis_name \
+            if in_spmd_region(self._sync_axis_name) else None
+        try:
+            return super().forward(x)
+        finally:
+            self._sync_axis = None
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

@@ -27,6 +27,21 @@ def layer_norm(x, weight=None, bias=None, epsilon=1e-05, begin_norm_axis=-1):
     return tF.layer_norm(x, tuple(x.shape[begin:]), weight, bias, epsilon)
 
 
+def _sync_moments(mean, mean_sq, axis):
+    """(mean, E[x^2]) averaged over ``axis`` in one all-reduce, where a
+    region binds it."""
+    from ..distributed import mesh as mesh_mod
+    if not mesh_mod.in_spmd_region(axis) \
+            or mesh_mod.mesh_axis_size(axis) == 1:
+        return mean, mean_sq
+    from ..distributed.collective import (ReduceOp, _allreduce_raw,
+                                          copy_to_region)
+    both = _allreduce_raw.raw(torch.stack([mean, mean_sq]), axis,
+                              ReduceOp.AVG)
+    both = copy_to_region(both, axis)
+    return both[0], both[1]
+
+
 def _bshape(x, c_axis):
     shape = [1] * x.ndim
     shape[c_axis] = -1
@@ -37,18 +52,19 @@ def _bshape(x, c_axis):
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-05,
                data_format="NCHW", sync_axis=None):
-    """Returns (out, new_running_mean, new_running_var)."""
-    if sync_axis is not None:
-        raise NotImplementedError(
-            "batch_norm: sync_axis (the cross-device moments) waits for the "
-            "distributed port")
+    """Returns (out, new_running_mean, new_running_var). ``sync_axis``
+    (inside a region over it): the moments averaged over the axis's ranks
+    (synchronized batch norm) by the differentiable all-reduce, then
+    consumed by each rank as its own (``collective.copy_to_region``)."""
     c_axis = 1 if data_format.startswith("NC") else x.ndim - 1
     axes = tuple(i for i in range(x.ndim) if i != c_axis)
     bshape = _bshape(x, c_axis)
     if training:
         mean = torch.mean(x, dim=axes)
-        var = torch.sub(torch.mean(torch.square(x), dim=axes),
-                        torch.square(mean))
+        mean_sq = torch.mean(torch.square(x), dim=axes)
+        if sync_axis is not None:
+            mean, mean_sq = _sync_moments(mean, mean_sq, sync_axis)
+        var = torch.sub(mean_sq, torch.square(mean))
         new_rm = torch.add(torch.mul(running_mean, momentum),
                            torch.mul(mean, 1 - momentum))
         new_rv = torch.add(torch.mul(running_var, momentum),

@@ -195,13 +195,15 @@ class Optimizer:
         return out
 
     def apply_gradients_pure(self, params, grads, slots, lr, t,
-                             param_meta=None):
+                             param_meta=None, grad_clip=None):
         """(params, grads, slots, lr, step t) -> (new_params, new_slots),
         all ``{name: tensor}``; the inputs are not modified. A name absent
         from ``grads`` (or mapped to None) has a zero gradient.
         ``param_meta``: ``{name: {"lr_ratio": float, "regularizer":
-        obj or None, "need_clip": bool}}``."""
+        obj or None, "need_clip": bool}}``. ``grad_clip``: the clip of
+        this call in place of the optimizer's (ZeRO's over shards)."""
         meta = param_meta or {}
+        clip = self._grad_clip if grad_clip is None else grad_clip
         names = list(params)
         with torch.no_grad():
             ps = [params[k] for k in names]
@@ -211,10 +213,10 @@ class Optimizer:
             # 1) regularizer terms
             gs = self._regularize(names, ps, gs, meta)
             # 2) clip, over the grads that take it
-            if self._grad_clip is not None:
+            if clip is not None:
                 idx = [i for i, k in enumerate(names)
                        if meta.get(k, {}).get("need_clip", True)]
-                clipped = self._grad_clip.apply({names[i]: gs[i]
+                clipped = clip.apply({names[i]: gs[i]
                                                  for i in idx})
                 for i in idx:
                     gs[i] = clipped[names[i]]

@@ -7,7 +7,7 @@ them.
 
 The rest of the analyzer (sharding-spec propagation, the implied
 collectives, the per-device memory estimate, the diagnostics and the
-verify hook) waits for ROADMAP Queue 1 item 7b: its names raise
+verify hook) waits for ROADMAP Queue 1 item 7c: its names raise
 ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
@@ -20,8 +20,8 @@ from .program import Program, _Aval, _Ref
 
 __all__ = ["analyze_flops", "register_flop_rule", "FLOP_RULES"]
 
-_ITEM_7B = ("the SPMD analyzer's spec propagation, collectives, memory "
-            "estimate and diagnostics wait for ROADMAP Queue 1 item 7b")
+_ITEM_7C = ("the SPMD analyzer's spec propagation, collectives, memory "
+            "estimate and diagnostics wait for ROADMAP Queue 1 item 7c")
 
 # keyed by op name: the port records every op under the JAX package's
 # name, so the rules carry over as they are
@@ -178,7 +178,7 @@ _UNPORTED = ("SpmdLintError", "SpmdDiagnostic", "Collective", "SpmdReport",
 
 def __getattr__(name):
     if name in _UNPORTED:
-        raise NotImplementedError(f"spmd_analyzer.{name}: {_ITEM_7B}")
+        raise NotImplementedError(f"spmd_analyzer.{name}: {_ITEM_7C}")
     raise AttributeError(
         f"module 'paddle_tpu_torch.static.spmd_analyzer' has no attribute "
         f"{name!r}")

@@ -700,12 +700,22 @@ def test_unported_branches_raise():
         tm.fit(tdata, batch_size=BATCH, verbose=0)
     finally:
         tflags.set_flags({"FLAGS_check_nan_inf": False})
+    # a fleet strategy and ZeRO are ported (tests/test_torch_fleet.py): in
+    # a world of one they prepare and fit as the plain step; Model.fit
+    # under a tp or pp mesh (the JAX engine's GSPMD presets) raises naming
+    # item 7c
+    from paddle_tpu_torch.distributed import fleet as tfleet
+    from paddle_tpu_torch.distributed import mesh as tmesh
     net = TSpare()
     opt = topt.SGD(learning_rate=0.1, parameters=net.parameters())
-    opt._dist_strategy = object()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        pt.Model(net).prepare(opt, loss=CrossEntropyLoss())
-    opt._dist_strategy = None
+    opt._dist_strategy = tfleet.DistributedStrategy()
     net._zero_dp = True
-    with pytest.raises(NotImplementedError, match="sharding"):
-        pt.Model(net).prepare(opt, loss=CrossEntropyLoss())
+    model = pt.Model(net)
+    model.prepare(opt, loss=CrossEntropyLoss())
+    model.fit(tdata, batch_size=BATCH, verbose=0)
+    tmesh.set_mesh(tmesh.Mesh({"dp": 1, "tp": 2}), "tp_only")
+    try:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
+            model.fit(tdata, batch_size=BATCH, verbose=0)
+    finally:
+        tmesh.reset_mesh("tp_only")
