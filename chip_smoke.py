@@ -362,6 +362,34 @@ Phases, each printing its own lines; any failure exits non-zero:
     SyncBatchNorm at ResNet-50's first BN shape ([8, 64, 56, 56] a rank)
     over dp 4 against one BN over the concatenated batch
     (``P26_BN_TOL``).
+27. the rest of the distributed tier (``phase_multi_process``). (a)
+    ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2``
+    on ``paddle_tpu_torch/testing/fit_job.py`` (fleet DP ``Model.fit``
+    of BERT-base bf16 O2, b32 s128 as 16 / 16, a checkpoint every 2
+    steps, 4 steps), once as it is and, side by side, with rank 1
+    SIGKILLed after step 3 and ``--elastic_retries 1``: the restarted job
+    resumes both ranks at step 2 and its losses and f32 masters are
+    bitwise the uninterrupted launch's; the restart's seconds and each
+    rank's launches. (b) 2 ranks: phase 22's static BERT-base bf16 O2
+    program under ``with_data_parallel`` (b32 as 16 / 16, 3 steps), plain
+    and with ``strategy.recompute`` (a segment an encoder layer):
+    recompute's gradients and losses bitwise the plain ones, the first
+    step's loss, gradients and masters against one process over the whole
+    batch (``P27_ONE_TOL``) and a planted rank's gradient without the sum
+    over dp that the gradient limit must fail, flash forwards a step.
+    (c) 4 ranks: ``Model.fit`` of GPT-2 small bf16 O2 under {"tp": 4},
+    b8 s1024, 2 AdamW steps: the first step against one process
+    (``P27_ONE_TOL``, the gradients as AdamW's first moments) and a
+    planted fit without the column layers' backward all-reduce that the
+    gradient limit must fail, the forward's all-reduce bytes against
+    ``analyze_program``'s prediction for the preset specs and the step's
+    from them, the head's all-gather, state bytes a rank. (d)
+    ``plan_program`` of GPT-2 small at tp 4 on the host, the fit under
+    the plan's whole layout (as exact-name rules) against one process
+    (and bitwise the preset's fit where the layouts agree);
+    ``StagedPipelineRunner`` over ``plan_pipeline`` of GPT-2
+    small's 12 blocks at pp 4 (b8 s1024, 4 micro-batches, f32 SGD, 3
+    steps) against the whole stack in one process (``P27_PP_TOL``).
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -371,7 +399,8 @@ One phase alone (after ``phase_build()``), from the repo root:
 ``python3 -c "import chip_smoke as c; c.setup(); c.phase_build();
 c.phase_flash()"``; phase 25: ``python3 -c "import chip_smoke as c;
 c.setup(); card = c.phase_build(); c.phase_distributed(card)"``; phase
-26 the same with ``c.phase_fleet_training(card)``. ``python3 chip_smoke.py --faults`` runs phases 2-3
+26 the same with ``c.phase_fleet_training(card)``, phase 27 with
+``c.phase_multi_process(card)``. ``python3 chip_smoke.py --faults`` runs phases 2-3
 (decode faults), 6 (CE faults), 10 (flash faults), 14 (f16 faults),
 18's API checks (op-core faults), 19's mask checks (a Transformer
 fault), 20's conv oracle (a conv fault) or 21(a)'s f32 beam scores (a
@@ -396,6 +425,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -5030,7 +5060,9 @@ P23_DIR = ".scratch/phase23"                       # listed in .gitignore
 P23_STEPS, P23_WARMUP, P23_BATCHES, P23_PROFILED = 24, 8, 16, 6
 P23_MODES = (("sync", 0, 0), ("inflight2", 2, 0), ("inflight2_scan4", 2, 4))
 P23_RESUME_AT = 12
-P23_FIT_STEPS, P23_KILL_AFTER, P23_CKPT_FREQ = 24, 15, 6
+# 23(b)'s fit cut from 24 / 15 / 6 to make room for phase 27: the same
+# kill, walk and resume over fewer steps
+P23_FIT_STEPS, P23_KILL_AFTER, P23_CKPT_FREQ = 16, 10, 4
 P23_CAPI_STEPS, P23_NAN_STEPS = 10, 6
 P23_SERVE = {"requests": 64, "prompt": 32, "new": 97, "batch": 8,
              "round": 4}
@@ -6483,6 +6515,10 @@ def phase_ps(card=None):
 # --------------------------------------------------------------------------
 
 P25_RANKS = 4
+# 25(a)'s capacity replays cut from phase 21's 6 s and the calibration's
+# refinements from 4 s to make room for phase 27: the same three specs
+# and comparisons over shorter replays
+P25_REPLAY_SECONDS, P25_REFINE_SECONDS = 3.0, 2.0
 P25_SP_S, P25_H, P25_D = 16384, 12, 64       # ring: b 1, s 16384, GPT-2 heads
 P25_MB = (1, 16, 256)                         # all_reduce sizes timed
 P25_TP_D, P25_TP_F = 768, 3072                # GPT-2 small's MLP
@@ -6555,8 +6591,10 @@ def _p25_capacity(card):
     buckets = (8, 16, 32, 64)
     kernels.reset_launch_counts()
     cal = C.calibrate(serve, loop=loop, buckets=buckets,
-                      refine_specs=(_p25_spec("steady", 15.0, 4.0),
-                                    _p25_spec("steady", 45.0, 4.0)))
+                      refine_specs=(_p25_spec("steady", 15.0,
+                                              P25_REFINE_SECONDS),
+                                    _p25_spec("steady", 45.0,
+                                              P25_REFINE_SECONDS)))
     counts_cal = kernels.launch_counts()
     t_cal = time.perf_counter() - t0
     ev = C.serve_evidence(cfg, 64, fill=64, block_size=bs, blocks=512,
@@ -6578,7 +6616,7 @@ def _p25_capacity(card):
                counts_cal["paged_decode_attention.sm90"]}
     counts = {}
     for name in ("steady", "diurnal", "flash"):
-        spec = _traffic_spec(name)
+        spec = _traffic_spec(name, P25_REPLAY_SECONDS)
         preds = {tag: C.predict(spec, 0, prof, slots=64, kv_blocks=512,
                                 block_size=bs)
                  for tag, prof in (("calibrated", cal), ("analytic", ana))}
@@ -7864,6 +7902,863 @@ def _fleet_training_fields(rec, name, counts):
             rec[f"launches_{tag}_bwd_phase_sm90"] = c[f"{name}.sm90"]
 
 
+# --------------------------------------------------------------------------
+# phase 27: the rest of the distributed tier (the launcher and a whole-job
+# restart, the static Executor over dp ranks with recompute segments,
+# Model.fit under a tp mesh, the planner and the staged pipeline)
+# --------------------------------------------------------------------------
+
+P27_FIT = {"steps": 4, "kill_after": 3, "save_every": 2}   # 27(a)
+P27_STATIC_STEPS = 3                                       # 27(b)
+P27_TP, P27_TP_B, P27_TP_S, P27_TP_STEPS = 4, 8, 1024, 2   # 27(c)
+P27_PP = {"stages": 4, "micro": 4, "steps": 3, "b": 8, "s": 1024,
+          "lr": 1e-3}                                      # 27(d)
+# 26(a)'s limits against one process over the whole batch (bf16 O2,
+# AdamW lr 1e-4). Adam's first step moves a master by about lr whatever
+# the gradient, so the masters' 2e-4 cannot fail a wrong gradient: the
+# first step's gradients decide (largest |error| over largest |entry| a
+# tensor, P25_DP_BF16_TOL's "grad"; the fetched gradients in (b), AdamW's
+# first moments in (c) and (d)), and a planted fault each run must fail
+# that limit: (b) a rank's gradient without the sum over dp, (c) the tp
+# fit without the column layers' backward all-reduce.
+P27_ONE_TOL = {"loss": 2e-3, "grad": P25_DP_BF16_TOL["grad"],
+               "master": 2e-4}
+P27_PP_TOL = 1e-5                       # f32 losses, the staged pipeline
+P27_KERNELS = PATH_KERNELS + SM90_COUNTS + CE_SM90_COUNTS
+
+
+def _p27_counts():
+    from paddle_tpu_torch.ops import cuda as kernels
+    c = kernels.launch_counts()
+    return {k: c[k] for k in P27_KERNELS}
+
+
+def _p27_diff(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _p27_free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _p27_launch(out, kill):
+    """27(a): start ``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node 2`` on ``testing/fit_job.py`` (BERT-base bf16 O2,
+    b32 s128 as 16 / 16, a checkpoint every 2 steps); with ``kill`` rank 1
+    SIGKILLs itself after step 3 and ``--elastic_retries 1`` restarts the
+    job. Returns a function that waits for it: (its output, seconds)."""
+    import subprocess
+    root = os.path.dirname(os.path.abspath(__file__))
+    job = os.path.join(root, "paddle_tpu_torch", "testing", "fit_job.py")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--started_port", str(_p27_free_port())]
+    if kill:
+        cmd += ["--elastic_retries", "1"]
+    cmd += [job, "--config", "base", "--amp", "O2", "--device", "gpu",
+            "--out", out, "--steps", str(P27_FIT["steps"]), "--batch", "32",
+            "--seq", "128", "--save-every", str(P27_FIT["save_every"])]
+    if kill:
+        cmd += ["--kill-after", str(P27_FIT["kill_after"])]
+    t = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+
+    def wait():
+        try:
+            stdout, stderr = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            raise
+        check(p.returncode == 0, f"27(a) launch (kill={kill}) failed rc "
+                                 f"{p.returncode}: {stdout[-2000:]} "
+                                 f"{stderr[-4000:]}")
+        return stdout, time.perf_counter() - t
+    return wait
+
+
+def _p27_launcher(tmp):
+    """27(a): the launch without and with the kill, side by side on the
+    card (4 processes); the per-step losses and the final f32 masters held
+    bitwise."""
+    ref_dir, kill_dir = os.path.join(tmp, "ref"), os.path.join(tmp, "kill")
+    ref_wait = _p27_launch(ref_dir, False)
+    kill_wait = _p27_launch(kill_dir, True)
+    _, ref_s = ref_wait()
+    out, kill_s = kill_wait()
+    check("elastic restart 1/1" in out, f"27(a): no restart: {out[-2000:]}")
+
+    def rec(d, r, a):
+        with open(os.path.join(d, f"rank{r}_attempt{a}.json")) as f:
+            return json.load(f)
+    res = {"ref_s": ref_s, "kill_s": kill_s, "ranks": {}}
+    with open(os.path.join(kill_dir, "killed.json")) as f:
+        killed = json.load(f)
+    for r in (0, 1):
+        ref, resumed = rec(ref_dir, r, 0), rec(kill_dir, r, 1)
+        steps = sorted(resumed["losses"], key=int)
+        check(steps == [str(k) for k in range(
+            P27_FIT["save_every"], P27_FIT["steps"])],
+            f"27(a) rank {r} resumed at steps {steps}")
+        same_loss = all(resumed["losses"][k] == ref["losses"][k]
+                        for k in steps)
+        a = np.load(os.path.join(ref_dir, f"rank{r}.npz"))
+        b = np.load(os.path.join(kill_dir, f"rank{r}.npz"))
+        same = [bool(np.array_equal(a[k], b[k])) for k in a.files]
+        first = min(float(v) for v in resumed["ended"].values())
+        res["ranks"][r] = {
+            "losses_ref": ref["losses"], "losses_resumed": resumed["losses"],
+            "losses_bitwise": same_loss, "masters_compared": len(same),
+            "masters_bitwise": all(same),
+            "launches_ref": ref["launches"],
+            "launches_resumed": resumed["launches"],
+            "restart_s": first - killed["time"]}
+        check(same_loss, f"27(a) rank {r}: resumed losses differ: "
+                         f"{resumed['losses']} against {ref['losses']}")
+        check(all(same) and len(same) > 100,
+              f"27(a) rank {r}: {same.count(False)} of {len(same)} masters "
+              f"differ from the launch without the kill")
+    killed_first = rec(kill_dir, 1, 0)["losses"]
+    check(all(killed_first[k] == res["ranks"][1]["losses_ref"][k]
+              for k in killed_first),
+          f"27(a): attempt 0's losses differ: {killed_first}")
+    res["restart_s"] = max(v["restart_s"] for v in res["ranks"].values())
+    return res
+
+
+def _p27_static_bert(paddle, cfg, recompute, batch=32):
+    """Phase 22's static BERT-base bf16 O2 program (``_static_bert``) over
+    ``batch`` rows, with ``recompute`` through
+    ``fleet.distributed_optimizer`` over ``strategy.recompute`` with one
+    checkpoint an encoder layer. Returns (program, net, loss, [(param,
+    grad var)])."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.testing.spmd_static import encoder_checkpoints
+    from paddle_tpu_torch.text.models import Bert
+    paddle.enable_static()
+    try:
+        main = static.Program("bert_static_dp")
+        with static.program_guard(main, static.Program()):
+            ids = static.data("ids", [batch, 128], "int64")
+            lab = static.data("labels", [batch, 128], "int64")
+            net = Bert(cfg, seed=0)
+            ck = encoder_checkpoints(net)
+            loss = net(ids, masked_lm_labels=lab)
+            opt = static.amp.decorate(
+                paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                       parameters=net.parameters()),
+                level="O2", dtype="bfloat16")
+            if recompute:
+                st = fleet.DistributedStrategy()
+                st.recompute = True
+                st.recompute_configs = {"checkpoints": list(ck)}
+                opt = fleet.distributed_optimizer(opt, st)
+            _, pairs = opt.minimize(loss)
+    finally:
+        paddle.disable_static()
+    return main, net, loss, pairs
+
+
+def _p27_static_run(paddle, cfg, ids, lab, recompute, data_parallel):
+    """Steps of the static program over the batches (ids [n, b, 128]):
+    the losses, the first step's gradients (the fetched ones: under
+    ``with_data_parallel`` the sum over dp, the global batch's) and f32
+    weights (the scope's: O2 casts them per op), the steady step ms and
+    the launches."""
+    from paddle_tpu_torch import static
+    main, net, loss, pairs = _p27_static_bert(paddle, cfg, recompute,
+                                              int(ids.shape[1]))
+    prog = static.CompiledProgram(main)
+    if data_parallel:
+        prog = prog.with_data_parallel(loss_name=loss.name)
+    exe = static.Executor()
+    scope = static.global_scope()
+    names = {k: p.scope_name for k, p in net.named_parameters()}
+    rec = {"losses": [], "step_ms": []}
+    before = _p27_counts()
+    paddle.enable_static()
+    try:
+        for k in range(ids.shape[0]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = exe.run(prog, feed={"ids": ids[k], "labels": lab[k]},
+                          fetch_list=[loss] + ([g for _, g in pairs]
+                                               if k == 0 else []),
+                          return_numpy=False)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t) * 1e3)
+            rec["losses"].append(float(got[0]))
+            if k == 0:
+                rec["grads"] = [g.detach().clone() for g in got[1:]]
+                rec["weights1"] = {k: scope.get(n).detach().clone()
+                                   for k, n in names.items()}
+    finally:
+        paddle.disable_static()
+    rec["launches"] = _p27_diff(_p27_counts(), before)
+    e = next(iter(exe._cache.values()))
+    rec["segments"] = 0 if e.segments is None else len(e.segments[1])
+    rec["dp_rows"] = None if e.dp is None else \
+        int(ids.shape[1]) // e.dp.k
+    return rec
+
+
+def p27_static_body():
+    """27(b), one of the 2 dp ranks: phase 22's static BERT-base bf16 O2
+    program under ``with_data_parallel`` for 3 steps of b32 (16 / 16),
+    plain and with recompute; rank 0 then runs one step of the whole batch
+    alone, and the planted fault: the gradient a rank holds without the
+    sum over dp (one step of its 16 rows alone, scaled from their
+    labelled tokens' mean to the whole batch's). Returns the comparisons
+    and readings of this rank."""
+    _p25_child_setup()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.recompute import recompute
+    from paddle_tpu_torch.text.models import BertConfig
+    C.probe_transport(torch.device("cuda", 0))
+    recompute(torch.sin, torch.ones(1, device="cuda",
+                                    requires_grad=True)).sum().backward()
+    paddle.set_device("gpu")
+    cfg = BertConfig.bert_base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    ids, lab = _bert_batches(cfg, 32, 128, P27_STATIC_STEPS)
+    M.init_mesh({"dp": 2}, name="default")
+    rank = M.world_rank()
+    plain = _p27_static_run(paddle, cfg, ids, lab, False, True)
+    rc = _p27_static_run(paddle, cfg, ids, lab, True, True)
+    diffs = [float((a.float() - b.float()).abs().max())
+             for a, b in zip(plain["grads"], rc["grads"])]
+    out = {"rank": rank,
+           "recompute_grads_bitwise": all(torch.equal(a, b) for a, b in
+                                          zip(plain["grads"], rc["grads"])),
+           "recompute_grad_max_abs_diff": max(diffs),
+           "recompute_grads_differing": sum(d > 0 for d in diffs),
+           "grads_compared": len(diffs),
+           "recompute_losses_bitwise": plain["losses"] == rc["losses"]}
+    for name, r in (("plain", plain), ("recompute", rc)):
+        out[name] = {k: r[k] for k in ("losses", "step_ms", "launches",
+                                       "segments", "dp_rows")}
+    del rc
+    torch.cuda.empty_cache()
+    M.reset_mesh("default")
+    if rank == 0:
+        one = _p27_static_run(paddle, cfg, ids[:1], lab[:1], False, False)
+        half = _p27_static_run(paddle, cfg, ids[:1, :16], lab[:1, :16],
+                               False, False)
+        scale = float(_p25_valid(lab[0, :16]) / _p25_valid(lab[0]))
+        want = dict(enumerate(one["grads"]))
+        out["vs_one"] = {
+            "loss_dp": plain["losses"][0], "loss_one": one["losses"][0],
+            "loss_abs_diff": abs(plain["losses"][0] - one["losses"][0]),
+            "grads_compared": len(want),
+            "grad_err": _p25_grad_err(dict(enumerate(plain["grads"])), want),
+            "fault_grad_err": _p25_grad_err(
+                {k: g.float() * scale for k, g in enumerate(half["grads"])},
+                want),
+            "weights_compared": len(one["weights1"]),
+            "master_max_abs_diff": max(
+                float((plain["weights1"][k] - v).abs().max())
+                for k, v in one["weights1"].items()),
+            "one_step_ms": one["step_ms"][0]}
+        del one, half
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    out["max_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _p27_gpt_cfg():
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+    return GPTConfig(dropout=0.0)          # GPT-2 small, V 50304
+
+
+def _p27_lm_batch():
+    g = torch.Generator().manual_seed(27)
+    ids = torch.randint(0, 50257, (P27_TP_B, P27_TP_S), generator=g)
+    return ids, torch.roll(ids, -1, dims=1)
+
+
+def _p27_tp_fit(ids, lab, rules=None, tp=P27_TP, steps=P27_TP_STEPS,
+                fault=False):
+    """27(c): ``Model.fit`` of GPT-2 small (``spmd_static.GPTLM``: the
+    fused CE head) bf16 O2, AdamW lr 1e-4, b8 s1024, under the default
+    mesh ``{"tp": tp}`` (one process: tp 1) for ``steps`` steps; ``rules``
+    (a plan's layout) installed first; ``fault``: the column layers'
+    input copy without its backward all-reduce (the planted fault, one
+    step). Returns the losses, step ms, the first step's whole masters
+    and AdamW first moments (on the host, rank 0 only), the final whole
+    parameters' digest, the state bytes, the forward's and the fit's
+    collective bytes (the smoke's own gathers of the masters and moments
+    left out) and the launches."""
+    import hashlib
+    from unittest import mock
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import sharding as SH
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as MP
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        whole_parameters
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.testing.spmd_static import GPTLM
+    if tp > 1:
+        M.init_mesh({"tp": tp}, name="default")
+    installed = []
+    for tmpl, nd, spec in rules or ():
+        def build(ndim, _nd=nd, _s=tuple(spec)):
+            return M.PartitionSpec(*_s) if ndim == _nd else M.PartitionSpec()
+        SH.add_tp_rule(tmpl, build)
+        installed.append(tmpl)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    keys = ("dist.all_reduce_bytes", "dist.all_gather_bytes",
+            "dist.staged_bytes")
+
+    def counters():
+        return {k: monitor.stat_get(k) for k in keys}
+    try:
+        net = GPTLM(_p27_gpt_cfg())
+        spec = [pt.InputSpec([None, None], "int64", "ids"),
+                pt.InputSpec([None, None], "int64", "labels")]
+        model = pt.Model(net, inputs=spec)
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    parameters=model.parameters(), multi_precision=True)
+        model.prepare(opt, loss=lambda loss: loss,
+                      amp_configs={"level": "O2", "dtype": "bfloat16"})
+        rec = {"step_ms": [], "losses": []}
+
+        def whole(slot):
+            vals = {k: sl[slot] for k, sl in opt._slots.items()
+                    if slot in sl}
+            vals = whole_parameters(net, vals) if tp > 1 else vals
+            if M.world_rank() != 0:
+                return None
+            return {k: v.float().cpu() for k, v in vals.items()}
+
+        class Clock(Callback):
+            def on_train_batch_begin(self, step, logs=None):
+                torch.cuda.synchronize()
+                self.t = time.perf_counter()
+
+            def on_train_batch_end(self, step, logs=None):
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - self.t) * 1e3)
+                rec["losses"].append(float(logs["loss"]))
+                if step == 0:
+                    # the gathers of the capture are the smoke's, not the
+                    # step's: their bytes are taken out of fit_bytes
+                    c = counters()
+                    rec["masters1"] = whole("master")
+                    rec["moment1"] = whole("moment1")
+                    rec["capture_bytes"] = {k: v - c[k]
+                                            for k, v in counters().items()}
+
+        b0 = counters()
+        c0 = _p27_counts()
+        ds = TensorDataset([ids.repeat(steps, 1), lab.repeat(steps, 1)])
+        with contextlib.ExitStack() as stack:
+            if fault:
+                stack.enter_context(mock.patch.object(
+                    MP, "_identity_fwd_allreduce_bwd",
+                    lambda x, axis, mesh=None: x))
+            model.fit(ds, batch_size=P27_TP_B, epochs=1, shuffle=False,
+                      verbose=0, callbacks=[Clock()])
+        rec["launches"] = _p27_diff(_p27_counts(), c0)
+        rec["fit_bytes"] = {k: v - b0[k] - rec["capture_bytes"][k]
+                            for k, v in counters().items()}
+        if not fault:
+            b1 = counters()
+            model.eval_batch([ids.cuda(), lab.cuda()])
+            rec["forward_bytes"] = {k: v - b1[k]
+                                    for k, v in counters().items()}
+            rec["state_bytes"] = model._engine.state_bytes()
+            w = net.gpt.wte._parameters["weight"]
+            rec["head_shard_bytes"] = w.numel() * w.element_size()
+            params = whole_parameters(net) if tp > 1 else dict(
+                net.named_parameters())
+            h = hashlib.sha1()
+            for k in sorted(params):
+                h.update(params[k].detach().float().cpu().numpy().tobytes())
+            rec["digest"] = h.hexdigest()
+        rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model, net, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+    finally:
+        for tmpl in installed:
+            SH.remove_tp_rule(tmpl)
+        if tp > 1:
+            M.reset_mesh("default")
+
+
+def _p27_blocks_program():
+    """GPT-2 small's 12 blocks recorded over a [8, 1024, 768] hidden on
+    the host (the stage-cut planner's program; a block a plan segment)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.device import device_scope
+    from paddle_tpu_torch.text.models.gpt import GPTBlock
+    cfg = _p27_gpt_cfg()
+    paddle.enable_static()
+    try:
+        main = static.Program("gpt2_blocks")
+        with static.program_guard(main, static.Program()), \
+                device_scope("cpu"):
+            h = static.data("h", [P27_PP["b"], P27_PP["s"], cfg.hidden_size],
+                            "float32")
+            for _ in range(cfg.num_layers):
+                h = GPTBlock(cfg)(h)
+        main._jit_fetch_vars = [h]
+        return main, len(main.ops) // cfg.num_layers
+    finally:
+        paddle.disable_static()
+
+
+def _p27_staged():
+    """27(d): ``StagedPipelineRunner`` over ``plan_pipeline`` of GPT-2
+    small's 12 blocks at pp 4 (b8 s1024, 4 micro-batches, f32, its SGD),
+    the loss the mean squared error to a random hidden target; rank 0
+    runs the same SGD steps on the whole stack alone. Returns the plan's
+    cuts, the losses, the reference's, the step ms and the launches."""
+    from torch.func import functional_call
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.static.pipeline_runner import StagedPipelineRunner
+    from paddle_tpu_torch.static.spmd_planner import plan_pipeline
+    from paddle_tpu_torch.text.models.gpt import GPT
+    cfg = _p27_gpt_cfg()
+    main, opl = _p27_blocks_program()
+    plan = plan_pipeline(main, {"pp": P27_PP["stages"]},
+                         num_micro=P27_PP["micro"],
+                         boundaries=[k * opl for k in range(1, 12)])
+    del main
+    whole = GPT(cfg, device="cuda", seed=0)
+    template = whole.blocks[0]
+    units = [{k: v.detach() for k, v in blk.named_parameters()}
+             for blk in whole.blocks]
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(P27_PP["b"], P27_PP["s"], cfg.hidden_size,
+                    generator=g).cuda()
+    y = torch.randn(P27_PP["b"], P27_PP["s"], cfg.hidden_size,
+                    generator=g).cuda()
+
+    def unit(h, p):
+        return functional_call(template, p, (h,))
+
+    def mse(h, t):
+        return ((h - t) ** 2).mean()
+    mesh = M.init_mesh({"pp": P27_PP["stages"]}, name="staged")
+    out = {"cuts": list(plan.cuts), "stage_segments": plan.stage_segments()}
+    try:
+        runner = StagedPipelineRunner(plan, unit, units, mse, mesh=mesh,
+                                      learning_rate=P27_PP["lr"])
+        c0 = _p27_counts()
+        losses, ms = [], []
+        for _ in range(P27_PP["steps"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(runner.step(x, y)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        out.update(losses=losses, step_ms=ms,
+                   launches=_p27_diff(_p27_counts(), c0))
+        del runner
+    finally:
+        M.reset_mesh("staged")
+    if M.world_rank() == 0:
+        ps = [{k: v.clone().requires_grad_(True) for k, v in u.items()}
+              for u in units]
+        ref = []
+        for _ in range(P27_PP["steps"]):
+            h = x
+            for p in ps:
+                h = unit(h, p)
+            loss = mse(h, y)
+            grads = torch.autograd.grad(loss, [v for p in ps
+                                               for v in p.values()])
+            with torch.no_grad():
+                for v, gr in zip([v for p in ps for v in p.values()],
+                                 grads):
+                    v.sub_(P27_PP["lr"] * gr)
+            ref.append(float(loss))
+        out["ref_losses"] = ref
+        out["loss_rel"] = max(abs(a - b) / abs(b)
+                              for a, b in zip(losses, ref))
+    del whole, units
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p27_tp_body(layout):
+    """27(c) and (d), one of the 4 ranks: rank 0 first runs one process's
+    fit step of GPT-2 small over the whole batch; then all fit it under
+    {"tp": 4} with the preset rules, with the planted fault (one step)
+    and under the plan's ``layout``; rank 0 holds the first steps against
+    the one process's. Then the staged pipeline at pp 4."""
+    _p25_child_setup()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.recompute import recompute
+    C.probe_transport(torch.device("cuda", 0))
+    recompute(torch.sin, torch.ones(1, device="cuda",
+                                    requires_grad=True)).sum().backward()
+    paddle.set_device("gpu")
+    rank = M.world_rank()
+    ids, lab = _p27_lm_batch()
+    one = _p27_tp_fit(ids, lab, tp=1) if rank == 0 else None
+    torch.distributed.barrier()
+    preset = _p27_tp_fit(ids, lab)
+    fault = _p27_tp_fit(ids, lab, steps=1, fault=True)
+    planned = _p27_tp_fit(ids, lab, rules=layout)
+    out = {"rank": rank}
+    keep = ("losses", "step_ms", "launches", "fit_bytes", "forward_bytes",
+            "state_bytes", "max_memory_gb", "digest", "head_shard_bytes")
+    out["preset"] = {k: preset[k] for k in keep}
+    out["plan_layout"] = {k: planned[k] for k in keep}
+    out["fault"] = {k: fault[k] for k in ("losses", "step_ms", "fit_bytes")}
+    if rank == 0:
+        def vs(run, ref):
+            return {
+                "loss_abs_diff": abs(run["losses"][0] - ref["losses"][0]),
+                "grads_compared": len(ref["moment1"]),
+                "grad_err": _p25_grad_err(run["moment1"], ref["moment1"]),
+                "masters_compared": len(ref["masters1"]),
+                "master_max_abs_diff": max(
+                    float((run["masters1"][k] - v).abs().max())
+                    for k, v in ref["masters1"].items())}
+        out["vs_one"] = dict(
+            vs(preset, one), loss_tp=preset["losses"][0],
+            loss_one=one["losses"][0],
+            fault_grad_err=_p25_grad_err(fault["moment1"], one["moment1"]),
+            one_step_ms=one["step_ms"], one_launches=one["launches"],
+            one_state_bytes=one["state_bytes"])
+        out["layout_vs_one"] = vs(planned, one)
+        out["layout_vs_preset"] = dict(
+            vs(planned, preset),
+            masters_bitwise=all(torch.equal(planned["masters1"][k], v)
+                                for k, v in preset["masters1"].items()),
+            digest_equal=planned["digest"] == preset["digest"],
+            losses_bitwise=planned["losses"] == preset["losses"])
+    del one, preset, fault, planned
+    gc.collect()
+    torch.distributed.barrier()
+    out["staged"] = _p27_staged()
+    return out
+
+
+def _p27_plan():
+    """27(d) on the host: ``plan_program`` of GPT-2 small (b8 s1024, the
+    fused CE head) at tp 4, its rules against the preset's, the
+    analyzer's forward collectives of the preset specs, and the plan's
+    whole layout as exact-name rules (the fit's)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.device import device_scope
+    from paddle_tpu_torch.distributed import sharding as SH
+    from paddle_tpu_torch.static.spmd_analyzer import analyze_program
+    from paddle_tpu_torch.static.spmd_planner import plan_program
+    from paddle_tpu_torch.text.models.gpt import GPT
+    t = time.perf_counter()
+    paddle.enable_static()
+    try:
+        main = static.Program("gpt2_tp_plan")
+        with static.program_guard(main, static.Program()), \
+                device_scope("cpu"):
+            ids = static.data("ids", [P27_TP_B, P27_TP_S], "int64")
+            lab = static.data("labels", [P27_TP_B, P27_TP_S], "int64")
+            net = GPT(_p27_gpt_cfg())
+            loss = net(ids, labels=lab)
+        main._jit_fetch_vars = [loss]
+    finally:
+        paddle.disable_static()
+    mesh = {"tp": P27_TP}
+    plan = plan_program(main, mesh, layer=net)
+    plan_s = time.perf_counter() - t
+    meshlike = SH.mesh_like(mesh)
+
+    def norm(spec):
+        spec = tuple(spec)
+        return spec if any(e is not None for e in spec) else ()
+    differ, layout = [], []
+    for name, p in net.named_parameters():
+        want = norm(SH._validate_divisible(
+            SH.param_spec_for(name, p.dim(), meshlike), p.shape, meshlike))
+        got = norm(plan.spec_for(name, p.dim()))
+        if got != want:
+            differ.append({"param": name, "plan": list(got),
+                           "preset": list(want)})
+        # the plan's whole layout as exact-name rules, replicated ones too:
+        # install_rules, as JAX's, emits no rule for a replicated group, so
+        # under it alone the presets stand for those (the preset's layout
+        # here, where the plan only adds wte's template)
+        layout.append((r"^gpt\." + re.escape(name) + "$", p.dim(),
+                       got or (None,) * p.dim()))
+    rep = analyze_program(main, mesh=mesh,
+                          param_specs=SH.named_param_specs(net, mesh))
+    coll = [{"kind": c.kind, "axis": c.axis, "bytes": c.bytes,
+             "op": c.op_name, "dtype": c.dtype} for c in rep.collectives]
+    res = {"plan_s": plan_s, "evaluations": plan.evaluations,
+           "rules": [(r.template, r.ndim, list(r.spec)) for r in plan.rules],
+           "differing_rules": differ, "predicted": plan.predicted,
+           "baseline": plan.baseline,
+           "preset_collectives": coll,
+           "preset_diagnostics": [str(d) for d in rep.diagnostics]}
+    del main, net
+    gc.collect()
+    return res, layout
+
+
+def phase_multi_process(card=None):
+    """Phase 27: (a) the launcher with a whole-job restart; (b) the static
+    Executor over 2 dp ranks, plain and with recompute; (c) Model.fit of
+    GPT-2 small under {"tp": 4}; (d) the planner at tp 4 and the staged
+    pipeline at pp 4. Returns the paths' launch counts (ranks summed) and
+    the results."""
+    import tempfile
+    from paddle_tpu_torch.testing import spmd
+    import threading
+    t0 = time.perf_counter()
+    res = {"card": card}
+    # (d)'s plan on the host while (a)'s launches run on the card
+    planned = {}
+
+    def plan_on_host():
+        try:
+            planned["plan"], planned["layout"] = _p27_plan()
+        except Exception as exc:  # noqa: BLE001 - raised below
+            planned["error"] = exc
+    planner = threading.Thread(target=plan_on_host)
+    planner.start()
+    # (a) the launcher
+    t = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            a = _p27_launcher(tmp)
+    finally:
+        planner.join()
+    a["seconds"] = time.perf_counter() - t
+    log(f"[launch] BERT-base bf16 O2 b32 s128 as 16 / 16, 2 ranks, "
+        f"{P27_FIT['steps']} steps, rank 1 SIGKILLed after step "
+        f"{P27_FIT['kill_after']}: {json.dumps(a)}")
+    res["launch"] = a
+    if "error" in planned:
+        raise planned["error"]
+    plan, layout = planned["plan"], planned["layout"]
+    log(f"[planner] GPT-2 small b8 s1024 at tp 4: {plan['evaluations']} "
+        f"analyzer evaluations in {plan['plan_s']:.1f} s; rules "
+        f"{plan['rules']}; predicted {plan['predicted']} against the "
+        f"replicated baseline {plan['baseline']}; "
+        f"{len(plan['differing_rules'])} parameters differ from the "
+        f"preset: {plan['differing_rules']}")
+    check(plan["predicted"]["diagnostics"] == 0,
+          f"27(d) plan carries diagnostics: {plan['predicted']}")
+    # (b) the static Executor over dp 2
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        st = spmd.run_ranks(p27_static_body, 2, tmp_path=tmp, device="cuda",
+                            timeout=600)
+    b = {"vs_one": st[0]["vs_one"],
+         "recompute_grads_bitwise": [s["recompute_grads_bitwise"]
+                                     for s in st],
+         "recompute_grad_max_abs_diff": max(
+             s["recompute_grad_max_abs_diff"] for s in st),
+         "recompute_losses_bitwise": all(s["recompute_losses_bitwise"]
+                                         for s in st),
+         "grads_compared": st[0]["grads_compared"],
+         "max_memory_gb": [s["max_memory_gb"] for s in st],
+         "seconds": time.perf_counter() - t}
+    for name in ("plain", "recompute"):
+        b[name] = {"step_ms": [s[name]["step_ms"] for s in st],
+                   "losses": st[0][name]["losses"],
+                   "segments": st[0][name]["segments"],
+                   "dp_rows": [s[name]["dp_rows"] for s in st],
+                   "launches": {k: sum(s[name]["launches"][k] for s in st)
+                                for k in P27_KERNELS},
+                   "flash_fwd_per_step_rank": st[0][name]["launches"][
+                       "flash_fwd"] / P27_STATIC_STEPS}
+    log(f"[static dp] BERT-base bf16 O2 b32 s128 as 16 / 16 over 2 ranks, "
+        f"{P27_STATIC_STEPS} steps, plain and recompute: {json.dumps(b)}")
+    one = b["vs_one"]
+    check(one["loss_abs_diff"] <= P27_ONE_TOL["loss"]
+          and one["grad_err"] <= P27_ONE_TOL["grad"]
+          and one["master_max_abs_diff"] <= P27_ONE_TOL["master"]
+          and one["grads_compared"] > 100,
+          f"27(b) dp step differs from one process: {one}")
+    check(one["fault_grad_err"] > P27_ONE_TOL["grad"],
+          f"27(b) the gradient limit {P27_ONE_TOL['grad']} passes a rank's "
+          f"gradient without the sum over dp: {one['fault_grad_err']}")
+    check(all(b["recompute_grads_bitwise"]) and b["recompute_losses_bitwise"]
+          and b["grads_compared"] > 100,
+          f"27(b) recompute's gradients or losses differ from the plain "
+          f"program's: {b['grads_compared']} gradients compared, bitwise "
+          f"{b['recompute_grads_bitwise']}, largest |difference| "
+          f"{b['recompute_grad_max_abs_diff']}, losses bitwise "
+          f"{b['recompute_losses_bitwise']}")
+    check(all(r == 16 for r in b["plain"]["dp_rows"]),
+          f"27(b) ranks ran {b['plain']['dp_rows']} rows, not 16 each")
+    check(b["recompute"]["segments"] == 13,
+          f"27(b) recompute segments {b['recompute']['segments']}, not 13")
+    check(b["recompute"]["flash_fwd_per_step_rank"]
+          == 2 * b["plain"]["flash_fwd_per_step_rank"] == 24,
+          f"27(b) flash forwards a step: recompute "
+          f"{b['recompute']['flash_fwd_per_step_rank']}, plain "
+          f"{b['plain']['flash_fwd_per_step_rank']}")
+    res["static_dp"] = b
+    # (c) and (d) on 4 ranks
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = spmd.run_ranks(p27_tp_body, 4, layout, tmp_path=tmp,
+                            device="cuda", timeout=900)
+    pred = plan["preset_collectives"]
+    pred_ar = sum(c["bytes"] for c in pred if c["kind"] == "all_reduce"
+                  and c["op"] != "fused_ce_op")
+    pred_ce = sum(c["bytes"] for c in pred if c["op"] == "fused_ce_op")
+    fb = tp[0]["preset"]["forward_bytes"]
+    c = {"vs_one": tp[0]["vs_one"],
+         "step_ms": [r["preset"]["step_ms"] for r in tp],
+         "losses": tp[0]["preset"]["losses"],
+         "state_bytes": [r["preset"]["state_bytes"] for r in tp],
+         "one_state_bytes": tp[0]["vs_one"]["one_state_bytes"],
+         "max_memory_gb": [r["preset"]["max_memory_gb"] for r in tp],
+         "launches_per_rank": {k: [r["preset"]["launches"][k] for r in tp]
+                               for k in P27_KERNELS},
+         "fit_bytes_per_rank": tp[0]["preset"]["fit_bytes"],
+         "forward_bytes_per_rank": fb,
+         "fault": {"losses": tp[0]["fault"]["losses"],
+                   "step_ms": [r["fault"]["step_ms"] for r in tp]},
+         "predicted_forward": {"all_reduce_f32": pred_ar,
+                               "ce_all_reduce_f32": pred_ce,
+                               "collectives": len(pred)},
+         "seconds": time.perf_counter() - t}
+    one = c["vs_one"]
+    check(one["loss_abs_diff"] <= P27_ONE_TOL["loss"]
+          and one["grad_err"] <= P27_ONE_TOL["grad"]
+          and one["master_max_abs_diff"] <= P27_ONE_TOL["master"]
+          and one["grads_compared"] > 100,
+          f"27(c) tp fit's first step differs from one process: {one}")
+    check(one["fault_grad_err"] > P27_ONE_TOL["grad"],
+          f"27(c) the gradient limit {P27_ONE_TOL['grad']} passes the tp "
+          f"fit without the column layers' backward all-reduce: "
+          f"{one['fault_grad_err']}")
+    # the forward's all-reduces are the analyzer's (the embedding's and
+    # the row layers'), in bf16 under O2 where it priced the f32 program
+    check(fb["dist.all_reduce_bytes"] * 2 == pred_ar,
+          f"27(c) forward all-reduce bytes {fb['dist.all_reduce_bytes']} "
+          f"(bf16) against the analyzer's {pred_ar} (f32)")
+    head = tp[0]["preset"]["head_shard_bytes"]
+    check(fb["dist.all_gather_bytes"] == head,
+          f"27(c) the head's all-gather {fb['dist.all_gather_bytes']} "
+          f"bytes, not {head}")
+    # a step: the forward's all-reduces, then one a column layer in the
+    # backward (the input copy's, of the same [b, s, d] as the row layer
+    # it pairs with: every forward one but the embedding's), in bf16 as
+    # the column layer's input is under O2; the head's table gathered
+    # once a step (its backward takes this rank's rows)
+    n_ar = sum(1 for k in pred if k["kind"] == "all_reduce"
+               and k["op"] != "fused_ce_op")
+    fit = c["fit_bytes_per_rank"]
+    want_ar = P27_TP_STEPS * fb["dist.all_reduce_bytes"] * (2 * n_ar - 1) \
+        // n_ar
+    check(fit["dist.all_reduce_bytes"] == want_ar
+          and fit["dist.all_gather_bytes"] == P27_TP_STEPS * head
+          and fit["dist.staged_bytes"] == 0,
+          f"27(c) the fit's collective bytes {fit}, not all-reduce "
+          f"{want_ar} and all-gather {P27_TP_STEPS * head}")
+    check(all(s < c["one_state_bytes"] for s in c["state_bytes"]),
+          f"27(c) state a rank {c['state_bytes']} not below one "
+          f"process's {c['one_state_bytes']}")
+    # 27(d): the fit under the plan's whole layout (exact-name rules):
+    # bitwise the preset's fit where the plan's layout is the preset's,
+    # else within (c)'s limits of one process (the differing parameters
+    # are in the planner's line above)
+    lvo, lvp = tp[0]["layout_vs_one"], tp[0]["layout_vs_preset"]
+    if not plan["differing_rules"]:
+        check(lvp["masters_bitwise"] and lvp["digest_equal"]
+              and lvp["losses_bitwise"],
+              f"27(d) the plan's layout is the preset's but its fit "
+              f"differs: {lvp}")
+    check(lvo["loss_abs_diff"] <= P27_ONE_TOL["loss"]
+          and lvo["grad_err"] <= P27_ONE_TOL["grad"]
+          and lvo["master_max_abs_diff"] <= P27_ONE_TOL["master"]
+          and lvo["grads_compared"] > 100,
+          f"27(d) the fit under the plan's layout differs from one "
+          f"process: {lvo}")
+    c["plan_layout"] = {"vs_one": lvo, "vs_preset": lvp,
+                        "differing_rules": len(plan["differing_rules"]),
+                        "step_ms": [r["plan_layout"]["step_ms"] for r in tp],
+                        "state_bytes": [r["plan_layout"]["state_bytes"]
+                                        for r in tp],
+                        "fit_bytes_per_rank": tp[0]["plan_layout"][
+                            "fit_bytes"]}
+    log(f"[tp fit] GPT-2 small bf16 O2 b8 s1024 under tp 4, "
+        f"{P27_TP_STEPS} AdamW steps, the preset and the plan's layout: "
+        f"{json.dumps(c)}")
+    res["tp_fit"] = c
+    d = {"plan": plan, "staged": {
+        "cuts": tp[0]["staged"]["cuts"],
+        "stage_segments": tp[0]["staged"]["stage_segments"],
+        "losses": tp[0]["staged"]["losses"],
+        "ref_losses": tp[0]["staged"]["ref_losses"],
+        "loss_rel": tp[0]["staged"]["loss_rel"],
+        "step_ms": [r["staged"]["step_ms"] for r in tp],
+        "launches": {k: sum(r["staged"]["launches"][k] for r in tp)
+                     for k in P27_KERNELS}}}
+    log(f"[staged pp] GPT-2 small's 12 blocks at pp 4, b8 s1024 / 4 "
+        f"micro-batches, f32 SGD, 3 steps: {json.dumps(d['staged'])}")
+    check(d["staged"]["loss_rel"] <= P27_PP_TOL,
+          f"27(d) staged pipeline differs from the whole stack: "
+          f"{d['staged']}")
+    check(d["staged"]["stage_segments"] == [[0, 1, 2], [3, 4, 5], [6, 7, 8],
+                                            [9, 10, 11]],
+          f"27(d) stages {d['staged']['stage_segments']}")
+    res["planner"] = d
+    counts = {
+        "launch": {k: sum(a["ranks"][r]["launches_resumed"].get(k, 0)
+                          for r in (0, 1)) for k in P27_KERNELS},
+        "launch_ref": {k: sum(a["ranks"][r]["launches_ref"].get(k, 0)
+                              for r in (0, 1)) for k in P27_KERNELS},
+        "static_dp": b["plain"]["launches"],
+        "static_dp_recompute": b["recompute"]["launches"],
+        "tp_fit": {k: sum(v) for k, v in c["launches_per_rank"].items()},
+        "staged_pp": d["staged"]["launches"]}
+    for tag in ("launch_ref", "static_dp", "static_dp_recompute", "tp_fit"):
+        for kname in PATH_KERNELS:
+            check(counts[tag][kname] > 0
+                  and counts[tag][kname] == counts[tag][f"{kname}.sm90"],
+                  f"27 {tag}: {kname} launched {counts[tag][kname]} times, "
+                  f"{counts[tag][kname + '.sm90']} on the Hopper kernel")
+    for kname in FLASH_KERNELS:
+        check(counts["staged_pp"][kname] > 0,
+              f"27(d) staged pipeline launched no {kname}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[multi-process] phase 27 {res['seconds']:.1f} s (launch "
+        f"{a['seconds']:.1f}, static dp {b['seconds']:.1f}, tp + pp "
+        f"{c['seconds']:.1f}); card: {card}")
+    return counts, res
+
+
+def _multi_process_fields(rec, name, counts):
+    """Phase 27's launches of one of the six training kernels, summed over
+    the ranks: the launched fit's resumed attempt and its uninterrupted
+    launch (2 ranks), the static program over dp 2 plain and with
+    recompute, the tp 4 fit (4 ranks) and the staged pipeline (4 ranks)."""
+    for tag, c in counts.items():
+        rec[f"launches_p27_{tag}"] = c[name]
+        rec[f"launches_p27_{tag}_sm90"] = c[f"{name}.sm90"]
+
+
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
@@ -8186,6 +9081,7 @@ def main():
     ps_counts, ps_res = phase_ps(card)
     p25_counts, p25 = phase_distributed(card)
     p26_counts, p26 = phase_fleet_training(card)
+    p27_counts, p27 = phase_multi_process(card)
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -8262,6 +9158,7 @@ def main():
         _trainer_host_fields(rec, name, th_counts)
         _distributed_fields(rec, name, p25_counts)
         _fleet_training_fields(rec, name, p26_counts)
+        _multi_process_fields(rec, name, p27_counts)
         if name == "fused_ce_bwd_dw":
             rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
                                      *worst_ce["db_max"].values(),
@@ -8295,6 +9192,7 @@ def main():
         _trainer_host_fields(rec, name, th_counts)
         _distributed_fields(rec, name, p25_counts)
         _fleet_training_fields(rec, name, p26_counts)
+        _multi_process_fields(rec, name, p27_counts)
         if name == "flash_fwd":     # 22(c): each jit route's forward
             rec["launches_jit"] = {
                 r: c["flash_fwd"] for r, c in
@@ -8323,7 +9221,8 @@ def main():
                       "transformer": transformer, "vision": vision,
                       "generation": generation, "static": static_res,
                       "trainer_host": trainer_host, "ps": ps_res,
-                      "distributed": p25, "fleet_training": p26}))
+                      "distributed": p25, "fleet_training": p26,
+                      "multi_process": p27}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

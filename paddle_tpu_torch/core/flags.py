@@ -347,3 +347,63 @@ define_flag("FLAGS_topology_dcn_gbps", 50.0,
             "per-device link bandwidth in GB/s, one way, between nodes "
             "(one 400 Gb/s InfiniBand port per H100) for the two-tier "
             "topology cost model and capacity.publish_wire_ms")
+# --- the SPMD analyzer and planner (static/spmd_analyzer.py,
+# --- static/spmd_planner.py) and elastic training (distributed/elastic.py)
+define_flag("FLAGS_log_spmd_estimate", False,
+            "on each fresh Executor compile with a registered mesh, run "
+            "the SPMD sharding analyzer (static/spmd_analyzer.py) and "
+            "publish the spmd.{collective_bytes,hbm_estimate,"
+            "resharding_count} monitor gauges (non-strict; set "
+            "PADDLE_TPU_VERIFY_SPMD=1 to fail the compile on findings)")
+define_flag("FLAGS_spmd_plan_beam", 4,
+            "beam width of the auto-sharding planner's grouped search "
+            "(static/spmd_planner.py); wide enough to carry a "
+            "chain-opening candidate (column-parallel qkv) to the "
+            "row-parallel out-proj that closes it")
+define_flag("FLAGS_spmd_plan_sweeps", 1,
+            "coordinate-descent polish passes the planner runs over the "
+            "beam winner (feasible moves only; 0 disables)")
+define_flag("FLAGS_spmd_plan_coll_weight", 1.0,
+            "planner objective weight on predicted collective bytes a "
+            "step")
+define_flag("FLAGS_spmd_plan_hbm_weight", 1.0,
+            "planner objective weight on the predicted peak device "
+            "memory a rank")
+define_flag("FLAGS_spmd_plan_pp_micro", 8,
+            "micro-batch count the stage-cut planner prices a step with "
+            "(spmd_planner.plan_pipeline)")
+define_flag("FLAGS_spmd_plan_pp_beam", 8,
+            "beam width of the stage-cut search over legal cut "
+            "boundaries")
+define_flag("FLAGS_spmd_plan_pp_flops_weight", 1.0,
+            "stage-cut objective weight on max(stage FLOPs) * num_micro")
+define_flag("FLAGS_spmd_plan_pp_wire_weight", 1.0,
+            "stage-cut objective weight on the point-to-point bytes a "
+            "step (pipeline.schedule_collectives)")
+define_flag("FLAGS_spmd_plan_pp_hbm_weight", 1.0,
+            "stage-cut objective weight on the largest stage's peak "
+            "memory")
+define_flag("FLAGS_spmd_plan_pp_bubble_weight", 1.0,
+            "stage-cut objective weight on bubble_fraction * total FLOPs")
+define_flag("FLAGS_topology_localsgd_k", 4,
+            "k_steps the topology report prices the LocalSGD sync mode "
+            "with (one average every k local steps)")
+define_flag("FLAGS_topology_localsgd_ratio", 8.0,
+            "when the hierarchical dp sync's between-node cost exceeds "
+            "its within-node cost by this factor, the topology report "
+            "recommends LocalSGD")
+define_flag("PADDLE_ELASTIC_MAX_RESTARTS", 3,
+            "restart budget of the elastic supervisor "
+            "(distributed/elastic.py Supervisor, launch.py --elastic): a "
+            "rank (a process group: the whole group) that dies or stalls "
+            "more often fails the job with the child's exit status")
+define_flag("PADDLE_ELASTIC_RESTART_BACKOFF_S", 1.0,
+            "base pause before an elastic restart; grows linearly with "
+            "the restart count")
+define_flag("PADDLE_ELASTIC_STALL_TIMEOUT_S", 300.0,
+            "a trainer whose heartbeat beats but whose step has not "
+            "advanced for this long is flight-recorded, killed and "
+            "restarted")
+define_flag("PADDLE_ELASTIC_HEARTBEAT_TIMEOUT_S", 60.0,
+            "a trainer whose heartbeat file is older than this (or "
+            "unreadable) is declared dead and restarted")

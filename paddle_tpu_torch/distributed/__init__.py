@@ -8,9 +8,9 @@ tensor-parallel rule tables and ZeRO's specs (``sharding.py``),
 ``DataParallel`` (``parallel.py``), the pipeline schedules
 (``pipeline.py``), MoE (``moe.py``), LocalSGD (``localsgd.py``), fleet's
 ``init`` / strategy / ``distributed_optimizer`` and the Megatron layers
-(``fleet/``) and ``recompute``. The parameter-server tier is ``ps/``. The
-launcher and elastic training wait for ROADMAP Queue 1 item 7c: their
-names raise ``NotImplementedError``.
+(``fleet/``), ``recompute``, the launcher (``launch.py``, runnable as
+``python -m paddle_tpu_torch.distributed.launch``) and elastic restarts
+(``elastic.py``). The parameter-server tier is ``ps/``.
 """
 import importlib as _importlib
 
@@ -21,7 +21,7 @@ from .mesh import (get_mesh, init_hybrid_mesh, init_mesh,  # noqa: F401
 
 _LAZY_MODULES = ("fleet", "sharding", "pipeline", "spawn", "moe",
                  "collective", "parallel", "ring_attention", "bootstrap",
-                 "ps", "localsgd", "recompute")
+                 "ps", "localsgd", "recompute", "launch", "elastic")
 _LAZY_NAMES = {
     "recompute": "recompute", "checkpoint_policy": "recompute",
     "all_gather": "collective", "all_reduce": "collective",
@@ -35,8 +35,6 @@ _LAZY_NAMES = {
     "DataParallel": "parallel", "init_parallel_env": "parallel",
     "ring_attention_fn": "ring_attention",
 }
-# item 7c: modules not ported yet
-_ITEM_7C = ("launch", "elastic")
 
 
 def __getattr__(name):
@@ -44,10 +42,6 @@ def __getattr__(name):
         from ..io import fleet_dataset as _fd
         val = globals()[name] = getattr(_fd, name)
         return val
-    if name in _ITEM_7C:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.distributed.{name} waits for ROADMAP Queue 1 "
-            "item 7c")
     if name in _LAZY_MODULES and name not in _LAZY_NAMES:
         mod = _importlib.import_module(f".{name}", __name__)
         globals()[name] = mod

@@ -244,8 +244,10 @@ def _reduce_op(op):
 
 
 def _all_reduce_(x, pg, op=ReduceOp.SUM):
-    """In-place all-reduce of contiguous ``x`` over ``pg``."""
+    """In-place all-reduce of contiguous ``x`` over ``pg``; its bytes
+    counted in ``dist.all_reduce_bytes``."""
     import torch.distributed as dist
+    monitor.stat_add("dist.all_reduce_bytes", x.numel() * x.element_size())
     if _staged("all_reduce", x):
         h = _host(x)
         dist.all_reduce(h, op=_reduce_op(op), group=pg)
@@ -281,10 +283,12 @@ def _reduce_scatter_(x, pg, ranks, op):
 
 
 def _gather_list(x, pg, ranks):
-    """[x of each rank in ``ranks``], in that order."""
+    """[x of each rank in ``ranks``], in that order; this rank's bytes
+    counted in ``dist.all_gather_bytes``."""
     import torch.distributed as dist
     if len(ranks) <= 1:
         return [x]
+    monitor.stat_add("dist.all_gather_bytes", x.numel() * x.element_size())
     if _staged("all_gather", x):
         h = _host(x)
         out = [torch.empty_like(h) for _ in ranks]

@@ -10,9 +10,9 @@ pp, sep -> sp, ep; one process per mesh position). The strategy's knobs
 are declarative, as in the JAX package: ``DistributedOptimizer`` marks the
 optimizer, and ``Model.fit`` reads the marks (ZeRO, LocalSGD, recompute,
 AMP). ``init(is_collective=False)`` is parameter-server mode over
-``distributed/ps``. ``minimize``'s ``recompute`` and ``auto_shard`` tags on
-a static Program, and ``spmd_report``, wait for ROADMAP Queue 1 item 7c
-(the static multi-device path and the planner).
+``distributed/ps``. On a static Program ``minimize`` tags the strategy's
+``recompute``, ``auto_shard`` and AMP for the static Executor, and
+``spmd_report`` runs the SPMD analyzer against the fleet mesh.
 """
 from __future__ import annotations
 
@@ -100,11 +100,35 @@ def init(role_maker=None, is_collective=True, strategy=None):
 
 def spmd_report(program=None, layer=None, mesh=None, data_specs=None,
                 tokens_per_step=None, zero_dp=False):
-    """The static SPMD analyzer's report: waits for ROADMAP Queue 1 item
-    7c (``static/spmd_analyzer.py`` has its FLOPs half only)."""
-    raise NotImplementedError(
-        "fleet.spmd_report waits for ROADMAP Queue 1 item 7c (the rest of "
-        "static/spmd_analyzer.py)")
+    """The static SPMD analyzer's report against the fleet mesh
+    (``static/spmd_analyzer.py``): resolved PartitionSpecs, the implied
+    collectives with their bytes a rank, the peak-memory estimate a rank
+    and the diagnostics.
+
+    Pass a static ``program`` (optionally with a ``layer`` so the TP
+    name patterns see dotted parameter paths), or just a ``layer`` /
+    parameter dict for the dygraph path. ``mesh`` defaults to the fleet
+    mesh; an {axis: size} dict needs no process group."""
+    from ...static import spmd_analyzer as spmd
+    from .. import sharding as sharding_mod
+    mesh = mesh if mesh is not None else mesh_mod.get_mesh()
+    if program is not None:
+        param_specs = getattr(program, "spmd_param_specs", None)
+        if param_specs is None and layer is not None:
+            param_specs = sharding_mod.named_param_specs(
+                layer, mesh, zero_dp=zero_dp)
+        if data_specs is None:  # the VERIFY_SPMD hook's default
+            data_specs = getattr(program, "spmd_data_specs", None)
+        return spmd.analyze_program(program, mesh=mesh,
+                                    param_specs=param_specs,
+                                    data_specs=data_specs)
+    if layer is None:
+        raise ValueError("spmd_report needs a program or a layer")
+    params = dict(layer.named_parameters()) if hasattr(
+        layer, "named_parameters") else dict(layer)
+    return spmd.analyze_params(params, mesh=mesh,
+                               tokens_per_step=tokens_per_step,
+                               zero_dp=zero_dp)
 
 
 class HybridCommunicateGroup:
@@ -345,18 +369,26 @@ class DistributedOptimizer:
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
         """The inner optimizer's ``minimize``; on a static Program the
-        strategy's AMP becomes the Program's tags (``amp_level``,
-        ``amp_dtype``, ``amp_lists``), which the static Executor's AMP
-        runs. The ``recompute`` and ``auto_shard`` tags wait for ROADMAP
-        Queue 1 item 7c."""
+        strategy becomes the Program's tags, which the static Executor
+        reads at compile: ``auto_shard`` (``_auto_shard``: the planner's
+        ``resolve_auto_shard``), ``recompute`` (``recompute_checkpoints``
+        and ``recompute_policy``: the recompute segments) and AMP
+        (``amp_level``, ``amp_dtype``, ``amp_lists``)."""
         strategy = self.user_defined_strategy
         static = hasattr(loss, "program")
-        if static and (getattr(strategy, "auto_shard", False)
-                       or strategy.recompute):
-            raise NotImplementedError(
-                "DistributedOptimizer.minimize: the static Program's "
-                "recompute / auto_shard tags wait for ROADMAP Queue 1 item "
-                "7c (the static multi-device Executor and the planner)")
+        if static and getattr(strategy, "auto_shard", False):
+            from ...static.program import default_main_program
+            program = loss.program or default_main_program()
+            program._auto_shard = dict(
+                getattr(strategy, "auto_shard_configs", None) or {})
+        if static and strategy.recompute:
+            from ...static.program import default_main_program
+            program = loss.program or default_main_program()
+            cfg = strategy.recompute_configs or {}
+            program.recompute_checkpoints = tuple(
+                v.name if hasattr(v, "name") else str(v)
+                for v in cfg.get("checkpoints", ()))
+            program.recompute_policy = cfg.get("policy", "nothing")
         if strategy.amp and static:
             import torch
             from ...static.program import default_main_program

@@ -7,11 +7,15 @@ Each rank holds its shard of a parallel layer's weight. The
 identity-forward / all-reduce-backward pair (the column layer's input
 copy) and the all-reduce-forward / identity-backward pair (the row
 layer's output reduction) are ``collective``'s ``_CopyFn`` and
-``_AllReduceFn``, registered under the JAX package's op names.
+``_AllReduceFn``, registered under the JAX package's op names. The
+layers' forwards are functions of (input, weight, bias, axis, mesh),
+shared by the layers (over the region's mesh) and ``tensor_parallel``
+(over the mesh it is given).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -21,24 +25,67 @@ from .. import mesh as mesh_mod
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "PipelineLayer", "LayerDesc",
-           "get_rng_state_tracker"]
+           "get_rng_state_tracker", "tensor_parallel", "whole_parameters"]
 
 
 @defop(name="mp_allreduce_identity_bwd")
-def _allreduce_fwd_identity_bwd(x, axis):
-    """f(x) = all-reduce of x over ``axis``; its gradient is the identity
-    (the RowParallelLinear output reduction)."""
+def _allreduce_fwd_identity_bwd(x, axis, mesh=None):
+    """f(x) = all-reduce of x over ``axis`` of ``mesh`` (default: the
+    region's); its gradient is the identity (the row layer's output
+    reduction)."""
     from ..collective import ReduceOp, _AllReduceFn
-    return _AllReduceFn.apply(x, axis, ReduceOp.SUM,
-                              mesh_mod.region_mesh(axis))
+    if mesh is None:
+        mesh = mesh_mod.region_mesh(axis)
+    return _AllReduceFn.apply(x, axis, ReduceOp.SUM, mesh)
 
 
 @defop(name="mp_identity_allreduce_bwd")
-def _identity_fwd_allreduce_bwd(x, axis):
-    """f(x) = x with the gradient all-reduced over ``axis`` (the
-    ColumnParallelLinear input copy)."""
+def _identity_fwd_allreduce_bwd(x, axis, mesh=None):
+    """f(x) = x with the gradient all-reduced over ``axis`` of ``mesh``
+    (default: the region's; the column layer's input copy)."""
     from ..collective import _CopyFn
-    return _CopyFn.apply(x, axis, mesh_mod.region_mesh(axis))
+    if mesh is None:
+        mesh = mesh_mod.region_mesh(axis)
+    return _CopyFn.apply(x, axis, mesh)
+
+
+def _column_forward(x, weight, bias, axis, mesh, gather):
+    """The column layer's forward: the input copy (all-reduce backward),
+    then ``x @ weight + bias`` on this rank's output features; ``gather``
+    concatenates every rank's features."""
+    from ...nn import functional as F
+    out = F.linear(_identity_fwd_allreduce_bwd(x, axis=axis, mesh=mesh),
+                   weight, bias)
+    if gather:
+        out = mesh_mod.gather_cat(out, out.dim() - 1, axis, mesh)
+    return out
+
+
+def _row_forward(x, weight, bias, axis, mesh, idx=None):
+    """The row layer's forward: ``x`` (this rank's input features; with
+    ``idx``, the whole input narrowed to rank ``idx``'s) times this
+    rank's rows, the partial sums all-reduced (identity backward), then
+    the bias."""
+    from ...nn import functional as F
+    if idx is not None:
+        x = x.narrow(x.dim() - 1, idx * weight.shape[0], weight.shape[0])
+    out = _allreduce_fwd_identity_bwd(F.linear(x, weight), axis=axis,
+                                      mesh=mesh)
+    return out if bias is None else out + bias
+
+
+def _vocab_forward(ids, weight, axis, mesh, idx):
+    """The vocab layer's forward: rank ``idx`` holds rows [idx * V/tp,
+    (idx + 1) * V/tp); a masked local lookup, then an all-reduce
+    (identity backward)."""
+    from ...nn import functional as F
+    per = weight.shape[0]
+    local = ids.as_subclass(torch.Tensor) - idx * per
+    valid = (local >= 0) & (local < per)
+    safe = torch.where(valid, local, torch.zeros_like(local))
+    emb = F.embedding(safe, weight)
+    emb = emb * valid[..., None].to(emb.dtype)
+    return _allreduce_fwd_identity_bwd(emb, axis=axis, mesh=mesh)
 
 
 class ColumnParallelLinear(nn.Layer):
@@ -61,14 +108,11 @@ class ColumnParallelLinear(nn.Layer):
         return self.inner.weight
 
     def forward(self, x):
-        region = mesh_mod.in_spmd_region(self.axis)
-        if region:
-            x = _identity_fwd_allreduce_bwd(x, axis=self.axis)
-        out = self.inner(x)
-        if self.gather_output and region:
-            out = mesh_mod.gather_cat(out, out.dim() - 1, self.axis,
-                                      mesh_mod.region_mesh(self.axis))
-        return out
+        if not mesh_mod.in_spmd_region(self.axis):
+            return self.inner(x)
+        return _column_forward(x, self.inner.weight, self.inner.bias,
+                               self.axis, mesh_mod.region_mesh(self.axis),
+                               self.gather_output)
 
 
 class RowParallelLinear(nn.Layer):
@@ -92,17 +136,13 @@ class RowParallelLinear(nn.Layer):
         return self.inner.weight
 
     def forward(self, x):
-        region = mesh_mod.in_spmd_region(self.axis)
-        if not self.input_is_parallel and region:
-            idx = mesh_mod.axis_index(self.axis)
-            x = x.narrow(x.dim() - 1, idx * self.in_per_shard,
-                         self.in_per_shard)
-        out = self.inner(x)
-        if region:
-            out = _allreduce_fwd_identity_bwd(out, axis=self.axis)
-        if self.bias is not None:
-            out = out + self.bias
-        return out
+        if not mesh_mod.in_spmd_region(self.axis):
+            out = self.inner(x)
+            return out if self.bias is None else out + self.bias
+        idx = None if self.input_is_parallel \
+            else mesh_mod.axis_index(self.axis)
+        return _row_forward(x, self.inner.weight, self.bias, self.axis,
+                            mesh_mod.region_mesh(self.axis), idx)
 
 
 class VocabParallelEmbedding(nn.Layer):
@@ -126,14 +166,208 @@ class VocabParallelEmbedding(nn.Layer):
     def forward(self, ids):
         if not mesh_mod.in_spmd_region(self.axis):
             return self.inner(ids)
-        lo = mesh_mod.axis_index(self.axis) * self.per_shard
-        ids = ids.as_subclass(torch.Tensor)
-        local = ids - lo
-        valid = (local >= 0) & (local < self.per_shard)
-        safe = torch.where(valid, local, torch.zeros_like(local))
-        emb = torch.nn.functional.embedding(safe, self.inner.weight)
-        emb = emb * valid[..., None].to(emb.dtype)
-        return _allreduce_fwd_identity_bwd(emb, axis=self.axis)
+        return _vocab_forward(ids, self.inner.weight, self.axis,
+                              mesh_mod.region_mesh(self.axis),
+                              mesh_mod.axis_index(self.axis))
+
+
+# ---------------------------------------------------------------------------
+# a whole network over a tp axis by the rule tables (Model.fit's GSPMD
+# presets, paddle_tpu/hapi/model.py _sharding_plan)
+# ---------------------------------------------------------------------------
+
+_QKV = ("qkv_proj", "q_proj", "k_proj", "v_proj")
+_PAIRS = {"qkv_proj": "out_proj", "q_proj": "out_proj", "k_proj": "out_proj",
+          "v_proj": "out_proj", "fc1": "fc2", "linear1": "linear2"}
+
+
+def _spec_kind(spec):
+    """"column" (P(None, 'tp')), "row" / "vocab" (P('tp', None)), "bias"
+    (P('tp')) or None of a 1-d / 2-d spec over the tp axis."""
+    ents = [(e,) if isinstance(e, str) else tuple(e or ())
+            for e in tuple(spec)]
+    if len(ents) == 2 and not ents[0] and ents[1] == ("tp",):
+        return "column"
+    if len(ents) == 2 and ents[0] == ("tp",) and not ents[1]:
+        return "row"
+    if len(ents) == 1 and ents[0] == ("tp",):
+        return "bias"
+    return None
+
+
+def _chunk(t, dim, idx, n, blocks=1):
+    """Rank ``idx``'s 1/n of ``t`` along ``dim``: of each of ``blocks``
+    equal blocks (a fused qkv's q, k and v) when blocks > 1."""
+    if blocks == 1:
+        size = t.shape[dim] // n
+        return t.narrow(dim, idx * size, size)
+    parts = t.chunk(blocks, dim)
+    return torch.cat([_chunk(p, dim, idx, n) for p in parts], dim)
+
+
+def _unchunk(pieces, dim, blocks=1):
+    """The whole tensor from every rank's ``_chunk``."""
+    if blocks == 1:
+        return torch.cat(pieces, dim)
+    per = [p.chunk(blocks, dim) for p in pieces]
+    return torch.cat([torch.cat([q[b] for q in per], dim)
+                      for b in range(blocks)], dim)
+
+
+def tensor_parallel(net, mesh, axis="tp"):
+    """Shard ``net``'s parameters over ``axis`` of ``mesh`` in place by
+    ``distributed/sharding.py``'s rule tables (``param_spec_for``, the
+    planner's installed rules among them), and make its layers run the
+    Megatron chain the specs imply, through the parallel layers' forwards
+    (``_column_forward``, ``_row_forward``, ``_vocab_forward``) over
+    ``mesh``:
+
+    - a column-parallel Linear (weight P(None, tp), bias P(tp)) takes its
+      input through the identity whose backward is the all-reduce, and
+      gives its output features' shard; a row-parallel Linear (weight
+      P(tp, None)) multiplies its input features' shard and all-reduces
+      the partial sums (identity backward), then adds its bias. A column
+      layer paired with a row one (qkv -> out_proj, fc1 -> fc2, linear1
+      -> linear2 in one parent) hands the shard on: one all-reduce
+      forward and one backward a pair. An unpaired column layer gathers
+      its output; an unpaired row layer takes its shard of a whole input.
+    - A fused qkv is sharded head-wise (each rank holds the same heads of
+      q, k and v), and its MultiHeadAttention runs its 1/tp of the heads.
+    - A vocab-parallel Embedding (weight P(tp, None)) looks its rows up
+      masked and all-reduces; a read of its ``weight`` from outside (the
+      tied LM head: the fused CE kernel needs the whole vocabulary)
+      all-gathers the table, whose backward takes this rank's rows, as
+      GSPMD does in front of a custom call.
+
+    Everything else stays replicated and gets the same gradient on every
+    tp rank. Returns ``net``."""
+    from ...nn.layer import Embedding, Linear, MultiHeadAttention
+    from .. import sharding as SH
+    n = int(mesh.shape[axis])
+    if n <= 1 or getattr(net, "_tp_layout", None) is not None:
+        return net
+    if mesh.size != mesh_mod.world_size():
+        raise ValueError(
+            f"a {mesh.shape} mesh has {mesh.size} positions but the world "
+            f"has {mesh_mod.world_size()} ranks (one process a position)")
+    idx = mesh.axis_index(axis)
+    layout = {}
+    kinds = {}
+    mods = dict(net.named_modules())
+    for name, mod in mods.items():
+        if not isinstance(mod, (Linear, Embedding)):
+            continue
+        w = mod._parameters.get("weight")
+        if w is None:
+            continue
+        pre = f"{name}." if name else ""
+        spec = SH._validate_divisible(
+            SH.param_spec_for(pre + "weight", w.dim(), mesh), w.shape, mesh)
+        kind = _spec_kind(spec)
+        if kind in ("row", "column") and isinstance(mod, Embedding):
+            kind = "vocab" if kind == "row" else None
+        if kind is not None:
+            kinds[name] = kind
+    # pairing inside one parent
+    paired = set()
+    for name, kind in kinds.items():
+        parent, _, leaf = name.rpartition(".")
+        partner = _PAIRS.get(leaf)
+        if kind == "column" and partner is not None:
+            pname = f"{parent}.{partner}" if parent else partner
+            if kinds.get(pname) == "row":
+                paired.update((name, pname))
+    heads = {}
+    for name, mod in mods.items():
+        if isinstance(mod, MultiHeadAttention):
+            projs = [f"{name}.{p}" if name else p for p in _QKV
+                     if hasattr(mod, p)]
+            if projs and all(p in paired for p in projs) \
+                    and mod.num_heads % n == 0:
+                heads[name] = mod
+            else:
+                paired.difference_update(
+                    projs + [f"{name}.out_proj" if name else "out_proj"])
+    with torch.no_grad():
+        for name, kind in kinds.items():
+            mod = mods[name]
+            pre = f"{name}." if name else ""
+            blocks = 3 if name.rpartition(".")[2] == "qkv_proj" \
+                and name in paired else 1
+            w = mod._parameters["weight"]
+            dim = 1 if kind == "column" else 0
+            w.data = _chunk(w.data, dim, idx, n, blocks).contiguous()
+            layout[pre + "weight"] = (dim, blocks)
+            b = mod._parameters.get("bias")
+            if kind == "column" and b is not None:
+                # the output features' bias follows them (P(tp) by the
+                # rule tables)
+                b.data = _chunk(b.data, 0, idx, n, blocks).contiguous()
+                layout[pre + "bias"] = (0, blocks)
+            _patch(mod, kind, name in paired, axis, mesh, idx)
+    for mod in heads.values():
+        mod.num_heads //= n
+        mod.embed_dim //= n
+    net._tp_layout = layout
+    net._tp_mesh = (mesh, axis)
+    return net
+
+
+def _patch(mod, kind, paired, axis, mesh, idx):
+    """Give ``mod`` (this instance only) the forward of its tp kind: the
+    parallel layers' forwards above, over ``mesh``."""
+    p = mod._parameters
+    if kind == "column":
+        def forward(x):
+            return _column_forward(x, p["weight"], p.get("bias"), axis,
+                                   mesh, not paired)
+    elif kind == "row":
+        def forward(x):
+            return _row_forward(x, p["weight"], p.get("bias"), axis, mesh,
+                                None if paired else idx)
+    else:  # vocab
+        def forward(ids):
+            return _vocab_forward(ids, p["weight"], axis, mesh, idx)
+        mod._tp_whole = (axis, mesh)
+        mod.__class__ = _gathered_weight_class(type(mod))
+    mod.forward = forward
+
+
+class _GatheredWeight:
+    """``weight`` read from outside a vocab-parallel layer's forward is
+    the whole table, all-gathered over the tp axis."""
+
+    @property
+    def weight(self):
+        axis, mesh = self._tp_whole
+        return mesh_mod.gather_cat(self._parameters["weight"], 0, axis, mesh)
+
+
+@functools.cache
+def _gathered_weight_class(cls):
+    return type(f"VocabParallel{cls.__name__}", (_GatheredWeight, cls), {})
+
+
+def whole_parameters(net, values=None):
+    """{name: the whole parameter} of a ``tensor_parallel`` network (its
+    shards gathered over the tp axis; the replicated ones as they are),
+    detached; ``values`` ({name: this rank's shard}, e.g. the optimizer's
+    f32 masters) gathered by the same layout in their place."""
+    from .. import collective
+    layout = getattr(net, "_tp_layout", None) or {}
+    mesh, axis = getattr(net, "_tp_mesh", (None, None))
+    out = {}
+    named = values.items() if values is not None \
+        else net.named_parameters()
+    for name, p in named:
+        t = p.detach()
+        if name in layout:
+            dim, blocks = layout[name]
+            pg, ranks = mesh.group(axis)
+            parts = collective._gather_list(t.contiguous(), pg, ranks)
+            t = _unchunk(parts, dim, blocks)
+        out[name] = t
+    return out
 
 
 class LayerDesc:

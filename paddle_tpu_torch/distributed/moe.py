@@ -21,7 +21,9 @@ def switch_route(gate_logits, num_experts, capacity, k=1):
     experts, capacity]; dispatch one-hot, combine gate-weighted. Tokens
     past an expert's ``capacity`` are dropped (an all-zero dispatch row),
     and their count is added to the monitor counter
-    ``moe.dropped_tokens`` (one host read)."""
+    ``moe.dropped_tokens`` (one host read; none where the tensors have no
+    values: a static Program's shape inference runs on meta tensors, as
+    the JAX package skips the count under tracing)."""
     probs = torch.softmax(gate_logits, dim=-1)               # [T, E]
     gate, expert = torch.max(probs, dim=-1)                  # [T]
     onehot = torch.nn.functional.one_hot(expert, num_experts) \
@@ -29,7 +31,7 @@ def switch_route(gate_logits, num_experts, capacity, k=1):
     # position of each token within its expert's queue
     pos = torch.cumsum(onehot, dim=0) * onehot - 1.0         # [T, E]
     keep = (pos < capacity) & (onehot > 0)
-    n = int(gate_logits.shape[0] - keep.sum())
+    n = 0 if keep.is_meta else int(gate_logits.shape[0] - keep.sum())
     if n:
         from ..core import monitor
         monitor.stat_add("moe.dropped_tokens", n)

@@ -73,10 +73,24 @@ ranks add zeros). The sum over dp:
 
 ``strategy.recompute`` recomputes the Transformer layers (or the
 ``recompute_configs["layers"]`` patterns) and ``strategy.amp`` with its
-``amp_configs`` is the AMP of ``prepare``. A mesh with a tp or pp axis of
-more than one rank raises naming ROADMAP Queue 1 item 7c (the JAX
-engine's GSPMD presets). Not here: ``torch.compile`` and CUDA graphs (the
-JAX engine has neither); the elastic step pulse (item 7c).
+``amp_configs`` is the AMP of ``prepare``.
+
+A mesh with a ``tp`` axis of more than one rank runs the JAX engine's
+GSPMD presets (``_sharding_plan``) as the Megatron chain they imply: at
+the first step ``fleet.meta_parallel.tensor_parallel`` shards the
+parameters in place by ``distributed/sharding.py``'s rule tables (the
+planner's installed rules among them) and gives the column, row and
+vocab-parallel layers their collectives; the optimizer's slots are made
+on the shards. The step's result is one process's, as GSPMD's is; with a
+``dp`` axis too the batch shards over dp as above. Every other axis
+(``pp`` among them: the JAX rule tables have no pp rule, so GSPMD
+replicates over it) is a replica: its ranks run the same step. ZeRO and
+LocalSGD are not combined with a tp axis (the port raises).
+``whole_parameters()`` gathers the shards. Not here: ``torch.compile``
+and CUDA graphs (the JAX engine has neither).
+
+Every completed train step pulses ``distributed/elastic.notify_step``
+(the StallMonitor / Heartbeat listeners).
 """
 from __future__ import annotations
 
@@ -96,12 +110,6 @@ from ..metric import Metric
 from .callbacks import config_callbacks
 
 __all__ = ["Model", "InputSpec"]
-
-
-def _unported(what, needs, item):
-    return NotImplementedError(
-        f"{what} needs {needs}, which paddle_tpu_torch does not have yet "
-        f"(ROADMAP Queue 1 item {item})")
 
 
 def _flat_groups(named_tensors):
@@ -263,10 +271,10 @@ class _Engine:
         mesh = mesh_mod.get_mesh()
         if mesh is None or mesh.size == 1:
             return None
-        wide = [a for a in mesh.axis_names if a != "dp" and mesh.shape[a] > 1]
-        if wide:
-            raise _unported(f"Model.fit under a mesh with {wide} axes",
-                            "the GSPMD presets over tp / pp meshes", "7c")
+        dp = int(mesh.shape.get("dp", 1))
+        tp = int(mesh.shape.get("tp", 1))
+        if dp == 1 and tp == 1:
+            return None     # every axis a replica: each rank runs alone
         model = self.model
         strat = getattr(model._optimizer, "_dist_strategy", None)
         if strat is not None and (getattr(strat, "localsgd", False) or
@@ -277,10 +285,15 @@ class _Engine:
             mode = "zero"
         else:
             mode = "dp"
+        if tp > 1 and mode != "dp":
+            raise NotImplementedError(
+                f"Model.fit with {mode} under a mesh with a tp axis: the "
+                "port shards over tp with the plain data-parallel step "
+                "only")
         batch = list(inputs) + (list(labels or []) if mode == "localsgd"
                                 else [])
-        return {"mesh": mesh, "dp": int(mesh.shape["dp"]), "mode": mode,
-                "sharded": batch_divides(batch, mesh)}
+        return {"mesh": mesh, "dp": dp, "tp": tp, "mode": mode,
+                "sharded": dp > 1 and batch_divides(batch, mesh)}
 
     def _batch(self, values):
         dev = _device(self.model.network)
@@ -296,6 +309,7 @@ class _Engine:
         net = model.network
         net.train()
         opt = model._optimizer
+        self._ensure_tp()
         named = [(n, p) for n, p in net.named_parameters() if p.requires_grad]
         if self._zero is None:
             opt._ensure_slots({n: p.detach() for n, p in named})
@@ -343,7 +357,8 @@ class _Engine:
         grads = torch.autograd.grad(lv, [p for _, p in named],
                                     allow_unused=True, materialize_grads=True)
         if plan is not None and plan["mode"] != "localsgd" \
-                and not plan["sharded"] and plan["mesh"].axis_index("dp"):
+                and plan["dp"] > 1 and not plan["sharded"] \
+                and plan["mesh"].axis_index("dp"):
             grads = [torch.zeros_like(g) for g in grads]
         outs = [o.detach() if isinstance(o, torch.Tensor) else o
                 for o in outs]
@@ -359,7 +374,7 @@ class _Engine:
         scaler = self._scaler()
         if plan is not None and plan["mode"] == "zero":
             return self._zero_apply(plan, named, grads, accum_count, loss)
-        if plan is not None and plan["mode"] == "dp":
+        if plan is not None and plan["mode"] == "dp" and plan["dp"] > 1:
             from ..distributed.parallel import sum_over_dp
             sum_over_dp(list(grads.values()), plan["mesh"])
         params = {n: p.detach() for n, p in named}
@@ -415,6 +430,31 @@ class _Engine:
         if _flags.flag("FLAGS_check_nan_inf"):
             _nc.sweep({"loss": loss, "params": new_p}, "train_batch step")
         z.all_gather(named, new_p)
+
+    def _ensure_tp(self):
+        """Shard the network over the default mesh's tp axis at its first
+        step there (``meta_parallel.tensor_parallel``); slots made before
+        on the whole parameters are dropped and made again on the
+        shards."""
+        from ..distributed import mesh as mesh_mod
+        mesh = mesh_mod.get_mesh()
+        net = self.model.network
+        if mesh is None or int(mesh.shape.get("tp", 1)) <= 1 \
+                or getattr(net, "_tp_layout", None) is not None:
+            return
+        from ..distributed.fleet.meta_parallel import tensor_parallel
+        tensor_parallel(net, mesh)
+        opt = self.model._optimizer
+        if opt is not None:
+            for n in list(net._tp_layout):
+                opt._slots.pop(n, None)
+
+    def state_bytes(self):
+        """Bytes this rank holds of the parameters and the optimizer's
+        state (its shards under a tp axis)."""
+        params = sum(p.numel() * p.element_size()
+                     for p in self.model.network.parameters())
+        return params + self.zero_state_bytes()
 
     def zero_state_bytes(self):
         """Bytes of this rank's optimizer state: its ZeRO chunks, or the
@@ -537,6 +577,23 @@ class _Engine:
         self.model.network.eval()
         _, outs = self._forward_loss(self._batch(inputs), None)
         return outs
+
+
+def _agreed_step(acp, net):
+    """The step every rank of a process group resumes from: the oldest of
+    the ranks' newest checkpoints (a rank reaped with SIGTERM after its
+    peer died may have saved one step more), -1 where some rank has none;
+    None (the newest verified) for one process."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return None
+    from ..distributed.collective import ReduceOp, _all_reduce_
+    latest = acp.latest_step()
+    t = torch.tensor([-1 if latest is None else int(latest)],
+                     dtype=torch.int64, device=_device(net))
+    _all_reduce_(t, None, ReduceOp.MIN)
+    return int(t.item())
 
 
 def _loader_state(loader):
@@ -795,7 +852,9 @@ class Model:
                                  save_interval_steps=freq)
         resumable = train_loader if hasattr(train_loader,
                                             "load_state_dict") else None
-        counters = acp.restore_into(self, data_loader=resumable)
+        step = _agreed_step(acp, self.network)
+        counters = None if step == -1 else acp.restore_into(
+            self, data_loader=resumable, step=step)
         start_epoch = skip_steps = step_offset = 0
         if counters is None:
             self._global_step = 0
@@ -893,6 +952,7 @@ class Model:
                 window.popleft()._materialize()
 
         acp = getattr(self, "_acp", None)
+        from ..distributed import elastic as _elastic
         for step, batch in enumerate(loader, start=step_offset):
             if step < skip_steps:
                 continue  # resumed mid-epoch: skip the consumed batches
@@ -915,6 +975,8 @@ class Model:
                 logs["loss"] = _read_loss(lval)
             logs["batch_size"] = int(inputs[0].shape[0])
             logs.update(self._update_metrics(outs, labels))
+            if mode == "train":
+                _elastic.notify_step()  # StallMonitor / Heartbeat pulse
             if acp is not None and mode == "train":
                 # account the completed batch before the callbacks: a
                 # SIGTERM raised from a callback saves this step as done

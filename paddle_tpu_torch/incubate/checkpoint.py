@@ -423,14 +423,15 @@ class TrainingCheckpoint:
             return True
         return False
 
-    def restore_into(self, model, data_loader=None) -> Optional[dict]:
-        """Restore the latest verified checkpoint into the model, its
-        optimizer and the generators (and, when ``data_loader`` has
-        ``load_state_dict`` and the checkpoint a ``data`` section, the
-        data-pipeline position); returns the counters (None without a
-        checkpoint). A parameter whose shape changed since the save
-        raises a ValueError naming it."""
-        state = self.restore()
+    def restore_into(self, model, data_loader=None,
+                     step: Optional[int] = None) -> Optional[dict]:
+        """Restore the latest verified checkpoint (or ``step``) into the
+        model, its optimizer and the generators (and, when
+        ``data_loader`` has ``load_state_dict`` and the checkpoint a
+        ``data`` section, the data-pipeline position); returns the
+        counters (None without a checkpoint). A parameter whose shape
+        changed since the save raises a ValueError naming it."""
+        state = self.restore(step)
         if state is None:
             return None
         from ..hapi.model import _set_state_dict

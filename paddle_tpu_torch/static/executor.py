@@ -35,8 +35,35 @@ device-resident carry).
 
 No ``torch.compile`` and no CUDA graphs: ``torch.compile`` cannot trace
 the kernels' ctypes launches, and graph capture of the replay is host-time
-work for later. ``data_parallel`` over more than one device and recompute
-(ROADMAP Queue 1 item 7) raise NotImplementedError naming the item.
+work for later.
+
+``CompiledProgram(...).with_data_parallel()`` over a mesh with a ``dp``
+axis of more than one rank (one process a rank): every rank is fed the
+global batch, as the JAX package's jitted step is, and runs its 1/dp of
+every feed that divides along dim 0. Which ops run on the shards comes
+from the SPMD analyzer (``spmd_analyzer.analyze_program`` with the feeds
+sharded on ``dp``): an op whose outputs all keep the ``dp`` sharding and
+that implies no collective over ``dp`` runs on the shards; before any
+other op reading a sharded value, that value is gathered along its
+sharded dim (``mesh.gather_cat``, whose backward takes this rank's slice),
+and the op runs on the whole batch on every rank, as GSPMD computes it.
+A parameter read there gets 1/dp of its gradient, so the sum of the
+gradients over ``dp`` (``parallel.sum_over_dp``, one all-reduce a dtype)
+is the global batch's gradient on every rank. Sharded fetches are
+gathered back to the global batch.
+
+Recompute segments (``program.recompute_checkpoints``, which
+``fleet.DistributedOptimizer.minimize`` tags from
+``strategy.recompute``): the op list splits after each op that defines a
+checkpoint variable; each segment runs under
+``distributed/recompute.recompute`` (its intermediates recomputed in the
+backward, dropout's RNG state restored) and keeps only what a later op,
+a fetch, a state write or the loss reads (JAX ``_recompute_segments``).
+
+At a fresh compile a Program tagged ``auto_shard`` resolves its plan
+(``spmd_planner.resolve_auto_shard``), then ``PADDLE_TPU_VERIFY_SPMD``
+(``spmd_analyzer.maybe_verify_spmd``) fails the compile on any sharding
+finding and ``FLAGS_log_spmd_estimate`` publishes the ``spmd.*`` gauges.
 
 ``train_from_dataset`` / ``infer_from_dataset`` drive a dataset's
 batches (``io/fleet_dataset.py``, ``dataset/streaming.py``): through a
@@ -70,8 +97,6 @@ from .program import (Program, _Ref, default_main_program,
 __all__ = ["Executor", "CompiledProgram", "BuildStrategy",
            "ExecutionStrategy"]
 
-_ITEM7 = "ROADMAP Queue 1 item 7 (distributed)"
-
 
 class BuildStrategy:
     """Parity shim for fluid.BuildStrategy: the knobs are recorded."""
@@ -97,9 +122,10 @@ class ExecutionStrategy:
 
 
 class CompiledProgram:
-    """reference fluid/compiler.py CompiledProgram (:88). Data parallelism
-    over more than one device is item 7; on one device the program runs
-    as it is."""
+    """reference fluid/compiler.py CompiledProgram (:88).
+    ``with_data_parallel`` runs the program over the ``dp`` ranks of the
+    mesh (see the module's docstring); with no such mesh it runs as it
+    is."""
 
     def __init__(self, program, build_strategy=None, exec_strategy=None):
         self.program = program
@@ -136,7 +162,8 @@ class _Prepared:
     __slots__ = ("steps", "n_slots", "feed_slots", "persist_slots",
                  "fetch_slots", "write_slots", "loss_slot", "grad_slots",
                  "grad_names", "opt", "opt_pnames", "meta", "amp_dyn",
-                 "amp_keys", "amp_hp", "read_names", "feed_names")
+                 "amp_keys", "amp_hp", "read_names", "feed_names",
+                 "dp", "segments")
 
     def amp_init(self, device):
         """{scope name: initial value} of the loss-scaling state (f16
@@ -185,10 +212,23 @@ class Executor:
         if entry is not None:
             self._cache.move_to_end(key)
             return entry
+        # strategy.auto_shard: resolve the plan before the hooks below
+        # read program.spmd_*_specs; a plan with stage cuts pins the
+        # stage assignment here too
+        if getattr(program, "_auto_shard", None) is not None \
+                and (getattr(program, "spmd_param_specs", None) is None
+                     or getattr(program, "_pipeline_stages", None) is None
+                     and getattr((program._auto_shard or {}).get("plan"),
+                                 "pipeline", None) is not None):
+            from .spmd_planner import resolve_auto_shard
+            resolve_auto_shard(program)
+        from .spmd_analyzer import maybe_verify_spmd
+        spmd_rep = maybe_verify_spmd(program)
         with _trace.span("executor/lower_program", program=program.name,
                          ops=len(program.ops),
                          data_parallel=bool(data_parallel)):
-            entry = self._compile(program, sorted(feed_vals), fetch_ids)
+            entry = self._compile(program, sorted(feed_vals), fetch_ids,
+                                  feed_vals, data_parallel)
         self._cache[key] = entry
         cap = max(1, int(_flags.flag("FLAGS_executor_cache_size")))
         while len(self._cache) > cap:
@@ -199,6 +239,15 @@ class Executor:
             from .shape_infer import analyze_memory
             _monitor.stat_set("executor/estimated_peak_bytes",
                               analyze_memory(program)["peak_bytes"])
+        if _flags.flag("FLAGS_log_spmd_estimate") and spmd_rep is None:
+            from ..distributed import mesh as mesh_mod
+            if mesh_mod.get_mesh() is not None:
+                from .spmd_analyzer import analyze_program
+                analyze_program(
+                    program,
+                    param_specs=getattr(program, "spmd_param_specs", None),
+                    data_specs=getattr(program, "spmd_data_specs",
+                                       None)).publish()
         return entry
 
     @staticmethod
@@ -231,17 +280,9 @@ class Executor:
         data_parallel = False
         if isinstance(program, CompiledProgram):
             data_parallel = program.data_parallel
-            places = program.places
-            if data_parallel and (torch.cuda.device_count() > 1
-                                  and (places is None or len(places) > 1)):
-                raise NotImplementedError(
-                    f"data-parallel execution over more than one device is "
-                    f"{_ITEM7}")
             program = program.program
         if program is None:
             program = default_main_program()
-        if getattr(program, "recompute_checkpoints", None):
-            raise NotImplementedError(f"recompute segments are {_ITEM7}")
         return program, data_parallel
 
     @staticmethod
@@ -375,6 +416,7 @@ class Executor:
                                 for n, v in zip(names, outs))
                 print(f"batch {it}: {msg}")
 
+        from ..distributed import elastic as _elastic
         it = start_batch
         if dp is None and inflight > 0:
             from .pipeline_runner import PipelineRunner
@@ -401,6 +443,7 @@ class Executor:
                 outs = [_numpy(o) for o in outs[:len(base_fetch)]]
             _monitor.stat_add("executor/dataset_batches")
             it += 1
+            _elastic.notify_step(it)
             report(it, outs)
         if dp is not None:
             dp.flush()
@@ -415,7 +458,8 @@ class Executor:
                                        print_period)
 
     # -- the replay ----------------------------------------------------------
-    def _compile(self, program: Program, feed_names, fetch_ids):
+    def _compile(self, program: Program, feed_names, fetch_ids,
+                 feed_vals=None, data_parallel=False):
         from .. import amp as amp_mod
         slots = {}
 
@@ -480,6 +524,9 @@ class Executor:
                 or opt._coupled_decay_default(),
                 "need_clip": getattr(p, "need_clip", True)}
                 for p, _ in opt_sec[1]}
+        e.dp = _dp_plan(program, slot, feed_vals or {}) \
+            if data_parallel else None
+        e.segments = _recompute_segments(program, slot, fetch_ids)
         e.n_slots = len(slots)
         e.feed_names = list(feed_names)
         e.read_names = [n for n, _ in e.persist_slots] \
@@ -488,11 +535,37 @@ class Executor:
 
     @staticmethod
     def _replay(entry, env):
-        for fn, flat, refs, n_args, kw_tree, kw_fixed, outs, cast_dt, name \
-                in entry.steps:
+        segs = entry.segments
+        if segs is None or not torch.is_grad_enabled():
+            Executor._replay_range(entry, env, 0, len(entry.steps))
+            return
+        from ..distributed.recompute import recompute
+        policy, ranges = segs
+        for lo, hi, ins, keep in ranges:
+            def seg_fn(*vals, _lo=lo, _hi=hi, _ins=ins, _keep=keep):
+                local = [None] * entry.n_slots
+                for s, v in zip(_ins, vals):
+                    local[s] = v
+                # the recomputation runs on autograd's thread: the ops
+                # take their torch meaning there too
+                with raw_scope():
+                    Executor._replay_range(entry, local, _lo, _hi)
+                return tuple(local[s] for s in _keep)
+            outs = recompute(seg_fn, *[env[s] for s in ins], policy=policy)
+            for s, v in zip(keep, outs):
+                env[s] = v
+
+    @staticmethod
+    def _replay_range(entry, env, lo, hi):
+        dp = entry.dp
+        for k in range(lo, hi):
+            fn, flat, refs, n_args, kw_tree, kw_fixed, outs, cast_dt, \
+                name = entry.steps[k]
             vals = list(flat)
             for i, s in refs:
                 vals[i] = env[s]
+            if dp is not None and dp.ops[k] is not None:
+                vals = dp.inputs(k, vals)
             if cast_dt is not None:
                 vals = cast_vals(name, vals, cast_dt)
             kw = kw_fixed if kw_fixed is not None else \
@@ -510,7 +583,8 @@ class Executor:
         holds every name of ``e.read_names``; nothing is written."""
         env = [None] * e.n_slots
         for n, s in e.feed_slots:
-            env[s] = feed_vals[n]
+            env[s] = feed_vals[n] if e.dp is None else \
+                e.dp.shard(s, feed_vals[n])
         for n, s in e.persist_slots:
             env[s] = scope_vals[n]
         cuda = [device] if device.type == "cuda" else []
@@ -540,13 +614,19 @@ class Executor:
                 env[e.loss_slot] = env[e.loss_slot].detach()
                 grads = {n: (torch.zeros_like(leaves[n]) if g is None else g)
                          for n, g in zip(e.grad_names, grads)}
+                if e.dp is not None:
+                    e.dp.sum_grads(list(grads.values()))
                 new_scope, new_slots = self._backward_tail(
                     e, env, grads, scope_vals, slots, lr, t)
             fetches = [env[s] for s in e.fetch_slots]
             fetches = [f.detach() if isinstance(f, torch.Tensor) else f
                        for f in fetches]
+            if e.dp is not None:
+                fetches = [e.dp.whole(s, f)
+                           for s, f in zip(e.fetch_slots, fetches)]
         for n, s in e.write_slots:
-            new_scope[n] = env[s].detach()
+            v = env[s].detach()
+            new_scope[n] = v if e.dp is None else e.dp.whole(s, v)
         return fetches, new_scope, new_slots
 
     @staticmethod
@@ -585,6 +665,197 @@ class Executor:
                          for n, d in new_slots.items()}
         new_scope.update(new_p)
         return new_scope, new_slots
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``k``."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.k = k
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.k, None
+
+
+class _DpPlan:
+    """Which values of a data-parallel replay are sharded over ``dp``,
+    and what each op does about it (see the module's docstring).
+
+    ``sharded``: {slot: dim} of the values held as this rank's shard;
+    ``ops[k]``: None (nothing to do), or (gather [(flat index, dim)],
+    scale [flat index]) for an op that runs on the whole batch."""
+
+    def __init__(self, mesh, sharded, ops):
+        self.mesh = mesh
+        self.k = int(mesh.shape["dp"])
+        self.sharded = sharded
+        self.ops = ops
+        self.allreduce_bytes = 0
+
+    def shard(self, slot, v):
+        d = self.sharded.get(slot)
+        if d is None:
+            return v
+        part = v.shape[d] // self.k
+        return v.narrow(d, self.mesh.axis_index("dp") * part, part)
+
+    def whole(self, slot, v):
+        d = self.sharded.get(slot)
+        if d is None or not isinstance(v, torch.Tensor):
+            return v
+        from ..distributed.mesh import gather_cat
+        return gather_cat(v, d, "dp", self.mesh)
+
+    def inputs(self, k, vals):
+        from ..distributed.mesh import gather_cat
+        gather, scale = self.ops[k]
+        vals = list(vals)
+        for i, d in gather:
+            vals[i] = gather_cat(vals[i], d, "dp", self.mesh)
+        for i in scale:
+            v = vals[i]
+            if isinstance(v, torch.Tensor) and v.requires_grad:
+                vals[i] = _ScaleGrad.apply(v, 1.0 / self.k)
+        return vals
+
+    def sum_grads(self, grads):
+        from ..distributed.parallel import sum_over_dp
+        if grads:
+            self.allreduce_bytes = sum_over_dp(grads, self.mesh)
+
+
+def _dp_plan(program, slot, feed_vals):
+    """The ``_DpPlan`` of ``program`` over the mesh's ``dp`` axis, or None
+    when there is no such axis of more than one rank or no feed divides
+    over it (then every rank runs the whole batch)."""
+    from ..distributed import mesh as mesh_mod
+    from ..distributed.mesh import PartitionSpec as P
+    from .control_flow import _CondFn, _WhileFn
+    from .spmd_analyzer import analyze_program
+    mesh = mesh_mod.get_mesh()
+    if mesh is None and mesh_mod.world_size() > 1:
+        mesh = mesh_mod.auto_mesh()
+    if mesh is None or "dp" not in mesh.axis_names \
+            or int(mesh.shape["dp"]) <= 1:
+        return None
+    k = int(mesh.shape["dp"])
+    data_specs = {}
+    for n, v in program.data_vars.items():
+        shape = tuple(feed_vals[n].shape) if n in feed_vals \
+            else tuple(v.aval.shape)
+        if shape and shape[0] % k == 0 and tuple(v.aval.shape[:1]) \
+                == shape[:1]:
+            data_specs[n] = P("dp")
+    if not data_specs:
+        return None
+    rep = analyze_program(program, mesh={"dp": k}, param_specs={},
+                          data_specs=data_specs)
+
+    def spec_dim(vid):
+        for d, ent in enumerate(rep.specs.get(vid, ())):
+            if "dp" in ent:
+                return d
+        return None
+
+    coll = {c.op_index for c in rep.collectives
+            if c.op_name is not None and "/" not in c.op_name
+            and "dp" in str(c.axis).split(",")}
+    # in op order, {var_id: dim} of the values held sharded (the
+    # analyzer's specs where the op runs on the shards), and the values
+    # computed from gathered ones ("whole": every rank holds the same
+    # global value and its same, full gradient)
+    held = {program.data_vars[n].var_id: 0 for n in data_specs}
+    whole = set()
+    params = set(program.persist_ids.values())
+    avals = {v.var_id: v.aval for v in program.list_vars()}
+    ops = []
+    for i, op in enumerate(program.ops):
+        refs = [(j, x.var_id) for j, x in enumerate(op.flat)
+                if isinstance(x, _Ref)]
+        dp_ins = [(j, held[vid]) for j, vid in refs if vid in held]
+        out_avals = [ov.aval for ov in op.out_vars]
+        out_dims = [spec_dim(oid) for oid in op.out_ids]
+        local = bool(dp_ins) and bool(op.out_ids) \
+            and all(d is not None for d in out_dims) \
+            and i not in coll \
+            and not isinstance(op.fn, (_CondFn, _WhileFn)) \
+            and not any(vid in whole for _, vid in refs) \
+            and all((vid in held) == (spec_dim(vid) is not None)
+                    for _, vid in refs) \
+            and not any(_whole_batch(avals, vid, out_avals[0],
+                                     out_dims[0])
+                        for _, vid in refs
+                        if vid not in held and vid not in params)
+        if local:
+            for oid, d in zip(op.out_ids, out_dims):
+                held[oid] = d
+            ops.append(None)
+        elif dp_ins or any(vid in whole for _, vid in refs):
+            # the op runs on the global batch: its replicated inputs
+            # (parameters, values made from them alone) get a full
+            # gradient on every rank, which the dp sum would count dp
+            # times, so they take 1/dp of it here
+            scale = [j for j, vid in refs
+                     if vid not in held and vid not in whole]
+            whole.update(op.out_ids)
+            ops.append((dp_ins, scale))
+        else:
+            ops.append(None)
+    sharded = {slot(vid): d for vid, d in held.items()}
+    return _DpPlan(mesh, sharded, ops)
+
+
+def _whole_batch(avals, vid, out_aval, d):
+    """Whether the value ``vid``, right-aligned against an output whose
+    dim ``d`` is the sharded batch, spans that whole batch (an input a
+    sharded op could not broadcast)."""
+    aval = avals.get(vid)
+    if aval is None:
+        return True
+    off = len(out_aval.shape) - len(aval.shape)
+    j = d - off
+    return 0 <= j < len(aval.shape) and aval.shape[j] == out_aval.shape[d] \
+        and aval.shape[j] > 1
+
+
+def _recompute_segments(program, slot, fetch_ids):
+    """(policy, [(lo, hi, input slots, kept slots)]) of the op list split
+    after each op that defines a recompute checkpoint variable, or None
+    (paddle_tpu/static/executor.py ``_recompute_segments``)."""
+    ck_names = getattr(program, "recompute_checkpoints", None)
+    if not ck_names:
+        return None
+    names = set(ck_names)
+    ck_ids = {v.var_id for v in program.list_vars() if v.name in names}
+    n = len(program.ops)
+    cuts = sorted({i + 1 for i, op in enumerate(program.ops)
+                   if any(oid in ck_ids for oid in op.out_ids)})
+    cuts = [c for c in cuts if c < n]
+    if not cuts:
+        return None
+    bounds = [0] + cuts + [n]
+    final = set(fetch_ids) | set(program.persist_ids.values()) \
+        | set(program.state_writes.values())
+    if program.backward_section is not None:
+        final.add(program.backward_section[0].var_id)
+    reads = [{x.var_id for x in op.flat if isinstance(x, _Ref)}
+             for op in program.ops]
+    ranges = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        made = [oid for op in program.ops[lo:hi] for oid in op.out_ids]
+        made_set = set(made)
+        needed = set(final)
+        for rs in reads[hi:]:
+            needed |= rs
+        ins = sorted({vid for rs in reads[lo:hi] for vid in rs}
+                     - made_set)
+        keep = [oid for oid in made if oid in needed]
+        ranges.append((lo, hi, [slot(v) for v in ins],
+                       [slot(v) for v in keep]))
+    return getattr(program, "recompute_policy", "nothing"), ranges
 
 
 def _sweep_step(fetches, new_scope):

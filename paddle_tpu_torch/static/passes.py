@@ -5,8 +5,9 @@ whole-Program surgery on the flat SSA op list (dead-op elimination
 against fetch/persist targets, common-subexpression elimination, constant
 folding) and DOT dumps; registration mirrors ir::PassRegistry. The JAX
 package's passes over the port's Program; ``fold_constants`` runs the
-folded ops' raw torch functions. The SPMD hook of the JAX ``apply_pass``
-waits for ROADMAP Queue 1 item 7.
+folded ops' raw torch functions. With ``PADDLE_TPU_VERIFY_SPMD`` on, a
+rewritten Program's declared shardings must still analyze clean
+(``spmd_analyzer.maybe_verify_spmd``), as in the JAX ``apply_pass``.
 """
 from __future__ import annotations
 
@@ -96,6 +97,9 @@ def apply_pass(program, names):
         if verify:
             from .verifier import verify_program
             verify_program(program, pass_name=n)
+    if isinstance(program, Program):
+        from .spmd_analyzer import maybe_verify_spmd
+        maybe_verify_spmd(program)
     return program
 
 

@@ -40,8 +40,10 @@ overlapping the in-flight steps.
 
 ``InflightDriver`` is the same window for drivers that are not Programs:
 the continuous-batching serve loop (``inference/serving.py``).
-``StagedPipelineRunner`` needs a mesh and ``distributed/pipeline``
-(ROADMAP Queue 1 item 7) and raises.
+``StagedPipelineRunner`` drives a planned pipeline partition
+(``spmd_planner.plan_pipeline``) over ``distributed/pipeline``'s
+schedules, one process a pp rank. Every dispatched step pulses
+``distributed/elastic.notify_step``.
 
 Monitor gauges: ``executor/{step_wall_ms,host_overhead_ms,
 inflight_depth}``, counters ``executor/scan_megasteps``,
@@ -80,7 +82,11 @@ FLOW_NS = itertools.count(1)
 # baseline instead of paging on it.
 _step_anomalies = RollingMedianDetector(window=32, k=3.0, min_samples=8)
 
-_ITEM7 = "ROADMAP Queue 1 item 7 (distributed)"
+
+
+def _notify_step(step):
+    from ..distributed.elastic import notify_step
+    notify_step(step)
 
 
 class PipelineStepError(RuntimeError):
@@ -318,14 +324,178 @@ class InflightDriver(_InflightWindow):
 
 
 class StagedPipelineRunner(InflightDriver):
-    """One SPMD program per step over a planned pipeline partition
-    (paddle_tpu/static/pipeline_runner.py:317). It needs a device mesh,
-    ``static/spmd_planner`` and ``distributed/pipeline``."""
+    """Executes a planned pipeline partition (``static/spmd_planner.
+    plan_pipeline`` -> ``PipelinePlan``), paddle_tpu/static/
+    pipeline_runner.py:317. The plan's global stages become per-rank
+    chunks (global stage g is chunk g // n on pp index g % n, the
+    interleaved convention); each step runs the plan's ``num_micro``
+    micro-batches through ``distributed/pipeline.pipeline_loss`` ("1f1b"
+    for v = 1, "interleaved" for v > 1) over the plan's pp axis, and
+    steps dispatch through the inherited bounded in-flight window.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"StagedPipelineRunner needs a device mesh and "
-            f"distributed/pipeline, {_ITEM7}")
+    The model comes as homogeneous units (hidden -> hidden), one per plan
+    segment (``plan.n_segments``): ``unit_apply(h, unit_params) -> h``
+    and a list of per-unit parameter pytrees. The port runs one process
+    a rank, so each rank keeps only its own chunks' units and runs only
+    them: no padding slots (the JAX package pads the shallower stages so
+    every device traces one program). With a ``dp`` axis in the mesh
+    each micro-batch is split over dp, the loss is the dp mean and the
+    gradients are averaged over dp before the update.
+
+    Training is SGD (``learning_rate``); ``step(x, y)`` returns a lazy
+    loss ``FetchHandle``, ``unit_params()`` gathers the live parameters
+    of every segment in plan order, ``sync()`` materializes all
+    in-flight steps."""
+
+    def __init__(self, plan, unit_apply, unit_params, loss_fn, mesh=None,
+                 learning_rate=0.1, dp_axis="dp", max_inflight=None):
+        super().__init__(name="pipeline/staged",
+                         max_inflight=max_inflight)
+        import torch.utils._pytree as pytree
+
+        from ..distributed import mesh as mesh_mod
+        if mesh is None:
+            mesh = mesh_mod.get_mesh()
+        if mesh is None or plan.axis not in mesh.axis_names:
+            have = None if mesh is None else tuple(mesh.axis_names)
+            raise ValueError(
+                "StagedPipelineRunner needs a mesh with the plan's "
+                f"'{plan.axis}' axis (got axes {have}) — a leaked "
+                "default mesh does not qualify")
+        n, v = plan.num_stages, plan.num_virtual
+        if int(mesh.shape[plan.axis]) != n:
+            raise ValueError(
+                f"the mesh's '{plan.axis}' axis has "
+                f"{mesh.shape[plan.axis]} ranks, the plan {n} stages")
+        if len(unit_params) != plan.n_segments:
+            raise ValueError(
+                f"plan has {plan.n_segments} segments but "
+                f"{len(unit_params)} unit param pytrees were given")
+        self._plan = plan
+        self._mesh = mesh
+        self._lr = float(learning_rate)
+        self._M = plan.num_micro
+        self._axis = plan.axis
+        self._dp = dp_axis if (dp_axis in mesh.axis_names
+                               and int(mesh.shape[dp_axis]) > 1) else None
+        self._unit_apply = unit_apply
+        self._loss_fn = loss_fn
+        self._rank = mesh.axis_index(plan.axis)
+        self._seg_owner = {}
+        self._chunks = []   # per chunk c: [(segment, params pytree)]
+        device = None
+        for g, seg_list in enumerate(plan.stage_segments()):
+            for seg in seg_list:
+                self._seg_owner[seg] = g % n
+        for c in range(v):
+            g = c * n + self._rank
+            units = []
+            for seg in plan.stage_segments()[g]:
+                tree = pytree.tree_map(
+                    lambda a: _param_leaf(a, device), unit_params[seg])
+                units.append((seg, tree))
+            self._chunks.append(units)
+        self._schedule = "interleaved" if v > 1 else \
+            (plan.schedule if plan.schedule in ("gpipe", "1f1b")
+             else "1f1b")
+
+    @property
+    def plan(self):
+        return self._plan
+
+    def _leaves(self):
+        import torch.utils._pytree as pytree
+        return [leaf for units in self._chunks for _, tree in units
+                for leaf in pytree.tree_leaves(tree)]
+
+    def _chunk_fn(self, c):
+        units = self._chunks[c]
+
+        def f(h):
+            for _, tree in units:
+                h = self._unit_apply(h, tree)
+            return h
+        return f
+
+    def _dp_part(self, xm):
+        """This dp index's share of each micro-batch ([M, mb, ...])."""
+        if self._dp is None:
+            return xm
+        k = int(self._mesh.shape[self._dp])
+        part = xm.shape[1] // k
+        return xm.narrow(1, self._mesh.axis_index(self._dp) * part, part)
+
+    def _train_step(self, x, y):
+        from ..distributed import mesh as mesh_mod
+        from ..distributed import pipeline as pipe
+        from ..distributed.collective import ReduceOp, _allreduce_raw
+        xm = self._dp_part(pipe.micro_batch(_as_tensor(x), self._M))
+        ym = self._dp_part(pipe.micro_batch(_as_tensor(y), self._M))
+        fns = [self._chunk_fn(c) for c in range(len(self._chunks))]
+        leaves = self._leaves()
+        for p in leaves:
+            p.grad = None
+        with mesh_mod.MeshGuard(self._mesh):
+            loss = pipe.pipeline_loss(
+                fns if self._schedule == "interleaved" else fns[0],
+                self._loss_fn, xm, ym, axis=self._axis,
+                schedule=self._schedule)
+            loss.backward()
+            loss = loss.detach()
+            if self._dp is not None:
+                k = int(self._mesh.shape[self._dp])
+                loss = _allreduce_raw(loss, axis=self._dp,
+                                      op=ReduceOp.SUM) / k
+                from ..distributed.parallel import sum_over_dp
+                grads = [p.grad for p in leaves if p.grad is not None]
+                sum_over_dp(grads, self._mesh)
+                for g in grads:
+                    g.div_(k)
+        with torch.no_grad():
+            for p in leaves:
+                if p.grad is not None:
+                    p.sub_(self._lr * p.grad)
+        return None, [loss]
+
+    def step(self, x, y):
+        """Dispatch one pipelined train step over the plan's num_micro
+        micro-batches of (x, y); returns a lazy loss FetchHandle."""
+        from ..distributed.elastic import notify_step
+        _carry, handles = self.submit(
+            lambda: self._train_step(x, y),
+            stages=self._plan.num_stages,
+            num_virtual=self._plan.num_virtual, micro=self._M)
+        notify_step()
+        return handles[0]
+
+    def unit_params(self):
+        """The live parameters of every segment in plan order, gathered
+        from their ranks over the pp axis (materializes in-flight work
+        first)."""
+        import torch.distributed as dist
+        import torch.utils._pytree as pytree
+        self.sync()
+        mine = {seg: pytree.tree_map(lambda a: a.detach().cpu(), tree)
+                for units in self._chunks for seg, tree in units}
+        pg, ranks = self._mesh.group(self._axis)
+        if len(ranks) > 1:
+            got = [None] * len(ranks)
+            dist.all_gather_object(got, mine, group=pg)
+            for part in got:
+                mine.update(part)
+        return [mine[seg] for seg in range(self._plan.n_segments)]
+
+
+def _as_tensor(a):
+    if isinstance(a, torch.Tensor):
+        return a.as_subclass(torch.Tensor)
+    from ..device import resolve_device
+    return torch.as_tensor(np.asarray(a), device=resolve_device())
+
+
+def _param_leaf(a, device):
+    t = _as_tensor(a).detach().clone()
+    return t.requires_grad_(t.is_floating_point())
 
 
 class PipelineRunner(_InflightWindow):
@@ -338,11 +508,16 @@ class PipelineRunner(_InflightWindow):
                  max_inflight=None, scan_steps=None, stage_plan=None):
         from ..core import flags as _flags
         from .program import global_scope
-        if stage_plan is not None:
-            raise NotImplementedError(
-                f"a stage_plan needs static/spmd_planner, {_ITEM7}")
         self._exe = executor
-        self.stage_plan = None
+        # a planned partition rides on the dispatch spans and the
+        # executor/pipeline_stages gauge; running the planned stages is
+        # StagedPipelineRunner's work
+        self.stage_plan = stage_plan
+        if stage_plan is not None:
+            from ..core import monitor as _monitor0
+            _monitor0.stat_set("executor/pipeline_stages",
+                               stage_plan.num_stages
+                               * stage_plan.num_virtual)
         self._program, self._data_parallel = executor._resolve(program)
         self._device = executor._device(self._program)
         self._scope = scope or global_scope()
@@ -447,6 +622,9 @@ class PipelineRunner(_InflightWindow):
             return self._dead_handles(1)[0]
         t0 = time.perf_counter()
         sp = _trace.begin("pipeline/dispatch", parent=self._trace_ctx)
+        if self.stage_plan is not None:
+            sp.attrs["pipeline_stages"] = self.stage_plan.num_stages \
+                * self.stage_plan.num_virtual
         pf = self._prefetch_flow
         if pf is not None:        # close the prefetch -> dispatch handoff
             self._prefetch_flow = None
@@ -478,6 +656,7 @@ class PipelineRunner(_InflightWindow):
             _trace.end(sp)
         self._carry = (new_scope, new_slots)
         self._enqueued(idx, idx, t0)
+        _notify_step(idx + 1)
         return [FetchHandle(f, idx, self) for f in fetches]
 
     def submit_scan(self, stacked_feed, k):
@@ -533,6 +712,7 @@ class PipelineRunner(_InflightWindow):
         self._carry = (scope_vals, slots)
         self._enqueued(first, last, t0)
         _monitor.stat_add("executor/scan_megasteps")
+        _notify_step(last + 1)
         return [[FetchHandle(f, first + i, self, row=i) for f in fetches]
                 for i in range(k)]
 

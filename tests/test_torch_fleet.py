@@ -367,8 +367,10 @@ def test_fleet_util_fs_and_single_process_facade(tmp_path):
         topt.AdamW(parameters=list(net.named_parameters())), strategy)
     assert opt._zero_dp and opt._multi_precision and \
         opt._dist_strategy is strategy
-    with pytest.raises(NotImplementedError, match="7c"):
-        tfleet.spmd_report(layer=net)
+    # spmd_report is ported (tests/test_torch_spmd_analyzer.py): a layer
+    # off every rule is replicated, with no collective
+    rep = tfleet.spmd_report(layer=net, mesh={"tp": 2})
+    assert rep.collectives == [] and rep.diagnostics == []
     assert isinstance(tfleet.distributed_model(torch.nn.Linear(2, 2)),
                       torch.nn.Module)
 

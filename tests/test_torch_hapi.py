@@ -702,8 +702,8 @@ def test_unported_branches_raise():
         tflags.set_flags({"FLAGS_check_nan_inf": False})
     # a fleet strategy and ZeRO are ported (tests/test_torch_fleet.py): in
     # a world of one they prepare and fit as the plain step; Model.fit
-    # under a tp or pp mesh (the JAX engine's GSPMD presets) raises naming
-    # item 7c
+    # under a tp mesh is ported (tests/test_torch_tp_fit.py), and a mesh
+    # larger than the world is refused naming it
     from paddle_tpu_torch.distributed import fleet as tfleet
     from paddle_tpu_torch.distributed import mesh as tmesh
     net = TSpare()
@@ -715,7 +715,7 @@ def test_unported_branches_raise():
     model.fit(tdata, batch_size=BATCH, verbose=0)
     tmesh.set_mesh(tmesh.Mesh({"dp": 1, "tp": 2}), "tp_only")
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
+        with pytest.raises(ValueError, match="world"):
             model.fit(tdata, batch_size=BATCH, verbose=0)
     finally:
         tmesh.reset_mesh("tp_only")

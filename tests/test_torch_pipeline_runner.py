@@ -326,9 +326,18 @@ def test_train_from_dataset_scan_via_exec_strategy():
 
 
 def test_staged_runner_and_stage_plan_raise_naming_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        StagedPipelineRunner()
+    """Item 7 is ported (tests/test_torch_spmd_planner.py): the staged
+    runner refuses a mesh without the plan's pp axis, and the runner
+    takes a stage plan and names it on its gauge."""
+    from paddle_tpu_torch.core import monitor as tmonitor
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.static.spmd_planner import plan_pipeline
     prog, loss, _ = _mlp(PORT, "staged")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PipelineRunner(PORT.static.Executor(), prog, fetch_list=[loss],
-                       stage_plan=object())
+    plan = plan_pipeline(prog, {"pp": 2}, num_micro=2)
+    with pytest.raises(ValueError, match="'pp' axis"):
+        StagedPipelineRunner(plan, None, [], None,
+                             mesh=tmesh.Mesh({"dp": 1}))
+    runner = PipelineRunner(PORT.static.Executor(), prog, fetch_list=[loss],
+                            stage_plan=plan)
+    assert runner.stage_plan is plan
+    assert tmonitor.stat_get("executor/pipeline_stages") == 2

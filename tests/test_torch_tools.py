@@ -13,7 +13,13 @@
   protocol too; ROADMAP Queue 3 states it);
 - ``cluster_obs_drill``: the whole drill (3 shard servers, the
   serve + train client, chaos, the primary kill; ~15 s), its report
-  checked as tests/test_cluster_telemetry.py checks the JAX package's.
+  checked as tests/test_cluster_telemetry.py checks the JAX package's;
+- ``spmd_plan --tp 2 --json`` gives the JAX tool's plan, ``spmd_lint``
+  flags what the JAX tool flags (the rest of both tools' cases are in
+  test_torch_spmd_analyzer.py and test_torch_spmd_planner.py);
+- ``elastic_drill`` at 8 steps (a checkpoint every 3): the trainer
+  SIGKILLed mid-epoch and restarted ends with its parameters and every
+  server's ``table.applied`` bitwise the uninterrupted run's.
 """
 import json
 import os
@@ -86,3 +92,48 @@ def test_cluster_obs_drill_end_to_end(tmp_path):
     assert report["cross_process_chains"] >= 1
     assert any(f.startswith("incident_") and f.endswith(".json")
                for f in os.listdir(str(tmp_path)))
+
+
+def _jax_tool(name):
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import importlib
+    return importlib.import_module(name)
+
+
+def test_spmd_plan_tp2_json_gives_the_jax_tools_plan():
+    out = _run("spmd_plan", "--tp", "2", "--json")
+    got = json.loads(out.stdout)
+    from paddle_tpu_torch.tools import spmd_plan as tplan
+    jplan = _jax_tool("spmd_plan")
+    plan, preset, repl, _p, _n, _l = jplan.build_plan(tp=2)
+    want = jplan.plan_json(plan, preset, repl)
+    assert got.pop("objective") == pytest.approx(want.pop("objective"),
+                                                 rel=1e-9)
+    assert got == json.loads(json.dumps(want))
+    assert tplan.self_check() == []
+
+
+@pytest.mark.parametrize("inject", [None, "unbound-axis", "cross-tier"])
+def test_spmd_lint_flags_what_the_jax_tool_flags(inject):
+    args = [] if inject is None else ["--inject", inject]
+    out = _run("spmd_lint", *args)
+    jlint = _jax_tool("spmd_lint")
+    rep, _, _ = jlint.build_report(inject=inject)
+    assert out.returncode == (1 if rep.diagnostics else 0)
+    for d in rep.diagnostics:
+        assert d.code in out.stdout
+    assert ("diagnostics: none" in out.stdout) == (not rep.diagnostics)
+
+
+def test_elastic_drill_sigkill_resume_is_bitwise(tmp_path):
+    from paddle_tpu_torch.tools import elastic_drill as drill
+    assert drill.self_check() == []
+    ref = drill.run_supervised(str(tmp_path), kill=False, steps=8,
+                               save_every=3)
+    chaos = drill.run_supervised(str(tmp_path), kill=True, steps=8,
+                                 save_every=3)
+    assert chaos[4], "the supervisor recorded no restart"
+    for k in ref[0]:
+        assert (ref[0][k] == chaos[0][k]).all(), k
+    assert (ref[1] == chaos[1]).all() and (ref[2] == chaos[2]).all()
+    assert ref[3] == chaos[3]
