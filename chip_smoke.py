@@ -125,7 +125,7 @@ Phases, each printing its own lines; any failure exits non-zero:
     + ClipGradByGlobalNorm, amp O2).fit(LMDataset, epochs=1, shuffle,
     History, ModelCheckpoint)`` for 40 steps, once in f16 O2 (the
     GradScaler's pure form) and once in bf16 O2: the step ms over the
-    last 30 steps, device busy ms and idle share over 10 more profiled
+    last 30 steps, device busy ms and idle share over 5 more profiled
     steps, ``hapi/train_steps``, host loss reads per step, loss start
     and end, beside phases 8 and 15 of the same run. Every count is
     zeroed before each fit, and every step must launch each flash kernel
@@ -199,11 +199,12 @@ Phases, each printing its own lines; any failure exits non-zero:
     rows); the scores against an uncached forward of each path; in f32
     beam 1 against greedy ``generate`` (phase 4's rule) and the beam-4
     scores within ``BEAM_SCORE_TOL`` (``phase_beam_scores``); (b)
-    ``export_decode`` (bf16, b 8, prompt 32, 16 new) into a torch.export
-    artifact run by ``create_predictor``: its tokens against
-    ``generate``'s, 12 x 16 decode launches in ``run``, ms a token of
-    both; (f, first) ``pick_block_size`` measuring the paged kernel at
-    256 / 128 / 64 for h12 d64 bf16 at L 1024 into ``BLOCK_TABLE``, no
+    ``export_decode`` (bf16, b 8, prompt 32, ``EXPORT_NEW`` new) into a
+    torch.export artifact run by ``create_predictor``: its tokens against
+    ``generate``'s, 12 x ``EXPORT_NEW`` decode launches in ``run``, ms a
+    token of both; (f, first) ``pick_block_size`` measuring the paged
+    kernel at 256 / 128 / 64 for h12 d64 bf16 at L 1024 into
+    ``BLOCK_TABLE``, no
     candidate failing; (c) ``traffic.run_spec`` of the steady, diurnal
     and flash shapes (30 requests/s for 6 s, bench_serve's lengths)
     through one bf16 ``ServeLoop`` (max_active 64, the measured block
@@ -366,8 +367,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2``
     on ``paddle_tpu_torch/testing/fit_job.py`` (fleet DP ``Model.fit``
     of BERT-base bf16 O2, b32 s128 as 16 / 16, a checkpoint every 2
-    steps, 4 steps), once as it is and, side by side, with rank 1
-    SIGKILLed after step 3 and ``--elastic_retries 1``: the restarted job
+    steps, 3 steps), once as it is and, side by side, with rank 1
+    SIGKILLed after step 2 and ``--elastic_retries 1``: the restarted job
     resumes both ranks at step 2 and its losses and f32 masters are
     bitwise the uninterrupted launch's; the restart's seconds and each
     rank's launches. (b) 2 ranks: phase 22's static BERT-base bf16 O2
@@ -390,6 +391,36 @@ Phases, each printing its own lines; any failure exits non-zero:
     ``StagedPipelineRunner`` over ``plan_pipeline`` of GPT-2
     small's 12 blocks at pp 4 (b8 s1024, 4 micro-batches, f32 SGD, 3
     steps) against the whole stack in one process (``P27_PP_TOL``).
+28. the long tail, part 1 (``phase_long_tail``), each part against the
+    port's own run on the host. (a) BERT-base with a CRF head (a 768 -> 7
+    emission Linear, the BIO tags of PER / ORG / LOC and O, a [9, 7]
+    transition) through ``Model.fit`` in bf16 O2, b32 s128, 8 steps (4
+    warm-up): 12 launches of each flash kernel a step on the Hopper
+    kernels, the first step's CRF NLL against the host's f64 run of the
+    same emissions (``P28_CRF_TOL``), then ``viterbi_decode`` (a path may
+    differ only where the top-2 scores tie, ``P28_TIE``) and
+    ``ChunkEvaluator`` (IOB, 3 types; counts exact). (b) CTC at an ASR
+    shape (B 32, T 512, 29 classes, f32, labels of 64-128, 384-512
+    frames, one infeasible row): ``ctc_loss`` forward and backward and
+    ``warpctc`` against the host's f64 (``P28_CTC_TOL``), the greedy
+    decode's ``EditDistance`` exact. (c) YOLOv3's 608 head (b 8, grids
+    19 / 38 / 76, 80 classes): ``yolo_box`` (``P28_GEO_TOL``) and
+    ``multiclass_nms`` (the same boxes kept), ``yolov3_loss`` forward and
+    backward with 50 gt boxes an image (``P28_LOSS_TOL``), ``roi_align``
+    forward and backward on ResNet-50's C4 map with 512 RoIs an image
+    (``P28_ROI_TOL``), ``DetectionMAP`` (VOC 11-point) over the kept boxes
+    equal to the host's. (d) ``Embedding(50304, 768, sparse=True)``, 4
+    SGD and 4 Adam ``lazy_mode`` steps on Zipf ids: a SelectedRows
+    gradient of at most 4096 rows, untouched rows and moments bitwise
+    unchanged, the update of touched rows against the host
+    (``P28_EMB_TOL``), the dense Embedding + Adam step beside it. (e) QAT
+    over every Linear of BERT-base, 4 f32 steps; one quantized layer
+    against the host (``P28_QAT_TOL``); ``weight_quantize`` within half a
+    step; a PTQ calibration over 4 batches. (f) every long-tail registry
+    name (``testing/long_tail_cases.py``, the ragged sequence ops, the
+    decompositions by reconstruction, ``py_func``, the FPN routing) on
+    CUDA tensors against the same call on CPU tensors
+    (``P28_SWEEP_TOL``), the random draws in distribution.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -400,7 +431,7 @@ One phase alone (after ``phase_build()``), from the repo root:
 c.phase_flash()"``; phase 25: ``python3 -c "import chip_smoke as c;
 c.setup(); card = c.phase_build(); c.phase_distributed(card)"``; phase
 26 the same with ``c.phase_fleet_training(card)``, phase 27 with
-``c.phase_multi_process(card)``. ``python3 chip_smoke.py --faults`` runs phases 2-3
+``c.phase_multi_process(card)``, phase 28 with ``c.phase_long_tail(card)``. ``python3 chip_smoke.py --faults`` runs phases 2-3
 (decode faults), 6 (CE faults), 10 (flash faults), 14 (f16 faults),
 18's API checks (op-core faults), 19's mask checks (a Transformer
 fault), 20's conv oracle (a conv fault) or 21(a)'s f32 beam scores (a
@@ -2158,7 +2189,7 @@ def _hapi_clock(steps, window):
 
 
 def _hapi_fit(cfg, ds, dtype, batch, steps, card, window=30,
-              profile_steps=10):
+              profile_steps=5):
     """``Model.fit`` over ``ds`` for one epoch (``steps`` batches) in O2
     ``dtype`` with History and ModelCheckpoint, as a user calls it; then a
     profiled fit of ``profile_steps`` more batches."""
@@ -4216,15 +4247,15 @@ def _flash_time_shape(b, h, s, d, causal, bias, dt=torch.bfloat16):
     return out
 
 
-def _sweep_ms(route, b, h, s, d, causal, gen):
-    """Forward + backward of attention at [b, h, s, d] bf16 through the
-    flash kernels or the composite, under autograd."""
+def _sweep_ms(route, inputs, causal):
+    """Forward + backward of attention over ``inputs`` (q, k, v, dO:
+    [b, h, s, d] bf16 on the card) through the flash kernels or the
+    composite, under autograd."""
     from paddle_tpu_torch.nn.functional import _sdpa
     from paddle_tpu_torch.ops.cuda import flash_attention
-    q, k, v, do = (torch.randn(b, h, s, d, generator=gen)
-                   .to("cuda", torch.bfloat16) for _ in range(4))
-    ql, kl, vl = (t.requires_grad_() for t in (q, k, v))
-    scale = d ** -0.5
+    q, k, v, do = inputs
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    scale = q.shape[-1] ** -0.5
 
     def run():
         if route == "flash":
@@ -4248,11 +4279,15 @@ def phase_flash_timings():
     for causal in (False, True):
         for s in (128, 256, 512, 1024, 2048, 4096):
             b = tokens // s
-            # turns: composite, flash, flash, composite
-            c1 = _sweep_ms("composite", b, h, s, d, causal, gen)
-            f1 = _sweep_ms("flash", b, h, s, d, causal, gen)
-            f2 = _sweep_ms("flash", b, h, s, d, causal, gen)
-            c2 = _sweep_ms("composite", b, h, s, d, causal, gen)
+            # one set of inputs a shape for both routes (drawn on the
+            # host: 50 M values, ~0.2 s a draw); turns: composite, flash,
+            # flash, composite
+            inputs = [torch.randn(b, h, s, d, generator=gen).to(
+                "cuda", torch.bfloat16) for _ in range(4)]
+            c1 = _sweep_ms("composite", inputs, causal)
+            f1 = _sweep_ms("flash", inputs, causal)
+            f2 = _sweep_ms("flash", inputs, causal)
+            c2 = _sweep_ms("composite", inputs, causal)
             row = {"s": s, "b": b, "causal": causal,
                    "flash_ms": min(f1, f2), "composite_ms": min(c1, c2)}
             rows.append(row)
@@ -4278,8 +4313,9 @@ GEN_BATCH, GEN_PROMPT, GEN_BEAM, GEN_NEW = 8, 32, 4, 32
 # 21(b)'s new tokens: export_decode unrolls every decode step into the
 # graph, so its export and load grow with them (111 s and 36 s at 32 on
 # an H100 80GB HBM3 at 700 W, in a whole run past the script's budget);
-# 8 keeps the same checks (16 until phase 26 needed the time)
-EXPORT_NEW = 8
+# 4 keeps the same checks (16 until phase 26 needed the time, 8 until
+# phase 28)
+EXPORT_NEW = 4
 # beam scores against an uncached forward of each path (the sum of the
 # chosen tokens' log-probs over GEN_NEW tokens): f32 2e-3, the cached
 # split-K decode kernel against the uncached composite attention (the
@@ -4428,8 +4464,8 @@ def _gen_beam(net, net32):
 
 
 def _gen_export(net):
-    """21(b): export_decode of the bf16 GPT-2 (b 8, prompt 32, 16 new),
-    create_predictor(...).run, against generate."""
+    """21(b): export_decode of the bf16 GPT-2 (b 8, prompt 32,
+    ``EXPORT_NEW`` new), create_predictor(...).run, against generate."""
     import tempfile
 
     from paddle_tpu_torch import inference
@@ -6515,10 +6551,10 @@ def phase_ps(card=None):
 # --------------------------------------------------------------------------
 
 P25_RANKS = 4
-# 25(a)'s capacity replays cut from phase 21's 6 s and the calibration's
-# refinements from 4 s to make room for phase 27: the same three specs
-# and comparisons over shorter replays
-P25_REPLAY_SECONDS, P25_REFINE_SECONDS = 3.0, 2.0
+# 25(a)'s capacity replays cut from phase 21's 6 s (3 s for phase 27,
+# 1.5 s for phase 28) and the calibration's refinements from 4 s (2, then
+# 1): the same three specs and comparisons over shorter replays
+P25_REPLAY_SECONDS, P25_REFINE_SECONDS = 1.5, 1.0
 P25_SP_S, P25_H, P25_D = 16384, 12, 64       # ring: b 1, s 16384, GPT-2 heads
 P25_MB = (1, 16, 256)                         # all_reduce sizes timed
 P25_TP_D, P25_TP_F = 768, 3072                # GPT-2 small's MLP
@@ -7908,7 +7944,7 @@ def _fleet_training_fields(rec, name, counts):
 # Model.fit under a tp mesh, the planner and the staged pipeline)
 # --------------------------------------------------------------------------
 
-P27_FIT = {"steps": 4, "kill_after": 3, "save_every": 2}   # 27(a)
+P27_FIT = {"steps": 3, "kill_after": 2, "save_every": 2}   # 27(a)
 P27_STATIC_STEPS = 3                                       # 27(b)
 P27_TP, P27_TP_B, P27_TP_S, P27_TP_STEPS = 4, 8, 1024, 2   # 27(c)
 P27_PP = {"stages": 4, "micro": 4, "steps": 3, "b": 8, "s": 1024,
@@ -7950,7 +7986,8 @@ def _p27_launch(out, kill):
     """27(a): start ``python -m paddle_tpu_torch.distributed.launch
     --nproc_per_node 2`` on ``testing/fit_job.py`` (BERT-base bf16 O2,
     b32 s128 as 16 / 16, a checkpoint every 2 steps); with ``kill`` rank 1
-    SIGKILLs itself after step 3 and ``--elastic_retries 1`` restarts the
+    SIGKILLs itself after step ``P27_FIT["kill_after"]`` (at its
+    checkpoint) and ``--elastic_retries 1`` restarts the
     job. Returns a function that waits for it: (its output, seconds)."""
     import subprocess
     root = os.path.dirname(os.path.abspath(__file__))
@@ -8759,6 +8796,911 @@ def _multi_process_fields(rec, name, counts):
         rec[f"launches_p27_{tag}_sm90"] = c[f"{name}.sm90"]
 
 
+# --------------------------------------------------------------------------
+# phase 28: the long tail, part 1 (sequence, CTC / CRF, linalg, math_extra,
+# detection, SelectedRows, quantization)
+# --------------------------------------------------------------------------
+
+P28_CRF = {"batch": 32, "seq": 128, "steps": 8, "warmup": 4, "tags": 7}
+P28_CRF_TOL = 1e-4       # the first step's CRF NLL: card f32 / host f64
+P28_TIE = 1e-4           # a Viterbi path may differ where top-2 scores tie
+P28_CTC = {"batch": 32, "frames": 512, "classes": 29, "labels": (64, 128),
+           "inputs": (384, 512)}
+# card f32 against host f64: the loss per row, the gradient over its
+# largest entry; f32 itself is 1.2e-6 / 2.7e-4 from f64 here (the host's
+# own f32 run, recorded beside): 511 steps of log-space sums near -1000
+P28_CTC_TOL = {"loss": 1e-4, "grad": 1e-3}
+P28_YOLO = {"batch": 8, "img": 608, "grids": (19, 38, 76), "classes": 80,
+            "gt": 50}
+P28_NMS = {"score": 0.005, "nms_top_k": 1000, "keep_top_k": 100,
+           "iou": 0.45}
+P28_GEO_TOL = 1e-3       # pixels, yolo_box's boxes card / host
+P28_LOSS_TOL = 1e-4      # yolov3_loss and its gradient, relative
+P28_ROI = {"batch": 2, "channels": 1024, "h": 50, "w": 76, "rois": 512,
+           "out": 14, "scale": 1 / 16, "checked": 32}
+P28_ROI_TOL = 1e-5       # roi_align's output and gradients, relative
+P28_EMB = {"vocab": 50304, "dim": 768, "batch": 32, "seq": 128, "steps": 4}
+P28_EMB_TOL = 1e-5       # touched rows after the steps, card / host
+P28_QAT = {"batch": 32, "seq": 128, "steps": 4, "calib": 4}
+P28_QAT_TOL = 1e-4       # one quantized layer's forward and backward
+P28_SWEEP_TOL = 1e-4     # the sweep's float outputs, card / host, relative
+P28_STEP_LAUNCHES = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+# the COCO anchors of YOLOv3 and each grid's three
+P28_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+               156, 198, 373, 326]
+P28_MASKS = {19: (6, 7, 8), 38: (3, 4, 5), 76: (0, 1, 2)}
+
+
+def _p28_rel(a, b):
+    """max |a - b| over max |b| (0 for two empty tensors)."""
+    a = torch.as_tensor(a).double().cpu()
+    b = torch.as_tensor(b).double().cpu()
+    if b.numel() == 0:
+        return 0.0
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _p28_rel_each(a, b):
+    """max over entries of |a - b| / |b|."""
+    a = torch.as_tensor(a).double().cpu()
+    b = torch.as_tensor(b).double().cpu()
+    return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+def _p28_kernels(fn):
+    """The device kernels one fn() launches (torch.profiler), None where
+    the profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    # CUDA activity alone: the CPU side would cost seconds at ~20k ops
+    # (the CPU one only where torch has no CUDA: a dry run)
+    act = ProfilerActivity.CUDA if torch.cuda.is_available() \
+        else ProfilerActivity.CPU
+    with profile(activities=[act]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def _p28_wall(fn, runs=3):
+    """Wall ms of fn() (autograd on), the mean of ``runs`` after one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / runs
+
+
+@contextlib.contextmanager
+def _p28_one_thread():
+    """The host's recursions (a step's few small ops) in one intra-op
+    thread: more only add their handoffs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _p28_tags(rs, n, seq):
+    """BIO tags of PER / ORG / LOC (B = 2k, I = 2k + 1) and O = 6: chunks
+    of 1-4 tokens at random gaps."""
+    tags = np.full((n, seq), 6, np.int64)
+    for r in range(n):
+        pos = rs.randint(0, 3)
+        while pos < seq:
+            k, ln = rs.randint(0, 3), rs.randint(1, 5)
+            tags[r, pos] = 2 * k
+            tags[r, pos + 1:pos + ln] = 2 * k + 1
+            pos += ln + rs.randint(0, 4)
+    return tags
+
+
+def _p28_bert_crf(paddle, cfg):
+    """BERT-base with a 768 -> 7 emission Linear and a [9, 7] transition
+    (start, stop, pairwise), the CRF NLL its loss; it keeps its first
+    call's emissions."""
+    from paddle_tpu_torch.text.models import Bert
+
+    class BertCRF(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.bert = Bert(cfg, with_mlm=False, seed=0)
+            self.emit = paddle.nn.Linear(cfg.hidden_size, P28_CRF["tags"])
+            self.transition = self.create_parameter(
+                [P28_CRF["tags"] + 2, P28_CRF["tags"]],
+                default_initializer=paddle.nn.initializer.Uniform(-0.1, 0.1))
+            self.first = None
+
+        def emissions(self, ids):
+            return self.emit(self.bert(ids))
+
+        def forward(self, ids, tags):
+            em = self.emissions(ids)
+            if self.first is None:
+                self.first = em.detach().float().clone()
+            return paddle.ops.mean(paddle.ops.linear_chain_crf(
+                em, self.transition, tags))
+    return BertCRF()
+
+
+def _p28_path_score(em, tr, path):
+    """The CRF score of ``path`` [B, T] (f64 on the host)."""
+    b = torch.arange(em.shape[0])
+    s = tr[0][path[:, 0]] + em[b, 0, path[:, 0]]
+    for t in range(1, em.shape[1]):
+        s = s + tr[2:][path[:, t - 1], path[:, t]] + em[b, t, path[:, t]]
+    return s + tr[1][path[:, -1]]
+
+
+def _p28_crf(paddle, card):
+    """28(a): BERT-base + CRF through Model.fit, bf16 O2, b32 s128, 8
+    steps (4 warm-up, 4 timed); then viterbi_decode and ChunkEvaluator
+    on one batch, against the host in f64."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.models import BertConfig
+    c = P28_CRF
+    cfg = BertConfig.bert_base()
+    rs = np.random.RandomState(28)
+    n = c["batch"] * c["steps"]
+    ids = rs.randint(0, cfg.vocab_size, (n, c["seq"])).astype(np.int64)
+    tags = _p28_tags(rs, n, c["seq"])
+    paddle.seed(0)
+    net = _p28_bert_crf(paddle, cfg)
+    model = paddle.Model(net, inputs=[None, None])
+    model.prepare(paddle.optimizer.AdamW(learning_rate=1e-4,
+                                         weight_decay=0.01,
+                                         parameters=net.parameters()),
+                  loss=_identity_loss,
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    kernels.reset_launch_counts()
+    clock = _hapi_clock(c["steps"], c["steps"] - c["warmup"])
+    model.fit(paddle.io.TensorDataset([ids, tags]), batch_size=c["batch"],
+              epochs=1, shuffle=False, verbose=0, callbacks=[clock])
+    counts = kernels.launch_counts()
+    losses = [float(v) for v in clock.losses]
+    step_ms = (clock.t1 - clock.t0) * 1e3 / (c["steps"] - c["warmup"])
+    check(all(np.isfinite(losses)), f"28(a) losses {losses}")
+    for i, d in enumerate(clock.deltas):
+        for k, want in P28_STEP_LAUNCHES.items():
+            check(d[k] == want and d[k + ".sm90"] == want,
+                  f"28(a) step {i}: {k} {d[k]} ({d[k + '.sm90']} sm90), "
+                  f"not {want}")
+    # the first step's CRF NLL: card (f32 recursion) against host (f64)
+    em0 = net.first
+    tr = net.transition.detach().float()
+    y0 = torch.as_tensor(tags[:c["batch"]], device="cuda")
+    card_nll = paddle.ops.linear_chain_crf(em0, tr, y0)
+    with _p28_one_thread():
+        host_nll = paddle.ops.linear_chain_crf(em0.double().cpu(),
+                                               tr.double().cpu(), y0.cpu())
+    nll_err = _p28_rel_each(card_nll, host_nll)
+    check(nll_err <= P28_CRF_TOL, f"28(a) CRF NLL rel err {nll_err}")
+    # the CRF's share of a step: its forward + backward on those emissions
+    em_g = em0.clone().requires_grad_()
+
+    def crf_step():
+        paddle.ops.mean(paddle.ops.linear_chain_crf(em_g, tr, y0)).backward()
+    crf_ms = _p28_wall(crf_step)
+    crf_kernels = _p28_kernels(crf_step)
+    # Viterbi on batch 0 after the fit, card against host f64
+    net.eval()
+    with torch.no_grad():
+        em = net.emissions(torch.as_tensor(ids[:c["batch"]],
+                                           device="cuda")).float()
+        t = time.perf_counter()
+        score, path = paddle.ops.viterbi_decode(em, tr)
+        torch.cuda.synchronize()
+        vit_ms = (time.perf_counter() - t) * 1e3
+    em64, tr64 = em.double().cpu(), tr.double().cpu()
+    with _p28_one_thread():
+        h_score, h_path = paddle.ops.viterbi_decode(em64, tr64)
+    path = path.cpu()
+    differ = (path != h_path).any(1)
+    ties = 0
+    for r in torch.nonzero(differ).flatten().tolist():
+        gap = abs(float(_p28_path_score(em64[r:r + 1], tr64, path[r:r + 1])
+                        - h_score[r]))
+        check(gap < P28_TIE, f"28(a) Viterbi row {r} differs, score gap "
+                             f"{gap}")
+        ties += 1
+    same = ~differ
+    chunks = {}
+    for tag, p in (("card", path), ("host", h_path)):
+        ev = paddle.metric.ChunkEvaluator(num_chunk_types=3)
+        ev.update(p[same].numpy(), tags[:c["batch"]][same.numpy()])
+        chunks[tag] = (ev.num_infer, ev.num_label, ev.num_correct)
+    check(chunks["card"] == chunks["host"], f"28(a) chunks {chunks}")
+    res = {"card": card, "config": "bert_base + crf (7 BIO tags)",
+           "amp": "O2 bfloat16", "batch": c["batch"], "seq": c["seq"],
+           "steps": c["steps"], "step_ms": step_ms,
+           "step_ms_window": c["steps"] - c["warmup"],
+           "loss_start": losses[0], "loss_end": losses[-1],
+           "crf_nll_rel_err_vs_host_f64": nll_err,
+           "crf_fwd_bwd_ms": crf_ms, "crf_share_of_step": crf_ms / step_ms,
+           "crf_fwd_bwd_kernels": crf_kernels,
+           "viterbi_ms": vit_ms, "viterbi_tie_rows": ties,
+           "chunks_infer_label_correct": chunks["card"],
+           "flash_launches_per_step": {
+               k: counts[k] / c["steps"] for k in P28_STEP_LAUNCHES}}
+    log(f"[crf] {json.dumps(res)}")
+    del model, net
+    return counts, res
+
+
+def _p28_greedy(logits, lens):
+    best = logits.argmax(-1).T.cpu().numpy()
+    out = []
+    for b, n in enumerate(lens):
+        seq = best[b, :n]
+        keep = np.concatenate([[True], seq[1:] != seq[:-1]]) & (seq != 0)
+        out.append(seq[keep])
+    return out
+
+
+def _p28_ctc(paddle, card):
+    """28(b): CTC at an ASR shape: B 32, T 512, 29 classes, f32, labels
+    of 64-128 tokens, 384-512 frames, and one infeasible row; ctc_loss's
+    forward and backward and warpctc (norm_by_times), against the host
+    in f64; the greedy decode's EditDistance, exactly."""
+    c = P28_CTC
+    rs = np.random.RandomState(2828)
+    B, T, C = c["batch"], c["frames"], c["classes"]
+    logits = (rs.randn(T, B, C) * 3).astype(np.float32)
+    ll = rs.randint(c["labels"][0], c["labels"][1] + 1, B).astype(np.int64)
+    il = rs.randint(c["inputs"][0], c["inputs"][1] + 1, B).astype(np.int64)
+    il[-1] = ll[-1] - 1                   # infeasible: fewer frames than labels
+    labels = rs.randint(1, C, (B, c["labels"][1])).astype(np.int64)
+    dev = [torch.as_tensor(a, device="cuda") for a in (labels, il, ll)]
+    x = torch.as_tensor(logits, device="cuda").requires_grad_()
+
+    def fwd_bwd():
+        x.grad = None
+        loss = paddle.ops.ctc_loss(x, *dev, reduction="none")
+        loss.sum().backward()
+        return loss
+    loss = fwd_bwd()
+    grad = x.grad.detach().clone()
+    ms = _p28_wall(fwd_bwd)
+    t = time.perf_counter()
+    n_kernels = _p28_kernels(fwd_bwd)
+    profile_s = time.perf_counter() - t
+    with torch.no_grad():
+        fwd_ms = _p28_wall(lambda: paddle.ops.ctc_loss(x, *dev,
+                                                       reduction="none"))
+        warp = paddle.ops.warpctc(x, *dev, norm_by_times=True)
+    host = [torch.as_tensor(a) for a in (labels, il, ll)]
+    runs = {}
+    t = time.perf_counter()
+    with _p28_one_thread():
+        for dt in (torch.float64, torch.float32):
+            hx = torch.as_tensor(logits, dtype=dt).requires_grad_()
+            h_loss = paddle.ops.ctc_loss(hx, *host, reduction="none")
+            h_loss.sum().backward()
+            runs[dt] = (h_loss.detach(), hx.grad, hx.detach())
+        h_loss, h_grad, hx = runs[torch.float64]
+        h_warp = paddle.ops.warpctc(hx, *host, norm_by_times=True)
+    errs = {"loss": _p28_rel_each(loss, h_loss),
+            "grad": _p28_rel(grad, h_grad),
+            "warpctc": _p28_rel(warp, h_warp)}
+    host_s = time.perf_counter() - t
+    host_f32 = {"loss": _p28_rel_each(runs[torch.float32][0], h_loss),
+                "grad": _p28_rel(runs[torch.float32][1], h_grad)}
+    check(float(loss[-1]) > 1e29 and torch.isfinite(grad).all(),
+          f"28(b) infeasible row: loss {float(loss[-1])}")
+    for k, v in errs.items():
+        check(v <= P28_CTC_TOL["grad" if k == "grad" else "loss"],
+              f"28(b) CTC {k} rel err {v}")
+    dists = {}
+    for tag, lg in (("card", x.detach()), ("host", hx)):
+        ev = paddle.metric.EditDistance()
+        for h, r, k in zip(_p28_greedy(lg, il), labels, ll):
+            ev.update([h], [r[:k]])
+        dists[tag] = (ev.total, ev.count)
+    check(dists["card"] == dists["host"], f"28(b) edit distance {dists}")
+    res = {"card": card, "shape": c, "infeasible_row_loss": float(loss[-1]),
+           "fwd_bwd_ms": ms, "fwd_ms": fwd_ms,
+           "fwd_bwd_kernels": n_kernels, "rel_err_vs_host_f64": errs,
+           "host_f32_rel_err_vs_host_f64": host_f32,
+           "host_runs_s": host_s, "profile_s": profile_s,
+           "edit_distance_mean": dists["card"][0] / dists["card"][1]}
+    log(f"[ctc] {json.dumps(res)}")
+    return res
+
+
+def _p28_yolo_inputs(rs):
+    y = P28_YOLO
+    heads = []
+    for g in y["grids"]:
+        x = rs.randn(y["batch"], 3, 5 + y["classes"], g, g).astype(
+            np.float32)
+        # a trained head's confidences, mostly low: ~45 of an image's
+        # 22743 boxes a class score above 0.005
+        x[:, :, 4] -= 6.0
+        x[:, :, 5:] -= 3.0
+        heads.append(x.reshape(y["batch"], -1, g, g))
+    return heads
+
+
+def _p28_detect(paddle, heads, img, device):
+    """yolo_box over the three heads, then multiclass_nms: (boxes, scores,
+    kept, rois_num, yolo ms, nms ms)."""
+    y = P28_YOLO
+    boxes, scores = [], []
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t = time.perf_counter()
+    for g, x in zip(y["grids"], heads):
+        an = [P28_ANCHORS[2 * i + k] for i in P28_MASKS[g] for k in (0, 1)]
+        b, s = paddle.ops.yolo_box(
+            torch.as_tensor(x, device=device),
+            torch.as_tensor(img, device=device), an, y["classes"],
+            conf_thresh=P28_NMS["score"],
+            downsample_ratio=y["img"] // g)
+        boxes.append(b)
+        scores.append(s)
+    b = torch.cat(boxes, 1)
+    s = torch.cat(scores, 1).transpose(1, 2)
+    sync()
+    t_yolo = time.perf_counter() - t
+    t = time.perf_counter()
+    kept, num = paddle.ops.multiclass_nms(
+        b, s, score_threshold=P28_NMS["score"],
+        nms_top_k=P28_NMS["nms_top_k"], keep_top_k=P28_NMS["keep_top_k"],
+        nms_threshold=P28_NMS["iou"], background_label=-1)
+    sync()
+    t_nms = time.perf_counter() - t
+    return b, s, kept, num, t_yolo * 1e3, t_nms * 1e3
+
+
+def _p28_same_dets(card, host, nums):
+    """The same boxes kept in each image: rows matched in (label, score,
+    x1) order (the decode's f32 rounding may swap two equal scores), the
+    labels equal, scores and coordinates within ``P28_GEO_TOL``; returns
+    the largest difference."""
+    worst, start = 0.0, 0
+    for k in nums:
+        a, b = card[start:start + k], host[start:start + k]
+        start += k
+        a = a[np.lexsort((a[:, 2], -a[:, 1], a[:, 0]))]
+        b = b[np.lexsort((b[:, 2], -b[:, 1], b[:, 0]))]
+        check(np.array_equal(a[:, 0], b[:, 0]),
+              "28(c) multiclass_nms kept other labels on the card")
+        worst = max(worst, float(np.abs(a - b).max()) if k else 0.0)
+    check(worst <= P28_GEO_TOL,
+          f"28(c) multiclass_nms kept other boxes on the card ({worst})")
+    return worst
+
+
+def _p28_map(paddle, kept, num, gts):
+    m = paddle.metric.DetectionMAP(ap_version="11point")
+    dets, start = kept.cpu().numpy(), 0
+    for i, k in enumerate(num.cpu().numpy()):
+        m.update(dets[start:start + k], gts[i][0], gts[i][1])
+        start += k
+    return m.accumulate()
+
+
+def _p28_detection(paddle, card):
+    """28(c): YOLOv3's 608 head (b 8, grids 19 / 38 / 76, 3 anchors a
+    grid, 80 classes): yolo_box and multiclass_nms; yolov3_loss forward
+    and backward with 50 gt boxes an image; roi_align forward and
+    backward on ResNet-50's C4 map with 512 RoIs an image; DetectionMAP
+    (VOC 11-point) over the NMS output; against the host."""
+    y = P28_YOLO
+    rs = np.random.RandomState(2829)
+    heads = _p28_yolo_inputs(rs)
+    img = np.full((y["batch"], 2), y["img"], np.int32)
+    cb, cs, ck, cn, _, nms_ms = _p28_detect(paddle, heads, img, "cuda")
+    hb, hs, hk, hn, _, host_nms_ms = _p28_detect(paddle, heads, img, "cpu")
+    xs = [torch.as_tensor(x, device="cuda") for x in heads]
+    img_d = torch.as_tensor(img, device="cuda")
+
+    def decode():
+        for g, x in zip(y["grids"], xs):
+            paddle.ops.yolo_box(x, img_d, [P28_ANCHORS[2 * i + k] for i in
+                                           P28_MASKS[g] for k in (0, 1)],
+                                y["classes"], conf_thresh=P28_NMS["score"],
+                                downsample_ratio=y["img"] // g)
+    yolo_ms = _p28_wall(decode)
+    geo = float((cb.cpu() - hb).abs().max())
+    check(geo <= P28_GEO_TOL, f"28(c) yolo_box boxes differ by {geo} px")
+    score_err = float((cs.cpu() - hs).abs().max())
+    check(torch.equal(cn.cpu(), hn), f"28(c) kept per image {cn} / {hn}")
+    kept_err = _p28_same_dets(ck.cpu().numpy(), hk.numpy(), hn.numpy())
+    # ground truth: 8 of an image's kept boxes moved a few pixels, with
+    # their labels, and 4 boxes nothing detected
+    gts, dets, start = [], hk.numpy(), 0
+    for k in hn.numpy():
+        near = dets[start:start + min(k, 8)]
+        start += k
+        xy = rs.rand(4, 2) * 500
+        far = np.concatenate([xy, xy + 20 + rs.rand(4, 2) * 100], 1)
+        boxes = np.concatenate([near[:, 2:] + rs.randn(len(near), 4) * 3,
+                                far]).astype(np.float32)
+        gts.append((boxes, np.concatenate(
+            [near[:, 0], rs.randint(0, y["classes"], 4)]).astype(int)))
+    card_map = _p28_map(paddle, ck, cn, gts)
+    host_map = _p28_map(paddle, hk, hn, gts)
+    check(card_map == host_map, f"28(c) mAP {card_map} / {host_map}")
+    # yolov3_loss over the three heads, 50 gt boxes an image
+    gt_box = np.concatenate([rs.rand(y["batch"], y["gt"], 2) * 0.8 + 0.1,
+                             rs.rand(y["batch"], y["gt"], 2) * 0.3 + 0.02],
+                            2).astype(np.float32)
+    gt_label = rs.randint(0, y["classes"], (y["batch"], y["gt"]))
+    losses = {}
+    for device in ("cuda", "cpu"):
+        xs = [torch.as_tensor(h, device=device).requires_grad_()
+              for h in heads]
+
+        last = {}
+
+        def yolo_loss():
+            for x in xs:
+                x.grad = None
+            tot = 0
+            for g, x in zip(y["grids"], xs):
+                tot = tot + paddle.ops.yolov3_loss(
+                    x, torch.as_tensor(gt_box, device=device),
+                    torch.as_tensor(gt_label, device=device), P28_ANCHORS,
+                    list(P28_MASKS[g]), y["classes"], ignore_thresh=0.7,
+                    downsample_ratio=y["img"] // g).sum()
+            tot.backward()
+            last["loss"] = tot.detach().cpu()
+        if device == "cuda":
+            ms = _p28_wall(yolo_loss, runs=1)    # a warm-up, then timed
+        else:
+            ms = None
+            with _p28_one_thread():
+                yolo_loss()
+        losses[device] = (last["loss"], [x.grad.cpu() for x in xs], ms)
+    loss_err = _p28_rel(losses["cuda"][0], losses["cpu"][0])
+    grad_err = max(_p28_rel(a, b) for a, b in zip(losses["cuda"][1],
+                                                 losses["cpu"][1]))
+    check(loss_err <= P28_LOSS_TOL and grad_err <= P28_LOSS_TOL,
+          f"28(c) yolov3_loss rel err {loss_err}, grad {grad_err}")
+    roi = _p28_roi_align(paddle)
+    res = {"card": card, "yolo": y, "nms": P28_NMS,
+           "yolo_box_ms": yolo_ms, "multiclass_nms_ms": nms_ms,
+           "nms_host_share": nms_ms / (yolo_ms + nms_ms),
+           "host_run_nms_ms": host_nms_ms,
+           "kept_per_image": cn.cpu().tolist(),
+           "boxes_max_abs_err_px": geo, "scores_max_abs_err": score_err,
+           "kept_max_abs_err": kept_err,
+           "map_11point": card_map,
+           "yolov3_loss_fwd_bwd_ms": losses["cuda"][2],
+           "yolov3_loss_rel_err": loss_err, "yolov3_grad_rel_err": grad_err,
+           "roi_align": roi}
+    log(f"[detection] {json.dumps(res)}")
+    return res
+
+
+def _p28_roi_align(paddle):
+    """roi_align on [2, 1024, 50, 76] (an 800 x 1216 image at stride 16),
+    512 RoIs an image, 14 x 14, scale 1/16: forward and backward timed at
+    full size; the first ``checked`` RoIs of each image against the host
+    (forward and both gradients)."""
+    r = P28_ROI
+    rs = np.random.RandomState(2830)
+    feat = rs.randn(r["batch"], r["channels"], r["h"], r["w"]).astype(
+        np.float32)
+    xy = rs.rand(r["batch"] * r["rois"], 2) * [1100, 700]
+    wh = 16 + rs.rand(r["batch"] * r["rois"], 2) * 300
+    boxes = np.concatenate([xy, np.minimum(xy + wh, [1215, 799])],
+                           1).astype(np.float32)
+
+    def run(device, f, bx, nums, ct):
+        x = torch.as_tensor(f, device=device).requires_grad_()
+        b = torch.as_tensor(bx, device=device).requires_grad_()
+        out = paddle.ops.roi_align(x, b, nums, output_size=r["out"],
+                                   spatial_scale=r["scale"])
+        (out * ct.to(device)).sum().backward()
+        return out.detach(), x.grad, b.grad
+
+    def cotangent(rois, device):
+        g = torch.Generator(device=device).manual_seed(5)
+        return torch.randn((rois, r["channels"], r["out"], r["out"]),
+                           generator=g, device=device)
+    full = [r["rois"]] * r["batch"]
+    ct = cotangent(sum(full), "cuda")
+    fwd_bwd_ms = _p28_wall(lambda: run("cuda", feat, boxes, full, ct),
+                           runs=2)
+    k = r["checked"]
+    sub = np.concatenate([boxes[i * r["rois"]:i * r["rois"] + k]
+                          for i in range(r["batch"])])
+    ct = cotangent(k * r["batch"], "cpu")
+    card = run("cuda", feat, sub, [k] * r["batch"], ct)
+    host = run("cpu", feat, sub, [k] * r["batch"], ct)
+    errs = [_p28_rel(a, b) for a, b in zip(card, host)]
+    check(max(errs) <= P28_ROI_TOL, f"28(c) roi_align rel errs {errs}")
+    return {"shape": r, "fwd_bwd_ms": fwd_bwd_ms,
+            "rel_err_out_dx_dboxes": errs}
+
+
+def _p28_zipf_ids(rs, vocab, shape):
+    """Ids with a Zipf-like skew: rank r drawn with weight 1 / (r + 10),
+    over a seeded permutation of the vocabulary."""
+    w = 1.0 / (np.arange(vocab) + 10.0)
+    ranks = rs.choice(vocab, size=int(np.prod(shape)), p=w / w.sum())
+    return rs.permutation(vocab)[ranks].reshape(shape).astype(np.int64)
+
+
+def _p28_sparse(paddle, card):
+    """28(d): Embedding(50304, 768, sparse=True) f32, b32 x s128 Zipf ids,
+    4 SGD steps and 4 Adam lazy_mode steps: the gradient a SelectedRows
+    of at most 4096 rows, untouched rows and moments bitwise unchanged,
+    touched rows against the host; the step against the dense Embedding
+    with Adam."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    e = P28_EMB
+    rs = np.random.RandomState(2831)
+    table = (rs.randn(e["vocab"], e["dim"]) * 0.02).astype(np.float32)
+    ids = [_p28_zipf_ids(rs, e["vocab"], (e["batch"], e["seq"]))
+           for _ in range(e["steps"])]
+    tgt = (rs.randn(e["batch"], e["seq"], e["dim"]) * 0.02).astype(
+        np.float32)
+    touched = np.unique(np.concatenate([i.reshape(-1) for i in ids]))
+    untouched = np.setdiff1d(np.arange(e["vocab"]), touched)
+    res = {"card": card, "shape": e, "touched_rows": int(touched.size)}
+
+    def train(device, opt_name, sparse, timed=False, **kw):
+        with paddle.device.device_scope(device):
+            emb = paddle.nn.Embedding(e["vocab"], e["dim"], sparse=sparse)
+            emb.weight.set_value(table)
+            opt = getattr(paddle.optimizer, opt_name)(
+                learning_rate=0.1, parameters=emb.parameters(), **kw)
+            target = paddle.to_tensor(tgt)
+            rows, nbytes, times = [], [], []
+            for s in range(e["steps"]):
+                if timed:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                out = emb(paddle.to_tensor(ids[s]))
+                ((out - target) ** 2).mean().backward()
+                g = emb.weight.grad
+                if sparse:
+                    check(g.is_sparse, "28(d) the table's gradient is dense")
+                    sr = SelectedRows.of(g).coalesce()
+                    rows.append(int(sr.rows.numel()))
+                    nbytes.append(sr.nbytes)
+                opt.step()
+                opt.clear_grad()
+                if timed:
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3)
+            slots = opt._slots.get(next(iter(opt._slots)), {}) \
+                if opt._slots else {}
+            return emb.weight.detach(), slots, rows, nbytes, times
+    for opt_name, kw in (("SGD", {}), ("Adam", {"lazy_mode": True})):
+        w, slots, rows, nbytes, times = train("gpu", opt_name, True,
+                                              timed=True, **kw)
+        hw, hslots, *_ = train("cpu", opt_name, True, **kw)
+        check(max(rows) <= 4096 and max(nbytes) <= 4096 * e["dim"] * 4
+              + 4096 * 8, f"28(d) {opt_name}: {rows} rows, {nbytes} B")
+        wc = w.cpu()
+        check(torch.equal(wc[untouched], torch.from_numpy(table[untouched])),
+              f"28(d) {opt_name}: an untouched row moved")
+        for k, m in slots.items():
+            check(not m.cpu()[untouched].any(),
+                  f"28(d) {opt_name}: an untouched row's {k} moved")
+        err = _p28_rel(wc[touched] - torch.from_numpy(table[touched]),
+                       hw[touched] - torch.from_numpy(table[touched]))
+        check(err <= P28_EMB_TOL, f"28(d) {opt_name}: touched rows rel err "
+                                  f"{err} (of the update)")
+        res[opt_name] = {"grad_rows_max": max(rows),
+                         "grad_bytes_max": max(nbytes),
+                         "dense_grad_bytes": e["vocab"] * e["dim"] * 4,
+                         "step_ms": times, "update_rel_err_vs_host": err}
+    *_, dense_times = train("gpu", "Adam", False, timed=True)
+    res["dense_adam_step_ms"] = dense_times
+    log(f"[sparse embedding] {json.dumps(res)}")
+    return res
+
+
+def _p28_quant(paddle, card):
+    """28(e): QAT(QuantConfig()) over every Linear of BERT-base, 4 f32
+    AdamW steps, the loss finite; one quantized layer's forward and
+    straight-through backward against the host; weight_quantize at 8
+    bits within half a step per channel; a PTQ calibration over 4
+    batches."""
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    q = P28_QAT
+    cfg = BertConfig.bert_base()
+    rs = np.random.RandomState(2832)
+    batches = []
+    for _ in range(max(q["steps"], q["calib"])):
+        ids = rs.randint(0, cfg.vocab_size, (q["batch"], q["seq"]))
+        lab = np.where(rs.rand(q["batch"], q["seq"]) < 0.15, ids, -100)
+        batches.append((torch.as_tensor(ids, device="cuda"),
+                        torch.as_tensor(lab, device="cuda")))
+    net = MLM(Bert(cfg, device="cuda", seed=0))
+    n_linear = sum(isinstance(m, paddle.nn.Linear) for m in net.modules())
+    net = Q.QAT(Q.QuantConfig()).quantize(net)
+    quanted = [m for m in net.modules() if isinstance(m, Q.QuantedLinear)]
+    # 4 a layer (qkv, out, the FFN's two), the pooler's and the MLM's
+    check(len(quanted) == n_linear == 4 * cfg.num_hidden_layers + 2,
+          f"28(e) {len(quanted)} of {n_linear} Linears quantized")
+    opt = paddle.optimizer.AdamW(learning_rate=1e-5,
+                                 parameters=net.parameters())
+    losses, times = [], []
+    for s in range(q["steps"]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = net(*batches[s])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t) * 1e3)
+    check(all(np.isfinite(losses)), f"28(e) QAT losses {losses}")
+    # one quantized layer (the first FFN's in), card against host
+    layer = dict(net.named_modules())["bert.encoder.layers.0.linear1"]
+    x = torch.as_tensor(rs.randn(8, layer.inner.weight.shape[0]).astype(
+        np.float32) * 2)
+    ct = torch.as_tensor(rs.randn(8, layer.inner.weight.shape[1]).astype(
+        np.float32))
+    host = copy.deepcopy(layer).cpu()
+    got = {}
+    for tag, lay, dev in (("card", layer, "cuda"), ("host", host, "cpu")):
+        lay.eval()
+        lay.act_quanter._calibrating = False
+        xi = x.to(dev).requires_grad_()
+        out = lay(xi)
+        (out * ct.to(dev)).sum().backward()
+        got[tag] = (out.detach().cpu(), xi.grad.cpu(),
+                    lay.inner.weight.grad.cpu())
+        lay.inner.weight.grad = None
+    layer_err = [_p28_rel(a, b) for a, b in zip(got["card"], got["host"])]
+    check(max(layer_err) <= P28_QAT_TOL, f"28(e) quantized layer rel errs "
+                                         f"{layer_err}")
+    # weight_quantize: every channel within half a quantization step
+    wq = Q.weight_quantize(net, bits=8)
+    worst = 0.0
+    for name, rec in wq.items():
+        sub = dict(net.named_modules())[name]
+        w = sub.inner.weight.detach().cpu().numpy()
+        step = rec["scale"] / 127
+        err = np.abs(rec["int8"].astype(np.float32) * step - w) / step
+        worst = max(worst, float(err.max()))
+    check(worst <= 0.5 + 1e-3, f"28(e) weight_quantize error {worst} steps")
+    # PTQ over 4 batches on a fresh BERT-base
+    ptq = Q.PTQ(Q.QuantConfig())
+    pnet = ptq.quantize(MLM(Bert(cfg, device="cuda", seed=1)))
+    t = time.perf_counter()
+    ptq.calibrate(pnet, [b[0] for b in batches[:q["calib"]]])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t
+    ptq.convert(pnet)
+    scales = [float(m.scale) for m in pnet.modules()
+              if isinstance(m, Q.AbsmaxObserver)]
+    check(all(np.isfinite(scales)) and min(scales) > 0,
+          "28(e) PTQ scales not positive")
+    res = {"card": card, "qat_layers": len(quanted), "qat_losses": losses,
+           "qat_step_ms": times, "layer_rel_err_out_dx_dw": layer_err,
+           "weight_quantize_worst_steps": worst,
+           "weight_quantize_layers": len(wq), "ptq_calibration_s": calib_s,
+           "ptq_observers": len(scales)}
+    log(f"[quantization] {json.dumps(res)}")
+    del net, pnet, opt
+    return res
+
+
+def _p28_to(v, device):
+    """A sweep argument on ``device``: arrays (also inside a ``Raw`` list
+    or tuple) become tensors there, anything else passes."""
+    from paddle_tpu_torch.testing.op_cases import Raw
+    if isinstance(v, Raw):
+        v = v.value
+        if isinstance(v, (list, tuple)):
+            return type(v)(_p28_to(a, device) for a in v)
+    if isinstance(v, np.ndarray):
+        return torch.as_tensor(v, device=device)
+    return v
+
+
+def _p28_sweep_case(paddle, case, device):
+    args = [_p28_to(a, device) for a in case.args]
+    for i in case.grad:
+        args[i] = args[i].clone().float().requires_grad_()
+    kw = {k: _p28_to(v, device) for k, v in case.kw.items()}
+    out = paddle.ops.OP_REGISTRY[case.name](*args, **kw)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    grads = []
+    if case.grad:
+        loss = 0
+        for k, o in enumerate(outs):
+            if isinstance(o, torch.Tensor) and o.is_floating_point():
+                ct = np.random.RandomState(100 + k).uniform(
+                    -1, 1, tuple(o.shape)).astype(np.float32)
+                loss = loss + (o * torch.as_tensor(ct, device=device)).sum()
+        loss.backward()
+        grads = [args[i].grad for i in case.grad]
+    return outs, grads
+
+
+def _p28_same(a, b, what):
+    if isinstance(a, (list, tuple)):
+        for x, y in zip(a, b):
+            _p28_same(x, y, what)
+        return
+    if not isinstance(a, torch.Tensor):
+        check(np.allclose(np.asarray(a, np.float64),
+                          np.asarray(b, np.float64), rtol=P28_SWEEP_TOL,
+                          atol=1e-6), f"28(f) {what}: {a} / {b}")
+        return
+    check(a.device.type == "cuda", f"28(f) {what} came back on {a.device}")
+    a, b = a.detach().cpu(), b.detach().cpu()
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"28(f) {what}: {a.shape} {a.dtype} / {b.shape} {b.dtype}")
+    if a.is_floating_point():
+        ok = torch.allclose(a.double(), b.double(), rtol=P28_SWEEP_TOL,
+                            atol=1e-5, equal_nan=True)
+    else:
+        ok = torch.equal(a, b)
+    if not ok:
+        check(False, f"28(f) {what}: card and host differ by "
+                     f"{float((a.double() - b.double()).abs().max())}")
+
+
+def _p28_sweep(paddle, card):
+    """28(f): every registry name of the long tail, at the sweep's small
+    shapes, on CUDA tensors against the same call on CPU tensors; the
+    random draws in distribution; the ragged sequence ops, the
+    decompositions (by reconstruction), py_func and the FPN routing."""
+    import paddle_tpu_torch.quantization  # noqa: F401  fake_quant's cases
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+    from paddle_tpu_torch.testing import long_tail_cases as L
+    t0 = time.perf_counter()
+    names = set()
+    for group in L.GROUPS.values():
+        for case in group:
+            with paddle.device.device_scope("gpu"):
+                got = _p28_sweep_case(paddle, case, "cuda")
+            with paddle.device.device_scope("cpu"):
+                want = _p28_sweep_case(paddle, case, "cpu")
+            _p28_same(got[0], want[0], f"{case} output")
+            _p28_same(got[1], want[1], f"{case} gradient")
+            names.add(case.name)
+    S = paddle.ops.sequence
+    vals = np.random.RandomState(0).randn(8, 3).astype(np.float32)
+    ids = np.random.RandomState(1).randint(0, 6, 8)
+    splits = np.array([0, 3, 3, 7, 8], np.int32)
+    calls = {
+        "sequence_pool": lambda r, i, d: S.sequence_pool(r, "max"),
+        "sequence_softmax": lambda r, i, d: S.sequence_softmax(r),
+        "sequence_expand": lambda r, i, d: S.sequence_expand(
+            torch.arange(12., device=d).reshape(4, 3), r),
+        "sequence_concat": lambda r, i, d: S.sequence_concat([r, r]),
+        "sequence_reverse": lambda r, i, d: S.sequence_reverse(r),
+        "sequence_first_step": lambda r, i, d: S.sequence_first_step(r),
+        "sequence_last_step": lambda r, i, d: S.sequence_last_step(r),
+        "sequence_slice": lambda r, i, d: S.sequence_slice(
+            r, np.array([1, 0, 2, 0]), np.array([2, 0, 2, 1])),
+        "sequence_pad": lambda r, i, d: S.sequence_pad(r, 0.5, 6),
+        "sequence_unpad": lambda r, i, d: S.sequence_unpad(
+            S.sequence_pad(r)[0], np.array([3, 0, 4, 1])),
+        "sequence_mask": lambda r, i, d: S.sequence_mask(
+            torch.tensor([3, 0, 4, 1], device=d), 6),
+        "sequence_expand_as": lambda r, i, d: S.sequence_expand_as(
+            torch.arange(12., device=d).reshape(4, 3), r),
+        "sequence_enumerate": lambda r, i, d: S.sequence_enumerate(i, 3),
+        "sequence_erase": lambda r, i, d: S.sequence_erase(i, [0, 3]),
+        "sequence_reshape": lambda r, i, d: S.sequence_reshape(
+            RaggedTensor(r.values, [0, 2, 2, 6, 8]), 6),
+        "sequence_scatter": lambda r, i, d: S.sequence_scatter(
+            torch.zeros(4, 6, device=d), i, RaggedTensor(
+                torch.ones(8, device=d), splits)),
+        "sequence_conv": lambda r, i, d: S.sequence_conv(
+            r, torch.ones(9, 2, device=d), 3),
+        "sequence_topk_avg_pooling": lambda r, i, d:
+            S.sequence_topk_avg_pooling(r, [1, 2]),
+    }
+    for name, fn in calls.items():
+        out, row_splits = [], []                  # the card's, the host's
+        for dev in ("cuda", "cpu"):
+            r = RaggedTensor(torch.as_tensor(vals, device=dev), splits)
+            i = RaggedTensor(torch.as_tensor(ids, device=dev), splits)
+            o = fn(r, i, dev)
+            o = o if isinstance(o, tuple) else (o,)
+            out.append([x.values if isinstance(x, RaggedTensor) else x
+                        for x in o])
+            row_splits.append([x.row_splits.cpu() for x in o
+                               if isinstance(x, RaggedTensor)])
+        _p28_same(out[0], out[1], name)
+        check(all(torch.equal(a, b) for a, b in zip(*row_splits)),
+              f"28(f) {name}: row splits differ")
+        names.add(name)
+    a = torch.as_tensor(np.random.RandomState(2).randn(6, 4),
+                        dtype=torch.float32, device="cuda")
+    u, s, vt = paddle.ops.svd(a)
+    check(float((u * s @ vt - a).abs().max()) < 1e-4, "28(f) svd")
+    q_, r_ = paddle.ops.qr(a)
+    check(float((q_ @ r_ - a).abs().max()) < 1e-4, "28(f) qr")
+    sym = a.T @ a
+    w, v = paddle.ops.eigh(sym)
+    check(float((v * w @ v.T - sym).abs().max()) < 1e-3, "28(f) eigh")
+    names |= {"svd", "qr", "eigh"}
+    x = torch.randn(3, 4, device="cuda", requires_grad=True)
+    yv = paddle.ops.py_func(lambda z: np.tanh(z), x,
+                            backward_func=lambda z, g: g * (1 - np.tanh(z)
+                                                            ** 2))
+    yv.sum().backward()
+    check(yv.device.type == "cuda" and torch.allclose(
+        x.grad, 1 - torch.tanh(x.detach()) ** 2, atol=1e-6), "28(f) py_func")
+    names.add("py_func")
+    rois = torch.as_tensor(np.abs(np.random.RandomState(3).randn(12, 4))
+                           * 200 + [0, 0, 220, 220], dtype=torch.float32,
+                           device="cuda")
+    lv, restore = paddle.ops.distribute_fpn_proposals(rois, 2, 5, 4, 224)
+    hv, hrestore = paddle.ops.distribute_fpn_proposals(rois.cpu(), 2, 5, 4,
+                                                       224)
+    _p28_same(list(lv) + [restore], list(hv) + [hrestore],
+              "distribute_fpn_proposals")
+    names.add("distribute_fpn_proposals")
+    draws = {}
+    paddle.seed(0)
+    with paddle.device.device_scope("gpu"):
+        for name, fn, mean, sd in (
+                ("standard_gamma", lambda: paddle.ops.standard_gamma(
+                    torch.full([20000], 2.0, device="cuda")), 2.0, 2 ** 0.5),
+                ("binomial", lambda: paddle.ops.binomial(
+                    torch.full([20000], 10.0, device="cuda"),
+                    torch.full([20000], 0.3, device="cuda")), 3.0,
+                 2.1 ** 0.5),
+                ("log_normal", lambda: paddle.ops.log_normal(0.0, 0.5,
+                                                             [20000]),
+                 math.exp(0.125), ((math.exp(0.25) - 1)
+                                   * math.exp(0.25)) ** 0.5)):
+            d = fn()
+            check(d.device.type == "cuda", f"28(f) {name} on {d.device}")
+            m = float(d.double().mean())
+            check(abs(m - mean) <= 4 * sd / 20000 ** 0.5,
+                  f"28(f) {name} mean {m}, not {mean}")
+            draws[name] = m
+            names.add(name)
+    missing = set(paddle.ops.OP_REGISTRY) & (
+        {c.name for g in L.GROUPS.values() for c in g} | L.OWN_TESTS)
+    check(missing <= names, f"28(f) not run on the card: {missing - names}")
+    res = {"card": card, "names": len(names),
+           "seconds": time.perf_counter() - t0, "draw_means": draws}
+    log(f"[long-tail sweep] {json.dumps(res)}")
+    return res
+
+
+def phase_long_tail(card=None):
+    """Phase 28: (a) BERT-base + CRF through Model.fit; (b) CTC at an ASR
+    shape; (c) YOLOv3 and R50-C4 detection; (d) a sparse embedding at
+    GPT-2 small's table; (e) QAT and PTQ of BERT-base; (f) the long
+    tail's registry names on the card. Returns the flash launches of (a)
+    and the results."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    t0 = time.perf_counter()
+    res = {"card": card}
+    times = {}
+    t = time.perf_counter()
+    counts, res["crf"] = _p28_crf(paddle, card)
+    times["crf"] = time.perf_counter() - t
+    for name, fn in (("ctc", _p28_ctc), ("detection", _p28_detection),
+                     ("sparse_embedding", _p28_sparse),
+                     ("quantization", _p28_quant), ("sweep", _p28_sweep)):
+        t = time.perf_counter()
+        res[name] = fn(paddle, card)
+        times[name] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    res["seconds_by_part"] = times
+    log(f"[long tail] phase 28 {res['seconds']:.1f} s "
+        f"({json.dumps(times)}); card: {card}")
+    return counts, res
+
+
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
@@ -9053,35 +9995,72 @@ def main():
         return 2
     setup()
     t_all = time.perf_counter()
+    laps = [t_all]
+
+    def lap(name):
+        """The seconds each phase took (the script's budget, by phase)."""
+        laps.append(time.perf_counter())
+        log(f"[time] {name} {laps[-1] - laps[-2]:.1f} s")
     card = phase_build()
+    lap("build")
     worst_c = phase_contiguous()
+    lap("contiguous")
     worst_p = phase_paged()
+    lap("paged")
     counts, serve = phase_main_path()
+    lap("main_path")
     timings = phase_timings(serve["block_size"])
+    lap("timings")
     timings16 = phase_timings(serve["block_size"], torch.float16)
+    lap("timings_f16")
     worst_ce = phase_ce()
+    lap("ce")
     equiv = phase_bert_equivalence()
+    lap("bert_equivalence")
     ce_counts, flagship = phase_flagship()
+    lap("flagship")
     ce_bert, ce_gpt = phase_ce_timings()
+    lap("ce_timings")
     worst_fl = phase_flash()
+    lap("flash")
     gpt_equiv = phase_gpt_equivalence()
+    lap("gpt_equivalence")
     ls_counts, longseq = phase_longseq()
+    lap("longseq")
     fl_timing, sweep = phase_flash_timings()
+    lap("flash_timings")
     worst_ce16, worst_fl16 = phase_fp16_kernels()
+    lap("fp16_kernels")
     ce16, fl16 = phase_fp16_timings()
+    lap("fp16_timings")
     o2_counts, o2 = phase_o2_f16()
+    lap("o2_f16")
     o2_equiv = phase_o2_f16_equivalence()
+    lap("o2_f16_equivalence")
     hapi_counts, hapi = phase_hapi(card, flagship, o2)
+    lap("hapi")
     dy_counts, dy_serve_counts, dygraph = phase_dygraph(card)
+    lap("dygraph")
     tf_counts, tf_decode_counts, transformer = phase_transformer(card)
+    lap("transformer")
     vision = phase_vision(card)
+    lap("vision")
     generation, gen_counts = phase_generation(card)
+    lap("generation")
     st_counts, static_res = phase_static(card)
+    lap("static")
     th_counts, trainer_host = phase_trainer_host(card)
+    lap("trainer_host")
     ps_counts, ps_res = phase_ps(card)
+    lap("ps")
     p25_counts, p25 = phase_distributed(card)
+    lap("distributed")
     p26_counts, p26 = phase_fleet_training(card)
+    lap("fleet_training")
     p27_counts, p27 = phase_multi_process(card)
+    lap("multi_process")
+    p28_counts, p28 = phase_long_tail(card)
+    lap("long_tail")
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -9193,6 +10172,9 @@ def main():
         _distributed_fields(rec, name, p25_counts)
         _fleet_training_fields(rec, name, p26_counts)
         _multi_process_fields(rec, name, p27_counts)
+        # phase 28(a): BERT-base + CRF through Model.fit (8 steps)
+        rec["launches_p28_crf"] = p28_counts[name]
+        rec["launches_p28_crf_sm90"] = p28_counts[f"{name}.sm90"]
         if name == "flash_fwd":     # 22(c): each jit route's forward
             rec["launches_jit"] = {
                 r: c["flash_fwd"] for r, c in
@@ -9222,7 +10204,7 @@ def main():
                       "generation": generation, "static": static_res,
                       "trainer_host": trainer_host, "ps": ps_res,
                       "distributed": p25, "fleet_training": p26,
-                      "multi_process": p27}))
+                      "multi_process": p27, "long_tail": p28}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 tensor functions and config helpers that have a 2.0 equivalent, each over
 the port's ops. Imported at the bottom of ``paddle_tpu_torch/__init__``.
 
-``LoDTensor`` (the JAX package's RaggedTensor) waits for ``core/ragged``
-(ROADMAP Queue 1 item 9). ``get_tensor_from_selected_rows`` returns a
-dense tensor as it is: the port has no SelectedRows yet (item 9).
+``LoDTensor`` is ``core/ragged.RaggedTensor``, as in the JAX package.
+``get_tensor_from_selected_rows`` makes a SelectedRows (or a sparse COO
+gradient, the port's form of one on ``.grad``) dense and returns a dense
+tensor as it is.
 ``set_default_dtype`` records the name, which, as in the JAX package, no
 other function reads.
 """
@@ -25,7 +26,8 @@ __all__ = ["add_n", "mm", "numel", "rank", "shape", "is_tensor",
            "get_default_dtype", "set_default_dtype", "set_printoptions",
            "get_cudnn_version", "is_compiled_with_xpu",
            "create_parameter", "create_global_var",
-           "get_tensor_from_selected_rows", "VarBase", "LoDTensorArray"]
+           "get_tensor_from_selected_rows", "VarBase", "LoDTensor",
+           "LoDTensorArray"]
 
 
 def add_n(inputs):
@@ -166,7 +168,17 @@ def create_global_var(shape, value, dtype, persistable=False, name=None):
 
 
 def get_tensor_from_selected_rows(x):
+    """reference get_tensor_from_selected_rows_op.cc: densify."""
+    from .core.selected_rows import SelectedRows
+    if isinstance(x, _torch.Tensor) and x.is_sparse:
+        x = SelectedRows.of(x)
+    if isinstance(x, SelectedRows):
+        from .ops._dispatch import wrap
+        return wrap(x.to_dense())
     return x
+
+
+from .core.ragged import RaggedTensor as LoDTensor  # noqa: E402
 
 
 VarBase = _Tensor                       # the dygraph-era name for Tensor

@@ -15,6 +15,15 @@ stacked experts under ep: the rank's num_experts / ep rows). A
 ``PipelineLayer`` keeps every stage's parameters under the JAX names
 (``stages.{i}.{j}...``) on every rank, so they copy as they are.
 
+The long tail's layers copy the same way: ``SpectralNorm``'s
+``weight_u`` / ``weight_v`` are buffers, ``TreeConv``,
+``BilinearTensorProduct``, ``HSigmoidLoss`` and ``NCELoss`` hold their
+weights under the JAX names, and a quantized layer (``QuantedLinear`` /
+``QuantedConv2D``) holds ``inner.*`` and its observer's ``scale`` buffer
+(``act_quanter.scale``). A ``HistogramObserver``'s histogram lives on the
+host, outside ``functional_state``: ``load_jax_observer_state`` takes
+``{observer path: (hist, hi)}`` (the JAX observers' ``_hist`` / ``_hi``).
+
 ``load_jax_optimizer_state`` carries a JAX ``Optimizer.state_dict()``
 (every ``"{param}/{slot}"``, ``_step_count``, ``LR_Scheduler``) and a JAX
 ``GradScaler.state_dict()`` into a port optimizer and scaler, so a run
@@ -35,7 +44,8 @@ import numpy as np
 import torch
 
 __all__ = ["load_jax_params", "load_jax_static_params",
-           "load_jax_optimizer_state", "load_jax_checkpoint"]
+           "load_jax_optimizer_state", "load_jax_checkpoint",
+           "load_jax_observer_state"]
 
 
 def load_jax_params(module: torch.nn.Module, params,
@@ -89,6 +99,23 @@ def _sliced(module, values):
             if key in out:
                 out[key] = fn(local, np.asarray(_f32_array(out[key])))
     return out
+
+
+def load_jax_observer_state(module: torch.nn.Module, states):
+    """Seat each ``HistogramObserver``'s host histogram: ``states`` maps
+    an observer's module path to the JAX observer's ``(_hist, _hi)``
+    (``_hi`` None before any batch). Raises KeyError on a path that is not
+    a histogram observer of ``module``."""
+    from .quantization import HistogramObserver
+    subs = dict(module.named_modules())
+    for path, (hist, hi) in states.items():
+        obs = subs.get(path)
+        if not isinstance(obs, HistogramObserver):
+            raise KeyError(f"load_jax_observer_state: {path!r} is not a "
+                           "HistogramObserver")
+        obs._hist = np.array(hist, np.float64)
+        obs._hi = None if hi is None else float(hi)
+    return module
 
 
 def _copy_named(what, own, values):

@@ -8,8 +8,11 @@ port's generator), ``dice_loss``, ``soft_relu``,
 family, the pools, ``interpolate`` / ``upsample`` with the v1
 ``image_resize`` / ``resize_*``, ``pixel_shuffle``, ``unfold`` and the
 other names over ``ops/conv.py`` (``avg_pool1d`` and the 1-D adaptive
-pools go through the 2-D ops over a unit height, as in the JAX package).
-The names over the long-tail ops wait for ROADMAP Queue 1 item 9.
+pools go through the 2-D ops over a unit height, as in the JAX package);
+the names over the long-tail ops (``ops/{math_extra,detection,loss,
+sequence}.py``, with the JAX package's aliases: ``warpctc`` is
+``ctc_loss``, ``hash`` is ``hash_bucket``, ``continuous_value_model`` is
+``cvm``).
 
 ``linear`` is the JAX package's two recorded ops, ``matmul`` then
 ``add``, whenever AMP is on or a static Program records it (under O1 the gray bias add promotes the
@@ -71,6 +74,26 @@ from ..ops import (  # noqa: F401 - the conv ops (ops/conv.py)
     adaptive_avg_pool3d, adaptive_max_pool3d, interpolate, pixel_shuffle,
     unfold, affine_channel, deform_conv2d, deformable_conv, im2sequence,
     psroi_pool, random_crop, row_conv)
+from ..ops.math_extra import (  # noqa: F401 - the long tail's names
+    affine_grid, diag_embed, grid_sample, bilinear_tensor_product,
+    fsp_matrix, filter_by_instag, cvm as continuous_value_model,
+    hash_bucket as hash,  # noqa: A004
+    batch_fc, rank_attention, match_matrix_tensor, conv_shift, gru_unit,
+    lstm_unit, accuracy, auc)
+from ..ops.detection import (  # noqa: F401
+    anchor_generator, bipartite_match, box_clip, box_coder,
+    box_decoder_and_assign, collect_fpn_proposals, density_prior_box,
+    distribute_fpn_proposals, iou_similarity, matrix_nms,
+    mine_hard_examples, multiclass_nms, polygon_box_transform, prior_box,
+    roi_align, roi_pool, target_assign, yolo_box, yolov3_loss)
+from ..ops.loss import (  # noqa: F401
+    center_loss, ctc_loss, ctc_loss as warpctc, hsigmoid_loss,
+    linear_chain_crf, nce, viterbi_decode)
+from ..ops.sequence import (  # noqa: F401 - sequence_mask stays ours
+    sequence_concat, sequence_conv, sequence_enumerate, sequence_expand,
+    sequence_expand_as, sequence_first_step, sequence_last_step,
+    sequence_pad, sequence_pool, sequence_reshape, sequence_reverse,
+    sequence_scatter, sequence_slice, sequence_softmax, sequence_unpad)
 from ..ops import embedding as _embedding_op
 from ..core import rng as _rng
 from ..core.dtype import to_torch_dtype
@@ -91,7 +114,13 @@ def linear(x, weight, bias=None, name=None):
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` at the ids ``x`` (Paddle's argument order: ids
-    first). ``sparse`` is accepted; the gradient is dense."""
+    first). With ``sparse`` on a trainable table under grad, the table's
+    gradient is sparse (``core/selected_rows.py``), as the JAX eager form;
+    otherwise it is the dense op."""
+    if sparse and torch.is_grad_enabled() and not _dispatch_state.static \
+            and isinstance(weight, torch.Tensor) and weight.requires_grad:
+        from ..ops.norm_ops import _sparse_embedding
+        return _sparse_embedding(weight, x, padding_idx)
     return _embedding_op(weight, x, padding_idx=padding_idx, sparse=sparse)
 
 

@@ -9,8 +9,8 @@ layer's: elementwise dropout, as ``Dropout`` (the channelwise forms are
 ``functional.dropout2d`` / ``dropout3d``). The layers over the conv ops:
 ``Upsample`` and its two fixed-mode forms (``interpolate``, which is
 ``jax.image.resize``: ``align_corners`` is kept and ignored),
-``PixelShuffle``, ``Unfold`` and ``RowConv``. TreeConv and
-BilinearTensorProduct, over item 9's ops, wait for ROADMAP Queue 1 item 9.
+``PixelShuffle``, ``Unfold`` and ``RowConv``; ``BilinearTensorProduct``
+(x W_k y^T per output k) and ``TreeConv`` (TBCNN) over their ops.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ __all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
            "AlphaDropout", "Flatten", "Pad1D", "Pad2D", "Pad3D", "Identity",
            "Bilinear", "CosineSimilarity", "PairwiseDistance", "Upsample",
            "UpsamplingBilinear2D", "UpsamplingNearest2D", "PixelShuffle",
-           "Unfold", "RowConv"]
+           "Unfold", "RowConv", "BilinearTensorProduct", "TreeConv"]
 
 
 class Identity(Layer):
@@ -251,3 +251,42 @@ class RowConv(Layer):
 
     def forward(self, x):
         return ops.row_conv(x, self.weight)
+
+
+class BilinearTensorProduct(Layer):
+    """out[b, k] = x[b] W_k y[b] + bias[k], weight [out, in1, in2]."""
+
+    def __init__(self, input1_dim, input2_dim, output_dim, name=None,
+                 weight_attr=None, bias_attr=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [output_dim, input1_dim, input2_dim], attr=weight_attr,
+            default_initializer=I.XavierNormal())
+        self.bias = self.create_parameter([output_dim], attr=bias_attr,
+                                          is_bias=True)
+
+    def forward(self, x1, x2):
+        return ops.bilinear_tensor_product(x1, x2, self.weight, self.bias)
+
+
+class TreeConv(Layer):
+    """Tree-based convolution (TBCNN) over ``ops.tree_conv``; weight
+    [feature, 3, output, num_filters], bias [num_filters, output]."""
+
+    def __init__(self, feature_size, output_size, num_filters=1,
+                 max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+                 name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [feature_size, 3, output_size, num_filters], attr=param_attr,
+            default_initializer=I.XavierNormal())
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [num_filters, output_size], attr=bias_attr, is_bias=True)
+        self.max_depth = max_depth
+
+    def forward(self, nodes_vector, edge_set):
+        out = ops.tree_conv(nodes_vector, edge_set, self.weight,
+                            self.max_depth)
+        if self.bias is not None:
+            out = ops.add(out, ops.transpose(self.bias, [1, 0]))
+        return out

@@ -1,6 +1,9 @@
 """Loss layers (paddle_tpu/nn/layer/loss.py), each over the functional op
-of the same name. CTCLoss, HSigmoidLoss and NCELoss wait for their ops
-(ROADMAP Queue 1 item 9)."""
+of the same name; ``CTCLoss`` over ``ops.ctc_loss``, ``HSigmoidLoss``
+(weight [num_classes - 1, feature]) over ``ops.hsigmoid_loss`` and
+``NCELoss`` (weight [classes, dim]) over ``ops.nce``, whose negatives
+are the caller's ``sample_ids`` or, without them, drawn from numpy's
+global generator as the JAX layer draws them."""
 from __future__ import annotations
 
 from ... import ops
@@ -10,7 +13,7 @@ from .layers import Layer
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
            "BCEWithLogitsLoss", "KLDivLoss", "SmoothL1Loss", "HuberLoss",
            "MarginRankingLoss", "HingeEmbeddingLoss", "TripletMarginLoss",
-           "CosineEmbeddingLoss"]
+           "CosineEmbeddingLoss", "CTCLoss", "HSigmoidLoss", "NCELoss"]
 
 
 def _reduce(loss, reduction):
@@ -175,3 +178,61 @@ class CosineEmbeddingLoss(Layer):
         pos = 1.0 - sim
         neg = ops.clip(sim - self.margin, min=0.0)
         return _reduce(ops.where(label == 1, pos, neg), self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return ops.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                            blank=self.blank, reduction=self.reduction,
+                            norm_by_times=norm_by_times)
+
+
+class HSigmoidLoss(Layer):
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False,
+                 name=None):
+        super().__init__()
+        from .. import initializer as I
+        self.num_classes = num_classes
+        self.weight = self.create_parameter(
+            [num_classes - 1, feature_size], attr=weight_attr,
+            default_initializer=I.XavierNormal())
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [num_classes - 1], attr=bias_attr, is_bias=True)
+
+    def forward(self, input, label):  # noqa: A002
+        return ops.hsigmoid_loss(input, label, self.weight, self.bias,
+                                 num_classes=self.num_classes)
+
+
+class NCELoss(Layer):
+    def __init__(self, num_total_classes, dim, num_neg_samples=5,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        from .. import initializer as I
+        self.num_total_classes = num_total_classes
+        self.num_neg_samples = num_neg_samples
+        self.weight = self.create_parameter(
+            [num_total_classes, dim], attr=weight_attr,
+            default_initializer=I.XavierNormal())
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [num_total_classes], attr=bias_attr, is_bias=True)
+
+    def forward(self, input, label, sample_ids=None):  # noqa: A002
+        import numpy as np
+
+        from ...core.tensor import to_tensor
+        if sample_ids is None:
+            sample_ids = to_tensor(np.random.randint(
+                0, self.num_total_classes,
+                self.num_neg_samples).astype("int64"))
+        return ops.nce(input, label, self.weight, self.bias,
+                       sample_ids=sample_ids,
+                       num_neg_samples=self.num_neg_samples,
+                       num_total_classes=self.num_total_classes)

@@ -12,7 +12,11 @@ buffers move by Paddle's convention, ``running = momentum * running +
 ``use_global_stats``, the buffers normalize. ``SyncBatchNorm`` averages
 the moments over its ``sync_axis`` inside a region that binds it
 (``ops.batch_norm(sync_axis=...)``), and is plain BatchNorm elsewhere.
-SpectralNorm waits for item 9.
+
+SpectralNorm divides a weight by its largest singular value from power
+iteration on the persistent buffers ``weight_u`` / ``weight_v`` (N(0, 1)
+from ``RandomState(0)`` at init, as the JAX layer), which each forward
+updates outside the gradient; sigma = u^T W v differentiates through W.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import threading
 import torch
 
 from ... import ops
+from ...ops._dispatch import wrap
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
@@ -29,7 +34,7 @@ from .layers import Layer
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "SyncBatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm1D",
            "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
-           "RMSNorm"]
+           "RMSNorm", "SpectralNorm"]
 
 
 _sync = threading.local()
@@ -220,3 +225,39 @@ class LocalResponseNorm(Layer):
 
     def forward(self, x):
         return F.local_response_norm(x, *self.args)
+
+
+class SpectralNorm(Layer):
+    """weight / sigma_max(weight) by power iteration (reference
+    spectral_norm_op.cc)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 name=None, dtype="float32"):
+        super().__init__()
+        import numpy as np
+        self._dim = int(dim)
+        self._power_iters = int(power_iters)
+        self._eps = float(eps)
+        self._shape = tuple(int(s) for s in weight_shape)
+        h = self._shape[self._dim]
+        w = int(np.prod(self._shape)) // h
+        rng = np.random.RandomState(0)
+        self.register_buffer("weight_u", rng.normal(size=h).astype(dtype))
+        self.register_buffer("weight_v", rng.normal(size=w).astype(dtype))
+
+    def forward(self, weight):
+        h = self._shape[self._dim]
+        mat = torch.movedim(weight, self._dim, 0).reshape(h, -1)
+        with torch.no_grad():
+            u = self.weight_u.to(mat.dtype)
+            v = self.weight_v.to(mat.dtype)
+            m = mat.detach()
+            for _ in range(self._power_iters):
+                v = m.T @ u
+                v = v / (torch.linalg.vector_norm(v) + self._eps)
+                u = m @ v
+                u = u / (torch.linalg.vector_norm(u) + self._eps)
+            self.weight_u.copy_(u)
+            self.weight_v.copy_(v)
+        sigma = u @ (mat @ v)
+        return wrap(torch.div(weight, sigma))  # no cast point, as JAX's

@@ -18,12 +18,16 @@ from .activation import *    # noqa: F401,F403
 from .conv import *          # noqa: F401,F403
 from .norm_ops import *      # noqa: F401,F403
 from .loss import *          # noqa: F401,F403
+from .sequence import *      # noqa: F401,F403
+from .math_extra import *    # noqa: F401,F403
+from .detection import *     # noqa: F401,F403
 from .op_tail import *       # noqa: F401,F403
 
 from . import _bind  # noqa: F401,E402  attaches Tensor operators/methods
 
 _MODULES = ("math", "creation", "manipulation", "reduction", "logic",
-            "linalg", "activation", "conv", "norm_ops", "loss", "op_tail")
+            "linalg", "activation", "conv", "norm_ops", "loss", "sequence",
+            "math_extra", "detection", "op_tail")
 
 
 def _register_plain_ops():

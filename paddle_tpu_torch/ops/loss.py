@@ -1,7 +1,18 @@
-"""Loss ops (paddle_tpu/ops/loss.py): every loss whose JAX body is made of
-this slice's ops. The recursions and the sampled losses (``ctc_loss`` /
-``warpctc``, ``linear_chain_crf``, ``viterbi_decode``, ``nce``,
-``hsigmoid_loss``, ``center_loss``) wait for ROADMAP Queue 1 item 9.
+"""Loss ops (paddle_tpu/ops/loss.py), every loss of the JAX module.
+
+The CTC and CRF recursions (``ctc_loss`` / ``warpctc``,
+``linear_chain_crf``, ``viterbi_decode``) are the JAX ops' log-space
+alpha recursions, one step a time step in a Python loop over
+``lax.scan``'s body, with the same ``NEG = -1e30`` for impossible
+states and the same ``logsumexp`` (``_lse``: the max held out of the
+gradient), so an infeasible CTC row (fewer frames than its labels need)
+gives JAX's finite loss near 1e30 and JAX's gradient, where torch's
+``F.ctc_loss`` gives inf. ``warpctc`` is JAX's: it passes ``blank`` on
+and drops ``norm_by_times`` (the JAX op's signature; a reference
+quirk). ``nce`` takes its negatives from the caller (``sample_ids``).
+The recursions run in f32 from f16 / bf16 / f32 inputs, as the JAX ops
+do; an f64 input stays f64 (the JAX ops cast it down to f32), so a host
+run in f64 is a reference for the card's f32.
 
 ``cross_entropy`` with hard labels gathers the label's log-probability
 (the JAX op multiplies by a one-hot; the sums are the same): a label
@@ -24,7 +35,9 @@ __all__ = ["softmax_with_cross_entropy", "cross_entropy", "nll_loss",
            "log_loss", "triplet_margin_loss", "bpr_loss", "hinge_loss",
            "rank_loss", "modified_huber_loss",
            "teacher_student_sigmoid_loss", "npair_loss",
-           "sigmoid_focal_loss", "kldiv_loss", "bce_loss"]
+           "sigmoid_focal_loss", "kldiv_loss", "bce_loss", "ctc_loss",
+           "warpctc", "linear_chain_crf", "viterbi_decode", "center_loss",
+           "nce", "hsigmoid_loss"]
 
 
 def _reduce(loss, reduction):
@@ -342,3 +355,193 @@ def kldiv_loss(x, target, reduction="mean"):
 
 def bce_loss(input, label):  # noqa: A002
     return binary_cross_entropy(input, label, reduction="none")
+
+
+# -- the recursions and the sampled losses ---------------------------------
+
+NEG = -1e30
+
+
+def _f32_up(x):
+    """x in f32, or in f64 if it is f64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _lse(x, dim):
+    """``jax.scipy.special.logsumexp``: the max (0 where it is not finite)
+    held out of the gradient, so a tie of impossible states splits its
+    gradient evenly where torch.logsumexp's ``exp(x - result)`` would
+    give each state 1."""
+    m = torch.amax(x.detach(), dim, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return torch.squeeze(
+        torch.log(torch.sum(torch.exp(x - m), dim, keepdim=True)) + m, dim)
+
+
+@defop
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """CTC loss (reference warpctc_op.cc): log_probs [T, B, C] logits
+    (softmax inside, as warpctc), labels [B, S], the lengths [B]."""
+    lp = torch.log_softmax(_f32_up(log_probs), -1)
+    T, B, C = lp.shape
+    S = labels.shape[1]
+    L = 2 * S + 1
+    dev = lp.device
+    labels = labels.long()
+    input_lengths = input_lengths.long()
+    label_lengths = label_lengths.long()
+    ext = torch.full((B, L), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels
+    skip_ok = torch.cat([torch.zeros((B, 2), dtype=torch.bool, device=dev),
+                         ext[:, 2:] != ext[:, :-2]], 1)
+    # [B, L] a frame; unbind's backward stacks the frames' cotangents
+    # once (indexing emits[t] would allocate a whole [T, B, L] each step)
+    emits = torch.gather(lp, 2, ext[None].expand(T, B, L)).unbind(0)
+    neg = torch.full((), NEG, dtype=lp.dtype, device=dev)
+    alpha = torch.full((B, L), NEG, dtype=lp.dtype, device=dev)
+    alpha = torch.cat([emits[0][:, :1], alpha[:, 1:]], 1)
+    if S > 0:
+        a1 = torch.where(label_lengths > 0, emits[0][:, 1], neg)
+        alpha = torch.cat([alpha[:, :1], a1[:, None], alpha[:, 2:]], 1)
+    pad1 = torch.full((B, 1), NEG, dtype=lp.dtype, device=dev)
+    pad2 = torch.full((B, 2), NEG, dtype=lp.dtype, device=dev)
+    for t in range(1, T):
+        prev1 = torch.cat([pad1, alpha[:, :-1]], 1)
+        prev2 = torch.where(skip_ok, torch.cat([pad2, alpha[:, :-2]], 1), neg)
+        new = _lse(torch.stack([alpha, prev1, prev2]), 0) + emits[t]
+        alpha = torch.where((t < input_lengths)[:, None], new, alpha)
+    idx_last = (2 * label_lengths)[:, None]
+    idx_prev = torch.clamp(idx_last - 1, min=0)
+    a_last = torch.gather(alpha, 1, idx_last)[:, 0]
+    a_prev = torch.where(label_lengths > 0,
+                         torch.gather(alpha, 1, idx_prev)[:, 0], neg)
+    loss = -_lse(torch.stack([a_last, a_prev]), 0)
+    if norm_by_times:
+        loss = loss / torch.clamp(input_lengths.float(), min=1.0)
+    if reduction == "mean":
+        # warpctc's mean: each loss over its label length, then the batch
+        return torch.mean(loss / torch.clamp(label_lengths.float(), min=1.0))
+    return _reduce(loss, reduction)
+
+
+def warpctc(logits, label, logits_length=None, labels_length=None,
+            blank=0, norm_by_times=False):
+    return ctc_loss(logits, label, logits_length, labels_length,
+                    blank=blank)
+
+
+def _crf_parts(emission, transition, length):
+    em = _f32_up(emission)
+    B, T, _ = em.shape
+    tr = transition.to(em.dtype)
+    if length is None:
+        length = torch.full((B,), T, dtype=torch.long, device=em.device)
+    return em, tr[0], tr[1], tr[2:], length.long()
+
+
+@defop
+def linear_chain_crf(emission, transition, label, length=None):
+    """Linear-chain CRF negative log-likelihood [B] (reference
+    linear_chain_crf_op.cc): emission [B, T, N], transition [N + 2, N]
+    (start, stop, then from -> to), label [B, T], length [B] or None."""
+    em, start, stop, trans, length = _crf_parts(emission, transition, length)
+    B, T, _ = em.shape
+    em_t = em.unbind(1)                   # one backward stack, not T
+    alpha = start[None, :] + em_t[0]
+    for t in range(1, T):
+        new = _lse(alpha[:, :, None] + trans[None], 1) + em_t[t]
+        alpha = torch.where((t < length)[:, None], new, alpha)
+    log_z = _lse(alpha + stop[None, :], 1)
+    label = label.long()
+    br = torch.arange(B, device=em.device)
+    gold = start[label[:, 0]] + em_t[0][br, label[:, 0]]
+    for t in range(1, T):
+        add = trans[label[:, t - 1], label[:, t]] + em_t[t][br, label[:, t]]
+        gold = torch.where(t < length, gold + add, gold)
+    last = torch.clamp(length - 1, 0, T - 1)
+    return log_z - (gold + stop[label[br, last]])
+
+
+@defop
+def viterbi_decode(emission, transition, length=None):
+    """CRF argmax decoding (reference crf_decoding_op.cc): (scores [B],
+    paths [B, T] int64); a tie takes the lower tag, as ``jnp.argmax``."""
+    em, start, stop, trans, length = _crf_parts(emission, transition, length)
+    B, T, N = em.shape
+    v = start[None, :] + em[:, 0]
+    keep = torch.arange(N, device=em.device)[None, :].expand(B, N)
+    bps = []
+    for t in range(1, T):
+        scores = v[:, :, None] + trans[None]             # [B, from, to]
+        best, best_prev = torch.max(scores, 1)
+        active = (t < length)[:, None]
+        v = torch.where(active, best + em[:, t], v)
+        bps.append(torch.where(active, best_prev, keep))
+    final = v + stop[None, :]
+    score, tag = torch.max(final, 1)
+    path = [tag]
+    for bp in reversed(bps):
+        tag = torch.gather(bp, 1, tag[:, None])[:, 0]
+        path.append(tag)
+    return score, torch.stack(path[::-1], 1).long()
+
+
+@defop
+def center_loss(features, label, centers, alpha=0.1, update_center=True):
+    """reference center_loss_op.cc: (0.5 ||f - c_y||^2 [n, 1], the centers
+    moved toward their class means at rate alpha)."""
+    lab = label.reshape(-1).long()
+    diff = features - centers[lab]
+    loss = 0.5 * torch.sum(torch.square(diff), 1, keepdim=True)
+    if update_center:
+        k = centers.shape[0]
+        num = torch.zeros_like(centers).index_add(0, lab, diff)
+        cnt = torch.zeros((k,), dtype=centers.dtype,
+                          device=centers.device).index_add(
+            0, lab, torch.ones_like(lab, dtype=centers.dtype))
+        centers = centers + alpha * num / (1.0 + cnt)[:, None]
+    return loss, centers
+
+
+@defop
+def nce(input, label, weight, bias=None, sample_ids=None,  # noqa: A002
+        num_neg_samples=5, num_total_classes=None):
+    """Noise-contrastive estimation (reference nce_op.cc) over the
+    caller's negatives ``sample_ids`` [num_neg]: [n, 1]."""
+    lab = label.reshape(-1).long()
+    if sample_ids is None:
+        raise ValueError("nce: pass sample_ids (host-sampled negatives)")
+    sid = sample_ids.reshape(-1).long()
+    pos = torch.sum(input * weight[lab], 1, keepdim=True)
+    neg = input @ weight[sid].T
+    if bias is not None:
+        pos = pos + bias[lab][:, None]
+        neg = neg + bias[sid]
+    logsig = torch.nn.functional.logsigmoid
+    return -logsig(pos) - torch.sum(logsig(-neg), 1, keepdim=True)
+
+
+@defop
+def hsigmoid_loss(input, label, weight, bias=None,  # noqa: A002
+                  num_classes=None):
+    """Hierarchical sigmoid over the default complete binary tree
+    (reference hierarchical_sigmoid_op.cc): class c's path is the binary
+    expansion of c + num_classes in a heap layout. [n, 1]."""
+    n_cls = int(num_classes)
+    code_len = max(1, (n_cls - 1).bit_length())
+    node = label.reshape(-1).long() + n_cls
+    rows = weight.shape[0]
+    total = 0
+    for _ in range(code_len):
+        parent = node // 2
+        bit = (node % 2).to(input.dtype)
+        live = (parent >= 1) & (parent - 1 < rows)
+        w_idx = torch.clamp(parent - 1, 0, rows - 1)
+        s = torch.sum(input * weight[w_idx], 1)
+        if bias is not None:
+            s = s + bias.reshape(-1)[w_idx]
+        total = total + torch.where(live, _sigmoid_ce(s, bit),
+                                    torch.zeros_like(s))
+        node = parent
+    return total[:, None]

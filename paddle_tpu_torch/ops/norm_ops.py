@@ -6,8 +6,11 @@
 updated stats out, variance as E[x²] - E[x]² in both the normalization and
 the update); ``dropout`` is torch's fused dropout kernel, drawing from the
 device's default generator (``paddle.seed`` seeds it). ``embedding`` is
-the dense lookup; the sparse-gradient form (SelectedRows) waits for
-``core/selected_rows.py`` (ROADMAP Queue 1 item 9).
+the dense lookup; ``_sparse_embedding`` the eager lookup of
+``functional.embedding(sparse=True)`` on a trainable table, whose
+backward gives the table a sparse COO gradient of the looked-up rows
+(``core/selected_rows.py``; the ``padding_idx`` rows stay in it with
+zero values, as the JAX tape's SelectedRows keeps them).
 """
 from __future__ import annotations
 
@@ -148,6 +151,38 @@ def embedding(weight, ids, padding_idx=None, sparse=False):
         keep = torch.ne(ids, padding_idx).unsqueeze(-1).to(out.dtype)
         out = torch.mul(out, keep)
     return out
+
+
+class _SparseLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, weight, ids, padding_idx):
+        out = tF.embedding(ids, weight)
+        keep = None
+        if padding_idx is not None:
+            keep = torch.ne(ids, padding_idx).unsqueeze(-1).to(out.dtype)
+            out = torch.mul(out, keep)
+        ctx.save_for_backward(ids)
+        ctx.keep = keep
+        ctx.shape = weight.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        if ctx.keep is not None:
+            g = torch.mul(g, ctx.keep)
+        vals = g.reshape(-1, ctx.shape[-1])
+        return torch.sparse_coo_tensor(ids.reshape(1, -1), vals, ctx.shape,
+                                       is_coalesced=False), None, None
+
+
+def _sparse_embedding(weight, ids, padding_idx=None):
+    """The rows of ``weight`` at ``ids``; ``weight``'s gradient is sparse
+    (the looked-up rows only, never dense)."""
+    if padding_idx is not None and padding_idx < 0:
+        padding_idx = weight.shape[0] + padding_idx
+    from ._dispatch import wrap
+    return wrap(_SparseLookup.apply(weight, ids, padding_idx))
 
 
 @defop

@@ -63,6 +63,11 @@ _set_grad = torch.Tensor.grad.__set__
 _detach = torch.Tensor.detach
 
 
+def _f32_scalar(x):
+    """A 0-d f32 tensor of the Python float x (jnp's weak-typed scalar)."""
+    return torch.tensor(np.float32(x))
+
+
 def _named_parameters(parameters):
     """(name, tensor) pairs from tensors or from (name, tensor) pairs;
     a bare tensor is named ``param_{i}``."""
@@ -267,6 +272,31 @@ class Optimizer:
             "need_clip": getattr(p, "need_clip", True)}
             for name, p in named.items()}
 
+    def _sparse_update(self, name, param, sr, lr):
+        """Row-wise update of ``param`` from the coalesced SelectedRows
+        ``sr``; an optimizer that cannot (or, like Adam without
+        ``lazy_mode``, must decay every row) returns False and the
+        gradient is made dense. Reference: sgd_op.cc / adam_op.cc's
+        SelectedRows kernels."""
+        return False
+
+    def _sparse_grads(self, named):
+        """The sparse gradients first (JAX's ``step``): the row-wise update
+        where the optimizer has one (that parameter's grad is then
+        cleared), a dense gradient otherwise. Weight decay and clipping do
+        not reach the row-wise path, as in the JAX package."""
+        from ..core.selected_rows import SelectedRows
+        lr = np.float32(self.get_lr())
+        for k in [k for k, p in named.items() if _grad_of(p).is_sparse]:
+            p = named[k]
+            g = _grad_of(p)
+            self._ensure_slots({k: _detach(p)})
+            if self._sparse_update(k, p, SelectedRows.of(g).coalesce(), lr):
+                _set_grad(p, None)
+                del named[k]
+            else:
+                _set_grad(p, g.to_dense())
+
     @torch.no_grad()
     def step(self):
         """One update of every trainable parameter that has a ``.grad``; a
@@ -275,6 +305,10 @@ class Optimizer:
         Parameter objects."""
         named = self._collect()
         if not named:
+            return
+        self._sparse_grads(named)
+        if not named:
+            self._step_count += 1
             return
         params = {k: _detach(p) for k, p in named.items()}
         grads = {k: _grad_of(p) for k, p in named.items()}
@@ -364,6 +398,12 @@ class SGD(Optimizer):
                                         for lr, x in zip(lrs, xs)])
         return torch._foreach_sub(xs, steps), [{} for _ in xs]
 
+    def _sparse_update(self, name, param, sr, lr):
+        # sgd_op.cc's SelectedRows kernel: only the looked-up rows move
+        upd = (sr.values.float() * _f32_scalar(-lr)).to(param.dtype)
+        _detach(param).index_add_(0, sr.rows, upd)
+        return True
+
 
 class Momentum(Optimizer):
     """Heavy-ball momentum, optionally Nesterov; f32 velocity."""
@@ -401,14 +441,32 @@ class Adam(Optimizer):
                  epsilon=1e-08, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, name=None,
                  multi_precision=False):
-        if lazy_mode:
-            raise NotImplementedError("lazy_mode updates sparse gradients, "
-                                      "which the port does not have yet")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
+        self._lazy_mode = lazy_mode
+
+    def _sparse_update(self, name, param, sr, lr):
+        # adam_op.cc's lazy_mode: the moments of the touched rows only (a
+        # dense Adam decays every row's moments: the dense path)
+        if not self._lazy_mode:
+            return False
+        slots = self._slots[name]
+        m, v, rows = slots["moment1"], slots["moment2"], sr.rows
+        g = sr.values.float()
+        b1, b2 = self._beta1, self._beta2        # each rounded to f32
+        m_r = m[rows] * _f32_scalar(b1) + g * _f32_scalar(1 - b1)
+        v_r = v[rows] * _f32_scalar(b2) + torch.square(g) \
+            * _f32_scalar(1 - b2)
+        bc1, bc2 = self._bias_corrections(self._step_count + 1)
+        step = np.float32(lr * np.sqrt(bc2) / bc1)
+        upd = (m_r * _f32_scalar(step)) / (torch.sqrt(v_r) + self._epsilon)
+        m.index_copy_(0, rows, m_r)
+        v.index_copy_(0, rows, v_r)
+        _detach(param).index_add_(0, rows, (-upd).to(param.dtype))
+        return True
 
     def _init_slots_for(self, name, v):
         return {"moment1": self._slot_like(v), "moment2": self._slot_like(v)}

@@ -623,4 +623,6 @@ def test_registry_holds_the_collective_tier_names():
              "ring_attention", "ulysses_attention"}
     assert names <= set(tp.ops.OP_REGISTRY)
     assert names <= set(jp.ops.OP_REGISTRY)
-    assert len(tp.ops.OP_REGISTRY) == 352
+    # the whole JAX registry but its four helpers (``fake_quant`` joins
+    # once ``quantization`` is imported)
+    assert len(set(tp.ops.OP_REGISTRY) - {"fake_quant"}) == 502

@@ -40,6 +40,8 @@ from paddle_tpu.io import TensorDataset as JTensorDataset
 from paddle_tpu_torch.distributed import fleet as tfleet
 from paddle_tpu_torch.testing import spmd, spmd_train
 
+from test_torch_jax_mesh import keeps_default_mesh
+
 N = 4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIT_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -119,6 +121,7 @@ FIT_CASES = {"dp": _case("dp"), "zero": _case("zero"),
              "zero_odd": _case("zero", rows=62, drop_last=False)}
 
 
+@keeps_default_mesh
 def _jax_fit(name, dp=None):
     c = FIT_CASES[name]
     kind = c["kind"]
@@ -149,7 +152,6 @@ def _jax_fit(name, dp=None):
            "params": _np_params(net),
            "slots": {f"{n}/{s}": np.asarray(v)
                      for n, sl in opt._slots.items() for s, v in sl.items()}}
-    JM.init_mesh({"dp": 8})
     return out
 
 
@@ -173,10 +175,7 @@ def test_jax_dp_fit_raises_on_a_last_batch_that_does_not_divide():
     from the first batch, so on a dp 4 mesh a last batch of 14 rows
     raises (the port runs it whole on every rank)."""
     with pytest.raises(ValueError, match="divisible by 4"):
-        try:
-            _jax_fit("dp_odd", dp=N)
-        finally:
-            JM.init_mesh({"dp": 8})
+        _jax_fit("dp_odd", dp=N)
 
 
 def test_zero_shards_the_optimizer_state(port):
@@ -190,6 +189,7 @@ def test_zero_shards_the_optimizer_state(port):
                                        rtol=0, atol=1e-6)
 
 
+@keeps_default_mesh
 def test_localsgd_fit_replicas_match_jax(port):
     """strategy.localsgd k 2 through Model.train_batch: each rank's replica
     after each step against the JAX engine's replica of that dp index,
@@ -218,7 +218,6 @@ def test_localsgd_fit_replicas_match_jax(port):
     for r in range(N):
         np.testing.assert_allclose(port[r]["fit_localsgd"]["params"]["weight"],
                                    np.asarray(small.weight._value), **FIT_TOL)
-    JM.init_mesh({"dp": 8})
 
 
 def test_localsgd_save_writes_the_replicas_average(port):
@@ -234,6 +233,7 @@ def test_localsgd_save_writes_the_replicas_average(port):
     assert all("saved" not in port[r]["fit_localsgd"] for r in range(1, N))
 
 
+@keeps_default_mesh
 def test_adaptive_localsgd_grows_k_as_jax(port):
     *_, xl, yl = _data()
     _, _, small = _jax_nets()
@@ -248,7 +248,6 @@ def test_adaptive_localsgd_grows_k_as_jax(port):
     for _ in range(4):
         model.train_batch([xl], [yl])
     k = model._engine._localsgd["k"]
-    JM.init_mesh({"dp": 8})
     assert k > 1
     assert [port[r]["fit_adaptive"]["k"] for r in range(N)] == [k] * N
 
@@ -286,6 +285,7 @@ def test_strategy_recompute_and_amp_reach_the_engine():
     np.testing.assert_allclose(out[True], out[False], rtol=2e-2)
 
 
+@keeps_default_mesh
 def test_localsgd_trainer_matches_jax(port):
     w0, x, y = _lsgd_inputs()
     JM.init_mesh({"dp": N}, name="default")
@@ -303,7 +303,6 @@ def test_localsgd_trainer_matches_jax(port):
         losses.append(tr.step(batch))
         reps.append(np.asarray(tr.params["w"]))
     avg = np.asarray(tr.averaged_params()["w"])
-    JM.init_mesh({"dp": 8})
     for r in range(N):
         got = port[r]["localsgd"]
         np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)

@@ -30,6 +30,8 @@ from paddle_tpu_torch.core import monitor
 from paddle_tpu_torch.distributed import moe as TMOE
 from paddle_tpu_torch.testing import spmd, spmd_train
 
+from test_torch_jax_mesh import keeps_default_mesh
+
 N, E, DM, DH = 4, 8, 8, 16
 OUT_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -64,6 +66,7 @@ def port(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+@keeps_default_mesh
 def jax_moe():
     """JAX's MoELayer at ep 4 under shard_map, the tokens sharded by
     rank: output, dx and the parameters' gradients."""
@@ -87,7 +90,6 @@ def jax_moe():
     (_, out), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1),
                                             has_aux=True)(
         {k: jnp.asarray(v) for k, v in params.items()}, xg)
-    JM.init_mesh({"dp": 8})
     return {"out": np.asarray(out).reshape(N, 2, 6, DM),
             "dx": np.asarray(gx).reshape(N, 2, 6, DM),
             **{k: np.asarray(v) for k, v in gp.items()}}
@@ -107,11 +109,12 @@ def test_moe_expert_parallel_matches_jax(port, jax_moe):
                                jax_moe["gate.weight"], **GRAD_TOL)
 
 
+@keeps_default_mesh
 def test_moe_dense_fallback_matches_jax(port):
     """Outside a region every expert runs locally: the layer over each
     rank's tokens against JAX's dense layer over the same."""
     params, x, ct = _moe_inputs()
-    JM.init_mesh({"dp": 8})
+    JM.init_mesh({"dp": 8}, name="default")
     moe = JMOE.MoELayer(DM, DH, E, axis="ep")
     for r in range(N):
         def loss(p, xv):
@@ -148,6 +151,7 @@ def test_switch_route_and_dropped_tokens_equal_jax(T, cap):
 
 
 @pytest.fixture(scope="module")
+@keeps_default_mesh
 def jax_bn():
     x, ct, w, b = _bn_inputs()
     mesh = JM.init_mesh({"dp": N}, name="default")
@@ -169,7 +173,6 @@ def jax_bn():
     (_, (out, nm, nv)), (gx, gw, gb) = jax.jit(jax.value_and_grad(
         loss, argnums=(0, 1, 2), has_aux=True))(
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
-    JM.init_mesh({"dp": 8})
     return {k: np.asarray(v) for k, v in dict(out=out, mean=nm, var=nv,
                                                dx=gx, dw=gw, db=gb).items()}
 

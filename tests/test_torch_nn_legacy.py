@@ -100,11 +100,13 @@ def test_legacy_helpers():
 
 
 def test_every_legacy_name_is_ported_but_lod_tensor():
-    """``LoDTensor`` is the JAX package's RaggedTensor, which waits for
-    ``core/ragged`` (ROADMAP Queue 1 item 9)."""
+    """Every legacy name is ported; ``LoDTensor``, the last one, is the
+    port's RaggedTensor as it is the JAX package's."""
     missing = [n for n in jlegacy.__all__ if not hasattr(tp, n)]
-    assert missing == ["LoDTensor"]
-    assert set(tlegacy.__all__) == set(jlegacy.__all__) - {"LoDTensor"}
+    assert missing == []
+    assert set(tlegacy.__all__) == set(jlegacy.__all__)
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+    assert tp.LoDTensor is RaggedTensor
 
 
 def test_get_all_devices():

@@ -12,7 +12,8 @@ other; bitwise on these inputs as run here, but not promised).
 
 Then tests/test_online_learning.py's proofs on the port (exact: applied
 counts, flush logs; values as there), with a 2 s failover heartbeat
-deadline (see tests/test_torch_ps_replica.py), and THE drill twice: a
+deadline (see tests/test_torch_ps_replica.py; THE drill's is 6 s,
+``DRILL_HB``), and THE drill twice: a
 fault-free run and a run under seeded RESET + DROP chaos with a shard
 primary killed for good and the trainer restarted from its checkpoint
 onto a fresh client. The killed run's table is bitwise the fault-free
@@ -50,6 +51,15 @@ VOCAB = 1024      # GPTConfig.tiny() vocab == embedding rows
 FAST = dict(timeout=2.0, max_retries=2, backoff_base=0.01,
             backoff_max=0.05, connect_retry_s=5.0)
 HB = dict(heartbeat_s=0.1, heartbeat_timeout_s=2.0)
+# THE drill runs three servers, a serve loop, a trainer and a publisher in
+# one process; on a loaded host (six test workers beside it) a live
+# server's heartbeat thread can stall past 2 s and be promoted over, which
+# the drill's bitwise and exactly-once checks would then report. The drill
+# gives a live server 6 s, waits up to 60 s for the true kill's promotion
+# (polling: it returns as soon as the shard map moves) and retries an RPC
+# 4 times; every check is the same.
+DRILL_HB = dict(heartbeat_s=0.1, heartbeat_timeout_s=6.0)
+DRILL_RPC = dict(FAST, max_retries=4)
 
 # the direction serve traffic pulls the embedding: a fixed per-id target
 TARGET = np.random.RandomState(77).uniform(
@@ -67,13 +77,13 @@ def _geo_specs(dim):
     return {"wte": {"type": "geo_sparse", "dim": dim, "init": "zeros"}}
 
 
-def _cluster(n=3, k=1, dim=HID):
+def _cluster(n=3, k=1, dim=HID, hb=HB, rpc=FAST):
     servers = [PSServer("127.0.0.1:0", _geo_specs(dim)) for _ in range(n)]
     eps = [s.start() for s in servers]
     smap = ShardMap.create(eps, n_backups=k)
     for s in servers:
         s.enable_replication(shard_map=smap, peers=eps, n_backups=k,
-                             rpc_opts=dict(FAST), **HB)
+                             rpc_opts=dict(rpc), **hb)
     return servers, eps
 
 
@@ -389,7 +399,7 @@ def _drill(chaos):
     ``chaos``, seeded RESET + DROP throughout, shard 0's primary killed
     for good and the trainer restarted on a fresh client from its
     checkpoint after round two's first training phase."""
-    servers, eps = _cluster(3, 1, dim=HID)
+    servers, eps = _cluster(3, 1, dim=HID, hb=DRILL_HB, rpc=DRILL_RPC)
     gpt = GPT(GPTConfig.tiny(), device="cpu", seed=0)
     gpt.eval()
     trained_ids = set()
@@ -418,7 +428,7 @@ def _drill(chaos):
     window = _Window(ds)
     holder = {}
     all_reqs, snaps, prefetchers = [], [], []
-    clients = [PSClient(eps, **FAST), PSClient(eps, **FAST)]
+    clients = [PSClient(eps, **DRILL_RPC), PSClient(eps, **DRILL_RPC)]
     client_t, client_p = clients
     cache = HeterPSCache(client_p, "wte", HID, capacity=256, host_rows=0)
     pub = EmbeddingSnapshotPublisher(client_p, "wte", cache=cache)
@@ -473,10 +483,10 @@ def _drill(chaos):
         # chaos a shard primary dies for real
         if chaos:
             servers[0].shutdown()
-        client_t2 = PSClient(eps, **FAST)
+        client_t2 = PSClient(eps, **DRILL_RPC)
         clients.append(client_t2)
         if chaos:
-            _await_promotion(client_t2, eps[0])
+            _await_promotion(client_t2, eps[0], deadline=60.0)
         ckpt = train_phase(client_t2, 1, ckpt["online"])  # seq 3
         publish_and_swap()                               # v2
         serve_phase(2)

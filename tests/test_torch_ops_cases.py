@@ -12,53 +12,14 @@ test of its own: the other ``test_torch_ops_*.py`` files each run a
 group, and ``test_torch_ops_registry.py`` holds the groups to the whole
 registry.
 """
-import dataclasses
-
 import numpy as np
 import paddle_tpu as jp
 import paddle_tpu.nn.functional  # noqa: F401  registers the head ops
 import paddle_tpu_torch as tp
 
 
-@dataclasses.dataclass(frozen=True)
-class Raw:
-    """An argument passed to both packages as it is."""
-    value: object
-
-
-@dataclasses.dataclass
-class Case:
-    name: str
-    args: tuple
-    kw: dict = dataclasses.field(default_factory=dict)
-    grad: tuple = ()             # argument positions to differentiate
-    rtol: float = 1e-5
-    atol: float = 1e-6
-    id: str = ""
-    dtype: str = ""              # the float arrays' dtype ("" keeps f32)
-
-    def __str__(self):
-        return self.name + (f"-{self.id}" if self.id else "")
-
-
-def rs(seed):
-    return np.random.RandomState(seed)
-
-
-def f32(*shape, seed=0, lo=-1.0, hi=1.0):
-    return rs(seed).uniform(lo, hi, shape).astype(np.float32)
-
-
-def pos(*shape, seed=0):
-    return rs(seed).uniform(0.5, 2.0, shape).astype(np.float32)
-
-
-def ints(*shape, seed=0, lo=0, hi=5, dtype=np.int64):
-    return rs(seed).randint(lo, hi, shape).astype(dtype)
-
-
-def bools(*shape, seed=0):
-    return rs(seed).rand(*shape) > 0.5
+from paddle_tpu_torch.testing.op_cases import (  # noqa: F401,E402
+    Case, Raw, bools, f32, ints, pos, rs)
 
 
 def _tensor(pkg, a, grad, dtype=""):

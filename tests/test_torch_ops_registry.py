@@ -20,6 +20,7 @@ import torch
 import paddle_tpu as jp
 import paddle_tpu_torch as tp
 import test_torch_ops_cases as P
+import test_torch_ops_long_tail_cases as L
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.ops import _dispatch
@@ -64,10 +65,33 @@ def test_every_port_op_is_a_jax_op_of_the_same_version():
 
 
 def test_every_port_op_has_a_parity_case():
-    covered = {c.name for cases in P.GROUPS.values() for c in cases}
-    covered |= P.OWN_TESTS
+    covered = {c.name for groups in (P.GROUPS, L.GROUPS)
+               for cases in groups.values() for c in cases}
+    covered |= P.OWN_TESTS | L.OWN_TESTS
     assert set(tp.ops.OP_REGISTRY) - covered == set()
     assert covered - set(tp.ops.OP_REGISTRY) == set()
+
+
+# the JAX registry sweeps in four helpers its op modules import
+# (``_dispatch``'s defop / wrap / unwrap and ``core.dtype.to_jax_dtype``);
+# the port has no such names in its op modules: a known difference
+JAX_HELPERS = {"defop", "wrap", "unwrap", "to_jax_dtype"}
+
+
+def test_the_port_registry_is_the_whole_jax_registry():
+    """Every JAX op name is a port op (with ``quantization`` imported,
+    which registers ``fake_quant`` in both), but the four helpers.
+    ``py_func_call`` is the op JAX's ``py_func`` registers when it runs;
+    the port's ``py_func`` runs outside the registry."""
+    import paddle_tpu.distributed.collective  # noqa: F401
+    import paddle_tpu.distributed.fleet.meta_parallel  # noqa: F401
+    import paddle_tpu.distributed.ring_attention  # noqa: F401
+    import paddle_tpu.quantization  # noqa: F401
+    import paddle_tpu_torch.quantization  # noqa: F401
+    jreg, treg = set(jp.ops.OP_REGISTRY), set(tp.ops.OP_REGISTRY)
+    assert jreg - treg - {"py_func_call"} == JAX_HELPERS
+    assert not treg - jreg
+    assert len(treg) == 503 and "fake_quant" in treg
 
 
 def _same(fn, rtol=1e-6):

@@ -370,8 +370,10 @@ def test_master_weights_for_bf16_params():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="lazy_mode"):
-        topt.Adam(lazy_mode=True)
+    """No option of the twelve rules is left unported: ``lazy_mode``, the
+    last, now builds (its row-wise updates: test_torch_selected_rows.py)."""
+    for cls in (topt.Adam, topt.AdamW):
+        assert cls(lazy_mode=True)._lazy_mode
 
 
 def test_eager_step_reads_parameter_attributes_as_jax():

@@ -27,6 +27,8 @@ from paddle_tpu.distributed import pipeline as JPL
 from paddle_tpu_torch.distributed import pipeline as TPL
 from paddle_tpu_torch.testing import spmd, spmd_train
 
+from test_torch_jax_mesh import keeps_default_mesh
+
 N, D = 4, 4
 LOSS_RTOL = 1e-5
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -51,6 +53,7 @@ def _mb_loss(h, lbl):
     return jnp.mean((h - lbl) ** 2)
 
 
+@keeps_default_mesh
 def _jax_pipeline(stage_w, x, y, n_micro, schedule):
     """(loss, d stage weights, dx) of JAX's pipeline_loss under shard_map
     over pp 4; stage_w [N, D, D] or [N, v, D, D] (interleaved)."""
@@ -73,7 +76,6 @@ def _jax_pipeline(stage_w, x, y, n_micro, schedule):
 
     loss, (gw, gx) = jax.jit(jax.value_and_grad(outer, argnums=(0, 1)))(
         jnp.asarray(stage_w), jnp.asarray(x))
-    JM.init_mesh({"dp": 8})
     return float(loss), np.asarray(gw), np.asarray(gx)
 
 

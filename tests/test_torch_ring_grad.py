@@ -33,6 +33,8 @@ from paddle_tpu.distributed import mesh as JM
 from paddle_tpu.distributed import ring_attention as JR
 from paddle_tpu_torch.testing import spmd, spmd_train
 
+from test_torch_jax_mesh import keeps_default_mesh
+
 N = 4
 B, H, S, D = 1, 4, 32, 8
 CASES = [f"{m}_causal{c}" for m in ("ring", "ulysses") for c in (0, 1)]
@@ -50,6 +52,7 @@ def port(tmp_path_factory):
                           tmp_path=tmp_path_factory.mktemp("ranks"))
 
 
+@keeps_default_mesh
 def _jax_grads(fn, q, k, v, ct, causal):
     mesh = JM.init_mesh({"sp": N}, name="default")
     spec = JP(None, None, "sp", None)
@@ -62,7 +65,6 @@ def _jax_grads(fn, q, k, v, ct, causal):
 
     (_, out), grads = jax.jit(jax.value_and_grad(
         loss, argnums=(0, 1, 2), has_aux=True))(q, k, v)
-    JM.init_mesh({"dp": 8})
     return {"o": np.asarray(out), "dq": np.asarray(grads[0]),
             "dk": np.asarray(grads[1]), "dv": np.asarray(grads[2])}
 
