@@ -421,6 +421,36 @@ Phases, each printing its own lines; any failure exits non-zero:
     decompositions by reconstruction, ``py_func``, the FPN routing) on
     CUDA tensors against the same call on CPU tensors
     (``P28_SWEEP_TOL``), the random draws in distribution.
+29. the long tail, part 2's host modules (``phase_long_tail_host``). (a)
+    ``Model.fit`` of BERT-base bf16 O2, b32 s128, 8 steps, with
+    ``ProfilerCallback(start_step=4, stop_step=6, xplane_dir=...)``
+    (the device trace warms up over step 3): 3
+    ``hapi/train_step`` events in the host table (through the trace
+    sink); the device trace's ``flash_fwd_sm90_kernel``,
+    ``flash_bwd_dq_sm90_kernel`` and ``flash_bwd_dkv_sm90_kernel`` events
+    each as many as that wrapper's Hopper launches over the window (12 a
+    step), ``ce_sm90_fwd_kernel`` and ``ce_sm90_chunk_kernel`` at least one
+    a launch; the window's device busy ms a step, the step ms before,
+    inside and after the window and in a fresh fit after it, the MFU over
+    989 TFLOP/s with (b)'s count x 3.
+    (b) ``paddle.flops`` of BERT-base (b1 s128) and ResNet-50 (b1 224) on
+    the card equal to the CPU count, the matrix-product part equal to 2 x
+    the multiply-adds from the shapes. (c) 6 dygraph steps of BERT-base
+    f32 (b16 s128, dropout 0) under ``LookAhead(AdamW, alpha=0.5, k=3)``
+    with an ``ExponentialMovingAverage(0.999)`` and a ``ModelAverage``:
+    the blend after steps 3 and 6 against the host's
+    (``P29_BLEND_RTOL``), finite eval losses under
+    ``average_weights()``, a bitwise ``restore()``, and
+    ``incubate.functional.vjp`` of the MLM loss with respect to the
+    encoder's input against ``loss.backward()`` (``P29_VJP_TOL``),
+    launching the flash and CE backward kernels. (d) 10^6 draws from each
+    of the six distributions on the card's generator, moments within
+    ``P29_Z`` standard errors; ``log_prob``, ``entropy`` and
+    ``kl_divergence`` on CUDA against the CPU (``P29_DIST_TOL``). (e)
+    ``memory.*`` against ``torch.cuda``'s counters over (c), the dlpack
+    round trip's ``data_ptr``, ``utils.run_check()`` on the card. (f)
+    ``paddle.batch(xmap_readers(shuffle(uci_housing.train())), 32)`` into
+    a ``Linear(13, 1)`` on the card for one epoch: the loss falls.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -431,7 +461,8 @@ One phase alone (after ``phase_build()``), from the repo root:
 c.phase_flash()"``; phase 25: ``python3 -c "import chip_smoke as c;
 c.setup(); card = c.phase_build(); c.phase_distributed(card)"``; phase
 26 the same with ``c.phase_fleet_training(card)``, phase 27 with
-``c.phase_multi_process(card)``, phase 28 with ``c.phase_long_tail(card)``. ``python3 chip_smoke.py --faults`` runs phases 2-3
+``c.phase_multi_process(card)``, phase 28 with ``c.phase_long_tail(card)``,
+phase 29 with ``c.phase_long_tail_host(card)``. ``python3 chip_smoke.py --faults`` runs phases 2-3
 (decode faults), 6 (CE faults), 10 (flash faults), 14 (f16 faults),
 18's API checks (op-core faults), 19's mask checks (a Transformer
 fault), 20's conv oracle (a conv fault) or 21(a)'s f32 beam scores (a
@@ -446,7 +477,13 @@ forward, the backward, the zero grads, ``opt.step()``, ``clear_grad``,
 then a cProfile) for DIR's package and this one, in the order DIR, this,
 this, DIR. ``--compare-serve DIR`` runs phase 4's bf16 serve run of
 DIR's checkout and of this one in the order DIR, this, this, DIR, and
-prints the decode step's wall and busy ms.
+prints the decode step's wall and busy ms. ``--dispatch DIR`` runs
+phase 18's op-layer cost (``_dispatch_cost``) of DIR's package and this
+one, each in a fresh process, in the order DIR, this, this, DIR.
+``--repeat SECONDS`` repeats 27(b)'s bitwise comparison
+(``repeat_static_dp``): the kernels of its path called over and over on
+one input, alone and beside a second process that keeps the card busy,
+then its dp step in turn plain and with recompute at learning rate 0.
 """
 import contextlib
 import copy
@@ -982,8 +1019,9 @@ def _profile_serve_decode(loop, prompts, new, n=20):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / (loop.stats()["steps"] - s0)
     s0 = loop.stats()["steps"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # CUDA activity alone: only the kernel rows are read, and the CPU side
+    # costs seconds a call to record and aggregate
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             loop._tick()
         torch.cuda.synchronize()
@@ -1393,11 +1431,11 @@ def _profile_steps(step, n=3, named=(), steps_per_call=1):
     ``steps_per_call`` training steps (torch.profiler, CUDA kernel rows
     only), and per step the summed time of the kernels whose names hold
     each string of ``named``; None where the profiler records no device
-    time here."""
+    time here. CUDA activity alone: only the kernel rows are read, and the
+    CPU side costs seconds a call to record and aggregate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
@@ -3762,41 +3800,53 @@ def vision_probes(steps=20, timed=10, profiled=5):
     return out
 
 
+def _compare_runs(name, parent, code, parse, runs, timeout=900):
+    """Run ``code`` from the checkout at ``parent`` and from this one, each
+    in a fresh process, in the order ``runs``; ``parse(line, rec)`` reads
+    each stdout line into the run's record. Prints the records as one
+    JSON line under ``name``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    for tag in runs:
+        cwd = parent if tag == "parent" else here
+        proc = subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                              capture_output=True, text=True,
+                              timeout=timeout)
+        rec = {"tree": tag, "exit": proc.returncode}
+        for line in proc.stdout.splitlines():
+            parse(line, rec)
+        log(f"[{name.replace('_', ' ')}] {json.dumps(rec)}")
+        check(proc.returncode == 0, f"{tag} run failed: "
+                                    f"{proc.stderr[-2000:]}")
+        out.append(rec)
+    print(json.dumps({name: out}))
+    return 0
+
+
 def compare(parent, runs=("parent", "change", "change", "parent") * 2):
     """Phases 8 and 15 of the checkout at ``parent`` and of this one, each
     run in a fresh process, in the order ``runs``: the step ms of each
     (and phase 8's forward + backward and optimizer host ms), printed as
     one JSON line."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    code = ("import chip_smoke as c; c.setup(); c.phase_build(); "
-            "c.phase_flagship(); c.phase_o2_f16()")
-    out = []
-    for tag in runs:
-        cwd = parent if tag == "parent" else here
-        proc = subprocess.run([sys.executable, "-c", code], cwd=cwd,
-                              capture_output=True, text=True, timeout=900)
-        rec = {"tree": tag, "exit": proc.returncode}
-        for line in proc.stdout.splitlines():
-            for key, tagname in (("[flagship] ", "phase8_bf16"),
-                                 ("[o2 f16] ", "phase15_f16_o2")):
-                if line.startswith(key):
-                    rec[f"{tagname}_step_ms"] = json.loads(
-                        line[len(key):])["step_ms"]
-            for key, tagname in (("[flagship breakdown] ", "phase8_bf16"),
-                                 ("[o2 f16 breakdown] ", "phase15_f16_o2")):
-                if line.startswith(key):
-                    bd = json.loads(line[len(key):])
-                    rec[f"{tagname}_busy_ms"] = bd.get(
-                        "device_busy_ms_per_step")
-                    for k in ("fwd_bwd_ms", "optimizer_host_ms"):
-                        if k in bd:
-                            rec[f"{tagname}_{k}"] = bd[k]
-        log(f"[compare] {json.dumps(rec)}")
-        check(proc.returncode == 0, f"{tag} run failed: "
-                                    f"{proc.stderr[-2000:]}")
-        out.append(rec)
-    print(json.dumps({"compare": out}))
-    return 0
+    def parse(line, rec):
+        for key, tagname in (("[flagship] ", "phase8_bf16"),
+                             ("[o2 f16] ", "phase15_f16_o2")):
+            if line.startswith(key):
+                rec[f"{tagname}_step_ms"] = json.loads(
+                    line[len(key):])["step_ms"]
+        for key, tagname in (("[flagship breakdown] ", "phase8_bf16"),
+                             ("[o2 f16 breakdown] ", "phase15_f16_o2")):
+            if line.startswith(key):
+                bd = json.loads(line[len(key):])
+                rec[f"{tagname}_busy_ms"] = bd.get(
+                    "device_busy_ms_per_step")
+                for k in ("fwd_bwd_ms", "optimizer_host_ms"):
+                    if k in bd:
+                        rec[f"{tagname}_{k}"] = bd[k]
+    return _compare_runs(
+        "compare", parent, "import chip_smoke as c; c.setup(); "
+        "c.phase_build(); c.phase_flagship(); c.phase_o2_f16()", parse,
+        runs)
 
 
 def compare_serve(parent, runs=("parent", "change", "change", "parent")):
@@ -3805,34 +3855,35 @@ def compare_serve(parent, runs=("parent", "change", "change", "parent")):
     ``parent`` and of this one, each in a fresh process, in the order
     ``runs``: the decode step's wall and busy ms, tokens/s and TTFT,
     printed as one JSON line."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    code = ("import chip_smoke as c; c.setup(); c.phase_build(); "
-            "c.phase_serve_bf16()")
-    out = []
-    for tag in runs:
-        cwd = parent if tag == "parent" else here
-        proc = subprocess.run([sys.executable, "-c", code], cwd=cwd,
-                              capture_output=True, text=True, timeout=900)
-        rec = {"tree": tag, "exit": proc.returncode}
-        for line in proc.stdout.splitlines():
-            if line.startswith("[serve bf16] "):
-                r = json.loads(line[len("[serve bf16] "):])
-                prof = r.get("decode_profile") or {}
-                rec.update({
-                    "decode_step_wall_ms": prof.get("wall_ms_per_step"),
-                    "decode_step_busy_ms": prof.get(
-                        "device_busy_ms_per_step"),
-                    "paged_kernel_ms_per_step": prof.get(
-                        "paged_kernel_ms_per_step"),
-                    "tokens_per_s": r["tokens_per_s"],
-                    "ttft_ms_p50": r["ttft_ms_p50"],
-                    "ttft_ms_p99": r["ttft_ms_p99"]})
-        log(f"[compare serve] {json.dumps(rec)}")
-        check(proc.returncode == 0, f"{tag} run failed: "
-                                    f"{proc.stderr[-2000:]}")
-        out.append(rec)
-    print(json.dumps({"compare_serve": out}))
-    return 0
+    def parse(line, rec):
+        if line.startswith("[serve bf16] "):
+            r = json.loads(line[len("[serve bf16] "):])
+            prof = r.get("decode_profile") or {}
+            rec.update({
+                "decode_step_wall_ms": prof.get("wall_ms_per_step"),
+                "decode_step_busy_ms": prof.get("device_busy_ms_per_step"),
+                "paged_kernel_ms_per_step": prof.get(
+                    "paged_kernel_ms_per_step"),
+                "tokens_per_s": r["tokens_per_s"],
+                "ttft_ms_p50": r["ttft_ms_p50"],
+                "ttft_ms_p99": r["ttft_ms_p99"]})
+    return _compare_runs(
+        "compare_serve", parent, "import chip_smoke as c; c.setup(); "
+        "c.phase_build(); c.phase_serve_bf16()", parse, runs)
+
+
+def compare_dispatch(parent, runs=("parent", "change", "change", "parent")):
+    """Phase 18's ``[dispatch]`` line (host us a call of five ops through
+    the op layer, and the bare torch call) of the checkout at ``parent``
+    and of this one, each in a fresh process, in the order ``runs``,
+    printed as one JSON line."""
+    def parse(line, rec):
+        if line.startswith("[dispatch] "):
+            rec["dispatch"] = json.loads(line.split(": ", 1)[1])
+    return _compare_runs(
+        "compare_dispatch", parent, "import chip_smoke as c; import "
+        "paddle_tpu_torch as p; p.set_device('gpu'); c._dispatch_cost(p)",
+        parse, runs, timeout=600)
 
 
 def host_attribution(steps=20, profiled=10):
@@ -8067,12 +8118,12 @@ def _p27_launcher(tmp):
     return res
 
 
-def _p27_static_bert(paddle, cfg, recompute, batch=32):
+def _p27_static_bert(paddle, cfg, recompute, batch=32, lr=1e-4):
     """Phase 22's static BERT-base bf16 O2 program (``_static_bert``) over
     ``batch`` rows, with ``recompute`` through
     ``fleet.distributed_optimizer`` over ``strategy.recompute`` with one
-    checkpoint an encoder layer. Returns (program, net, loss, [(param,
-    grad var)])."""
+    checkpoint an encoder layer; AdamW at learning rate ``lr``. Returns
+    (program, net, loss, [(param, grad var)])."""
     from paddle_tpu_torch import static
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.testing.spmd_static import encoder_checkpoints
@@ -8087,7 +8138,7 @@ def _p27_static_bert(paddle, cfg, recompute, batch=32):
             ck = encoder_checkpoints(net)
             loss = net(ids, masked_lm_labels=lab)
             opt = static.amp.decorate(
-                paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                paddle.optimizer.AdamW(learning_rate=lr, weight_decay=0.01,
                                        parameters=net.parameters()),
                 level="O2", dtype="bfloat16")
             if recompute:
@@ -8137,6 +8188,9 @@ def _p27_static_run(paddle, cfg, ids, lab, recompute, data_parallel):
     finally:
         paddle.disable_static()
     rec["launches"] = _p27_diff(_p27_counts(), before)
+    key = {id(p): k for k, p in net.named_parameters()}
+    rec["grad_names"] = [key.get(id(p), str(i))
+                         for i, (p, _) in enumerate(pairs)]
     e = next(iter(exe._cache.values()))
     rec["segments"] = 0 if e.segments is None else len(e.segments[1])
     rec["dp_rows"] = None if e.dp is None else \
@@ -8171,16 +8225,26 @@ def p27_static_body():
     rc = _p27_static_run(paddle, cfg, ids, lab, True, True)
     diffs = [float((a.float() - b.float()).abs().max())
              for a, b in zip(plain["grads"], rc["grads"])]
+    # where they differ: (parameter, shape, largest |difference|, entries
+    # that differ), the largest first
+    differing = sorted(
+        ([plain["grad_names"][k], list(a.shape), d,
+          int((a.float() != b.float()).sum())]
+         for k, (a, b, d) in enumerate(zip(plain["grads"], rc["grads"],
+                                           diffs)) if d > 0),
+        key=lambda x: -x[2])
     out = {"rank": rank,
            "recompute_grads_bitwise": all(torch.equal(a, b) for a, b in
                                           zip(plain["grads"], rc["grads"])),
            "recompute_grad_max_abs_diff": max(diffs),
-           "recompute_grads_differing": sum(d > 0 for d in diffs),
+           "recompute_grads_differing": len(differing),
+           "recompute_grads_differing_first": differing[:5],
            "grads_compared": len(diffs),
            "recompute_losses_bitwise": plain["losses"] == rc["losses"]}
     for name, r in (("plain", plain), ("recompute", rc)):
         out[name] = {k: r[k] for k in ("losses", "step_ms", "launches",
                                        "segments", "dp_rows")}
+    rc_grads = rc["grads"]
     del rc
     torch.cuda.empty_cache()
     M.reset_mesh("default")
@@ -8195,6 +8259,8 @@ def p27_static_body():
             "loss_abs_diff": abs(plain["losses"][0] - one["losses"][0]),
             "grads_compared": len(want),
             "grad_err": _p25_grad_err(dict(enumerate(plain["grads"])), want),
+            "recompute_grad_err": _p25_grad_err(dict(enumerate(rc_grads)),
+                                                want),
             "fault_grad_err": _p25_grad_err(
                 {k: g.float() * scale for k, g in enumerate(half["grads"])},
                 want),
@@ -8204,12 +8270,177 @@ def p27_static_body():
                 for k, v in one["weights1"].items()),
             "one_step_ms": one["step_ms"][0]}
         del one, half
-    del plain
+    del plain, rc_grads
     gc.collect()
     torch.cuda.empty_cache()
     torch.distributed.barrier()
     out["max_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return out
+
+
+# --repeat: a second process that keeps the card busy with bf16 products
+REPEAT_BUSY = ("import sys, time, torch\n"
+               "a = torch.randn(8192, 8192, device='cuda', "
+               "dtype=torch.bfloat16)\n"
+               "t = time.time()\n"
+               "while time.time() - t < float(sys.argv[1]):\n"
+               "    b = a @ a\n"
+               "    torch.cuda.synchronize()\n")
+
+
+def _busy_card(seconds):
+    return subprocess.Popen([sys.executable, "-c", REPEAT_BUSY,
+                             str(seconds)])
+
+
+def _repeat_kernels(seconds):
+    """{name: [calls, calls not bitwise the first]} of the kernels of
+    27(b)'s path and two of its GEMMs, each called on one input at 27(b)'s
+    shapes (a rank's 16 x 12 heads at s 128; the head's 4096 rows) for
+    ``seconds``."""
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.cuda.flash_attention")
+    ce = importlib.import_module("paddle_tpu_torch.ops.cuda.fused_ce")
+    g = torch.Generator(device="cuda").manual_seed(27)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", dtype=torch.bfloat16,
+                           generator=g) * scale
+    q, k, v, do = (rand(192, 128, 64) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = fa.flash_delta(o, do)
+    n, hd, vocab = 4096, 768, 30522
+    h, w, b = rand(n, hd), rand(vocab, hd, scale=0.02), rand(vocab,
+                                                              scale=0.02)
+    y = torch.randint(0, vocab, (n,), device="cuda", generator=g)
+    y[torch.rand(n, device="cuda", generator=g) > 0.15] = -100
+    clse = ce.fused_ce_fwd(h, w, b, y)[1]
+    gy = torch.rand(n, device="cuda", generator=g) / n
+    x, wm, bm, dy = rand(2048, 768), rand(3072, 768), rand(3072), \
+        rand(2048, 3072)
+    calls = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, None, do, lse,
+                                                delta),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, None, do, lse,
+                                                  delta),
+        "fused_ce_fwd": lambda: ce.fused_ce_fwd(h, w, b, y),
+        "fused_ce_bwd": lambda: ce.fused_ce_bwd(h, w, b, y, clse, gy),
+        "linear": lambda: torch.nn.functional.linear(x, wm, bm),
+        "linear_dw": lambda: dy.t() @ x}
+
+    def flat(out):
+        return [t for t in (out if isinstance(out, tuple) else (out,))
+                if t is not None]
+    res = {}
+    for name, f in calls.items():
+        ref = [t.clone() for t in flat(f())]
+        runs = bad = 0
+        t = time.perf_counter()
+        while time.perf_counter() - t < seconds:
+            got = flat(f())
+            runs += 1
+            bad += not all(torch.equal(a, c) for a, c in zip(ref, got))
+        res[name] = [runs, bad]
+    return res
+
+
+def p27_repeat_body(seconds, busy_at):
+    """One of the 2 dp ranks: 27(b)'s static program, plain and with
+    recompute, at learning rate 0 (every step takes the first step's
+    gradients), run in turn for ``seconds``; from ``busy_at`` s a second
+    process keeps the card busy. Returns the runs of each and every
+    gradient that differed bitwise from the first run's."""
+    _p25_child_setup()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.text.models import BertConfig
+    C.probe_transport(torch.device("cuda", 0))
+    paddle.set_device("gpu")
+    cfg = BertConfig.bert_base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    ids, lab = _bert_batches(cfg, 32, 128, 1)
+    M.init_mesh({"dp": 2}, name="default")
+    rank = M.world_rank()
+    progs = []
+    for rc in (False, True):
+        main, net, loss, pairs = _p27_static_bert(paddle, cfg, rc, 32, 0.0)
+        key = {id(p): k for k, p in net.named_parameters()}
+        progs.append((static.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name), loss, [g for _, g in pairs],
+            [key.get(id(p), str(i)) for i, (p, _) in enumerate(pairs)]))
+    exe = static.Executor()
+    ref, runs, differ, busy = None, [0, 0], [], None
+    t0 = time.perf_counter()
+    try:
+        while True:
+            late = time.perf_counter() - t0
+            if busy is None and rank == 0 and late > busy_at:
+                busy = _busy_card(seconds)
+            stop = torch.tensor([float(late >= seconds)], device="cuda")
+            torch.distributed.all_reduce(stop)   # both ranks stop together
+            if stop.item() > 0:
+                break
+            for which, (prog, loss, grads, names) in enumerate(progs):
+                paddle.enable_static()
+                try:
+                    got = exe.run(prog, feed={"ids": ids[0],
+                                              "labels": lab[0]},
+                                  fetch_list=[loss] + grads,
+                                  return_numpy=False)
+                finally:
+                    paddle.disable_static()
+                got = [g.detach().clone() for g in got[1:]]
+                runs[which] += 1
+                if ref is None:
+                    ref = got
+                    continue
+                differ += [[sum(runs), which, names[i],
+                            float((a.float() - c.float()).abs().max())]
+                           for i, (a, c) in enumerate(zip(ref, got))
+                           if not torch.equal(a, c)]
+    finally:
+        if busy is not None:
+            busy.kill()
+            busy.wait()
+    return {"rank": rank, "runs": runs, "differing": differ[:50],
+            "n_differing": len(differ)}
+
+
+def repeat_static_dp(seconds):
+    """``--repeat SECONDS``: 27(b)'s bitwise comparison taken apart. The
+    kernels of its path, alone and beside a busy card, then its dp step in
+    turn plain and with recompute for ``seconds`` (the card busy from
+    half way). Prints one JSON line; exits 1 if anything differed."""
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.testing import spmd
+    import tempfile
+    setup()
+    _build.build_all()
+    _p25_child_setup()
+    res = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()}
+    res["kernels_alone"] = _repeat_kernels(seconds / 20)
+    busy = _busy_card(seconds)
+    try:
+        time.sleep(8)                     # the busy process reaches the card
+        res["kernels_busy"] = _repeat_kernels(seconds / 20)
+    finally:
+        busy.kill()
+        busy.wait()
+    with tempfile.TemporaryDirectory() as tmp:
+        res["static_dp"] = spmd.run_ranks(
+            p27_repeat_body, 2, seconds, seconds / 2, tmp_path=tmp,
+            device="cuda", timeout=seconds + 300)
+    print(json.dumps(res))
+    bad = sum(r[1] for part in ("kernels_alone", "kernels_busy")
+              for r in res[part].values()) \
+        + sum(r["n_differing"] for r in res["static_dp"])
+    return 1 if bad else 0
 
 
 def _p27_gpt_cfg():
@@ -8613,6 +8844,8 @@ def phase_multi_process(card=None):
              s["recompute_grad_max_abs_diff"] for s in st),
          "recompute_losses_bitwise": all(s["recompute_losses_bitwise"]
                                          for s in st),
+         "recompute_grads_differing": [s["recompute_grads_differing_first"]
+                                       for s in st],
          "grads_compared": st[0]["grads_compared"],
          "max_memory_gb": [s["max_memory_gb"] for s in st],
          "seconds": time.perf_counter() - t}
@@ -8642,7 +8875,10 @@ def phase_multi_process(card=None):
           f"program's: {b['grads_compared']} gradients compared, bitwise "
           f"{b['recompute_grads_bitwise']}, largest |difference| "
           f"{b['recompute_grad_max_abs_diff']}, losses bitwise "
-          f"{b['recompute_losses_bitwise']}")
+          f"{b['recompute_losses_bitwise']}; differing (parameter, shape, "
+          f"largest, entries) by rank {b['recompute_grads_differing']}; "
+          f"against one process: plain {one['grad_err']}, recompute "
+          f"{one['recompute_grad_err']}")
     check(all(r == 16 for r in b["plain"]["dp_rows"]),
           f"27(b) ranks ran {b['plain']['dp_rows']} rows, not 16 each")
     check(b["recompute"]["segments"] == 13,
@@ -9701,6 +9937,586 @@ def phase_long_tail(card=None):
     return counts, res
 
 
+# --------------------------------------------------------------------------
+# phase 29: the long tail's host modules at BERT-base width
+# --------------------------------------------------------------------------
+
+P29_FIT = {"batch": 32, "seq": 128, "steps": 8, "window": (4, 6),
+           "fresh_steps": 3}
+# each flash wrapper's launch runs one kernel of its name; the trace must
+# hold that many events of it over the window
+P29_FLASH_EVENTS = {"flash_fwd": "flash_fwd_sm90_kernel",
+                    "flash_bwd_dq": "flash_bwd_dq_sm90_kernel",
+                    "flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel"}
+# at least one event a launch: the forward one kernel (and a combine), the
+# joint backward one chunk kernel a vocabulary chunk
+P29_CE_EVENTS = {"fused_ce_fwd": "ce_sm90_fwd_kernel",
+                 "fused_ce_bwd_dh": "ce_sm90_chunk_kernel"}
+P29_AVG = {"batch": 16, "seq": 128, "steps": 6, "k": 3, "alpha": 0.5}
+# the LookAhead blend on the card against the same f32 arithmetic on the
+# host: each op rounds once in both, so they agree to an ulp of the value
+P29_BLEND_RTOL = 2.0 ** -22
+# vjp of the MLM loss against loss.backward(): the same kernels in the
+# same order, relative to the gradient's largest entry
+P29_VJP_TOL = 1e-6
+P29_DRAWS = 10 ** 6
+P29_Z = 5.0              # sample moments within 5 standard errors
+# log_prob / entropy / KL on CUDA against the CPU: lgamma, digamma and
+# logsumexp differ in their last bits between the two libraries
+P29_DIST_TOL = {"rtol": 1e-5, "atol": 1e-5}
+
+
+def _p29_device_events(path):
+    """The kernel events of a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e.get("ph") == "X"]
+    return kernels
+
+
+def _p29_trace_diagnosis(path, kev):
+    """Where a trace lost kernel events: the launch calls on the host
+    whose correlation id has no kernel event, and the first flash
+    forwards' times against the first kernel's; the trace is kept under
+    ``chiprun_out/``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launches = {e.get("args", {}).get("correlation"): e for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "")}
+    got = {e.get("args", {}).get("correlation") for e in kev}
+    import shutil
+    orphans = [launches[c]["ts"] for c in launches if c not in got]
+    t0 = min(e["ts"] for e in kev)
+    fwd = sorted(e["ts"] - t0 for e in kev
+                 if "flash_fwd_sm90_kernel" in e["name"])
+    os.makedirs("chiprun_out", exist_ok=True)
+    keep = os.path.join("chiprun_out", "p29_trace.json")
+    shutil.copy(path, keep)
+    return (f"{len(launches)} kernel launches on the host, {len(orphans)} "
+            f"without a kernel event (at {sorted(orphans)[:8]}), first "
+            f"kernel at {t0}, flash forwards at +{fwd[:6]} us; kept "
+            f"{keep}")
+
+
+def _p29_busy_ms(kernels):
+    """The union of the kernels' intervals, ms."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    busy, end = 0.0, -math.inf
+    for t0, t1 in spans:
+        if t1 <= end:
+            continue
+        busy += t1 - max(t0, end)
+        end = t1
+    return busy / 1e3
+
+
+def _p29_fit(paddle, card, dev):
+    """(a) Model.fit of BERT-base bf16 O2, b32 s128, 8 steps, with
+    ProfilerCallback over steps 4-6 and a device trace of the window
+    (warmed up over step 3); then a fresh fit of 3 steps without the
+    profiler, so the steps before the window, after it and in a later fit
+    can be told apart."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.hapi.callbacks import Callback, ProfilerCallback
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.text.datasets import LMDataset
+    from paddle_tpu_torch.text.models import BertConfig
+    cfg = BertConfig.bert_base()
+    b, s, n = P29_FIT["batch"], P29_FIT["seq"], P29_FIT["steps"]
+    start, stop = P29_FIT["window"]
+    model = _hapi_model(cfg, "bfloat16")
+    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=s, n=b * n, seed=29)
+    step_ms, fresh_ms, window = [], [], {}
+
+    class Clock(Callback):
+        """Synced step clock; the launch counts at the window's edges.
+        Listed before the profiler callback, so its begin runs first."""
+        def __init__(self, ms, edges):
+            super().__init__()
+            self.ms, self.edges = ms, edges
+
+        def on_train_batch_begin(self, step, logs=None):
+            torch.cuda.synchronize()
+            if self.edges and step + 1 == start:
+                window["before"] = kernels.launch_counts()
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - self.t0) * 1e3)
+            if self.edges and step + 1 == stop:
+                window["after"] = kernels.launch_counts()
+
+    tmp = tempfile.mkdtemp(prefix="p29_trace_")
+    prof_cb = ProfilerCallback(start_step=start, stop_step=stop,
+                               xplane_dir=tmp)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(ds, batch_size=b, epochs=1, verbose=0, shuffle=False,
+              callbacks=[Clock(step_ms, True), prof_cb])
+    fit_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    nf = P29_FIT["fresh_steps"]
+    model.fit(LMDataset(vocab_size=cfg.vocab_size, seq_len=s, n=b * nf,
+                        seed=30), batch_size=b, epochs=1, verbose=0,
+              shuffle=False, callbacks=[Clock(fresh_ms, False)])
+    check(len(step_ms) == n, f"29(a): {len(step_ms)} steps, not {n}")
+    names = [e[0] for e in profiler.events()]
+    check(names.count("hapi/train_step") == stop - start + 1,
+          f"29(a): {names.count('hapi/train_step')} hapi/train_step "
+          f"events in the window, not {stop - start + 1}")
+    delta = {k: window["after"][k] - window["before"][k]
+             for k in window["after"]}
+    path = prof_cb.trace_path
+    check(path is not None and os.path.exists(path),
+          "29(a): no device trace written")
+    trace_mb = os.path.getsize(path) / 2 ** 20
+    kev = _p29_device_events(path)
+    ev_counts = {}
+    for wrapper, kname in {**P29_FLASH_EVENTS, **P29_CE_EVENTS}.items():
+        ev_counts[kname] = sum(kname in e["name"] for e in kev)
+    seen = (f"events {ev_counts}, window launches "
+            f"{ {k: v for k, v in delta.items() if v} }, "
+            f"{len(kev)} kernel events")
+    if any(ev_counts[k] != delta[f"{w}.sm90"]
+           for w, k in P29_FLASH_EVENTS.items()):
+        seen += "; " + _p29_trace_diagnosis(path, kev)
+    for wrapper, kname in P29_FLASH_EVENTS.items():
+        want = delta[f"{wrapper}.sm90"]
+        check(want == 12 * (stop - start + 1) and want == delta[wrapper],
+              f"29(a): {wrapper} launched {delta[wrapper]} times "
+              f"({want} Hopper) in the window")
+        check(ev_counts[kname] == want,
+              f"29(a): {ev_counts[kname]} {kname} events in the trace "
+              f"against {want} launches ({seen})")
+    for wrapper, kname in P29_CE_EVENTS.items():
+        want = delta[f"{wrapper}.sm90"]
+        check(want > 0 and ev_counts[kname] >= want,
+              f"29(a): {ev_counts[kname]} {kname} events against {want} "
+              f"launches of {wrapper} ({seen})")
+    busy = _p29_busy_ms(kev) / (stop - start + 1)
+    inside = step_ms[start - 1:stop]
+    before = step_ms[1:start - 2]      # step 1 builds; step start - 1 warms
+    after = step_ms[stop:]
+    shutil.rmtree(tmp, ignore_errors=True)
+    res = {"config": "BERT-base bf16 O2 b32 s128, AdamW, Model.fit",
+           "steps": n, "window": [start, stop], "fit_s": fit_s,
+           "step_ms": step_ms,
+           "step_ms_in_window": statistics.median(inside),
+           "step_ms_before_window": statistics.median(before),
+           "step_ms_warm_up": step_ms[start - 2],
+           "step_ms_after_window": statistics.median(after),
+           "step_ms_fresh_fit": statistics.median(fresh_ms[1:]),
+           "fresh_fit_step_ms": fresh_ms,
+           "device_busy_ms_per_step_in_window": busy,
+           "trace_mb": trace_mb, "kernel_events": len(kev),
+           "trace_kernel_events": ev_counts, "window_launches": {
+               k: delta[k] for k in sorted(delta) if delta[k]},
+           "host_events": {k: names.count(k) for k in sorted(set(names))
+                           if not k.startswith("op/")},
+           "op_events_in_window": sum(k.startswith("op/") for k in names),
+           "card": card}
+    log(f"[p29 fit] {json.dumps(res)}")
+    return counts, res
+
+
+def _p29_counted(net, inputs, cfg=None, seq=0):
+    """(the FlopCounter, 2 x the multiply-adds from the layer shapes) of
+    one eval forward: each Linear's outputs x its inputs, each conv's
+    outputs x its window; with ``cfg`` (a BERT) the attention's QKᵀ and
+    PV and the tied vocabulary head."""
+    from paddle_tpu_torch.core.flop_count import FlopCounter
+    from paddle_tpu_torch.nn.layer.common import Linear
+    from paddle_tpu_torch.nn.layer.conv import Conv2D
+    macs = [0]
+
+    def hook(mod, _inputs, out):
+        w = mod.weight
+        macs[0] += out.numel() * (w.shape[0] if isinstance(mod, Linear)
+                                  else w.shape[1] * w.shape[2] * w.shape[3])
+    hs = [m.register_forward_hook(hook) for m in net.modules()
+          if isinstance(m, (Linear, Conv2D))]
+    try:
+        net.eval()
+        with torch.no_grad(), FlopCounter() as c:
+            net(*inputs)
+    finally:
+        for h in hs:
+            h.remove()
+    if cfg is not None:
+        macs[0] += cfg.num_hidden_layers * 2 * seq * seq * cfg.hidden_size
+        macs[0] += seq * cfg.hidden_size * cfg.vocab_size
+    return c, 2 * macs[0]
+
+
+def _p29_flops(paddle, card):
+    """(b) paddle.flops of BERT-base (b1 s128) and ResNet-50 (b1 224) on
+    the card against the count of the same net on the CPU, exactly, and
+    the matrix-product part against 2 x the multiply-adds from the
+    shapes."""
+    from paddle_tpu_torch.hapi.summary import _example_inputs
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    res = {}
+    cfg = BertConfig.bert_base()
+    nets = {"bert_base_b1_s128": (lambda: Bert(cfg, device="cpu", seed=3),
+                                  [1, 128], ["int64"], cfg),
+            "resnet50_b1_224": (lambda: paddle.vision.models.resnet50(),
+                                [1, 3, 224, 224], None, None)}
+    for name, (build, size, dt, bcfg) in nets.items():
+        with paddle.device.device_scope("cpu"):
+            net = build()
+        t = time.perf_counter()
+        c, macs2 = _p29_counted(net, _example_inputs(
+            size, dt, torch.device("cpu")), bcfg, size[-1])
+        cpu_s = time.perf_counter() - t
+        net.to("cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gpu = paddle.flops(net, size, dt)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t
+        g, _ = _p29_counted(net, _example_inputs(size, dt,
+                                                 torch.device("cuda")))
+        check(gpu == g.flops == c.flops,
+              f"29(b): {name} counts {gpu} on the card, {c.flops} on "
+              f"the CPU")
+        check(c.matmul_flops == g.matmul_flops == macs2,
+              f"29(b): {name} matrix products {g.matmul_flops} (card), "
+              f"{c.matmul_flops} (CPU) against 2 x MACs {macs2}")
+        res[name] = {"flops": gpu, "matmul_flops": g.matmul_flops,
+                     "two_x_macs": macs2, "other_flops": gpu - macs2,
+                     "bytes_accessed": g.bytes, "flops_s_card": gpu_s,
+                     "count_s_cpu": cpu_s,
+                     "kernels_counted": sorted(
+                         k for k in g.by_op if k.startswith(("flash",
+                                                             "fused")))}
+        del net
+    log(f"[p29 flops] {json.dumps(res)}; card: {card}")
+    return res
+
+
+def _p29_averaging(paddle, card):
+    """(c) LookAhead(AdamW, alpha 0.5, k 3) with an EMA(0.999) and a
+    ModelAverage updated each step, 6 dygraph steps of BERT-base f32
+    (b16 s128, dropout 0); the blend after steps 3 and 6 worked out again
+    on the host; average_weights / restore; vjp of the MLM loss through
+    the encoder against loss.backward(); (e) memory over the run."""
+    from paddle_tpu_torch import memory
+    from paddle_tpu_torch.incubate import functional as IF
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.optimizer import (AdamW, ExponentialMovingAverage,
+                                            LookAhead, ModelAverage)
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    b, s, n, k = (P29_AVG[x] for x in ("batch", "seq", "steps", "k"))
+    alpha = P29_AVG["alpha"]
+    cfg = dataclasses.replace(BertConfig.bert_base(), hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    bert = Bert(cfg, device="cuda", seed=29)
+    params = list(bert.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    ids_all, lab_all = _bert_batches(cfg, b, s, n + 1, seed=29)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01, parameters=params)
+    look = LookAhead(opt, alpha=alpha, k=k)
+    ema = ExponentialMovingAverage(bert, decay=0.999)
+    avg = ModelAverage(bert, average_window_rate=0.15,
+                       min_average_window=2, max_average_window=4)
+    slow = [p.detach().clone() for p in params]
+    fast = {}
+    inner_step = opt.step
+
+    def recording_step():
+        inner_step()
+        if (look._steps + 1) % k == 0:
+            fast["w"] = [p.detach().clone() for p in params]
+    opt.step = recording_step
+    t_opt, t_avg, blend_err = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n):
+        loss = bert(ids_all[i], masked_lm_labels=lab_all[i])
+        loss.backward()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        look.step()
+        torch.cuda.synchronize()
+        t_opt.append((time.perf_counter() - t) * 1e3)
+        look.clear_grad()
+        t = time.perf_counter()
+        ema.update()
+        avg.update()
+        torch.cuda.synchronize()
+        t_avg.append((time.perf_counter() - t) * 1e3)
+        if (i + 1) % k == 0:
+            worst = 0.0
+            for p, s0, f in zip(params, slow, fast["w"]):
+                s_h, f_h = s0.cpu().numpy(), f.cpu().numpy()
+                want = s_h + np.float32(alpha) * (f_h - s_h)
+                got = p.detach().cpu().numpy()
+                err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+                worst = max(worst, float(err.max()))
+            check(worst <= P29_BLEND_RTOL,
+                  f"29(c): the blend after step {i + 1} is {worst:.3g} "
+                  f"from the host's")
+            blend_err.append(worst)
+            slow = [p.detach().clone() for p in params]
+    # (e) memory over the run, against torch.cuda's own counters
+    mem = {"memory_allocated": memory.memory_allocated(),
+           "max_memory_allocated": memory.max_memory_allocated(),
+           "memory_reserved": memory.memory_reserved()}
+    torch_mem = {"memory_allocated": torch.cuda.memory_allocated(),
+                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                 "memory_reserved": torch.cuda.memory_reserved()}
+    check(mem == torch_mem, f"29(e): memory {mem} against torch.cuda "
+                            f"{torch_mem}")
+    st = memory.stats()
+    check(st["allocated_bytes.all.current"] ==
+          torch.cuda.memory_stats()["allocated_bytes.all.current"],
+          "29(e): memory.stats against torch.cuda.memory_stats")
+    t = time.perf_counter()
+    live = memory.live_bytes()
+    live_s = time.perf_counter() - t
+    check(mem["memory_allocated"] >= param_bytes,
+          f"29(e): {mem['memory_allocated']} B allocated, under the "
+          f"{param_bytes} B of parameters")
+    check(param_bytes <= live <= mem["memory_allocated"],
+          f"29(e): live storages {live} B outside [parameters "
+          f"{param_bytes}, allocated {mem['memory_allocated']}]")
+    # average_weights gives a finite eval loss; restore() is bitwise
+    before = [p.detach().clone() for p in params]
+    ids, lab = ids_all[n], lab_all[n]
+    evals = {}
+    bert.eval()
+    with torch.no_grad():
+        evals["trained"] = float(bert(ids, masked_lm_labels=lab))
+        for name, a in (("ema", ema), ("model_average", avg)):
+            with a.average_weights():
+                evals[name] = float(bert(ids, masked_lm_labels=lab))
+            check(math.isfinite(evals[name]),
+                  f"29(c): {name} eval loss {evals[name]}")
+            check(all(torch.equal(p.detach(), q)
+                      for p, q in zip(params, before)),
+                  f"29(c): {name} restore() did not put the weights back")
+    # vjp of the MLM loss with respect to the encoder's input
+    word = bert.embeddings.word_embeddings.weight
+
+    def mlm_from(x):
+        h = bert.encoder(x)
+        t_ = bert.mlm_norm(F.gelu(bert.mlm_transform(h)))
+        return F.fused_linear_cross_entropy(t_, word, bert.mlm_bias, lab)
+    with torch.no_grad():
+        x0 = bert.embeddings(ids)
+    x = x0.detach().requires_grad_(True)
+    mlm_from(x).backward()
+    ref = x.grad.detach().clone()
+    kernels.reset_launch_counts()
+    out, pullback = IF.vjp(mlm_from, x0)
+    (g,) = pullback(torch.ones((), device="cuda"))
+    torch.cuda.synchronize()
+    vjp_counts = kernels.launch_counts()
+    err = float((g - ref).abs().max() / ref.abs().max())
+    check(err <= P29_VJP_TOL, f"29(c): vjp of the MLM loss is {err:.3g} "
+                              f"from loss.backward()'s gradient")
+    for wrapper in ("flash_bwd_dq", "flash_bwd_dkv", "fused_ce_bwd_dh"):
+        check(vjp_counts[wrapper] > 0,
+              f"29(c): the vjp launched no {wrapper}")
+    res = {"config": "BERT-base f32 b16 s128 dropout 0, LookAhead(AdamW "
+                     "lr 1e-4, alpha 0.5, k 3) + EMA(0.999) + ModelAverage",
+           "steps": n, "blend_max_rel_err": blend_err,
+           "lookahead_adamw_ms": t_opt,
+           "ema_and_model_average_ms": t_avg,
+           "lookahead_adamw_ms_median": statistics.median(t_opt),
+           "ema_and_model_average_ms_median": statistics.median(t_avg),
+           "eval_losses": evals, "vjp_max_rel_err": err,
+           "vjp_launches": {w: vjp_counts[w] for w in
+                            ("flash_bwd_dq", "flash_bwd_dkv",
+                             "fused_ce_bwd_dh", "fused_ce_bwd_dw")},
+           "memory": mem, "param_bytes": param_bytes, "live_bytes": live,
+           "live_bytes_s": live_s, "card": card}
+    log(f"[p29 averaging] {json.dumps(res)}")
+    del bert, opt, look, ema, avg, slow, fast, before
+    return res
+
+
+def _p29_distribution(paddle, card):
+    """(d) 10^6 draws from each family with the card's generator, moments
+    within ``P29_Z`` standard errors; log_prob / entropy / KL on CUDA
+    against the CPU."""
+    from paddle_tpu_torch import distribution as D
+    rng = np.random.RandomState(29)
+    loc, scale = rng.randn(3), rng.rand(3) + 0.5
+    low = rng.randn(3)
+    high = low + rng.rand(3) + 0.5
+    logits = rng.randn(2, 5)
+    probs = rng.rand(4)
+    a, bb = rng.rand(3) * 2 + 0.5, rng.rand(3) * 2 + 0.5
+    conc = rng.rand(2, 4) * 2 + 0.5
+
+    def make(dev):
+        T = lambda v: torch.as_tensor(v, dtype=torch.float32,  # noqa: E731
+                                      device=dev)
+        return {"normal": (D.Normal(T(loc), T(scale)),
+                           D.Normal(T(loc * 0.5), T(scale * 2))),
+                "uniform": (D.Uniform(T(low), T(high)),
+                            D.Uniform(T(low - 1), T(high + 1))),
+                "categorical": (D.Categorical(logits=T(logits)),
+                                D.Categorical(logits=T(logits[::-1].copy()))),
+                "bernoulli": (D.Bernoulli(T(probs)),
+                              D.Bernoulli(T(probs[::-1].copy()))),
+                "beta": (D.Beta(T(a), T(bb)), D.Beta(T(bb), T(a))),
+                "dirichlet": (D.Dirichlet(T(conc)),
+                              D.Dirichlet(T(conc[::-1].copy())))}
+    values = {"normal": rng.randn(4, 3), "uniform": (low + high) / 2,
+              "categorical": np.array([4, 2]),
+              "bernoulli": np.array([0.0, 1.0, 1.0, 0.0]),
+              "beta": rng.rand(2, 3) * 0.9 + 0.05,
+              "dirichlet": rng.dirichlet([1.0] * 4, size=(3, 2))}
+    f32 = lambda v: v.astype(np.float32)  # noqa: E731
+    p_m = np.clip(probs, 1e-7, 1 - 1e-7)
+    sm = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    a0 = conc.sum(-1, keepdims=True)
+    exact = {"normal": (loc, scale ** 2),
+             "uniform": ((low + high) / 2, (high - low) ** 2 / 12),
+             "bernoulli": (p_m, p_m * (1 - p_m)),
+             "beta": (a / (a + bb),
+                      a * bb / ((a + bb) ** 2 * (a + bb + 1))),
+             "dirichlet": (conc / a0,
+                           (conc / a0) * (1 - conc / a0) / (a0 + 1)),
+             "categorical": (sm, sm * (1 - sm))}
+    paddle.seed(29)
+    card_d, cpu_d = make("cuda"), make("cpu")
+    res = {}
+    for name, (p, q) in card_d.items():
+        t = time.perf_counter()
+        x = p.sample((P29_DRAWS,))
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t
+        check(x.is_cuda, f"29(d): {name} drew on {x.device}")
+        x = x.double()
+        mean, var = exact[name]
+        if name == "categorical":
+            got = torch.stack([(x == c).double().mean(0) for c in range(5)],
+                              -1).cpu().numpy()
+        else:
+            got = x.mean(0).cpu().numpy()
+        z = np.abs(got - mean) / np.sqrt(var / P29_DRAWS)
+        check(float(z.max()) <= P29_Z,
+              f"29(d): {name} sample mean {z.max():.2f} standard errors "
+              f"from the exact one")
+        pc, qc = cpu_d[name]
+        v = values[name]
+        vd = torch.as_tensor(v if name == "categorical" else f32(v))
+        pairs = {"log_prob": (p.log_prob(vd.to("cuda")), pc.log_prob(vd)),
+                 "entropy": (p.entropy(), pc.entropy()),
+                 "kl": (D.kl_divergence(p, q), D.kl_divergence(pc, qc))}
+        worst = 0.0
+        for what, (g, c) in pairs.items():
+            g, c = g.cpu().double(), c.double()
+            ok = torch.allclose(g, c, **P29_DIST_TOL)
+            worst = max(worst, float((g - c).abs().max()))
+            check(ok, f"29(d): {name} {what} on CUDA against the CPU: "
+                      f"{(g - c).abs().max():.3g}")
+        res[name] = {"mean_z_max": float(z.max()), "draw_s": draw_s,
+                     "max_abs_err_cuda_cpu": worst}
+    log(f"[p29 distribution] {json.dumps(res)}; card: {card}")
+    return res
+
+
+def _p29_interop(paddle, card):
+    """(e) the dlpack round trip of a CUDA tensor keeps its data_ptr;
+    run_check passes on the card."""
+    from paddle_tpu_torch.utils import dlpack
+    t = paddle.randn([1024, 768])
+    back = dlpack.from_dlpack(dlpack.to_dlpack(t))
+    check(back.is_cuda and back.data_ptr() == t.data_ptr(),
+          "29(e): the dlpack round trip moved the tensor")
+    dev = paddle.utils.run_check()
+    check(dev.type == "cuda", f"29(e): run_check ran on {dev}")
+    return {"dlpack_same_data_ptr": True, "run_check_device": str(dev)}
+
+
+def _p29_fluid(paddle, card):
+    """(f) paddle.batch(xmap_readers(shuffle(uci_housing.train()))) into a
+    Linear(13, 1) on the card, one epoch of SGD: the loss falls."""
+    import random
+    random.seed(29)
+    paddle.seed(29)
+    lin = paddle.nn.Linear(13, 1)
+    check(lin.weight.is_cuda, "29(f): the Linear is not on the card")
+    opt = paddle.optimizer.SGD(learning_rate=0.05,
+                               parameters=lin.parameters())
+    reader = paddle.reader.xmap_readers(
+        lambda s: (s[0], s[1]), paddle.reader.shuffle(
+            paddle.dataset.uci_housing.train(), 128), 2, 64)
+    x_all = np.stack([x for x, _ in paddle.dataset.uci_housing.train()()])
+    y_all = np.stack([y for _, y in paddle.dataset.uci_housing.train()()])
+    X, Y = paddle.to_tensor(x_all), paddle.to_tensor(y_all)
+
+    def full_loss():
+        with torch.no_grad():
+            return float(((lin(X) - Y) ** 2).mean())
+    before = full_loss()
+    losses, n = [], 0
+    for batch in paddle.batch(reader, 32)():
+        x = paddle.to_tensor(np.stack([s[0] for s in batch]))
+        y = paddle.to_tensor(np.stack([s[1] for s in batch]))
+        loss = ((lin(x) - y) ** 2).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        n += len(batch)
+    after = full_loss()
+    check(n == len(x_all), f"29(f): the epoch saw {n} of {len(x_all)}")
+    check(after < before, f"29(f): the loss did not fall ({before} -> "
+                          f"{after})")
+    return {"samples": n, "batches": len(losses), "loss_before": before,
+            "loss_after": after}
+
+
+def phase_long_tail_host(card=None):
+    """Phase 29: (a) a profiled BERT-base fit; (b) FLOPs at full width;
+    (c) averaging and higher-order autodiff at BERT-base width; (d)
+    distributions on CUDA; (e) memory, dlpack and run_check; (f) the
+    fluid-era reader pipeline. Returns the kernels' launches of (a) and
+    the results."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    t0 = time.perf_counter()
+    res = {"card": card}
+    times = {}
+    t = time.perf_counter()
+    counts, res["fit"] = _p29_fit(paddle, card, "cuda")
+    times["fit"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, fn in (("flops", _p29_flops), ("averaging", _p29_averaging),
+                     ("distribution", _p29_distribution),
+                     ("interop", _p29_interop), ("fluid", _p29_fluid)):
+        t = time.perf_counter()
+        res[name] = fn(paddle, card)
+        times[name] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    fit, fl = res["fit"], res["flops"]["bert_base_b1_s128"]
+    step_flops = 3 * P29_FIT["batch"] * fl["flops"]
+    res["fit"]["mfu_in_window"] = step_flops / (
+        fit["step_ms_in_window"] / 1e3) / 989e12
+    res["fit"]["mfu_before_window"] = step_flops / (
+        fit["step_ms_before_window"] / 1e3) / 989e12
+    res["seconds"] = time.perf_counter() - t0
+    res["seconds_by_part"] = times
+    log(f"[long tail host] phase 29 {res['seconds']:.1f} s "
+        f"({json.dumps(times)}); MFU {res['fit']['mfu_in_window']:.4f} in "
+        f"the window, {res['fit']['mfu_before_window']:.4f} before it "
+        f"({PEAK_NAME}); card: {card}")
+    return counts, res
+
+
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
@@ -10061,6 +10877,8 @@ def main():
     lap("multi_process")
     p28_counts, p28 = phase_long_tail(card)
     lap("long_tail")
+    p29_counts, p29 = phase_long_tail_host(card)
+    lap("long_tail_host")
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -10138,6 +10956,9 @@ def main():
         _distributed_fields(rec, name, p25_counts)
         _fleet_training_fields(rec, name, p26_counts)
         _multi_process_fields(rec, name, p27_counts)
+        # phase 29(a): the profiled BERT-base fit (6 steps)
+        rec["launches_p29_fit"] = p29_counts[name]
+        rec["launches_p29_fit_sm90"] = p29_counts[f"{name}.sm90"]
         if name == "fused_ce_bwd_dw":
             rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
                                      *worst_ce["db_max"].values(),
@@ -10175,6 +10996,9 @@ def main():
         # phase 28(a): BERT-base + CRF through Model.fit (8 steps)
         rec["launches_p28_crf"] = p28_counts[name]
         rec["launches_p28_crf_sm90"] = p28_counts[f"{name}.sm90"]
+        # phase 29(a): the profiled BERT-base fit (6 steps)
+        rec["launches_p29_fit"] = p29_counts[name]
+        rec["launches_p29_fit_sm90"] = p29_counts[f"{name}.sm90"]
         if name == "flash_fwd":     # 22(c): each jit route's forward
             rec["launches_jit"] = {
                 r: c["flash_fwd"] for r, c in
@@ -10204,7 +11028,8 @@ def main():
                       "generation": generation, "static": static_res,
                       "trainer_host": trainer_host, "ps": ps_res,
                       "distributed": p25, "fleet_training": p26,
-                      "multi_process": p27, "long_tail": p28}))
+                      "multi_process": p27, "long_tail": p28,
+                      "long_tail_host": p29}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -10218,12 +11043,19 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--faults"]:
         sys.exit(plant_faults())
+    if sys.argv[1:2] == ["--repeat"] and len(sys.argv) == 3:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(repeat_static_dp(float(sys.argv[2])))
     if sys.argv[1:2] in (["--compare"], ["--attribute"],
-                         ["--compare-serve"]) and len(sys.argv) == 3:
+                         ["--compare-serve"], ["--dispatch"]) \
+            and len(sys.argv) == 3:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         run = {"--compare": compare, "--attribute": attribute,
-               "--compare-serve": compare_serve}[sys.argv[1]]
+               "--compare-serve": compare_serve,
+               "--dispatch": compare_dispatch}[sys.argv[1]]
         sys.exit(run(os.path.abspath(sys.argv[2])))
     sys.exit(main())

@@ -20,6 +20,8 @@ instead.
 """
 from __future__ import annotations
 
+__version__ = "0.1.0"
+
 from .core.dtype import (bfloat16, bool_, complex64, complex128,  # noqa: F401
                          float16, float32, float64, int8, int16, int32,
                          int64, uint8)
@@ -68,3 +70,36 @@ def enable_static():
 
 def disable_static():
     static.disable_static_()
+
+
+def disable_signal_handler():  # parity no-op
+    pass
+
+
+# The JAX root's other submodules, imported at first use as there. Left
+# out: ``fluid``, ``onnx`` and ``sysconfig`` (the C ABI and its clients,
+# ROADMAP Queue 1 item 9, slice 22).
+import importlib as _importlib  # noqa: E402
+
+_SUBMODULES = ("metric", "io", "hapi", "incubate", "profiler", "text",
+               "callbacks", "inference", "framework", "regularizer",
+               "memory", "quantization", "distribution", "version", "utils",
+               "reader", "dataset", "tensor")
+__all_lazy__ = ("Model", "summary", "flops", "save", "load", "batch")
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        mod = _importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    if name in ("summary", "flops"):
+        from .hapi.summary import flops, summary
+        globals().update(summary=summary, flops=flops)
+        return globals()[name]
+    if name == "batch":
+        from .reader import batch
+        globals()["batch"] = batch
+        return batch
+    raise AttributeError(
+        f"module 'paddle_tpu_torch' has no attribute {name!r}")

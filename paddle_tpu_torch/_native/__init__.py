@@ -7,7 +7,7 @@ A MultiSlot file has one sample a line; for each slot in order, a count
 row_splits), ...])``: per slot, the values (float32 for a ``"float"``
 slot, int64 for a ``"uint64"`` one) and int64 row splits of length
 rows + 1. The JAX package's C++ parser and its C ABI are ROADMAP Queue 1
-item 9; this is the pure-Python path, which the JAX package also runs
+item 9, slice 22; this is the pure-Python path, which the JAX package also runs
 when its native library is absent.
 """
 from __future__ import annotations

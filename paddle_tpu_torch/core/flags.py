@@ -116,6 +116,10 @@ define_flag("FLAGS_use_fused_ce", True,
             "route linear+cross-entropy loss heads through the fused CE "
             "kernels (ops/cuda/fused_ce.py); off = the plain composite "
             "that materializes the logits")
+define_flag("FLAGS_enable_profiler", False,
+            "the host event profiler is on (profiler.start_profiler sets it, "
+            "stop_profiler clears it): every eager op then records an "
+            "op/<name> event")
 define_flag("FLAGS_check_nan_inf", False,
             "check for inf / nan (core/numeric_check.py): every eager op's "
             "floating outputs after its kernel, naming the op; every "

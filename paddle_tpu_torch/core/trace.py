@@ -13,9 +13,10 @@
   (chrome://tracing, Perfetto). ``add_sink`` registers more.
 
 A span costs two ``perf_counter`` calls and a deque append, so it stays
-on at step granularity. The JAX package also mirrors spans into its
-profiler's event table; the port has no profiler module yet (ROADMAP
-Queue 1 item 9), so that sink is left out.
+on at step granularity. While the host profiler is enabled, every
+finished span is also mirrored into ``profiler``'s event table (the sink
+that ``profiler/__init__.py`` adds at import), so
+``profiler.summary()`` covers every span site.
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ zero-egress environments).
 
 The port's ``mnist``, ``cifar`` and ``flowers`` read its ``vision/
 datasets``; ``uci_housing``, ``imdb``, ``imikolov`` and ``movielens``
-read text datasets the port does not have yet, and their creators raise
-NotImplementedError naming ROADMAP Queue 1 item 9.
+its ``text/datasets``. Combine them with ``paddle.reader``'s decorators
+and ``paddle.batch``.
 """
 from __future__ import annotations
 
@@ -80,25 +80,56 @@ cifar.train100 = lambda: _cifar_reader("train", 100)
 cifar.test100 = lambda: _cifar_reader("test", 100)
 
 
-# -- uci_housing, imdb, imikolov, movielens: over text datasets of
-# -- ROADMAP Queue 1 item 9 ---------------------------------------------------
-def _unported(name):
-    def creator(*args, **kwargs):
-        raise NotImplementedError(
-            f"paddle.dataset.{name} reads text/datasets' {name} dataset, "
-            f"which the port does not have yet (ROADMAP Queue 1 item 9)")
-    return creator
-
-
+# -- uci_housing: (float32[13], float32[1]) ---------------------------------
 uci_housing = _module("uci_housing")
-uci_housing.train = uci_housing.test = _unported("uci_housing")
+
+
+def _uci_reader(mode):
+    from ..text.datasets import UCIHousing
+    return _reader_from(lambda: UCIHousing(mode=mode))
+
+
+uci_housing.train = lambda: _uci_reader("train")
+uci_housing.test = lambda: _uci_reader("test")
+
+
+# -- imdb: (word-id list, 0/1 label) ----------------------------------------
 imdb = _module("imdb")
-imdb.train = imdb.test = imdb.word_dict = _unported("imdb")
+
+
+def _imdb_reader(mode):
+    from ..text.datasets import Imdb
+
+    def tf(item):
+        ids, lab = item
+        return list(np.asarray(ids).reshape(-1)), int(np.asarray(lab))
+    return _reader_from(lambda: Imdb(mode=mode), tf)
+
+
+imdb.train = lambda word_dict=None: _imdb_reader("train")
+imdb.test = lambda word_dict=None: _imdb_reader("test")
+imdb.word_dict = lambda: {i: i for i in range(5149)}
+
+
+# -- imikolov: n-gram tuples ------------------------------------------------
 imikolov = _module("imikolov")
-imikolov.train = imikolov.test = imikolov.build_dict = \
-    _unported("imikolov")
-movielens = _module("movielens")
-movielens.train = movielens.test = _unported("movielens")
+
+
+def _imikolov_reader(mode, n, data_file):
+    from ..text.datasets import Imikolov
+
+    def tf(item):
+        return tuple(int(x) for x in np.asarray(item).reshape(-1))
+    return _reader_from(lambda: Imikolov(data_file=data_file, mode=mode,
+                                         data_type="NGRAM",
+                                         window_size=n), tf)
+
+
+imikolov.train = lambda word_dict=None, n=5, *, data_file=None: \
+    _imikolov_reader("train", n, data_file)
+imikolov.test = lambda word_dict=None, n=5, *, data_file=None: \
+    _imikolov_reader("test", n, data_file)
+imikolov.build_dict = lambda: {i: i for i in range(2073)}
 
 
 # -- flowers ----------------------------------------------------------------
@@ -118,6 +149,21 @@ def _flowers_reader(mode, **files):
 flowers.train = lambda **files: _flowers_reader("train", **files)
 flowers.test = lambda **files: _flowers_reader("test", **files)
 flowers.valid = lambda **files: _flowers_reader("valid", **files)
+
+
+# -- movielens --------------------------------------------------------------
+movielens = _module("movielens")
+
+
+def _movielens_reader(mode, data_file):
+    from ..text.datasets import Movielens
+    return _reader_from(lambda: Movielens(data_file=data_file, mode=mode))
+
+
+movielens.train = lambda data_file=None: _movielens_reader("train",
+                                                           data_file)
+movielens.test = lambda data_file=None: _movielens_reader("test",
+                                                          data_file)
 
 
 # -- streaming: online-learning completion-record stream (a REAL

@@ -1,10 +1,7 @@
 """Training callbacks (paddle_tpu/hapi/callbacks.py): Callback,
 CallbackList, History, ProgBarLogger, ModelCheckpoint, EarlyStopping,
-LRSchedulerCallback, VisualDL (over ``utils/log_writer``) and
-config_callbacks.
-
-``ProfilerCallback`` (needs ``profiler/``) waits for ROADMAP Queue 1 item
-9."""
+LRSchedulerCallback, VisualDL (over ``utils/log_writer``),
+ProfilerCallback (over ``profiler/``) and config_callbacks."""
 from __future__ import annotations
 
 import numbers
@@ -15,7 +12,7 @@ import numpy as np
 
 __all__ = ["Callback", "CallbackList", "ProgBarLogger", "ModelCheckpoint",
            "EarlyStopping", "LRSchedulerCallback", "History", "VisualDL",
-           "config_callbacks"]
+           "ProfilerCallback", "config_callbacks"]
 
 
 class Callback:
@@ -286,6 +283,46 @@ class VisualDL(Callback):
             self.writer.flush()
         except Exception:
             pass
+
+
+class ProfilerCallback(Callback):
+    """Capture the host profiler's events over training steps
+    ``start_step`` .. ``stop_step`` (1-based, counted over the whole fit)
+    and print the summary table; with ``xplane_dir`` also a device trace
+    of the same window (``profiler.start_xplane``), its path then in
+    ``trace_path``. The device trace warms up over the step before the
+    window where there is one (``start_xplane(..., warmup=True)``)."""
+
+    def __init__(self, start_step=1, stop_step=10, sorted_key="total",
+                 xplane_dir=None):
+        super().__init__()
+        self.start_step = start_step
+        self.stop_step = stop_step
+        self.sorted_key = sorted_key
+        self.xplane_dir = xplane_dir
+        self.trace_path = None
+        self._step = 0
+
+    def on_train_batch_begin(self, step, logs=None):
+        from .. import profiler as prof
+        self._step += 1
+        if self.xplane_dir and self._step == self.start_step - 1:
+            prof.start_xplane(self.xplane_dir, warmup=True)
+        if self._step == self.start_step:
+            prof.reset_profiler()
+            prof.start_profiler()
+            if self.xplane_dir and self.start_step > 1:
+                prof.step_xplane()
+            elif self.xplane_dir:
+                prof.start_xplane(self.xplane_dir)
+
+    def on_train_batch_end(self, step, logs=None):
+        from .. import profiler as prof
+        if self._step == self.stop_step and prof.is_profiler_enabled():
+            if self.xplane_dir:
+                self.trace_path = prof.stop_xplane()
+            prof.stop_profiler()
+            print(prof.summary(sorted_key=self.sorted_key))
 
 
 def config_callbacks(callbacks=None, model=None, epochs=None, steps=None,

@@ -1,13 +1,18 @@
-"""The layer table (paddle_tpu/hapi/summary.py ``summary``): one eval
-forward of example inputs with a forward hook on every submodule, each
-row the submodule's type and path, its output shape and the parameters
-it holds itself. ``flops`` (XLA cost analysis in the JAX package) is not
-ported."""
+"""Model introspection (paddle_tpu/hapi/summary.py): ``summary`` and
+``flops``.
+
+``summary`` is one eval forward of example inputs with a forward hook on
+every submodule, each row the submodule's type and path, its output shape
+and the parameters it holds itself. ``flops`` counts one eval forward
+with ``core/flop_count.FlopCounter`` (matrix products and the kernels
+exactly, the other ops by its stated rules), where the JAX package reads
+XLA's cost analysis of the compiled forward; the count does not depend
+on the device."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["summary"]
+__all__ = ["summary", "flops"]
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64,
@@ -55,7 +60,7 @@ def summary(net, input_size, dtypes=None):
 
     handles = [m.register_forward_hook(hook(name))
                for name, m in net.named_modules() if name]
-    modes = [(m, m.training) for m in net.modules()]
+    modes = _snapshot_modes(net)
     device = next((p.device for p in net.parameters()), torch.device("cpu"))
     net.eval()
     try:
@@ -64,8 +69,7 @@ def summary(net, input_size, dtypes=None):
     finally:
         for h in handles:
             h.remove()
-        for m, flag in modes:   # each submodule's own flag, frozen ones too
-            m.training = flag
+        _restore_modes(modes)
     total = sum(p.numel() for p in net.parameters())
     trainable = sum(p.numel() for p in net.parameters() if p.requires_grad)
     w = max([len(r[0]) for r in rows] + [14]) + 2
@@ -79,3 +83,33 @@ def summary(net, input_size, dtypes=None):
     lines.append(f"Non-trainable params: {total - trainable:,}")
     print("\n".join(lines))
     return {"total_params": total, "trainable_params": trainable}
+
+
+def _snapshot_modes(net):
+    return [(m, m.training) for m in net.modules()]
+
+
+def _restore_modes(modes):
+    for m, flag in modes:   # each submodule's own flag, frozen ones too
+        m.training = flag
+
+
+def flops(net, input_size, dtypes=None, print_detail=False):
+    """FLOPs of one eval forward of ``net`` on example inputs (ones, or
+    zeros for integer inputs) of ``input_size`` (reference
+    hapi/dynamic_flops.py). The net's modes are kept as they were."""
+    from ..core.flop_count import FlopCounter
+    modes = _snapshot_modes(net)
+    device = next((p.device for p in net.parameters()), torch.device("cpu"))
+    net.eval()
+    try:
+        with torch.no_grad(), FlopCounter() as c:
+            net(*_example_inputs(input_size, dtypes, device))
+    finally:
+        _restore_modes(modes)
+    if print_detail:
+        print(f"Total FLOPs: {c.flops:,}  (matrix products: "
+              f"{c.matmul_flops:,}; bytes accessed: {c.bytes:,})")
+        for name, n in sorted(c.by_op.items(), key=lambda kv: -kv[1]):
+            print(f"  {name:<32}{n:>16,}")
+    return int(c.flops)

@@ -7,7 +7,7 @@ framework/data_feed.h:663 MultiSlotDataFeed, framework/channel.h) and its
 Python face (fluid/dataset.py DatasetFactory). MultiSlot files parse on a
 thread pool through ``_native.parse_multislot_file`` (the port's copy of
 the JAX package's pure-Python parser; the C++ one is ROADMAP Queue 1 item
-9); samples live in the packed ragged form and batches materialize as
+9, slice 22); samples live in the packed ragged form and batches materialize as
 dense or padded numpy arrays shaped to the declared feed Variables.
 
 Shuffles: ``local_shuffle`` permutes this process's samples from the

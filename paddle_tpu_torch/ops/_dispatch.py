@@ -32,6 +32,11 @@ With ``FLAGS_check_nan_inf`` on, the wrapper checks the op's floating
 outputs after its kernel (``core/numeric_check.check_op_outputs``, the
 JAX package's ``record_op`` hook) and raises naming the op; off, the hot
 path pays one flag read.
+
+While the host profiler runs (``profiler.start_profiler``), each eager op
+records an ``op/<name>`` event around its body, as the JAX package's
+``record_op`` does under ``FLAGS_enable_profiler``; off, the hot path pays
+one read of the module-level ``_profiling``.
 """
 from __future__ import annotations
 
@@ -53,6 +58,8 @@ __all__ = ["OP_REGISTRY", "SHAPE_INFER_REGISTRY", "defop", "wrap",
 
 OP_REGISTRY = {}
 SHAPE_INFER_REGISTRY = {}
+
+_profiling = False     # set by profiler.start_profiler / stop_profiler
 
 
 class _State(threading.local):
@@ -145,6 +152,16 @@ def _record_static(f, name, args, kwargs):
     return tuple(outs) if multi else outs[0]
 
 
+def _profiled(f, opname, args, kwargs):
+    """``f``'s call with its ``op/<name>`` profiler event (none when it
+    raises, as in the JAX package)."""
+    from ..profiler import RecordEvent
+    rec = RecordEvent("op/" + opname).begin()
+    out = f(*args, **kwargs)
+    rec.end()
+    return out
+
+
 def defop(raw_fn=None, *, name=None, version=1):
     """Register ``raw_fn`` (a torch function of its inputs) as the op
     ``name`` (default: the function's name without leading underscores)
@@ -166,7 +183,8 @@ def defop(raw_fn=None, *, name=None, version=1):
                 args, kwargs = _cast(opname, args, kwargs)
             st.depth = 1
             try:
-                out = f(*args, **kwargs)
+                out = _profiled(f, opname, args, kwargs) if _profiling \
+                    else f(*args, **kwargs)
             finally:
                 st.depth = 0
             if _FLAGS["FLAGS_check_nan_inf"] and _nc.op_checks_on():

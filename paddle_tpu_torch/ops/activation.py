@@ -10,6 +10,7 @@ import torch.nn.functional as tF
 
 from ._dispatch import defop
 from ..core import rng as _rng
+from ..core.flop_count import uncounted
 from ..core.dtype import as_float
 
 __all__ = ["relu", "relu6", "leaky_relu", "prelu", "elu", "selu", "celu",
@@ -67,8 +68,10 @@ def gelu(x, approximate=False):
     if x.device.type == "cpu" and not approximate:
         # torch's vectorized CPU kernel gives nan for +inf (a lone +inf
         # gives inf); jax.nn.gelu gives inf, as the card does (ROADMAP
-        # Queue 3 C7)
-        out = torch.where(x == math.inf, x, out)
+        # Queue 3 C7). Not counted by paddle.flops: the card has no such
+        # step
+        with uncounted():
+            out = torch.where(x == math.inf, x, out)
     return out
 
 

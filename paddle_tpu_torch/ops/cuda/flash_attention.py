@@ -47,6 +47,8 @@ import ctypes
 from typing import Optional
 
 import torch
+from ...core.flop_count import kernel_flops
+from ._autograd import first_order_only
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_fwd_ref", "flash_bwd_ref", "flash_delta", "supported",
@@ -282,6 +284,27 @@ def _launch(wrapper, kernel, ptrs, q, dims, scale, causal, dense):
     wrapper.launches_f16 += q.dtype == torch.float16
 
 
+def _scores(q, k):
+    return q.shape[0] * q.shape[1] * k.shape[1]
+
+
+def _fwd_flops(q, k, v, *args, **kwargs):
+    """QKᵀ and PV (masked pairs too); softmax, bias and scale 6 a score
+    (``core/flop_count.py``)."""
+    return 4 * _scores(q, k) * q.shape[2], 6 * _scores(q, k)
+
+
+def _dq_flops(q, k, *args, **kwargs):
+    """S recomputed, dP = dO·Vᵀ, dQ = dS·K; P and dS 4 a score."""
+    return 6 * _scores(q, k) * q.shape[2], 4 * _scores(q, k)
+
+
+def _dkv_flops(q, k, *args, **kwargs):
+    """S and dP recomputed, dV = Pᵀ·dO, dK = dSᵀ·Q; P and dS 4 a score."""
+    return 8 * _scores(q, k) * q.shape[2], 4 * _scores(q, k)
+
+
+@kernel_flops(_fwd_flops)
 def flash_fwd(q, k, v, bias=None, causal=False, scale=None):
     """(o [bh, s_q, d] in q's dtype, lse [bh, s_q] f32). CUDA tensors
     launch the kernel; CPU tensors run ``flash_fwd_ref``."""
@@ -298,6 +321,7 @@ def flash_fwd(q, k, v, bias=None, causal=False, scale=None):
     return out, lse
 
 
+@kernel_flops(_dq_flops)
 def flash_bwd_dq(q, k, v, bias, do, lse, delta, causal=False, scale=None):
     """dq [bh, s_q, d] in q's dtype from the saved lse and ``delta``
     (``flash_delta(o, do)``). CUDA tensors launch the kernel; CPU tensors
@@ -316,6 +340,7 @@ def flash_bwd_dq(q, k, v, bias, do, lse, delta, causal=False, scale=None):
     return dq
 
 
+@kernel_flops(_dkv_flops)
 def flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal=False, scale=None):
     """(dk, dv) [bh, s_k, d] in k's and v's dtype from the saved lse and
     ``delta``. CUDA tensors launch the kernel; CPU tensors run the plain
@@ -344,7 +369,11 @@ class _FlashAttention(torch.autograd.Function):
     """(o, lse) with the kernels' backward: saves (q, k, v, bias, o, lse)
     and recomputes the scores tile by tile in dq and dk/dv. lse is a
     statistic: no gradient flows through it. The bias is data: its
-    gradient is zeros, as in the TPU kernels' custom_vjp."""
+    gradient is zeros, as in the TPU kernels' custom_vjp.
+
+    First order only (``_autograd.first_order_only``), as a
+    ``jax.custom_vjp`` over Pallas kernels: a second backward through it
+    raises, and so does forward mode (no ``jvp``), on every device."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, scale):
@@ -355,6 +384,7 @@ class _FlashAttention(torch.autograd.Function):
         return o, lse
 
     @staticmethod
+    @first_order_only(4)
     def backward(ctx, do, _dlse):
         q, k, v, bias, o, lse = ctx.saved_tensors
         do = do.contiguous()

@@ -47,6 +47,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from ...core.flop_count import kernel_flops
+from ._autograd import first_order_only
 
 __all__ = ["fused_ce", "fused_ce_fwd", "fused_ce_bwd", "fused_ce_bwd_dh",
            "fused_ce_bwd_dw", "fused_ce_fwd_ref", "fused_ce_bwd_ref",
@@ -262,6 +264,24 @@ def _fwd_sm90_splits(device, n, vocab):
     return max(1, min(-(-vocab // _GEMM_TILE), 2 * sms // row_tiles))
 
 
+def _fwd_flops(h, w, b, *args, **kwargs):
+    """The logits' product; the bias, the log-sum-exp (3 a logit) and the
+    label term (``core/flop_count.py``)."""
+    n, vocab = h.shape[0], w.shape[0]
+    return 2 * n * h.shape[1] * vocab, \
+        (3 + (b is not None)) * n * vocab + 2 * n
+
+
+def _bwd_flops(h, w, b, y, lse, g, ignore_index=-100, need_dh=True,
+               need_dw=True, rows=None):
+    """The logits recomputed, then dh = dS·W and dW = dSᵀ·h as asked; the
+    softmax and dS 4 a logit, db 1."""
+    n, hd, vocab = h.shape[0], h.shape[1], w.shape[0]
+    mm = 2 * n * hd * vocab * (1 + bool(need_dh) + bool(need_dw))
+    return mm, (4 + (b is not None and bool(need_dw))) * n * vocab
+
+
+@kernel_flops(_fwd_flops)
 def fused_ce_fwd(h, w, b, y, ignore_index=-100):
     """Per-token loss and lse, both f32 [n], of ``h [n, H] @ w[V, H].T +
     b [V]`` (b may be None) against labels ``y [n]``. CUDA tensors launch
@@ -402,6 +422,7 @@ def _bwd_dw(h, w, b, y32, lse, g, rows, pos, ignore_index):
     return dw, db
 
 
+@kernel_flops(_bwd_flops)
 def fused_ce_bwd(h, w, b, y, lse, g, ignore_index=-100, need_dh=True,
                  need_dw=True, rows=None):
     """(dh [n, H] in h's dtype, dW [V, H] in w's dtype, db [V] in b's
@@ -459,7 +480,7 @@ for _w in (fused_ce_fwd, fused_ce_bwd_dh, fused_ce_bwd_dw):
 class _FusedCE(torch.autograd.Function):
     """Per-token losses with the kernels' backward: saves (h, W, b, y,
     lse) and recomputes the logits in ``fused_ce_bwd``, once for every
-    gradient asked for."""
+    gradient asked for. First order only, as the flash Function."""
 
     @staticmethod
     def forward(ctx, h, w, b, y, ignore_index):
@@ -469,6 +490,7 @@ class _FusedCE(torch.autograd.Function):
         return loss
 
     @staticmethod
+    @first_order_only(3)
     def backward(ctx, g):
         h, w, b, y, lse = ctx.saved_tensors
         g = g.float().contiguous()

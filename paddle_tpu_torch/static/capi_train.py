@@ -28,7 +28,7 @@ parameters' ``ParamAttr`` regularizers come across as the port's objects
 of the same class and attributes, ``_rebuild``).
 The JAX package cannot read the port's artifact: it would need the
 port to write jax's private pickled objects. The C ABI itself
-(``_native``'s ``train_capi.c``) is ROADMAP Queue 1 item 9.
+(``_native``'s ``train_capi.c``) is ROADMAP Queue 1 item 9, slice 22.
 """
 from __future__ import annotations
 

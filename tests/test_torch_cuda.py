@@ -1067,3 +1067,23 @@ def test_pick_block_size_measures_on_the_card(card, tmp_path, monkeypatch):
             "autotune.failed_candidate.paged_decode_attention") == 0
     finally:
         autotune.clear()
+
+
+def test_flops_count_is_the_cpus_on_the_card(card):
+    """paddle.flops of a tiny BERT (the flash and CE wrappers count their
+    formulas), a small conv net and an MLP: the card's count equals the
+    CPU's exactly."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.device import device_scope
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    with device_scope("cpu"):
+        nets = [(Bert(BertConfig.tiny(), device="cpu"), [2, 128], ["int64"]),
+                (paddle.vision.models.LeNet(), [2, 1, 28, 28], None),
+                (paddle.nn.Sequential(paddle.nn.Linear(8, 16),
+                                      paddle.nn.GELU(),
+                                      paddle.nn.Linear(16, 4)), [3, 8],
+                 None)]
+    for net, size, dt in nets:
+        cpu = paddle.flops(net, size, dt)
+        net.to(card)
+        assert paddle.flops(net, size, dt) == cpu

@@ -41,6 +41,7 @@ from paddle_tpu_torch.distributed import collective as TC
 from paddle_tpu_torch.distributed import mesh as TM
 from paddle_tpu_torch.distributed import sharding as TS
 from paddle_tpu_torch.testing import spmd
+from test_torch_jax_mesh import keeps_default_mesh
 
 N = 4
 K = 8
@@ -102,6 +103,7 @@ def _ranks(port, part, key):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
+@keeps_default_mesh
 def jax_collectives():
     """The battery's cases through the JAX package's collectives under
     shard_map on a 4-device mesh: {case: [rank, ...]}."""
@@ -169,8 +171,6 @@ def jax_collectives():
                      out_specs=JP(("dp", "pod")))(xs)
     res["gather_dp_pod"] = jnp.stack([g] * N)
     tiers = JM.axis_tiers(hmesh)
-    JM.reset_mesh()
-    JM.init_mesh({"dp": 8})
     return {k: np.asarray(v) for k, v in res.items()}, tiers
 
 
@@ -217,6 +217,7 @@ def test_send_recv_pairs_and_tiers(port, jax_collectives):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
+@keeps_default_mesh
 def jax_attention():
     from paddle_tpu.distributed.ring_attention import \
         sequence_parallel_attention
@@ -227,7 +228,6 @@ def jax_attention():
         for causal in (False, True):
             out[f"{mode}_causal{int(causal)}"] = sequence_parallel_attention(
                 q, k, v, mesh=mesh, causal=causal, mode=mode).numpy()
-    JM.init_mesh({"dp": 8})
     return out
 
 
@@ -255,6 +255,7 @@ def test_causal_ring_skips_the_later_ranks_blocks(port):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
+@keeps_default_mesh
 def jax_tp():
     """JAX's ColumnParallelLinear + gelu + RowParallelLinear and
     VocabParallelEmbedding under shard_map, each device holding its shards
@@ -285,7 +286,6 @@ def jax_tp():
 
     e = JM.shard_map(ebody, mesh=mesh, in_specs=(JP("tp", None), JP()),
                      out_specs=JP())(emb_w, ids)
-    JM.init_mesh({"dp": 8})
 
     def dense(wc, bc, wr, br, x):
         return jnp.sum((jax.nn.gelu(x @ wc + bc, approximate=False) @ wr
@@ -322,6 +322,7 @@ def test_tensor_parallel_gradients_match_jax(port, jax_tp):
 
 
 @pytest.fixture(scope="module")
+@keeps_default_mesh
 def jax_dp():
     from paddle_tpu.distributed.parallel import DataParallel
     w1, b1, w2, b2, x, y, x2, y2 = _dp_inputs()
@@ -340,7 +341,6 @@ def jax_dp():
     res["grads_after_apply"] = [p.grad.numpy() for p in net.parameters()]
     ((model(jp.to_tensor(x2)) - jp.to_tensor(y2)) ** 2).mean().backward()
     res["grads_accumulated"] = [p.grad.numpy() for p in net.parameters()]
-    JM.init_mesh({"dp": 8})
     return res
 
 
@@ -479,6 +479,7 @@ def test_sharding_rule_tables_equal_jax(zero_dp):
                         tuple(JS._validate_divisible(j, sh, jm))
 
 
+@keeps_default_mesh
 def test_custom_rules_errors_and_placements():
     from torch.distributed.tensor import Replicate, Shard
     for S, P in ((JS, JP), (TS, TS.P)):
@@ -531,7 +532,6 @@ def test_custom_rules_errors_and_placements():
     with pytest.raises(ValueError, match="level"):
         TS.group_sharded_parallel(net, opt, "zero4")
     JM.reset_mesh("zero")
-    JM.init_mesh({"dp": 8})
 
 
 def test_world_of_one_is_the_identity():

@@ -48,6 +48,7 @@ from paddle_tpu_torch.io import TensorDataset as TTensorDataset
 from paddle_tpu_torch.nn.layer import CrossEntropyLoss, Linear
 from paddle_tpu_torch.text.datasets import LMDataset as TLMDataset
 from paddle_tpu_torch.text.models import GPT, Bert, BertConfig, GPTConfig
+from test_torch_jax_mesh import keeps_default_mesh
 
 # Limits, set from this file's readings (2-layer models, 12 AdamW steps,
 # learning rates summing to 8.8e-3):
@@ -93,9 +94,10 @@ def _cpu_device():
 
 
 @pytest.fixture(autouse=True)
+@keeps_default_mesh
 def _no_mesh():
     """A device mesh left by another test would turn JAX's step into a
-    partitioned one."""
+    partitioned one; the meshes found are put back after the test."""
     jmesh.reset_mesh()
     yield
 

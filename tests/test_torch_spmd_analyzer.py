@@ -83,6 +83,14 @@ def _gpt(layers=2, batch=2, seq=16, tiny=False):
 
 
 def _both(name, body):
+    """The program in both packages, each numbering its variables from the
+    same counter value (the larger of the two): the control-flow cases
+    compare sub-block variables by their raw names, and files that ran
+    before in the same worker may have moved one counter further."""
+    from paddle_tpu.static.program import Variable as JVar
+    from paddle_tpu_torch.static.program import Variable as TVar
+    JVar._counter[0] = TVar._counter[0] = max(JVar._counter[0],
+                                              TVar._counter[0])
     return {P.name: _record(P, name, body) for P in (JAX, PORT)}
 
 

@@ -23,6 +23,7 @@ from paddle_tpu.distributed import mesh as jmesh
 from paddle_tpu.text.models import bert as jbert
 from paddle_tpu_torch.device import device_scope
 from paddle_tpu_torch.testing import spmd
+from test_torch_jax_mesh import keeps_default_mesh
 
 from test_torch_static_cases import (JAX, PORT, jax_static_params,
                                      static_mode)
@@ -50,6 +51,7 @@ def _batches(n=2, seed=0):
     return out
 
 
+@keeps_default_mesh
 def _jax_run(opt, lr, batches, dp=True, recompute=False):
     """(initial weights by module path, losses, weights after) of the JAX
     static BERT under with_data_parallel on {"dp": 2} (or one device)."""
@@ -74,21 +76,14 @@ def _jax_run(opt, lr, batches, dp=True, recompute=False):
             main.recompute_checkpoints = [o.name for o in outs]
         params, _ = jax_static_params(net)
         prog = main
-        prev = jmesh.get_mesh("default")
         if dp:
             jmesh.init_mesh({"dp": 2}, devices=jax.devices()[:2])
             prog = static.CompiledProgram(main).with_data_parallel(
                 loss_name=loss.name)
-        try:
-            exe = static.Executor()
-            losses = [float(exe.run(prog, feed={"ids": x, "labels": y},
-                                    fetch_list=[loss])[0])
-                      for x, y in batches]
-        finally:
-            if dp and prev is None:
-                jmesh.reset_mesh("default")
-            elif dp:
-                jmesh.set_mesh(prev, "default")
+        exe = static.Executor()
+        losses = [float(exe.run(prog, feed={"ids": x, "labels": y},
+                                fetch_list=[loss])[0])
+                  for x, y in batches]
     after, _ = jax_static_params(net)
     return params, losses, after
 

@@ -28,6 +28,7 @@ from paddle_tpu.distributed import mesh as jmesh
 from paddle_tpu.io import TensorDataset as JTD
 from paddle_tpu.text.models import gpt as jgpt
 from paddle_tpu_torch.testing import spmd
+from test_torch_jax_mesh import keeps_default_mesh
 
 CFG = dict(vocab_size=1024, hidden_size=64, num_layers=2, num_heads=2,
            intermediate_size=128, max_seq_len=16, dropout=0.0)
@@ -51,41 +52,28 @@ def _data():
             rng.randint(0, CFG["vocab_size"], (B, S)).astype("int64"))
 
 
+@keeps_default_mesh
 def _jax_fit(mesh_shape, steps=2):
     X, Y = _data()
     n = int(np.prod(list(mesh_shape.values())))
-    prev = jmesh.get_mesh("default")
     jmesh.init_mesh(mesh_shape, devices=jax.devices()[:n])
-    try:
-        jp.seed(0)
-        net = JGPTLM(jgpt.GPTConfig(**CFG))
-        params = {k: np.asarray(v._value) for k, v in net.named_parameters()}
-        model = jhapi.Model(net, inputs=[jhapi.InputSpec([None], "int64"),
-                                         jhapi.InputSpec([None], "int64")])
-        model.prepare(jopt.SGD(learning_rate=LR,
-                               parameters=net.parameters()),
-                      loss=lambda loss: loss)
-        losses = []
+    jp.seed(0)
+    net = JGPTLM(jgpt.GPTConfig(**CFG))
+    params = {k: np.asarray(v._value) for k, v in net.named_parameters()}
+    model = jhapi.Model(net, inputs=[jhapi.InputSpec([None], "int64"),
+                                     jhapi.InputSpec([None], "int64")])
+    model.prepare(jopt.SGD(learning_rate=LR, parameters=net.parameters()),
+                  loss=lambda loss: loss)
+    losses = []
 
-        class Rec(jhapi.callbacks.Callback):
-            def on_train_batch_end(self, step, logs=None):
-                losses.append(float(logs["loss"]))
+    class Rec(jhapi.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(float(logs["loss"]))
 
-        model.fit(JTD([X, Y]), batch_size=B, epochs=steps, verbose=0,
-                  shuffle=False, callbacks=[Rec()])
-        after = {k: np.asarray(v._value) for k, v in net.named_parameters()}
-    finally:
-        _restore_default_mesh(prev)
+    model.fit(JTD([X, Y]), batch_size=B, epochs=steps, verbose=0,
+              shuffle=False, callbacks=[Rec()])
+    after = {k: np.asarray(v._value) for k, v in net.named_parameters()}
     return params, losses, after
-
-
-def _restore_default_mesh(prev):
-    """Put the JAX package's default mesh back as it was (a leaked mesh
-    shards every later JAX train step in this process)."""
-    if prev is None:
-        jmesh.reset_mesh("default")
-    else:
-        jmesh.set_mesh(prev, "default")
 
 
 @pytest.fixture(scope="module")
