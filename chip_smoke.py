@@ -6,7 +6,11 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. build the CUDA kernels from ``paddle_tpu_torch/ops/cuda/csrc`` with
-   nvcc and print the card (``nvidia-smi`` name and power limit);
+   nvcc, one process a source, all started at once, and print the card
+   (``nvidia-smi`` name and power limit). The phases run in the order
+   their kernels are built (``main``): 6 and 9 once the CE sources are,
+   7, 8, 10, 11 and 12 once the flash ones are, then 2-5 (the decode
+   source, the slowest to build), then 13 on;
 2. the contiguous decode-attention kernel against its plain version on
    the card (f32, bf16 and f16, several chunk lengths, scalar and ragged
    fills, d 40 to 256, caches of 512 and 4096 columns, and q in another
@@ -206,7 +210,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     kernel at 256 / 128 / 64 for h12 d64 bf16 at L 1024 into
     ``BLOCK_TABLE``, no
     candidate failing; (c) ``traffic.run_spec`` of the steady, diurnal
-    and flash shapes (30 requests/s for 6 s, bench_serve's lengths)
+    and flash shapes (30 requests/s for ``TRAFFIC_SECONDS``,
+    bench_serve's lengths)
     through one bf16 ``ServeLoop`` (max_active 64, the measured block
     size): completed, errors, TTFT and token ms p50 / p99, tokens/s,
     backpressure waits, preemptions, paged launches; errors 0 and every
@@ -254,7 +259,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     (``--phase23-child``): uninterrupted and, side by side with it, with
     ``auto_checkpoint_dir`` (every 10 steps, 2 kept) and SIGTERM after
     step 25 (the PreemptionGuard's save, steps 20 and 25 left); resumed
-    to 40: the final parameters' manifest equal to the uninterrupted
+    to 40 by a third process, started with the two and held until the
+    kill is read: the final parameters' manifest equal to the uninterrupted
     run's; one flipped byte in step 40 found by its hash, quarantined,
     the restore walking back to 30; bytes a checkpoint, async and sync
     save seconds, restore seconds. (c) (a)'s program through
@@ -451,6 +457,32 @@ Phases, each printing its own lines; any failure exits non-zero:
     round trip's ``data_ptr``, ``utils.run_check()`` on the card. (f)
     ``paddle.batch(xmap_readers(shuffle(uci_housing.train())), 32)`` into
     a ``Linear(13, 1)`` on the card for one epoch: the loss falls.
+30. The C ABI and its clients (``phase_c_abi``), from one C process (the
+    demo host ``paddle_tpu_torch/_native/demo/pd_client.c`` built with
+    gcc against the port's ``libpaddle_tpu_capi.so``, which it must
+    load). (a) ``onnx.export`` of BERT-base bf16 at b32 s128: the C
+    predictor's outputs bitwise the in-process Predictor's, 12 Hopper
+    flash forwards a run (``P30_RUNS`` runs), ms a run from C against
+    Python; neither ``paddle_tpu`` nor ``jax`` in the embedded
+    interpreter. (b) phase 23's ``capi_train`` artifact of the static
+    BERT-base bf16 O2 program: ``P30_STEPS`` steps through
+    ``PD_TrainerRunStep`` with losses bitwise ``capi_train.run_step``'s
+    in this process, the six training kernels launched
+    (``STATIC_STEP_LAUNCHES`` a step), ``PD_TrainerSave``'s parameters
+    reloading bitwise, ms a step against ``run_step`` and
+    ``Executor.run``. The C process starts once both artifacts are
+    written and waits, while it imports the port and loads the
+    predictor, for this process's references and (c) to end. (c) phase
+    23(a)'s MultiSlot files written over and over to ``P30_PARSE_ROWS``
+    rows, through the C++ parser and the Python one (in a process of
+    its own, beside (a)'s export): bitwise, the C++ one counted, rows/s
+    both ways. (d) a v1 program at BERT-base's width
+    (``P30_FLUID``: ``fluid.layers.embedding``, ``fc``,
+    ``softmax_with_cross_entropy``) through ``fluid.Executor`` on the
+    card: the loss falls in 3 steps. (e) ``tools.serve_load_test`` at
+    GPT-2 small's width (``P30_SERVE``): 0 request errors, both decode
+    kernels launched, 2 streams checked against ``generate``; then
+    ``tools.obs_report`` renders a dump of this process.
 
 The line before the last is the card as nvidia-smi reports it; the last
 line is ``{"ok": true, "device": {...}}``. The kernel summary line
@@ -462,7 +494,8 @@ c.phase_flash()"``; phase 25: ``python3 -c "import chip_smoke as c;
 c.setup(); card = c.phase_build(); c.phase_distributed(card)"``; phase
 26 the same with ``c.phase_fleet_training(card)``, phase 27 with
 ``c.phase_multi_process(card)``, phase 28 with ``c.phase_long_tail(card)``,
-phase 29 with ``c.phase_long_tail_host(card)``. ``python3 chip_smoke.py --faults`` runs phases 2-3
+phase 29 with ``c.phase_long_tail_host(card)``, phase 30 with
+``c.phase_c_abi(card)``. ``python3 chip_smoke.py --faults`` runs phases 2-3
 (decode faults), 6 (CE faults), 10 (flash faults), 14 (f16 faults),
 18's API checks (op-core faults), 19's mask checks (a Transformer
 fault), 20's conv oracle (a conv fault) or 21(a)'s f32 beam scores (a
@@ -483,7 +516,10 @@ one, each in a fresh process, in the order DIR, this, this, DIR.
 ``--repeat SECONDS`` repeats 27(b)'s bitwise comparison
 (``repeat_static_dp``): the kernels of its path called over and over on
 one input, alone and beside a second process that keeps the card busy,
-then its dp step in turn plain and with recompute at learning rate 0.
+then its dp step in turn plain and with recompute at learning rate 0,
+then ``REPEAT_PAIRS`` fresh pairs of its first step while this process
+holds ``REPEAT_HOLD_GB`` GB of the card, each pair's steps redone over
+poisoned fresh buffers (``_poisoned_empty``).
 """
 import contextlib
 import copy
@@ -640,23 +676,55 @@ def check(cond, msg):
 # phase 1
 # --------------------------------------------------------------------------
 
-def phase_build():
+def phase_build(first=None):
+    """Start nvcc for every kernel source at once, wait for the sources in
+    ``first`` (all by default) and log their ptxas reports. ``main`` waits
+    for the CE sources alone and runs the phases that launch only what is
+    built while the rest compile (``phase_build_wait``)."""
     from paddle_tpu_torch.ops.cuda import _build
+    first = _build.SOURCES if first is None else tuple(first)
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.start_all()
+    _build.wait(first)
     dt = time.perf_counter() - t0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    log(f"[build] nvcc {dt:.2f} s; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; card: {card}")
-    for name in _build.SOURCES:
+    log(f"[build] nvcc {dt:.2f} s waited for {', '.join(first)}; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}; card: {card}")
+    _log_builds(first)
+    return card
+
+
+def phase_build_wait(names=None):
+    """Wait for the named kernel sources (by default every one
+    ``phase_build`` did not wait for) and log their ptxas reports; once
+    all are built, every source's nvcc seconds."""
+    from paddle_tpu_torch.ops.cuda import _build
+    names = [n for n in (_build.SOURCES if names is None else names)
+             if n not in _LOGGED_BUILDS]
+    t0 = time.perf_counter()
+    _build.wait(names)
+    log(f"[build] waited {time.perf_counter() - t0:.2f} s more for "
+        f"{', '.join(names) or 'nothing'}")
+    _log_builds(names)
+    if _LOGGED_BUILDS >= set(_build.SOURCES):
+        log(f"[build] nvcc seconds by source "
+            f"{json.dumps(_build.build_seconds())}")
+
+
+_LOGGED_BUILDS = set()
+
+
+def _log_builds(names):
+    from paddle_tpu_torch.ops.cuda import _build
+    for name in names:
+        _LOGGED_BUILDS.add(name)
         for kernel, regs, spill_st, spill_ld in _ptxas_rows(
                 _build.report(name)):
             log(f"[build] {name}.cu {kernel}: {regs} registers, spill "
                 f"stores {spill_st} B, loads {spill_ld} B")
-    return card
 
 
 def _ptxas_rows(text):
@@ -4376,7 +4444,9 @@ EXPORT_NEW = 4
 # beam fault) moved f32 sums by ~1 on the CPU at 8 tokens.
 BEAM_SCORE_TOL = {torch.float32: 2e-3, torch.bfloat16: 0.05 * GEN_NEW}
 STALL_S = 0.2
-TRAFFIC_RATE, TRAFFIC_SECONDS = 30.0, 6.0
+# 3 s of arrivals a replay keeps every check (6 s until phase 30 needed
+# the time)
+TRAFFIC_RATE, TRAFFIC_SECONDS = 30.0, 3.0
 BLOCK_TABLE = ".scratch/block_size_table.json"    # listed in .gitignore
 BLOCK_L, BLOCK_H, BLOCK_D, BLOCK_BATCH = 1024, 12, 64, 64
 
@@ -4569,10 +4639,10 @@ def _gen_export(net):
 
 
 def _traffic_spec(name, seconds=TRAFFIC_SECONDS):
-    """builtin_spec's arrivals (30 requests/s for ``seconds``, 6 s by
-    default) and tenant mix, at GPT-2's vocabulary and context, the
-    lengths widened to bench_serve's scale: prompts of median 32, 16-64
-    new tokens."""
+    """builtin_spec's arrivals (30 requests/s for ``seconds``,
+    ``TRAFFIC_SECONDS`` by default) and tenant mix, at GPT-2's
+    vocabulary and context, the lengths widened to bench_serve's scale:
+    prompts of median 32, 16-64 new tokens."""
     from paddle_tpu_torch.traffic import workload
     base = workload.builtin_spec(name, rate=TRAFFIC_RATE,
                                  duration_s=seconds)
@@ -5552,6 +5622,8 @@ def _p23_fit_child(mode, ckpt, out):
     kw = {} if mode == "ref" else dict(
         auto_checkpoint_dir=ckpt, auto_checkpoint_freq=P23_CKPT_FREQ,
         keep_checkpoint_max=2)
+    while mode == "resume" and not os.path.exists(ckpt + ".go"):
+        time.sleep(0.02)             # started early: the kill must end first
     model.fit(ds, batch_size=32, epochs=1, shuffle=True, log_freq=10,
               verbose=0, callbacks=[Term()], **kw)
     torch.cuda.synchronize()
@@ -5573,15 +5645,20 @@ def _p23_fit_child(mode, ckpt, out):
     print(json.dumps(res), flush=True)
 
 
-def _p23_children(*modes):
-    """Run 23(b)'s children for ``modes`` ((mode, checkpoint dir, out)
-    each) at once on the card; their CompletedProcess results."""
-    procs = [subprocess.Popen(
+def _p23_start(*modes):
+    """Start 23(b)'s children for ``modes`` ((mode, checkpoint dir, out)
+    each) at once on the card; "resume" waits for ``<dir>.go`` before
+    its fit. Returns [(process, mode)]."""
+    return [(subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--phase23-child", *m],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__))) for m in modes]
+        cwd=os.path.dirname(os.path.abspath(__file__))), m) for m in modes]
+
+
+def _p23_finish(started):
+    """The CompletedProcess results of ``_p23_start``'s children."""
     out = []
-    for p, m in zip(procs, modes):
+    for p, m in started:
         try:
             so, se = p.communicate(timeout=600)
         except subprocess.TimeoutExpired:
@@ -5599,27 +5676,41 @@ def _p23_kill_resume():
     from paddle_tpu_torch.incubate.checkpoint import TrainingCheckpoint
     ckpt = _p23_path("ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
+    for p in (ckpt + ".go", _p23_path("resumed.json")):
+        if os.path.exists(p):
+            os.remove(p)
     os.makedirs(_p23_path(), exist_ok=True)
     t0 = time.perf_counter()
-    # the uninterrupted run and the one SIGTERM'd, side by side
-    ref, killed = _p23_children(("ref", ckpt, _p23_path("ref.json")),
-                                ("kill", ckpt, _p23_path("killed.json")))
-    check(ref.returncode == 0, f"23(b) ref child: {ref.stderr[-2000:]}")
-    check(killed.returncode == -signal.SIGTERM,
-          f"23(b): the killed child exited {killed.returncode}: "
-          f"{killed.stderr[-2000:]}")
-    ck = TrainingCheckpoint(ckpt, keep=2)
-    check(ck.all_steps() == [P23_KILL_AFTER // P23_CKPT_FREQ * P23_CKPT_FREQ,
-                             P23_KILL_AFTER],
-          f"23(b): the kill left steps {ck.all_steps()}")
-    t1 = time.perf_counter()
-    state = ck.restore()
-    restore_s = time.perf_counter() - t1
-    check(state["counters"] == {"epoch": 0, "step": P23_KILL_AFTER - 1,
-                                "global_step": P23_KILL_AFTER},
-          f"23(b): the SIGTERM save holds {state['counters']}")
-    del state
-    (resumed,) = _p23_children(("resume", ckpt, _p23_path("resumed.json")))
+    # the uninterrupted run and the one SIGTERM'd, side by side; the
+    # resumed run's process starts with them and waits for ckpt.go
+    started = _p23_start(("ref", ckpt, _p23_path("ref.json")),
+                         ("kill", ckpt, _p23_path("killed.json")),
+                         ("resume", ckpt, _p23_path("resumed.json")))
+    try:
+        ref, killed = _p23_finish(started[:2])
+        check(ref.returncode == 0, f"23(b) ref child: {ref.stderr[-2000:]}")
+        check(killed.returncode == -signal.SIGTERM,
+              f"23(b): the killed child exited {killed.returncode}: "
+              f"{killed.stderr[-2000:]}")
+        ck = TrainingCheckpoint(ckpt, keep=2)
+        check(ck.all_steps() == [P23_KILL_AFTER // P23_CKPT_FREQ
+                                 * P23_CKPT_FREQ, P23_KILL_AFTER],
+              f"23(b): the kill left steps {ck.all_steps()}")
+        t1 = time.perf_counter()
+        state = ck.restore()
+        restore_s = time.perf_counter() - t1
+        check(state["counters"] == {"epoch": 0, "step": P23_KILL_AFTER - 1,
+                                    "global_step": P23_KILL_AFTER},
+              f"23(b): the SIGTERM save holds {state['counters']}")
+        del state
+    except BaseException:
+        started[2][0].kill()
+        started[2][0].communicate()
+        raise
+    with open(ckpt + ".go", "w"):
+        pass
+    (resumed,) = _p23_finish(started[2:])
+    os.remove(ckpt + ".go")
     check(resumed.returncode == 0,
           f"23(b) resume child: {resumed.stderr[-2000:]}")
     with open(_p23_path("ref.json")) as f:
@@ -6602,7 +6693,7 @@ def phase_ps(card=None):
 # --------------------------------------------------------------------------
 
 P25_RANKS = 4
-# 25(a)'s capacity replays cut from phase 21's 6 s (3 s for phase 27,
+# 25(a)'s capacity replays cut from phase 21's 6 s of then (3 s for phase 27,
 # 1.5 s for phase 28) and the calibration's refinements from 4 s (2, then
 # 1): the same three specs and comparisons over shorter replays
 P25_REPLAY_SECONDS, P25_REFINE_SECONDS = 1.5, 1.0
@@ -8409,11 +8500,80 @@ def p27_repeat_body(seconds, busy_at):
             "n_differing": len(differ)}
 
 
+REPEAT_PAIRS, REPEAT_HOLD_GB = 10, 24      # --repeat's fresh pairs
+
+
+@contextlib.contextmanager
+def _poisoned_empty():
+    """``torch.empty`` / ``torch.empty_like`` whose CUDA results come
+    filled with 0xFF bytes (NaN in every float type, -1 in the integer
+    ones): an output or scratch buffer a kernel reads before it writes
+    changes the results."""
+    real = torch.empty, torch.empty_like
+
+    def poison(t):
+        if isinstance(t, torch.Tensor) and t.is_cuda and t.numel():
+            t.untyped_storage().fill_(255)
+        return t
+    torch.empty = lambda *a, **k: poison(real[0](*a, **k))
+    torch.empty_like = lambda *a, **k: poison(real[1](*a, **k))
+    try:
+        yield
+    finally:
+        torch.empty, torch.empty_like = real
+
+
+def p27_pair_body():
+    """One of 2 dp ranks in a fresh process, set up as 27(b)'s: its first
+    step plain and with recompute, then both again with every fresh CUDA
+    buffer poisoned (``_poisoned_empty``). Returns whether recompute's
+    gradients and losses are bitwise the plain ones, and whether each
+    poisoned step is bitwise its clean one."""
+    _p25_child_setup()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.recompute import recompute
+    from paddle_tpu_torch.text.models import BertConfig
+    C.probe_transport(torch.device("cuda", 0))
+    recompute(torch.sin, torch.ones(1, device="cuda",
+                                    requires_grad=True)).sum().backward()
+    paddle.set_device("gpu")
+    cfg = BertConfig.bert_base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    ids, lab = _bert_batches(cfg, 32, 128, 1)
+    M.init_mesh({"dp": 2}, name="default")
+    runs = {rc: _p27_static_run(paddle, cfg, ids, lab, rc, True)
+            for rc in (False, True)}
+    with _poisoned_empty():
+        poisoned = {rc: _p27_static_run(paddle, cfg, ids, lab, rc, True)
+                    for rc in (False, True)}
+
+    def same(x, y):
+        return x["losses"] == y["losses"] and all(
+            torch.equal(a, b) for a, b in zip(x["grads"], y["grads"]))
+    plain, rc = runs[False], runs[True]
+    out = {"rank": M.world_rank(), "grads": len(plain["grads"]),
+           "bitwise": all(torch.equal(a, b) for a, b in
+                          zip(plain["grads"], rc["grads"])),
+           "losses_bitwise": plain["losses"] == rc["losses"],
+           "max_abs_diff": max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(plain["grads"],
+                                               rc["grads"])),
+           "poison_bitwise": {"plain": same(plain, poisoned[False]),
+                              "recompute": same(rc, poisoned[True])},
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    M.reset_mesh("default")
+    return out
+
+
 def repeat_static_dp(seconds):
     """``--repeat SECONDS``: 27(b)'s bitwise comparison taken apart. The
     kernels of its path, alone and beside a busy card, then its dp step in
     turn plain and with recompute for ``seconds`` (the card busy from
-    half way). Prints one JSON line; exits 1 if anything differed."""
+    half way), then ``REPEAT_PAIRS`` fresh pairs of its first step
+    (``p27_pair_body``) while this process holds ``REPEAT_HOLD_GB`` GB.
+    Prints one JSON line; exits 1 if anything differed."""
     from paddle_tpu_torch.ops.cuda import _build
     from paddle_tpu_torch.testing import spmd
     import tempfile
@@ -8436,10 +8596,26 @@ def repeat_static_dp(seconds):
         res["static_dp"] = spmd.run_ranks(
             p27_repeat_body, 2, seconds, seconds / 2, tmp_path=tmp,
             device="cuda", timeout=seconds + 300)
+    # fresh pairs while this process holds as much of the card as the
+    # whole script does when it reaches 27(b)
+    hold = torch.empty(int(REPEAT_HOLD_GB * 2 ** 30), dtype=torch.uint8,
+                       device="cuda")
+    res["pairs"] = []
+    t = time.perf_counter()
+    for i in range(REPEAT_PAIRS):
+        with tempfile.TemporaryDirectory() as tmp:
+            res["pairs"].append(spmd.run_ranks(
+                p27_pair_body, 2, tmp_path=tmp, device="cuda", timeout=600))
+        log(f"[repeat] fresh pair {i}: {json.dumps(res['pairs'][-1])}")
+    res["pairs_s"] = time.perf_counter() - t
+    del hold
     print(json.dumps(res))
     bad = sum(r[1] for part in ("kernels_alone", "kernels_busy")
               for r in res[part].values()) \
-        + sum(r["n_differing"] for r in res["static_dp"])
+        + sum(r["n_differing"] for r in res["static_dp"]) \
+        + sum(not (r["bitwise"] and r["losses_bitwise"]
+                   and all(r["poison_bitwise"].values()))
+              for pair in res["pairs"] for r in pair)
     return 1 if bad else 0
 
 
@@ -10517,6 +10693,457 @@ def phase_long_tail_host(card=None):
     return counts, res
 
 
+# --------------------------------------------------------------------------
+# phase 30: the C ABI and its clients
+# --------------------------------------------------------------------------
+
+P30_DIR = ".scratch/phase30"                       # listed in .gitignore
+P30_BATCH, P30_SEQ = 32, 128
+P30_RUNS, P30_STEPS = 5, 3
+# 30(c): phase 23(a)'s two files (768 rows) written over and over to at
+# least this many rows, the size of a day's shard of a MultiSlot job
+P30_PARSE_ROWS = 100_000
+# 30(e): serve_load_test at GPT-2 small's width, a few seconds of streams
+P30_SERVE = ["--model", "gpt2", "--dtype", "bfloat16", "--streams", "48",
+             "--clients", "8", "--prompt", "32", "--new", "32", "--slots",
+             "16", "--blocks", "256", "--block-size", "16", "--verify", "2"]
+# 30(d): the fluid-era v1 program at BERT-base's width: its embedding
+# (V 30522, H 768) and MLM-head vocabulary, b32 s128
+P30_FLUID = {"batch": 32, "seq": 128, "vocab": 30522, "hidden": 768,
+             "steps": 3, "lr": 0.5}
+P30_DECODE_COUNTS = ("decode_attention", "paged_decode_attention",
+                     "decode_attention.sm90", "paged_decode_attention.sm90")
+P30_CHILD_KERNELS = (PATH_KERNELS + SM90_COUNTS + CE_SM90_COUNTS
+                     + P30_DECODE_COUNTS)
+
+
+def _p30_path(*parts):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        P30_DIR, *parts)
+
+
+def _p30_counts_line(tag):
+    """A py command of the C host that prints this process's launch
+    counts of the path's kernels under ``tag`` and zeroes them."""
+    return ("import json; from paddle_tpu_torch.ops import cuda as k; "
+            f"print('P30', json.dumps({{'tag': {tag!r}, 'counts': "
+            "{n: v for n, v in k.launch_counts().items()}}), "
+            "flush=True); k.reset_launch_counts()")
+
+
+def _p30_start_child(exe, prefix, x, art, feeds, go):
+    """Start 30(a) and (b)'s C process: it starts its interpreter, imports
+    the port and loads the predictor, then waits for the file ``go``
+    before its timed commands: the predictor over the .pt2 (a warm run,
+    then ``P30_RUNS``), the trainer over the artifact for ``P30_STEPS``
+    steps (seeded as the in-process run), its save, and what the
+    embedded interpreter imported."""
+    from paddle_tpu_torch.testing import capi_client as cc
+    plan = cc.Plan(_p30_path())
+    plan.py("import paddle_tpu_torch")
+    plan.lib()
+    plan.predictor(prefix)
+    plan.input(x)
+    plan.wait_for(go)
+    plan.run(1)
+    plan.py(_p30_counts_line("predictor_warm"))
+    out = plan.run(P30_RUNS)
+    plan.py(_p30_counts_line("predictor"))
+    plan.trainer(art)
+    plan.py("import paddle_tpu_torch; paddle_tpu_torch.seed(5)")
+    plan.py(_p30_counts_line("trainer_create"))
+    for f in feeds:
+        plan.clear()
+        plan.input(f["ids"])
+        plan.input(f["labels"])
+        plan.step(1)
+    plan.py(_p30_counts_line("trainer"))
+    plan.save(_p30_path("trained"))
+    plan.py("import sys; print('P30 modules', *sorted({m.split('.')[0] "
+            "for m in sys.modules}), flush=True)")
+    return cc.start_plan(exe, plan), out
+
+
+def _p30_finish_child(started, out):
+    from paddle_tpu_torch.testing import capi_client as cc
+    res = cc.finish_plan(started, timeout=600)
+    res.check()
+    counts = {}
+    modules = []
+    for line in res.stdout.splitlines():
+        if line.startswith("P30 modules"):
+            modules = line.split()[2:]
+        elif line.startswith("P30 "):
+            rec = json.loads(line[4:])
+            counts[rec["tag"]] = rec["counts"]
+    return res, cc.Result.outputs(out), counts, modules
+
+
+def _p30_predictor_and_trainer(paddle, card):
+    """30(a) and (b): the C predictor over ``onnx.export``'s BERT-base
+    bf16 artifact at b32 s128 and the C trainer over phase 23's
+    ``capi_train`` artifact, from one C process, against the in-process
+    Predictor and ``capi_train.run_step``; and 30(c) over phase 23's
+    files. The C process starts once both artifacts are written; this
+    process takes its references and finishes (c) while it starts, then
+    lets it go on. Returns (the results of (a) and (b), (c)'s)."""
+    from paddle_tpu_torch import _native, inference, onnx, static
+    from paddle_tpu_torch.framework.io import load
+    from paddle_tpu_torch.hapi.model import InputSpec
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.static import capi_train
+    from paddle_tpu_torch.testing import capi_client as cc
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    res = {"card": card}
+    t0 = time.perf_counter()
+    lib = _native.build_capi()
+    exe = cc.build(lib, _p30_path())
+    res["build_s"] = time.perf_counter() - t0
+    cfg = BertConfig.bert_base()
+    # (b)'s artifact: phase 23's program, written as 23(c) writes it
+    paddle.seed(0)
+    main, net, loss, _ = _static_bert(paddle, cfg, P30_BATCH, P30_SEQ)
+    ds, _ = _p23_dataset([main.data_vars["ids"], main.data_vars["labels"]],
+                         cfg, P30_BATCH, P30_SEQ)
+    feeds = list(itertools.islice(ds.batches(), P30_STEPS))
+    art = _p30_path("bert.pdprog")
+    capi_train.save_train_program(main, art)
+    t_parse = time.perf_counter()
+    parse = _p30_parse_start()
+    res["parse_start_s"] = time.perf_counter() - t_parse
+    procs = [parse["proc"]]
+    try:
+        bert = Bert(cfg, dtype=torch.bfloat16, seed=0)
+        bert.eval()
+        prefix = _p30_path("bert")
+        t0 = time.perf_counter()
+        import warnings
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            got_prefix = onnx.export(bert, prefix + ".onnx", input_spec=[
+                InputSpec([P30_BATCH, P30_SEQ], "int64", "ids")])
+        res["export_s"] = time.perf_counter() - t0
+        check(got_prefix == prefix and os.path.exists(prefix + ".pt2"),
+              f"30(a) onnx.export wrote no .pt2 at {prefix}: {got_prefix}")
+        res["onnx_warned"] = any("onnx" in str(w.message) for w in warned)
+        del bert
+        ids, _ = _bert_batches(cfg, P30_BATCH, P30_SEQ, 1, seed=2)
+        x = ids[0].cpu().numpy()
+        # the C process starts here and waits at ``go`` for the references
+        go = _p30_path("go")
+        t_child = time.perf_counter()
+        started, out_path = _p30_start_child(exe, prefix, x, art, feeds,
+                                             go)
+        procs.append(started[0])
+        pred = inference.create_predictor(inference.Config(prefix))
+        kernels.reset_launch_counts()
+        (want,) = pred.run([x])
+        torch.cuda.synchronize()
+        res["python_flash_fwd_per_run"] = kernels.launch_counts()[
+            "flash_fwd"]
+        res["python_ms_per_run"] = _wall_ms(lambda: pred.run([x]), warmup=1,
+                                            runs=P30_RUNS)
+        del pred
+        h = capi_train.create(art)
+        paddle.seed(5)
+        ms, losses = [], []
+        for f in feeds:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(capi_train.run_step(h, [
+                (memoryview(np.ascontiguousarray(f["ids"])), 2,
+                 f["ids"].shape),
+                (memoryview(np.ascontiguousarray(f["labels"])), 2,
+                 f["labels"].shape)]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        res["python_run_step_ms"] = ms
+        paddle.seed(5)
+        exe_ms = []
+        executor = static.Executor()
+        for f in feeds:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            executor.run(main, feed=f, fetch_list=[loss])
+            torch.cuda.synchronize()
+            exe_ms.append((time.perf_counter() - t) * 1e3)
+        res["executor_run_ms"] = exe_ms
+        want_params = {n: h["scope"].get(n).detach().clone()
+                       for n in h["program"].persistable_vars
+                       if h["scope"].has(n)}
+        del h, main, net, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["references_s"] = time.perf_counter() - t_child
+        t_parse = time.perf_counter()
+        parsed = _p30_parse_finish(parse)
+        res["parse_finish_s"] = time.perf_counter() - t_parse
+        res["child_held_s"] = time.perf_counter() - t_child
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise
+    with open(go, "w"):
+        pass
+    child, outs, counts, modules = _p30_finish_child(started, out_path)
+    res["child_s"] = time.perf_counter() - t_child
+    res["lib"] = child.lib
+    res["c_ms_per_run"] = child.run_ms[-1]
+    res["c_step_ms"] = child.step_ms
+    res["c_losses"], res["python_losses"] = child.losses, losses
+    res["modules_jax_free"] = not {"jax", "paddle_tpu"} & set(modules)
+    check(child.lib == os.path.realpath(lib),
+          f"30(a) the C host loaded {child.lib}, not {lib}")
+    check(res["modules_jax_free"] and "paddle_tpu_torch" in modules,
+          f"30(a) the C host's interpreter imported {modules}")
+    check(len(outs) == 1 and outs[0].shape == want.shape
+          and outs[0].tobytes() == np.asarray(want, np.float32).tobytes(),
+          "30(a) the C predictor's outputs are not bitwise the Python "
+          "Predictor's")
+    check(np.isfinite(outs[0]).all(), "30(a) non-finite logits")
+    per_run = {k: counts["predictor"][k] / P30_RUNS for k in
+               ("flash_fwd", "flash_fwd.sm90")}
+    res["c_flash_fwd_per_run"] = per_run
+    check(per_run["flash_fwd"] == cfg.num_hidden_layers
+          == per_run["flash_fwd.sm90"]
+          == res["python_flash_fwd_per_run"],
+          f"30(a) flash forwards a C run {per_run}, not "
+          f"{cfg.num_hidden_layers} Hopper ones")
+    check(child.losses == losses,
+          f"30(b) the C trainer's losses {child.losses} are not bitwise "
+          f"capi_train.run_step's {losses}")
+    trainer = counts["trainer"]
+    for k, per in STATIC_STEP_LAUNCHES.items():
+        check(trainer[k] == per * P30_STEPS == trainer[f"{k}.sm90"],
+              f"30(b) {k} {trainer[k]} launches ({trainer[k + '.sm90']} "
+              f"Hopper) in {P30_STEPS} C steps, not {per * P30_STEPS}")
+    saved = load(_p30_path("trained.pdparams"))
+    same = sorted(saved) == sorted(want_params) and all(
+        torch.equal(saved[n].to(want_params[n].device), v)
+        for n, v in want_params.items())
+    res["saved_params"] = len(saved)
+    check(same, "30(b) PD_TrainerSave's parameters do not reload bitwise "
+                "as the in-process trainer's")
+    res["counts"] = {"predictor": {k: counts["predictor"][k]
+                                   for k in P30_CHILD_KERNELS},
+                     "trainer": {k: trainer[k] for k in P30_CHILD_KERNELS}}
+    return res, parsed
+
+
+_P30_PY_PARSE = (
+    "import pickle, sys, time\n"
+    "from paddle_tpu_torch._native import _parse_multislot_py as parse\n"
+    "t = time.perf_counter()\n"
+    "got = [parse(f, ['uint64', 'uint64']) for f in sys.argv[2:]]\n"
+    "s = time.perf_counter() - t\n"
+    "with open(sys.argv[1], 'wb') as f:\n"
+    "    pickle.dump((s, got), f, protocol=4)\n")
+
+
+def _p30_parse_start():
+    """30(c), first half: phase 23(a)'s MultiSlot files written over and
+    over to ``P30_PARSE_ROWS`` rows or more, and the pure-Python parser
+    started over them in a process of its own (it runs ~10 s beside the
+    export and the references)."""
+    small = sorted(_p23_path(f) for f in os.listdir(_p23_path())
+                   if f.startswith("lm-"))
+    st = {"repeat": -(-P30_PARSE_ROWS // (P23_STEPS * P30_BATCH)),
+          "files": [], "out": _p30_path("parsed_py.pkl")}
+    for i, f in enumerate(small):
+        with open(f, "rb") as src:
+            blob = src.read()
+        st["files"].append(_p30_path(f"parse-{i}.txt"))
+        with open(st["files"][-1], "wb") as dst:
+            for _ in range(st["repeat"]):
+                dst.write(blob)
+    import paddle_tpu_torch
+    st["proc"] = subprocess.Popen(
+        [sys.executable, "-c", _P30_PY_PARSE, st["out"], *st["files"]],
+        cwd=os.path.dirname(os.path.dirname(paddle_tpu_torch.__file__)),
+        stderr=subprocess.PIPE, text=True)
+    return st
+
+
+def _p30_parse_finish(st):
+    """30(c), second half: the same files through the C++ parser here;
+    bitwise the Python parser's, the C++ one counted, rows/s both ways."""
+    import pickle
+    from paddle_tpu_torch import _native
+    from paddle_tpu_torch.core import monitor
+    types = ["uint64", "uint64"]
+    files = st["files"]
+    res = {"files": len(files),
+           "bytes": sum(os.path.getsize(f) for f in files)}
+    before = monitor.stat_get("native.multislot.cxx")
+    t = time.perf_counter()
+    cxx = [_native.parse_multislot_file(f, types) for f in files]
+    res["cxx_s"] = time.perf_counter() - t
+    res["cxx_counted"] = monitor.stat_get("native.multislot.cxx") - before
+    _, err = st["proc"].communicate(timeout=600)
+    check(st["proc"].returncode == 0,
+          f"30(c) the Python parser's process failed: {err[-2000:]}")
+    with open(st["out"], "rb") as f:
+        res["python_s"], py = pickle.load(f)
+    rows = sum(r for r, _ in cxx)
+    res["rows"] = rows
+    res["cxx_rows_per_s"] = rows / res["cxx_s"]
+    res["python_rows_per_s"] = rows / res["python_s"]
+    same = all(a[0] == b[0] and all(
+        av.dtype == bv.dtype and av.tobytes() == bv.tobytes()
+        and asp.tobytes() == bsp.tobytes()
+        for (av, asp), (bv, bsp) in zip(a[1], b[1])) for a, b in zip(cxx, py))
+    del cxx, py
+    for f in (*files, st["out"]):
+        os.remove(f)
+    want = st["repeat"] * P23_STEPS * P30_BATCH
+    check(same and rows == want >= P30_PARSE_ROWS,
+          f"30(c) the C++ parser differs from the Python one ({rows} rows)")
+    check(res["cxx_counted"] == len(files) and _native.native_lib(),
+          f"30(c) the native parser did not run: {res}")
+    return res
+
+
+def _p30_fluid(paddle):
+    """30(d): a v1 program (fluid.layers.embedding, fc,
+    softmax_with_cross_entropy, mean) through fluid.Executor on the card:
+    the loss falls over ``P30_FLUID["steps"]`` steps of one batch."""
+    from paddle_tpu_torch import fluid
+    c = P30_FLUID
+    fluid.layers._param_layers.clear()
+    paddle.seed(0)
+    paddle.enable_static()
+    try:
+        main = fluid.Program("fluid_v1_lm")
+        with fluid.program_guard(main, fluid.Program()):
+            ids = fluid.data("ids", [c["batch"], c["seq"]], "int64")
+            lab = fluid.data("label", [c["batch"], c["seq"], 1], "int64")
+            emb = fluid.embedding(ids, size=[c["vocab"], c["hidden"]])
+            h = fluid.layers.fc(emb, size=c["hidden"], num_flatten_dims=2,
+                                act="relu")
+            logits = fluid.layers.fc(h, size=c["vocab"], num_flatten_dims=2)
+            loss = fluid.layers.mean(
+                fluid.layers.softmax_with_cross_entropy(logits, lab))
+            paddle.optimizer.SGD(learning_rate=c["lr"]).minimize(loss)
+    finally:
+        paddle.disable_static()
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, c["vocab"], (c["batch"], c["seq"])).astype("int64")
+    y = np.roll(x, -1, axis=1)[..., None]
+    exe = fluid.Executor()
+    losses = []
+    paddle.enable_static()
+    try:
+        for _ in range(c["steps"]):
+            (lv,) = exe.run(main, feed={"ids": x, "label": y},
+                            fetch_list=[loss])
+            losses.append(float(np.asarray(lv)))
+    finally:
+        paddle.disable_static()
+    layer = next(iter(fluid.layers._param_layers.values()))
+    dev = fluid.global_scope().get(layer.weight.scope_name).device
+    check(dev.type == "cuda", f"30(d) the v1 program ran on {dev}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"30(d) the v1 program's loss did not fall: {losses}")
+    return {"losses": losses, "device": str(dev)}
+
+
+def _p30_tools(paddle, card):
+    """30(e): serve_load_test at GPT-2 small's width (the paged decode
+    kernel in the serve loop, the contiguous one in its generate check),
+    then obs_report over a dump of this process."""
+    from paddle_tpu_torch.core import flight_recorder
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.tools import obs_report, serve_load_test
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    rep = serve_load_test.run(serve_load_test.parse_args(
+        ["--device", "cuda", *P30_SERVE]))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    rep["seconds"] = time.perf_counter() - t
+    check(rep["request_errors"] == 0 and rep["completed"] == int(
+        P30_SERVE[P30_SERVE.index("--streams") + 1]),
+          f"30(e) serve_load_test: {rep['request_errors']} errors, "
+          f"{rep['completed']} completed: {rep['errors']}")
+    check(rep["verified_vs_generate"] == 2,
+          f"30(e) serve_load_test verified {rep['verified_vs_generate']}")
+    check(counts["paged_decode_attention"] > 0
+          and counts["decode_attention"] > 0,
+          f"30(e) decode launches {counts['paged_decode_attention']} paged,"
+          f" {counts['decode_attention']} contiguous")
+    dump = flight_recorder.record("phase30", extra={"card": card})
+    text = obs_report.render(dump)
+    rendered = {s: s in text for s in (
+        "== step timeline (", "== host overhead ==", "== serving ==",
+        "serve.requests_completed")}
+    check(all(rendered.values()),
+          f"30(e) obs_report's render lacks a section: {rendered}")
+    rendered["== cuda kernels =="] = "== cuda kernels ==" in text
+    return rep, {k: counts[k] for k in (
+        "decode_attention", "decode_attention.sm90",
+        "paged_decode_attention", "paged_decode_attention.sm90")}, \
+        {"sections": rendered, "lines": text.count("\n") + 1}
+
+
+def phase_c_abi(card=None):
+    """Phase 30: the C ABI and its clients; see the module docstring.
+    Returns the C process's launches and the results."""
+    import shutil
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    t0 = time.perf_counter()
+    times = {}
+    shutil.rmtree(_p30_path(), ignore_errors=True)
+    os.makedirs(_p30_path())
+    try:
+        t = time.perf_counter()
+        res = {}
+        res["c_abi"], res["parser"] = _p30_predictor_and_trainer(paddle,
+                                                                 card)
+        times["c_abi_and_parser"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        res["fluid"] = _p30_fluid(paddle)
+        times["fluid"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        res["serve_load"], serve_counts, res["obs_report"] = _p30_tools(
+            paddle, card)
+        res["serve_load"]["launches"] = serve_counts
+        times["tools"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(_p30_path(), ignore_errors=True)
+        shutil.rmtree(_p23_path(), ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    res["seconds_by_part"] = times
+    a = res["c_abi"]
+    log(f"[c abi] phase 30 {res['seconds']:.1f} s ({json.dumps(times)}); "
+        f"C predictor {a['c_ms_per_run']:.3f} ms a run against Python's "
+        f"{a['python_ms_per_run']:.3f}; C trainer {a['c_step_ms']} ms a "
+        f"step against run_step {a['python_run_step_ms']} and Executor.run "
+        f"{a['executor_run_ms']}; parser {res['parser']['rows']} rows, "
+        f"{res['parser']['cxx_rows_per_s']:.0f} rows/s C++ against "
+        f"{res['parser']['python_rows_per_s']:.0f} Python; card: {card}")
+    log(f"[c abi] {json.dumps(res)}")
+    return {**a["counts"], "serve_load": serve_counts}, res
+
+
+def _c_abi_fields(rec, name, counts):
+    """Phase 30's launches of one kernel in the C process (the predictor's
+    ``P30_RUNS`` runs and the trainer's ``P30_STEPS`` steps), and for the
+    decode kernels in serve_load_test's run."""
+    for tag in ("predictor", "trainer"):
+        rec[f"launches_capi_{tag}"] = counts[tag][name]
+        rec[f"launches_capi_{tag}_sm90"] = counts[tag][f"{name}.sm90"]
+    rec["launches_capi"] = counts["predictor"][name] + counts["trainer"][name]
+    if name in counts["serve_load"]:
+        rec["launches_serve_load"] = counts["serve_load"][name]
+        rec["launches_serve_load_sm90"] = counts["serve_load"][f"{name}.sm90"]
+
+
 # Planted faults (``python3 chip_smoke.py --faults``): each changes one
 # line of a kernel source (path under paddle_tpu_torch/ops/cuda/csrc) in a
 # copy of the checkout, and the phases that check that source (2-3 for the
@@ -10817,8 +11444,29 @@ def main():
         """The seconds each phase took (the script's budget, by phase)."""
         laps.append(time.perf_counter())
         log(f"[time] {name} {laps[-1] - laps[-2]:.1f} s")
-    card = phase_build()
+    # the CE sources build first (~8 s), the flash ones next (~20 s) and
+    # the decode source last (~40 s): the phases run in the order their
+    # kernels are ready, the ones of the CE kernels first
+    card = phase_build(first=("fused_ce", "fused_ce_sm90"))
     lap("build")
+    worst_ce = phase_ce()
+    lap("ce")
+    ce_bert, ce_gpt = phase_ce_timings()
+    lap("ce_timings")
+    phase_build_wait(("flash_attention", "flash_attention_sm90"))
+    lap("build_flash")
+    equiv = phase_bert_equivalence()
+    lap("bert_equivalence")
+    ce_counts, flagship = phase_flagship()
+    lap("flagship")
+    worst_fl = phase_flash()
+    lap("flash")
+    gpt_equiv = phase_gpt_equivalence()
+    lap("gpt_equivalence")
+    ls_counts, longseq = phase_longseq()
+    lap("longseq")
+    phase_build_wait()
+    lap("build_decode")
     worst_c = phase_contiguous()
     lap("contiguous")
     worst_p = phase_paged()
@@ -10829,20 +11477,6 @@ def main():
     lap("timings")
     timings16 = phase_timings(serve["block_size"], torch.float16)
     lap("timings_f16")
-    worst_ce = phase_ce()
-    lap("ce")
-    equiv = phase_bert_equivalence()
-    lap("bert_equivalence")
-    ce_counts, flagship = phase_flagship()
-    lap("flagship")
-    ce_bert, ce_gpt = phase_ce_timings()
-    lap("ce_timings")
-    worst_fl = phase_flash()
-    lap("flash")
-    gpt_equiv = phase_gpt_equivalence()
-    lap("gpt_equivalence")
-    ls_counts, longseq = phase_longseq()
-    lap("longseq")
     fl_timing, sweep = phase_flash_timings()
     lap("flash_timings")
     worst_ce16, worst_fl16 = phase_fp16_kernels()
@@ -10879,6 +11513,8 @@ def main():
     lap("long_tail")
     p29_counts, p29 = phase_long_tail_host(card)
     lap("long_tail_host")
+    p30_counts, p30 = phase_c_abi(card)
+    lap("c_abi")
     kernels = []
     for name, worst in (("decode_attention", worst_c),
                         ("paged_decode_attention", worst_p)):
@@ -10927,6 +11563,7 @@ def main():
                          gen_counts["traffic"].items())):
             rec[f"launches_{tag}"] = c[name]
             rec[f"launches_{tag}_sm90"] = c[f"{name}.sm90"]
+        _c_abi_fields(rec, name, p30_counts)
         kernels.append(rec)
     for name in CE_KERNELS:
         rec = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -10959,6 +11596,7 @@ def main():
         # phase 29(a): the profiled BERT-base fit (6 steps)
         rec["launches_p29_fit"] = p29_counts[name]
         rec["launches_p29_fit_sm90"] = p29_counts[f"{name}.sm90"]
+        _c_abi_fields(rec, name, p30_counts)
         if name == "fused_ce_bwd_dw":
             rec["max_rel_err"] = max(*worst_ce["dw_max"].values(),
                                      *worst_ce["db_max"].values(),
@@ -10999,6 +11637,7 @@ def main():
         # phase 29(a): the profiled BERT-base fit (6 steps)
         rec["launches_p29_fit"] = p29_counts[name]
         rec["launches_p29_fit_sm90"] = p29_counts[f"{name}.sm90"]
+        _c_abi_fields(rec, name, p30_counts)
         if name == "flash_fwd":     # 22(c): each jit route's forward
             rec["launches_jit"] = {
                 r: c["flash_fwd"] for r, c in
@@ -11029,7 +11668,7 @@ def main():
                       "trainer_host": trainer_host, "ps": ps_res,
                       "distributed": p25, "fleet_training": p26,
                       "multi_process": p27, "long_tail": p28,
-                      "long_tail_host": p29}))
+                      "long_tail_host": p29, "c_abi": p30}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,15 +76,13 @@ def disable_signal_handler():  # parity no-op
     pass
 
 
-# The JAX root's other submodules, imported at first use as there. Left
-# out: ``fluid``, ``onnx`` and ``sysconfig`` (the C ABI and its clients,
-# ROADMAP Queue 1 item 9, slice 22).
+# The JAX root's other submodules, imported at first use as there.
 import importlib as _importlib  # noqa: E402
 
 _SUBMODULES = ("metric", "io", "hapi", "incubate", "profiler", "text",
                "callbacks", "inference", "framework", "regularizer",
                "memory", "quantization", "distribution", "version", "utils",
-               "reader", "dataset", "tensor")
+               "reader", "dataset", "tensor", "fluid", "onnx", "sysconfig")
 __all_lazy__ = ("Model", "summary", "flops", "save", "load", "batch")
 
 

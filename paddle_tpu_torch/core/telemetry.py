@@ -30,8 +30,8 @@ inventing a second one:
     PADDLE_TELEMETRY_INCIDENT_WINDOW_S) and piggybacks the incident id
     on every ship ack, so the WHOLE fleet dumps the same window under
     one id within a flush cadence. Member records merge into
-    `incident_<id>.json` (the JAX package's format, so its
-    `tools/obs_report.py --incident` renders it).
+    `incident_<id>.json` (the JAX package's format), which
+    `python -m paddle_tpu_torch.tools.obs_report --incident` renders.
     SLO breaches found by the hub's burn-rate engine open incidents the
     same way.
 

@@ -335,7 +335,8 @@ def to_chrome_events(spans=None, pid=None) -> list:
     events ("s"/"t"/"f") for every span-bound flow, and thread-name
     metadata. Flow timestamps sit at the slice midpoint so Chrome binds
     them to the right slice. Accepts live Span objects OR span_dict()
-    records (the flight-recorder dump form, so tools/obs_report.py
+    records (the flight-recorder dump form, so
+    ``python -m paddle_tpu_torch.tools.obs_report DUMP --trace OUT``
     converts dumps with this same encoder); `pid` overrides the emitted
     process id (a dump's spans belong to the dumping process)."""
     spans = get_spans() if spans is None else spans

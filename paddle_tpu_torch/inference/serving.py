@@ -59,6 +59,16 @@ from ..static.pipeline_runner import (FLOW_NS, InflightDriver,
 
 __all__ = ["ServeConfig", "ServeRequest", "ServeLoop", "build_decode_step"]
 
+# the serve.* gauges and counters this loop publishes (core/monitor);
+# tools/obs_report.py's serving section renders them
+GAUGES = ("serve.queue_depth", "serve.active_slots",
+          "serve.kv_pool_used_blocks", "serve.kv_pool_free_blocks",
+          "serve.model_version")
+COUNTERS = ("serve.preempted", "serve.tokens_generated",
+            "serve.requests_completed", "serve.requests_errored",
+            "serve.hot_swaps", "serve.completion_log_errors",
+            "serve.backpressure_waits")
+
 _REQ_IDS = itertools.count()
 
 

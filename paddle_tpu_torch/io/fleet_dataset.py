@@ -5,9 +5,10 @@ Analog of the reference's C++ Dataset tier (reference
 framework/data_set.h:157 InMemoryDataset + GlobalShuffle :205,
 framework/data_feed.h:663 MultiSlotDataFeed, framework/channel.h) and its
 Python face (fluid/dataset.py DatasetFactory). MultiSlot files parse on a
-thread pool through ``_native.parse_multislot_file`` (the port's copy of
-the JAX package's pure-Python parser; the C++ one is ROADMAP Queue 1 item
-9, slice 22); samples live in the packed ragged form and batches materialize as
+thread pool through ``_native.parse_multislot_file``, the port's copy of
+the JAX package's C++ parser (``_native/src/multislot_parser.cc``, built
+with g++ at first use; the pure-Python parser only where that cannot
+build); samples live in the packed ragged form and batches materialize as
 dense or padded numpy arrays shaped to the declared feed Variables.
 
 Shuffles: ``local_shuffle`` permutes this process's samples from the

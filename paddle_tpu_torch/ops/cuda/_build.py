@@ -7,7 +7,8 @@ carries the hash of its source and flags, so an edited source is rebuilt
 and a stale library is never loaded; ptxas's report of each kernel's
 registers and spills is kept beside it (``report``). Nothing here runs at
 import: ``load(name)`` builds (if needed) and opens the library on first
-call.
+call; ``start_all`` starts every build at once and returns, so a caller
+can use the first library while the others compile.
 """
 from __future__ import annotations
 
@@ -17,10 +18,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
-__all__ = ["load", "build_all", "report", "nvcc_path", "SOURCES",
-           "DTYPE_CODE"]
+__all__ = ["load", "build_all", "start_all", "wait", "build_seconds",
+           "report", "nvcc_path", "SOURCES", "DTYPE_CODE"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -35,6 +37,8 @@ DTYPE_CODE = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}
 
 _lock = threading.Lock()
 _libs: dict = {}
+_pending: dict = {}     # source -> its nvcc job, started by start_all
+_seconds: dict = {}     # source -> seconds its nvcc took
 
 
 def nvcc_path() -> str:
@@ -59,38 +63,69 @@ def _target(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start nvcc for one source into a temporary file; returns (proc,
-    tmp, target) or None when the library is already built."""
+    """Start nvcc for one source into a temporary file; returns the job
+    (its process, files, start time and a thread that waits for it) or
+    None when the library is already built."""
     target = _target(name)
     if target.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, target
+    job = {"proc": subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True),
+           "tmp": tmp, "target": target, "t0": time.perf_counter()}
+
+    def reap():
+        job["out"], _ = job["proc"].communicate()
+        job["seconds"] = time.perf_counter() - job["t0"]
+    job["thread"] = threading.Thread(target=reap, daemon=True)
+    job["thread"].start()
+    return job
 
 
-def _finish(name, started):
-    if started is None:
+def _finish(name, job):
+    if job is None:
         return
-    proc, tmp, target = started
-    out, _ = proc.communicate()
+    job["thread"].join()
+    proc, tmp, target = job["proc"], job["tmp"], job["target"]
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{out}")
-    target.with_suffix(".ptxas.txt").write_text(out)
+                           f"(exit {proc.returncode}):\n{job['out']}")
+    target.with_suffix(".ptxas.txt").write_text(job["out"])
     os.replace(tmp, target)   # atomic: a concurrent builder sees all or none
+    _seconds[name] = job["seconds"]
+
+
+def start_all(names=SOURCES):
+    """Start nvcc for every named source not built yet, all at once, and
+    return; ``load`` or ``wait`` finishes each build."""
+    with _lock:
+        for n in names:
+            if n not in _pending:
+                job = _start(n)
+                if job is not None:
+                    _pending[n] = job
+
+
+def wait(names=SOURCES):
+    """Finish the named sources' builds (started by ``start_all``, or
+    built here)."""
+    with _lock:
+        for n in names:
+            _finish(n, _pending.pop(n, None) or _start(n))
 
 
 def build_all(names=SOURCES):
     """Build every named source, one nvcc each, all started together."""
-    with _lock:
-        started = {n: _start(n) for n in names}
-        for n, st in started.items():
-            _finish(n, st)
+    start_all(names)
+    wait(names)
+
+
+def build_seconds() -> dict:
+    """{source: seconds its nvcc took} of the builds this process ran."""
+    return dict(_seconds)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -98,7 +133,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            _finish(name, _start(name))
+            _finish(name, _pending.pop(name, None) or _start(name))
             lib = _libs[name] = ctypes.CDLL(str(_target(name)))
         return lib
 

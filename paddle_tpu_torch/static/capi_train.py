@@ -27,8 +27,10 @@ decay, the gradient clip, an ``lr.LRScheduler`` with its state, and the
 parameters' ``ParamAttr`` regularizers come across as the port's objects
 of the same class and attributes, ``_rebuild``).
 The JAX package cannot read the port's artifact: it would need the
-port to write jax's private pickled objects. The C ABI itself
-(``_native``'s ``train_capi.c``) is ROADMAP Queue 1 item 9, slice 22.
+port to write jax's private pickled objects. The C ABI's trainer
+(``_native/src/train_capi.c``, ``PD_NewTrainer`` / ``PD_TrainerRunStep``
+/ ``PD_TrainerSave``) embeds CPython and calls ``create``, ``run_step``
+and ``save_params`` here.
 """
 from __future__ import annotations
 

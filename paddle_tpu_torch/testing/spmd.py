@@ -44,8 +44,9 @@ def to_numpy(tree):
 def run_ranks(fn, n, *args, tmp_path, device="cpu", timeout=300.0):
     """[result of rank r for r in range(n)] of ``fn(*args)`` run on ``n``
     ranks. A failing or hung rank kills the others and raises with its
-    output's tail. ``device``: the ranks' current device ("cpu" or
-    "cuda")."""
+    output's tail, then those of the other ranks that failed by then (a
+    rank's own error can reach the parent after the failure it caused in
+    a peer). ``device``: the ranks' current device ("cpu" or "cuda")."""
     from ..distributed.spawn import spawn
     tmp = Path(tmp_path)
     tmp.mkdir(parents=True, exist_ok=True)
@@ -77,12 +78,18 @@ def run_ranks(fn, n, *args, tmp_path, device="cpu", timeout=300.0):
             p.join()
     if failed is not None:
         r = 0 if failed == "timeout" else failed
-        log = Path(f"{base}.{r}.log")
-        tail = log.read_text(errors="replace")[-4000:] if log.exists() \
-            else ""
+
+        def tail(k):
+            log = Path(f"{base}.{k}.log")
+            return log.read_text(errors="replace")[-4000:] if log.exists() \
+                else ""
+        others = "".join(
+            f"\n--- rank {k} (exit code {p.exitcode}):\n{tail(k)}"
+            for k, p in enumerate(procs) if k != r and p.exitcode > 0)
         raise RuntimeError(
             f"run_ranks({fn.__module__}.{fn.__qualname__}, {n}): rank "
-            f"{failed} failed (exit code {procs[r].exitcode}):\n{tail}")
+            f"{failed} failed (exit code {procs[r].exitcode}):\n{tail(r)}"
+            f"{others}")
     results = []
     for r in range(n):
         with open(f"{base}.{r}", "rb") as f:

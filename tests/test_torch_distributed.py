@@ -149,8 +149,9 @@ def jax_collectives():
             x, "dp", tuple((i, (i + 1) % N) for i in range(N)))
         return {k: v[None] for k, v in out.items()}
 
-    res = JM.shard_map(body, mesh=mesh, in_specs=JP("dp"),
-                       out_specs=JP("dp"))(xs, signed, rs_in, a2a_in, sc_in)
+    res = jax.jit(JM.shard_map(body, mesh=mesh, in_specs=JP("dp"),
+                               out_specs=JP("dp")))(xs, signed, rs_in,
+                                                    a2a_in, sc_in)
     hmesh = JM.init_mesh({"pod": {"size": 2, "tier": "dcn"}, "dp": 2},
                          name="hier")
 
@@ -163,8 +164,9 @@ def jax_collectives():
                 "hierarchical_max": JC._hierarchical_allreduce_raw.raw(
                     x, "dp", "pod", "max")[None]}
 
-    res.update(JM.shard_map(hbody, mesh=hmesh, in_specs=JP(("pod", "dp")),
-                            out_specs=JP(("pod", "dp")))(xs))
+    res.update(jax.jit(JM.shard_map(hbody, mesh=hmesh,
+                                    in_specs=JP(("pod", "dp")),
+                                    out_specs=JP(("pod", "dp"))))(xs))
     # each device's value gathered over (dp, pod), the reverse of the
     # mesh's axis order; every rank of the port returns the whole
     g = JM.shard_map(lambda x: x, mesh=hmesh, in_specs=JP(("pod", "dp")),
@@ -222,12 +224,16 @@ def jax_attention():
     from paddle_tpu.distributed.ring_attention import \
         sequence_parallel_attention
     mesh = JM.init_mesh({"sp": N}, name="default")
-    q, k, v = (jp.to_tensor(a) for a in _attn_inputs())
+    q, k, v = (jnp.asarray(a) for a in _attn_inputs())
     out = {}
     for mode in ("ring", "ulysses"):
         for causal in (False, True):
-            out[f"{mode}_causal{int(causal)}"] = sequence_parallel_attention(
-                q, k, v, mesh=mesh, causal=causal, mode=mode).numpy()
+            def attention(q, k, v):
+                return sequence_parallel_attention(
+                    *(jp.Tensor(t, _internal=True) for t in (q, k, v)),
+                    mesh=mesh, causal=causal, mode=mode)._value
+            out[f"{mode}_causal{int(causal)}"] = np.asarray(
+                jax.jit(attention)(q, k, v))
     return out
 
 
@@ -275,17 +281,18 @@ def jax_tp():
         h = jp.nn.functional.gelu(col(jp.Tensor(x_, _internal=True)))
         return row(h)._value
 
-    out = JM.shard_map(body, mesh=mesh,
-                       in_specs=(JP(None, "tp"), JP("tp"), JP("tp", None),
-                                 JP(), JP()),
-                       out_specs=JP())(wc, bc, wr, br, x)
+    out = jax.jit(JM.shard_map(body, mesh=mesh,
+                               in_specs=(JP(None, "tp"), JP("tp"),
+                                         JP("tp", None), JP(), JP()),
+                               out_specs=JP()))(wc, bc, wr, br, x)
 
     def ebody(w_l, ids_):
         emb.inner.load_functional_state({"weight": w_l})
         return emb(jp.Tensor(ids_, _internal=True))._value
 
-    e = JM.shard_map(ebody, mesh=mesh, in_specs=(JP("tp", None), JP()),
-                     out_specs=JP())(emb_w, ids)
+    e = jax.jit(JM.shard_map(ebody, mesh=mesh,
+                             in_specs=(JP("tp", None), JP()),
+                             out_specs=JP()))(emb_w, ids)
 
     def dense(wc, bc, wr, br, x):
         return jnp.sum((jax.nn.gelu(x @ wc + bc, approximate=False) @ wr

@@ -87,8 +87,8 @@ def jax_moe():
                            out_specs=JP("ep"))(p, xv)
         return jnp.sum(out * ctg), out
 
-    (_, out), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1),
-                                            has_aux=True)(
+    (_, out), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(
         {k: jnp.asarray(v) for k, v in params.items()}, xg)
     return {"out": np.asarray(out).reshape(N, 2, 6, DM),
             "dx": np.asarray(gx).reshape(N, 2, 6, DM),
@@ -116,15 +116,16 @@ def test_moe_dense_fallback_matches_jax(port):
     params, x, ct = _moe_inputs()
     JM.init_mesh({"dp": 8}, name="default")
     moe = JMOE.MoELayer(DM, DH, E, axis="ep")
+
+    def loss(p, xv, ctv):
+        moe.load_functional_state(p)
+        out = moe(jp.Tensor(xv, _internal=True))._value
+        return jnp.sum(out * ctv), out
+    step = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))
     for r in range(N):
-        def loss(p, xv):
-            moe.load_functional_state(p)
-            out = moe(jp.Tensor(xv, _internal=True))._value
-            return jnp.sum(out * ct[r]), out
-        (_, out), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1),
-                                                has_aux=True)(
+        (_, out), (gp, gx) = step(
             {k: jnp.asarray(v) for k, v in params.items()},
-            jnp.asarray(x[r]))
+            jnp.asarray(x[r]), jnp.asarray(ct[r]))
         dense = port[r]["moe"]["dense"]
         np.testing.assert_allclose(dense["out"], np.asarray(out), **OUT_TOL)
         np.testing.assert_allclose(dense["dx"], np.asarray(gx), **GRAD_TOL)

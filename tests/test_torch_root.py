@@ -1,13 +1,13 @@
 """The port's root namespace and the places that used to raise.
 
 - Every name of the JAX root's ``_SUBMODULES`` and ``__all_lazy__``
-  resolves on ``paddle_tpu_torch``, but ``fluid``, ``onnx`` and
-  ``sysconfig``: the C ABI and its clients (ROADMAP Queue 1 item 9,
-  slice 22). ``__version__`` and ``disable_signal_handler`` are there.
+  resolves on ``paddle_tpu_torch``, ``fluid``, ``onnx`` and ``sysconfig``
+  (the C ABI's clients) included. ``__version__`` and
+  ``disable_signal_handler`` are there.
 - ``paddle.tensor``'s synthesized modules hold the JAX package's names,
   and its six op modules the JAX op modules' ops.
 - Each place of the port that raised or said "waits for item 9" for the
-  host modules now runs; the C ABI's places still name slice 22.
+  host modules now runs; the C ABI's places name its C sources.
 """
 import importlib
 import pathlib
@@ -18,7 +18,7 @@ import pytest
 import paddle_tpu as jp
 import paddle_tpu_torch as tp
 
-SLICE_22 = ("fluid", "onnx", "sysconfig")
+SLICE_22 = ("fluid", "onnx", "sysconfig")     # the C ABI's clients
 ROOT = pathlib.Path(tp.__file__).parent
 
 
@@ -32,10 +32,6 @@ def _cpu():
 @pytest.mark.parametrize("name", sorted(set(jp._SUBMODULES)
                                         | set(jp.__all_lazy__)))
 def test_jax_root_names_resolve(name):
-    if name in SLICE_22:
-        with pytest.raises(AttributeError):
-            getattr(tp, name)
-        return
     obj = getattr(tp, name)
     assert obj is not None
     if name in jp._SUBMODULES:
@@ -110,8 +106,18 @@ def test_former_raise_points_run(tmp_path):
                                  "_native/__init__.py",
                                  "io/fleet_dataset.py"])
 def test_the_c_abi_places_name_slice_22(rel):
+    """The places that waited for slice 22 name the C sources that now
+    stand there, and no longer the slice."""
     src = " ".join((ROOT / rel).read_text().split())
-    assert "item 9, slice 22" in src
+    assert "slice 22" not in src
+    source = {"static/capi_train.py": "train_capi.c",
+              "_native/__init__.py": "predictor_capi.c",
+              "io/fleet_dataset.py": "multislot_parser.cc"}[rel]
+    assert source in src
+    assert (ROOT / "_native" / "src" / source).is_file()
+    assert "slice 22" not in (ROOT / "__init__.py").read_text()
+    for name in SLICE_22:
+        assert name in tp._SUBMODULES
 
 
 HOST_MODULES = (
@@ -122,7 +128,11 @@ HOST_MODULES = (
     "paddle_tpu_torch.tensor", "paddle_tpu_torch.text.datasets",
     "paddle_tpu_torch.reader", "paddle_tpu_torch.dataset",
     "paddle_tpu_torch.utils", "paddle_tpu_torch.version",
-    "paddle_tpu_torch.memory", "paddle_tpu_torch.hapi.summary")
+    "paddle_tpu_torch.memory", "paddle_tpu_torch.hapi.summary",
+    "paddle_tpu_torch.fluid", "paddle_tpu_torch.onnx",
+    "paddle_tpu_torch.sysconfig", "paddle_tpu_torch._native",
+    "paddle_tpu_torch.inference.capi_bridge",
+    "paddle_tpu_torch.testing.capi_client")
 
 
 def test_host_modules_import_neither_jax_nor_the_jax_package():

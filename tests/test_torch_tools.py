@@ -19,7 +19,17 @@
   test_torch_spmd_analyzer.py and test_torch_spmd_planner.py);
 - ``elastic_drill`` at 8 steps (a checkpoint every 3): the trainer
   SIGKILLed mid-epoch and restarted ends with its parameters and every
-  server's ``table.applied`` bitwise the uninterrupted run's.
+  server's ``table.applied`` bitwise the uninterrupted run's;
+- ``pipeline_lint`` is clean on the tree and names a planted drift in each
+  of its three encodings;
+- ``pp_schedule_report --tiny`` on 4 gloo ranks: every schedule's loss and
+  gradients match the stack in one process, with the JAX package's ticks
+  and bubble fractions;
+- ``obs_report`` renders tests/fixtures/obsdump_v1.json byte for byte as
+  obsdump_v1.expected.txt, and a dump of the port with its kernel
+  counters, and writes its Chrome trace;
+- ``serve_load_test`` on the tiny GPT (32 streams over 8 slots): zero
+  request errors, every stream complete, 4 checked against ``generate``.
 """
 import json
 import os
@@ -41,7 +51,7 @@ def _run(module, *args, env=None, timeout=240):
 
 
 @pytest.mark.parametrize("tool", ["capacity_plan", "ps_load_test",
-                                  "cluster_obs_drill"])
+                                  "cluster_obs_drill", "obs_report"])
 def test_tool_self_check(tool):
     proc = _run(tool, "--self-check", timeout=120)
     assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-2000:])
@@ -137,3 +147,81 @@ def test_elastic_drill_sigkill_resume_is_bitwise(tmp_path):
         assert (ref[0][k] == chaos[0][k]).all(), k
     assert (ref[1] == chaos[1]).all() and (ref[2] == chaos[2]).all()
     assert ref[3] == chaos[3]
+
+
+def test_pipeline_lint_is_clean_and_names_planted_drift(tmp_path,
+                                                        monkeypatch):
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.tools import pipeline_lint as pl
+    assert pl.main() == 0
+    assert pl.self_check() == []
+    # (1) the card's phase 23(a) constants
+    smoke = tmp_path / "chip_smoke.py"
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    smoke.write_text(src.replace('("inflight2_scan4", 2, 4)',
+                                 '("inflight2_scan4", 2, 8)'))
+    (p,) = pl.self_check(smoke_path=str(smoke))
+    assert "P23_MODES" in p
+    # (2) the flag defaults
+    monkeypatch.setitem(flags._DEFS, "FLAGS_executor_max_inflight",
+                        (int, 3, ""))
+    (p,) = pl.self_check()
+    assert "FLAGS_executor_max_inflight default 3" in p
+    monkeypatch.undo()
+    # (3) the runner's megasteps
+    monkeypatch.setattr(pl, "scan_megasteps", lambda k, steps: 0)
+    (p,) = pl.self_check()
+    assert "made 0 megasteps" in p
+    assert pl.main() == 1
+
+
+def test_pp_schedule_report_grads_and_jax_bubbles():
+    from paddle_tpu.distributed import pipeline as jpl
+    from paddle_tpu_torch.tools import pp_schedule_report as pp
+    rows = pp.run(pp.TINY, "cpu")
+    assert [r["schedule"] for r in rows] == list(pp.SCHEDULES)
+    for r in rows:
+        assert r["match"], r
+        assert r["grad_err"] < pp.GRAD_TOL
+        assert r["ticks"] == jpl.schedule_ticks(
+            pp.TINY["micro"], pp.N_STAGES, r["schedule"], pp.N_VIRTUAL)
+        assert r["bubble"] == jpl.bubble_fraction(
+            pp.TINY["micro"], pp.N_STAGES, r["schedule"], pp.N_VIRTUAL)
+        assert r["peak_mb"] is None
+    text = pp.render(rows, pp.TINY, "cpu")
+    assert text.count("| yes |") == 3 and "not measured" in text
+
+
+def test_obs_report_renders_the_fixture_and_a_port_dump(tmp_path):
+    from paddle_tpu_torch.core import flight_recorder, monitor, trace
+    from paddle_tpu_torch.tools import obs_report
+    fix = os.path.join(REPO, "tests", "fixtures")
+    rec = obs_report.load(os.path.join(fix, "obsdump_v1.json"))
+    want = open(os.path.join(fix, "obsdump_v1.expected.txt")).read()
+    assert obs_report.render(rec) + "\n" == want
+    proc = _run("obs_report", os.path.join(fix, "obsdump_v1.json"))
+    assert proc.returncode == 0 and proc.stdout == want
+    monitor.stat_add("cuda.hit.flash_fwd", 3)
+    monitor.stat_add("cuda.gate_reject.flash_fwd.short_seq")
+    with trace.span("pipeline/dispatch", step=0):
+        pass
+    dump = flight_recorder.record("test")
+    text = obs_report.render(dump)
+    assert "== cuda kernels ==" in text
+    row = next(line for line in text.splitlines()
+               if line.strip().startswith("flash_fwd"))
+    assert row.split()[1:4] == ["3", "0", "1"]
+    out = obs_report.dump_to_chrome_trace(dump, str(tmp_path / "t.json"))
+    events = json.load(open(out))["traceEvents"]
+    assert any(e.get("name") == "pipeline/dispatch" for e in events)
+
+
+def test_serve_load_test_has_no_request_errors():
+    from paddle_tpu_torch.tools import serve_load_test as slt
+    rep = slt.run(slt.parse_args(
+        ["--device", "cpu", "--streams", "32", "--clients", "4",
+         "--slots", "8", "--blocks", "48", "--block-size", "8"]))
+    assert rep["request_errors"] == 0, rep["errors"]
+    assert rep["completed"] == 32 and rep["tokens"] == 32 * 16
+    assert rep["verified_vs_generate"] == 4
+    assert rep["ttft_ms"]["p50"] <= rep["ttft_ms"]["p99"]

@@ -68,6 +68,21 @@ def files(tmp_path_factory):
             for k in range(2)]
 
 
+@pytest.fixture(scope="module")
+def jax_weights():
+    """``jax_weights(dropout)``: the JAX program's initial weights
+    (``jax_static_params``), each dropout rate's built once a module: the
+    JAX BERT's eager initialisation is most of a test's time."""
+    cache = {}
+
+    def get(dropout):
+        if dropout not in cache:
+            _, net, *_ = _bert(JAX, dropout)
+            cache[dropout] = jax_static_params(net)
+        return cache[dropout]
+    return get
+
+
 def _dataset(P, files, feed_vars):
     ds = (JInMemory if P is JAX else TInMemory)()
     ds.init(batch_size=B, thread_num=2, use_var=list(feed_vars))
@@ -125,9 +140,8 @@ def test_losses_equal_jax_in_every_mode(files, capsys):
                                        err_msg=k)
 
 
-def test_modes_bitwise_with_dropout(files, capsys):
-    main, net, *_ = _bert(JAX, 0.1)
-    weights = jax_static_params(net)
+def test_modes_bitwise_with_dropout(files, capsys, jax_weights):
+    weights = jax_weights(0.1)
     runs = [_train(PORT, files, weights, 0.1, i, k, capsys=capsys)
             for i, k in ((0, 0), (2, 0), (2, 2), (2, 4))]
     for losses, params, _ in runs[1:]:
@@ -136,12 +150,11 @@ def test_modes_bitwise_with_dropout(files, capsys):
             np.testing.assert_array_equal(params[k], runs[0][1][k])
 
 
-def test_start_batch_resume_is_bitwise(files, capsys):
+def test_start_batch_resume_is_bitwise(files, capsys, jax_weights):
     """The uninterrupted run's state at batch 4 (scope, optimizer,
     generator) restored into a fresh program, ``start_batch=4`` gives its
     last 4 losses and its final parameters bitwise (dropout 0.1)."""
-    main, net, *_ = _bert(JAX, 0.1)
-    weights = jax_static_params(net)
+    weights = jax_weights(0.1)
     full = _train(PORT, files, weights, 0.1, 0, capsys=capsys)
     # the state at batch 4: the first 4 batches, serially
     main, net, loss, opt, feeds = _bert(PORT, 0.1)
@@ -220,15 +233,15 @@ def test_dataset_required_and_ps_config_raises():
 
 
 @pytest.mark.parametrize("inflight,scan", [(0, 0), (2, 0), (2, 4)])
-def test_fetch_handler_sees_every_batch(files, inflight, scan):
+def test_fetch_handler_sees_every_batch(files, inflight, scan,
+                                       jax_weights):
     """``fetch_handler(batch, fetches)``: every batch in order, lazy
     handles on the pipelined path (read after the run), host arrays on
     the synchronous one; the values are the serial loop's. The runner's
     megastep size may also come from FLAGS_executor_scan_steps."""
     from paddle_tpu_torch.core import flags as tflags
     from paddle_tpu_torch.static.pipeline_runner import FetchHandle
-    main, net, *_ = _bert(JAX, 0.0)
-    weights = jax_static_params(net)
+    weights = jax_weights(0.0)
     got = []
     for use_handler in (True, False):
         main, net, loss, opt, feeds = _bert(PORT, 0.0)

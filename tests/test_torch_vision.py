@@ -106,6 +106,56 @@ def _step(pkg, net, x, y, dtype):
             np.asarray(xi.grad.numpy()), grads, bufs, np.asarray(ev.numpy()))
 
 
+def _jax_step(net, x, y, dtype):
+    """``_step`` of a JAX model as one jitted program, the route of the
+    JAX package's ``Model.fit`` (``functional_state`` under
+    ``jax.value_and_grad``): the same loss, logits, input and parameter
+    gradients, BN running stats after the step and eval forward as the
+    eager tape gives, with one XLA compile in place of one a primitive."""
+    import jax
+    import jax.numpy as jnp
+    params, bufs = net.functional_state()
+    xv, yv = jnp.asarray(x, dtype), jnp.asarray(y)
+
+    def train(p, xin):
+        net.load_functional_state(p, bufs)
+        with jp.no_grad():
+            logits = net(jp.Tensor(xin, _internal=True))
+            loss = jp.nn.CrossEntropyLoss()(logits, jp.Tensor(
+                yv, _internal=True))
+        return loss._value, (logits._value, {
+            k: b._value for k, b in net.named_buffers()})
+
+    def evaluate(p, b, xin):
+        net.load_functional_state(p, b)
+        with jp.no_grad():
+            return net(jp.Tensor(xin, _internal=True))._value
+    net.train()
+    (loss, (logits, new_bufs)), (gp, gx) = jax.jit(jax.value_and_grad(
+        train, argnums=(0, 1), has_aux=True))(params, xv)
+    net.eval()
+    ev = jax.jit(evaluate)(params, new_bufs, xv)
+    net.load_functional_state(params, new_bufs)
+    return (float(loss), np.asarray(logits), np.asarray(gx),
+            {k: np.asarray(v) for k, v in gp.items()},
+            {k: np.asarray(v) for k, v in new_bufs.items()}, np.asarray(ev))
+
+
+def _jax_eval(net, x):
+    """The JAX model's eval forward, jitted."""
+    import jax
+    params, bufs = net.functional_state()
+
+    def evaluate(p, b, xin):
+        net.load_functional_state(p, b)
+        with jp.no_grad():
+            return net(jp.Tensor(xin, _internal=True))._value
+    net.eval()
+    out = jax.jit(evaluate)(params, bufs, jp.to_tensor(x)._value)
+    net.load_functional_state(params, bufs)
+    return np.asarray(out)
+
+
 # name: (input channels, size, batch, constructor keywords)
 MODELS = {
     "LeNet": (1, 28, 2, {}),
@@ -149,16 +199,16 @@ def test_model_step_matches_jax_in_f64(name):
     then the eval forward, in float64."""
     x, y = _inputs(name)
     jl, tl = _pair(name, "float64", **MODELS[name][3])
-    _compare(_step(jp, jl, x, y, "float64"), _step(tp, tl, x, y, "float64"),
-             F64, name)
+    _compare(_jax_step(jl, x, y, "float64"),
+             _step(tp, tl, x, y, "float64"), F64, name)
 
 
 @pytest.mark.parametrize("name", ["LeNet", "resnet18", "vgg11"])
 def test_model_step_matches_jax_in_f32(name):
     x, y = _inputs(name)
     jl, tl = _pair(name, "float32")
-    _compare(_step(jp, jl, x, y, "float32"), _step(tp, tl, x, y, "float32"),
-             F32_STEP, name)
+    _compare(_jax_step(jl, x, y, "float32"),
+             _step(tp, tl, x, y, "float32"), F32_STEP, name)
 
 
 @pytest.mark.parametrize("name", ["resnet50", "mobilenet_v1",
@@ -168,10 +218,9 @@ def test_model_eval_forward_matches_jax_in_f32(name):
     the running stats)."""
     x, _ = _inputs(name)
     jl, tl = _pair(name, "float32")
-    for net in (jl, tl):
-        net.eval()
-    jo = np.asarray(jl(jp.to_tensor(x)).numpy())
-    _close(tl(tp.to_tensor(x)).numpy(), jo, F32_EVAL, f"{name} eval")
+    tl.eval()
+    _close(tl(tp.to_tensor(x)).numpy(), _jax_eval(jl, x), F32_EVAL,
+           f"{name} eval")
 
 
 def test_resnet50_is_full_width():
@@ -194,11 +243,8 @@ def test_every_depth_and_variant_matches_jax_in_eval(name, kw):
     shapes, and its eval forward agrees (f32, b1 32^2)."""
     jl, tl = _pair(name, "float32", **kw)
     x = C.f32(1, 3, 32, 32, seed=2)
-    jl.eval()
     tl.eval()
-    _close(tl(tp.to_tensor(x)).numpy(), np.asarray(jl(jp.to_tensor(x))
-                                                   .numpy()),
-           F32_EVAL, name)
+    _close(tl(tp.to_tensor(x)).numpy(), _jax_eval(jl, x), F32_EVAL, name)
 
 
 def test_resnet_bottleneck_o2_treats_bn_as_jax():
